@@ -1,10 +1,11 @@
 """gorder_tpu_torch: lipid order parameters with PyTorch on an NVIDIA GPU.
 
 The port of `gorder_tpu` (JAX on a TPU) to PyTorch and a hand-written
-Hopper kernel. It reads the same YAML configurations and writes the same
-output files; `gorder_tpu` stays the reference it is tested against. This
-first slice covers AA and CG order parameters with a static membrane
-normal, without leaflets, ordermaps or geometry::
+Hopper kernels. It reads the same YAML configurations and writes the same
+output files; `gorder_tpu` stays the reference it is tested against. It
+covers all-atom (AA), coarse-grained (CG) and united-atom (UA) order
+parameters with a static membrane normal, without leaflets, ordermaps or
+geometry::
 
     import gorder_tpu_torch as gorder
 

@@ -140,14 +140,9 @@ class OrderStep:
                             self.n_types, handle_pbc=self.handle_pbc)
 
 
-def make_order_step(atom_a, atom_b, bond_type, bond_mol, n_types: int,
-                    n_molecules: int, *, handle_pbc: bool = True,
-                    device="cuda", with_leaflets: bool = False,
-                    normal_mode: str = "static", map_spec=None,
-                    geom_spec=None) -> OrderStep:
-    """The reference's step factory (gorder_tpu/core/order.py:313), for the
-    configurations this port covers: a static normal with no leaflets,
-    maps or geometry. `bond_mol` and `n_molecules` serve only those."""
+def refuse_unported(*, with_leaflets: bool, normal_mode: str, map_spec,
+                    geom_spec) -> None:
+    """Raise AnalysisError naming the step options this port lacks."""
     missing = [name for name, on in (
         ("leaflets", with_leaflets),
         ("dynamic or manual membrane normals", normal_mode != "static"),
@@ -158,6 +153,18 @@ def make_order_step(atom_a, atom_b, bond_type, bond_mol, n_types: int,
 
         raise AnalysisError(
             "not yet ported to gorder_tpu_torch: " + ", ".join(missing))
+
+
+def make_order_step(atom_a, atom_b, bond_type, bond_mol, n_types: int,
+                    n_molecules: int, *, handle_pbc: bool = True,
+                    device="cuda", with_leaflets: bool = False,
+                    normal_mode: str = "static", map_spec=None,
+                    geom_spec=None) -> OrderStep:
+    """The reference's step factory (gorder_tpu/core/order.py:313), for the
+    configurations this port covers: a static normal with no leaflets,
+    maps or geometry. `bond_mol` and `n_molecules` serve only those."""
+    refuse_unported(with_leaflets=with_leaflets, normal_mode=normal_mode,
+                    map_spec=map_spec, geom_spec=geom_spec)
     return OrderStep(atom_a, atom_b, bond_type, n_types,
                      handle_pbc=handle_pbc, device=device)
 

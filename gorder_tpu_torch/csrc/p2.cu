@@ -36,15 +36,14 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
+
+using gorder::min_image;
 
 constexpr int kThreads = 256;
 constexpr int kTile = kThreads * 8;      // bonds per block
-constexpr int kSharedTypes = 3072;       // 2 * T * 8 bytes <= 48 KiB
-
-__device__ __forceinline__ float min_image(float d, float box) {
-  return __fsub_rn(d, __fmul_rn(box, rintf(__fdiv_rn(d, box))));
-}
 
 __device__ __forceinline__ long long p2_sample(float dx, float dy, float dz,
                                                float bx, float by, float bz,
@@ -61,7 +60,7 @@ __device__ __forceinline__ long long p2_sample(float dx, float dy, float dz,
                              __fmul_rn(dz, dz));
   const float cos2 = __fdiv_rn(__fmul_rn(proj, proj), fmaxf(d2, 1e-18f));
   const float sch = __fsub_rn(__fmul_rn(1.5f, cos2), 0.5f);
-  return llround(__dmul_rn(static_cast<double>(sch), 1.0e6));
+  return gorder::quantum(sch);
 }
 
 // b7 wire: r (B, 3N) int16 interleaved (slot = bond*3 + c), base (3N,)
@@ -129,12 +128,7 @@ p2_kernel(Input input, const float* __restrict__ box,
   extern __shared__ unsigned long long table[];  // (2, T) when kShared
   const int b = blockIdx.y;
   if (!mask[b]) return;  // padding frame: its rows stay zero
-  unsigned long long* frame_out = out + static_cast<size_t>(b) * 2 * n_types;
-  unsigned long long* acc = kShared ? table : frame_out;
-  if constexpr (kShared) {
-    for (int k = threadIdx.x; k < 2 * n_types; k += kThreads) acc[k] = 0ULL;
-    __syncthreads();
-  }
+  const gorder::TypeTable<kShared> acc(table, out, b, n_types);
   const float bx = box[3 * b], by = box[3 * b + 1], bz = box[3 * b + 2];
   const float nx = normal[0], ny = normal[1], nz = normal[2];
   const int start = static_cast<int>(blockIdx.x) * kTile;
@@ -143,18 +137,10 @@ p2_kernel(Input input, const float* __restrict__ box,
        i += kThreads) {
     float dx, dy, dz;
     input(b, i, dx, dy, dz);
-    const long long q =
-        p2_sample(dx, dy, dz, bx, by, bz, nx, ny, nz, pbc != 0);
-    const int t = bond_type[i];
-    atomicAdd(acc + t, static_cast<unsigned long long>(q));
-    atomicAdd(acc + n_types + t, 1ULL);
+    acc.add(bond_type[i],
+            p2_sample(dx, dy, dz, bx, by, bz, nx, ny, nz, pbc != 0));
   }
-  if constexpr (kShared) {
-    __syncthreads();
-    for (int k = threadIdx.x; k < 2 * n_types; k += kThreads) {
-      if (acc[k] != 0ULL) atomicAdd(frame_out + k, acc[k]);
-    }
-  }
+  acc.flush();
 }
 
 template <class Input>
@@ -169,9 +155,9 @@ int launch(const Input& input, const void* box, const void* normal,
   const auto* bt = static_cast<const int32_t*>(bond_type);
   auto* o = static_cast<unsigned long long*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  if (n_types <= kSharedTypes) {
-    const size_t smem = 2 * static_cast<size_t>(n_types) * sizeof(*o);
-    p2_kernel<Input, true><<<grid, kThreads, smem, s>>>(
+  if (n_types <= gorder::kSharedTypes) {
+    p2_kernel<Input, true><<<grid, kThreads, gorder::table_bytes(n_types),
+                             s>>>(
         input, bx, nv, mk, bt, n_bonds, n_types, pbc, o);
   } else {
     p2_kernel<Input, false><<<grid, kThreads, 0, s>>>(
@@ -223,7 +209,8 @@ int p2_positions_f32(const void* x, const void* atom_a, const void* atom_b,
                 n_types, pbc, stream);
 }
 
-const char* p2_error_string(int code) {
+// The message of a code that an entry point of this library returned.
+const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -1,0 +1,349 @@
+// United-atom order-parameter kernel for Hopper (sm_90a).
+//
+// Replaces the TPU kernel gorder_tpu/ops/pallas_ua.py `_ua_kernel` (built
+// by `make_pallas_ua_step`), for a static membrane normal without leaflet
+// classes, on int16 XTC positions with a per-frame scale or on f32
+// positions. It computes what the JAX package's XLA path computes
+// (gorder_tpu/core/ua.py `_ua_step_impl` with the planar predictors at
+// :145-226), not the TPU kernel's acos-free CH1u variant, which exists only
+// because Mosaic has no acos.
+//
+// One thread per (frame, target carbon) of one category:
+//   1. gather the target and its 2-3 helper atoms, dequantized
+//      f32(q) * s on the int16 input;
+//   2. the min-imaged helper differences;
+//   3. the buildH prediction of the category's K hydrogens (CH3 K = 3,
+//      CH2 K = 2, CH1-unsaturated and CH1-saturated K = 1;
+//      src/analysis/uaorder.rs:944-1106);
+//   4. per hydrogen: wrap into the box (floor), the C-H vector, its
+//      minimum image (rint), proj = (vx*nx + vy*ny) + vz*nz,
+//      d2 = max(v.v, 1e-18), S = (1.5*proj^2)/d2 - 0.5, and the fixed-point
+//      sample q = llround(f64(S) * 1e6);
+//   5. q and a count into the block's (2, T) int64 table in shared memory
+//      at the sample's type (sample = category offset + i*K + k), then one
+//      global atomic per nonzero entry (common.cuh).
+// Every f32 add, multiply and divide is an _rn intrinsic, grouped as the
+// planar JAX formulation groups it, so nothing is contracted into an FMA;
+// sqrtf (with -prec-sqrt=true), atan2f, cosf and sinf are the accurate CUDA
+// math-library functions that torch's CUDA sqrt/atan2/cos/sin call. The
+// integers therefore equal the plain PyTorch version's on the card
+// (gorder_tpu_torch/core/ua.py ua_step) bit for bit. As in that version,
+// gamma = acos(x) is written the way XLA compiles jnp.arccos,
+// atan2(sqrt((1 - x)*(x + 1)), x), and the cos/sin of the constant angles
+// are the f32 values XLA folds them to, passed in by value by the wrapper.
+//
+// The TPU kernel reads pre-gathered (B, n) planes per coordinate and sums
+// 7-bit limbs with one-hot matmuls on the MXU. Here each thread gathers its
+// own atoms and sums in int64, exact in any order. What bounds it on this
+// card: the gather of 3-4 atoms x 6 bytes per target on the int16 input
+// (12 bytes on f32), about 100-200 f32 operations plus one or two accurate
+// transcendentals (sqrt; atan2, cos, sin for CH1u) per sample, and 2 int64
+// shared-memory atomics per sample. Consecutive threads take consecutive
+// targets, which lie close together in a molecule, so the gathers mostly
+// hit the same cache lines.
+//
+// Later work: the per-molecule normal (`per_bond_normal`) and leaflet
+// (`with_leaflets`) variants come with the port's normals and leaflets
+// modules.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "common.cuh"
+
+// cos/sin of TETRAHEDRAL_ANGLE, TETRAHEDRAL_ANGLE_HALF and CH3_ANGLE as XLA
+// folds them (core/ua.py TRIG); passed by value from ctypes
+struct Trig {
+  float cos_tet, sin_tet, cos_half, sin_half, cos_ch3, sin_ch3;
+};
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTile = kThreads * 2;      // targets per block
+constexpr float kBondLength = 0.109f;    // f32(0.109), core/ua.py
+constexpr float kPi = 3.14159265358979f;  // f32(pi), as jnp.pi - x takes it
+
+enum Category { kCH3 = 0, kCH2 = 1, kCH1U = 2, kCH1S = 3 };
+
+__host__ __device__ constexpr int n_hydrogens(int c) {
+  return c == kCH3 ? 3 : (c == kCH2 ? 2 : 1);
+}
+
+struct V {
+  float x, y, z;
+};
+
+__device__ __forceinline__ V vsub(V a, V b) {
+  return {__fsub_rn(a.x, b.x), __fsub_rn(a.y, b.y), __fsub_rn(a.z, b.z)};
+}
+
+// (x + y) + z: jnp.sum's order over a size-3 axis (core/ua.py _pdot)
+__device__ __forceinline__ float vdot(V a, V b) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y)),
+                   __fmul_rn(a.z, b.z));
+}
+
+__device__ __forceinline__ V vcross(V a, V b) {
+  return {__fsub_rn(__fmul_rn(a.y, b.z), __fmul_rn(a.z, b.y)),
+          __fsub_rn(__fmul_rn(a.z, b.x), __fmul_rn(a.x, b.z)),
+          __fsub_rn(__fmul_rn(a.x, b.y), __fmul_rn(a.y, b.x))};
+}
+
+// v / sqrt(max(v.v, 1e-30)): a division, not a reciprocal product
+__device__ __forceinline__ V vnormalize(V v) {
+  const float n = sqrtf(fmaxf(vdot(v, v), 1e-30f));
+  return {__fdiv_rn(v.x, n), __fdiv_rn(v.y, n), __fdiv_rn(v.z, n)};
+}
+
+__device__ __forceinline__ V vmin_image(V d, V box) {
+  return {gorder::min_image(d.x, box.x), gorder::min_image(d.y, box.y),
+          gorder::min_image(d.z, box.z)};
+}
+
+// x - L*floor(x/L)
+__device__ __forceinline__ float wrap(float x, float box) {
+  return __fsub_rn(x, __fmul_rn(box, floorf(__fdiv_rn(x, box))));
+}
+
+// (v*c + (k x v)*s) + (k*(k.v))*(1 - c)
+__device__ __forceinline__ V rodrigues(V v, V k, float c, float s) {
+  const V kc = vcross(k, v);
+  const float kdv = vdot(k, v);
+  const float one_m = __fsub_rn(1.0f, c);
+  return {__fadd_rn(__fadd_rn(__fmul_rn(v.x, c), __fmul_rn(kc.x, s)),
+                    __fmul_rn(__fmul_rn(k.x, kdv), one_m)),
+          __fadd_rn(__fadd_rn(__fmul_rn(v.y, c), __fmul_rn(kc.y, s)),
+                    __fmul_rn(__fmul_rn(k.y, kdv), one_m)),
+          __fadd_rn(__fadd_rn(__fmul_rn(v.z, c), __fmul_rn(kc.z, s)),
+                    __fmul_rn(__fmul_rn(k.z, kdv), one_m))};
+}
+
+// t + normalize(hv) * BOND_LENGTH
+__device__ __forceinline__ V add_bond(V t, V hv) {
+  const V u = vnormalize(hv);
+  return {__fadd_rn(t.x, __fmul_rn(u.x, kBondLength)),
+          __fadd_rn(t.y, __fmul_rn(u.y, kBondLength)),
+          __fadd_rn(t.z, __fmul_rn(u.z, kBondLength))};
+}
+
+// The category's K hydrogen positions from the target t and helpers a1-a3
+// (core/ua.py predict_*_planar).
+template <int C>
+__device__ __forceinline__ void predict(V t, V a1, V a2, V a3, V box,
+                                        bool pbc, const Trig& g, V* h) {
+  V th1 = vsub(a1, t);
+  V th2 = vsub(a2, t);
+  if (pbc) {
+    th1 = vmin_image(th1, box);
+    th2 = vmin_image(th2, box);
+  }
+  if constexpr (C == kCH3) {
+    const V axis1 = vnormalize(vcross(th2, th1));
+    const V hv1 = rodrigues(th1, axis1, g.cos_tet, g.sin_tet);
+    const V axis2 = vnormalize(th1);
+    h[0] = add_bond(t, hv1);
+    h[1] = add_bond(t, rodrigues(hv1, axis2, g.cos_ch3, g.sin_ch3));
+    h[2] = add_bond(t, rodrigues(hv1, axis2, g.cos_ch3, -g.sin_ch3));
+  } else if constexpr (C == kCH2) {
+    const V u1 = vnormalize(th1);
+    const V u2 = vnormalize(th2);
+    const V plane_normal = vcross(u2, u1);
+    const V rot_axis = vnormalize(vsub(u1, u2));
+    const V rot_vec = vcross(plane_normal, rot_axis);
+    h[0] = add_bond(t, rodrigues(rot_vec, rot_axis, g.cos_half, g.sin_half));
+    h[1] = add_bond(t, rodrigues(rot_vec, rot_axis, g.cos_half, -g.sin_half));
+  } else if constexpr (C == kCH1U) {
+    const float dot = vdot(th1, th2);
+    const float norms = sqrtf(__fmul_rn(vdot(th1, th1), vdot(th2, th2)));
+    const float x =
+        fminf(fmaxf(__fdiv_rn(dot, fmaxf(norms, 1e-30f)), -1.0f), 1.0f);
+    // jnp.arccos(x) as XLA compiles it
+    const float gamma =
+        atan2f(sqrtf(__fmul_rn(__fsub_rn(1.0f, x), __fadd_rn(x, 1.0f))), x);
+    const V axis = vnormalize(vcross(th1, th2));
+    const float angle = __fsub_rn(kPi, __fmul_rn(gamma, 0.5f));
+    h[0] = add_bond(t, rodrigues(th2, axis, cosf(angle), sinf(angle)));
+  } else {  // kCH1S
+    V th3 = vsub(a3, t);
+    if (pbc) th3 = vmin_image(th3, box);
+    const V n1 = vnormalize(th1);
+    const V n2 = vnormalize(th2);
+    const V n3 = vnormalize(th3);
+    const V hv = {-__fadd_rn(__fadd_rn(n1.x, n2.x), n3.x),
+                  -__fadd_rn(__fadd_rn(n1.y, n2.y), n3.y),
+                  -__fadd_rn(__fadd_rn(n1.z, n2.z), n3.z)};
+    h[0] = add_bond(t, hv);
+  }
+}
+
+// One C-H sample of hydrogen h on target t against the static normal n.
+__device__ __forceinline__ long long ua_sample(V h, V t, V box, V n,
+                                               bool pbc) {
+  if (pbc) h = {wrap(h.x, box.x), wrap(h.y, box.y), wrap(h.z, box.z)};
+  V vec = vsub(h, t);
+  if (pbc) vec = vmin_image(vec, box);
+  const float proj = __fadd_rn(
+      __fadd_rn(__fmul_rn(vec.x, n.x), __fmul_rn(vec.y, n.y)),
+      __fmul_rn(vec.z, n.z));
+  const float d2 = fmaxf(vdot(vec, vec), 1e-18f);
+  const float sch =
+      __fsub_rn(__fdiv_rn(__fmul_rn(1.5f, __fmul_rn(proj, proj)), d2), 0.5f);
+  return gorder::quantum(sch);
+}
+
+// int16 input: x (B, A, 3) XTC integers, scale (B,) f32: p = f32(q) * s.
+struct IntCoords {
+  const int16_t* __restrict__ x;
+  const float* __restrict__ scale;
+  int n_atoms;
+  __device__ __forceinline__ V operator()(int b, int a) const {
+    const int16_t* p = x + (static_cast<size_t>(b) * n_atoms + a) * 3;
+    const float s = scale[b];
+    return {__fmul_rn(__int2float_rn(p[0]), s),
+            __fmul_rn(__int2float_rn(p[1]), s),
+            __fmul_rn(__int2float_rn(p[2]), s)};
+  }
+};
+
+// f32 input: x (B, A, 3) positions.
+struct FloatCoords {
+  const float* __restrict__ x;
+  int n_atoms;
+  __device__ __forceinline__ V operator()(int b, int a) const {
+    const float* p = x + (static_cast<size_t>(b) * n_atoms + a) * 3;
+    return {p[0], p[1], p[2]};
+  }
+};
+
+struct Targets {
+  const int32_t* __restrict__ target;
+  const int32_t* __restrict__ h1;
+  const int32_t* __restrict__ h2;
+  const int32_t* __restrict__ h3;  // CH1s only
+  const int32_t* __restrict__ bond_type;  // this category's samples
+  int n_cat;
+};
+
+// grid (ceil(n_cat / kTile), B); out (B, 2, T) int64, added into.
+template <int C, class Coords, bool kShared>
+__global__ void __launch_bounds__(kThreads)
+ua_kernel(Coords coords, Targets tg, const float* __restrict__ box,
+          const float* __restrict__ normal, Trig g,
+          const uint8_t* __restrict__ mask, int n_types, int pbc,
+          unsigned long long* __restrict__ out) {
+  constexpr int K = n_hydrogens(C);
+  extern __shared__ unsigned long long table[];  // (2, T) when kShared
+  const int b = blockIdx.y;
+  if (!mask[b]) return;  // padding frame: its rows stay zero
+  const gorder::TypeTable<kShared> acc(table, out, b, n_types);
+  const V L = {box[3 * b], box[3 * b + 1], box[3 * b + 2]};
+  const V n = {normal[0], normal[1], normal[2]};
+  const int start = static_cast<int>(blockIdx.x) * kTile;
+  const int stop = min(start + kTile, tg.n_cat);
+  for (int i = start + static_cast<int>(threadIdx.x); i < stop;
+       i += kThreads) {
+    const V t = coords(b, tg.target[i]);
+    const V a1 = coords(b, tg.h1[i]);
+    const V a2 = coords(b, tg.h2[i]);
+    const V a3 = C == kCH1S ? coords(b, tg.h3[i]) : V{0.0f, 0.0f, 0.0f};
+    V h[K];
+    predict<C>(t, a1, a2, a3, L, pbc != 0, g, h);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      acc.add(tg.bond_type[i * K + k], ua_sample(h[k], t, L, n, pbc != 0));
+    }
+  }
+  acc.flush();
+}
+
+template <int C, class Coords>
+void launch_category(const Coords& coords, const Targets& tg,
+                     const float* box, const float* normal, const Trig& trig,
+                     const uint8_t* mask, unsigned long long* out,
+                     int n_frames, int n_types, int pbc, cudaStream_t s) {
+  const dim3 grid((tg.n_cat + kTile - 1) / kTile, n_frames);
+  if (n_types <= gorder::kSharedTypes) {
+    ua_kernel<C, Coords, true><<<grid, kThreads,
+                                 gorder::table_bytes(n_types), s>>>(
+        coords, tg, box, normal, trig, mask, n_types, pbc, out);
+  } else {
+    ua_kernel<C, Coords, false><<<grid, kThreads, 0, s>>>(
+        coords, tg, box, normal, trig, mask, n_types, pbc, out);
+  }
+}
+
+template <class Coords>
+int launch(int category, const Coords& coords, const void* target,
+           const void* h1, const void* h2, const void* h3,
+           const void* bond_type, const void* box, const void* normal,
+           const Trig& trig, const void* mask, void* out, int n_frames,
+           int n_cat, int n_types, int pbc, void* stream) {
+  if (n_frames == 0 || n_cat == 0) return 0;
+  const Targets tg{static_cast<const int32_t*>(target),
+                   static_cast<const int32_t*>(h1),
+                   static_cast<const int32_t*>(h2),
+                   static_cast<const int32_t*>(h3),
+                   static_cast<const int32_t*>(bond_type), n_cat};
+  const auto* bx = static_cast<const float*>(box);
+  const auto* nv = static_cast<const float*>(normal);
+  const auto* mk = static_cast<const uint8_t*>(mask);
+  auto* o = static_cast<unsigned long long*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (category) {
+    case kCH3:
+      launch_category<kCH3>(coords, tg, bx, nv, trig, mk, o, n_frames,
+                            n_types, pbc, s);
+      break;
+    case kCH2:
+      launch_category<kCH2>(coords, tg, bx, nv, trig, mk, o, n_frames,
+                            n_types, pbc, s);
+      break;
+    case kCH1U:
+      launch_category<kCH1U>(coords, tg, bx, nv, trig, mk, o, n_frames,
+                             n_types, pbc, s);
+      break;
+    case kCH1S:
+      if (h3 == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+      launch_category<kCH1S>(coords, tg, bx, nv, trig, mk, o, n_frames,
+                             n_types, pbc, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each entry point enqueues one launch for one category (0 CH3, 1 CH2,
+// 2 CH1u, 3 CH1s) on `stream`, adding into out (B, 2, T) int64, and returns
+// cudaGetLastError() (0 = launched). h3 is null except for CH1s;
+// bond_type points at the category's first sample.
+
+int ua_positions_i16(int category, const void* x, const void* scale,
+                     const void* target, const void* h1, const void* h2,
+                     const void* h3, const void* bond_type, const void* box,
+                     const void* normal, Trig trig, const void* mask,
+                     void* out, int n_frames, int n_atoms, int n_cat,
+                     int n_types, int pbc, void* stream) {
+  const IntCoords coords{static_cast<const int16_t*>(x),
+                         static_cast<const float*>(scale), n_atoms};
+  return launch(category, coords, target, h1, h2, h3, bond_type, box, normal,
+                trig, mask, out, n_frames, n_cat, n_types, pbc, stream);
+}
+
+int ua_positions_f32(int category, const void* x, const void* target,
+                     const void* h1, const void* h2, const void* h3,
+                     const void* bond_type, const void* box,
+                     const void* normal, Trig trig, const void* mask,
+                     void* out, int n_frames, int n_atoms, int n_cat,
+                     int n_types, int pbc, void* stream) {
+  const FloatCoords coords{static_cast<const float*>(x), n_atoms};
+  return launch(category, coords, target, h1, h2, h3, bond_type, box, normal,
+                trig, mask, out, n_frames, n_cat, n_types, pbc, stream);
+}
+
+}  // extern "C"

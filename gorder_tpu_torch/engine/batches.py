@@ -45,7 +45,10 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
 
 def run_batches(analysis, system, step, normal_vec, n_types: int, space,
                 bond_slots, *, device, batch_size: int = DEFAULT_BATCH_SIZE):
-    """→ (OrderAccumulator, Trajectory, analyzed frame indices)."""
+    """→ (OrderAccumulator, Trajectory, analyzed frame indices).
+
+    `bond_slots` (atom_a, atom_b) makes the b7 wire eligible; UA steps pass
+    None and ride int16 or f32 positions."""
     device = torch.device(device)
     accum = OrderAccumulator(
         n_types, ("total",),

@@ -1,6 +1,8 @@
-"""Wire planning for the main path (port of the pure bond-order case of
-`gorder_tpu/engine/channels.py:62`): b7 when the trajectory fits the
-bond-vector wire, else int16 XTC integers, else f32 positions.
+"""Wire planning for the main path (port of the pure bond-order and UA
+cases of `gorder_tpu/engine/channels.py:62`): b7 when the trajectory fits
+the bond-vector wire, else int16 XTC integers, else f32 positions. UA runs
+(`bond_slots=None`) consume positions and never take b7
+(gorder_tpu/engine/channels.py:77-79).
 
 Every wire gives the same bond vectors up to the f32 wire's pair
 difference (XTC input never takes it), so the choice changes speed, not
@@ -29,11 +31,13 @@ class WirePlan:
     wire_bytes: int      # bytes per frame on the wire
 
 
-def plan_wire(*, traj, frame_indices, space, bond_slots, n_threads: int,
-              batch_size: int) -> WirePlan:
-    n_bonds = len(bond_slots[0])
-    esc_cap = _probe_b7(traj, frame_indices, space, bond_slots[0],
-                        bond_slots[1], n_threads, batch_size)
+def plan_wire(*, traj, frame_indices, space, bond_slots=None,
+              n_threads: int, batch_size: int) -> WirePlan:
+    n_bonds = len(bond_slots[0]) if bond_slots is not None else 0
+    esc_cap = None
+    if bond_slots is not None:
+        esc_cap = _probe_b7(traj, frame_indices, space, bond_slots[0],
+                            bond_slots[1], n_threads, batch_size)
     if esc_cap is not None:
         plan = WirePlan("b7", esc_cap, n_bonds,
                         b7_stride(n_bonds) + esc_cap * 4)

@@ -1,5 +1,5 @@
 """Results conversion: exact integer sums → the results tree (port of
-`gorder_tpu/engine/convert.py:34-205` for bond-based runs without
+`gorder_tpu/engine/convert.py:34-261` for bond-based and UA runs without
 ordermaps). The numpy arithmetic is the JAX package's own; only the
 accumulator is this port's, and the result classes are the shared ones.
 """
@@ -139,6 +139,51 @@ def convert_results(analysis, system, kinds, compiled, accum, traj,
 
     return AnalysisResults(
         mode=mode,
+        average_order=collection(slice(None), for_average=True),
+        molecules=molecules,
+        n_analyzed_frames=accum.n_frames,
+        structure_path=analysis.structure,
+        trajectory_paths=list(analysis.trajectory),
+        frame_numbers=frame_indices,
+        analysis=analysis,
+    )
+
+
+def convert_results_ua(analysis, system, kinds, compiled, accum, traj,
+                       frame_indices: np.ndarray) -> AnalysisResults:
+    """gorder_tpu/engine/convert.py:208-261: one entry per UA carbon, one
+    bond per virtual hydrogen."""
+    collector = _Collector(analysis, accum, sign=-1.0)
+    collection = collector.collection
+
+    molecules: List[MoleculeResults] = []
+    for k, kind in enumerate(kinds):
+        t0 = int(compiled.type_offsets[k])
+        t1 = int(compiled.type_offsets[k + 1])
+        mol = MoleculeResults(
+            name=kind.name,
+            average_order=collection(slice(t0, t1), for_average=True),
+        )
+        if collector.with_errors:
+            mol.convergence = collector.convergence(slice(t0, t1))
+        for spec, base in zip(compiled.atom_specs[k],
+                              compiled.atom_type_base[k]):
+            atom = AtomResults(
+                atom=AtomDesc(spec.resname, spec.name, spec.rel_index),
+                order=collection(slice(base, base + spec.n_hydrogens)),
+            )
+            for h in range(spec.n_hydrogens):
+                atom.bonds.append(BondResults(
+                    atom1=AtomDesc(spec.resname, spec.name, spec.rel_index),
+                    atom2=None,
+                    virtual_index=h,
+                    order=collection(slice(base + h, base + h + 1)),
+                ))
+            mol.atoms.append(atom)
+        molecules.append(mol)
+
+    return AnalysisResults(
+        mode="ua",
         average_order=collection(slice(None), for_average=True),
         molecules=molecules,
         n_analyzed_frames=accum.n_frames,

@@ -1,6 +1,6 @@
-"""The bond-based driver (port of `gorder_tpu/engine/drivers.py:38-113` for
-the main path): AA or CG order parameters with a static membrane normal,
-no leaflets, ordermaps or geometry. Any other configuration raises
+"""The per-mode drivers (port of `gorder_tpu/engine/drivers.py:38-207` for
+the main path): AA, CG and UA order parameters with a static membrane
+normal, no leaflets, ordermaps or geometry. Any other configuration raises
 `AnalysisError` naming what is not ported yet; nothing falls back to the
 JAX package.
 """
@@ -17,13 +17,15 @@ from .._ref.engine.prepare import (
     _build_atom_space,
     _empty_results,
     _prepare_bond_kinds,
+    _prepare_ua_kinds,
     load_structure,
 )
 from .._ref.errors import AnalysisError
 from .._ref.utils.timers import timers
 from ..core.order import make_order_step
+from ..core.ua import make_ua_step
 from .batches import DEFAULT_BATCH_SIZE, run_batches
-from .convert import convert_results
+from .convert import convert_results, convert_results_ua
 
 log = logging.getLogger("gorder")
 
@@ -31,8 +33,6 @@ log = logging.getLogger("gorder")
 def _not_ported(analysis) -> list:
     """What this configuration needs that the port does not have yet."""
     missing = []
-    if analysis.analysis_type.kind not in ("aa", "cg"):
-        missing.append("united-atom (UA) order parameters")
     if analysis.leaflets is not None:
         missing.append("leaflet classification")
     if analysis.membrane_normal.kind != "static":
@@ -55,9 +55,18 @@ def run_analysis(analysis, device, batch_size: int = DEFAULT_BATCH_SIZE):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise AnalysisError("device 'cuda' requested but no CUDA device is "
                             "available")
-    results = _run_bond_based(analysis, device, batch_size)
+    if analysis.analysis_type.kind in ("aa", "cg"):
+        results = _run_bond_based(analysis, device, batch_size)
+    else:
+        results = _run_ua(analysis, device, batch_size)
     log.info("phase times: %s", timers.summary())
     return results
+
+
+def _static_normal(analysis) -> np.ndarray:
+    normal_vec = np.zeros(3, np.float32)
+    normal_vec[_AXIS_INDEX[analysis.membrane_normal.axis]] = 1.0
+    return normal_vec
 
 
 def _run_bond_based(analysis, device, batch_size: int):
@@ -69,8 +78,7 @@ def _run_bond_based(analysis, device, batch_size: int):
         return _empty_results(analysis, system)
     space, remap = _build_atom_space(system, analysis,
                                      [compiled.atom_a, compiled.atom_b])
-    normal_vec = np.zeros(3, np.float32)
-    normal_vec[_AXIS_INDEX[analysis.membrane_normal.axis]] = 1.0
+    normal_vec = _static_normal(analysis)
 
     atom_a, atom_b = remap(compiled.atom_a), remap(compiled.atom_b)
     step = make_order_step(atom_a, atom_b, compiled.bond_type,
@@ -84,3 +92,32 @@ def _run_bond_based(analysis, device, batch_size: int):
     with timers.phase("convert"):
         return convert_results(analysis, system, kinds, compiled, accum,
                                traj, frame_indices)
+
+
+def _run_ua(analysis, device, batch_size: int):
+    with timers.phase("structure"):
+        system = load_structure(analysis)
+    kinds, compiled = _prepare_ua_kinds(system, analysis)
+    if not kinds or compiled is None:
+        return _empty_results(analysis, system)
+    for k, kind in enumerate(kinds):
+        log.info("molecule type %s: %d molecules, %d analyzable atoms",
+                 kind.name, kind.n_molecules, len(compiled.atom_specs[k]))
+    atom_keys = ("target", "h1", "h2", "h3")
+    space, remap = _build_atom_space(
+        system, analysis, [d[k] for d in compiled.categories.values()
+                           for k in atom_keys if k in d])
+    categories = {
+        cat: {k: (remap(v) if k in atom_keys else v) for k, v in d.items()}
+        for cat, d in compiled.categories.items()}
+    step = make_ua_step(categories, compiled.bond_type, compiled.bond_mol,
+                        compiled.n_types, handle_pbc=analysis.handle_pbc,
+                        device=device)
+    with timers.phase("trajectory"):
+        accum, traj, frame_indices = run_batches(
+            analysis, system, step, _static_normal(analysis),
+            compiled.n_types, space, None, device=device,
+            batch_size=batch_size)
+    with timers.phase("convert"):
+        return convert_results_ua(analysis, system, kinds, compiled, accum,
+                                  traj, frame_indices)

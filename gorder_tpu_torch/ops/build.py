@@ -1,6 +1,8 @@
-"""Build the hand-written CUDA kernels (`csrc/*.cu`) at first use.
+"""Build the hand-written CUDA kernels (`csrc/*.cu`) at first use, and the
+argument checks and launch call their wrappers share.
 
-nvcc compiles every source into one shared library with a plain C
+nvcc compiles every source to an object file, one process per source, all
+started together, and links them into one shared library with a plain C
 interface, loaded with ctypes — no PyTorch headers, so a build takes
 seconds. The library goes into `gorder_tpu_torch/_build/` (git-ignored),
 keyed by a hash of the sources and flags like the XTC codec's build
@@ -9,6 +11,7 @@ keyed by a hash of the sources and flags like the XTC codec's build
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import ctypes
 import hashlib
 import os
@@ -17,26 +20,41 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 
-# -fmad=false and -prec-div=true keep every f32 step of the per-sample
-# chain separately and correctly rounded (csrc/p2.cu also spells them out
-# with _rn intrinsics); -Xptxas=-v reports registers and spills.
+# -fmad=false, -prec-div=true and -prec-sqrt=true keep every f32 step of
+# the per-sample chain separately and correctly rounded (the sources also
+# spell add, multiply and divide out with _rn intrinsics); -Xptxas=-v
+# reports registers and spills.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-prec-div=true", "-Xptxas=-v",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
+              "-Xptxas=-v", "-Xcompiler", "-fPIC"]
 
 _LOCK = threading.Lock()
 _LIB = None
 
+
+class Trig(ctypes.Structure):
+    """csrc/ua.cu `Trig`, passed by value: the pinned cos/sin constants."""
+    _fields_ = [(name, ctypes.c_float) for name in (
+        "cos_tet", "sin_tet", "cos_half", "sin_half", "cos_ch3", "sin_ch3")]
+
+
 _vp = ctypes.c_void_p
 _int = ctypes.c_int
+_UA = [_int] + [_vp] * 7 + [_vp, _vp, Trig, _vp, _vp] + [_int] * 5 + [_vp]
 _SIGNATURES = {
     "p2_resid": [_vp] * 8 + [_int] * 4 + [_vp],
     "p2_positions_i16": [_vp] * 9 + [_int] * 5 + [_vp],
     "p2_positions_f32": [_vp] * 8 + [_int] * 5 + [_vp],
+    # category, x, [scale,] target, h1, h2, h3, bond_type, box, normal,
+    # trig, mask, out, ints, stream
+    "ua_positions_i16": _UA,
+    "ua_positions_f32": _UA[:2] + _UA[3:],
 }
 
 
@@ -51,6 +69,13 @@ def _nvcc() -> str:
     return found
 
 
+def _run(cmd) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 def build() -> tuple[Path, str]:
     """Compile `csrc/*.cu` unless an up-to-date library exists. Returns
     (library path, compiler output — empty when it was already built)."""
@@ -62,13 +87,66 @@ def build() -> tuple[Path, str]:
     if so_path.exists():
         return so_path, ""
     _BUILD.mkdir(exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    objects = [_BUILD / f"{src.stem}-{tag}.o" for src in sources]
+    with cf.ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        logs = list(pool.map(
+            _run, [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                   for src, obj in zip(sources, objects)]))
     tmp = so_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *map(str, sources), "-o", str(tmp)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stderr}")
+    logs.append(_run([nvcc, *NVCC_FLAGS, "-shared", *map(str, objects),
+                      "-o", str(tmp)]))
+    for obj in objects:
+        obj.unlink()
     os.replace(tmp, so_path)
-    return so_path, proc.stdout + proc.stderr
+    return so_path, "".join(logs)
+
+
+def check_tensor(name, t, dtype, shape, device) -> None:
+    """Raise unless `t` is a contiguous `dtype` tensor of `shape` on
+    `device`: what an entry point of the library takes."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def device_of(t):
+    """The device of a wrapper's first tensor: the CPU (plain version) or
+    a CUDA device (the kernel)."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the kernels take CPU or CUDA tensors, not "
+                         f"{t.device}")
+    return t.device
+
+
+def frame_args(box_diag, normal, frame_mask, bond_type, n_frames, n_samples,
+               device):
+    """Check the per-frame arguments every order kernel takes; returns the
+    frame mask as uint8."""
+    check_tensor("box_diag", box_diag, torch.float32, (n_frames, 3), device)
+    check_tensor("normal", normal, torch.float32, (3,), device)
+    if frame_mask.dtype == torch.bool:
+        frame_mask = frame_mask.view(torch.uint8)
+    check_tensor("frame_mask", frame_mask, torch.uint8, (n_frames,), device)
+    check_tensor("bond_type", bond_type, torch.int32, (n_samples,), device)
+    return frame_mask
+
+
+def call(fn_name: str, *args) -> None:
+    """Enqueue one launch through entry point `fn_name`; raise if the
+    launch was refused."""
+    lib = load()
+    rc = getattr(lib, fn_name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} launch failed: "
+                           f"{lib.kernel_error_string(rc).decode()}")
 
 
 def load() -> ctypes.CDLL:
@@ -82,7 +160,7 @@ def load() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            lib.p2_error_string.argtypes = [ctypes.c_int]
-            lib.p2_error_string.restype = ctypes.c_char_p
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            lib.kernel_error_string.restype = ctypes.c_char_p
             _LIB = lib
     return _LIB

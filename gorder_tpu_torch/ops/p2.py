@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..core.order import order_step
+from .build import call, check_tensor, device_of, frame_args
 
 #: launches of the P2 kernel (either entry point) since the last reset;
 #: the plain version does not count
@@ -34,51 +35,15 @@ def p2_positions_plain(coords, atom_a, atom_b, inv_scale, box_diag, normal,
                       bond_type, n_types, inv_scale, handle_pbc=handle_pbc)
 
 
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-
-
-def _device_of(t: torch.Tensor) -> torch.device:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"the P2 kernel takes CPU or CUDA tensors, not "
-                         f"{t.device}")
-    return t.device
-
-
-def _frame_args(box_diag, normal, frame_mask, bond_type, n_frames, n_bonds,
-                device):
-    _check("box_diag", box_diag, torch.float32, (n_frames, 3), device)
-    _check("normal", normal, torch.float32, (3,), device)
-    if frame_mask.dtype == torch.bool:
-        frame_mask = frame_mask.view(torch.uint8)
-    _check("frame_mask", frame_mask, torch.uint8, (n_frames,), device)
-    _check("bond_type", bond_type, torch.int32, (n_bonds,), device)
-    return frame_mask
-
-
 def _launch(fn_name, n_frames, n_types, device, args_before_out,
             ints_after_out):
     global p2_launches
-    from .build import load
-
-    lib = load()
     out = torch.zeros((n_frames, 2, n_types), dtype=torch.int64,
                       device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        rc = getattr(lib, fn_name)(*args_before_out, out.data_ptr(),
-                                   *ints_after_out, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn_name} launch failed: "
-                           f"{lib.p2_error_string(rc).decode()}")
+        call(fn_name, *args_before_out, out.data_ptr(), *ints_after_out,
+             stream)
     p2_launches += 1
     return out
 
@@ -88,17 +53,18 @@ def p2_resid(r, base, inv_scale, box_diag, normal, frame_mask, bond_type,
     """b7 wire: r (B, 3N) int16 residuals, base (3N,) int32, inv_scale (B,)
     f32, box_diag (B, 3) f32, normal (3,) f32, frame_mask (B,) bool/uint8,
     bond_type (N,) int32 → (B, 2, T) int64."""
-    device = _device_of(r)
+    device = device_of(r)
     if device.type == "cpu":
         return p2_resid_plain(r, base, inv_scale, box_diag, normal,
                               frame_mask, bond_type, n_types,
                               handle_pbc=handle_pbc)
     n_frames, n_values = r.shape
     n_bonds = n_values // 3
-    _check("r", r, torch.int16, (n_frames, 3 * n_bonds), device)
-    _check("base", base, torch.int32, (3 * n_bonds,), device)
-    _check("inv_scale", inv_scale, torch.float32, (n_frames,), device)
-    frame_mask = _frame_args(box_diag, normal, frame_mask, bond_type,
+    check_tensor("r", r, torch.int16, (n_frames, 3 * n_bonds), device)
+    check_tensor("base", base, torch.int32, (3 * n_bonds,), device)
+    check_tensor("inv_scale", inv_scale, torch.float32, (n_frames,),
+                 device)
+    frame_mask = frame_args(box_diag, normal, frame_mask, bond_type,
                              n_frames, n_bonds, device)
     return _launch(
         "p2_resid", n_frames, n_types, device,
@@ -113,7 +79,7 @@ def p2_positions(coords, atom_a, atom_b, inv_scale, box_diag, normal,
     """i16 wire: coords (B, A, 3) int16 with inv_scale (B,) f32; f32 wire:
     coords (B, A, 3) f32 with inv_scale None. atom_a/atom_b (N,) int32;
     the rest as for p2_resid → (B, 2, T) int64."""
-    device = _device_of(coords)
+    device = device_of(coords)
     if device.type == "cpu":
         return p2_positions_plain(coords, atom_a, atom_b, inv_scale,
                                   box_diag, normal, frame_mask, bond_type,
@@ -121,16 +87,17 @@ def p2_positions(coords, atom_a, atom_b, inv_scale, box_diag, normal,
     n_frames, n_atoms = coords.shape[:2]
     n_bonds = atom_a.shape[0]
     dtype = torch.int16 if inv_scale is not None else torch.float32
-    _check("coords", coords, dtype, (n_frames, n_atoms, 3), device)
-    _check("atom_a", atom_a, torch.int32, (n_bonds,), device)
-    _check("atom_b", atom_b, torch.int32, (n_bonds,), device)
-    frame_mask = _frame_args(box_diag, normal, frame_mask, bond_type,
+    check_tensor("coords", coords, dtype, (n_frames, n_atoms, 3), device)
+    check_tensor("atom_a", atom_a, torch.int32, (n_bonds,), device)
+    check_tensor("atom_b", atom_b, torch.int32, (n_bonds,), device)
+    frame_mask = frame_args(box_diag, normal, frame_mask, bond_type,
                              n_frames, n_bonds, device)
     common = (box_diag.data_ptr(), normal.data_ptr(), frame_mask.data_ptr(),
               bond_type.data_ptr())
     ints = (n_frames, n_atoms, n_bonds, n_types, int(handle_pbc))
     if inv_scale is not None:
-        _check("inv_scale", inv_scale, torch.float32, (n_frames,), device)
+        check_tensor("inv_scale", inv_scale, torch.float32, (n_frames,),
+                     device)
         return _launch("p2_positions_i16", n_frames, n_types, device,
                        (coords.data_ptr(), atom_a.data_ptr(),
                         atom_b.data_ptr(), inv_scale.data_ptr(), *common),

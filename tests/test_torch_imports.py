@@ -21,7 +21,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     "gorder_tpu_torch.engine.fused",
     "gorder_tpu_torch.engine.wire",
     "gorder_tpu_torch.core.order",
+    "gorder_tpu_torch.core.pbc",
+    "gorder_tpu_torch.core.ua",
     "gorder_tpu_torch.ops.p2",
+    "gorder_tpu_torch.ops.ua",
     "gorder_tpu_torch.ops.build",
     "chip_smoke",
 ])

@@ -1,5 +1,5 @@
-"""The hand-written P2 kernel (gorder_tpu_torch/csrc/p2.cu) against its
-plain PyTorch version, on the card. These tests need a CUDA device and
+"""The hand-written P2 and UA kernels (gorder_tpu_torch/csrc/p2.cu, ua.cu)
+against their plain PyTorch versions, on the card. These tests need a CUDA device and
 skip without one; on the card run
 
     python -m pytest -m cuda tests/test_torch_kernels.py
@@ -87,3 +87,56 @@ def test_kernel_rejects_wrong_dtype(cuda):
         p2.p2_resid(r.to(torch.int32), base, inv, pb["box"], pb["normal"],
                     pb["mask"], pb["bond_type"], pb["n_types"],
                     handle_pbc=True)
+
+
+def _ua_case(seed, n_frames, n_mols, n_types, dev):
+    import chip_smoke
+    from gorder_tpu_torch.core.ua import make_ua_step
+
+    pb = chip_smoke.ua_problem(seed, n_frames, n_mols, n_types)
+    step = make_ua_step(pb["categories"], pb["bond_type"], pb["bond_mol"],
+                        n_types, handle_pbc=True, device=dev)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    frame = (t(pb["box"]), t(np.array([0.0, 0.0, 1.0], np.float32)),
+             t(pb["mask"]), step.indices, step.bond_type, n_types)
+    inputs = {"i16": (t(pb["q16"]), t(pb["inv16"])),
+              "f32": (t(pb["coords"]), None)}
+    return step, frame, inputs
+
+
+@pytest.mark.parametrize("kind", ["i16", "f32"])
+@pytest.mark.parametrize("handle_pbc", [True, False])
+@pytest.mark.parametrize("shape", [
+    (6, 37, 7),                # ragged single tile per category
+    (64, 900, 68),             # several tiles, the UA cell's type count
+    (4, 60, 4000),             # T too large for shared memory: global path
+])
+def test_ua_kernel_matches_plain(cuda, kind, handle_pbc, shape):
+    from gorder_tpu_torch.ops import ua
+
+    step, frame, inputs = _ua_case(sum(shape), *shape, cuda)
+    coords, scale = inputs[kind]
+    before = ua.ua_launches
+    got = ua.ua_positions(coords, scale, *frame, handle_pbc=handle_pbc,
+                          layout=step.layout)
+    torch.cuda.synchronize()
+    assert ua.ua_launches == before + 4          # one per category
+    want = ua.ua_positions_plain(coords, scale, *frame,
+                                 handle_pbc=handle_pbc, layout=step.layout)
+    assert got.dtype == torch.int64 and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert not got[-2:].any()           # the masked frames stay zero
+    assert got[:-2, 1].sum() == 11 * shape[1] * (shape[0] - 2)
+
+
+def test_ua_kernel_rejects_wrong_dtype(cuda):
+    from gorder_tpu_torch.ops import ua
+
+    step, frame, inputs = _ua_case(2, 4, 10, 7, cuda)
+    coords, scale = inputs["i16"]
+    with pytest.raises(TypeError):
+        ua.ua_positions(coords.to(torch.int32), scale, *frame,
+                        handle_pbc=True, layout=step.layout)

@@ -22,6 +22,8 @@ from .synthetic import make_flat_bilayer
 
 AA_LIPIDS = 4
 AA_FRAMES = 600          # two batches of 512, the second one padded
+UA_LIPIDS = 6
+UA_FRAMES = 600
 
 
 @pytest.fixture(scope="module")
@@ -31,6 +33,15 @@ def aa_files(tmp_path_factory):
     gro, bnd, system = chip_smoke.synthesize_structure(
         d, n_lipids=AA_LIPIDS, total_atoms=AA_LIPIDS * 134 + 60)
     return gro, bnd, chip_smoke.synthesize_trajectory(d, system, AA_FRAMES)
+
+
+@pytest.fixture(scope="module")
+def ua_files(tmp_path_factory):
+    """A small cut of tools/bench_modes.py's UA membrane (same template and
+    seed)."""
+    d = str(tmp_path_factory.mktemp("ua"))
+    return chip_smoke.synthesize_ua(d, UA_FRAMES, n_lipids=UA_LIPIDS,
+                                    total_atoms=UA_LIPIDS * 51 + 90)
 
 
 @pytest.fixture(scope="module")
@@ -51,6 +62,18 @@ def _cg(files, out, cls=JaxAnalysis, atype=JaxAnalysisType, **kw):
     return cls(structure=gro, bonds=bnd, trajectory=xtc,
                analysis_type=atype.cgorder("resname POPC"),
                output_yaml=str(out), silent=True, overwrite=True, **kw)
+
+
+def _ua(files, out, mode, **kw):
+    """bench_modes' UA analysis for `mode`, as gorder_tpu's Analysis."""
+    port = chip_smoke.ua_analysis(mode, *files)
+    at = port.analysis_type
+    return JaxAnalysis(
+        structure=port.structure, bonds=port.bonds,
+        trajectory=port.trajectory,
+        analysis_type=JaxAnalysisType.uaorder(
+            saturated=at.saturated, unsaturated=at.unsaturated),
+        output_yaml=str(out), silent=True, overwrite=True, **kw)
 
 
 def _lines(path):
@@ -141,14 +164,14 @@ def test_aa_mid_run_fallback_matches_jax(aa_files, tmp_path, monkeypatch,
     assert got == want
 
 
-@pytest.mark.parametrize("option", ["leaflets", "ua", "geometry",
+@pytest.mark.parametrize("option", ["leaflets", "ua_leaflets", "geometry",
                                     "dynamic_normal"])
-def test_unported_option_raises(aa_files, tmp_path, option):
+def test_unported_option_raises(aa_files, ua_files, tmp_path, option):
     from gorder_tpu_torch._ref.input.config import (
         Geometry, LeafletClassification, MembraneNormal)
 
     kw = {}
-    if option == "leaflets":
+    if option in ("leaflets", "ua_leaflets"):
         kw["leaflets"] = LeafletClassification.global_(
             "resname POPC", "resname POPC and name P")
     elif option == "geometry":
@@ -156,11 +179,12 @@ def test_unported_option_raises(aa_files, tmp_path, option):
     elif option == "dynamic_normal":
         kw["membrane_normal"] = MembraneNormal.dynamic(
             "resname POPC and name P")
-    a = _aa(aa_files, tmp_path / "x.yaml", cls=gorder_tpu_torch.Analysis,
-            atype=gorder_tpu_torch.AnalysisType, **kw)
-    if option == "ua":
-        a.analysis_type = gorder_tpu_torch.AnalysisType.uaorder(
-            "resname POPC and name r'^C'")
+    if option == "ua_leaflets":
+        a = chip_smoke.ua_analysis("ua", *ua_files, str(tmp_path / "x.yaml"))
+        a.leaflets = kw["leaflets"]
+    else:
+        a = _aa(aa_files, tmp_path / "x.yaml", cls=gorder_tpu_torch.Analysis,
+                atype=gorder_tpu_torch.AnalysisType, **kw)
     with pytest.raises(gorder_tpu_torch.AnalysisError,
                        match="not yet ported"):
         gorder_tpu_torch.run(a, device="cpu")
@@ -209,3 +233,59 @@ def test_synthesis_matches_bench(tmp_path, monkeypatch):
         assert (tmp_path / "b" / name).read_bytes() \
             == (tmp_path / "p" / name).read_bytes(), name
     np.testing.assert_array_equal(sys_b.positions, sys_p.positions)
+
+
+def test_ua_palmitoyl_matches_jax(ua_files, tmp_path):
+    """The saturated palmitoyl chain (CH3 and CH2 only): line-identical."""
+    want = _jax_lines(_ua(ua_files, tmp_path / "jax.yaml", "ua-palmitoyl"))
+    port = chip_smoke.ua_analysis("ua-palmitoyl", *ua_files,
+                                  str(tmp_path / "port.yaml"))
+    results = gorder_tpu_torch.run(port, device="cpu")
+    results.write()
+    assert results.n_analyzed_frames == UA_FRAMES
+    assert _lines(port.output_yaml) == want
+    assert len(want) > 50
+
+
+def test_ua_matches_jax(ua_files, tmp_path):
+    """The full UA analysis (CH3, CH2 and CH1u) with error estimation.
+    CH1u samples may differ from the JAX package's by one 1e-6 quantum
+    (tests/test_torch_ua.py), which `bench.validate_output` admits as at
+    most one 4-dp print quantum on a few values; on this input every line
+    is identical."""
+    from gorder_tpu.input import EstimateError
+
+    kw = dict(estimate_error=EstimateError(n_blocks=4))
+    want = _jax_lines(_ua(ua_files, tmp_path / "jax.yaml", "ua", **kw))
+    port = _ua(ua_files, tmp_path / "port.yaml", "ua", **kw)
+    assert _port_lines(port) == want
+    assert len(want) > 300
+
+
+def test_ua_f32_wire_matches_jax(ua_files, tmp_path, monkeypatch, caplog):
+    """A trajectory that does not fit int16 rides the f32 wire."""
+    want = _jax_lines(_ua(ua_files, tmp_path / "jax.yaml", "ua"))
+    monkeypatch.setattr(Trajectory, "read_frames_quantized",
+                        lambda *a, **k: None)
+    with caplog.at_level(logging.INFO, logger="gorder"):
+        got = _port_lines(_ua(ua_files, tmp_path / "port.yaml", "ua"))
+    assert "wire format: f32" in caplog.text
+    assert got == want
+
+
+def test_ua_synthesis_matches_bench_modes(tmp_path, monkeypatch):
+    """chip_smoke's UA synthesis writes tools/bench_modes.py's files byte
+    for byte."""
+    from tools import bench_modes
+
+    n_lipids, total, frames = 3, 3 * 51 + 30, 5
+    (tmp_path / "b").mkdir()
+    (tmp_path / "p").mkdir()
+    monkeypatch.setattr(bench_modes, "CACHE", str(tmp_path / "b"))
+    bench_modes._synthesize("ua", bench_modes._ua_template, n_lipids, total,
+                            bench_modes.UA_BOX, "POPC",
+                            ["OW", "HW1", "HW2"], frames, seed=29)
+    chip_smoke.synthesize_ua(str(tmp_path / "p"), frames, n_lipids, total)
+    for name in ("ua_bench.gro", "ua_bench.bnd", f"ua_bench_{frames}.xtc"):
+        assert (tmp_path / "b" / name).read_bytes() \
+            == (tmp_path / "p" / name).read_bytes(), name

@@ -10,38 +10,57 @@ It imports nothing of JAX or of `gorder_tpu`. Phases, one line each:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc builds `gorder_tpu_torch/csrc/*.cu`;
-3. synth: the AA benchmark membrane of bench.py (256 POPC, 64.5k atoms,
-   10,000 XTC frames, seeds 7 and 11), synthesized byte for byte like
-   bench.py does, through the port's shared host modules; cached in the
-   temporary directory;
-4. kernel: the P2 kernel against its plain PyTorch version on the first
-   full-width batch (B = 512) of that trajectory, for its three inputs
-   (b7 residuals, int16 positions, f32 positions): the int64 (B, 2, T)
+3. kernel ua synthetic: the UA kernel against its plain PyTorch version on
+   a synthetic batch with all four carbon categories (B = 512), for int16
+   and f32 positions, without and with seeded leaflet classes: the int64
    outputs must be equal; CUDA-event times of both;
-5. run: `gorder_tpu_torch.run(analysis, device="cuda")` over all 10,000
+4. synth: the AA benchmark membrane of bench.py (256 POPC, 64.5k atoms,
+   10,000 XTC frames, seeds 7 and 11), synthesized byte for byte like
+   bench.py does, through the port's own host modules; cached in the
+   temporary directory;
+5. run aa: `gorder_tpu_torch.run(analysis, device="cuda")` over all 10,000
    frames; the YAML must pass `bench.validate_output` against
    `tools/bench_golden/aa_10000.yaml`, and the P2 kernel must have been
-   launched once per batch;
-6. synth ua: the UA benchmark membrane of tools/bench_modes.py (256
+   launched once per batch. Then the P2 kernel against its plain version
+   on the first batch (B = 512) exactly as the run handed it to its step
+   (`run(..., on_batch=...)`): b7 residuals, int64 (B, 2, T) outputs
+   equal; CUDA-event times of both;
+6. run aa-leaflets ... aa-fromfile-leaflets: the seven AA leaflet modes of
+   tools/bench_modes.py over the same 10,000 frames; each YAML must pass
+   `bench.validate_output` against its golden (the lines off by a print
+   quantum, if any, counted by key), and the with_leaflets P2 kernel must
+   have been launched once per batch. Then that kernel against its plain
+   version on the first batch of `aa-leaflets` (b7 residuals, with the
+   classes from the decoder's head and COG channels) and of
+   `aa-local-leaflets` (int16 positions, also dequantized as f32 input,
+   with the local classes), and the plain variant on the latter: the int64
+   outputs must be equal, and b7 and int16 must give the same sums;
+7. synth ua: the UA benchmark membrane of tools/bench_modes.py (256
    Berger-like POPC, 44.3k atoms, 3,000 XTC frames, seed 29), synthesized
    byte for byte likewise;
-7. kernel ua: the UA kernel against its plain version on the first
-   full-width batch of that trajectory and on a synthetic batch with all
-   four carbon categories, for int16 and f32 positions: the int64 outputs
-   must be equal; CUDA-event times of both;
 8. run ua, run ua-palmitoyl: `gorder_tpu_torch.run` over all 3,000 frames
    for both UA analyses of tools/bench_modes.py; each YAML must pass
    `bench.validate_output` against `tools/bench_golden/ua_3000.yaml` and
    `ua-palmitoyl_3000.yaml`, and the UA kernel must have been launched
-   once per batch and carbon category.
+   once per batch and carbon category. Then the UA kernel against plain
+   on the `ua` run's first batch, int16 and f32;
+9. run ua-leaflets: the `ua` analysis with global leaflets; no golden is
+   pinned for it, so its total order parameters must equal the `ua` run's
+   exactly, its upper and lower ones must be finite, and the
+   with_leaflets UA kernel must have been launched once per batch and
+   category. Then that kernel against plain on the run's first batch
+   (int16 with the decoder's COG), with the classes its step used.
 
-Then one JSON line with the kernels of the path, and last the result line
-`{"ok": true, "device": {...}}`. Any failure raises and exits non-zero.
-Without a CUDA device, or without the repository beside it, it exits
-non-zero and prints no result.
+Then one JSON line with the kernels of the path (with each one's bound:
+the least time the card could take, from the bytes it must move at the
+H100's 3.35 TB/s and its f32 operations at 67 TFLOP/s), and last the
+result line `{"ok": true, "device": {...}}`. Any failure raises and exits
+non-zero. Without a CUDA device, or without the repository beside it, it
+exits non-zero and prints no result.
 """
 
 import json
+import logging
 import math
 import os
 import subprocess
@@ -55,14 +74,34 @@ N_FRAMES = 10_000
 BATCH = 512
 HEAVY = "resname POPC and name r'^C'"
 HYDROGENS = "resname POPC and name r'^H'"
+P_HEADS = "resname POPC and name P"
+#: the AA leaflet modes of tools/bench_modes.py with a pinned golden that
+#: this port covers (the clustering modes wait for a later slice)
+LEAFLET_MODES = ("aa-leaflets", "aa-leaflets-export", "aa-leaflets-every10",
+                 "aa-leaflets-once", "aa-local-leaflets",
+                 "aa-individual-leaflets", "aa-fromfile-leaflets")
+
+# The bound of a kernel: the larger of its bytes (each input read once,
+# each output written once) over the H100's memory rate and its f32
+# operations over the card's f32 rate outside the tensor cores (NVIDIA's
+# data sheet, SXM part at 700 W).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# f32 operations of each kernel's chain, counted from the sources: a P2
+# sample (p2.cu: the dequantize or difference 3-6, min image 12, proj 5,
+# d2 5, cos2 3, S 2), and a UA carbon with all its hydrogens (ua.cu: the
+# prediction plus, per hydrogen, wrap 12, min image 12, proj 5, d2 6,
+# S 4; a square root, atan2, cos or sin counted as one).
+P2_OPS = 33
+UA_OPS = {"ch3": 323, "ch2": 257, "ch1u": 232, "ch1s": 142}
 
 
 def synthesize_structure(cache_dir, n_lipids=None, total_atoms=None):
-    """bench.py synthesize_structure, through the port's `_ref` host
+    """bench.py synthesize_structure, through the port's host
     modules: bench.gro + bench.bnd (lipids first, then water)."""
     import bench
-    from gorder_tpu_torch._ref.io.gro import write_gro
-    from gorder_tpu_torch._ref.system import System, canonical_bonds
+    from gorder_tpu_torch.io.gro import write_gro
+    from gorder_tpu_torch.system import System, canonical_bonds
 
     n_lipids = bench.N_LIPIDS if n_lipids is None else n_lipids
     total_atoms = bench.TOTAL_ATOMS if total_atoms is None else total_atoms
@@ -147,7 +186,7 @@ def synthesize_trajectory(cache_dir, system, n_frames):
     """bench.py synthesize_trajectory for `n_frames` frames (reused when a
     complete file is cached)."""
     import bench
-    from gorder_tpu_torch._ref.io import native
+    from gorder_tpu_torch.io import native
 
     xtc_path = os.path.join(cache_dir, f"bench_{n_frames}.xtc")
     if os.path.exists(xtc_path):
@@ -185,16 +224,16 @@ def synthesize_trajectory(cache_dir, system, n_frames):
 
 def synthesize_ua(cache_dir, n_frames, n_lipids=None, total_atoms=None):
     """tools/bench_modes.py `_synthesize("ua", ...)` (synth_ua: 256
-    Berger-like POPC, 44.3k atoms, seed 29), through the port's `_ref` host
+    Berger-like POPC, 44.3k atoms, seed 29), through the port's host
     modules: ua_bench.gro, ua_bench.bnd and ua_bench_{n_frames}.xtc, each
     written unless cached. One rng stream feeds the structure and then the
     trajectory, and the trajectory starts from the in-memory positions,
     not from the GRO read back."""
     from tools import bench_modes as bm
 
-    from gorder_tpu_torch._ref.io import native
-    from gorder_tpu_torch._ref.io.gro import write_gro
-    from gorder_tpu_torch._ref.system import System, canonical_bonds
+    from gorder_tpu_torch.io import native
+    from gorder_tpu_torch.io.gro import write_gro
+    from gorder_tpu_torch.system import System, canonical_bonds
 
     n_mols = bm.UA_LIPIDS if n_lipids is None else n_lipids
     total_atoms = bm.UA_TOTAL_ATOMS if total_atoms is None else total_atoms
@@ -319,13 +358,42 @@ def ua_analysis(mode, gro, bnd, xtc, output_yaml=None):
                     overwrite=True)
 
 
-def aa_analysis(gro, bnd, xtc, output_yaml=None):
+def aa_analysis(gro, bnd, xtc, output_yaml=None, **kw):
     from gorder_tpu_torch import Analysis, AnalysisType
 
     return Analysis(structure=gro, bonds=bnd, trajectory=xtc,
                     analysis_type=AnalysisType.aaorder(HEAVY, HYDROGENS),
                     output_yaml=output_yaml, n_threads=os.cpu_count() or 1,
-                    silent=True, overwrite=True)
+                    silent=True, overwrite=True, **kw)
+
+
+def leaflet_analysis(mode, gro, bnd, xtc, cache, output_yaml=None):
+    """tools/bench_modes.py `_make_analysis(mode)` for the AA leaflet modes
+    (bench_modes.py:314-370), built from the port's classes."""
+    import bench
+    from gorder_tpu_torch.input.config import (Frequency,
+                                               LeafletClassification)
+
+    def global_():
+        return LeafletClassification.global_("resname POPC", P_HEADS)
+
+    leaflets = {
+        "aa-leaflets": global_,
+        "aa-leaflets-export": lambda: global_().with_collect(
+            os.path.join(cache, "aa-leaflets-export_leaflets.yaml")),
+        "aa-leaflets-every10": lambda: global_().with_frequency(
+            Frequency.every(10)),
+        "aa-leaflets-once": lambda: global_().with_frequency(
+            Frequency.once()),
+        "aa-local-leaflets": lambda: LeafletClassification.local(
+            "resname POPC", P_HEADS, 2.5),
+        "aa-individual-leaflets": lambda: LeafletClassification.individual(
+            P_HEADS, "resname POPC and name C217 C317"),
+        "aa-fromfile-leaflets": lambda: LeafletClassification.from_map(
+            {"POPC": [[1 - (m % 2) for m in range(bench.N_LIPIDS)]]
+             * N_FRAMES}),
+    }[mode]()
+    return aa_analysis(gro, bnd, xtc, output_yaml, leaflets=leaflets)
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -344,129 +412,241 @@ def cuda_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(stop) / reps
 
 
-def first_batch(analysis):
-    """The first B = 512 frames of the AA trajectory, as the main path's
-    decoders give them: b7 payload, int16 positions and f32 positions."""
-    from gorder_tpu_torch._ref.engine.prepare import (
-        _build_atom_space, _prepare_bond_kinds, load_structure)
-    from gorder_tpu_torch._ref.io.native import b7_stride
-    from gorder_tpu_torch._ref.io.traj import Trajectory
-
-    system = load_structure(analysis)
-    _, compiled = _prepare_bond_kinds(system, analysis)
-    space, remap = _build_atom_space(system, analysis,
-                                     [compiled.atom_a, compiled.atom_b])
-    atom_a, atom_b = remap(compiled.atom_a), remap(compiled.atom_b)
-    traj = Trajectory(analysis.trajectory, expected_atoms=system.n_atoms)
-    chunk = traj.select_frames(None, None, 1)[:BATCH]
-    esc_cap = 8192
-    pk = np.zeros((BATCH, b7_stride(len(atom_a))), np.uint8)
-    eg = np.zeros((BATCH, esc_cap), np.uint16)
-    ev = np.zeros((BATCH, esc_cap), np.int16)
-    res, nesc = traj.read_frames_b7(chunk, space, atom_a, atom_b, pk, eg, ev,
-                                    n_threads=analysis.n_threads)
-    if res is None:
-        raise RuntimeError(f"b7 decode failed (escape demand {nesc})")
-    base, inv_prec, boxes, _, _ = res
-    q16, inv16, _, _, _ = traj.read_frames_quantized(
-        chunk, space, n_threads=analysis.n_threads)
-    f32, _, _, _ = traj.read_frames(chunk, space,
-                                    n_threads=analysis.n_threads)
-    return dict(atom_a=atom_a, atom_b=atom_b, bond_type=compiled.bond_type,
-                n_types=compiled.n_types, pk=pk, eg=eg, ev=ev, base=base,
-                inv_prec=inv_prec, boxes=boxes, q16=q16, inv16=inv16,
-                f32=f32)
+def n_bytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
 
 
-def check_kernel(batch):
-    """Phase 4: kernel against plain for the three inputs; returns the b7
-    (main-path) entry's numbers."""
+def bound(moved, ops):
+    """(ms, 'bytes' or 'operations'): the least time for `moved` bytes and
+    `ops` f32 operations on the card."""
+    by_bytes = moved / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                            "operations")
+
+
+def compare(label, kernel, plain, counter, launches, shape):
+    """One `kernel()` call: the launch count (`counter()`) must grow by
+    `launches`, and the int64 output of `shape` must equal `plain()`.
+    Then CUDA-event times in turns: plain, kernel, kernel, plain. →
+    dict(max_abs_err, ms, plain_ms)."""
+    import torch
+
+    before = counter()
+    got = kernel()
+    torch.cuda.synchronize()
+    if counter() != before + launches:
+        raise RuntimeError(f"{label}: the launch count grew by "
+                           f"{counter() - before}, expected {launches}")
+    want = plain()
+    if tuple(got.shape) != tuple(shape) or got.dtype != torch.int64:
+        raise RuntimeError(f"{label}: output {tuple(got.shape)} {got.dtype}"
+                           f", expected {tuple(shape)} int64")
+    err = int((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise RuntimeError(f"{label}: kernel != plain, max |diff| {err} "
+                           f"quanta")
+    plain_ms = cuda_ms(plain)
+    ms = cuda_ms(kernel)
+    ms2 = cuda_ms(kernel)
+    plain_ms2 = cuda_ms(plain)
+    print(f"kernel {label}: kernel == plain (int64, max |diff| {err}); ms "
+          f"per call: plain {plain_ms:.4f}, kernel {ms:.4f}, kernel "
+          f"{ms2:.4f}, plain {plain_ms2:.4f}", flush=True)
+    return dict(max_abs_err=err, ms=min(ms, ms2),
+                plain_ms=min(plain_ms, plain_ms2), out=got)
+
+
+def with_bound(label, numbers, moved, ops):
+    numbers["bound_ms"], numbers["bound_by"] = bound(moved, ops)
+    print(f"kernel {label}: bound {numbers['bound_ms']:.4f} ms "
+          f"({numbers['bound_by']}; {moved} bytes, {ops} f32 operations)",
+          flush=True)
+    return numbers
+
+
+def wire_inputs(db):
+    """The kernel inputs of a batch the main path handed to its step (a
+    `DeviceBatch`): the b7 residuals as the path unpacks them, or the
+    coordinate wire's positions, int16 ones also dequantized, f32(q)·s, as
+    the f32 input. → {input: (tensors before the frame arguments)}."""
     import torch
 
     from gorder_tpu_torch.engine.wire import b7_residuals
+
+    if db.kind.startswith("b7"):
+        pk, gp, vl, base = db.wire[:4]
+        return {"resid": (b7_residuals(pk, gp, vl, base.shape[0]), base,
+                          db.scale)}
+    coords = db.wire[0]
+    if db.scale is None:
+        return {"f32": (coords, None)}
+    return {"i16": (coords, db.scale),
+            "f32": (coords.to(torch.float32) * db.scale[:, None, None],
+                    None)}
+
+
+#: the launch count of each P2 input with classes
+P2_LEAFLET_COUNTS = {"resid": "p2_leaflets_launches",
+                     "i16": "p2_i16_leaflets_launches",
+                     "f32": "p2_f32_leaflets_launches"}
+
+
+def check_p2(label, db, leaflets):
+    """The P2 kernel against its plain version on a batch of the main path
+    (`DeviceBatch`), for each input `wire_inputs` gives; with `leaflets`,
+    the with_leaflets variant on the classes the step used, whose totals
+    must equal the plain variant's. The int64 outputs must be equal. →
+    {input: numbers}."""
+    import torch
+
     from gorder_tpu_torch.ops import p2
 
+    step = db.step
+    n_types = step.n_types
+    n_frames = db.mask.shape[0]
+    frame = (db.box, db.normal, db.mask, step.bond_type)
+    extra = (dict(classes=db.classes, bond_mol=step.bond_mol) if leaflets
+             else {})
+    shape = ((n_frames, 3, 2, n_types) if leaflets
+             else (n_frames, 2, n_types))
+    tag = f"{label}{' leaflets' if leaflets else ''}"
+    print(f"kernel {tag}: {db.kind} batch, B={n_frames} "
+          f"N={step.bond_type.shape[0]} T={n_types}"
+          + (f" M={db.classes.shape[1]} classes: "
+             f"{int((db.classes == 0).sum())} upper, "
+             f"{int((db.classes == 1).sum())} lower (molecule-frames)"
+             if leaflets else ""), flush=True)
+    numbers = {}
+    for name, inputs in wire_inputs(db).items():
+        if name == "resid":
+            kernel, plain, args = p2.p2_resid, p2.p2_resid_plain, inputs
+        else:
+            coords, scale = inputs
+            kernel, plain = p2.p2_positions, p2.p2_positions_plain
+            args = (coords, step.atom_a, step.atom_b, scale)
+        count = P2_LEAFLET_COUNTS[name] if leaflets else "p2_launches"
+        got = compare(
+            f"{tag} {name}",
+            lambda k=kernel, a=args: k(*a, *frame, n_types,
+                                       handle_pbc=step.handle_pbc, **extra),
+            lambda f=plain, a=args: f(*a, *frame, n_types,
+                                      handle_pbc=step.handle_pbc, **extra),
+            lambda c=count: getattr(p2, c), 1, shape)
+        numbers[name] = with_bound(
+            f"{tag} {name}", got,
+            n_bytes(*args, *frame, got["out"], *extra.values()),
+            int(db.mask.sum()) * step.bond_type.shape[0] * P2_OPS)
+        if leaflets and not torch.equal(got["out"][:, 0], kernel(
+                *args, *frame, n_types, handle_pbc=step.handle_pbc)):
+            raise RuntimeError(f"{tag} {name}: total != the plain variant")
+    return numbers
+
+
+def check_ua(label, step, inputs, frame, classes=None):
+    """The UA kernel against its plain version for each of `inputs`
+    ({input: (coords, scale)}) with `frame` (box, normal, mask); with
+    `classes`, the with_leaflets variant. The int64 outputs must be equal,
+    and the kernel launched once per category. → {input: numbers}."""
+    import torch
+
+    from gorder_tpu_torch.core.ua import N_HYDROGENS
+    from gorder_tpu_torch.ops import ua
+
+    leaflets = classes is not None
+    n_types = step.n_types
+    n_frames = frame[2].shape[0]
+    shape = ((n_frames, 3, 2, n_types) if leaflets
+             else (n_frames, 2, n_types))
+    counter = ((lambda: ua.ua_leaflets_launches) if leaflets
+               else (lambda: ua.ua_launches))
+    tag = f"ua{' leaflets' if leaflets else ''} {label}"
+    ops = int(frame[2].sum()) * sum(n * UA_OPS[cat] for cat, n in step.layout)
+    numbers = {}
+    for name, (coords, scale) in inputs.items():
+        def kernel(layout=step.layout, bond_type=step.bond_type,
+                   coords=coords, scale=scale):
+            return ua.ua_positions(coords, scale, *frame, step.indices,
+                                   bond_type, n_types,
+                                   handle_pbc=step.handle_pbc, layout=layout,
+                                   classes=classes, bond_mol=step.bond_mol)
+
+        def plain(layout=step.layout, bond_type=step.bond_type,
+                  coords=coords, scale=scale):
+            return ua.ua_positions_plain(coords, scale, *frame, step.indices,
+                                         bond_type, n_types,
+                                         handle_pbc=step.handle_pbc,
+                                         layout=layout, classes=classes,
+                                         bond_mol=step.bond_mol)
+
+        print(f"kernel {tag} {name}: B={n_frames} samples="
+              f"{step.bond_type.shape[0]} T={n_types} categories "
+              f"{[f'{c}:{n}' for c, n in step.layout]}", flush=True)
+        try:
+            got = compare(f"{tag} {name}", kernel, plain, counter,
+                          len(step.layout), shape)
+        except RuntimeError:
+            if leaflets:
+                raise
+            # which category disagrees, and in how many (frame, type) cells
+            detail = []
+            offset = 0
+            for cat, n in step.layout:
+                one = (((cat, n),),
+                       step.bond_type[offset:offset + n * N_HYDROGENS[cat]])
+                offset += n * N_HYDROGENS[cat]
+                kc, pc = kernel(*one), plain(*one)
+                detail.append(f"{cat}: {int((kc != pc).sum())} cells, max "
+                              f"|diff| {int((kc - pc).abs().max())}")
+            raise RuntimeError(f"{tag} {name}: " + "; ".join(detail))
+        index_tensors = [ix for d in step.indices.values()
+                         for ix in d.values()]
+        numbers[name] = with_bound(
+            f"{tag} {name}", got,
+            n_bytes(coords, scale, *frame, step.bond_type, classes,
+                    got["out"], *index_tensors), ops)
+        # the classifiers and ua_problem give classes in {0, 1} only
+        if leaflets and not torch.equal(got["out"][:, 1] + got["out"][:, 2],
+                                        got["out"][:, 0]):
+            raise RuntimeError(f"{tag} {name}: upper + lower != total")
+    return numbers
+
+
+def check_ua_synthetic():
+    """The UA kernel on `ua_problem`'s batch, the one with all four carbon
+    categories (the UA cell has no CH1s), int16 and f32, without and with
+    seeded classes."""
+    import torch
+
+    from gorder_tpu_torch.core.ua import make_ua_step
+
+    pb = ua_problem(17, BATCH, 2000, n_types=68)
     dev = torch.device("cuda")
 
-    def t(a, dtype=None):
-        return torch.as_tensor(np.ascontiguousarray(a), device=dev,
-                               dtype=dtype)
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
 
-    box = t(batch["boxes"][:, [0, 1, 2], [0, 1, 2]], torch.float32)
-    normal = t(np.array([0.0, 0.0, 1.0], np.float32))
-    mask = torch.ones(BATCH, dtype=torch.bool, device=dev)
-    bond_type = t(batch["bond_type"], torch.int32)
-    atom_a = t(batch["atom_a"], torch.int32)
-    atom_b = t(batch["atom_b"], torch.int32)
-    n_types = int(batch["n_types"])
-    base = t(batch["base"])
-    wire = (t(batch["pk"]), t(batch["eg"].view(np.int16)), t(batch["ev"]))
-    r = b7_residuals(*wire, base.shape[0])
-    scale = t(batch["inv_prec"], torch.float32)
-    q16 = t(batch["q16"])
-    scale16 = t(batch["inv16"], torch.float32)
-    f32 = t(batch["f32"])
-
-    cases = {
-        "resid": (p2.p2_resid, p2.p2_resid_plain,
-                  (r, base, scale, box, normal, mask, bond_type, n_types)),
-        "i16": (p2.p2_positions, p2.p2_positions_plain,
-                (q16, atom_a, atom_b, scale16, box, normal, mask, bond_type,
-                 n_types)),
-        "f32": (p2.p2_positions, p2.p2_positions_plain,
-                (f32, atom_a, atom_b, None, box, normal, mask, bond_type,
-                 n_types)),
-    }
-    outs = {}
-    numbers = {}
-    for name, (kernel, plain, args) in cases.items():
-        before = p2.p2_launches
-        got = kernel(*args, handle_pbc=True)
-        torch.cuda.synchronize()
-        if p2.p2_launches != before + 1:
-            raise RuntimeError(f"{name}: p2_launches did not grow")
-        want = plain(*args, handle_pbc=True)
-        if got.shape != (BATCH, 2, n_types) or got.dtype != torch.int64:
-            raise RuntimeError(f"{name}: output {tuple(got.shape)} "
-                               f"{got.dtype}")
-        err = int((got - want).abs().max())
-        if not torch.equal(got, want):
-            raise RuntimeError(f"{name}: kernel != plain, max |diff| {err} "
-                               f"quanta")
-        # in turns: plain, kernel, kernel, plain
-        plain_ms = cuda_ms(lambda: plain(*args, handle_pbc=True))
-        ms = cuda_ms(lambda: kernel(*args, handle_pbc=True))
-        ms2 = cuda_ms(lambda: kernel(*args, handle_pbc=True))
-        plain_ms2 = cuda_ms(lambda: plain(*args, handle_pbc=True))
-        outs[name] = got
-        numbers[name] = dict(max_abs_err=err, ms=min(ms, ms2),
-                             plain_ms=min(plain_ms, plain_ms2))
-        print(f"kernel {name}: B={BATCH} N={len(batch['atom_a'])} "
-              f"T={n_types} kernel == plain (int64, max |diff| {err}); "
-              f"ms per call: plain {plain_ms:.4f}, kernel {ms:.4f}, "
-              f"kernel {ms2:.4f}, plain {plain_ms2:.4f}", flush=True)
-    if not torch.equal(outs["resid"], outs["i16"]):
-        raise RuntimeError("b7 residual input and int16 positions disagree: "
-                           "both must give the same integer bond vectors")
-    print("kernel: b7 residual input == int16 positions (same integer "
-          "bond vectors)", flush=True)
-    # the main path's whole device work for one batch: b7 unpack + kernel
-    unpack_ms = cuda_ms(lambda: b7_residuals(*wire, base.shape[0]))
-    batch_ms = cuda_ms(lambda: p2.p2_resid(
-        b7_residuals(*wire, base.shape[0]), base, scale, box, normal, mask,
-        bond_type, n_types, handle_pbc=True))
-    print(f"kernel: device time per batch on the main path: b7 unpack "
-          f"{unpack_ms:.4f} ms + P2 kernel = {batch_ms:.4f} ms", flush=True)
-    return dict(numbers["resid"], batch_ms=batch_ms)
+    frame = (t(pb["box"]), t(np.array([0.0, 0.0, 1.0], np.float32)),
+             t(pb["mask"]))
+    inputs = {"i16": (t(pb["q16"]), t(pb["inv16"])),
+              "f32": (t(pb["coords"]), None)}
+    for leaflets in (False, True):
+        step = make_ua_step(pb["categories"], pb["bond_type"],
+                            pb["bond_mol"], pb["n_types"], handle_pbc=True,
+                            device=dev, with_leaflets=leaflets)
+        check_ua("synthetic", step, inputs, frame,
+                 t(pb["classes"]) if leaflets else None)
 
 
 def ua_problem(seed, n_frames, n_mols, n_types=7):
     """A numpy-seeded UA problem with all four categories, laid out as
     tests/test_pallas_ua.py `_ua_problem` lays its own: molecules of 10
     atoms with 1 CH3, 3 CH2, 1 CH1u and 1 CH1s each, uniform positions in
-    a 6 nm box, the last two frames masked, and sample types
-    (i·K + k) mod n_types per category. → dict of numpy arrays, with the
-    positions also as int16 XTC integers at precision 1000."""
+    a 6 nm box, the last two frames masked, sample types (i·K + k) mod
+    n_types per category, and seeded leaflet classes in {0, 1} per frame
+    and molecule. → dict of numpy arrays, with the positions also as int16
+    XTC integers at precision 1000."""
     rng = np.random.default_rng(seed)
     per = 10
     coords = rng.uniform(0, 6, (n_frames, n_mols * per, 3)).astype(np.float32)
@@ -482,173 +662,201 @@ def ua_problem(seed, n_frames, n_mols, n_types=7):
         "ch1s": {"target": base + 7, "h1": base + 6, "h2": base + 8,
                  "h3": base + 9},
     }
+    for d in categories.values():
+        d["mol"] = (d["target"] // per).astype(np.int32)
     k_of = {"ch3": 3, "ch2": 2, "ch1u": 1, "ch1s": 1}
     bond_type = np.concatenate([
         np.arange(len(d["target"]) * k_of[c]) % n_types
         for c, d in categories.items()]).astype(np.int32)
     bond_mol = np.concatenate([
-        np.repeat(d["target"] // per, k_of[c])
+        np.repeat(d["mol"], k_of[c])
         for c, d in categories.items()]).astype(np.int32)
     return dict(coords=coords, q16=np.round(coords * 1000).astype(np.int16),
                 inv16=np.full(n_frames, 1e-3, np.float32),
                 box=np.full((n_frames, 3), 6.0, np.float32), mask=mask,
                 categories=categories, bond_type=bond_type,
-                bond_mol=bond_mol, n_types=n_types)
+                bond_mol=bond_mol, n_types=n_types,
+                classes=rng.integers(0, 2, (n_frames, n_mols))
+                .astype(np.int32))
 
 
-def ua_first_batch(analysis):
-    """The first B = 512 frames of a UA trajectory as the main path's
-    decoders give them (int16 and f32 positions), with the analysis's
-    remapped category index arrays."""
-    from gorder_tpu_torch._ref.engine.prepare import (
-        _build_atom_space, _prepare_ua_kinds, load_structure)
-    from gorder_tpu_torch._ref.io.traj import Trajectory
-
-    system = load_structure(analysis)
-    _, compiled = _prepare_ua_kinds(system, analysis)
-    keys = ("target", "h1", "h2", "h3")
-    space, remap = _build_atom_space(
-        system, analysis, [d[k] for d in compiled.categories.values()
-                           for k in keys if k in d])
-    traj = Trajectory(analysis.trajectory, expected_atoms=system.n_atoms)
-    chunk = traj.select_frames(None, None, 1)[:BATCH]
-    q16, inv16, boxes, _, _ = traj.read_frames_quantized(
-        chunk, space, n_threads=analysis.n_threads)
-    f32, _, _, _ = traj.read_frames(chunk, space,
-                                    n_threads=analysis.n_threads)
-    return dict(
-        categories={cat: {k: (remap(v) if k in keys else v)
-                          for k, v in d.items()}
-                    for cat, d in compiled.categories.items()},
-        bond_type=compiled.bond_type, bond_mol=compiled.bond_mol,
-        n_types=compiled.n_types, q16=q16, inv16=inv16, f32=f32,
-        box=boxes[:, [0, 1, 2], [0, 1, 2]], mask=np.ones(BATCH, bool))
-
-
-def check_ua_kernel(batch, label):
-    """The UA kernel against its plain version on one batch, for the int16
-    and f32 inputs: the int64 (B, 2, T) outputs must be equal, and the
-    kernel must have been launched once per category. Returns the int16
-    (main-path) entry's numbers."""
+def time_classifiers(gro, bnd, xtc, cache):
+    """CUDA-event time of each every-frame leaflet classifier on the first
+    B = 512 frames (f32 coordinates of the run's atom space), the device
+    work it adds to a batch beside the P2 kernel. → {mode: ms}."""
     import torch
 
-    from gorder_tpu_torch.core.ua import N_HYDROGENS, make_ua_step
-    from gorder_tpu_torch.ops import ua
+    from gorder_tpu_torch.engine.leaflet_runtime import build_leaflet_runtime
+    from gorder_tpu_torch.engine.prepare import (
+        _AXIS_INDEX, _build_atom_space, _prepare_bond_kinds, load_structure)
+    from gorder_tpu_torch.io.traj import Trajectory
 
-    dev = torch.device("cuda")
-
-    def t(a, dtype=None):
-        return torch.as_tensor(np.ascontiguousarray(a), device=dev,
-                               dtype=dtype)
-
-    n_types = int(batch["n_types"])
-    step = make_ua_step(batch["categories"], batch["bond_type"],
-                        batch["bond_mol"], n_types, handle_pbc=True,
-                        device=dev)
-    box = t(batch["box"], torch.float32)
-    normal = t(np.array([0.0, 0.0, 1.0], np.float32))
-    mask = t(batch["mask"])
-    inputs = {"i16": (t(batch["q16"]), t(batch["inv16"], torch.float32)),
-              "f32": (t(batch["f32"] if "f32" in batch
-                        else batch["coords"]), None)}
-    n_cats = len(step.layout)
-    n_samples = len(batch["bond_type"])
-    numbers = {}
-    for name, (coords, scale) in inputs.items():
-        def kernel(layout=step.layout, bond_type=step.bond_type):
-            return ua.ua_positions(coords, scale, box, normal, mask,
-                                   step.indices, bond_type, n_types,
-                                   handle_pbc=True, layout=layout)
-
-        def plain(layout=step.layout, bond_type=step.bond_type):
-            return ua.ua_positions_plain(coords, scale, box, normal, mask,
-                                         step.indices, bond_type, n_types,
-                                         handle_pbc=True, layout=layout)
-
-        before = ua.ua_launches
-        got = kernel()
-        torch.cuda.synchronize()
-        if ua.ua_launches != before + n_cats:
-            raise RuntimeError(f"ua {label} {name}: ua_launches grew by "
-                               f"{ua.ua_launches - before}, expected "
-                               f"{n_cats} (one per category)")
-        want = plain()
-        if got.shape != want.shape or got.dtype != torch.int64:
-            raise RuntimeError(f"ua {label} {name}: output "
-                               f"{tuple(got.shape)} {got.dtype}")
-        err = int((got - want).abs().max())
-        if not torch.equal(got, want):
-            # which category disagrees, and in how many (frame, type) cells
-            detail = []
-            offset = 0
-            for cat, n in step.layout:
-                one = (((cat, n),),
-                       step.bond_type[offset:offset + n * N_HYDROGENS[cat]])
-                offset += n * N_HYDROGENS[cat]
-                kc, pc = kernel(*one), plain(*one)
-                detail.append(f"{cat}: {int((kc != pc).sum())} cells, max "
-                              f"|diff| {int((kc - pc).abs().max())}")
-            raise RuntimeError(f"ua {label} {name}: kernel != plain, max "
-                               f"|diff| {err} quanta; " + "; ".join(detail))
-        plain_ms = cuda_ms(plain)
-        ms = cuda_ms(kernel)
-        ms2 = cuda_ms(kernel)
-        plain_ms2 = cuda_ms(plain)
-        numbers[name] = dict(max_abs_err=err, ms=min(ms, ms2),
-                             plain_ms=min(plain_ms, plain_ms2))
-        print(f"kernel ua {label} {name}: B={coords.shape[0]} "
-              f"samples={n_samples} T={n_types} categories "
-              f"{[f'{c}:{n}' for c, n in step.layout]} kernel == plain "
-              f"(int64, max |diff| {err}); ms per call: plain "
-              f"{plain_ms:.4f}, kernel {ms:.4f}, kernel {ms2:.4f}, plain "
-              f"{plain_ms2:.4f}", flush=True)
-    return numbers["i16"]
+    out = {}
+    # the global classifier with its own COG on the device: what non-XTC
+    # input and frequency-gated runs use (b7g runs take the decoder's)
+    for mode in ("aa-leaflets", "aa-local-leaflets",
+                 "aa-individual-leaflets"):
+        analysis = leaflet_analysis(mode, gro, bnd, xtc, cache)
+        system = load_structure(analysis)
+        kinds, compiled = _prepare_bond_kinds(system, analysis)
+        space, remap = _build_atom_space(system, analysis,
+                                         [compiled.atom_a, compiled.atom_b])
+        runtime = build_leaflet_runtime(
+            system, analysis, kinds, compiled.n_molecules,
+            _AXIS_INDEX[analysis.membrane_normal.axis], remap,
+            device="cuda")
+        traj = Trajectory(analysis.trajectory, expected_atoms=system.n_atoms)
+        coords, boxes, _, _ = traj.read_frames(
+            traj.select_frames(None, None, 1)[:BATCH], space,
+            n_threads=analysis.n_threads)
+        coords = torch.as_tensor(coords, device="cuda")
+        box = torch.as_tensor(np.ascontiguousarray(
+            boxes[:, [0, 1, 2], [0, 1, 2]]), device="cuda")
+        classify = runtime.fused_classify()
+        out[mode] = cuda_ms(lambda: classify(coords, box), reps=3, warmup=1)
+    print("classify: device ms per batch of 512 frames (f32 coordinates): "
+          + ", ".join(f"{m} {ms:.4f}" for m, ms in out.items()), flush=True)
+    return out
 
 
-def run_ua(mode, gro, bnd, xtc, cache, n_frames):
-    """`gorder_tpu_torch.run` over the UA trajectory for `mode`; the YAML
-    must pass bench.validate_output against the pinned golden and the UA
-    kernel must have run once per batch and category. → launches."""
-    import bench
+def _run(label, analysis, counters, n_frames):
+    """`gorder_tpu_torch.run` with every launch count set to 0 just before
+    and read just after; the counts named in `counters` must have their
+    value there and every other count must be 0. → (results, wall s,
+    launches by count name, wire-format log line, the first batch's
+    `DeviceBatch` as the run handed it to its step)."""
     import torch
 
     import gorder_tpu_torch
-    from gorder_tpu_torch._ref.utils.timers import timers
     from gorder_tpu_torch.ops import p2, ua
+    from gorder_tpu_torch.utils.timers import timers
 
-    out_yaml = os.path.join(cache, f"smoke_{mode}.yaml")
-    analysis = ua_analysis(mode, gro, bnd, xtc, out_yaml)
-    ua.ua_launches = 0
-    p2.p2_launches = 0
+    wires = []
+    first = []
+
+    class Wire(logging.Handler):
+        def emit(self, record):
+            if record.getMessage().startswith("wire format"):
+                wires.append(record.getMessage())
+
+    def on_batch(db):
+        if db.index == 0:
+            first.append(db)
+
+    logger = logging.getLogger("gorder")
+    handler = Wire(logging.INFO)
+    level = logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    names = [(mod, name) for mod in (p2, ua) for name in dir(mod)
+             if name.endswith("_launches")]
+    for mod, name in names:
+        setattr(mod, name, 0)
     timers.reset()
-    t0 = time.perf_counter()
-    results = gorder_tpu_torch.run(analysis, device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = ua.ua_launches
+    try:
+        t0 = time.perf_counter()
+        results = gorder_tpu_torch.run(analysis, device="cuda",
+                                       on_batch=on_batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    launches = {name: getattr(mod, name) for mod, name in names}
     results.write()
-    n_cats = 3 if mode == "ua" else 2          # (ch3, ch2[, ch1u])
-    n_batches = math.ceil(n_frames / BATCH)
-    print(f"run {mode}: {n_frames} frames in {wall:.3f} s = "
-          f"{n_frames / wall:.1f} frames/s end to end; phases: "
-          f"{timers.summary()}", flush=True)
+    print(f"run {label}: {n_frames} frames in {wall:.3f} s = "
+          f"{n_frames / wall:.1f} frames/s end to end; {wires[-1]}; "
+          f"launches {launches}; phases: {timers.summary()}", flush=True)
     if results.n_analyzed_frames != n_frames:
-        raise RuntimeError(f"{mode}: analyzed {results.n_analyzed_frames} "
+        raise RuntimeError(f"{label}: analyzed {results.n_analyzed_frames} "
                            f"frames, expected {n_frames}")
-    if launches != n_batches * n_cats or p2.p2_launches != 0:
-        raise RuntimeError(f"{mode}: ua_launches {launches} != {n_batches} "
-                           f"batches x {n_cats} categories (p2_launches "
-                           f"{p2.p2_launches})")
-    status = bench.validate_output(out_yaml, mode, n_frames)
+    for name, got in launches.items():
+        if got != counters.get(name, 0):
+            raise RuntimeError(f"{label}: {name} {got} != "
+                               f"{counters.get(name, 0)} (expected "
+                               f"{counters})")
+    return results, wall, launches, wires[-1], first[0]
+
+
+def off_lines(yaml_path, label, n_frames):
+    """The lines of the YAML that differ from the pinned golden, counted by
+    their key (`total`, `upper`, `lower`, ...)."""
+    import collections
+
+    import bench
+
+    def lines(path):
+        with open(path) as fh:
+            return [ln for ln in fh.read().splitlines()
+                    if not ln.startswith("#")]
+
+    golden = os.path.join(bench.GOLDEN_DIR, f"{label}_{n_frames}.yaml")
+    return dict(collections.Counter(
+        g.strip().split(":")[0]
+        for g, w in zip(lines(yaml_path), lines(golden)) if g != w))
+
+
+def run_golden(label, analysis, counters, n_frames):
+    """`_run`, then the YAML must pass bench.validate_output against the
+    pinned golden {label}_{n_frames}.yaml. → (launches, results, first
+    batch)."""
+    import bench
+
+    results, _, launches, _, first = _run(label, analysis, counters,
+                                          n_frames)
+    status = bench.validate_output(analysis.output_yaml, label, n_frames)
     if status is None:
-        raise RuntimeError(f"no pinned golden for {mode}_{n_frames}")
+        raise RuntimeError(f"no pinned golden for {label}_{n_frames}")
     values = [m.average_order.total.value for m in results.molecules]
     if not all(math.isfinite(v) for v in values):
-        raise RuntimeError(f"{mode}: non-finite average order: {values}")
-    print(f"check {mode}: ua_launches {launches} == {n_batches} batches x "
-          f"{n_cats} categories; golden {mode}_{n_frames}.yaml: {status}; "
-          f"average order {values}", flush=True)
-    return launches
+        raise RuntimeError(f"{label}: non-finite average order: {values}")
+    where = ("" if status == "exact" else
+             f" (lines off, by key: "
+             f"{off_lines(analysis.output_yaml, label, n_frames)})")
+    print(f"check {label}: launches {counters} as expected; golden "
+          f"{label}_{n_frames}.yaml: {status}{where}; average order "
+          f"{values}", flush=True)
+    return launches, results, first
+
+
+def _orders(results, cls):
+    """Every order value of class `cls` in the results tree, in order."""
+    out = []
+    for mol in results.molecules:
+        out.append(getattr(mol.average_order, cls).value)
+        for atom in mol.atoms:
+            out.append(getattr(atom.order, cls).value)
+            out += [getattr(bond.order, cls).value for bond in atom.bonds]
+    return out
+
+
+def kernel_entry(name, source, replaces, launches, numbers):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": numbers["max_abs_err"], "ms": numbers["ms"],
+            "plain_ms": numbers["plain_ms"],
+            "bound_ms": numbers["bound_ms"],
+            "bound_by": numbers["bound_by"],
+            # no one PyTorch call computes these order-parameter sums
+            "library_ms": None}
+
+
+def main_path_batch_ms(db):
+    """CUDA-event time of a b7 batch's whole device work on the main path:
+    the b7 unpack, then the P2 kernel."""
+    from gorder_tpu_torch.engine.wire import b7_residuals
+    from gorder_tpu_torch.ops import p2
+
+    pk, gp, vl, base = db.wire[:4]
+    step = db.step
+    unpack_ms = cuda_ms(lambda: b7_residuals(pk, gp, vl, base.shape[0]))
+    batch_ms = cuda_ms(lambda: p2.p2_resid(
+        b7_residuals(pk, gp, vl, base.shape[0]), base, db.scale, db.box,
+        db.normal, db.mask, step.bond_type, step.n_types,
+        handle_pbc=step.handle_pbc))
+    print(f"kernel: device time per batch on the main path: b7 unpack "
+          f"{unpack_ms:.4f} ms + P2 kernel = {batch_ms:.4f} ms", flush=True)
+    return batch_ms
 
 
 def main() -> int:
@@ -659,11 +867,8 @@ def main() -> int:
         return 1
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
-    import bench
 
-    import gorder_tpu_torch
-    from gorder_tpu_torch._ref.utils.timers import timers
-    from gorder_tpu_torch.ops import build, p2
+    from gorder_tpu_torch.ops import build
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -685,7 +890,10 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s; ptxas: {' | '.join(ptxas)}",
           flush=True)
 
-    # 3. synth
+    # 3. the UA kernel on a synthetic batch with all four carbon categories
+    check_ua_synthetic()
+
+    # 4. synth
     cache = os.path.join(tempfile.gettempdir(), "gorder_tpu_torch_smoke")
     os.makedirs(cache, exist_ok=True)
     t0 = time.perf_counter()
@@ -693,7 +901,7 @@ def main() -> int:
     # the pinned golden's trajectory starts from the positions as read
     # back from bench.gro (3 decimals), as bench.py does once bench.gro
     # is cached
-    from gorder_tpu_torch._ref.engine.prepare import load_structure
+    from gorder_tpu_torch.engine.prepare import load_structure
 
     system = load_structure(
         aa_analysis(gro, bnd, os.path.join(cache, "missing.xtc")))
@@ -702,42 +910,46 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s ({os.path.getsize(xtc)} bytes "
           f"of XTC)", flush=True)
 
-    # 4. kernel against plain
-    out_yaml = os.path.join(cache, "smoke_order.yaml")
-    analysis = aa_analysis(gro, bnd, xtc, out_yaml)
-    resid = check_kernel(first_batch(analysis))
-
-    # 5. the main path, end to end
-    p2.p2_launches = 0
-    timers.reset()
-    t0 = time.perf_counter()
-    results = gorder_tpu_torch.run(analysis, device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = p2.p2_launches
-    results.write()
+    # 5. the main path, end to end; then the P2 kernel against plain on
+    # its first batch
     n_batches = math.ceil(N_FRAMES / BATCH)
-    print(f"run: {N_FRAMES} frames in {wall:.3f} s = "
-          f"{N_FRAMES / wall:.1f} frames/s end to end on {kind}; device "
-          f"work ~{n_batches} x {resid['batch_ms']:.3f} ms = "
-          f"{100 * n_batches * resid['batch_ms'] / 1e3 / wall:.1f} % of the "
-          f"wall time; phases: {timers.summary()}", flush=True)
-    if results.n_analyzed_frames != N_FRAMES:
-        raise RuntimeError(f"analyzed {results.n_analyzed_frames} frames, "
-                           f"expected {N_FRAMES}")
-    if launches != n_batches:
-        raise RuntimeError(f"p2_launches {launches} != {n_batches} batches")
-    status = bench.validate_output(out_yaml, "aa", N_FRAMES)
-    if status is None:
-        raise RuntimeError("no pinned golden for the AA cell")
-    values = [m.average_order.total.value for m in results.molecules]
-    if not all(math.isfinite(v) for v in values):
-        raise RuntimeError(f"non-finite average order: {values}")
-    print(f"check: p2_launches {launches} == {n_batches} batches; golden "
-          f"aa_{N_FRAMES}.yaml: {status}; average order {values}",
-          flush=True)
+    launches, _, aa_first = run_golden(
+        "aa", aa_analysis(gro, bnd, xtc,
+                          os.path.join(cache, "smoke_order.yaml")),
+        {"p2_launches": n_batches}, N_FRAMES)
+    p2_plain = check_p2("aa", aa_first, leaflets=False)
+    batch_ms = main_path_batch_ms(aa_first)
+    print(f"run aa on {kind}: device work ~{n_batches} x {batch_ms:.3f} ms "
+          f"per batch", flush=True)
 
-    # 6. UA synth
+    # 6. the AA leaflet modes, end to end; then the with_leaflets P2
+    # kernel against plain on the first batch of the global (b7g) and the
+    # local (int16) runs, with the classes each run's step used
+    leaflet_launches = {}
+    firsts = {}
+    for mode in LEAFLET_MODES:
+        count = ("p2_i16_leaflets_launches" if mode == "aa-local-leaflets"
+                 else "p2_leaflets_launches")
+        got, _, firsts[mode] = run_golden(
+            mode, leaflet_analysis(mode, gro, bnd, xtc, cache,
+                                   os.path.join(cache, f"smoke_{mode}.yaml")),
+            {count: n_batches}, N_FRAMES)
+        leaflet_launches[mode] = got[count]
+    p2_global = check_p2("aa-leaflets", firsts["aa-leaflets"], True)
+    local = firsts["aa-local-leaflets"]
+    p2_positions = check_p2("aa-local-leaflets", local, False)
+    p2_local = check_p2("aa-local-leaflets", local, True)
+    del firsts
+    if not torch.equal(p2_plain["resid"]["out"], p2_positions["i16"]["out"]):
+        raise RuntimeError("b7 residual input and int16 positions disagree: "
+                           "both must give the same integer bond vectors")
+    print("kernel: b7 residual input == int16 positions on the first batch "
+          "(same integer bond vectors)", flush=True)
+    del local
+
+    time_classifiers(gro, bnd, xtc, cache)
+
+    # 7. UA synth
     t0 = time.perf_counter()
     from tools import bench_modes
 
@@ -746,27 +958,69 @@ def main() -> int:
     print(f"synth ua: {ua_frames} frames in {time.perf_counter() - t0:.1f} "
           f"s ({os.path.getsize(ua_files[2])} bytes of XTC)", flush=True)
 
-    # 7. UA kernel against plain: the first real batch, then a synthetic
-    # batch with all four categories (the cell has no CH1s)
-    ua_real = check_ua_kernel(
-        ua_first_batch(ua_analysis("ua", *ua_files)), "ua_3000")
-    check_ua_kernel(ua_problem(17, BATCH, 2000, n_types=68), "synthetic")
+    # 8. the UA runs, end to end; then the UA kernel against plain on the
+    # first batch of the ua run
+    ua_batches = math.ceil(ua_frames / BATCH)
+    ua_launches, ua_results, first = run_golden(
+        "ua", ua_analysis("ua", *ua_files, os.path.join(cache,
+                                                        "smoke_ua.yaml")),
+        {"ua_launches": ua_batches * 3}, ua_frames)    # ch3, ch2, ch1u
+    ua_plain = check_ua("ua_3000", first.step, wire_inputs(first),
+                        (first.box, first.normal, first.mask))
+    run_golden("ua-palmitoyl",
+               ua_analysis("ua-palmitoyl", *ua_files,
+                           os.path.join(cache, "smoke_ua-palmitoyl.yaml")),
+               {"ua_launches": ua_batches * 2}, ua_frames)   # ch3, ch2
 
-    # 8. the UA runs, end to end
-    ua_launches = run_ua("ua", *ua_files, cache, ua_frames)
-    run_ua("ua-palmitoyl", *ua_files, cache, ua_frames)
+    # 9. UA with global leaflets (int16 + the decoder's COG): no golden;
+    # totals must equal the ua run's, upper and lower must be finite; then
+    # the with_leaflets UA kernel against plain on its first batch, with
+    # the classes its step used
+    from gorder_tpu_torch.input.config import LeafletClassification
 
-    print(json.dumps({"kernels": [{
-        "name": "p2", "route": "cuda",
-        "source": "gorder_tpu_torch/csrc/p2.cu",
-        "replaces": "gorder_tpu/ops/pallas_p2.py:163",
-        "launches": launches, "max_abs_err": resid["max_abs_err"],
-        "ms": resid["ms"], "plain_ms": resid["plain_ms"]}, {
-        "name": "ua", "route": "cuda",
-        "source": "gorder_tpu_torch/csrc/ua.cu",
-        "replaces": "gorder_tpu/ops/pallas_ua.py:69",
-        "launches": ua_launches, "max_abs_err": ua_real["max_abs_err"],
-        "ms": ua_real["ms"], "plain_ms": ua_real["plain_ms"]}]}))
+    a = ua_analysis("ua", *ua_files,
+                    os.path.join(cache, "smoke_ua-leaflets.yaml"))
+    a.leaflets = LeafletClassification.global_("resname POPC", P_HEADS)
+    results, _, got, _, first = _run(
+        "ua-leaflets", a, {"ua_leaflets_launches": ua_batches * 3},
+        ua_frames)
+    if _orders(results, "total") != _orders(ua_results, "total"):
+        raise RuntimeError("ua-leaflets: total order parameters differ from "
+                           "the ua run's")
+    sides = _orders(results, "upper") + _orders(results, "lower")
+    if not all(math.isfinite(v) for v in sides):
+        raise RuntimeError("ua-leaflets: non-finite upper/lower values")
+    print(f"check ua-leaflets: totals == the ua run's "
+          f"({len(_orders(results, 'total'))} values); upper and lower "
+          f"finite; average order upper "
+          f"{[m.average_order.upper.value for m in results.molecules]} "
+          f"lower {[m.average_order.lower.value for m in results.molecules]}",
+          flush=True)
+    print(f"kernel ua leaflets ua-leaflets: {first.kind} batch, classes: "
+          f"{int((first.classes == 0).sum())} upper, "
+          f"{int((first.classes == 1).sum())} lower (molecule-frames)",
+          flush=True)
+    ua_leaflets = check_ua("ua-leaflets", first.step, wire_inputs(first),
+                           (first.box, first.normal, first.mask),
+                           first.classes)
+
+    p2_src, ua_src = ("gorder_tpu_torch/csrc/p2.cu",
+                      "gorder_tpu_torch/csrc/ua.cu")
+    p2_tpu, ua_tpu = ("gorder_tpu/ops/pallas_p2.py:163",
+                      "gorder_tpu/ops/pallas_ua.py:69")
+    print(json.dumps({"kernels": [
+        kernel_entry("p2", p2_src, p2_tpu, launches["p2_launches"],
+                     p2_plain["resid"]),
+        kernel_entry("p2_leaflets", p2_src, p2_tpu,
+                     sum(n for mode, n in leaflet_launches.items()
+                         if mode != "aa-local-leaflets"),
+                     p2_global["resid"]),
+        kernel_entry("p2_i16_leaflets", p2_src, p2_tpu,
+                     leaflet_launches["aa-local-leaflets"], p2_local["i16"]),
+        kernel_entry("ua", ua_src, ua_tpu, ua_launches["ua_launches"],
+                     ua_plain["i16"]),
+        kernel_entry("ua_leaflets", ua_src, ua_tpu,
+                     got["ua_leaflets_launches"], ua_leaflets["i16"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

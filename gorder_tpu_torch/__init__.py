@@ -4,7 +4,8 @@ The port of `gorder_tpu` (JAX on a TPU) to PyTorch and a hand-written
 Hopper kernels. It reads the same YAML configurations and writes the same
 output files; `gorder_tpu` stays the reference it is tested against. It
 covers all-atom (AA), coarse-grained (CG) and united-atom (UA) order
-parameters with a static membrane normal, without leaflets, ordermaps or
+parameters with a static membrane normal, overall and per leaflet (global,
+local, individual and manual assignment), without ordermaps or
 geometry::
 
     import gorder_tpu_torch as gorder
@@ -13,18 +14,18 @@ geometry::
     results = gorder.run(analysis)            # on the GPU
     results.write()
 
-The host code that never touched jax (trajectory readers, selections,
-topology, configuration, results and presenters) is shared with
-`gorder_tpu` through `gorder_tpu_torch._ref`; this package never imports
-jax.
+`analysis.run()` does the same. The host code (trajectory readers and
+their C++ codec, selections, topology, configuration, results and
+presenters) is this package's own copy of `gorder_tpu`'s; this package
+imports neither jax nor `gorder_tpu`.
 """
 
-from ._ref.errors import (  # noqa: F401
+from .errors import (  # noqa: F401
     AnalysisError,
     ConfigError,
     GorderError,
 )
-from ._ref.input.config import (  # noqa: F401
+from .input.config import (  # noqa: F401
     Analysis,
     AnalysisType,
     EstimateError,
@@ -32,13 +33,15 @@ from ._ref.input.config import (  # noqa: F401
 )
 
 
-def run(analysis, device="cuda"):
+def run(analysis, device="cuda", on_batch=None):
     """Run `analysis` (this package's `Analysis` or `gorder_tpu`'s: it is
     read by attribute) on `device` and return its AnalysisResults.
 
     The default device is the GPU; without one this raises rather than
     carrying on on the CPU. Pass `device="cpu"` to run the plain PyTorch
-    versions of the kernels."""
+    versions of the kernels. `on_batch`, if given, receives each batch's
+    device inputs (`engine.batches.DeviceBatch`) once its step has been
+    dispatched."""
     from .engine.drivers import run_analysis
 
-    return run_analysis(analysis, device)
+    return run_analysis(analysis, device, on_batch=on_batch)

@@ -22,7 +22,7 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     from . import Analysis, GorderError, run
-    from ._ref.utils.logcolor import install_cli_logging
+    from .utils.logcolor import install_cli_logging
 
     try:
         analysis = Analysis.from_file(args.config)

@@ -1,10 +1,13 @@
-"""The P2/order-parameter step (port of `gorder_tpu/core/order.py`, main-path
-subset: static membrane normal, no leaflets, maps or geometry).
+"""The P2/order-parameter step (port of `gorder_tpu/core/order.py` for a
+static membrane normal, overall and per leaflet; no maps or geometry).
 
 Per bond instance and frame: bond vector → minimum image → projection on
 the normal → S = 1.5·cos²θ − 0.5 → the reference's fixed-point sample
 `round_half_away(f64(S)·1e6)` (src/analysis/order.rs:21-26) → exact int64
-sums and counts per frame and bond type.
+sums and counts per frame and bond type, and with leaflet classes also
+per class: total, upper (class 0) and lower (class 1) of the bond's
+molecule (gorder_tpu/core/order.py:231-235). A class that is neither 0
+nor 1 counts in total only.
 
 The JAX package reproduces that rounding in pure f32 with a two-product
 and sums it as 7-bit limbs on the MXU, because TPU kernels have no f64.
@@ -66,9 +69,12 @@ def position_vectors(coords: torch.Tensor, atom_a: torch.Tensor,
 
 def p2_sums(d: torch.Tensor, box_diag: torch.Tensor, normal: torch.Tensor,
             frame_mask: torch.Tensor, bond_type: torch.Tensor, n_types: int,
-            *, handle_pbc: bool) -> torch.Tensor:
+            *, handle_pbc: bool, classes: torch.Tensor | None = None,
+            bond_mol: torch.Tensor | None = None) -> torch.Tensor:
     """(B, N, 3) f32 bond vectors → (B, 2, T) int64 per-frame, per-type
     [sum of quantized samples, sample count]; masked frames give zeros.
+    With (B, M) int32 leaflet `classes` and the (N,) molecule of each bond
+    `bond_mol` → (B, 3, 2, T): total, upper and lower.
 
     Every f32 operation is a separate, correctly rounded PyTorch op, in the
     order of the JAX Pallas kernel (gorder_tpu/ops/pallas_p2.py:120-141),
@@ -80,20 +86,41 @@ def p2_sums(d: torch.Tensor, box_diag: torch.Tensor, normal: torch.Tensor,
     d2 = dx * dx + dy * dy + dz * dz
     cos2 = (proj * proj) / torch.clamp(d2, min=1e-18)
     sch = 1.5 * cos2 - 0.5
-    valid = frame_mask.to(torch.int64)[:, None].expand_as(sch)
-    q = quantize(sch) * valid
-    shape = (d.shape[0], n_types)
-    sums = torch.zeros(shape, dtype=torch.int64, device=d.device)
-    counts = torch.zeros(shape, dtype=torch.int64, device=d.device)
-    sums.index_add_(1, bond_type, q)
-    counts.index_add_(1, bond_type, valid)
-    return torch.stack([sums, counts], dim=1)
+    return class_sums(quantize(sch), frame_mask, bond_type, n_types,
+                      classes, bond_mol)
+
+
+def class_sums(q: torch.Tensor, frame_mask: torch.Tensor,
+               bond_type: torch.Tensor, n_types: int,
+               classes: torch.Tensor | None = None,
+               bond_mol: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, N) int64 samples → per-type [sum, count] of the valid frames:
+    (B, 2, T), or (B, 3, 2, T) per class (total, upper, lower) when
+    `classes` (B, M) and each sample's molecule `bond_mol` (N,) are
+    given."""
+    valid = frame_mask.to(torch.int64)[:, None].expand_as(q)
+
+    def reduce(m):
+        shape = (q.shape[0], n_types)
+        sums = torch.zeros(shape, dtype=torch.int64, device=q.device)
+        counts = torch.zeros(shape, dtype=torch.int64, device=q.device)
+        sums.index_add_(1, bond_type, q * m)
+        counts.index_add_(1, bond_type, m)
+        return torch.stack([sums, counts], dim=1)
+
+    if classes is None:
+        return reduce(valid)
+    cls = classes.index_select(1, bond_mol)                  # (B, N)
+    return torch.stack([reduce(valid), reduce(valid * (cls == 0)),
+                        reduce(valid * (cls == 1))], dim=1)
 
 
 def order_step(coords, box_diag, normal, frame_mask, atom_a, atom_b,
                bond_type, n_types: int, inv_scale=None, base=None, *,
-               handle_pbc: bool) -> torch.Tensor:
-    """The plain step for its three inputs → (B, 2, T) int64:
+               handle_pbc: bool, classes=None,
+               bond_mol=None) -> torch.Tensor:
+    """The plain step for its three inputs → (B, 2, T) int64, or
+    (B, 3, 2, T) with leaflet `classes` and `bond_mol`:
 
     - b7 residuals: `coords` (B, 3N) int16 with `base` and `inv_scale`;
     - integer positions: `coords` (B, A, 3) int16 with `inv_scale`;
@@ -103,53 +130,64 @@ def order_step(coords, box_diag, normal, frame_mask, atom_a, atom_b,
     else:
         d = position_vectors(coords, atom_a, atom_b, inv_scale)
     return p2_sums(d, box_diag, normal, frame_mask, bond_type, n_types,
-                   handle_pbc=handle_pbc)
+                   handle_pbc=handle_pbc, classes=classes,
+                   bond_mol=bond_mol)
 
 
 class OrderStep:
     """The per-batch step of one analysis: its index arrays live on
     `device`, and each call routes through the hand-written kernel's
-    wrapper (`ops/p2.py`), which runs the plain version for CPU tensors."""
+    wrapper (`ops/p2.py`), which runs the plain version for CPU tensors.
+    With `with_leaflets`, every call takes the batch's (B, M) classes and
+    returns (B, 3, 2, T)."""
 
-    def __init__(self, atom_a, atom_b, bond_type, n_types: int, *,
-                 handle_pbc: bool, device):
+    def __init__(self, atom_a, atom_b, bond_type, bond_mol, n_types: int, *,
+                 handle_pbc: bool, with_leaflets: bool, device):
         def idx(a):
             return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
         self.atom_a = idx(atom_a)
         self.atom_b = idx(atom_b)
         self.bond_type = idx(bond_type)
+        self.bond_mol = idx(bond_mol) if with_leaflets else None
         self.n_types = int(n_types)
         self.handle_pbc = bool(handle_pbc)
+        self.with_leaflets = bool(with_leaflets)
 
-    def resid(self, r, base, inv_scale, box_diag, normal, frame_mask):
+    def _leaflets(self, classes):
+        if (classes is not None) != self.with_leaflets:
+            raise ValueError("leaflet classes must be given exactly when "
+                             "the step was made with_leaflets")
+        return dict(classes=classes, bond_mol=self.bond_mol)
+
+    def resid(self, r, base, inv_scale, box_diag, normal, frame_mask,
+              classes=None):
         """b7 wire input (the main path)."""
         from ..ops.p2 import p2_resid
 
         return p2_resid(r, base, inv_scale, box_diag, normal, frame_mask,
                         self.bond_type, self.n_types,
-                        handle_pbc=self.handle_pbc)
+                        handle_pbc=self.handle_pbc, **self._leaflets(classes))
 
     def positions(self, coords, box_diag, normal, frame_mask,
-                  inv_scale=None):
+                  inv_scale=None, classes=None):
         """i16 wire (with `inv_scale`) or f32 wire input."""
         from ..ops.p2 import p2_positions
 
         return p2_positions(coords, self.atom_a, self.atom_b, inv_scale,
                             box_diag, normal, frame_mask, self.bond_type,
-                            self.n_types, handle_pbc=self.handle_pbc)
+                            self.n_types, handle_pbc=self.handle_pbc,
+                            **self._leaflets(classes))
 
 
-def refuse_unported(*, with_leaflets: bool, normal_mode: str, map_spec,
-                    geom_spec) -> None:
+def refuse_unported(*, normal_mode: str, map_spec, geom_spec) -> None:
     """Raise AnalysisError naming the step options this port lacks."""
     missing = [name for name, on in (
-        ("leaflets", with_leaflets),
         ("dynamic or manual membrane normals", normal_mode != "static"),
         ("ordermaps", map_spec is not None),
         ("geometry selection", geom_spec is not None)) if on]
     if missing:
-        from .._ref.errors import AnalysisError
+        from ..errors import AnalysisError
 
         raise AnalysisError(
             "not yet ported to gorder_tpu_torch: " + ", ".join(missing))
@@ -161,12 +199,13 @@ def make_order_step(atom_a, atom_b, bond_type, bond_mol, n_types: int,
                     normal_mode: str = "static", map_spec=None,
                     geom_spec=None) -> OrderStep:
     """The reference's step factory (gorder_tpu/core/order.py:313), for the
-    configurations this port covers: a static normal with no leaflets,
-    maps or geometry. `bond_mol` and `n_molecules` serve only those."""
-    refuse_unported(with_leaflets=with_leaflets, normal_mode=normal_mode,
-                    map_spec=map_spec, geom_spec=geom_spec)
-    return OrderStep(atom_a, atom_b, bond_type, n_types,
-                     handle_pbc=handle_pbc, device=device)
+    configurations this port covers: a static normal, with or without
+    leaflets, and no maps or geometry. `n_molecules` serves only those."""
+    refuse_unported(normal_mode=normal_mode, map_spec=map_spec,
+                    geom_spec=geom_spec)
+    return OrderStep(atom_a, atom_b, bond_type, bond_mol, n_types,
+                     handle_pbc=handle_pbc, with_leaflets=with_leaflets,
+                     device=device)
 
 
 def from_reference_rows(rows) -> np.ndarray:
@@ -184,7 +223,9 @@ def from_reference_rows(rows) -> np.ndarray:
 class OrderAccumulator:
     """Host-side exact accumulation of the per-frame step outputs, with the
     reference's interface (gorder_tpu/core/order.py:566-610) but taking
-    (B, 2, T) int64 [sum, count] directly."""
+    (B, 2, T) int64 [sum, count] per class directly. `add_step` takes a
+    step's output as it comes: (B, 2, T) for the classes ("total",) and
+    (B, 3, 2, T) for ("total", "upper", "lower")."""
 
     def __init__(self, n_types: int, classes=("total",), keep_timewise=False):
         self.n_types = n_types
@@ -208,6 +249,13 @@ class OrderAccumulator:
                 self.timewise_sums[c].append(frame_sums)
                 self.timewise_counts[c].append(frame_counts)
         self.n_frames += n_valid
+
+    def add_step(self, out: np.ndarray, n_valid: int) -> None:
+        out = np.asarray(out)
+        if out.ndim == 3:
+            out = out[:, None]
+        self.add_batch({c: out[:, k] for k, c in enumerate(self.classes)},
+                       n_valid)
 
     def timewise(self, cls: str):
         """(frames, T) int64 per-frame sums and counts."""

@@ -1,12 +1,13 @@
 """United-atom virtual hydrogens and their order parameters (port of
-`gorder_tpu/core/ua.py`, main-path subset: static membrane normal, no
-leaflets, maps or geometry).
+`gorder_tpu/core/ua.py` for a static membrane normal, overall and per
+leaflet; no maps or geometry).
 
 Per target carbon and frame: its helper atoms → the buildH prediction of
 its 1–3 hydrogens (src/analysis/uaorder.rs:944-1106) → per hydrogen the
 C–H vector → minimum image → S = 1.5·cos²θ − 0.5 → the reference's
 fixed-point sample (`core/order.py quantize`) → exact int64 sums and
-counts per frame and bond type.
+counts per frame and bond type (and per leaflet class, as
+`core/order.py class_sums` sums them).
 
 Every f32 step is one correctly rounded PyTorch op, grouped as the JAX
 package's planar (structure-of-arrays) formulation groups it: a planar
@@ -28,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .order import quantize
+from .order import class_sums, quantize
 
 TETRAHEDRAL_ANGLE = np.float32(1.910633)
 TETRAHEDRAL_ANGLE_HALF = np.float32(0.9553165)
@@ -175,17 +176,18 @@ _PREDICT = {"ch3": predict_ch3_planar, "ch2": predict_ch2_planar,
 
 def ua_step(coords, box_diag, normal, frame_mask, indices, bond_type,
             n_types: int, inv_scale=None, *, handle_pbc: bool,
-            layout) -> torch.Tensor:
+            layout, classes=None, bond_mol=None) -> torch.Tensor:
     """The plain UA step (gorder_tpu/core/ua.py `_ua_step_impl` for a static
-    normal without leaflets, maps or geometry) → (B, 2, T) int64
-    per-frame, per-type [sum of quantized samples, sample count]; masked
-    frames give zeros.
+    normal without maps or geometry) → (B, 2, T) int64 per-frame, per-type
+    [sum of quantized samples, sample count]; masked frames give zeros.
+    With (B, M) leaflet `classes` and each sample's molecule `bond_mol`
+    → (B, 3, 2, T): total, upper and lower.
 
     coords: (B, A, 3) int16 with `inv_scale` (B,) f32, or f32 without;
     indices: {category: {"target", "h1", "h2"[, "h3"]: (n,) int}};
-    layout: ((category, n), ...) in concatenation order; bond_type: the
-    per-sample types, category by category and hydrogen-major within one
-    (sample = category offset + i·K + k)."""
+    layout: ((category, n), ...) in concatenation order; bond_type and
+    bond_mol: per sample, category by category and hydrogen-major within
+    one (sample = category offset + i·K + k)."""
     if inv_scale is not None:
         coords = coords.to(torch.float32) * inv_scale[:, None, None]
     cpl = tuple(coords[..., i] for i in range(3))
@@ -214,44 +216,47 @@ def ua_step(coords, box_diag, normal, frame_mask, indices, bond_type,
         # hydrogen-major per atom: (B, n, K) → (B, n·K)
         parts.append(torch.stack(per_atom, dim=-1).flatten(1))
     sch = torch.cat(parts, dim=1)                           # (B, Nv)
-    valid = frame_mask.to(torch.int64)[:, None].expand_as(sch)
-    q = quantize(sch) * valid
-    shape = (sch.shape[0], n_types)
-    sums = torch.zeros(shape, dtype=torch.int64, device=sch.device)
-    counts = torch.zeros(shape, dtype=torch.int64, device=sch.device)
-    sums.index_add_(1, bond_type, q)
-    counts.index_add_(1, bond_type, valid)
-    return torch.stack([sums, counts], dim=1)
+    return class_sums(quantize(sch), frame_mask, bond_type, n_types,
+                      classes, bond_mol)
 
 
 class UAStep:
     """The per-batch UA step of one analysis: its index arrays live on
     `device`, and each call routes through the kernel's wrapper
-    (`ops/ua.py`), which runs the plain version for CPU tensors."""
+    (`ops/ua.py`), which runs the plain version for CPU tensors. With
+    `with_leaflets`, every call takes the batch's (B, M) classes and
+    returns (B, 3, 2, T); the plain version reads each sample's molecule
+    (`bond_mol`), the kernel each carbon's (`mol`, the same molecules)."""
 
-    def __init__(self, categories, bond_type, n_types: int, *,
-                 handle_pbc: bool, device):
+    def __init__(self, categories, bond_type, bond_mol, n_types: int, *,
+                 handle_pbc: bool, with_leaflets: bool, device):
         def idx(a):
             return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
+        keys = ("target",) + (("mol",) if with_leaflets else ())
         self.layout = tuple((cat, len(categories[cat]["target"]))
                             for cat in CATEGORIES if cat in categories)
         self.indices = {
-            cat: {k: idx(categories[cat][k])
-                  for k in ("target",) + HELPERS[cat]}
+            cat: {k: idx(categories[cat][k]) for k in keys + HELPERS[cat]}
             for cat, _ in self.layout}
         self.bond_type = idx(bond_type)
+        self.bond_mol = idx(bond_mol) if with_leaflets else None
         self.n_types = int(n_types)
         self.handle_pbc = bool(handle_pbc)
+        self.with_leaflets = bool(with_leaflets)
 
     def positions(self, coords, box_diag, normal, frame_mask,
-                  inv_scale=None):
+                  inv_scale=None, classes=None):
         """i16 wire (with `inv_scale`) or f32 wire input."""
         from ..ops.ua import ua_positions
 
+        if (classes is not None) != self.with_leaflets:
+            raise ValueError("leaflet classes must be given exactly when "
+                             "the step was made with_leaflets")
         return ua_positions(coords, inv_scale, box_diag, normal, frame_mask,
                             self.indices, self.bond_type, self.n_types,
-                            handle_pbc=self.handle_pbc, layout=self.layout)
+                            handle_pbc=self.handle_pbc, layout=self.layout,
+                            classes=classes, bond_mol=self.bond_mol)
 
 
 def make_ua_step(categories, bond_type, bond_mol, n_types: int, *,
@@ -259,11 +264,13 @@ def make_ua_step(categories, bond_type, bond_mol, n_types: int, *,
                  with_leaflets: bool = False, normal_mode: str = "static",
                  map_spec=None, geom_spec=None) -> UAStep:
     """The reference's step factory (gorder_tpu/core/ua.py:368), for the
-    configurations this port covers: a static normal with no leaflets,
-    maps or geometry. `bond_mol` serves only those."""
+    configurations this port covers: a static normal, with or without
+    leaflets, and no maps or geometry. With leaflets, every category needs
+    its per-carbon molecule index `mol`."""
     from .order import refuse_unported
 
-    refuse_unported(with_leaflets=with_leaflets, normal_mode=normal_mode,
-                    map_spec=map_spec, geom_spec=geom_spec)
-    return UAStep(categories, bond_type, n_types, handle_pbc=handle_pbc,
+    refuse_unported(normal_mode=normal_mode, map_spec=map_spec,
+                    geom_spec=geom_spec)
+    return UAStep(categories, bond_type, bond_mol, n_types,
+                  handle_pbc=handle_pbc, with_leaflets=with_leaflets,
                   device=device)

@@ -1,8 +1,11 @@
 // Device code shared by the order-parameter kernels (p2.cu, ua.cu): the
 // minimum image, the reference's fixed-point sample, and the per-block
-// (2, T) int64 table of per-type [sum, count] that a block fills with
+// table of per-type [sum, count] int64 that a block fills with
 // shared-memory atomics and adds to the output with one global atomic per
-// nonzero entry.
+// nonzero entry. The table is (2, T), or (3, 2, T) for the with_leaflets
+// variants: total, upper (class 0) and lower (class 1); a sample whose
+// molecule's class is neither 0 nor 1 counts in total only, as the TPU
+// kernels' masks do (gorder_tpu/ops/pallas_p2.py:220-222).
 #pragma once
 
 #include <cstdint>
@@ -10,7 +13,8 @@
 
 namespace gorder {
 
-constexpr int kSharedTypes = 3072;  // 2 * T * 8 bytes <= 48 KiB
+// The default shared memory a block may use without opting in.
+constexpr size_t kSharedBytes = 48 * 1024;
 
 // d - L*rint(d/L): rint rounds half to even, like jnp.round/torch.round.
 __device__ __forceinline__ float min_image(float d, float box) {
@@ -24,10 +28,11 @@ __device__ __forceinline__ long long quantum(float sch) {
   return llround(__dmul_rn(static_cast<double>(sch), 1.0e6));
 }
 
-// A block's table of per-type [sum, count] for its frame: (2, T) in
-// shared memory when kShared, else the frame's rows of the output.
-template <bool kShared>
+// A block's table of per-type [sum, count] for its frame: (kClasses, 2, T)
+// in shared memory when kShared, else the frame's rows of the output.
+template <bool kShared, int kClasses>
 struct TypeTable {
+  static_assert(kClasses == 1 || kClasses == 3, "total, or total/upper/lower");
   unsigned long long* acc;
   unsigned long long* frame_out;
   int n_types;
@@ -36,25 +41,38 @@ struct TypeTable {
   __device__ __forceinline__ TypeTable(unsigned long long* smem,
                                        unsigned long long* out, int b,
                                        int types)
-      : acc(kShared ? smem : out + static_cast<size_t>(b) * 2 * types),
-        frame_out(out + static_cast<size_t>(b) * 2 * types),
+      : acc(kShared ? smem
+                    : out + static_cast<size_t>(b) * kClasses * 2 * types),
+        frame_out(out + static_cast<size_t>(b) * kClasses * 2 * types),
         n_types(types) {
     if constexpr (kShared) {
-      for (int k = threadIdx.x; k < 2 * n_types; k += blockDim.x) acc[k] = 0;
+      for (int k = threadIdx.x; k < kClasses * 2 * n_types; k += blockDim.x)
+        acc[k] = 0;
       __syncthreads();
     }
   }
 
-  __device__ __forceinline__ void add(int t, long long q) const {
-    atomicAdd(acc + t, static_cast<unsigned long long>(q));
-    atomicAdd(acc + n_types + t, 1ULL);
+  __device__ __forceinline__ void add_to(int c, int t, long long q) const {
+    unsigned long long* row = acc + static_cast<size_t>(c) * 2 * n_types;
+    atomicAdd(row + t, static_cast<unsigned long long>(q));
+    atomicAdd(row + n_types + t, 1ULL);
+  }
+
+  // Sample q of type t, of a molecule in leaflet class cls (read only by
+  // the with_leaflets table).
+  __device__ __forceinline__ void add(int t, long long q, int cls) const {
+    add_to(0, t, q);
+    if constexpr (kClasses == 3) {
+      if (cls == 0) add_to(1, t, q);
+      else if (cls == 1) add_to(2, t, q);
+    }
   }
 
   // Every thread of the block calls this once, after its last add.
   __device__ __forceinline__ void flush() const {
     if constexpr (kShared) {
       __syncthreads();
-      for (int k = threadIdx.x; k < 2 * n_types; k += blockDim.x) {
+      for (int k = threadIdx.x; k < kClasses * 2 * n_types; k += blockDim.x) {
         if (acc[k] != 0ULL) atomicAdd(frame_out + k, acc[k]);
       }
     }
@@ -62,8 +80,25 @@ struct TypeTable {
 };
 
 // Shared-memory bytes of a kShared table of n_types.
-inline size_t table_bytes(int n_types) {
-  return 2 * static_cast<size_t>(n_types) * sizeof(unsigned long long);
+inline size_t table_bytes(int n_types, int n_classes) {
+  return static_cast<size_t>(n_classes) * 2 * static_cast<size_t>(n_types) *
+         sizeof(unsigned long long);
+}
+
+// Whether a table fits the default shared memory: T <= 3072 for (2, T),
+// T <= 1024 for (3, 2, T); larger tables add straight into the output.
+inline bool table_fits(int n_types, int n_classes) {
+  return table_bytes(n_types, n_classes) <= kSharedBytes;
+}
+
+// The leaflet class of the molecule `mol` in frame b: classes (B, M) int32.
+// Without classes (the plain variants) every sample is class 0, which only
+// the (2, T) table reads, and ignores.
+__device__ __forceinline__ int leaflet_class(const int32_t* classes, int b,
+                                             int n_molecules, int mol) {
+  return classes == nullptr
+             ? 0
+             : classes[static_cast<size_t>(b) * n_molecules + mol];
 }
 
 }  // namespace gorder

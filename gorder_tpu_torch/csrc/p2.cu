@@ -3,7 +3,9 @@
 // Replaces the TPU kernel gorder_tpu/ops/pallas_p2.py `_p2_kernel` (with
 // its tile math `_p2_limbs` and reduction `_accumulate`), in its
 // `resid_input` variant (b7 wire) and its positions variants (the
-// single-rounding integer difference and the f32 pair difference).
+// single-rounding integer difference and the f32 pair difference), each
+// with and without `with_leaflets` (the class plane gathered at
+// pallas_p2.py:393-400, the masks at :220-222).
 //
 // Per sample (frame b, bond i): bond vector d -> minimum image
 // d - L*rint(d/L) -> proj = d.n, d2 = dx*dx + dy*dy + dz*dz ->
@@ -23,6 +25,15 @@
 // any order, so the result is deterministic. When 2*T int64 do not fit in
 // the default 48 KiB of shared memory (T > 3072), the kernel adds straight
 // into the output with global atomics instead.
+//
+// with_leaflets: the (B, M) int32 class plane and each bond's molecule
+// bond_mol (N,) int32 give the sample's class cls = classes[b, bond_mol[i]];
+// the table becomes (3, 2, T) -- total, upper (cls 0), lower (cls 1) --
+// and the output (B, 3, 2, T). The table then fits shared memory only for
+// T <= 1024; above that the kernel adds into the output with global
+// atomics. The class costs one more 4-byte gather per sample (the plane
+// row of a frame is M * 4 bytes and stays in L1/L2) and up to two more
+// atomics.
 //
 // What bounds it on this card: it reads about 2 bytes of b7 residual per
 // value (6 per sample) plus the per-slot base, and does two 64-bit atomic
@@ -118,17 +129,26 @@ struct FloatPositions {
   }
 };
 
-// grid (ceil(N / kTile), B); out (B, 2, T) int64, zeroed by the caller.
-template <class Input, bool kShared>
+// Each bond's leaflet class source: the (B, M) class plane and the bond's
+// molecule; null pointers in the plain variant.
+struct Leaflets {
+  const int32_t* __restrict__ classes;
+  const int32_t* __restrict__ bond_mol;
+  int n_molecules;
+};
+
+// grid (ceil(N / kTile), B); out (B, kClasses, 2, T) int64, zeroed by the
+// caller.
+template <class Input, bool kShared, int kClasses>
 __global__ void __launch_bounds__(kThreads)
 p2_kernel(Input input, const float* __restrict__ box,
           const float* __restrict__ normal, const uint8_t* __restrict__ mask,
-          const int32_t* __restrict__ bond_type, int n_bonds, int n_types,
-          int pbc, unsigned long long* __restrict__ out) {
-  extern __shared__ unsigned long long table[];  // (2, T) when kShared
+          const int32_t* __restrict__ bond_type, Leaflets lf, int n_bonds,
+          int n_types, int pbc, unsigned long long* __restrict__ out) {
+  extern __shared__ unsigned long long table[];  // when kShared
   const int b = blockIdx.y;
   if (!mask[b]) return;  // padding frame: its rows stay zero
-  const gorder::TypeTable<kShared> acc(table, out, b, n_types);
+  const gorder::TypeTable<kShared, kClasses> acc(table, out, b, n_types);
   const float bx = box[3 * b], by = box[3 * b + 1], bz = box[3 * b + 2];
   const float nx = normal[0], ny = normal[1], nz = normal[2];
   const int start = static_cast<int>(blockIdx.x) * kTile;
@@ -137,31 +157,57 @@ p2_kernel(Input input, const float* __restrict__ box,
        i += kThreads) {
     float dx, dy, dz;
     input(b, i, dx, dy, dz);
+    const int cls =
+        kClasses == 3
+            ? gorder::leaflet_class(lf.classes, b, lf.n_molecules,
+                                    lf.bond_mol[i])
+            : 0;
     acc.add(bond_type[i],
-            p2_sample(dx, dy, dz, bx, by, bz, nx, ny, nz, pbc != 0));
+            p2_sample(dx, dy, dz, bx, by, bz, nx, ny, nz, pbc != 0), cls);
   }
   acc.flush();
 }
 
+template <class Input, int kClasses>
+void launch_classes(const Input& input, const dim3& grid, const float* box,
+                    const float* normal, const uint8_t* mask,
+                    const int32_t* bond_type, const Leaflets& lf,
+                    int n_bonds, int n_types, int pbc,
+                    unsigned long long* out, cudaStream_t s) {
+  if (gorder::table_fits(n_types, kClasses)) {
+    p2_kernel<Input, true, kClasses>
+        <<<grid, kThreads, gorder::table_bytes(n_types, kClasses), s>>>(
+            input, box, normal, mask, bond_type, lf, n_bonds, n_types, pbc,
+            out);
+  } else {
+    p2_kernel<Input, false, kClasses><<<grid, kThreads, 0, s>>>(
+        input, box, normal, mask, bond_type, lf, n_bonds, n_types, pbc, out);
+  }
+}
+
 template <class Input>
 int launch(const Input& input, const void* box, const void* normal,
-           const void* mask, const void* bond_type, void* out, int n_frames,
-           int n_bonds, int n_types, int pbc, void* stream) {
+           const void* mask, const void* bond_type, const void* classes,
+           const void* bond_mol, void* out, int n_frames, int n_bonds,
+           int n_types, int pbc, int n_molecules, void* stream) {
   if (n_frames == 0 || n_bonds == 0) return 0;
+  if ((classes == nullptr) != (bond_mol == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n_bonds + kTile - 1) / kTile, n_frames);
   const auto* bx = static_cast<const float*>(box);
   const auto* nv = static_cast<const float*>(normal);
   const auto* mk = static_cast<const uint8_t*>(mask);
   const auto* bt = static_cast<const int32_t*>(bond_type);
+  const Leaflets lf{static_cast<const int32_t*>(classes),
+                    static_cast<const int32_t*>(bond_mol), n_molecules};
   auto* o = static_cast<unsigned long long*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  if (n_types <= gorder::kSharedTypes) {
-    p2_kernel<Input, true><<<grid, kThreads, gorder::table_bytes(n_types),
-                             s>>>(
-        input, bx, nv, mk, bt, n_bonds, n_types, pbc, o);
+  if (classes != nullptr) {
+    launch_classes<Input, 3>(input, grid, bx, nv, mk, bt, lf, n_bonds,
+                             n_types, pbc, o, s);
   } else {
-    p2_kernel<Input, false><<<grid, kThreads, 0, s>>>(
-        input, bx, nv, mk, bt, n_bonds, n_types, pbc, o);
+    launch_classes<Input, 1>(input, grid, bx, nv, mk, bt, lf, n_bonds,
+                             n_types, pbc, o, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -171,42 +217,47 @@ int launch(const Input& input, const void* box, const void* normal,
 extern "C" {
 
 // Each entry point enqueues one launch on `stream` and returns
-// cudaGetLastError() (0 = launched).
+// cudaGetLastError() (0 = launched). classes (B, M) int32 and bond_mol (N,)
+// int32 select the with_leaflets variant, out (B, 3, 2, T); both null, the
+// plain one, out (B, 2, T).
 
 int p2_resid(const void* r, const void* base, const void* scale,
              const void* box, const void* normal, const void* mask,
-             const void* bond_type, void* out, int n_frames, int n_bonds,
-             int n_types, int pbc, void* stream) {
+             const void* bond_type, const void* classes,
+             const void* bond_mol, void* out, int n_frames, int n_bonds,
+             int n_types, int pbc, int n_molecules, void* stream) {
   const ResidInput input{static_cast<const int16_t*>(r),
                          static_cast<const int32_t*>(base),
                          static_cast<const float*>(scale), 3 * n_bonds};
-  return launch(input, box, normal, mask, bond_type, out, n_frames, n_bonds,
-                n_types, pbc, stream);
+  return launch(input, box, normal, mask, bond_type, classes, bond_mol, out,
+                n_frames, n_bonds, n_types, pbc, n_molecules, stream);
 }
 
 int p2_positions_i16(const void* x, const void* atom_a, const void* atom_b,
                      const void* scale, const void* box, const void* normal,
-                     const void* mask, const void* bond_type, void* out,
+                     const void* mask, const void* bond_type,
+                     const void* classes, const void* bond_mol, void* out,
                      int n_frames, int n_atoms, int n_bonds, int n_types,
-                     int pbc, void* stream) {
+                     int pbc, int n_molecules, void* stream) {
   const IntPositions input{static_cast<const int16_t*>(x),
                            static_cast<const int32_t*>(atom_a),
                            static_cast<const int32_t*>(atom_b),
                            static_cast<const float*>(scale), n_atoms};
-  return launch(input, box, normal, mask, bond_type, out, n_frames, n_bonds,
-                n_types, pbc, stream);
+  return launch(input, box, normal, mask, bond_type, classes, bond_mol, out,
+                n_frames, n_bonds, n_types, pbc, n_molecules, stream);
 }
 
 int p2_positions_f32(const void* x, const void* atom_a, const void* atom_b,
                      const void* box, const void* normal, const void* mask,
-                     const void* bond_type, void* out, int n_frames,
+                     const void* bond_type, const void* classes,
+                     const void* bond_mol, void* out, int n_frames,
                      int n_atoms, int n_bonds, int n_types, int pbc,
-                     void* stream) {
+                     int n_molecules, void* stream) {
   const FloatPositions input{static_cast<const float*>(x),
                              static_cast<const int32_t*>(atom_a),
                              static_cast<const int32_t*>(atom_b), n_atoms};
-  return launch(input, box, normal, mask, bond_type, out, n_frames, n_bonds,
-                n_types, pbc, stream);
+  return launch(input, box, normal, mask, bond_type, classes, bond_mol, out,
+                n_frames, n_bonds, n_types, pbc, n_molecules, stream);
 }
 
 // The message of a code that an entry point of this library returned.

@@ -1,9 +1,10 @@
 // United-atom order-parameter kernel for Hopper (sm_90a).
 //
 // Replaces the TPU kernel gorder_tpu/ops/pallas_ua.py `_ua_kernel` (built
-// by `make_pallas_ua_step`), for a static membrane normal without leaflet
-// classes, on int16 XTC positions with a per-frame scale or on f32
-// positions. It computes what the JAX package's XLA path computes
+// by `make_pallas_ua_step`), for a static membrane normal, with and
+// without leaflet classes (`with_leaflets`: the class plane gathered at
+// pallas_ua.py:253-258, the masks at :120-122), on int16 XTC positions with
+// a per-frame scale or on f32 positions. It computes what the JAX package's XLA path computes
 // (gorder_tpu/core/ua.py `_ua_step_impl` with the planar predictors at
 // :145-226), not the TPU kernel's acos-free CH1u variant, which exists only
 // because Mosaic has no acos.
@@ -21,7 +22,10 @@
 //      sample q = llround(f64(S) * 1e6);
 //   5. q and a count into the block's (2, T) int64 table in shared memory
 //      at the sample's type (sample = category offset + i*K + k), then one
-//      global atomic per nonzero entry (common.cuh).
+//      global atomic per nonzero entry (common.cuh). with_leaflets: the
+//      table is (3, 2, T) and the carbon's class classes[b, mol[i]] picks
+//      upper or lower beside total, from the per-carbon molecule index
+//      that the compiled UA topology carries (pallas_ua.py:179-183).
 // Every f32 add, multiply and divide is an _rn intrinsic, grouped as the
 // planar JAX formulation groups it, so nothing is contracted into an FMA;
 // sqrtf (with -prec-sqrt=true), atan2f, cosf and sinf are the accurate CUDA
@@ -42,9 +46,8 @@
 // targets, which lie close together in a molecule, so the gathers mostly
 // hit the same cache lines.
 //
-// Later work: the per-molecule normal (`per_bond_normal`) and leaflet
-// (`with_leaflets`) variants come with the port's normals and leaflets
-// modules.
+// Later work: the per-molecule normal (`per_bond_normal`) variant comes
+// with the port's normals module.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -221,22 +224,25 @@ struct Targets {
   const int32_t* __restrict__ h1;
   const int32_t* __restrict__ h2;
   const int32_t* __restrict__ h3;  // CH1s only
+  const int32_t* __restrict__ mol;  // with_leaflets only
   const int32_t* __restrict__ bond_type;  // this category's samples
   int n_cat;
 };
 
-// grid (ceil(n_cat / kTile), B); out (B, 2, T) int64, added into.
-template <int C, class Coords, bool kShared>
+// grid (ceil(n_cat / kTile), B); out (B, kClasses, 2, T) int64, added
+// into; classes (B, M) int32 when kClasses == 3.
+template <int C, class Coords, bool kShared, int kClasses>
 __global__ void __launch_bounds__(kThreads)
 ua_kernel(Coords coords, Targets tg, const float* __restrict__ box,
           const float* __restrict__ normal, Trig g,
-          const uint8_t* __restrict__ mask, int n_types, int pbc,
-          unsigned long long* __restrict__ out) {
+          const uint8_t* __restrict__ mask,
+          const int32_t* __restrict__ classes, int n_molecules, int n_types,
+          int pbc, unsigned long long* __restrict__ out) {
   constexpr int K = n_hydrogens(C);
-  extern __shared__ unsigned long long table[];  // (2, T) when kShared
+  extern __shared__ unsigned long long table[];  // when kShared
   const int b = blockIdx.y;
   if (!mask[b]) return;  // padding frame: its rows stay zero
-  const gorder::TypeTable<kShared> acc(table, out, b, n_types);
+  const gorder::TypeTable<kShared, kClasses> acc(table, out, b, n_types);
   const V L = {box[3 * b], box[3 * b + 1], box[3 * b + 2]};
   const V n = {normal[0], normal[1], normal[2]};
   const int start = static_cast<int>(blockIdx.x) * kTile;
@@ -247,66 +253,94 @@ ua_kernel(Coords coords, Targets tg, const float* __restrict__ box,
     const V a1 = coords(b, tg.h1[i]);
     const V a2 = coords(b, tg.h2[i]);
     const V a3 = C == kCH1S ? coords(b, tg.h3[i]) : V{0.0f, 0.0f, 0.0f};
+    int cls = 0;
+    if constexpr (kClasses == 3) {
+      cls = gorder::leaflet_class(classes, b, n_molecules, tg.mol[i]);
+    }
     V h[K];
     predict<C>(t, a1, a2, a3, L, pbc != 0, g, h);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      acc.add(tg.bond_type[i * K + k], ua_sample(h[k], t, L, n, pbc != 0));
+      acc.add(tg.bond_type[i * K + k], ua_sample(h[k], t, L, n, pbc != 0),
+              cls);
     }
   }
   acc.flush();
 }
 
+template <int C, class Coords, int kClasses>
+void launch_table(const Coords& coords, const Targets& tg, const float* box,
+                  const float* normal, const Trig& trig, const uint8_t* mask,
+                  const int32_t* classes, int n_molecules,
+                  unsigned long long* out, int n_frames, int n_types,
+                  int pbc, cudaStream_t s) {
+  const dim3 grid((tg.n_cat + kTile - 1) / kTile, n_frames);
+  if (gorder::table_fits(n_types, kClasses)) {
+    ua_kernel<C, Coords, true, kClasses>
+        <<<grid, kThreads, gorder::table_bytes(n_types, kClasses), s>>>(
+            coords, tg, box, normal, trig, mask, classes, n_molecules,
+            n_types, pbc, out);
+  } else {
+    ua_kernel<C, Coords, false, kClasses><<<grid, kThreads, 0, s>>>(
+        coords, tg, box, normal, trig, mask, classes, n_molecules, n_types,
+        pbc, out);
+  }
+}
+
 template <int C, class Coords>
 void launch_category(const Coords& coords, const Targets& tg,
                      const float* box, const float* normal, const Trig& trig,
-                     const uint8_t* mask, unsigned long long* out,
-                     int n_frames, int n_types, int pbc, cudaStream_t s) {
-  const dim3 grid((tg.n_cat + kTile - 1) / kTile, n_frames);
-  if (n_types <= gorder::kSharedTypes) {
-    ua_kernel<C, Coords, true><<<grid, kThreads,
-                                 gorder::table_bytes(n_types), s>>>(
-        coords, tg, box, normal, trig, mask, n_types, pbc, out);
+                     const uint8_t* mask, const int32_t* classes,
+                     int n_molecules, unsigned long long* out, int n_frames,
+                     int n_types, int pbc, cudaStream_t s) {
+  if (classes != nullptr) {
+    launch_table<C, Coords, 3>(coords, tg, box, normal, trig, mask, classes,
+                               n_molecules, out, n_frames, n_types, pbc, s);
   } else {
-    ua_kernel<C, Coords, false><<<grid, kThreads, 0, s>>>(
-        coords, tg, box, normal, trig, mask, n_types, pbc, out);
+    launch_table<C, Coords, 1>(coords, tg, box, normal, trig, mask, classes,
+                               n_molecules, out, n_frames, n_types, pbc, s);
   }
 }
 
 template <class Coords>
 int launch(int category, const Coords& coords, const void* target,
-           const void* h1, const void* h2, const void* h3,
+           const void* h1, const void* h2, const void* h3, const void* mol,
            const void* bond_type, const void* box, const void* normal,
-           const Trig& trig, const void* mask, void* out, int n_frames,
-           int n_cat, int n_types, int pbc, void* stream) {
+           const Trig& trig, const void* mask, const void* classes,
+           void* out, int n_frames, int n_cat, int n_types, int pbc,
+           int n_molecules, void* stream) {
   if (n_frames == 0 || n_cat == 0) return 0;
+  if (classes != nullptr && mol == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Targets tg{static_cast<const int32_t*>(target),
                    static_cast<const int32_t*>(h1),
                    static_cast<const int32_t*>(h2),
                    static_cast<const int32_t*>(h3),
+                   static_cast<const int32_t*>(mol),
                    static_cast<const int32_t*>(bond_type), n_cat};
   const auto* bx = static_cast<const float*>(box);
   const auto* nv = static_cast<const float*>(normal);
   const auto* mk = static_cast<const uint8_t*>(mask);
+  const auto* cl = static_cast<const int32_t*>(classes);
   auto* o = static_cast<unsigned long long*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   switch (category) {
     case kCH3:
-      launch_category<kCH3>(coords, tg, bx, nv, trig, mk, o, n_frames,
-                            n_types, pbc, s);
+      launch_category<kCH3>(coords, tg, bx, nv, trig, mk, cl, n_molecules, o,
+                            n_frames, n_types, pbc, s);
       break;
     case kCH2:
-      launch_category<kCH2>(coords, tg, bx, nv, trig, mk, o, n_frames,
-                            n_types, pbc, s);
+      launch_category<kCH2>(coords, tg, bx, nv, trig, mk, cl, n_molecules, o,
+                            n_frames, n_types, pbc, s);
       break;
     case kCH1U:
-      launch_category<kCH1U>(coords, tg, bx, nv, trig, mk, o, n_frames,
-                             n_types, pbc, s);
+      launch_category<kCH1U>(coords, tg, bx, nv, trig, mk, cl, n_molecules,
+                             o, n_frames, n_types, pbc, s);
       break;
     case kCH1S:
       if (h3 == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-      launch_category<kCH1S>(coords, tg, bx, nv, trig, mk, o, n_frames,
-                             n_types, pbc, s);
+      launch_category<kCH1S>(coords, tg, bx, nv, trig, mk, cl, n_molecules,
+                             o, n_frames, n_types, pbc, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -319,31 +353,37 @@ int launch(int category, const Coords& coords, const void* target,
 extern "C" {
 
 // Each entry point enqueues one launch for one category (0 CH3, 1 CH2,
-// 2 CH1u, 3 CH1s) on `stream`, adding into out (B, 2, T) int64, and returns
+// 2 CH1u, 3 CH1s) on `stream`, adding into out, and returns
 // cudaGetLastError() (0 = launched). h3 is null except for CH1s;
-// bond_type points at the category's first sample.
+// bond_type points at the category's first sample. classes (B, M) int32
+// with the category's per-carbon molecules mol select the with_leaflets
+// variant, out (B, 3, 2, T); classes null, the plain one, out (B, 2, T).
 
 int ua_positions_i16(int category, const void* x, const void* scale,
                      const void* target, const void* h1, const void* h2,
-                     const void* h3, const void* bond_type, const void* box,
-                     const void* normal, Trig trig, const void* mask,
-                     void* out, int n_frames, int n_atoms, int n_cat,
-                     int n_types, int pbc, void* stream) {
+                     const void* h3, const void* mol, const void* bond_type,
+                     const void* box, const void* normal, Trig trig,
+                     const void* mask, const void* classes, void* out,
+                     int n_frames, int n_atoms, int n_cat, int n_types,
+                     int pbc, int n_molecules, void* stream) {
   const IntCoords coords{static_cast<const int16_t*>(x),
                          static_cast<const float*>(scale), n_atoms};
-  return launch(category, coords, target, h1, h2, h3, bond_type, box, normal,
-                trig, mask, out, n_frames, n_cat, n_types, pbc, stream);
+  return launch(category, coords, target, h1, h2, h3, mol, bond_type, box,
+                normal, trig, mask, classes, out, n_frames, n_cat, n_types,
+                pbc, n_molecules, stream);
 }
 
 int ua_positions_f32(int category, const void* x, const void* target,
                      const void* h1, const void* h2, const void* h3,
-                     const void* bond_type, const void* box,
+                     const void* mol, const void* bond_type, const void* box,
                      const void* normal, Trig trig, const void* mask,
-                     void* out, int n_frames, int n_atoms, int n_cat,
-                     int n_types, int pbc, void* stream) {
+                     const void* classes, void* out, int n_frames,
+                     int n_atoms, int n_cat, int n_types, int pbc,
+                     int n_molecules, void* stream) {
   const FloatCoords coords{static_cast<const float*>(x), n_atoms};
-  return launch(category, coords, target, h1, h2, h3, bond_type, box, normal,
-                trig, mask, out, n_frames, n_cat, n_types, pbc, stream);
+  return launch(category, coords, target, h1, h2, h3, mol, bond_type, box,
+                normal, trig, mask, classes, out, n_frames, n_cat, n_types,
+                pbc, n_molecules, stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
-"""The frame-batch loop: decode → device → kernel → accumulate (port of the
-main-path subset of `gorder_tpu/engine/batches.py:61-1203`).
+"""The frame-batch loop: decode → device → kernel → accumulate (port of
+`gorder_tpu/engine/batches.py:61-1203` for the b7, int16 and f32 wires,
+with leaflets).
 
 A decode thread fills a prefetch ring of host buffers (the native codec
 releases the GIL) while the main thread copies batch k to the device and
@@ -8,6 +9,16 @@ copies each batch to the device synchronously (pageable `copy_`) before
 it releases the ring slot. Padding frames of the last batch are masked. A
 batch that no longer fits the b7 wire mid-run falls back to int16, and a
 batch that no longer fits int16 to f32, as in the JAX package.
+
+Leaflet runs read the decoder's side channels beside the wire
+(`engine/channels.py`): heads and the membrane COG (b7g), the aux atoms
+(b7x), sparse assignment-frame coordinates for the host class plane (b7m),
+or the COG ring of the coordinate wires. Export runs collect the classes
+each batch used, in frame order.
+
+A caller may pass `on_batch`, which receives each batch's `DeviceBatch`
+once its step has been dispatched: the device tensors and classes the
+step was given, to inspect or to feed to a kernel again.
 """
 
 from __future__ import annotations
@@ -17,18 +28,20 @@ import concurrent.futures as cf
 import logging
 import threading
 import time
+from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
 
-from .._ref.errors import AnalysisError
-from .._ref.io.native import b7_stride
-from .._ref.io.traj import Trajectory, check_box_batch
-from .._ref.utils.progress import ProgressPrinter
-from .._ref.utils.timers import timers
 from ..core.order import OrderAccumulator
+from ..errors import AnalysisError
+from ..io.native import b7_stride
+from ..io.traj import Trajectory, check_box_batch
+from ..utils.progress import ProgressPrinter
+from ..utils.timers import timers
 from .channels import plan_wire
-from .fused import BY_KIND
+from .fused import BY_KIND, Classifiers
 
 log = logging.getLogger("gorder")
 
@@ -38,20 +51,38 @@ DEFAULT_BATCH_SIZE = 512
 _PREFETCH = 4
 
 
+@dataclass
+class DeviceBatch:
+    """One batch as the loop hands it to the run's step."""
+
+    index: int
+    kind: str                        # the wire kind (`fused.BY_KIND`)
+    wire: tuple                      # the wire's tensors on the device
+    scale: Optional[torch.Tensor]    # (B,) f32 for integer wires, else None
+    box: torch.Tensor                # (B, 3) f32 box diagonal
+    normal: torch.Tensor             # (3,) f32
+    mask: torch.Tensor               # (B,) bool: False on padding frames
+    classes: Optional[torch.Tensor]  # the (B, M) int32 classes the step used
+    step: object                     # the OrderStep or UAStep
+
+
 def _to_device(a: np.ndarray, device) -> torch.Tensor:
     """A copy of the host array on `device` that no longer reads `a`."""
     return torch.from_numpy(a).to(device, copy=True)
 
 
 def run_batches(analysis, system, step, normal_vec, n_types: int, space,
-                bond_slots, *, device, batch_size: int = DEFAULT_BATCH_SIZE):
+                bond_slots, leaflets=None, n_molecules: int = 0, *, device,
+                batch_size: int = DEFAULT_BATCH_SIZE, on_batch=None):
     """→ (OrderAccumulator, Trajectory, analyzed frame indices).
 
     `bond_slots` (atom_a, atom_b) makes the b7 wire eligible; UA steps pass
-    None and ride int16 or f32 positions."""
+    None and ride int16 or f32 positions. `leaflets` is the run's
+    LeafletRuntime, or None. `on_batch`, if given, is called with each
+    batch's DeviceBatch after its step is dispatched."""
     device = torch.device(device)
     accum = OrderAccumulator(
-        n_types, ("total",),
+        n_types, ("total", "upper", "lower") if leaflets else ("total",),
         keep_timewise=analysis.estimate_error is not None)
     traj = Trajectory(analysis.trajectory, expected_atoms=system.n_atoms)
     frame_indices = traj.select_frames(
@@ -62,61 +93,139 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
     if len(frame_indices) == 0:
         raise AnalysisError(
             "no trajectory frames are within the specified time range")
+    if leaflets is not None:
+        leaflets.validate(len(frame_indices))
 
     n_threads = max(1, analysis.n_threads)
     plan = plan_wire(traj=traj, frame_indices=frame_indices, space=space,
-                     bond_slots=bond_slots, n_threads=n_threads,
-                     batch_size=batch_size)
+                     bond_slots=bond_slots, leaflets=leaflets,
+                     n_molecules=n_molecules, handle_pbc=analysis.handle_pbc,
+                     n_threads=n_threads, batch_size=batch_size)
+    # host classes (manual tables, frequency-gated methods) come from
+    # classes_for_batch; every-frame methods classify with the step
+    host_classes = leaflets is not None and leaflets.fused_classify() is None
+    classifiers = Classifiers()
+    if leaflets is not None:
+        classifiers = Classifiers(
+            coords=leaflets.fused_classify(),
+            channel_coords=(plan.chan_coords[0] if plan.chan_coords
+                            else None),
+            channel=plan.channel_classify, aux=plan.aux_classify)
+    chan_membrane, chan_axis = (plan.chan_coords[1] if plan.chan_coords
+                                else (None, None))
+    collect = leaflets is not None and leaflets.collect_frames is not None
+
     n_out = space.n_out
     n_batches = (len(frame_indices) + batch_size - 1) // batch_size
     prefetch = min(_PREFETCH, max(2, n_batches))
     if plan.wire == "b7":
+        def side():
+            """One ring slot's side-channel buffers."""
+            if plan.ch_heads is not None:
+                return (np.zeros((batch_size, len(plan.ch_heads), 3),
+                                 np.int32),
+                        np.zeros(batch_size, np.float32))
+            if plan.aux_wire_slots is not None:
+                return (np.zeros((batch_size, len(plan.aux_wire_slots), 3),
+                                 np.int32),)
+            return ()
+
         buffers = [(np.zeros((batch_size, b7_stride(plan.n_bonds)), np.uint8),
                     np.zeros((batch_size, plan.esc_cap), np.uint16),
-                    np.zeros((batch_size, plan.esc_cap), np.int16))
+                    np.zeros((batch_size, plan.esc_cap), np.int16)) + side()
                    for _ in range(prefetch)]
     else:
         dtype = np.int16 if plan.wire == "i16" else np.float32
         buffers = [np.zeros((batch_size, n_out, 3), dtype)
                    for _ in range(prefetch)]
+    # decoder COG of coordinate-wire batches in the COG channel class
+    cog_bufs = ([np.zeros(batch_size, np.float32) for _ in range(prefetch)]
+                if plan.chan_coords is not None else None)
+    # sparse assignment-frame coordinates of the class plane: (i16, f32)
+    plane_bufs = ([(np.zeros((plan.assign_cap, n_out, 3), np.int16),
+                    np.zeros((plan.assign_cap, n_out, 3), np.float32))
+                   for _ in range(prefetch)] if plan.plane_sparse else None)
 
     # ring-slot gate: the decoder may refill slot b % prefetch only after
     # the main thread has copied batch b - prefetch to the device
     slots = threading.Semaphore(prefetch)
 
-    def decode_f32(chunk, buf):
+    def chan_cog(chunk, b):
+        """The decoder's per-frame membrane COG for a coordinate-wire
+        batch: the value the b7g side channel ships (native/xdr.cpp
+        xtc_cog_axis); padding rows zeroed."""
+        cb = cog_bufs[b % prefetch]
+        cb[len(chunk):] = 0
+        traj.read_cog_axis(chunk, space, chan_membrane, chan_axis, cb,
+                           n_threads=n_threads)
+        return cb
+
+    def with_cog(kind, arrays, chunk, b):
+        if plan.chan_coords is None:
+            return kind, arrays
+        return kind + "g", arrays + (chan_cog(chunk, b),)
+
+    def decode_f32(chunk, buf, b):
         _, boxes, _, _ = traj.read_frames(chunk, space, n_threads=n_threads,
                                           out=buf)
         buf[len(chunk):] = 0
-        return ("f32", (buf,)), None, boxes
+        return with_cog("f32", (buf,), chunk, b), None, boxes, None
 
-    def decode_i16(chunk, buf):
+    def decode_i16(chunk, buf, b):
         res = traj.read_frames_quantized(chunk, space, n_threads=n_threads,
                                          out=buf)
         if res is None:
             return decode_f32(chunk, np.zeros((batch_size, n_out, 3),
-                                              np.float32))
+                                              np.float32), b)
         _, inv_prec, boxes, _, _ = res
         buf[len(chunk):] = 0
-        return ("i16", (buf,)), inv_prec, boxes
+        return with_cog("i16", (buf,), chunk, b), inv_prec, boxes, None
+
+    def plane_sparse_read(chunk, b):
+        """Decode only this batch's assignment frames (1/N of frames for
+        `!every N`, one frame for `!once`) → (batch rows, i16 coords and
+        scale, or f32 coords and None), or None when no frame assigns."""
+        qbuf, fbuf = plane_bufs[b % prefetch]
+        a0 = b * batch_size
+        ana = np.arange(a0, a0 + len(chunk), dtype=np.int64)
+        rows = np.nonzero(leaflets.assignment_source(ana) == ana)[0]
+        if not len(rows):
+            return None
+        res = traj.read_frames_quantized(chunk[rows], space,
+                                         n_threads=n_threads, out=qbuf)
+        if res is not None:
+            return rows, qbuf[:len(rows)], res[1].copy()
+        traj.read_frames(chunk[rows], space, n_threads=n_threads, out=fbuf)
+        return rows, fbuf[:len(rows)], None
 
     def decode_b7(b, chunk, buf):
-        pk, eg, ev = buf
-        if len(chunk) < batch_size:
-            # padding rows decode to the (masked) base differences
-            pk[len(chunk):] = 0
-            eg[len(chunk):] = 0
-            ev[len(chunk):] = 0
-        res, _ = traj.read_frames_b7(chunk, space, bond_slots[0],
-                                     bond_slots[1], pk, eg, ev,
-                                     n_threads=n_threads)
+        pk, eg, ev = buf[:3]
+        side = buf[3:]
+        # padding rows decode to the (masked) base differences
+        for a in buf:
+            a[len(chunk):] = 0
+        res, _ = traj.read_frames_b7(
+            chunk, space, bond_slots[0], bond_slots[1], pk, eg, ev,
+            n_threads=n_threads,
+            aux_slots=(plan.ch_heads if plan.ch_heads is not None
+                       else plan.aux_wire_slots),
+            aux_out=side[0] if side else None,
+            cog_slots=plan.ch_membrane, cog_axis=plan.ch_axis,
+            cog_out=side[1] if plan.ch_heads is not None else None)
         if res is not None:
             base, inv_prec, boxes, _, _ = res
-            return ("b7", (pk, eg.view(np.int16), ev, base)), inv_prec, boxes
+            wire = (pk, eg.view(np.int16), ev, base) + side
+            kind = ("b7g" if plan.ch_heads is not None
+                    else "b7x" if plan.aux_wire_slots is not None
+                    else "b7m" if plan.plane_active else "b7")
+            extra = (plane_sparse_read(chunk, b) if plan.plane_sparse
+                     else None)
+            return (kind, wire), inv_prec, boxes, extra
         log.warning("wire fallback: batch %d exceeds the b7 format (escape "
                     "demand or value range changed mid-run); shipping int16",
                     b)
-        return decode_i16(chunk, np.zeros((batch_size, n_out, 3), np.int16))
+        return decode_i16(chunk, np.zeros((batch_size, n_out, 3), np.int16),
+                          b)
 
     def decode_batch(b):
         slots.acquire()
@@ -127,9 +236,9 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
             if plan.wire == "b7":
                 out = decode_b7(b, chunk, buf)
             elif plan.wire == "i16":
-                out = decode_i16(chunk, buf)
+                out = decode_i16(chunk, buf, b)
             else:
-                out = decode_f32(chunk, buf)
+                out = decode_f32(chunk, buf, b)
             return out + (len(chunk),)
         finally:
             timers.add("decode", time.perf_counter() - t0)
@@ -145,7 +254,7 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
             executor.submit(decode_batch, b) for b in range(n_batches))
         for b in range(n_batches):
             with timers.phase("wait"):
-                (kind, arrays), inv_prec, boxes, n_valid = \
+                (kind, arrays), inv_prec, boxes, extra, n_valid = \
                     futures.popleft().result()
             if analysis.handle_pbc:
                 check_box_batch(boxes[:n_valid])
@@ -164,12 +273,32 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
                 mask_dev = _to_device(mask, device)
                 scale_dev = (_to_device(scale, device)
                              if scale is not None else None)
+                sparse = None
+                if extra is not None:
+                    rows, coords, sc = extra
+                    sparse = (rows, _to_device(coords, device),
+                              _to_device(sc, device) if sc is not None
+                              else None)
             # the device holds copies now: the decoder may reuse the slot
             slots.release()
+            classes = None
+            if host_classes:
+                with timers.phase("classify"):
+                    classes = _host_classes(
+                        leaflets, kind, wire, scale_dev, box_dev, sparse,
+                        b * batch_size, n_valid, batch_size, n_molecules,
+                        device)
             with timers.phase("dispatch"):
-                out = BY_KIND[kind](step, wire, scale_dev, box_dev,
-                                    normal_dev, mask_dev)
-            outputs.append((out, n_valid))
+                out, used = BY_KIND[kind](step, wire, scale_dev, box_dev,
+                                          normal_dev, mask_dev, classifiers,
+                                          classes)
+            if used is not None and not host_classes and b == 0:
+                leaflets.log_first_stats(used[0].cpu().numpy())
+            if on_batch is not None:
+                on_batch(DeviceBatch(b, kind, wire, scale_dev, box_dev,
+                                     normal_dev, mask_dev, used, step))
+            outputs.append((out, n_valid,
+                            used if collect and not host_classes else None))
             if progress is not None:
                 progress.update(min((b + 1) * batch_size,
                                     len(frame_indices)))
@@ -182,7 +311,34 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
             progress.finish()
 
     with timers.phase("drain"):
-        for out, n_valid in outputs:
-            accum.add_batch({"total": out[:n_valid].cpu().numpy()}, n_valid)
+        for out, n_valid, used in outputs:
+            accum.add_step(out[:n_valid].cpu().numpy(), n_valid)
+            if used is not None:
+                # the classes this batch's step consumed, in frame order
+                leaflets.collect_frames.extend(
+                    used[:n_valid].cpu().numpy().astype(np.int32))
     log.info("analyzed %d frames", accum.n_frames)
     return accum, traj, frame_indices
+
+
+def _host_classes(leaflets, kind, wire, scale, box, sparse, start: int,
+                  n_valid: int, batch_size: int, n_molecules: int, device):
+    """The batch's (B, M) int32 host classes on `device`: manual table rows,
+    or frequency-gated classification of its assignment frames (the sparse
+    read of a b7m batch, or the full coordinates of a coordinate-wire
+    batch), carried between them. Padding rows are 0 and masked."""
+    analyzed = np.arange(start, start + n_valid, dtype=np.int64)
+    coords = rows = None
+    if kind == "b7m":
+        if sparse is not None:
+            rows, q, sc = sparse
+            coords = (q.to(torch.float32) * sc[:, None, None]
+                      if sc is not None else q)
+    elif leaflets.manual_table is None:
+        coords = wire[0]
+        if kind.startswith("i16"):
+            coords = coords.to(torch.float32) * scale[:, None, None]
+    classes = leaflets.classes_for_batch(coords, box, analyzed, rows=rows)
+    full = np.zeros((batch_size, n_molecules), np.int32)
+    full[:n_valid] = classes
+    return torch.from_numpy(full).to(device)

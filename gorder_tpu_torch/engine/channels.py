@@ -1,24 +1,39 @@
-"""Wire planning for the main path (port of the pure bond-order and UA
-cases of `gorder_tpu/engine/channels.py:62`): b7 when the trajectory fits
-the bond-vector wire, else int16 XTC integers, else f32 positions. UA runs
-(`bond_slots=None`) consume positions and never take b7
-(gorder_tpu/engine/channels.py:77-79).
+"""Wire planning: which wire a run rides and which decoder side channels
+feed its leaflet classification (port of `gorder_tpu/engine/channels.py`
+for the b7, int16 and f32 wires).
 
-Every wire gives the same bond vectors up to the f32 wire's pair
-difference (XTC input never takes it), so the choice changes speed, not
-results. The link-rate probe and the s6/d8/i12 wires of the JAX package
-are not ported.
+The wire: b7 when the run's bond slots are eligible and the trajectory
+fits the bond-vector wire, else int16 XTC integers, else f32 positions.
+Bond slots are eligible when nothing but the order step needs absolute
+positions, or when a decoder side channel gives the leaflet classifier
+what it reads:
+
+- no leaflets                                            -> b7
+- every-frame global leaflets: heads + the decoder's
+  membrane center (COG) along the normal                 -> b7g
+- manual tables or frequency-gated classification: a host
+  (B, M) class plane, with sparse reads of the
+  assignment frames' coordinates                         -> b7m
+- every-frame individual leaflets: the exact integer
+  positions of the heads and methyls                     -> b7x
+
+Other runs (local leaflets, UA runs) ride int16 or f32. Every-frame global
+leaflets with PBC on XTC input classify against the decoder's COG on every
+wire (the `*g` coordinate kinds), so the printed output is the same
+whichever wire a batch rides. The JAX package picks among more wires by
+the measured link rate; that pick and the s6/d8/i12 wires are not ported.
 """
 
 from __future__ import annotations
 
 import logging
 from dataclasses import dataclass
+from typing import Callable, Optional
 
 import numpy as np
 
-from .._ref.engine.wire import _probe_b7
-from .._ref.io.native import b7_stride
+from ..io.native import b7_stride
+from .wire import _probe_b7
 
 log = logging.getLogger("gorder")
 
@@ -29,29 +44,114 @@ class WirePlan:
     esc_cap: int         # b7 escape capacity per frame (0 otherwise)
     n_bonds: int
     wire_bytes: int      # bytes per frame on the wire
+    # decoder-COG channel class: (classify(coords, cog, box), (membrane
+    # slots, axis)) for coordinate wires, and on b7 (b7g) the channel
+    # classifier(heads, cog, box) with its head slots
+    chan_coords: Optional[tuple] = None
+    channel_classify: Optional[Callable] = None
+    ch_membrane: Optional[np.ndarray] = None
+    ch_heads: Optional[np.ndarray] = None
+    ch_axis: int = 2
+    # host class plane (b7m)
+    plane_active: bool = False
+    plane_sparse: bool = False
+    assign_cap: int = 0
+    # aux atom side channel (b7x): the slots and their classifier
+    aux_wire_slots: Optional[np.ndarray] = None
+    aux_classify: Optional[Callable] = None
 
 
-def plan_wire(*, traj, frame_indices, space, bond_slots=None,
+def _aux_channel(leaflets, n_out: int):
+    """(aux slots, classifier over them) when every-frame classification
+    needs only a small atom set (individual leaflets), else None."""
+    classify = leaflets.fused_classify()
+    atoms = getattr(leaflets.classify, "aux_atoms", None)
+    if classify is None or atoms is None:
+        return None
+    lut = np.full(n_out, -1, np.int64)
+    lut[atoms] = np.arange(len(atoms))
+
+    def pos_of(idx):
+        out = lut[np.asarray(idx, np.int64)]
+        if (out < 0).any():  # pragma: no cover - internal invariant
+            raise AssertionError("internal error: an aux consumer index "
+                                 "lies outside the aux atom set")
+        return out
+
+    aux = leaflets.classify.rebuild(pos_of)
+    if leaflets.flip:
+        def aux_classify(coords, box):
+            return 1 - aux(coords, box)
+    else:
+        aux_classify = aux
+    return atoms.astype(np.int32), aux_classify
+
+
+def plan_wire(*, traj, frame_indices, space, bond_slots=None, leaflets=None,
+              n_molecules: int = 0, handle_pbc: bool = True,
               n_threads: int, batch_size: int) -> WirePlan:
+    """Decide the run's channel class and wire, and size the per-frame
+    payload. `bond_slots` (atom_a, atom_b) are the order step's bonds in
+    the decoded atom space; UA runs pass None and never ride b7."""
+    n_out = space.n_out
+    chan_coords = leaf_channels = aux = None
+    plane_mode = False
+    if leaflets is not None:
+        if handle_pbc and traj._all_xtc(frame_indices):
+            chan_coords = leaflets.channel_coords_info()
+        if bond_slots is not None:
+            if chan_coords is not None:
+                leaf_channels = leaflets.fused_channel()
+            plane_mode = leaf_channels is None and leaflets.plane_eligible()
+            if leaf_channels is None and not plane_mode:
+                aux = _aux_channel(leaflets, n_out)
+    b7_ok = bond_slots is not None and (
+        leaflets is None or leaf_channels is not None or plane_mode
+        or aux is not None)
+
     n_bonds = len(bond_slots[0]) if bond_slots is not None else 0
     esc_cap = None
-    if bond_slots is not None:
+    if b7_ok:
         esc_cap = _probe_b7(traj, frame_indices, space, bond_slots[0],
                             bond_slots[1], n_threads, batch_size)
     if esc_cap is not None:
-        plan = WirePlan("b7", esc_cap, n_bonds,
-                        b7_stride(n_bonds) + esc_cap * 4)
-        log.info("wire format: b7 — %d bond vectors (of %d selected atoms), "
-                 "%.1f KB/frame", n_bonds, space.n_sel,
+        plan = WirePlan("b7", esc_cap, n_bonds, 0, chan_coords=chan_coords)
+        extra = ""
+        if leaf_channels is not None:
+            plan.channel_classify, (plan.ch_membrane, plan.ch_heads,
+                                    plan.ch_axis) = leaf_channels
+            plan.wire_bytes += len(plan.ch_heads) * 12 + 4
+            extra = f" + {len(plan.ch_heads)}-head leaflet channel"
+        elif plane_mode:
+            plan.plane_active = True
+            plan.plane_sparse = leaflets.manual_table is None
+            if plan.plane_sparse:
+                freq = leaflets.frequency
+                plan.assign_cap = 1 if freq.kind == "once" \
+                    else batch_size // max(freq.n, 1) + 2
+            plan.wire_bytes += n_molecules * 4 \
+                + plan.assign_cap * n_out * 6 // max(batch_size, 1)
+            extra = " + host leaflet-class plane"
+        elif aux is not None:
+            plan.aux_wire_slots, plan.aux_classify = aux
+            plan.wire_bytes += len(plan.aux_wire_slots) * 12
+            extra = f" + {len(plan.aux_wire_slots)}-atom aux channel"
+        plan.wire_bytes += b7_stride(n_bonds) + esc_cap * 4
+        log.info("wire format: b7 — %d bond vectors (of %d selected atoms)"
+                 "%s, %.1f KB/frame", n_bonds, space.n_sel, extra,
                  plan.wire_bytes / 1024)
         return plan
     n = len(frame_indices)
     probe = frame_indices[np.unique([0, n // 2, n - 1])]
     if traj.read_frames_quantized(probe, space,
                                   n_threads=n_threads) is not None:
-        plan = WirePlan("i16", 0, n_bonds, space.n_out * 6)
+        plan = WirePlan("i16", 0, n_bonds, n_out * 6, chan_coords=chan_coords)
     else:
-        plan = WirePlan("f32", 0, n_bonds, space.n_out * 12)
-    log.info("wire format: %s — %d atoms, %.1f KB/frame", plan.wire,
-             space.n_sel, plan.wire_bytes / 1024)
+        plan = WirePlan("f32", 0, n_bonds, n_out * 12,
+                        chan_coords=chan_coords)
+    if chan_coords is not None:
+        plan.wire_bytes += 4
+    log.info("wire format: %s — %d atoms%s, %.1f KB/frame", plan.wire,
+             space.n_sel, " + decoder membrane-COG channel"
+             if chan_coords is not None else "", plan.wire_bytes / 1024)
     return plan

@@ -11,9 +11,9 @@ from typing import Dict, List
 
 import numpy as np
 
-from .._ref.core.timewise import estimate_error, prefix_average
-from .._ref.errors import ErrorEstimationError
-from .._ref.results.model import (
+from ..core.timewise import estimate_error, prefix_average
+from ..errors import ErrorEstimationError
+from ..results.model import (
     AnalysisResults,
     AtomDesc,
     AtomResults,

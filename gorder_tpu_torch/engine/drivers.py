@@ -1,8 +1,8 @@
-"""The per-mode drivers (port of `gorder_tpu/engine/drivers.py:38-207` for
-the main path): AA, CG and UA order parameters with a static membrane
-normal, no leaflets, ordermaps or geometry. Any other configuration raises
-`AnalysisError` naming what is not ported yet; nothing falls back to the
-JAX package.
+"""The per-mode drivers (port of `gorder_tpu/engine/drivers.py:38-207`):
+AA, CG and UA order parameters with a static membrane normal, overall and
+per leaflet (global, local, individual and manual assignment), with no
+ordermaps or geometry. Any other configuration raises `AnalysisError`
+naming what is not ported yet; nothing falls back to the JAX package.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ import logging
 import numpy as np
 import torch
 
-from .._ref.engine.prepare import (
+from ..engine.prepare import (
     _AXIS_INDEX,
     _build_atom_space,
     _empty_results,
@@ -20,12 +20,13 @@ from .._ref.engine.prepare import (
     _prepare_ua_kinds,
     load_structure,
 )
-from .._ref.errors import AnalysisError
-from .._ref.utils.timers import timers
+from ..errors import AnalysisError
+from ..utils.timers import timers
 from ..core.order import make_order_step
 from ..core.ua import make_ua_step
 from .batches import DEFAULT_BATCH_SIZE, run_batches
 from .convert import convert_results, convert_results_ua
+from .leaflet_runtime import CLUSTERING_METHODS, build_leaflet_runtime
 
 log = logging.getLogger("gorder")
 
@@ -33,8 +34,10 @@ log = logging.getLogger("gorder")
 def _not_ported(analysis) -> list:
     """What this configuration needs that the port does not have yet."""
     missing = []
-    if analysis.leaflets is not None:
-        missing.append("leaflet classification")
+    if analysis.leaflets is not None \
+            and analysis.leaflets.kind in CLUSTERING_METHODS:
+        missing.append("leaflet classification by "
+                       + CLUSTERING_METHODS[analysis.leaflets.kind])
     if analysis.membrane_normal.kind != "static":
         missing.append("dynamic or manual membrane normals")
     if analysis.map is not None:
@@ -44,21 +47,22 @@ def _not_ported(analysis) -> list:
     return missing
 
 
-def run_analysis(analysis, device, batch_size: int = DEFAULT_BATCH_SIZE):
-    """Run `analysis` on `device` → AnalysisResults."""
+def run_analysis(analysis, device, batch_size: int = DEFAULT_BATCH_SIZE,
+                 on_batch=None):
+    """Run `analysis` on `device` → AnalysisResults. `on_batch` receives
+    each batch's `batches.DeviceBatch` (see `run_batches`)."""
     missing = _not_ported(analysis)
     if missing:
         raise AnalysisError(
-            "not yet ported to gorder_tpu_torch: " + ", ".join(missing)
-            + " (partial/merge runs are not ported either)")
+            "not yet ported to gorder_tpu_torch: " + ", ".join(missing))
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise AnalysisError("device 'cuda' requested but no CUDA device is "
                             "available")
     if analysis.analysis_type.kind in ("aa", "cg"):
-        results = _run_bond_based(analysis, device, batch_size)
+        results = _run_bond_based(analysis, device, batch_size, on_batch)
     else:
-        results = _run_ua(analysis, device, batch_size)
+        results = _run_ua(analysis, device, batch_size, on_batch)
     log.info("phase times: %s", timers.summary())
     return results
 
@@ -69,7 +73,35 @@ def _static_normal(analysis) -> np.ndarray:
     return normal_vec
 
 
-def _run_bond_based(analysis, device, batch_size: int):
+def _leaflets(system, analysis, kinds, n_molecules, remap, device):
+    return build_leaflet_runtime(
+        system, analysis, kinds, n_molecules,
+        _AXIS_INDEX[analysis.membrane_normal.axis], remap, device=device)
+
+
+def _attach_leaflet_data(results, analysis, kinds, leaflets) -> None:
+    """The collected classes of an export run (gorder_tpu/engine/
+    drivers.py:131-148): one row per assignment frame, 0 = upper."""
+    if leaflets is None or leaflets.collect_frames is None:
+        return
+    bounds = []
+    offset = 0
+    for kind in kinds:
+        bounds.append((kind.name, offset, offset + kind.n_molecules))
+        offset += kind.n_molecules
+    frames = leaflets.collect_frames
+    if leaflets.manual_table is not None and not frames:
+        frames = list(leaflets.manual_table)
+    results.leaflets_data = {
+        "frames": frames,
+        "kinds": bounds,
+        "step": analysis.step,
+        "frequency_n": (leaflets.frequency.n
+                        if leaflets.frequency.kind == "every" else 1),
+    }
+
+
+def _run_bond_based(analysis, device, batch_size: int, on_batch):
     with timers.phase("structure"):
         system = load_structure(analysis)
     with timers.phase("topology"):
@@ -81,20 +113,26 @@ def _run_bond_based(analysis, device, batch_size: int):
     normal_vec = _static_normal(analysis)
 
     atom_a, atom_b = remap(compiled.atom_a), remap(compiled.atom_b)
+    leaflets = _leaflets(system, analysis, kinds, compiled.n_molecules,
+                         remap, device)
     step = make_order_step(atom_a, atom_b, compiled.bond_type,
                            compiled.molecule, compiled.n_types,
                            compiled.n_molecules,
-                           handle_pbc=analysis.handle_pbc, device=device)
+                           handle_pbc=analysis.handle_pbc, device=device,
+                           with_leaflets=leaflets is not None)
     with timers.phase("trajectory"):
         accum, traj, frame_indices = run_batches(
             analysis, system, step, normal_vec, compiled.n_types, space,
-            (atom_a, atom_b), device=device, batch_size=batch_size)
+            (atom_a, atom_b), leaflets, compiled.n_molecules, device=device,
+            batch_size=batch_size, on_batch=on_batch)
     with timers.phase("convert"):
-        return convert_results(analysis, system, kinds, compiled, accum,
-                               traj, frame_indices)
+        results = convert_results(analysis, system, kinds, compiled, accum,
+                                  traj, frame_indices)
+    _attach_leaflet_data(results, analysis, kinds, leaflets)
+    return results
 
 
-def _run_ua(analysis, device, batch_size: int):
+def _run_ua(analysis, device, batch_size: int, on_batch):
     with timers.phase("structure"):
         system = load_structure(analysis)
     kinds, compiled = _prepare_ua_kinds(system, analysis)
@@ -110,14 +148,18 @@ def _run_ua(analysis, device, batch_size: int):
     categories = {
         cat: {k: (remap(v) if k in atom_keys else v) for k, v in d.items()}
         for cat, d in compiled.categories.items()}
+    leaflets = _leaflets(system, analysis, kinds, compiled.n_molecules,
+                         remap, device)
     step = make_ua_step(categories, compiled.bond_type, compiled.bond_mol,
                         compiled.n_types, handle_pbc=analysis.handle_pbc,
-                        device=device)
+                        device=device, with_leaflets=leaflets is not None)
     with timers.phase("trajectory"):
         accum, traj, frame_indices = run_batches(
             analysis, system, step, _static_normal(analysis),
-            compiled.n_types, space, None, device=device,
-            batch_size=batch_size)
+            compiled.n_types, space, None, leaflets, compiled.n_molecules,
+            device=device, batch_size=batch_size, on_batch=on_batch)
     with timers.phase("convert"):
-        return convert_results_ua(analysis, system, kinds, compiled, accum,
-                                  traj, frame_indices)
+        results = convert_results_ua(analysis, system, kinds, compiled,
+                                     accum, traj, frame_indices)
+    _attach_leaflet_data(results, analysis, kinds, leaflets)
+    return results

@@ -1,7 +1,8 @@
-"""Device-side wire decoders on tensors (port of the main-path subset of
-`gorder_tpu/engine/wire.py:89-133`): the b7 bond-vector wire and the
-int16 dequantization. In the JAX package these are XLA code, not Pallas,
-so here they are plain PyTorch ops on whatever device the payload lies on.
+"""The b7 wire: its host-side probe and its device-side decoders on
+tensors (port of `gorder_tpu/engine/wire.py:89-133` and `_probe_b7`), and
+the int16 dequantization. In the JAX package the decoders are XLA code,
+not Pallas, so here they are plain PyTorch ops on whatever device the
+payload lies on.
 
 The bit arithmetic runs in int32: every intermediate below fits, and
 PyTorch's unsigned types lack most operations.
@@ -9,7 +10,33 @@ PyTorch's unsigned types lack most operations.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from ..io.native import b7_stride
+
+
+def _probe_b7(traj, frame_indices, space, bond_a, bond_b, n_threads,
+              batch_size):
+    """Probe the b7 bond-difference wire format over one batch-sized
+    window. Returns a sized esc_cap or None when unfit."""
+    n = len(frame_indices)
+    w = frame_indices[:min(batch_size, n)]
+    esc_cap = 512
+    for _attempt in range(2):
+        pack = np.zeros((len(w), b7_stride(len(bond_a))), np.uint8)
+        gaps = np.zeros((len(w), esc_cap), np.uint16)
+        vals = np.zeros((len(w), esc_cap), np.int16)
+        res, nesc = traj.read_frames_b7(w, space, bond_a, bond_b,
+                                        pack, gaps, vals,
+                                        n_threads=n_threads)
+        if res is not None:
+            cap = int(nesc * 1.4) + 64
+            return max(128, min(8192, (cap + 127) // 128 * 128))
+        if nesc <= esc_cap or nesc > 8192:
+            return None  # unfit for reasons other than capacity
+        esc_cap = min(8192, ((int(nesc * 2) + 127) // 128) * 128)
+    return None
 
 
 def b7_residuals(pk: torch.Tensor, gp: torch.Tensor, vl: torch.Tensor,

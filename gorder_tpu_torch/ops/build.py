@@ -46,13 +46,17 @@ class Trig(ctypes.Structure):
 
 _vp = ctypes.c_void_p
 _int = ctypes.c_int
-_UA = [_int] + [_vp] * 7 + [_vp, _vp, Trig, _vp, _vp] + [_int] * 5 + [_vp]
+# category, x, [scale,] target, h1, h2, h3, mol, bond_type, box, normal,
+# trig, mask, classes, out, n_frames, n_atoms, n_cat, n_types, pbc,
+# n_molecules, stream
+_UA = [_int] + [_vp] * 8 + [_vp, _vp, Trig, _vp, _vp, _vp] + [_int] * 6 \
+    + [_vp]
+# every P2 entry point ends: classes, bond_mol, out, its ints, n_molecules,
+# stream
 _SIGNATURES = {
-    "p2_resid": [_vp] * 8 + [_int] * 4 + [_vp],
-    "p2_positions_i16": [_vp] * 9 + [_int] * 5 + [_vp],
-    "p2_positions_f32": [_vp] * 8 + [_int] * 5 + [_vp],
-    # category, x, [scale,] target, h1, h2, h3, bond_type, box, normal,
-    # trig, mask, out, ints, stream
+    "p2_resid": [_vp] * 10 + [_int] * 5 + [_vp],
+    "p2_positions_i16": [_vp] * 11 + [_int] * 6 + [_vp],
+    "p2_positions_f32": [_vp] * 10 + [_int] * 6 + [_vp],
     "ua_positions_i16": _UA,
     "ua_positions_f32": _UA[:2] + _UA[3:],
 }
@@ -137,6 +141,24 @@ def frame_args(box_diag, normal, frame_mask, bond_type, n_frames, n_samples,
     check_tensor("frame_mask", frame_mask, torch.uint8, (n_frames,), device)
     check_tensor("bond_type", bond_type, torch.int32, (n_samples,), device)
     return frame_mask
+
+
+def leaflet_args(classes, bond_mol, n_frames, n_samples, device):
+    """Check the `with_leaflets` arguments: classes (B, M) int32 and the
+    (n_samples,) int32 molecule of each sample, or both None. Returns
+    (classes, bond_mol, M); M is 0 without classes."""
+    if classes is None and bond_mol is None:
+        return None, None, 0
+    if classes is None or bond_mol is None:
+        raise ValueError("leaflet classes need bond_mol, and bond_mol needs "
+                         "classes")
+    if classes.dim() != 2:
+        raise ValueError(f"classes has shape {tuple(classes.shape)}, "
+                         f"expected (n_frames, n_molecules)")
+    check_tensor("classes", classes, torch.int32,
+                 (n_frames, classes.shape[1]), device)
+    check_tensor("bond_mol", bond_mol, torch.int32, (n_samples,), device)
+    return classes, bond_mol, int(classes.shape[1])
 
 
 def call(fn_name: str, *args) -> None:

@@ -2,8 +2,10 @@
 `gorder_tpu/ops/pallas_p2.py`).
 
 `p2_resid` (b7 wire) and `p2_positions` (i16 or f32 wire) return the
-(B, 2, T) int64 per-frame, per-type [sum, count] of the quantized samples.
-For tensors on the CPU they run the plain version
+(B, 2, T) int64 per-frame, per-type [sum, count] of the quantized samples;
+with leaflet `classes` (B, M) int32 and each bond's molecule `bond_mol`
+(N,) int32 (the `with_leaflets` variant), (B, 3, 2, T): total, upper and
+lower. For tensors on the CPU they run the plain version
 (`gorder_tpu_torch/core/order.py`); for CUDA tensors they launch the
 hand-written kernel (`csrc/p2.cu`) on the current stream, or raise. There
 is no fallback from the kernel to the plain version.
@@ -14,50 +16,72 @@ from __future__ import annotations
 import torch
 
 from ..core.order import order_step
-from .build import call, check_tensor, device_of, frame_args
+from .build import call, check_tensor, device_of, frame_args, leaflet_args
 
-#: launches of the P2 kernel (either entry point) since the last reset;
-#: the plain version does not count
+#: launches of the P2 kernel since the last reset: the plain variant, for
+#: any input, and the with_leaflets variant (classes given), by input;
+#: the plain version counts in none
 p2_launches = 0
+p2_leaflets_launches = 0            # b7 residuals
+p2_i16_leaflets_launches = 0
+p2_f32_leaflets_launches = 0
+
+_LEAFLETS_COUNT = {"p2_resid": "p2_leaflets_launches",
+                   "p2_positions_i16": "p2_i16_leaflets_launches",
+                   "p2_positions_f32": "p2_f32_leaflets_launches"}
 
 
 def p2_resid_plain(r, base, inv_scale, box_diag, normal, frame_mask,
-                   bond_type, n_types: int, *, handle_pbc: bool):
+                   bond_type, n_types: int, *, handle_pbc: bool,
+                   classes=None, bond_mol=None):
     return order_step(r, box_diag, normal, frame_mask, None, None,
                       bond_type, n_types, inv_scale, base,
-                      handle_pbc=handle_pbc)
+                      handle_pbc=handle_pbc, classes=classes,
+                      bond_mol=bond_mol)
 
 
 def p2_positions_plain(coords, atom_a, atom_b, inv_scale, box_diag, normal,
                        frame_mask, bond_type, n_types: int, *,
-                       handle_pbc: bool):
+                       handle_pbc: bool, classes=None, bond_mol=None):
     return order_step(coords, box_diag, normal, frame_mask, atom_a, atom_b,
-                      bond_type, n_types, inv_scale, handle_pbc=handle_pbc)
+                      bond_type, n_types, inv_scale, handle_pbc=handle_pbc,
+                      classes=classes, bond_mol=bond_mol)
 
 
 def _launch(fn_name, n_frames, n_types, device, args_before_out,
-            ints_after_out):
+            ints_after_out, leaflets):
+    """One launch into a zeroed output; `leaflets` is the
+    (classes, bond_mol, n_molecules) triple of `build.leaflet_args`."""
     global p2_launches
-    out = torch.zeros((n_frames, 2, n_types), dtype=torch.int64,
-                      device=device)
+    classes, bond_mol, n_molecules = leaflets
+    shape = ((n_frames, 3, 2, n_types) if classes is not None
+             else (n_frames, 2, n_types))
+    out = torch.zeros(shape, dtype=torch.int64, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        call(fn_name, *args_before_out, out.data_ptr(), *ints_after_out,
-             stream)
-    p2_launches += 1
+        call(fn_name, *args_before_out,
+             classes.data_ptr() if classes is not None else None,
+             bond_mol.data_ptr() if classes is not None else None,
+             out.data_ptr(), *ints_after_out, n_molecules, stream)
+    if classes is not None:
+        globals()[_LEAFLETS_COUNT[fn_name]] += 1
+    else:
+        p2_launches += 1
     return out
 
 
 def p2_resid(r, base, inv_scale, box_diag, normal, frame_mask, bond_type,
-             n_types: int, *, handle_pbc: bool):
+             n_types: int, *, handle_pbc: bool, classes=None, bond_mol=None):
     """b7 wire: r (B, 3N) int16 residuals, base (3N,) int32, inv_scale (B,)
     f32, box_diag (B, 3) f32, normal (3,) f32, frame_mask (B,) bool/uint8,
-    bond_type (N,) int32 → (B, 2, T) int64."""
+    bond_type (N,) int32 → (B, 2, T) int64; with classes (B, M) int32 and
+    bond_mol (N,) int32 → (B, 3, 2, T)."""
     device = device_of(r)
     if device.type == "cpu":
         return p2_resid_plain(r, base, inv_scale, box_diag, normal,
                               frame_mask, bond_type, n_types,
-                              handle_pbc=handle_pbc)
+                              handle_pbc=handle_pbc, classes=classes,
+                              bond_mol=bond_mol)
     n_frames, n_values = r.shape
     n_bonds = n_values // 3
     check_tensor("r", r, torch.int16, (n_frames, 3 * n_bonds), device)
@@ -65,25 +89,28 @@ def p2_resid(r, base, inv_scale, box_diag, normal, frame_mask, bond_type,
     check_tensor("inv_scale", inv_scale, torch.float32, (n_frames,),
                  device)
     frame_mask = frame_args(box_diag, normal, frame_mask, bond_type,
-                             n_frames, n_bonds, device)
+                            n_frames, n_bonds, device)
     return _launch(
         "p2_resid", n_frames, n_types, device,
         (r.data_ptr(), base.data_ptr(), inv_scale.data_ptr(),
          box_diag.data_ptr(), normal.data_ptr(), frame_mask.data_ptr(),
          bond_type.data_ptr()),
-        (n_frames, n_bonds, n_types, int(handle_pbc)))
+        (n_frames, n_bonds, n_types, int(handle_pbc)),
+        leaflet_args(classes, bond_mol, n_frames, n_bonds, device))
 
 
 def p2_positions(coords, atom_a, atom_b, inv_scale, box_diag, normal,
-                 frame_mask, bond_type, n_types: int, *, handle_pbc: bool):
+                 frame_mask, bond_type, n_types: int, *, handle_pbc: bool,
+                 classes=None, bond_mol=None):
     """i16 wire: coords (B, A, 3) int16 with inv_scale (B,) f32; f32 wire:
     coords (B, A, 3) f32 with inv_scale None. atom_a/atom_b (N,) int32;
-    the rest as for p2_resid → (B, 2, T) int64."""
+    the rest as for p2_resid → (B, 2, T) or (B, 3, 2, T) int64."""
     device = device_of(coords)
     if device.type == "cpu":
         return p2_positions_plain(coords, atom_a, atom_b, inv_scale,
                                   box_diag, normal, frame_mask, bond_type,
-                                  n_types, handle_pbc=handle_pbc)
+                                  n_types, handle_pbc=handle_pbc,
+                                  classes=classes, bond_mol=bond_mol)
     n_frames, n_atoms = coords.shape[:2]
     n_bonds = atom_a.shape[0]
     dtype = torch.int16 if inv_scale is not None else torch.float32
@@ -91,7 +118,8 @@ def p2_positions(coords, atom_a, atom_b, inv_scale, box_diag, normal,
     check_tensor("atom_a", atom_a, torch.int32, (n_bonds,), device)
     check_tensor("atom_b", atom_b, torch.int32, (n_bonds,), device)
     frame_mask = frame_args(box_diag, normal, frame_mask, bond_type,
-                             n_frames, n_bonds, device)
+                            n_frames, n_bonds, device)
+    leaflets = leaflet_args(classes, bond_mol, n_frames, n_bonds, device)
     common = (box_diag.data_ptr(), normal.data_ptr(), frame_mask.data_ptr(),
               bond_type.data_ptr())
     ints = (n_frames, n_atoms, n_bonds, n_types, int(handle_pbc))
@@ -101,7 +129,7 @@ def p2_positions(coords, atom_a, atom_b, inv_scale, box_diag, normal,
         return _launch("p2_positions_i16", n_frames, n_types, device,
                        (coords.data_ptr(), atom_a.data_ptr(),
                         atom_b.data_ptr(), inv_scale.data_ptr(), *common),
-                       ints)
+                       ints, leaflets)
     return _launch("p2_positions_f32", n_frames, n_types, device,
                    (coords.data_ptr(), atom_a.data_ptr(), atom_b.data_ptr(),
-                    *common), ints)
+                    *common), ints, leaflets)

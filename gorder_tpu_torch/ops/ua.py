@@ -2,7 +2,9 @@
 `gorder_tpu/ops/pallas_ua.py`).
 
 `ua_positions` returns the (B, 2, T) int64 per-frame, per-type [sum, count]
-of the quantized virtual C–H samples. For tensors on the CPU it runs the
+of the quantized virtual C–H samples; with leaflet `classes` (the
+`with_leaflets` variant), (B, 3, 2, T): total, upper and lower. For
+tensors on the CPU it runs the
 plain version (`gorder_tpu_torch/core/ua.py ua_step`); for CUDA tensors it
 zeroes the output once and makes one launch of the hand-written kernel
 (`csrc/ua.cu`) per category present, each adding into it, on the current
@@ -15,36 +17,46 @@ from __future__ import annotations
 import torch
 
 from ..core.ua import N_HYDROGENS, TRIG, ua_step
-from .build import Trig, call, check_tensor, device_of, frame_args
+from .build import (Trig, call, check_tensor, device_of, frame_args,
+                    leaflet_args)
 
 #: launches of the UA kernel (one per category and batch) since the last
-#: reset; the plain version does not count
+#: reset: the plain variant, and the with_leaflets variant (classes
+#: given); the plain version counts in neither
 ua_launches = 0
+ua_leaflets_launches = 0
 
 _CATEGORY_ID = {"ch3": 0, "ch2": 1, "ch1u": 2, "ch1s": 3}
 
 
 def ua_positions_plain(coords, inv_scale, box_diag, normal, frame_mask,
                        indices, bond_type, n_types: int, *,
-                       handle_pbc: bool, layout):
+                       handle_pbc: bool, layout, classes=None,
+                       bond_mol=None):
     return ua_step(coords, box_diag, normal, frame_mask, indices, bond_type,
-                   n_types, inv_scale, handle_pbc=handle_pbc, layout=layout)
+                   n_types, inv_scale, handle_pbc=handle_pbc, layout=layout,
+                   classes=classes, bond_mol=bond_mol)
 
 
 def ua_positions(coords, inv_scale, box_diag, normal, frame_mask, indices,
-                 bond_type, n_types: int, *, handle_pbc: bool, layout):
+                 bond_type, n_types: int, *, handle_pbc: bool, layout,
+                 classes=None, bond_mol=None):
     """int16 input: coords (B, A, 3) int16 with inv_scale (B,) f32; f32
     input: coords (B, A, 3) f32 with inv_scale None. indices: {category:
-    {"target", "h1", "h2"[, "h3"]: (n,) int32}}; layout: ((category, n),
-    ...) in concatenation order; bond_type (n_samples,) int32, category by
-    category and hydrogen-major; box_diag (B, 3) f32, normal (3,) f32,
-    frame_mask (B,) bool/uint8 → (B, 2, T) int64."""
-    global ua_launches
+    {"target", "h1", "h2"[, "h3"][, "mol"]: (n,) int32}}; layout:
+    ((category, n), ...) in concatenation order; bond_type (n_samples,)
+    int32, category by category and hydrogen-major; box_diag (B, 3) f32,
+    normal (3,) f32, frame_mask (B,) bool/uint8 → (B, 2, T) int64. With
+    classes (B, M) int32 and the per-sample molecules bond_mol
+    (n_samples,) int32 → (B, 3, 2, T); the plain version reads bond_mol,
+    the kernel each category's per-carbon "mol" (the same molecules)."""
+    global ua_launches, ua_leaflets_launches
     device = device_of(coords)
     if device.type == "cpu":
         return ua_positions_plain(coords, inv_scale, box_diag, normal,
                                   frame_mask, indices, bond_type, n_types,
-                                  handle_pbc=handle_pbc, layout=layout)
+                                  handle_pbc=handle_pbc, layout=layout,
+                                  classes=classes, bond_mol=bond_mol)
     n_frames, n_atoms = coords.shape[:2]
     n_samples = sum(n * N_HYDROGENS[cat] for cat, n in layout)
     dtype = torch.int16 if inv_scale is not None else torch.float32
@@ -54,17 +66,25 @@ def ua_positions(coords, inv_scale, box_diag, normal, frame_mask, indices,
                      device)
     frame_mask = frame_args(box_diag, normal, frame_mask, bond_type,
                             n_frames, n_samples, device)
+    classes, _, n_molecules = leaflet_args(classes, bond_mol, n_frames,
+                                           n_samples, device)
     for cat, n in layout:
         for key, ix in indices[cat].items():
             check_tensor(f"{cat} {key}", ix, torch.int32, (n,), device)
         if cat == "ch1s" and "h3" not in indices[cat]:
             raise ValueError("ch1s needs its third helper, h3")
+        if classes is not None and "mol" not in indices[cat]:
+            raise ValueError(f"{cat} needs its per-carbon molecule index, "
+                             f"mol, for leaflet classes")
 
-    out = torch.zeros((n_frames, 2, n_types), dtype=torch.int64,
-                      device=device)
+    shape = ((n_frames, 3, 2, n_types) if classes is not None
+             else (n_frames, 2, n_types))
+    out = torch.zeros(shape, dtype=torch.int64, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     common = (box_diag.data_ptr(), normal.data_ptr(), Trig(*TRIG),
-              frame_mask.data_ptr(), out.data_ptr(), n_frames, n_atoms)
+              frame_mask.data_ptr(),
+              classes.data_ptr() if classes is not None else None,
+              out.data_ptr(), n_frames, n_atoms)
     offset = 0
     for cat, n in layout:
         ix = indices[cat]
@@ -73,8 +93,9 @@ def ua_positions(coords, inv_scale, box_diag, normal, frame_mask, indices,
             atoms = (ix["target"].data_ptr(), ix["h1"].data_ptr(),
                      ix["h2"].data_ptr(),
                      ix["h3"].data_ptr() if cat == "ch1s" else None,
+                     ix["mol"].data_ptr() if classes is not None else None,
                      bond_type[offset:].data_ptr())
-            ints = (n, n_types, int(handle_pbc), stream)
+            ints = (n, n_types, int(handle_pbc), n_molecules, stream)
             with torch.cuda.device(device):
                 if inv_scale is not None:
                     call("ua_positions_i16", _CATEGORY_ID[cat],
@@ -83,6 +104,9 @@ def ua_positions(coords, inv_scale, box_diag, normal, frame_mask, indices,
                 else:
                     call("ua_positions_f32", _CATEGORY_ID[cat],
                          coords.data_ptr(), *atoms, *common, *ints)
-            ua_launches += 1
+            if classes is not None:
+                ua_leaflets_launches += 1
+            else:
+                ua_launches += 1
         offset += n * k
     return out

@@ -1,5 +1,6 @@
-"""The hand-written P2 and UA kernels (gorder_tpu_torch/csrc/p2.cu, ua.cu)
-against their plain PyTorch versions, on the card. These tests need a CUDA device and
+"""The hand-written P2 and UA kernels (gorder_tpu_torch/csrc/p2.cu, ua.cu),
+with and without leaflet classes, against their plain PyTorch versions,
+on the card. These tests need a CUDA device and
 skip without one; on the card run
 
     python -m pytest -m cuda tests/test_torch_kernels.py
@@ -80,6 +81,56 @@ def test_kernel_matches_plain(cuda, kind, shape):
     assert not got[-1].any()            # the masked frame stays zero
 
 
+def _leaflets(seed, n_frames, n_bonds, n_mols, dev):
+    """Classes in {0, 1, 2} (2 is neither leaflet: total only) and a
+    molecule for each bond."""
+    rng = np.random.default_rng(seed)
+    classes = rng.integers(0, 3, (n_frames, n_mols)).astype(np.int32)
+    bond_mol = rng.integers(0, n_mols, n_bonds).astype(np.int32)
+    return (torch.as_tensor(classes, device=dev),
+            torch.as_tensor(bond_mol, device=dev))
+
+
+@pytest.mark.parametrize("kind", ["resid", "i16", "f32"])
+@pytest.mark.parametrize("shape", [
+    (8, 300, 200, 7, 5),       # ragged single tile
+    (64, 5000, 3000, 80, 40),  # several tiles, AA-like type count
+    (4, 700, 400, 1024, 9),    # (3, 2, T) fills the 48 KiB exactly
+    (4, 700, 400, 1025, 9),    # one type more: global atomics
+    (4, 700, 400, 1500, 9),
+])
+def test_leaflet_kernel_matches_plain(cuda, kind, shape):
+    n_frames, n_bonds, n_atoms, n_types, n_mols = shape
+    pb = _problem(sum(shape), n_frames, n_bonds, n_atoms, n_types, cuda)
+    classes, bond_mol = _leaflets(sum(shape), n_frames, n_bonds, n_mols,
+                                  cuda)
+    kernel_fn = p2.p2_resid if kind == "resid" else p2.p2_positions
+    plain_fn = p2.p2_resid_plain if kind == "resid" \
+        else p2.p2_positions_plain
+    c = (pb["box"], pb["normal"], pb["mask"], pb["bond_type"],
+         pb["n_types"])
+    counts = ("p2_launches", "p2_leaflets_launches",
+              "p2_i16_leaflets_launches", "p2_f32_leaflets_launches")
+    before = {name: getattr(p2, name) for name in counts}
+    got = kernel_fn(*pb[kind], *c, handle_pbc=True, classes=classes,
+                    bond_mol=bond_mol)
+    torch.cuda.synchronize()
+    grown = {"resid": "p2_leaflets_launches",
+             "i16": "p2_i16_leaflets_launches",
+             "f32": "p2_f32_leaflets_launches"}[kind]
+    assert {name: getattr(p2, name) - before[name] for name in counts} == {
+        name: int(name == grown) for name in counts}
+    want = plain_fn(*pb[kind], *c, handle_pbc=True, classes=classes,
+                    bond_mol=bond_mol)
+    assert got.dtype == torch.int64 and got.shape == (n_frames, 3, 2,
+                                                      n_types)
+    assert torch.equal(got, want)
+    # total is the plain variant's output; class 2 is in neither leaflet
+    assert torch.equal(got[:, 0], _call(kernel_fn, kind, pb))
+    assert (got[:, 1, 1] + got[:, 2, 1] < got[:, 0, 1]).any()
+    assert not got[-1].any()
+
+
 def test_kernel_rejects_wrong_dtype(cuda):
     pb = _problem(1, 4, 50, 30, 3, cuda)
     r, base, inv = pb["resid"]
@@ -130,6 +181,49 @@ def test_ua_kernel_matches_plain(cuda, kind, handle_pbc, shape):
     assert torch.equal(got, want)
     assert not got[-2:].any()           # the masked frames stay zero
     assert got[:-2, 1].sum() == 11 * shape[1] * (shape[0] - 2)
+
+
+@pytest.mark.parametrize("kind", ["i16", "f32"])
+@pytest.mark.parametrize("shape", [
+    (6, 37, 7),                # ragged single tile per category
+    (64, 900, 68),             # several tiles, the UA cell's type count
+    (4, 60, 1024),             # (3, 2, T) fills the 48 KiB exactly
+    (4, 60, 1025),             # one type more: global atomics
+])
+def test_ua_leaflet_kernel_matches_plain(cuda, kind, shape):
+    from gorder_tpu_torch.core.ua import make_ua_step
+    from gorder_tpu_torch.ops import ua
+
+    import chip_smoke
+
+    n_frames, n_mols, n_types = shape
+    pb = chip_smoke.ua_problem(sum(shape), n_frames, n_mols, n_types)
+    step = make_ua_step(pb["categories"], pb["bond_type"], pb["bond_mol"],
+                        n_types, handle_pbc=True, device=cuda,
+                        with_leaflets=True)
+    coords = {"i16": torch.as_tensor(pb["q16"], device=cuda),
+              "f32": torch.as_tensor(pb["coords"], device=cuda)}[kind]
+    scale = (torch.as_tensor(pb["inv16"], device=cuda) if kind == "i16"
+             else None)
+    box = torch.as_tensor(pb["box"], device=cuda)
+    normal = torch.tensor([0.0, 0.0, 1.0], device=cuda)
+    mask = torch.as_tensor(pb["mask"], device=cuda)
+    classes = torch.as_tensor(pb["classes"], device=cuda)
+    before = ua.ua_leaflets_launches, ua.ua_launches
+    got = step.positions(coords, box, normal, mask, inv_scale=scale,
+                         classes=classes)
+    torch.cuda.synchronize()
+    assert (ua.ua_leaflets_launches, ua.ua_launches) == (before[0] + 4,
+                                                         before[1])
+    want = ua.ua_positions_plain(coords, scale, box, normal, mask,
+                                 step.indices, step.bond_type, n_types,
+                                 handle_pbc=True, layout=step.layout,
+                                 classes=classes, bond_mol=step.bond_mol)
+    assert got.shape == (n_frames, 3, 2, n_types)
+    assert torch.equal(got, want)
+    # classes are 0 or 1 here: upper + lower == total
+    assert torch.equal(got[:, 1] + got[:, 2], got[:, 0])
+    assert not got[-2:].any()
 
 
 def test_ua_kernel_rejects_wrong_dtype(cuda):

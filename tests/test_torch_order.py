@@ -18,7 +18,7 @@ import torch
 from gorder_tpu.core.order import OrderAccumulator as JaxAccumulator
 from gorder_tpu.core.order import make_order_step as jax_make_order_step
 from gorder_tpu.core.order import quantize_split, recombine_limbs
-from gorder_tpu_torch._ref.errors import AnalysisError
+from gorder_tpu_torch.errors import AnalysisError
 from gorder_tpu_torch.core.order import (
     OrderAccumulator,
     from_reference_rows,
@@ -251,7 +251,9 @@ def test_step_routes_cpu_tensors_to_plain():
 
 
 @pytest.mark.parametrize("option", [
-    dict(with_leaflets=True), dict(normal_mode="per_molecule"),
+    # leaflets are ported; leaflets with per-molecule normals are not
+    dict(with_leaflets=True, normal_mode="per_molecule"),
+    dict(normal_mode="per_molecule"),
     dict(map_spec=object()), dict(geom_spec=object())])
 def test_make_order_step_rejects_unported(option):
     with pytest.raises(AnalysisError, match="not yet ported"):

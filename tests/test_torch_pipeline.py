@@ -14,7 +14,7 @@ import chip_smoke
 import gorder_tpu_torch
 from gorder_tpu.input import Analysis as JaxAnalysis
 from gorder_tpu.input import AnalysisType as JaxAnalysisType
-from gorder_tpu_torch._ref.io.traj import Trajectory
+from gorder_tpu_torch.io.traj import Trajectory
 from gorder_tpu_torch.engine import channels
 from gorder_tpu_torch.engine.drivers import run_analysis
 
@@ -167,13 +167,14 @@ def test_aa_mid_run_fallback_matches_jax(aa_files, tmp_path, monkeypatch,
 @pytest.mark.parametrize("option", ["leaflets", "ua_leaflets", "geometry",
                                     "dynamic_normal"])
 def test_unported_option_raises(aa_files, ua_files, tmp_path, option):
-    from gorder_tpu_torch._ref.input.config import (
+    from gorder_tpu_torch.input.config import (
         Geometry, LeafletClassification, MembraneNormal)
 
     kw = {}
     if option in ("leaflets", "ua_leaflets"):
-        kw["leaflets"] = LeafletClassification.global_(
-            "resname POPC", "resname POPC and name P")
+        # the clustering methods wait for a later slice
+        kw["leaflets"] = LeafletClassification.clustering(
+            "resname POPC and name P")
     elif option == "geometry":
         kw["geometry"] = Geometry(kind="cuboid", xdim=(0.0, 5.0))
     elif option == "dynamic_normal":

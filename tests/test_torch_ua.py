@@ -25,7 +25,7 @@ import pytest
 import torch
 
 from gorder_tpu.core import ua as jua
-from gorder_tpu_torch._ref.errors import AnalysisError
+from gorder_tpu_torch.errors import AnalysisError
 from gorder_tpu_torch.core import ua
 from gorder_tpu_torch.core.order import from_reference_rows
 
@@ -222,6 +222,10 @@ def test_make_ua_step_refuses_unported(option):
     _, _, _, cats, btype, bmol, T, _ = _ua_problem(0, B=2, n_mols=2)
     kw = {"with_leaflets": True, "normal_mode": "per_molecule",
           "map_spec": object(), "geom_spec": object()}
+    extra = {}
+    if option == "with_leaflets":
+        # leaflets are ported; leaflets with per-molecule normals are not
+        extra["normal_mode"] = "per_molecule"
     with pytest.raises(AnalysisError, match="not yet ported"):
         ua.make_ua_step(cats, btype, bmol, T, device="cpu",
-                        **{option: kw[option]})
+                        **{option: kw[option]}, **extra)

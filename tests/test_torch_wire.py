@@ -11,8 +11,8 @@ from gorder_tpu.engine.wire import (
     _b7_residuals_impl,
     _dequant_impl,
 )
-from gorder_tpu_torch._ref.io import native
-from gorder_tpu_torch._ref.io.traj import AtomSubset, Trajectory
+from gorder_tpu_torch.io import native
+from gorder_tpu_torch.io.traj import AtomSubset, Trajectory
 from gorder_tpu_torch.engine.wire import b7, b7_residuals, dequant
 
 N_PAIRS = 30

@@ -35,21 +35,40 @@ It imports nothing of JAX or of `gorder_tpu`. Phases, one line each:
    `aa-local-leaflets` (int16 positions, also dequantized as f32 input,
    with the local classes), and the plain variant on the latter: the int64
    outputs must be equal, and b7 and int16 must give the same sums;
-7. synth ua: the UA benchmark membrane of tools/bench_modes.py (256
+7. run aa-dynamic, aa-dynamic-export, aa-manual-z: the AA analysis with
+   dynamic membrane normals on the P heads (tools/bench_modes.py), with
+   and without their export, over the same 10,000 frames, riding b7x and
+   passing their goldens, and with an inline manual map of (0, 0, 1) for
+   every molecule and frame, riding int16 and equal to `aa_10000.yaml`
+   exactly; the per_bond_normal P2 kernel must have been launched once
+   per batch. The exported file must hold 10,000 x 256 finite unit
+   vectors, its first rows those the first batch's step used. Then that
+   kernel against its plain version with the normals each step used, on
+   the first batch of `aa-dynamic` (b7), of `aa-manual-z` (int16 and f32),
+   and of `aa-dynamic` with `aa-leaflets`' classes; and the CUDA-event
+   time of the dynamic normals of a batch;
+8. synth ua: the UA benchmark membrane of tools/bench_modes.py (256
    Berger-like POPC, 44.3k atoms, 3,000 XTC frames, seed 29), synthesized
    byte for byte likewise;
-8. run ua, run ua-palmitoyl: `gorder_tpu_torch.run` over all 3,000 frames
+9. run ua, run ua-palmitoyl: `gorder_tpu_torch.run` over all 3,000 frames
    for both UA analyses of tools/bench_modes.py; each YAML must pass
    `bench.validate_output` against `tools/bench_golden/ua_3000.yaml` and
    `ua-palmitoyl_3000.yaml`, and the UA kernel must have been launched
    once per batch and carbon category. Then the UA kernel against plain
    on the `ua` run's first batch, int16 and f32;
-9. run ua-leaflets: the `ua` analysis with global leaflets; no golden is
+10. run ua-leaflets: the `ua` analysis with global leaflets; no golden is
    pinned for it, so its total order parameters must equal the `ua` run's
    exactly, its upper and lower ones must be finite, and the
    with_leaflets UA kernel must have been launched once per batch and
    category. Then that kernel against plain on the run's first batch
-   (int16 with the decoder's COG), with the classes its step used.
+   (int16 with the decoder's COG), with the classes its step used;
+11. run ua-dynamic: the `ua` analysis with dynamic normals on the P heads,
+   riding int16; no golden is pinned, so its totals must be finite, and
+   the per_bond_normal UA kernel must have been launched once per batch
+   and category. Then that kernel against plain on the run's first batch
+   with the normals its step used, and, for both kernels, per-molecule
+   normals that are all (0, 0, 1) against the static normal on the `aa`
+   and `ua` first batches: equal bit for bit.
 
 Then one JSON line with the kernels of the path (with each one's bound:
 the least time the card could take, from the bytes it must move at the
@@ -59,6 +78,7 @@ non-zero. Without a CUDA device, or without the repository beside it, it
 exits non-zero and prints no result.
 """
 
+import dataclasses
 import json
 import logging
 import math
@@ -94,6 +114,17 @@ F32_OPS_PER_S = 67e12
 # S 4; a square root, atan2, cos or sin counted as one).
 P2_OPS = 33
 UA_OPS = {"ch3": 323, "ch2": 257, "ch1u": 232, "ch1s": 142}
+# what the per_bond_normal variants add (p2.cu, ua.cu, common.cuh
+# normal_norm2): n2 = max((nx·nx + ny·ny) + nz·nz, 1e-18) once per sample
+# (P2) or carbon (UA), 6, and one product d2·n2 per sample, 1
+P2_NORMAL_OPS = 7
+UA_NORMAL_OPS = {cat: 6 + k for cat, k in
+                 (("ch3", 3), ("ch2", 2), ("ch1u", 1), ("ch1s", 1))}
+#: the AA runs with membrane normals that are not static: tools/
+#: bench_modes.py's two dynamic modes (:339-344, :371-373), whose goldens
+#: are pinned, and the inline manual map of (0, 0, 1) for every molecule
+#: and frame, which must give the static golden exactly
+NORMAL_MODES = ("aa-dynamic", "aa-dynamic-export", "aa-manual-z")
 
 
 def synthesize_structure(cache_dir, n_lipids=None, total_atoms=None):
@@ -396,6 +427,24 @@ def leaflet_analysis(mode, gro, bnd, xtc, cache, output_yaml=None):
     return aa_analysis(gro, bnd, xtc, output_yaml, leaflets=leaflets)
 
 
+def normals_analysis(mode, gro, bnd, xtc, cache, output_yaml=None):
+    """The AA analysis of `mode` in NORMAL_MODES with its membrane normal,
+    built from the port's classes (bench_modes.py:339-344, :371-373)."""
+    import bench
+    from gorder_tpu_torch.input.config import MembraneNormal
+
+    if mode == "aa-manual-z":
+        # one row object shared by every frame: the table costs no memory
+        # until the run reads it
+        row = [[0.0, 0.0, 1.0]] * bench.N_LIPIDS
+        normal = MembraneNormal.from_map({"POPC": [row] * N_FRAMES})
+    else:
+        normal = MembraneNormal.dynamic(
+            P_HEADS, collect=(os.path.join(cache, f"{mode}_normals.yaml")
+                              if mode == "aa-dynamic-export" else None))
+    return aa_analysis(gro, bnd, xtc, output_yaml, membrane_normal=normal)
+
+
 def cuda_ms(fn, reps=20, warmup=3):
     """Mean device time of one call, from CUDA events around `reps` calls."""
     import torch
@@ -487,18 +536,23 @@ def wire_inputs(db):
                     None)}
 
 
-#: the launch count of each P2 input with classes
+#: the launch count of each P2 input with classes, and with (B, M, 3)
+#: normals (with or without classes)
 P2_LEAFLET_COUNTS = {"resid": "p2_leaflets_launches",
                      "i16": "p2_i16_leaflets_launches",
                      "f32": "p2_f32_leaflets_launches"}
+P2_NORMAL_COUNTS = {"resid": "p2_normals_launches",
+                    "i16": "p2_i16_normals_launches",
+                    "f32": "p2_f32_normals_launches"}
 
 
 def check_p2(label, db, leaflets):
     """The P2 kernel against its plain version on a batch of the main path
-    (`DeviceBatch`), for each input `wire_inputs` gives; with `leaflets`,
-    the with_leaflets variant on the classes the step used, whose totals
-    must equal the plain variant's. The int64 outputs must be equal. →
-    {input: numbers}."""
+    (`DeviceBatch`), for each input `wire_inputs` gives, with the normal
+    the step used: the static one, or (B, M, 3) per-molecule normals (the
+    per_bond_normal variant). With `leaflets`, the with_leaflets variant
+    on the batch's classes, whose totals must equal those without classes.
+    The int64 outputs must be equal. → {input: numbers}."""
     import torch
 
     from gorder_tpu_torch.ops import p2
@@ -506,14 +560,18 @@ def check_p2(label, db, leaflets):
     step = db.step
     n_types = step.n_types
     n_frames = db.mask.shape[0]
+    per_mol = db.normal.dim() == 3
     frame = (db.box, db.normal, db.mask, step.bond_type)
+    by_mol = dict(bond_mol=step.bond_mol) if per_mol else {}
     extra = (dict(classes=db.classes, bond_mol=step.bond_mol) if leaflets
-             else {})
+             else by_mol)
     shape = ((n_frames, 3, 2, n_types) if leaflets
              else (n_frames, 2, n_types))
-    tag = f"{label}{' leaflets' if leaflets else ''}"
+    tag = (f"{label}{' leaflets' if leaflets else ''}"
+           f"{' normals' if per_mol else ''}")
     print(f"kernel {tag}: {db.kind} batch, B={n_frames} "
           f"N={step.bond_type.shape[0]} T={n_types}"
+          + (f" M={db.normal.shape[1]} normals" if per_mol else "")
           + (f" M={db.classes.shape[1]} classes: "
              f"{int((db.classes == 0).sum())} upper, "
              f"{int((db.classes == 1).sum())} lower (molecule-frames)"
@@ -526,7 +584,8 @@ def check_p2(label, db, leaflets):
             coords, scale = inputs
             kernel, plain = p2.p2_positions, p2.p2_positions_plain
             args = (coords, step.atom_a, step.atom_b, scale)
-        count = P2_LEAFLET_COUNTS[name] if leaflets else "p2_launches"
+        count = (P2_NORMAL_COUNTS[name] if per_mol
+                 else P2_LEAFLET_COUNTS[name] if leaflets else "p2_launches")
         got = compare(
             f"{tag} {name}",
             lambda k=kernel, a=args: k(*a, *frame, n_types,
@@ -537,32 +596,44 @@ def check_p2(label, db, leaflets):
         numbers[name] = with_bound(
             f"{tag} {name}", got,
             n_bytes(*args, *frame, got["out"], *extra.values()),
-            int(db.mask.sum()) * step.bond_type.shape[0] * P2_OPS)
+            int(db.mask.sum()) * step.bond_type.shape[0]
+            * (P2_OPS + (P2_NORMAL_OPS if per_mol else 0)))
         if leaflets and not torch.equal(got["out"][:, 0], kernel(
-                *args, *frame, n_types, handle_pbc=step.handle_pbc)):
+                *args, *frame, n_types, handle_pbc=step.handle_pbc,
+                **by_mol)):
             raise RuntimeError(f"{tag} {name}: total != the plain variant")
     return numbers
 
 
 def check_ua(label, step, inputs, frame, classes=None):
     """The UA kernel against its plain version for each of `inputs`
-    ({input: (coords, scale)}) with `frame` (box, normal, mask); with
-    `classes`, the with_leaflets variant. The int64 outputs must be equal,
-    and the kernel launched once per category. → {input: numbers}."""
+    ({input: (coords, scale)}) with `frame` (box, normal, mask): the
+    static normal, or (B, M, 3) per-molecule normals (the per_bond_normal
+    variant); with `classes`, the with_leaflets variant. The int64 outputs
+    must be equal, and the kernel launched once per category. → {input:
+    numbers}."""
     import torch
 
     from gorder_tpu_torch.core.ua import N_HYDROGENS
     from gorder_tpu_torch.ops import ua
 
     leaflets = classes is not None
+    per_mol = frame[1].dim() == 3
     n_types = step.n_types
     n_frames = frame[2].shape[0]
     shape = ((n_frames, 3, 2, n_types) if leaflets
              else (n_frames, 2, n_types))
-    counter = ((lambda: ua.ua_leaflets_launches) if leaflets
-               else (lambda: ua.ua_launches))
-    tag = f"ua{' leaflets' if leaflets else ''} {label}"
-    ops = int(frame[2].sum()) * sum(n * UA_OPS[cat] for cat, n in step.layout)
+    count = ("ua_normals_launches" if per_mol
+             else "ua_leaflets_launches" if leaflets else "ua_launches")
+
+    def counter():
+        return getattr(ua, count)
+
+    tag = (f"ua{' leaflets' if leaflets else ''}"
+           f"{' normals' if per_mol else ''} {label}")
+    ops = int(frame[2].sum()) * sum(
+        n * (UA_OPS[cat] + (UA_NORMAL_OPS[cat] if per_mol else 0))
+        for cat, n in step.layout)
     numbers = {}
     for name, (coords, scale) in inputs.items():
         def kernel(layout=step.layout, bond_type=step.bond_type,
@@ -719,6 +790,121 @@ def time_classifiers(gro, bnd, xtc, cache):
     return out
 
 
+def time_normals(gro, bnd, xtc, cache):
+    """CUDA-event time of the dynamic normals of `aa-dynamic` on the first
+    B = 512 frames (f32 coordinates of the run's atom space): the device
+    work they add to a batch beside the P2 kernel, and the share of it
+    that the (B, M) batched 3×3 eigensolve takes. → (ms, eigh ms)."""
+    import torch
+
+    from gorder_tpu_torch.core.normals import smallest_eigvec_3x3
+    from gorder_tpu_torch.engine.normals_runtime import _build_normals
+    from gorder_tpu_torch.engine.prepare import (
+        _build_atom_space, _prepare_bond_kinds, load_structure)
+    from gorder_tpu_torch.io.traj import Trajectory
+
+    analysis = normals_analysis("aa-dynamic", gro, bnd, xtc, cache)
+    system = load_structure(analysis)
+    kinds, compiled = _prepare_bond_kinds(system, analysis)
+    space, remap = _build_atom_space(system, analysis,
+                                     [compiled.atom_a, compiled.atom_b])
+    _, _, runtime = _build_normals(system, analysis, kinds,
+                                   compiled.n_molecules, remap, "cuda")
+    traj = Trajectory(analysis.trajectory, expected_atoms=system.n_atoms)
+    coords, boxes, _, _ = traj.read_frames(
+        traj.select_frames(None, None, 1)[:BATCH], space,
+        n_threads=analysis.n_threads)
+    coords = torch.as_tensor(coords, device="cuda")
+    box = torch.as_tensor(np.ascontiguousarray(
+        boxes[:, [0, 1, 2], [0, 1, 2]]), device="cuda")
+    compute = runtime.compute
+    ms = cuda_ms(lambda: compute(coords, box), reps=3, warmup=1)
+    normals, counts = compute(coords, box)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    a = torch.randn(normals.shape[:2] + (3, 3), device="cuda", generator=g)
+    cov = a @ a.transpose(-1, -2)
+    eigh_ms = cuda_ms(lambda: smallest_eigvec_3x3(cov), reps=3, warmup=1)
+    print(f"normals: device ms per batch of {BATCH} frames (f32 coordinates,"
+          f" M={normals.shape[1]} heads, C={len(compute.cloud_indices)} "
+          f"cloud atoms, radius {compute.radius} nm): {ms:.4f}, of which the "
+          f"batched 3x3 eigh {eigh_ms:.4f}; cloud counts min "
+          f"{int(counts.min())} mean {float(counts.mean()):.1f}", flush=True)
+    return ms, eigh_ms
+
+
+def check_exported_normals(results, path, first):
+    """The export of `aa-dynamic-export`: the normals file holds one finite
+    unit vector per analyzed frame and molecule, its first batch's rows are
+    those the first batch's step used (`DeviceBatch.normal`) as printed,
+    and the normals the run collected are those, bit for bit."""
+    import re
+
+    frames = results.normals_data["frames"]
+    used = first.normal[first.mask].cpu().numpy()
+    if not np.array_equal(frames[:len(used)], used):
+        raise RuntimeError("aa-dynamic-export: the collected normals differ "
+                           "from those the first batch's step used")
+    with open(path) as fh:
+        rows = "".join(ln for ln in fh if ln.startswith("  - ["))
+    values = np.array(re.findall(r"-?\d+\.\d+|nan",
+                                 rows.replace(".nan", "nan")), np.float64)
+    want = (N_FRAMES, used.shape[1], 3)
+    if values.size != np.prod(want):
+        raise RuntimeError(f"aa-dynamic-export: {values.size} numbers in "
+                           f"{path}, expected {want}")
+    values = values.reshape(want)
+    norm = np.linalg.norm(values, axis=-1)
+    if not np.isfinite(values).all() or np.abs(norm - 1).max() > 1e-5:
+        raise RuntimeError(f"aa-dynamic-export: normals not finite unit "
+                           f"vectors (max ||n| - 1| {np.abs(norm - 1).max()})")
+    printed = np.abs(values[:len(used)] - used).max()
+    if printed > 5.0001e-7:
+        raise RuntimeError(f"aa-dynamic-export: the file's first rows differ "
+                           f"from the first batch's normals by {printed}")
+    print(f"check aa-dynamic-export: {path} holds {want[0]} x {want[1]} "
+          f"finite unit vectors (max ||n| - 1| {np.abs(norm - 1).max():.2e});"
+          f" its first {len(used)} rows are the first batch's normals as "
+          f"printed (max |diff| {printed:.2e}), collected bit for bit",
+          flush=True)
+
+
+def check_z_plane(aa_first, dyn_first, ua_first, ua_dyn_first, p2_static,
+                  ua_static):
+    """On the card, per-molecule normals that are all (0, 0, 1) must give
+    the static kernels' integers bit for bit: the P2 kernel on the `aa`
+    run's first b7 batch, the UA kernel on the `ua` run's first int16
+    batch."""
+    import torch
+
+    from gorder_tpu_torch.ops import p2, ua
+
+    z = torch.tensor([0.0, 0.0, 1.0], device="cuda")
+    r, base, scale = wire_inputs(aa_first)["resid"]
+    n_frames = aa_first.mask.shape[0]
+    plane = z.expand(n_frames, dyn_first.normal.shape[1], 3).contiguous()
+    step = aa_first.step
+    got = p2.p2_resid(r, base, scale, aa_first.box, plane, aa_first.mask,
+                      step.bond_type, step.n_types,
+                      handle_pbc=step.handle_pbc,
+                      bond_mol=dyn_first.step.bond_mol)
+    if not torch.equal(got, p2_static):
+        raise RuntimeError("p2 normals: the z plane != the static normal")
+    coords, scale = wire_inputs(ua_first)["i16"]
+    ustep, dstep = ua_first.step, ua_dyn_first.step
+    plane = z.expand(n_frames, ua_dyn_first.normal.shape[1], 3).contiguous()
+    # the static run's atom indices, with each carbon's molecule
+    indices = {cat: dict(ix, mol=dstep.indices[cat]["mol"])
+               for cat, ix in ustep.indices.items()}
+    got = ua.ua_positions(coords, scale, ua_first.box, plane, ua_first.mask,
+                          indices, ustep.bond_type, ustep.n_types,
+                          handle_pbc=ustep.handle_pbc, layout=ustep.layout)
+    if not torch.equal(got, ua_static):
+        raise RuntimeError("ua normals: the z plane != the static normal")
+    print("kernel: per-molecule normals all (0, 0, 1) == the static normal, "
+          "bit for bit, for the P2 kernel (b7, aa batch) and the UA kernel "
+          "(int16, ua batch)", flush=True)
+
+
 def _run(label, analysis, counters, n_frames):
     """`gorder_tpu_torch.run` with every launch count set to 0 just before
     and read just after; the counts named in `counters` must have their
@@ -796,25 +982,33 @@ def off_lines(yaml_path, label, n_frames):
         for g, w in zip(lines(yaml_path), lines(golden)) if g != w))
 
 
-def run_golden(label, analysis, counters, n_frames):
+def run_golden(label, analysis, counters, n_frames, golden=None, wire=None,
+               exact=False):
     """`_run`, then the YAML must pass bench.validate_output against the
-    pinned golden {label}_{n_frames}.yaml. → (launches, results, first
-    batch)."""
+    pinned golden {golden}_{n_frames}.yaml (golden: the label by default),
+    exactly if `exact`; the wire-format log line must hold `wire` if
+    given. → (launches, results, first batch)."""
     import bench
 
-    results, _, launches, _, first = _run(label, analysis, counters,
-                                          n_frames)
-    status = bench.validate_output(analysis.output_yaml, label, n_frames)
+    golden = golden or label
+    results, _, launches, wire_line, first = _run(label, analysis, counters,
+                                                  n_frames)
+    if wire is not None and wire not in wire_line:
+        raise RuntimeError(f"{label}: rode {wire_line!r}, expected {wire!r}")
+    status = bench.validate_output(analysis.output_yaml, golden, n_frames)
     if status is None:
-        raise RuntimeError(f"no pinned golden for {label}_{n_frames}")
+        raise RuntimeError(f"no pinned golden for {golden}_{n_frames}")
+    if exact and status != "exact":
+        raise RuntimeError(f"{label}: {status} against {golden}, expected "
+                           f"exact")
     values = [m.average_order.total.value for m in results.molecules]
     if not all(math.isfinite(v) for v in values):
         raise RuntimeError(f"{label}: non-finite average order: {values}")
     where = ("" if status == "exact" else
              f" (lines off, by key: "
-             f"{off_lines(analysis.output_yaml, label, n_frames)})")
+             f"{off_lines(analysis.output_yaml, golden, n_frames)})")
     print(f"check {label}: launches {counters} as expected; golden "
-          f"{label}_{n_frames}.yaml: {status}{where}; average order "
+          f"{golden}_{n_frames}.yaml: {status}{where}; average order "
           f"{values}", flush=True)
     return launches, results, first
 
@@ -939,7 +1133,6 @@ def main() -> int:
     local = firsts["aa-local-leaflets"]
     p2_positions = check_p2("aa-local-leaflets", local, False)
     p2_local = check_p2("aa-local-leaflets", local, True)
-    del firsts
     if not torch.equal(p2_plain["resid"]["out"], p2_positions["i16"]["out"]):
         raise RuntimeError("b7 residual input and int16 positions disagree: "
                            "both must give the same integer bond vectors")
@@ -949,7 +1142,54 @@ def main() -> int:
 
     time_classifiers(gro, bnd, xtc, cache)
 
-    # 7. UA synth
+    # 7. the AA runs with membrane normals that are not static: the two
+    # dynamic modes ride b7x (the normal-heads cloud as aux atoms) and
+    # pass their goldens; the manual (0, 0, 1) map rides int16 and must
+    # equal the static golden exactly. Then the per_bond_normal P2 kernel
+    # against plain on their first batches, with the normals each step
+    # used: b7 (aa-dynamic), int16 and f32 (aa-manual-z), and with both
+    # classes and normals (aa-leaflets' classes on aa-dynamic's batch)
+    from types import SimpleNamespace
+
+    import bench
+    from gorder_tpu_torch.engine.normals_runtime import _manual_normals_table
+
+    normal_launches = {}
+    for mode in NORMAL_MODES:
+        manual = mode == "aa-manual-z"
+        analysis = normals_analysis(mode, gro, bnd, xtc, cache,
+                                    os.path.join(cache, f"smoke_{mode}.yaml"))
+        if manual:
+            t0 = time.perf_counter()
+            _manual_normals_table(
+                analysis.membrane_normal.normals_map,
+                [SimpleNamespace(name="POPC", n_molecules=bench.N_LIPIDS)])
+            print(f"normals: the {N_FRAMES} x {bench.N_LIPIDS} manual table "
+                  f"takes {time.perf_counter() - t0:.3f} s on the host",
+                  flush=True)
+        count = ("p2_i16_normals_launches" if manual
+                 else "p2_normals_launches")
+        got, results, firsts[mode] = run_golden(
+            mode, analysis, {count: n_batches}, N_FRAMES,
+            golden="aa" if manual else None,
+            wire="wire format: i16" if manual else "aux channel",
+            exact=manual)
+        normal_launches[mode] = got[count]
+        if analysis.membrane_normal.collect.enabled:
+            check_exported_normals(results,
+                                   analysis.membrane_normal.collect.path,
+                                   firsts[mode])
+    dyn_first = firsts["aa-dynamic"]
+    p2_normals = check_p2("aa-dynamic", dyn_first, False)
+    p2_i16_normals = check_p2("aa-manual-z", firsts["aa-manual-z"], False)
+    check_p2("aa-dynamic with aa-leaflets classes",
+             dataclasses.replace(dyn_first,
+                                 classes=firsts["aa-leaflets"].classes),
+             True)
+    del firsts
+    time_normals(gro, bnd, xtc, cache)
+
+    # 8. UA synth
     t0 = time.perf_counter()
     from tools import bench_modes
 
@@ -958,21 +1198,21 @@ def main() -> int:
     print(f"synth ua: {ua_frames} frames in {time.perf_counter() - t0:.1f} "
           f"s ({os.path.getsize(ua_files[2])} bytes of XTC)", flush=True)
 
-    # 8. the UA runs, end to end; then the UA kernel against plain on the
+    # 9. the UA runs, end to end; then the UA kernel against plain on the
     # first batch of the ua run
     ua_batches = math.ceil(ua_frames / BATCH)
-    ua_launches, ua_results, first = run_golden(
+    ua_launches, ua_results, ua_first = run_golden(
         "ua", ua_analysis("ua", *ua_files, os.path.join(cache,
                                                         "smoke_ua.yaml")),
         {"ua_launches": ua_batches * 3}, ua_frames)    # ch3, ch2, ch1u
-    ua_plain = check_ua("ua_3000", first.step, wire_inputs(first),
-                        (first.box, first.normal, first.mask))
+    ua_plain = check_ua("ua_3000", ua_first.step, wire_inputs(ua_first),
+                        (ua_first.box, ua_first.normal, ua_first.mask))
     run_golden("ua-palmitoyl",
                ua_analysis("ua-palmitoyl", *ua_files,
                            os.path.join(cache, "smoke_ua-palmitoyl.yaml")),
                {"ua_launches": ua_batches * 2}, ua_frames)   # ch3, ch2
 
-    # 9. UA with global leaflets (int16 + the decoder's COG): no golden;
+    # 10. UA with global leaflets (int16 + the decoder's COG): no golden;
     # totals must equal the ua run's, upper and lower must be finite; then
     # the with_leaflets UA kernel against plain on its first batch, with
     # the classes its step used
@@ -1004,6 +1244,29 @@ def main() -> int:
                            (first.box, first.normal, first.mask),
                            first.classes)
 
+    # 11. UA with dynamic normals on the P heads (int16): no golden; the
+    # totals must be finite; then the per_bond_normal UA kernel against
+    # plain on the run's first batch with the normals its step used, and
+    # the z-plane invariant of both kernels on the card
+    from gorder_tpu_torch.input.config import MembraneNormal
+
+    a = ua_analysis("ua", *ua_files,
+                    os.path.join(cache, "smoke_ua-dynamic.yaml"))
+    a.membrane_normal = MembraneNormal.dynamic(P_HEADS)
+    results, _, ua_dyn, wire_line, first = _run(
+        "ua-dynamic", a, {"ua_normals_launches": ua_batches * 3}, ua_frames)
+    totals = _orders(results, "total")
+    if "wire format: i16" not in wire_line or not all(
+            math.isfinite(v) for v in totals):
+        raise RuntimeError(f"ua-dynamic: {wire_line}; totals {totals}")
+    print(f"check ua-dynamic: {len(totals)} finite totals; average order "
+          f"{[m.average_order.total.value for m in results.molecules]}",
+          flush=True)
+    ua_normals = check_ua("ua-dynamic", first.step, wire_inputs(first),
+                          (first.box, first.normal, first.mask))
+    check_z_plane(aa_first, dyn_first, ua_first, first,
+                  p2_plain["resid"]["out"], ua_plain["i16"]["out"])
+
     p2_src, ua_src = ("gorder_tpu_torch/csrc/p2.cu",
                       "gorder_tpu_torch/csrc/ua.cu")
     p2_tpu, ua_tpu = ("gorder_tpu/ops/pallas_p2.py:163",
@@ -1020,7 +1283,15 @@ def main() -> int:
         kernel_entry("ua", ua_src, ua_tpu, ua_launches["ua_launches"],
                      ua_plain["i16"]),
         kernel_entry("ua_leaflets", ua_src, ua_tpu,
-                     got["ua_leaflets_launches"], ua_leaflets["i16"])]}))
+                     got["ua_leaflets_launches"], ua_leaflets["i16"]),
+        kernel_entry("p2_normals", p2_src, p2_tpu,
+                     normal_launches["aa-dynamic"]
+                     + normal_launches["aa-dynamic-export"],
+                     p2_normals["resid"]),
+        kernel_entry("p2_i16_normals", p2_src, p2_tpu,
+                     normal_launches["aa-manual-z"], p2_i16_normals["i16"]),
+        kernel_entry("ua_normals", ua_src, ua_tpu,
+                     ua_dyn["ua_normals_launches"], ua_normals["i16"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,10 @@
 """The P2/order-parameter step (port of `gorder_tpu/core/order.py` for a
-static membrane normal, overall and per leaflet; no maps or geometry).
+static or per-molecule membrane normal, overall and per leaflet; no maps
+or geometry).
 
 Per bond instance and frame: bond vector → minimum image → projection on
-the normal → S = 1.5·cos²θ − 0.5 → the reference's fixed-point sample
+the normal (the static one, or the bond's molecule's dynamic or manual
+normal) → S = 1.5·cos²θ − 0.5 → the reference's fixed-point sample
 `round_half_away(f64(S)·1e6)` (src/analysis/order.rs:21-26) → exact int64
 sums and counts per frame and bond type, and with leaflet classes also
 per class: total, upper (class 0) and lower (class 1) of the bond's
@@ -76,15 +78,29 @@ def p2_sums(d: torch.Tensor, box_diag: torch.Tensor, normal: torch.Tensor,
     With (B, M) int32 leaflet `classes` and the (N,) molecule of each bond
     `bond_mol` → (B, 3, 2, T): total, upper and lower.
 
+    `normal` is the static (3,) normal, or (B, M, 3) per-molecule normals
+    (dynamic or manual), each bond reading its molecule's through
+    `bond_mol`: n = normal[b, bond_mol[i]], proj = (dx·nx + dy·ny) + dz·nz,
+    n2 = max(nx·nx + ny·ny + nz·nz, 1e-18) and cos² = proj² / (max(d²,
+    1e-18)·n2), one product in the denominator (gorder_tpu/core/order.py:
+    185-192, ops/pallas_p2.py:128-134). With n = (0, 0, 1) both branches
+    give the same bits.
+
     Every f32 operation is a separate, correctly rounded PyTorch op, in the
     order of the JAX Pallas kernel (gorder_tpu/ops/pallas_p2.py:120-141),
     with d² written as dx·dx + dy·dy + dz·dz (:127)."""
     if handle_pbc:
         d = min_image(d, box_diag[:, None, :])
     dx, dy, dz = d.unbind(-1)
-    proj = dx * normal[0] + dy * normal[1] + dz * normal[2]
     d2 = dx * dx + dy * dy + dz * dz
-    cos2 = (proj * proj) / torch.clamp(d2, min=1e-18)
+    if normal.dim() == 1:
+        proj = dx * normal[0] + dy * normal[1] + dz * normal[2]
+        cos2 = (proj * proj) / torch.clamp(d2, min=1e-18)
+    else:
+        nx, ny, nz = normal.index_select(1, bond_mol).unbind(-1)  # (B, N)
+        proj = dx * nx + dy * ny + dz * nz
+        n2 = torch.clamp(nx * nx + ny * ny + nz * nz, min=1e-18)
+        cos2 = (proj * proj) / (torch.clamp(d2, min=1e-18) * n2)
     sch = 1.5 * cos2 - 0.5
     return class_sums(quantize(sch), frame_mask, bond_type, n_types,
                       classes, bond_mol)
@@ -120,7 +136,8 @@ def order_step(coords, box_diag, normal, frame_mask, atom_a, atom_b,
                handle_pbc: bool, classes=None,
                bond_mol=None) -> torch.Tensor:
     """The plain step for its three inputs → (B, 2, T) int64, or
-    (B, 3, 2, T) with leaflet `classes` and `bond_mol`:
+    (B, 3, 2, T) with leaflet `classes` and `bond_mol`; `normal` (3,), or
+    (B, M, 3) with `bond_mol` (`p2_sums`):
 
     - b7 residuals: `coords` (B, 3N) int16 with `base` and `inv_scale`;
     - integer positions: `coords` (B, A, 3) int16 with `inv_scale`;
@@ -139,25 +156,35 @@ class OrderStep:
     `device`, and each call routes through the hand-written kernel's
     wrapper (`ops/p2.py`), which runs the plain version for CPU tensors.
     With `with_leaflets`, every call takes the batch's (B, M) classes and
-    returns (B, 3, 2, T)."""
+    returns (B, 3, 2, T). With `normal_mode` "per_molecule", every call
+    takes the batch's (B, M, 3) normals; "static", the (3,) normal. The
+    bonds' molecules `bond_mol` are kept for either."""
 
     def __init__(self, atom_a, atom_b, bond_type, bond_mol, n_types: int, *,
-                 handle_pbc: bool, with_leaflets: bool, device):
+                 handle_pbc: bool, with_leaflets: bool, device,
+                 normal_mode: str = "static"):
         def idx(a):
             return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
+        if normal_mode not in ("static", "per_molecule"):
+            raise ValueError(f"unknown normal_mode {normal_mode!r}")
         self.atom_a = idx(atom_a)
         self.atom_b = idx(atom_b)
         self.bond_type = idx(bond_type)
-        self.bond_mol = idx(bond_mol) if with_leaflets else None
+        self.normal_mode = normal_mode
+        self.bond_mol = (idx(bond_mol) if with_leaflets
+                         or normal_mode == "per_molecule" else None)
         self.n_types = int(n_types)
         self.handle_pbc = bool(handle_pbc)
         self.with_leaflets = bool(with_leaflets)
 
-    def _leaflets(self, classes):
+    def _molecules(self, normal, classes):
         if (classes is not None) != self.with_leaflets:
             raise ValueError("leaflet classes must be given exactly when "
                              "the step was made with_leaflets")
+        if (normal.dim() == 3) != (self.normal_mode == "per_molecule"):
+            raise ValueError("(B, M, 3) normals must be given exactly when "
+                             "the step was made per_molecule")
         return dict(classes=classes, bond_mol=self.bond_mol)
 
     def resid(self, r, base, inv_scale, box_diag, normal, frame_mask,
@@ -167,7 +194,8 @@ class OrderStep:
 
         return p2_resid(r, base, inv_scale, box_diag, normal, frame_mask,
                         self.bond_type, self.n_types,
-                        handle_pbc=self.handle_pbc, **self._leaflets(classes))
+                        handle_pbc=self.handle_pbc,
+                        **self._molecules(normal, classes))
 
     def positions(self, coords, box_diag, normal, frame_mask,
                   inv_scale=None, classes=None):
@@ -177,13 +205,12 @@ class OrderStep:
         return p2_positions(coords, self.atom_a, self.atom_b, inv_scale,
                             box_diag, normal, frame_mask, self.bond_type,
                             self.n_types, handle_pbc=self.handle_pbc,
-                            **self._leaflets(classes))
+                            **self._molecules(normal, classes))
 
 
-def refuse_unported(*, normal_mode: str, map_spec, geom_spec) -> None:
+def refuse_unported(*, map_spec, geom_spec) -> None:
     """Raise AnalysisError naming the step options this port lacks."""
     missing = [name for name, on in (
-        ("dynamic or manual membrane normals", normal_mode != "static"),
         ("ordermaps", map_spec is not None),
         ("geometry selection", geom_spec is not None)) if on]
     if missing:
@@ -199,13 +226,13 @@ def make_order_step(atom_a, atom_b, bond_type, bond_mol, n_types: int,
                     normal_mode: str = "static", map_spec=None,
                     geom_spec=None) -> OrderStep:
     """The reference's step factory (gorder_tpu/core/order.py:313), for the
-    configurations this port covers: a static normal, with or without
-    leaflets, and no maps or geometry. `n_molecules` serves only those."""
-    refuse_unported(normal_mode=normal_mode, map_spec=map_spec,
-                    geom_spec=geom_spec)
+    configurations this port covers: a static normal or per-molecule
+    (dynamic or manual) normals, with or without leaflets, and no maps or
+    geometry. `n_molecules` serves only those."""
+    refuse_unported(map_spec=map_spec, geom_spec=geom_spec)
     return OrderStep(atom_a, atom_b, bond_type, bond_mol, n_types,
                      handle_pbc=handle_pbc, with_leaflets=with_leaflets,
-                     device=device)
+                     device=device, normal_mode=normal_mode)
 
 
 def from_reference_rows(rows) -> np.ndarray:

@@ -1,10 +1,12 @@
 """United-atom virtual hydrogens and their order parameters (port of
-`gorder_tpu/core/ua.py` for a static membrane normal, overall and per
-leaflet; no maps or geometry).
+`gorder_tpu/core/ua.py` for a static membrane normal or per-molecule
+(dynamic or manual) normals, overall and per leaflet; no maps or
+geometry).
 
 Per target carbon and frame: its helper atoms → the buildH prediction of
 its 1–3 hydrogens (src/analysis/uaorder.rs:944-1106) → per hydrogen the
-C–H vector → minimum image → S = 1.5·cos²θ − 0.5 → the reference's
+C–H vector → minimum image → projection on the normal (the static one, or
+the carbon's molecule's) → S = 1.5·cos²θ − 0.5 → the reference's
 fixed-point sample (`core/order.py quantize`) → exact int64 sums and
 counts per frame and bond type (and per leaflet class, as
 `core/order.py class_sums` sums them).
@@ -177,11 +179,18 @@ _PREDICT = {"ch3": predict_ch3_planar, "ch2": predict_ch2_planar,
 def ua_step(coords, box_diag, normal, frame_mask, indices, bond_type,
             n_types: int, inv_scale=None, *, handle_pbc: bool,
             layout, classes=None, bond_mol=None) -> torch.Tensor:
-    """The plain UA step (gorder_tpu/core/ua.py `_ua_step_impl` for a static
-    normal without maps or geometry) → (B, 2, T) int64 per-frame, per-type
-    [sum of quantized samples, sample count]; masked frames give zeros.
-    With (B, M) leaflet `classes` and each sample's molecule `bond_mol`
-    → (B, 3, 2, T): total, upper and lower.
+    """The plain UA step (gorder_tpu/core/ua.py `_ua_step_impl` without maps
+    or geometry) → (B, 2, T) int64 per-frame, per-type [sum of quantized
+    samples, sample count]; masked frames give zeros. With (B, M) leaflet
+    `classes` and each sample's molecule `bond_mol` → (B, 3, 2, T): total,
+    upper and lower.
+
+    `normal` is the static (3,) normal, or (B, M, 3) per-molecule normals
+    gathered by each carbon's molecule `indices[category]["mol"]`:
+    proj = (vx·nx + vy·ny) + vz·nz, n2 = max(n·n, 1e-18) and
+    S = 1.5·proj² / (max(v·v, 1e-18)·n2) − 0.5 (gorder_tpu/core/ua.py:
+    282-301, ops/pallas_ua.py:136-141), grouped otherwise than the P2
+    step's cos². With n = (0, 0, 1) both branches give the same bits.
 
     coords: (B, A, 3) int16 with `inv_scale` (B,) f32, or f32 without;
     indices: {category: {"target", "h1", "h2"[, "h3"]: (n,) int}};
@@ -202,6 +211,10 @@ def ua_step(coords, box_diag, normal, frame_mask, indices, bond_type,
         t = gather(ix["target"])
         helpers = [gather(ix[k]) for k in HELPERS[category]]
         hydrogens = _PREDICT[category](t, *helpers, boxp, handle_pbc)
+        if normal.dim() == 3:
+            nrm = tuple(normal[..., i].index_select(1, ix["mol"])
+                        for i in range(3))                   # (B, n) planes
+            n2 = torch.clamp(_pdot(nrm, nrm), min=1e-18)
         per_atom = []
         for hpos in hydrogens:
             if handle_pbc:
@@ -209,10 +222,14 @@ def ua_step(coords, box_diag, normal, frame_mask, indices, bond_type,
             vec = _psub(hpos, t)
             if handle_pbc:
                 vec = _pmin_image(vec, boxp)
-            proj = (vec[0] * normal[0] + vec[1] * normal[1]) \
-                + vec[2] * normal[2]
             d2 = torch.clamp(_pdot(vec, vec), min=1e-18)
-            per_atom.append((1.5 * (proj * proj)) / d2 - 0.5)
+            if normal.dim() == 3:
+                proj = _pdot(vec, nrm)
+                per_atom.append((1.5 * (proj * proj)) / (d2 * n2) - 0.5)
+            else:
+                proj = (vec[0] * normal[0] + vec[1] * normal[1]) \
+                    + vec[2] * normal[2]
+                per_atom.append((1.5 * (proj * proj)) / d2 - 0.5)
         # hydrogen-major per atom: (B, n, K) → (B, n·K)
         parts.append(torch.stack(per_atom, dim=-1).flatten(1))
     sch = torch.cat(parts, dim=1)                           # (B, Nv)
@@ -226,14 +243,20 @@ class UAStep:
     (`ops/ua.py`), which runs the plain version for CPU tensors. With
     `with_leaflets`, every call takes the batch's (B, M) classes and
     returns (B, 3, 2, T); the plain version reads each sample's molecule
-    (`bond_mol`), the kernel each carbon's (`mol`, the same molecules)."""
+    (`bond_mol`), the kernel each carbon's (`mol`, the same molecules).
+    With `normal_mode` "per_molecule", every call takes the batch's
+    (B, M, 3) normals, which both read by each carbon's `mol`."""
 
     def __init__(self, categories, bond_type, bond_mol, n_types: int, *,
-                 handle_pbc: bool, with_leaflets: bool, device):
+                 handle_pbc: bool, with_leaflets: bool, device,
+                 normal_mode: str = "static"):
         def idx(a):
             return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
-        keys = ("target",) + (("mol",) if with_leaflets else ())
+        if normal_mode not in ("static", "per_molecule"):
+            raise ValueError(f"unknown normal_mode {normal_mode!r}")
+        per_mol = with_leaflets or normal_mode == "per_molecule"
+        keys = ("target",) + (("mol",) if per_mol else ())
         self.layout = tuple((cat, len(categories[cat]["target"]))
                             for cat in CATEGORIES if cat in categories)
         self.indices = {
@@ -244,6 +267,7 @@ class UAStep:
         self.n_types = int(n_types)
         self.handle_pbc = bool(handle_pbc)
         self.with_leaflets = bool(with_leaflets)
+        self.normal_mode = normal_mode
 
     def positions(self, coords, box_diag, normal, frame_mask,
                   inv_scale=None, classes=None):
@@ -253,6 +277,9 @@ class UAStep:
         if (classes is not None) != self.with_leaflets:
             raise ValueError("leaflet classes must be given exactly when "
                              "the step was made with_leaflets")
+        if (normal.dim() == 3) != (self.normal_mode == "per_molecule"):
+            raise ValueError("(B, M, 3) normals must be given exactly when "
+                             "the step was made per_molecule")
         return ua_positions(coords, inv_scale, box_diag, normal, frame_mask,
                             self.indices, self.bond_type, self.n_types,
                             handle_pbc=self.handle_pbc, layout=self.layout,
@@ -264,13 +291,13 @@ def make_ua_step(categories, bond_type, bond_mol, n_types: int, *,
                  with_leaflets: bool = False, normal_mode: str = "static",
                  map_spec=None, geom_spec=None) -> UAStep:
     """The reference's step factory (gorder_tpu/core/ua.py:368), for the
-    configurations this port covers: a static normal, with or without
-    leaflets, and no maps or geometry. With leaflets, every category needs
+    configurations this port covers: a static normal or per-molecule
+    (dynamic or manual) normals, with or without leaflets, and no maps or
+    geometry. With leaflets or per-molecule normals, every category needs
     its per-carbon molecule index `mol`."""
     from .order import refuse_unported
 
-    refuse_unported(normal_mode=normal_mode, map_spec=map_spec,
-                    geom_spec=geom_spec)
+    refuse_unported(map_spec=map_spec, geom_spec=geom_spec)
     return UAStep(categories, bond_type, bond_mol, n_types,
                   handle_pbc=handle_pbc, with_leaflets=with_leaflets,
-                  device=device)
+                  device=device, normal_mode=normal_mode)

@@ -91,6 +91,24 @@ inline bool table_fits(int n_types, int n_classes) {
   return table_bytes(n_types, n_classes) <= kSharedBytes;
 }
 
+// The per_bond_normal variants' normal of molecule `mol` in frame b:
+// normals (B, M, 3) f32, dynamic or manual, not necessarily unit. A
+// frame's row is 12 * M bytes and stays in L1/L2 across its samples.
+__device__ __forceinline__ float3 molecule_normal(const float* normals, int b,
+                                                  int n_molecules, int mol) {
+  const float* n = normals + (static_cast<size_t>(b) * n_molecules + mol) * 3;
+  return make_float3(n[0], n[1], n[2]);
+}
+
+// n2 = max((nx*nx + ny*ny) + nz*nz, 1e-18): the squared length of a
+// per-molecule normal as both JAX kernels take it (pallas_p2.py:133,
+// core/ua.py:284).
+__device__ __forceinline__ float normal_norm2(float3 n) {
+  return fmaxf(__fadd_rn(__fadd_rn(__fmul_rn(n.x, n.x), __fmul_rn(n.y, n.y)),
+                         __fmul_rn(n.z, n.z)),
+               1e-18f);
+}
+
 // The leaflet class of the molecule `mol` in frame b: classes (B, M) int32.
 // Without classes (the plain variants) every sample is class 0, which only
 // the (2, T) table reads, and ignores.

@@ -35,6 +35,23 @@
 // row of a frame is M * 4 bytes and stays in L1/L2) and up to two more
 // atomics.
 //
+// per_bond_normal (kMolNormal; replaces pallas_p2.py:128-134 with the
+// operand gather at :343-349): dynamic or manual membrane normals, (B, M,
+// 3) f32, one per molecule and frame. Each sample reads its molecule's
+// normal n = normal[(b*M + bond_mol[i])*3 ..] and takes
+// proj = (dx*nx + dy*ny) + dz*nz, n2 = max((nx*nx + ny*ny) + nz*nz, 1e-18)
+// and cos2 = proj^2 / (max(d2, 1e-18) * n2): one product in the
+// denominator, as gorder_tpu/core/order.py:185-192 writes it. With
+// n = (0, 0, 1) that is the static chain bit for bit. The TPU wrapper
+// materializes (B, N, 3) per-bond normal planes in HBM before its
+// pallas_call; here the kernel gathers from the (B, M, 3) tensor, whose
+// 3 KB frame row (M = 256) stays in L1/L2. It combines with the class
+// plane (both read bond_mol). What bounds it: 12 more bytes gathered per
+// sample (from cache; the bytes the function must move are the (B, M, 3)
+// normals once, 12 * M per frame), about 8 more f32 operations, and the
+// same int64 shared atomics as the static variant. This first version is
+// plain: making it fast is later work.
+//
 // What bounds it on this card: it reads about 2 bytes of b7 residual per
 // value (6 per sample) plus the per-slot base, and does two 64-bit atomic
 // adds per sample; arithmetic is a few dozen flops. Memory and atomics
@@ -56,20 +73,24 @@ using gorder::min_image;
 constexpr int kThreads = 256;
 constexpr int kTile = kThreads * 8;      // bonds per block
 
+// One sample against the normal n: the static one, or (kMolNormal) the
+// bond's molecule's, with its n2 (gorder::normal_norm2).
+template <bool kMolNormal>
 __device__ __forceinline__ long long p2_sample(float dx, float dy, float dz,
                                                float bx, float by, float bz,
-                                               float nx, float ny, float nz,
-                                               bool pbc) {
+                                               float3 n, float n2, bool pbc) {
   if (pbc) {
     dx = min_image(dx, bx);
     dy = min_image(dy, by);
     dz = min_image(dz, bz);
   }
-  const float proj = __fadd_rn(__fadd_rn(__fmul_rn(dx, nx), __fmul_rn(dy, ny)),
-                               __fmul_rn(dz, nz));
+  const float proj = __fadd_rn(
+      __fadd_rn(__fmul_rn(dx, n.x), __fmul_rn(dy, n.y)), __fmul_rn(dz, n.z));
   const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                              __fmul_rn(dz, dz));
-  const float cos2 = __fdiv_rn(__fmul_rn(proj, proj), fmaxf(d2, 1e-18f));
+  const float den = kMolNormal ? __fmul_rn(fmaxf(d2, 1e-18f), n2)
+                               : fmaxf(d2, 1e-18f);
+  const float cos2 = __fdiv_rn(__fmul_rn(proj, proj), den);
   const float sch = __fsub_rn(__fmul_rn(1.5f, cos2), 0.5f);
   return gorder::quantum(sch);
 }
@@ -129,59 +150,84 @@ struct FloatPositions {
   }
 };
 
-// Each bond's leaflet class source: the (B, M) class plane and the bond's
-// molecule; null pointers in the plain variant.
-struct Leaflets {
+// What a bond reads by its molecule: the (B, M) class plane (with_leaflets)
+// and, in the per_bond_normal variant, the (B, M, 3) normals passed as
+// `normal`; bond_mol is null when neither is read.
+struct Molecules {
   const int32_t* __restrict__ classes;
   const int32_t* __restrict__ bond_mol;
   int n_molecules;
 };
 
 // grid (ceil(N / kTile), B); out (B, kClasses, 2, T) int64, zeroed by the
-// caller.
-template <class Input, bool kShared, int kClasses>
+// caller; normal (3,) f32, or (B, M, 3) f32 when kMolNormal.
+template <class Input, bool kShared, int kClasses, bool kMolNormal>
 __global__ void __launch_bounds__(kThreads)
 p2_kernel(Input input, const float* __restrict__ box,
           const float* __restrict__ normal, const uint8_t* __restrict__ mask,
-          const int32_t* __restrict__ bond_type, Leaflets lf, int n_bonds,
+          const int32_t* __restrict__ bond_type, Molecules lf, int n_bonds,
           int n_types, int pbc, unsigned long long* __restrict__ out) {
   extern __shared__ unsigned long long table[];  // when kShared
   const int b = blockIdx.y;
   if (!mask[b]) return;  // padding frame: its rows stay zero
   const gorder::TypeTable<kShared, kClasses> acc(table, out, b, n_types);
   const float bx = box[3 * b], by = box[3 * b + 1], bz = box[3 * b + 2];
-  const float nx = normal[0], ny = normal[1], nz = normal[2];
+  float3 n = make_float3(0.0f, 0.0f, 0.0f);
+  if constexpr (!kMolNormal) n = make_float3(normal[0], normal[1], normal[2]);
   const int start = static_cast<int>(blockIdx.x) * kTile;
   const int stop = min(start + kTile, n_bonds);
   for (int i = start + static_cast<int>(threadIdx.x); i < stop;
        i += kThreads) {
     float dx, dy, dz;
     input(b, i, dx, dy, dz);
+    const int mol = (kClasses == 3 || kMolNormal) ? lf.bond_mol[i] : 0;
     const int cls =
         kClasses == 3
-            ? gorder::leaflet_class(lf.classes, b, lf.n_molecules,
-                                    lf.bond_mol[i])
+            ? gorder::leaflet_class(lf.classes, b, lf.n_molecules, mol)
             : 0;
+    float n2 = 1.0f;
+    if constexpr (kMolNormal) {
+      n = gorder::molecule_normal(normal, b, lf.n_molecules, mol);
+      n2 = gorder::normal_norm2(n);
+    }
     acc.add(bond_type[i],
-            p2_sample(dx, dy, dz, bx, by, bz, nx, ny, nz, pbc != 0), cls);
+            p2_sample<kMolNormal>(dx, dy, dz, bx, by, bz, n, n2, pbc != 0),
+            cls);
   }
   acc.flush();
 }
 
-template <class Input, int kClasses>
+template <class Input, int kClasses, bool kMolNormal>
 void launch_classes(const Input& input, const dim3& grid, const float* box,
                     const float* normal, const uint8_t* mask,
-                    const int32_t* bond_type, const Leaflets& lf,
+                    const int32_t* bond_type, const Molecules& lf,
                     int n_bonds, int n_types, int pbc,
                     unsigned long long* out, cudaStream_t s) {
   if (gorder::table_fits(n_types, kClasses)) {
-    p2_kernel<Input, true, kClasses>
+    p2_kernel<Input, true, kClasses, kMolNormal>
         <<<grid, kThreads, gorder::table_bytes(n_types, kClasses), s>>>(
             input, box, normal, mask, bond_type, lf, n_bonds, n_types, pbc,
             out);
   } else {
-    p2_kernel<Input, false, kClasses><<<grid, kThreads, 0, s>>>(
+    p2_kernel<Input, false, kClasses, kMolNormal><<<grid, kThreads, 0, s>>>(
         input, box, normal, mask, bond_type, lf, n_bonds, n_types, pbc, out);
+  }
+}
+
+template <class Input, int kClasses>
+void launch_normals(const Input& input, const dim3& grid, const float* box,
+                    const float* normal, const uint8_t* mask,
+                    const int32_t* bond_type, const Molecules& lf,
+                    int n_bonds, int n_types, int pbc, int mol_normals,
+                    unsigned long long* out, cudaStream_t s) {
+  if (mol_normals) {
+    launch_classes<Input, kClasses, true>(input, grid, box, normal, mask,
+                                          bond_type, lf, n_bonds, n_types,
+                                          pbc, out, s);
+  } else {
+    launch_classes<Input, kClasses, false>(input, grid, box, normal, mask,
+                                           bond_type, lf, n_bonds, n_types,
+                                           pbc, out, s);
   }
 }
 
@@ -189,25 +235,27 @@ template <class Input>
 int launch(const Input& input, const void* box, const void* normal,
            const void* mask, const void* bond_type, const void* classes,
            const void* bond_mol, void* out, int n_frames, int n_bonds,
-           int n_types, int pbc, int n_molecules, void* stream) {
+           int n_types, int pbc, int mol_normals, int n_molecules,
+           void* stream) {
   if (n_frames == 0 || n_bonds == 0) return 0;
-  if ((classes == nullptr) != (bond_mol == nullptr))
+  const bool by_mol = classes != nullptr || mol_normals != 0;
+  if (by_mol != (bond_mol != nullptr) || (by_mol && n_molecules <= 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n_bonds + kTile - 1) / kTile, n_frames);
   const auto* bx = static_cast<const float*>(box);
   const auto* nv = static_cast<const float*>(normal);
   const auto* mk = static_cast<const uint8_t*>(mask);
   const auto* bt = static_cast<const int32_t*>(bond_type);
-  const Leaflets lf{static_cast<const int32_t*>(classes),
+  const Molecules lf{static_cast<const int32_t*>(classes),
                     static_cast<const int32_t*>(bond_mol), n_molecules};
   auto* o = static_cast<unsigned long long*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   if (classes != nullptr) {
-    launch_classes<Input, 3>(input, grid, bx, nv, mk, bt, lf, n_bonds,
-                             n_types, pbc, o, s);
+    launch_normals<Input, 3>(input, grid, bx, nv, mk, bt, lf, n_bonds,
+                             n_types, pbc, mol_normals, o, s);
   } else {
-    launch_classes<Input, 1>(input, grid, bx, nv, mk, bt, lf, n_bonds,
-                             n_types, pbc, o, s);
+    launch_normals<Input, 1>(input, grid, bx, nv, mk, bt, lf, n_bonds,
+                             n_types, pbc, mol_normals, o, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -217,20 +265,24 @@ int launch(const Input& input, const void* box, const void* normal,
 extern "C" {
 
 // Each entry point enqueues one launch on `stream` and returns
-// cudaGetLastError() (0 = launched). classes (B, M) int32 and bond_mol (N,)
-// int32 select the with_leaflets variant, out (B, 3, 2, T); both null, the
-// plain one, out (B, 2, T).
+// cudaGetLastError() (0 = launched). classes (B, M) int32 select the
+// with_leaflets variant, out (B, 3, 2, T); null, out (B, 2, T).
+// mol_normals = 1 selects the per_bond_normal variant: normal is then
+// (B, M, 3) f32, else (3,). bond_mol (N,) int32 is given exactly when
+// classes or per-molecule normals are; n_molecules is their M.
 
 int p2_resid(const void* r, const void* base, const void* scale,
              const void* box, const void* normal, const void* mask,
              const void* bond_type, const void* classes,
              const void* bond_mol, void* out, int n_frames, int n_bonds,
-             int n_types, int pbc, int n_molecules, void* stream) {
+             int n_types, int pbc, int mol_normals, int n_molecules,
+             void* stream) {
   const ResidInput input{static_cast<const int16_t*>(r),
                          static_cast<const int32_t*>(base),
                          static_cast<const float*>(scale), 3 * n_bonds};
   return launch(input, box, normal, mask, bond_type, classes, bond_mol, out,
-                n_frames, n_bonds, n_types, pbc, n_molecules, stream);
+                n_frames, n_bonds, n_types, pbc, mol_normals, n_molecules,
+                stream);
 }
 
 int p2_positions_i16(const void* x, const void* atom_a, const void* atom_b,
@@ -238,13 +290,15 @@ int p2_positions_i16(const void* x, const void* atom_a, const void* atom_b,
                      const void* mask, const void* bond_type,
                      const void* classes, const void* bond_mol, void* out,
                      int n_frames, int n_atoms, int n_bonds, int n_types,
-                     int pbc, int n_molecules, void* stream) {
+                     int pbc, int mol_normals, int n_molecules,
+                     void* stream) {
   const IntPositions input{static_cast<const int16_t*>(x),
                            static_cast<const int32_t*>(atom_a),
                            static_cast<const int32_t*>(atom_b),
                            static_cast<const float*>(scale), n_atoms};
   return launch(input, box, normal, mask, bond_type, classes, bond_mol, out,
-                n_frames, n_bonds, n_types, pbc, n_molecules, stream);
+                n_frames, n_bonds, n_types, pbc, mol_normals, n_molecules,
+                stream);
 }
 
 int p2_positions_f32(const void* x, const void* atom_a, const void* atom_b,
@@ -252,12 +306,13 @@ int p2_positions_f32(const void* x, const void* atom_a, const void* atom_b,
                      const void* bond_type, const void* classes,
                      const void* bond_mol, void* out, int n_frames,
                      int n_atoms, int n_bonds, int n_types, int pbc,
-                     int n_molecules, void* stream) {
+                     int mol_normals, int n_molecules, void* stream) {
   const FloatPositions input{static_cast<const float*>(x),
                              static_cast<const int32_t*>(atom_a),
                              static_cast<const int32_t*>(atom_b), n_atoms};
   return launch(input, box, normal, mask, bond_type, classes, bond_mol, out,
-                n_frames, n_bonds, n_types, pbc, n_molecules, stream);
+                n_frames, n_bonds, n_types, pbc, mol_normals, n_molecules,
+                stream);
 }
 
 // The message of a code that an entry point of this library returned.

@@ -1,10 +1,11 @@
 // United-atom order-parameter kernel for Hopper (sm_90a).
 //
 // Replaces the TPU kernel gorder_tpu/ops/pallas_ua.py `_ua_kernel` (built
-// by `make_pallas_ua_step`), for a static membrane normal, with and
-// without leaflet classes (`with_leaflets`: the class plane gathered at
-// pallas_ua.py:253-258, the masks at :120-122), on int16 XTC positions with
-// a per-frame scale or on f32 positions. It computes what the JAX package's XLA path computes
+// by `make_pallas_ua_step`), for a static membrane normal or per-molecule
+// normals (`per_bond_normal`, below), with and without leaflet classes
+// (`with_leaflets`: the class plane gathered at pallas_ua.py:253-258, the
+// masks at :120-122), on int16 XTC positions with a per-frame scale or on
+// f32 positions. It computes what the JAX package's XLA path computes
 // (gorder_tpu/core/ua.py `_ua_step_impl` with the planar predictors at
 // :145-226), not the TPU kernel's acos-free CH1u variant, which exists only
 // because Mosaic has no acos.
@@ -46,8 +47,22 @@
 // targets, which lie close together in a molecule, so the gathers mostly
 // hit the same cache lines.
 //
-// Later work: the per-molecule normal (`per_bond_normal`) variant comes
-// with the port's normals module.
+// per_bond_normal (kMolNormal; replaces pallas_ua.py:110-113 and :136-141
+// with the operand gather at :234-240): dynamic or manual membrane
+// normals, (B, M, 3) f32, one per molecule and frame. Each thread reads
+// its carbon's molecule's normal n = normal[(b*M + mol[i])*3 ..] once,
+// n2 = max((nx*nx + ny*ny) + nz*nz, 1e-18), and per hydrogen
+// proj = (vx*nx + vy*ny) + vz*nz and S = (1.5*proj^2) / (d2*n2) - 0.5
+// (gorder_tpu/core/ua.py:282-301), grouped otherwise than the P2 kernel's
+// cos2. With n = (0, 0, 1) that is the static chain bit for bit. The TPU
+// wrapper gathers (B, n, 3) per-carbon normal planes in HBM before its
+// pallas_call; here the kernel reads the (B, M, 3) tensor, whose 3 KB
+// frame row stays in L1/L2. It combines with the class plane (both read
+// mol). What bounds it: 12 more bytes gathered per carbon (from cache; the
+// bytes the function must move are the normals once, 12 * M per frame),
+// 6 f32 operations per carbon and 1 per hydrogen more, and the same int64
+// shared atomics. This first version is plain: making it fast is later
+// work.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -180,9 +195,11 @@ __device__ __forceinline__ void predict(V t, V a1, V a2, V a3, V box,
   }
 }
 
-// One C-H sample of hydrogen h on target t against the static normal n.
+// One C-H sample of hydrogen h on target t against the normal n: the
+// static one, or (kMolNormal) the molecule's, with n2 = max(n.n, 1e-18).
+template <bool kMolNormal>
 __device__ __forceinline__ long long ua_sample(V h, V t, V box, V n,
-                                               bool pbc) {
+                                               float n2, bool pbc) {
   if (pbc) h = {wrap(h.x, box.x), wrap(h.y, box.y), wrap(h.z, box.z)};
   V vec = vsub(h, t);
   if (pbc) vec = vmin_image(vec, box);
@@ -190,8 +207,9 @@ __device__ __forceinline__ long long ua_sample(V h, V t, V box, V n,
       __fadd_rn(__fmul_rn(vec.x, n.x), __fmul_rn(vec.y, n.y)),
       __fmul_rn(vec.z, n.z));
   const float d2 = fmaxf(vdot(vec, vec), 1e-18f);
+  const float den = kMolNormal ? __fmul_rn(d2, n2) : d2;
   const float sch =
-      __fsub_rn(__fdiv_rn(__fmul_rn(1.5f, __fmul_rn(proj, proj)), d2), 0.5f);
+      __fsub_rn(__fdiv_rn(__fmul_rn(1.5f, __fmul_rn(proj, proj)), den), 0.5f);
   return gorder::quantum(sch);
 }
 
@@ -224,14 +242,15 @@ struct Targets {
   const int32_t* __restrict__ h1;
   const int32_t* __restrict__ h2;
   const int32_t* __restrict__ h3;  // CH1s only
-  const int32_t* __restrict__ mol;  // with_leaflets only
+  const int32_t* __restrict__ mol;  // with_leaflets or per_bond_normal
   const int32_t* __restrict__ bond_type;  // this category's samples
   int n_cat;
 };
 
 // grid (ceil(n_cat / kTile), B); out (B, kClasses, 2, T) int64, added
-// into; classes (B, M) int32 when kClasses == 3.
-template <int C, class Coords, bool kShared, int kClasses>
+// into; classes (B, M) int32 when kClasses == 3; normal (3,) f32, or
+// (B, M, 3) f32 when kMolNormal.
+template <int C, class Coords, bool kShared, int kClasses, bool kMolNormal>
 __global__ void __launch_bounds__(kThreads)
 ua_kernel(Coords coords, Targets tg, const float* __restrict__ box,
           const float* __restrict__ normal, Trig g,
@@ -244,7 +263,8 @@ ua_kernel(Coords coords, Targets tg, const float* __restrict__ box,
   if (!mask[b]) return;  // padding frame: its rows stay zero
   const gorder::TypeTable<kShared, kClasses> acc(table, out, b, n_types);
   const V L = {box[3 * b], box[3 * b + 1], box[3 * b + 2]};
-  const V n = {normal[0], normal[1], normal[2]};
+  V n = {0.0f, 0.0f, 0.0f};
+  if constexpr (!kMolNormal) n = {normal[0], normal[1], normal[2]};
   const int start = static_cast<int>(blockIdx.x) * kTile;
   const int stop = min(start + kTile, tg.n_cat);
   for (int i = start + static_cast<int>(threadIdx.x); i < stop;
@@ -257,18 +277,25 @@ ua_kernel(Coords coords, Targets tg, const float* __restrict__ box,
     if constexpr (kClasses == 3) {
       cls = gorder::leaflet_class(classes, b, n_molecules, tg.mol[i]);
     }
+    float n2 = 1.0f;
+    if constexpr (kMolNormal) {
+      const float3 nm =
+          gorder::molecule_normal(normal, b, n_molecules, tg.mol[i]);
+      n = {nm.x, nm.y, nm.z};
+      n2 = gorder::normal_norm2(nm);
+    }
     V h[K];
     predict<C>(t, a1, a2, a3, L, pbc != 0, g, h);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      acc.add(tg.bond_type[i * K + k], ua_sample(h[k], t, L, n, pbc != 0),
-              cls);
+      acc.add(tg.bond_type[i * K + k],
+              ua_sample<kMolNormal>(h[k], t, L, n, n2, pbc != 0), cls);
     }
   }
   acc.flush();
 }
 
-template <int C, class Coords, int kClasses>
+template <int C, class Coords, int kClasses, bool kMolNormal>
 void launch_table(const Coords& coords, const Targets& tg, const float* box,
                   const float* normal, const Trig& trig, const uint8_t* mask,
                   const int32_t* classes, int n_molecules,
@@ -276,14 +303,31 @@ void launch_table(const Coords& coords, const Targets& tg, const float* box,
                   int pbc, cudaStream_t s) {
   const dim3 grid((tg.n_cat + kTile - 1) / kTile, n_frames);
   if (gorder::table_fits(n_types, kClasses)) {
-    ua_kernel<C, Coords, true, kClasses>
+    ua_kernel<C, Coords, true, kClasses, kMolNormal>
         <<<grid, kThreads, gorder::table_bytes(n_types, kClasses), s>>>(
             coords, tg, box, normal, trig, mask, classes, n_molecules,
             n_types, pbc, out);
   } else {
-    ua_kernel<C, Coords, false, kClasses><<<grid, kThreads, 0, s>>>(
-        coords, tg, box, normal, trig, mask, classes, n_molecules, n_types,
-        pbc, out);
+    ua_kernel<C, Coords, false, kClasses, kMolNormal>
+        <<<grid, kThreads, 0, s>>>(coords, tg, box, normal, trig, mask,
+                                   classes, n_molecules, n_types, pbc, out);
+  }
+}
+
+template <int C, class Coords, bool kMolNormal>
+void launch_classes(const Coords& coords, const Targets& tg,
+                    const float* box, const float* normal, const Trig& trig,
+                    const uint8_t* mask, const int32_t* classes,
+                    int n_molecules, unsigned long long* out, int n_frames,
+                    int n_types, int pbc, cudaStream_t s) {
+  if (classes != nullptr) {
+    launch_table<C, Coords, 3, kMolNormal>(coords, tg, box, normal, trig,
+                                           mask, classes, n_molecules, out,
+                                           n_frames, n_types, pbc, s);
+  } else {
+    launch_table<C, Coords, 1, kMolNormal>(coords, tg, box, normal, trig,
+                                           mask, classes, n_molecules, out,
+                                           n_frames, n_types, pbc, s);
   }
 }
 
@@ -291,14 +335,17 @@ template <int C, class Coords>
 void launch_category(const Coords& coords, const Targets& tg,
                      const float* box, const float* normal, const Trig& trig,
                      const uint8_t* mask, const int32_t* classes,
-                     int n_molecules, unsigned long long* out, int n_frames,
-                     int n_types, int pbc, cudaStream_t s) {
-  if (classes != nullptr) {
-    launch_table<C, Coords, 3>(coords, tg, box, normal, trig, mask, classes,
-                               n_molecules, out, n_frames, n_types, pbc, s);
+                     int mol_normals, int n_molecules,
+                     unsigned long long* out, int n_frames, int n_types,
+                     int pbc, cudaStream_t s) {
+  if (mol_normals) {
+    launch_classes<C, Coords, true>(coords, tg, box, normal, trig, mask,
+                                    classes, n_molecules, out, n_frames,
+                                    n_types, pbc, s);
   } else {
-    launch_table<C, Coords, 1>(coords, tg, box, normal, trig, mask, classes,
-                               n_molecules, out, n_frames, n_types, pbc, s);
+    launch_classes<C, Coords, false>(coords, tg, box, normal, trig, mask,
+                                     classes, n_molecules, out, n_frames,
+                                     n_types, pbc, s);
   }
 }
 
@@ -308,9 +355,10 @@ int launch(int category, const Coords& coords, const void* target,
            const void* bond_type, const void* box, const void* normal,
            const Trig& trig, const void* mask, const void* classes,
            void* out, int n_frames, int n_cat, int n_types, int pbc,
-           int n_molecules, void* stream) {
+           int mol_normals, int n_molecules, void* stream) {
   if (n_frames == 0 || n_cat == 0) return 0;
-  if (classes != nullptr && mol == nullptr)
+  if ((classes != nullptr || mol_normals != 0) &&
+      (mol == nullptr || n_molecules <= 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const Targets tg{static_cast<const int32_t*>(target),
                    static_cast<const int32_t*>(h1),
@@ -326,21 +374,21 @@ int launch(int category, const Coords& coords, const void* target,
   auto s = static_cast<cudaStream_t>(stream);
   switch (category) {
     case kCH3:
-      launch_category<kCH3>(coords, tg, bx, nv, trig, mk, cl, n_molecules, o,
-                            n_frames, n_types, pbc, s);
+      launch_category<kCH3>(coords, tg, bx, nv, trig, mk, cl, mol_normals,
+                            n_molecules, o, n_frames, n_types, pbc, s);
       break;
     case kCH2:
-      launch_category<kCH2>(coords, tg, bx, nv, trig, mk, cl, n_molecules, o,
-                            n_frames, n_types, pbc, s);
+      launch_category<kCH2>(coords, tg, bx, nv, trig, mk, cl, mol_normals,
+                            n_molecules, o, n_frames, n_types, pbc, s);
       break;
     case kCH1U:
-      launch_category<kCH1U>(coords, tg, bx, nv, trig, mk, cl, n_molecules,
-                             o, n_frames, n_types, pbc, s);
+      launch_category<kCH1U>(coords, tg, bx, nv, trig, mk, cl, mol_normals,
+                             n_molecules, o, n_frames, n_types, pbc, s);
       break;
     case kCH1S:
       if (h3 == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-      launch_category<kCH1S>(coords, tg, bx, nv, trig, mk, cl, n_molecules,
-                             o, n_frames, n_types, pbc, s);
+      launch_category<kCH1S>(coords, tg, bx, nv, trig, mk, cl, mol_normals,
+                             n_molecules, o, n_frames, n_types, pbc, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -358,6 +406,8 @@ extern "C" {
 // bond_type points at the category's first sample. classes (B, M) int32
 // with the category's per-carbon molecules mol select the with_leaflets
 // variant, out (B, 3, 2, T); classes null, the plain one, out (B, 2, T).
+// mol_normals = 1 selects the per_bond_normal variant: normal is then
+// (B, M, 3) f32 read by mol, else (3,); n_molecules is M.
 
 int ua_positions_i16(int category, const void* x, const void* scale,
                      const void* target, const void* h1, const void* h2,
@@ -365,12 +415,13 @@ int ua_positions_i16(int category, const void* x, const void* scale,
                      const void* box, const void* normal, Trig trig,
                      const void* mask, const void* classes, void* out,
                      int n_frames, int n_atoms, int n_cat, int n_types,
-                     int pbc, int n_molecules, void* stream) {
+                     int pbc, int mol_normals, int n_molecules,
+                     void* stream) {
   const IntCoords coords{static_cast<const int16_t*>(x),
                          static_cast<const float*>(scale), n_atoms};
   return launch(category, coords, target, h1, h2, h3, mol, bond_type, box,
                 normal, trig, mask, classes, out, n_frames, n_cat, n_types,
-                pbc, n_molecules, stream);
+                pbc, mol_normals, n_molecules, stream);
 }
 
 int ua_positions_f32(int category, const void* x, const void* target,
@@ -379,11 +430,11 @@ int ua_positions_f32(int category, const void* x, const void* target,
                      const void* normal, Trig trig, const void* mask,
                      const void* classes, void* out, int n_frames,
                      int n_atoms, int n_cat, int n_types, int pbc,
-                     int n_molecules, void* stream) {
+                     int mol_normals, int n_molecules, void* stream) {
   const FloatCoords coords{static_cast<const float*>(x), n_atoms};
   return launch(category, coords, target, h1, h2, h3, mol, bond_type, box,
                 normal, trig, mask, classes, out, n_frames, n_cat, n_types,
-                pbc, n_molecules, stream);
+                pbc, mol_normals, n_molecules, stream);
 }
 
 }  // extern "C"

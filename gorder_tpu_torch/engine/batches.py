@@ -1,6 +1,6 @@
 """The frame-batch loop: decode → device → kernel → accumulate (port of
 `gorder_tpu/engine/batches.py:61-1203` for the b7, int16 and f32 wires,
-with leaflets).
+with leaflets and membrane normals).
 
 A decode thread fills a prefetch ring of host buffers (the native codec
 releases the GIL) while the main thread copies batch k to the device and
@@ -16,9 +16,17 @@ Leaflet runs read the decoder's side channels beside the wire
 or the COG ring of the coordinate wires. Export runs collect the classes
 each batch used, in frame order.
 
+Runs with membrane normals that are not static give the step (B, M, 3)
+normals: a manual table's rows for the batch, shipped beside the wire
+(padding rows zero), or dynamic normals computed with the step from what
+the batch carries (`engine/fused.py`). The dynamic normals' ≥3-points
+guard stays on the device and is checked when the batch drains, so no
+batch waits on the host for it. Export runs collect the normals each
+batch used, in frame order, at drain.
+
 A caller may pass `on_batch`, which receives each batch's `DeviceBatch`
-once its step has been dispatched: the device tensors and classes the
-step was given, to inspect or to feed to a kernel again.
+once its step has been dispatched: the device tensors, classes and
+normals the step was given, to inspect or to feed to a kernel again.
 """
 
 from __future__ import annotations
@@ -41,7 +49,8 @@ from ..io.traj import Trajectory, check_box_batch
 from ..utils.progress import ProgressPrinter
 from ..utils.timers import timers
 from .channels import plan_wire
-from .fused import BY_KIND, Classifiers
+from .fused import BY_KIND, Consumers
+from .normals_runtime import check_normal_guard
 
 log = logging.getLogger("gorder")
 
@@ -60,7 +69,7 @@ class DeviceBatch:
     wire: tuple                      # the wire's tensors on the device
     scale: Optional[torch.Tensor]    # (B,) f32 for integer wires, else None
     box: torch.Tensor                # (B, 3) f32 box diagonal
-    normal: torch.Tensor             # (3,) f32
+    normal: torch.Tensor             # the (3,) or (B, M, 3) f32 normals used
     mask: torch.Tensor               # (B,) bool: False on padding frames
     classes: Optional[torch.Tensor]  # the (B, M) int32 classes the step used
     step: object                     # the OrderStep or UAStep
@@ -73,13 +82,15 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
 
 def run_batches(analysis, system, step, normal_vec, n_types: int, space,
                 bond_slots, leaflets=None, n_molecules: int = 0, *, device,
-                batch_size: int = DEFAULT_BATCH_SIZE, on_batch=None):
+                normals=None, batch_size: int = DEFAULT_BATCH_SIZE,
+                on_batch=None):
     """→ (OrderAccumulator, Trajectory, analyzed frame indices).
 
     `bond_slots` (atom_a, atom_b) makes the b7 wire eligible; UA steps pass
     None and ride int16 or f32 positions. `leaflets` is the run's
-    LeafletRuntime, or None. `on_batch`, if given, is called with each
-    batch's DeviceBatch after its step is dispatched."""
+    LeafletRuntime and `normals` its NormalsRuntime, or None; with
+    `normals`, `normal_vec` is unused. `on_batch`, if given, is called
+    with each batch's DeviceBatch after its step is dispatched."""
     device = torch.device(device)
     accum = OrderAccumulator(
         n_types, ("total", "upper", "lower") if leaflets else ("total",),
@@ -95,25 +106,29 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
             "no trajectory frames are within the specified time range")
     if leaflets is not None:
         leaflets.validate(len(frame_indices))
+    if normals is not None:
+        normals.validate(len(frame_indices))
 
     n_threads = max(1, analysis.n_threads)
     plan = plan_wire(traj=traj, frame_indices=frame_indices, space=space,
                      bond_slots=bond_slots, leaflets=leaflets,
-                     n_molecules=n_molecules, handle_pbc=analysis.handle_pbc,
-                     n_threads=n_threads, batch_size=batch_size)
+                     normals=normals, n_molecules=n_molecules,
+                     handle_pbc=analysis.handle_pbc, n_threads=n_threads,
+                     batch_size=batch_size)
     # host classes (manual tables, frequency-gated methods) come from
     # classes_for_batch; every-frame methods classify with the step
     host_classes = leaflets is not None and leaflets.fused_classify() is None
-    classifiers = Classifiers()
-    if leaflets is not None:
-        classifiers = Classifiers(
-            coords=leaflets.fused_classify(),
-            channel_coords=(plan.chan_coords[0] if plan.chan_coords
-                            else None),
-            channel=plan.channel_classify, aux=plan.aux_classify)
+    consumers = Consumers(
+        coords=leaflets.fused_classify() if leaflets is not None else None,
+        channel_coords=plan.chan_coords[0] if plan.chan_coords else None,
+        channel=plan.channel_classify, aux=plan.aux_classify,
+        normals=normals.fused() if normals is not None else None,
+        aux_normals=plan.aux_normals)
+    manual_normals = normals is not None and normals.fused() is None
     chan_membrane, chan_axis = (plan.chan_coords[1] if plan.chan_coords
                                 else (None, None))
     collect = leaflets is not None and leaflets.collect_frames is not None
+    collect_normals = normals is not None and normals.collected is not None
 
     n_out = space.n_out
     n_batches = (len(frame_indices) + batch_size - 1) // batch_size
@@ -288,17 +303,24 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
                         leaflets, kind, wire, scale_dev, box_dev, sparse,
                         b * batch_size, n_valid, batch_size, n_molecules,
                         device)
+            normal = normal_dev
+            if manual_normals:
+                with timers.phase("transfer"):
+                    normal = normals.manual_for_batch(
+                        b * batch_size, n_valid, batch_size, device)
             with timers.phase("dispatch"):
-                out, used = BY_KIND[kind](step, wire, scale_dev, box_dev,
-                                          normal_dev, mask_dev, classifiers,
-                                          classes)
-            if used is not None and not host_classes and b == 0:
-                leaflets.log_first_stats(used[0].cpu().numpy())
+                used = BY_KIND[kind](step, wire, scale_dev, box_dev, normal,
+                                     mask_dev, consumers, classes)
+            if used.classes is not None and not host_classes and b == 0:
+                leaflets.log_first_stats(used.classes[0].cpu().numpy())
             if on_batch is not None:
                 on_batch(DeviceBatch(b, kind, wire, scale_dev, box_dev,
-                                     normal_dev, mask_dev, used, step))
-            outputs.append((out, n_valid,
-                            used if collect and not host_classes else None))
+                                     used.normal, mask_dev, used.classes,
+                                     step))
+            outputs.append((n_valid, used._replace(
+                classes=used.classes if collect and not host_classes
+                else None,
+                normal=used.normal if collect_normals else None)))
             if progress is not None:
                 progress.update(min((b + 1) * batch_size,
                                     len(frame_indices)))
@@ -311,12 +333,17 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
             progress.finish()
 
     with timers.phase("drain"):
-        for out, n_valid, used in outputs:
-            accum.add_step(out[:n_valid].cpu().numpy(), n_valid)
-            if used is not None:
-                # the classes this batch's step consumed, in frame order
+        for n_valid, used in outputs:
+            if used.guard is not None:
+                check_normal_guard(used.guard)
+            accum.add_step(used.out[:n_valid].cpu().numpy(), n_valid)
+            # the classes and normals this batch's step consumed, in frame
+            # order
+            if used.classes is not None:
                 leaflets.collect_frames.extend(
-                    used[:n_valid].cpu().numpy().astype(np.int32))
+                    used.classes[:n_valid].cpu().numpy().astype(np.int32))
+            if used.normal is not None:
+                normals.collected.append(used.normal[:n_valid].cpu().numpy())
     log.info("analyzed %d frames", accum.n_frames)
     return accum, traj, frame_indices
 

@@ -1,23 +1,27 @@
 """Wire planning: which wire a run rides and which decoder side channels
-feed its leaflet classification (port of `gorder_tpu/engine/channels.py`
-for the b7, int16 and f32 wires).
+feed its leaflet classification and dynamic membrane normals (port of
+`gorder_tpu/engine/channels.py` for the b7, int16 and f32 wires).
 
 The wire: b7 when the run's bond slots are eligible and the trajectory
 fits the bond-vector wire, else int16 XTC integers, else f32 positions.
 Bond slots are eligible when nothing but the order step needs absolute
-positions, or when a decoder side channel gives the leaflet classifier
-what it reads:
+positions, or when a decoder side channel gives the other coordinate
+consumers what they read:
 
-- no leaflets                                            -> b7
+- no leaflets, a static or no normal                     -> b7
 - every-frame global leaflets: heads + the decoder's
   membrane center (COG) along the normal                 -> b7g
 - manual tables or frequency-gated classification: a host
   (B, M) class plane, with sparse reads of the
   assignment frames' coordinates                         -> b7m
-- every-frame individual leaflets: the exact integer
-  positions of the heads and methyls                     -> b7x
+- every-frame individual leaflets and/or dynamic normals:
+  the exact integer positions of the atoms they read
+  (heads and methyls; the normal-heads cloud), as one
+  aux atom union                                         -> b7x
 
-Other runs (local leaflets, UA runs) ride int16 or f32. Every-frame global
+Other runs (local leaflets, manual normals, dynamic normals with global
+or local leaflets, UA runs) ride int16 or f32; manual normals are host
+tables shipped beside the wire (`engine/batches.py`). Every-frame global
 leaflets with PBC on XTC input classify against the decoder's COG on every
 wire (the `*g` coordinate kinds), so the printed output is the same
 whichever wire a batch rides. The JAX package picks among more wires by
@@ -56,18 +60,33 @@ class WirePlan:
     plane_active: bool = False
     plane_sparse: bool = False
     assign_cap: int = 0
-    # aux atom side channel (b7x): the slots and their classifier
+    # aux atom side channel (b7x): the slots, and the classifier and the
+    # dynamic normals over them (None where the run has no such consumer)
     aux_wire_slots: Optional[np.ndarray] = None
     aux_classify: Optional[Callable] = None
+    aux_normals: Optional[Callable] = None
 
 
-def _aux_channel(leaflets, n_out: int):
-    """(aux slots, classifier over them) when every-frame classification
-    needs only a small atom set (individual leaflets), else None."""
-    classify = leaflets.fused_classify()
-    atoms = getattr(leaflets.classify, "aux_atoms", None)
-    if classify is None or atoms is None:
+def _aux_channel(leaflets, normals, n_out: int):
+    """(aux slots, classifier or None, dynamic normals or None over them)
+    when every coordinate consumer of the run needs only a small atom set
+    at every frame — the individual classifier (heads and methyls) and the
+    dynamic normals (the normal-heads cloud) — else None. The slots are the
+    union of their atoms, and each consumer is rebuilt over them
+    (gorder_tpu/engine/channels.py:119-170)."""
+    consumers = []
+    if leaflets is not None:
+        if (leaflets.fused_classify() is None
+                or getattr(leaflets.classify, "aux_atoms", None) is None):
+            return None
+        consumers.append(leaflets.classify)
+    if normals is not None:
+        if normals.fused() is None:
+            return None
+        consumers.append(normals.compute)
+    if not consumers:
         return None
+    atoms = np.unique(np.concatenate([c.aux_atoms for c in consumers]))
     lut = np.full(n_out, -1, np.int64)
     lut[atoms] = np.arange(len(atoms))
 
@@ -78,36 +97,43 @@ def _aux_channel(leaflets, n_out: int):
                                  "lies outside the aux atom set")
         return out
 
-    aux = leaflets.classify.rebuild(pos_of)
-    if leaflets.flip:
-        def aux_classify(coords, box):
-            return 1 - aux(coords, box)
-    else:
-        aux_classify = aux
-    return atoms.astype(np.int32), aux_classify
+    aux_classify = aux_normals = None
+    if leaflets is not None:
+        aux_classify = leaflets.classify.rebuild(pos_of)
+        if leaflets.flip:
+            inner = aux_classify
+
+            def aux_classify(coords, box):
+                return 1 - inner(coords, box)
+    if normals is not None:
+        aux_normals = normals.compute.rebuild(pos_of)
+    return atoms.astype(np.int32), aux_classify, aux_normals
 
 
 def plan_wire(*, traj, frame_indices, space, bond_slots=None, leaflets=None,
-              n_molecules: int = 0, handle_pbc: bool = True,
+              normals=None, n_molecules: int = 0, handle_pbc: bool = True,
               n_threads: int, batch_size: int) -> WirePlan:
     """Decide the run's channel class and wire, and size the per-frame
     payload. `bond_slots` (atom_a, atom_b) are the order step's bonds in
-    the decoded atom space; UA runs pass None and never ride b7."""
+    the decoded atom space; UA runs pass None and never ride b7.
+    `leaflets` and `normals` are the run's LeafletRuntime and
+    NormalsRuntime, or None."""
     n_out = space.n_out
     chan_coords = leaf_channels = aux = None
     plane_mode = False
-    if leaflets is not None:
-        if handle_pbc and traj._all_xtc(frame_indices):
-            chan_coords = leaflets.channel_coords_info()
-        if bond_slots is not None:
+    if leaflets is not None and handle_pbc and traj._all_xtc(frame_indices):
+        chan_coords = leaflets.channel_coords_info()
+    if bond_slots is not None:
+        if leaflets is not None and normals is None:
             if chan_coords is not None:
                 leaf_channels = leaflets.fused_channel()
             plane_mode = leaf_channels is None and leaflets.plane_eligible()
-            if leaf_channels is None and not plane_mode:
-                aux = _aux_channel(leaflets, n_out)
+        if (leaflets is not None or normals is not None) \
+                and leaf_channels is None and not plane_mode:
+            aux = _aux_channel(leaflets, normals, n_out)
     b7_ok = bond_slots is not None and (
-        leaflets is None or leaf_channels is not None or plane_mode
-        or aux is not None)
+        (leaflets is None and normals is None) or leaf_channels is not None
+        or plane_mode or aux is not None)
 
     n_bonds = len(bond_slots[0]) if bond_slots is not None else 0
     esc_cap = None
@@ -133,7 +159,7 @@ def plan_wire(*, traj, frame_indices, space, bond_slots=None, leaflets=None,
                 + plan.assign_cap * n_out * 6 // max(batch_size, 1)
             extra = " + host leaflet-class plane"
         elif aux is not None:
-            plan.aux_wire_slots, plan.aux_classify = aux
+            plan.aux_wire_slots, plan.aux_classify, plan.aux_normals = aux
             plan.wire_bytes += len(plan.aux_wire_slots) * 12
             extra = f" + {len(plan.aux_wire_slots)}-atom aux channel"
         plan.wire_bytes += b7_stride(n_bonds) + esc_cap * 4

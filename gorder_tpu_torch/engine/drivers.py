@@ -1,8 +1,9 @@
 """The per-mode drivers (port of `gorder_tpu/engine/drivers.py:38-207`):
-AA, CG and UA order parameters with a static membrane normal, overall and
-per leaflet (global, local, individual and manual assignment), with no
-ordermaps or geometry. Any other configuration raises `AnalysisError`
-naming what is not ported yet; nothing falls back to the JAX package.
+AA, CG and UA order parameters with a static, dynamic or manual membrane
+normal (with or without normals export), overall and per leaflet (global,
+local, individual and manual assignment), with no ordermaps or geometry.
+Any other configuration raises `AnalysisError` naming what is not ported
+yet; nothing falls back to the JAX package.
 """
 
 from __future__ import annotations
@@ -13,7 +14,6 @@ import numpy as np
 import torch
 
 from ..engine.prepare import (
-    _AXIS_INDEX,
     _build_atom_space,
     _empty_results,
     _prepare_bond_kinds,
@@ -27,6 +27,7 @@ from ..core.ua import make_ua_step
 from .batches import DEFAULT_BATCH_SIZE, run_batches
 from .convert import convert_results, convert_results_ua
 from .leaflet_runtime import CLUSTERING_METHODS, build_leaflet_runtime
+from .normals_runtime import _build_normals
 
 log = logging.getLogger("gorder")
 
@@ -38,8 +39,6 @@ def _not_ported(analysis) -> list:
             and analysis.leaflets.kind in CLUSTERING_METHODS:
         missing.append("leaflet classification by "
                        + CLUSTERING_METHODS[analysis.leaflets.kind])
-    if analysis.membrane_normal.kind != "static":
-        missing.append("dynamic or manual membrane normals")
     if analysis.map is not None:
         missing.append("ordermaps")
     if analysis.geometry is not None:
@@ -67,16 +66,27 @@ def run_analysis(analysis, device, batch_size: int = DEFAULT_BATCH_SIZE,
     return results
 
 
-def _static_normal(analysis) -> np.ndarray:
-    normal_vec = np.zeros(3, np.float32)
-    normal_vec[_AXIS_INDEX[analysis.membrane_normal.axis]] = 1.0
-    return normal_vec
+def _runtimes(system, analysis, kinds, n_molecules, remap, device):
+    """→ (static (3,) normal or zeros, NormalsRuntime or None,
+    LeafletRuntime or None): the membrane normals, and the leaflets on the
+    axis `_build_normals` gives them (gorder_tpu/engine/drivers.py:70-74)."""
+    axis, normal_vec, normals = _build_normals(system, analysis, kinds,
+                                               n_molecules, remap, device)
+    leaflets = build_leaflet_runtime(system, analysis, kinds, n_molecules,
+                                     axis, remap, device=device)
+    if normal_vec is None:
+        normal_vec = np.zeros(3, np.float32)
+    return normal_vec, normals, leaflets
 
 
-def _leaflets(system, analysis, kinds, n_molecules, remap, device):
-    return build_leaflet_runtime(
-        system, analysis, kinds, n_molecules,
-        _AXIS_INDEX[analysis.membrane_normal.axis], remap, device=device)
+def _bounds(kinds):
+    """(name, first molecule, end) of each molecule kind."""
+    bounds = []
+    offset = 0
+    for kind in kinds:
+        bounds.append((kind.name, offset, offset + kind.n_molecules))
+        offset += kind.n_molecules
+    return bounds
 
 
 def _attach_leaflet_data(results, analysis, kinds, leaflets) -> None:
@@ -84,20 +94,27 @@ def _attach_leaflet_data(results, analysis, kinds, leaflets) -> None:
     drivers.py:131-148): one row per assignment frame, 0 = upper."""
     if leaflets is None or leaflets.collect_frames is None:
         return
-    bounds = []
-    offset = 0
-    for kind in kinds:
-        bounds.append((kind.name, offset, offset + kind.n_molecules))
-        offset += kind.n_molecules
     frames = leaflets.collect_frames
     if leaflets.manual_table is not None and not frames:
         frames = list(leaflets.manual_table)
     results.leaflets_data = {
         "frames": frames,
-        "kinds": bounds,
+        "kinds": _bounds(kinds),
         "step": analysis.step,
         "frequency_n": (leaflets.frequency.n
                         if leaflets.frequency.kind == "every" else 1),
+    }
+
+
+def _attach_normals_data(results, analysis, kinds, normals) -> None:
+    """The normals an export run used, (frames, M, 3) in frame order
+    (gorder_tpu/engine/drivers.py:116-128)."""
+    if normals is None or normals.collected is None:
+        return
+    results.normals_data = {
+        "frames": np.concatenate(normals.collected, axis=0),
+        "kinds": _bounds(kinds),
+        "step": analysis.step,
     }
 
 
@@ -110,25 +127,27 @@ def _run_bond_based(analysis, device, batch_size: int, on_batch):
         return _empty_results(analysis, system)
     space, remap = _build_atom_space(system, analysis,
                                      [compiled.atom_a, compiled.atom_b])
-    normal_vec = _static_normal(analysis)
+    normal_vec, normals, leaflets = _runtimes(
+        system, analysis, kinds, compiled.n_molecules, remap, device)
 
     atom_a, atom_b = remap(compiled.atom_a), remap(compiled.atom_b)
-    leaflets = _leaflets(system, analysis, kinds, compiled.n_molecules,
-                         remap, device)
     step = make_order_step(atom_a, atom_b, compiled.bond_type,
                            compiled.molecule, compiled.n_types,
                            compiled.n_molecules,
                            handle_pbc=analysis.handle_pbc, device=device,
-                           with_leaflets=leaflets is not None)
+                           with_leaflets=leaflets is not None,
+                           normal_mode=("per_molecule" if normals is not None
+                                        else "static"))
     with timers.phase("trajectory"):
         accum, traj, frame_indices = run_batches(
             analysis, system, step, normal_vec, compiled.n_types, space,
             (atom_a, atom_b), leaflets, compiled.n_molecules, device=device,
-            batch_size=batch_size, on_batch=on_batch)
+            normals=normals, batch_size=batch_size, on_batch=on_batch)
     with timers.phase("convert"):
         results = convert_results(analysis, system, kinds, compiled, accum,
                                   traj, frame_indices)
     _attach_leaflet_data(results, analysis, kinds, leaflets)
+    _attach_normals_data(results, analysis, kinds, normals)
     return results
 
 
@@ -148,18 +167,21 @@ def _run_ua(analysis, device, batch_size: int, on_batch):
     categories = {
         cat: {k: (remap(v) if k in atom_keys else v) for k, v in d.items()}
         for cat, d in compiled.categories.items()}
-    leaflets = _leaflets(system, analysis, kinds, compiled.n_molecules,
-                         remap, device)
+    normal_vec, normals, leaflets = _runtimes(
+        system, analysis, kinds, compiled.n_molecules, remap, device)
     step = make_ua_step(categories, compiled.bond_type, compiled.bond_mol,
                         compiled.n_types, handle_pbc=analysis.handle_pbc,
-                        device=device, with_leaflets=leaflets is not None)
+                        device=device, with_leaflets=leaflets is not None,
+                        normal_mode=("per_molecule" if normals is not None
+                                     else "static"))
     with timers.phase("trajectory"):
         accum, traj, frame_indices = run_batches(
-            analysis, system, step, _static_normal(analysis),
-            compiled.n_types, space, None, leaflets, compiled.n_molecules,
-            device=device, batch_size=batch_size, on_batch=on_batch)
+            analysis, system, step, normal_vec, compiled.n_types, space,
+            None, leaflets, compiled.n_molecules, device=device,
+            normals=normals, batch_size=batch_size, on_batch=on_batch)
     with timers.phase("convert"):
         results = convert_results_ua(analysis, system, kinds, compiled,
                                      accum, traj, frame_indices)
     _attach_leaflet_data(results, analysis, kinds, leaflets)
+    _attach_normals_data(results, analysis, kinds, normals)
     return results

@@ -1,15 +1,18 @@
 """Per-batch programs, one per wire kind (port of
 `gorder_tpu/engine/fused.py` `_build_fused_steps` for the b7, int16 and
 f32 wires): decode the shipped payload on the device, classify leaflets
-where the batch carries what the classifier reads, and run the order
-step. PyTorch runs eagerly, so these are plain functions; the JAX package
-traces each into one XLA program.
+and compute dynamic membrane normals where the batch carries what they
+read, and run the order step. PyTorch runs eagerly, so these are plain
+functions; the JAX package traces each into one XLA program.
 
 Each takes (step, wire tensors, inv_scale, box_diag, normal, frame_mask,
-classifiers, classes) and returns (the step's int64 output, the (B, M)
-classes it used or None). `classes` are host classes shipped with the
-batch (manual tables, frequency-gated methods); without them a leaflet
-run classifies here with the run's `Classifiers`.
+consumers, classes) and returns a `Used`: the step's int64 output, the
+(B, M) classes and the normal it used, and the dynamic normals' guard.
+`classes` are host classes shipped with the batch (manual tables,
+frequency-gated methods); without them a leaflet run classifies here with
+the run's `Consumers`. `normal` is the static (3,) normal or a manual
+(B, M, 3) table; a dynamic-normal run replaces it here with the (B, M, 3)
+normals computed from the batch.
 
 Kinds: `b7` (no leaflets), `b7g` (heads + decoder COG), `b7x` (aux atoms),
 `b7m` (host class plane), and the coordinate wires `i16`/`f32`, with a
@@ -19,84 +22,119 @@ trailing decoder COG as `i16g`/`f32g`.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
+
+import torch
 
 from .wire import b7_residuals
 
 
 @dataclass
-class Classifiers:
-    """The leaflet classifiers a run's wire kinds call, flip applied;
+class Consumers:
+    """The coordinate consumers a run's wire kinds call besides the step:
+    leaflet classifiers, flip applied, and the dynamic membrane normals;
     None where the run has no such kind."""
 
     coords: Optional[Callable] = None          # (coords f32, box)
     channel_coords: Optional[Callable] = None  # (coords f32, cog, box)
     channel: Optional[Callable] = None         # b7g: (heads f32, cog, box)
     aux: Optional[Callable] = None             # b7x: (aux f32, box)
+    normals: Optional[Callable] = None         # (coords f32, box)
+    aux_normals: Optional[Callable] = None     # b7x: (aux f32, box)
 
 
-def _resid(step, w, scale, box, normal, mask, classes):
+class Used(NamedTuple):
+    """What a batch's program gives back."""
+
+    out: torch.Tensor                # the step's int64 output
+    classes: Optional[torch.Tensor]  # the (B, M) int32 classes it used
+    normal: torch.Tensor             # the (3,) or (B, M, 3) normal it used
+    guard: Optional[torch.Tensor]    # dynamic normals: min cloud count
+
+
+def _normals(fn, cf, box, normal, mask):
+    """The dynamic normals of the batch and their guard — the least cloud
+    count over the valid frames, a device scalar checked when the batch
+    drains (the ≥3-points check; gorder_tpu/engine/fused.py:101-106) —
+    or the given normal and None without dynamic normals."""
+    if fn is None:
+        return normal, None
+    normal, counts = fn(cf, box)
+    guard = torch.where(mask[:, None], counts,
+                        torch.full_like(counts, 1e9)).amin()
+    return normal, guard
+
+
+def _resid(step, w, scale, box, normal, mask, classes, guard=None):
     pk, gp, vl, base = w[:4]
     r = b7_residuals(pk, gp, vl, base.shape[0])
-    return step.resid(r, base, scale, box, normal, mask, classes=classes), \
-        classes
+    return Used(step.resid(r, base, scale, box, normal, mask,
+                           classes=classes), classes, normal, guard)
 
 
-def run_b7(step, w, scale, box, normal, mask, cl, classes=None):
+def run_b7(step, w, scale, box, normal, mask, cs, classes=None):
     """b7 wire: the escape-applied int16 residuals go straight into the
     kernel, which adds the per-slot base and dequantizes (resid input).
     A b7m batch comes here too, with its host class plane as `classes`."""
     return _resid(step, w, scale, box, normal, mask, classes)
 
 
-def run_b7g(step, w, scale, box, normal, mask, cl, classes=None):
+def run_b7g(step, w, scale, box, normal, mask, cs, classes=None):
     """b7 + heads and the decoder's membrane COG: the heads dequantize as
     the coordinate wires do, f32(int)·s, a bit-identical gather."""
     heads = w[4].to(scale.dtype) * scale[:, None, None]
-    classes = cl.channel(heads, w[5], box)
+    classes = cs.channel(heads, w[5], box)
     return _resid(step, w, scale, box, normal, mask, classes)
 
 
-def run_b7x(step, w, scale, box, normal, mask, cl, classes=None):
-    """b7 + the exact integer positions of the atoms the classifier reads
-    (individual leaflets: heads and methyls)."""
+def run_b7x(step, w, scale, box, normal, mask, cs, classes=None):
+    """b7 + the exact integer positions of the atoms the other consumers
+    read (individual leaflets: heads and methyls; dynamic normals: the
+    normal-heads cloud)."""
     aux = w[4].to(scale.dtype) * scale[:, None, None]
-    classes = cl.aux(aux, box)
-    return _resid(step, w, scale, box, normal, mask, classes)
+    if cs.aux is not None:
+        classes = cs.aux(aux, box)
+    normal, guard = _normals(cs.aux_normals, aux, box, normal, mask)
+    return _resid(step, w, scale, box, normal, mask, classes, guard)
 
 
-def _positions(step, coords, inv_scale, box, normal, mask, cl, classes,
+def _positions(step, coords, inv_scale, box, normal, mask, cs, classes,
                cog=None):
     """Coordinate wires: integer positions stay integer for the step (the
-    single-rounding bond difference); the classifier reads f32(q)·s."""
-    if classes is None and (cl.coords is not None or cog is not None):
-        cf = (coords.to(inv_scale.dtype) * inv_scale[:, None, None]
-              if inv_scale is not None else coords)
-        classes = (cl.channel_coords(cf, cog, box) if cog is not None
-                   else cl.coords(cf, box))
-    return step.positions(coords, box, normal, mask, inv_scale=inv_scale,
-                          classes=classes), classes
+    single-rounding bond difference); the classifier and the dynamic
+    normals read f32(q)·s."""
+    classify = classes is None and (cs.coords is not None or cog is not None)
+    cf = coords
+    if (classify or cs.normals is not None) and inv_scale is not None:
+        cf = coords.to(inv_scale.dtype) * inv_scale[:, None, None]
+    if classify:
+        classes = (cs.channel_coords(cf, cog, box) if cog is not None
+                   else cs.coords(cf, box))
+    normal, guard = _normals(cs.normals, cf, box, normal, mask)
+    return Used(step.positions(coords, box, normal, mask,
+                               inv_scale=inv_scale, classes=classes),
+                classes, normal, guard)
 
 
-def run_i16(step, w, scale, box, normal, mask, cl, classes=None):
+def run_i16(step, w, scale, box, normal, mask, cs, classes=None):
     """int16 XTC integers."""
-    return _positions(step, w[0], scale, box, normal, mask, cl, classes)
+    return _positions(step, w[0], scale, box, normal, mask, cs, classes)
 
 
-def run_f32(step, w, scale, box, normal, mask, cl, classes=None):
+def run_f32(step, w, scale, box, normal, mask, cs, classes=None):
     """f32 positions (non-XTC input): pair differences."""
-    return _positions(step, w[0], None, box, normal, mask, cl, classes)
+    return _positions(step, w[0], None, box, normal, mask, cs, classes)
 
 
-def run_i16g(step, w, scale, box, normal, mask, cl, classes=None):
+def run_i16g(step, w, scale, box, normal, mask, cs, classes=None):
     """int16 + the decoder's membrane COG."""
-    return _positions(step, w[0], scale, box, normal, mask, cl, classes,
+    return _positions(step, w[0], scale, box, normal, mask, cs, classes,
                       cog=w[1])
 
 
-def run_f32g(step, w, scale, box, normal, mask, cl, classes=None):
+def run_f32g(step, w, scale, box, normal, mask, cs, classes=None):
     """f32 + the decoder's membrane COG."""
-    return _positions(step, w[0], None, box, normal, mask, cl, classes,
+    return _positions(step, w[0], None, box, normal, mask, cs, classes,
                       cog=w[1])
 
 

@@ -48,15 +48,15 @@ _vp = ctypes.c_void_p
 _int = ctypes.c_int
 # category, x, [scale,] target, h1, h2, h3, mol, bond_type, box, normal,
 # trig, mask, classes, out, n_frames, n_atoms, n_cat, n_types, pbc,
-# n_molecules, stream
-_UA = [_int] + [_vp] * 8 + [_vp, _vp, Trig, _vp, _vp, _vp] + [_int] * 6 \
+# mol_normals, n_molecules, stream
+_UA = [_int] + [_vp] * 8 + [_vp, _vp, Trig, _vp, _vp, _vp] + [_int] * 7 \
     + [_vp]
-# every P2 entry point ends: classes, bond_mol, out, its ints, n_molecules,
-# stream
+# every P2 entry point ends: classes, bond_mol, out, its ints, mol_normals,
+# n_molecules, stream
 _SIGNATURES = {
-    "p2_resid": [_vp] * 10 + [_int] * 5 + [_vp],
-    "p2_positions_i16": [_vp] * 11 + [_int] * 6 + [_vp],
-    "p2_positions_f32": [_vp] * 10 + [_int] * 6 + [_vp],
+    "p2_resid": [_vp] * 10 + [_int] * 6 + [_vp],
+    "p2_positions_i16": [_vp] * 11 + [_int] * 7 + [_vp],
+    "p2_positions_f32": [_vp] * 10 + [_int] * 7 + [_vp],
     "ua_positions_i16": _UA,
     "ua_positions_f32": _UA[:2] + _UA[3:],
 }
@@ -130,17 +130,31 @@ def device_of(t):
     return t.device
 
 
-def frame_args(box_diag, normal, frame_mask, bond_type, n_frames, n_samples,
+def frame_args(box_diag, frame_mask, bond_type, n_frames, n_samples,
                device):
     """Check the per-frame arguments every order kernel takes; returns the
     frame mask as uint8."""
     check_tensor("box_diag", box_diag, torch.float32, (n_frames, 3), device)
-    check_tensor("normal", normal, torch.float32, (3,), device)
     if frame_mask.dtype == torch.bool:
         frame_mask = frame_mask.view(torch.uint8)
     check_tensor("frame_mask", frame_mask, torch.uint8, (n_frames,), device)
     check_tensor("bond_type", bond_type, torch.int32, (n_samples,), device)
     return frame_mask
+
+
+def normal_args(normal, n_frames, device) -> int:
+    """Check the membrane normal: the static (3,) f32 normal, or (B, M, 3)
+    f32 per-molecule normals (the `per_bond_normal` variants). Returns M,
+    or 0 for the static normal."""
+    if normal.dim() == 1:
+        check_tensor("normal", normal, torch.float32, (3,), device)
+        return 0
+    if normal.dim() != 3 or normal.shape[1] == 0:
+        raise ValueError(f"normal has shape {tuple(normal.shape)}, expected "
+                         f"(3,) or (n_frames, n_molecules, 3)")
+    check_tensor("normal", normal, torch.float32,
+                 (n_frames, normal.shape[1], 3), device)
+    return int(normal.shape[1])
 
 
 def leaflet_args(classes, bond_mol, n_frames, n_samples, device):
@@ -159,6 +173,26 @@ def leaflet_args(classes, bond_mol, n_frames, n_samples, device):
                  (n_frames, classes.shape[1]), device)
     check_tensor("bond_mol", bond_mol, torch.int32, (n_samples,), device)
     return classes, bond_mol, int(classes.shape[1])
+
+
+def molecule_args(normal, classes, bond_mol, n_frames, n_samples, device):
+    """Check what a kernel reads by each sample's molecule: per-molecule
+    normals (`normal_args`) and leaflet classes (`leaflet_args`), with the
+    (n_samples,) int32 `bond_mol`, given exactly when either is. Returns
+    (per-molecule normals?, classes, bond_mol, M); M is 0 when neither."""
+    n_normals = normal_args(normal, n_frames, device)
+    if n_normals and classes is None:
+        if bond_mol is None:
+            raise ValueError("per-molecule normals need bond_mol")
+        check_tensor("bond_mol", bond_mol, torch.int32, (n_samples,),
+                     device)
+        return True, None, bond_mol, n_normals
+    classes, bond_mol, n_molecules = leaflet_args(classes, bond_mol,
+                                                  n_frames, n_samples, device)
+    if n_normals and n_normals != n_molecules:
+        raise ValueError(f"normals of {n_normals} molecules and classes of "
+                         f"{n_molecules}")
+    return bool(n_normals), classes, bond_mol, n_molecules
 
 
 def call(fn_name: str, *args) -> None:

@@ -5,7 +5,10 @@
 (B, 2, T) int64 per-frame, per-type [sum, count] of the quantized samples;
 with leaflet `classes` (B, M) int32 and each bond's molecule `bond_mol`
 (N,) int32 (the `with_leaflets` variant), (B, 3, 2, T): total, upper and
-lower. For tensors on the CPU they run the plain version
+lower. `normal` is the static (3,) f32 normal, or (B, M, 3) f32
+per-molecule normals read through `bond_mol` (the `per_bond_normal`
+variant), with or without classes. For tensors on the CPU they run the
+plain version
 (`gorder_tpu_torch/core/order.py`); for CUDA tensors they launch the
 hand-written kernel (`csrc/p2.cu`) on the current stream, or raise. There
 is no fallback from the kernel to the plain version.
@@ -16,19 +19,27 @@ from __future__ import annotations
 import torch
 
 from ..core.order import order_step
-from .build import call, check_tensor, device_of, frame_args, leaflet_args
+from .build import call, check_tensor, device_of, frame_args, molecule_args
 
 #: launches of the P2 kernel since the last reset: the plain variant, for
-#: any input, and the with_leaflets variant (classes given), by input;
-#: the plain version counts in none
+#: any input; the with_leaflets variant (classes with the static normal),
+#: by input; and the per_bond_normal variant ((B, M, 3) normals, with or
+#: without classes: a launch with both counts here only), by input. The
+#: plain version counts in none.
 p2_launches = 0
 p2_leaflets_launches = 0            # b7 residuals
 p2_i16_leaflets_launches = 0
 p2_f32_leaflets_launches = 0
+p2_normals_launches = 0             # b7 residuals
+p2_i16_normals_launches = 0
+p2_f32_normals_launches = 0
 
 _LEAFLETS_COUNT = {"p2_resid": "p2_leaflets_launches",
                    "p2_positions_i16": "p2_i16_leaflets_launches",
                    "p2_positions_f32": "p2_f32_leaflets_launches"}
+_NORMALS_COUNT = {"p2_resid": "p2_normals_launches",
+                  "p2_positions_i16": "p2_i16_normals_launches",
+                  "p2_positions_f32": "p2_f32_normals_launches"}
 
 
 def p2_resid_plain(r, base, inv_scale, box_diag, normal, frame_mask,
@@ -49,11 +60,11 @@ def p2_positions_plain(coords, atom_a, atom_b, inv_scale, box_diag, normal,
 
 
 def _launch(fn_name, n_frames, n_types, device, args_before_out,
-            ints_after_out, leaflets):
-    """One launch into a zeroed output; `leaflets` is the
-    (classes, bond_mol, n_molecules) triple of `build.leaflet_args`."""
+            ints_after_out, molecules):
+    """One launch into a zeroed output; `molecules` is the (per-molecule
+    normals?, classes, bond_mol, n_molecules) of `build.molecule_args`."""
     global p2_launches
-    classes, bond_mol, n_molecules = leaflets
+    mol_normals, classes, bond_mol, n_molecules = molecules
     shape = ((n_frames, 3, 2, n_types) if classes is not None
              else (n_frames, 2, n_types))
     out = torch.zeros(shape, dtype=torch.int64, device=device)
@@ -61,9 +72,12 @@ def _launch(fn_name, n_frames, n_types, device, args_before_out,
     with torch.cuda.device(device):
         call(fn_name, *args_before_out,
              classes.data_ptr() if classes is not None else None,
-             bond_mol.data_ptr() if classes is not None else None,
-             out.data_ptr(), *ints_after_out, n_molecules, stream)
-    if classes is not None:
+             bond_mol.data_ptr() if bond_mol is not None else None,
+             out.data_ptr(), *ints_after_out, int(mol_normals), n_molecules,
+             stream)
+    if mol_normals:
+        globals()[_NORMALS_COUNT[fn_name]] += 1
+    elif classes is not None:
         globals()[_LEAFLETS_COUNT[fn_name]] += 1
     else:
         p2_launches += 1
@@ -73,9 +87,10 @@ def _launch(fn_name, n_frames, n_types, device, args_before_out,
 def p2_resid(r, base, inv_scale, box_diag, normal, frame_mask, bond_type,
              n_types: int, *, handle_pbc: bool, classes=None, bond_mol=None):
     """b7 wire: r (B, 3N) int16 residuals, base (3N,) int32, inv_scale (B,)
-    f32, box_diag (B, 3) f32, normal (3,) f32, frame_mask (B,) bool/uint8,
-    bond_type (N,) int32 → (B, 2, T) int64; with classes (B, M) int32 and
-    bond_mol (N,) int32 → (B, 3, 2, T)."""
+    f32, box_diag (B, 3) f32, normal (3,) f32 or (B, M, 3) f32 with
+    bond_mol, frame_mask (B,) bool/uint8, bond_type (N,) int32 → (B, 2, T)
+    int64; with classes (B, M) int32 and bond_mol (N,) int32 →
+    (B, 3, 2, T)."""
     device = device_of(r)
     if device.type == "cpu":
         return p2_resid_plain(r, base, inv_scale, box_diag, normal,
@@ -88,15 +103,15 @@ def p2_resid(r, base, inv_scale, box_diag, normal, frame_mask, bond_type,
     check_tensor("base", base, torch.int32, (3 * n_bonds,), device)
     check_tensor("inv_scale", inv_scale, torch.float32, (n_frames,),
                  device)
-    frame_mask = frame_args(box_diag, normal, frame_mask, bond_type,
-                            n_frames, n_bonds, device)
+    frame_mask = frame_args(box_diag, frame_mask, bond_type, n_frames,
+                            n_bonds, device)
     return _launch(
         "p2_resid", n_frames, n_types, device,
         (r.data_ptr(), base.data_ptr(), inv_scale.data_ptr(),
          box_diag.data_ptr(), normal.data_ptr(), frame_mask.data_ptr(),
          bond_type.data_ptr()),
         (n_frames, n_bonds, n_types, int(handle_pbc)),
-        leaflet_args(classes, bond_mol, n_frames, n_bonds, device))
+        molecule_args(normal, classes, bond_mol, n_frames, n_bonds, device))
 
 
 def p2_positions(coords, atom_a, atom_b, inv_scale, box_diag, normal,
@@ -117,9 +132,10 @@ def p2_positions(coords, atom_a, atom_b, inv_scale, box_diag, normal,
     check_tensor("coords", coords, dtype, (n_frames, n_atoms, 3), device)
     check_tensor("atom_a", atom_a, torch.int32, (n_bonds,), device)
     check_tensor("atom_b", atom_b, torch.int32, (n_bonds,), device)
-    frame_mask = frame_args(box_diag, normal, frame_mask, bond_type,
-                            n_frames, n_bonds, device)
-    leaflets = leaflet_args(classes, bond_mol, n_frames, n_bonds, device)
+    frame_mask = frame_args(box_diag, frame_mask, bond_type, n_frames,
+                            n_bonds, device)
+    molecules = molecule_args(normal, classes, bond_mol, n_frames, n_bonds,
+                              device)
     common = (box_diag.data_ptr(), normal.data_ptr(), frame_mask.data_ptr(),
               bond_type.data_ptr())
     ints = (n_frames, n_atoms, n_bonds, n_types, int(handle_pbc))
@@ -129,7 +145,7 @@ def p2_positions(coords, atom_a, atom_b, inv_scale, box_diag, normal,
         return _launch("p2_positions_i16", n_frames, n_types, device,
                        (coords.data_ptr(), atom_a.data_ptr(),
                         atom_b.data_ptr(), inv_scale.data_ptr(), *common),
-                       ints, leaflets)
+                       ints, molecules)
     return _launch("p2_positions_f32", n_frames, n_types, device,
                    (coords.data_ptr(), atom_a.data_ptr(), atom_b.data_ptr(),
-                    *common), ints, leaflets)
+                    *common), ints, molecules)

@@ -3,8 +3,10 @@
 
 `ua_positions` returns the (B, 2, T) int64 per-frame, per-type [sum, count]
 of the quantized virtual C–H samples; with leaflet `classes` (the
-`with_leaflets` variant), (B, 3, 2, T): total, upper and lower. For
-tensors on the CPU it runs the
+`with_leaflets` variant), (B, 3, 2, T): total, upper and lower. `normal`
+is the static (3,) f32 normal, or (B, M, 3) f32 per-molecule normals read
+by each carbon's molecule (the `per_bond_normal` variant), with or
+without classes. For tensors on the CPU it runs the
 plain version (`gorder_tpu_torch/core/ua.py ua_step`); for CUDA tensors it
 zeroes the output once and makes one launch of the hand-written kernel
 (`csrc/ua.cu`) per category present, each adding into it, on the current
@@ -18,13 +20,16 @@ import torch
 
 from ..core.ua import N_HYDROGENS, TRIG, ua_step
 from .build import (Trig, call, check_tensor, device_of, frame_args,
-                    leaflet_args)
+                    leaflet_args, normal_args)
 
 #: launches of the UA kernel (one per category and batch) since the last
-#: reset: the plain variant, and the with_leaflets variant (classes
-#: given); the plain version counts in neither
+#: reset: the plain variant; the with_leaflets variant (classes with the
+#: static normal); and the per_bond_normal variant ((B, M, 3) normals,
+#: with or without classes: a launch with both counts here only). The
+#: plain version counts in none.
 ua_launches = 0
 ua_leaflets_launches = 0
+ua_normals_launches = 0
 
 _CATEGORY_ID = {"ch3": 0, "ch2": 1, "ch1u": 2, "ch1s": 3}
 
@@ -46,11 +51,13 @@ def ua_positions(coords, inv_scale, box_diag, normal, frame_mask, indices,
     {"target", "h1", "h2"[, "h3"][, "mol"]: (n,) int32}}; layout:
     ((category, n), ...) in concatenation order; bond_type (n_samples,)
     int32, category by category and hydrogen-major; box_diag (B, 3) f32,
-    normal (3,) f32, frame_mask (B,) bool/uint8 → (B, 2, T) int64. With
-    classes (B, M) int32 and the per-sample molecules bond_mol
-    (n_samples,) int32 → (B, 3, 2, T); the plain version reads bond_mol,
-    the kernel each category's per-carbon "mol" (the same molecules)."""
-    global ua_launches, ua_leaflets_launches
+    normal (3,) f32 or (B, M, 3) f32, frame_mask (B,) bool/uint8 →
+    (B, 2, T) int64. With classes (B, M) int32 and the per-sample
+    molecules bond_mol (n_samples,) int32 → (B, 3, 2, T); the plain
+    version reads bond_mol, the kernel each category's per-carbon "mol"
+    (the same molecules). Per-molecule normals are read by "mol" in
+    both."""
+    global ua_launches, ua_leaflets_launches, ua_normals_launches
     device = device_of(coords)
     if device.type == "cpu":
         return ua_positions_plain(coords, inv_scale, box_diag, normal,
@@ -64,18 +71,25 @@ def ua_positions(coords, inv_scale, box_diag, normal, frame_mask, indices,
     if inv_scale is not None:
         check_tensor("inv_scale", inv_scale, torch.float32, (n_frames,),
                      device)
-    frame_mask = frame_args(box_diag, normal, frame_mask, bond_type,
-                            n_frames, n_samples, device)
+    frame_mask = frame_args(box_diag, frame_mask, bond_type, n_frames,
+                            n_samples, device)
+    n_normals = normal_args(normal, n_frames, device)
     classes, _, n_molecules = leaflet_args(classes, bond_mol, n_frames,
                                            n_samples, device)
+    if n_normals and classes is not None and n_normals != n_molecules:
+        raise ValueError(f"normals of {n_normals} molecules and classes of "
+                         f"{n_molecules}")
+    n_molecules = n_normals or n_molecules
+    by_mol = classes is not None or n_normals > 0
     for cat, n in layout:
         for key, ix in indices[cat].items():
             check_tensor(f"{cat} {key}", ix, torch.int32, (n,), device)
         if cat == "ch1s" and "h3" not in indices[cat]:
             raise ValueError("ch1s needs its third helper, h3")
-        if classes is not None and "mol" not in indices[cat]:
+        if by_mol and "mol" not in indices[cat]:
             raise ValueError(f"{cat} needs its per-carbon molecule index, "
-                             f"mol, for leaflet classes")
+                             f"mol, for leaflet classes or per-molecule "
+                             f"normals")
 
     shape = ((n_frames, 3, 2, n_types) if classes is not None
              else (n_frames, 2, n_types))
@@ -93,9 +107,10 @@ def ua_positions(coords, inv_scale, box_diag, normal, frame_mask, indices,
             atoms = (ix["target"].data_ptr(), ix["h1"].data_ptr(),
                      ix["h2"].data_ptr(),
                      ix["h3"].data_ptr() if cat == "ch1s" else None,
-                     ix["mol"].data_ptr() if classes is not None else None,
+                     ix["mol"].data_ptr() if by_mol else None,
                      bond_type[offset:].data_ptr())
-            ints = (n, n_types, int(handle_pbc), n_molecules, stream)
+            ints = (n, n_types, int(handle_pbc), int(n_normals > 0),
+                    n_molecules, stream)
             with torch.cuda.device(device):
                 if inv_scale is not None:
                     call("ua_positions_i16", _CATEGORY_ID[cat],
@@ -104,7 +119,9 @@ def ua_positions(coords, inv_scale, box_diag, normal, frame_mask, indices,
                 else:
                     call("ua_positions_f32", _CATEGORY_ID[cat],
                          coords.data_ptr(), *atoms, *common, *ints)
-            if classes is not None:
+            if n_normals:
+                ua_normals_launches += 1
+            elif classes is not None:
                 ua_leaflets_launches += 1
             else:
                 ua_launches += 1

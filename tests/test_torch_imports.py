@@ -23,11 +23,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     "gorder_tpu_torch.engine.fused",
     "gorder_tpu_torch.engine.wire",
     "gorder_tpu_torch.engine.leaflet_runtime",
+    "gorder_tpu_torch.engine.normals_runtime",
     "gorder_tpu_torch.engine.prepare",
     "gorder_tpu_torch.core.order",
     "gorder_tpu_torch.core.pbc",
     "gorder_tpu_torch.core.ua",
     "gorder_tpu_torch.core.leaflets",
+    "gorder_tpu_torch.core.normals",
     "gorder_tpu_torch.core.timewise",
     "gorder_tpu_torch.ops.p2",
     "gorder_tpu_torch.ops.ua",

@@ -234,3 +234,148 @@ def test_ua_kernel_rejects_wrong_dtype(cuda):
     with pytest.raises(TypeError):
         ua.ua_positions(coords.to(torch.int32), scale, *frame,
                         handle_pbc=True, layout=step.layout)
+
+
+def _normals(seed, n_frames, n_mols, dev):
+    """Per-molecule normals that are not unit: the kernel divides by
+    |n|², as the JAX kernels do; one molecule's normal is zero."""
+    rng = np.random.default_rng(seed)
+    normals = rng.normal(0, 1, (n_frames, n_mols, 3)).astype(np.float32)
+    normals *= rng.uniform(0.5, 2.0, (n_frames, n_mols, 1)).astype(
+        np.float32)
+    normals[:, 0] = 0.0
+    return torch.as_tensor(normals, device=dev)
+
+
+P2_COUNTS = ("p2_launches", "p2_leaflets_launches", "p2_i16_leaflets_launches",
+             "p2_f32_leaflets_launches", "p2_normals_launches",
+             "p2_i16_normals_launches", "p2_f32_normals_launches")
+
+
+@pytest.mark.parametrize("leaflets", [False, True])
+@pytest.mark.parametrize("kind", ["resid", "i16", "f32"])
+@pytest.mark.parametrize("shape", [
+    (8, 300, 200, 7, 5),       # ragged single tile
+    (64, 5000, 3000, 80, 40),  # several tiles, AA-like type count
+    (4, 700, 400, 1025, 9),    # (3, 2, T) past the 48 KiB: global atomics
+])
+def test_normals_kernel_matches_plain(cuda, kind, shape, leaflets):
+    """The per_bond_normal variant, with and without classes: a launch
+    with both counts as a normals launch of its input."""
+    n_frames, n_bonds, n_atoms, n_types, n_mols = shape
+    pb = _problem(sum(shape), n_frames, n_bonds, n_atoms, n_types, cuda)
+    classes, bond_mol = _leaflets(sum(shape), n_frames, n_bonds, n_mols,
+                                  cuda)
+    classes = classes if leaflets else None
+    normals = _normals(sum(shape), n_frames, n_mols, cuda)
+    kernel_fn = p2.p2_resid if kind == "resid" else p2.p2_positions
+    plain_fn = p2.p2_resid_plain if kind == "resid" \
+        else p2.p2_positions_plain
+    c = (pb["box"], normals, pb["mask"], pb["bond_type"], pb["n_types"])
+    before = {name: getattr(p2, name) for name in P2_COUNTS}
+    got = kernel_fn(*pb[kind], *c, handle_pbc=True, classes=classes,
+                    bond_mol=bond_mol)
+    torch.cuda.synchronize()
+    grown = {"resid": "p2_normals_launches",
+             "i16": "p2_i16_normals_launches",
+             "f32": "p2_f32_normals_launches"}[kind]
+    assert {name: getattr(p2, name) - before[name] for name in P2_COUNTS} \
+        == {name: int(name == grown) for name in P2_COUNTS}
+    want = plain_fn(*pb[kind], *c, handle_pbc=True, classes=classes,
+                    bond_mol=bond_mol)
+    assert got.dtype == torch.int64 and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert not got[-1].any()
+
+
+@pytest.mark.parametrize("kind", ["resid", "i16", "f32"])
+def test_normals_kernel_z_plane_equals_static(cuda, kind):
+    """(B, M, 3) normals that are all (0, 0, 1) give the static kernel's
+    integers bit for bit."""
+    pb = _problem(5, 16, 2000, 900, 40, cuda)
+    _, bond_mol = _leaflets(5, 16, 2000, 30, cuda)
+    plane = pb["normal"].expand(16, 30, 3).contiguous()
+    kernel_fn = p2.p2_resid if kind == "resid" else p2.p2_positions
+    got = kernel_fn(*pb[kind], pb["box"], plane, pb["mask"],
+                    pb["bond_type"], pb["n_types"], handle_pbc=True,
+                    bond_mol=bond_mol)
+    assert torch.equal(got, _call(kernel_fn, kind, pb))
+
+
+def test_normals_kernel_rejects_wrong_shape(cuda):
+    pb = _problem(3, 4, 50, 30, 3, cuda)
+    _, bond_mol = _leaflets(3, 4, 50, 6, cuda)
+    r, base, inv = pb["resid"]
+    for bad in (torch.zeros(4, 6, 2, device=cuda),
+                torch.zeros(3, 6, 3, device=cuda)):
+        with pytest.raises(ValueError):
+            p2.p2_resid(r, base, inv, pb["box"], bad, pb["mask"],
+                        pb["bond_type"], pb["n_types"], handle_pbc=True,
+                        bond_mol=bond_mol)
+
+
+@pytest.mark.parametrize("leaflets", [False, True])
+@pytest.mark.parametrize("kind", ["i16", "f32"])
+@pytest.mark.parametrize("shape", [
+    (6, 37, 7),                # ragged single tile per category
+    (64, 900, 68),             # several tiles, the UA cell's type count
+    (4, 60, 1025),             # (3, 2, T) past the 48 KiB: global atomics
+])
+def test_ua_normals_kernel_matches_plain(cuda, kind, shape, leaflets):
+    from gorder_tpu_torch.core.ua import make_ua_step
+    from gorder_tpu_torch.ops import ua
+
+    import chip_smoke
+
+    n_frames, n_mols, n_types = shape
+    pb = chip_smoke.ua_problem(sum(shape), n_frames, n_mols, n_types)
+    step = make_ua_step(pb["categories"], pb["bond_type"], pb["bond_mol"],
+                        n_types, handle_pbc=True, device=cuda,
+                        with_leaflets=leaflets, normal_mode="per_molecule")
+    coords = {"i16": torch.as_tensor(pb["q16"], device=cuda),
+              "f32": torch.as_tensor(pb["coords"], device=cuda)}[kind]
+    scale = (torch.as_tensor(pb["inv16"], device=cuda) if kind == "i16"
+             else None)
+    box = torch.as_tensor(pb["box"], device=cuda)
+    normals = _normals(sum(shape), n_frames, n_mols, cuda)
+    mask = torch.as_tensor(pb["mask"], device=cuda)
+    classes = (torch.as_tensor(pb["classes"], device=cuda) if leaflets
+               else None)
+    before = (ua.ua_normals_launches, ua.ua_leaflets_launches,
+              ua.ua_launches)
+    got = step.positions(coords, box, normals, mask, inv_scale=scale,
+                         classes=classes)
+    torch.cuda.synchronize()
+    assert (ua.ua_normals_launches, ua.ua_leaflets_launches,
+            ua.ua_launches) == (before[0] + 4, before[1], before[2])
+    want = ua.ua_positions_plain(coords, scale, box, normals, mask,
+                                 step.indices, step.bond_type, n_types,
+                                 handle_pbc=True, layout=step.layout,
+                                 classes=classes, bond_mol=step.bond_mol)
+    assert torch.equal(got, want)
+    assert not got[-2:].any()
+
+
+@pytest.mark.parametrize("kind", ["i16", "f32"])
+def test_ua_normals_kernel_z_plane_equals_static(cuda, kind):
+    from gorder_tpu_torch.core.ua import make_ua_step
+
+    import chip_smoke
+
+    pb = chip_smoke.ua_problem(9, 8, 50, 7)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=cuda)
+
+    coords, scale = {"i16": (t(pb["q16"]), t(pb["inv16"])),
+                     "f32": (t(pb["coords"]), None)}[kind]
+    z = torch.tensor([0.0, 0.0, 1.0], device=cuda)
+    out = {}
+    for mode, normal in (("static", z),
+                         ("per_molecule", z.expand(8, 50, 3).contiguous())):
+        step = make_ua_step(pb["categories"], pb["bond_type"],
+                            pb["bond_mol"], 7, device=cuda,
+                            normal_mode=mode)
+        out[mode] = step.positions(coords, t(pb["box"]), normal,
+                                   t(pb["mask"]), inv_scale=scale)
+    assert torch.equal(out["per_molecule"], out["static"])

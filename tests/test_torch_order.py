@@ -251,12 +251,52 @@ def test_step_routes_cpu_tensors_to_plain():
 
 
 @pytest.mark.parametrize("option", [
-    # leaflets are ported; leaflets with per-molecule normals are not
-    dict(with_leaflets=True, normal_mode="per_molecule"),
-    dict(normal_mode="per_molecule"),
+    # leaflets and per-molecule normals are ported: the refusal names only
+    # the ordermaps or geometry beside them
+    dict(with_leaflets=True, normal_mode="per_molecule", map_spec=object()),
+    dict(normal_mode="per_molecule", geom_spec=object()),
     dict(map_spec=object()), dict(geom_spec=object())])
 def test_make_order_step_rejects_unported(option):
-    with pytest.raises(AnalysisError, match="not yet ported"):
+    with pytest.raises(AnalysisError, match="not yet ported") as err:
         make_order_step(np.zeros(2, np.int32), np.ones(2, np.int32),
                         np.zeros(2, np.int32), np.zeros(2, np.int32), 1, 1,
                         device="cpu", **option)
+    assert "normal" not in str(err.value)
+
+
+@pytest.mark.parametrize("with_leaflets", [False, True])
+def test_make_order_step_runs_per_molecule(monkeypatch, with_leaflets):
+    """The step options that used to be refused: the per-molecule step now
+    runs, and equals the JAX package's XLA path."""
+    monkeypatch.setenv("GORDER_TPU_PALLAS", "0")
+    pb = _problem(seed=13)
+    M = 6
+    rng = np.random.default_rng(14)
+    bond_mol = rng.integers(0, M, len(pb["atom_a"])).astype(np.int32)
+    normals = rng.normal(0, 1, (len(pb["box"]), M, 3)).astype(np.float32)
+    classes = (rng.integers(0, 2, (len(pb["box"]), M)).astype(np.int32)
+               if with_leaflets else None)
+    step = make_order_step(pb["atom_a"], pb["atom_b"], pb["btype"],
+                           bond_mol, pb["T"], M, device="cpu",
+                           with_leaflets=with_leaflets,
+                           normal_mode="per_molecule")
+    t = torch.as_tensor
+    got = step.positions(t(pb["q"]), t(pb["box"]), t(normals), t(pb["mask"]),
+                         inv_scale=t(pb["inv"]),
+                         classes=None if classes is None else t(classes))
+    jstep = jax_make_order_step(pb["atom_a"], pb["atom_b"], pb["btype"],
+                                bond_mol, pb["T"], M,
+                                with_leaflets=with_leaflets,
+                                normal_mode="per_molecule")
+    out, _ = jstep.impl(pb["q"], pb["box"], normals, pb["mask"],
+                        leaflet_classes=classes, inv_scale=pb["inv"])
+    want = np.stack([from_reference_rows(np.asarray(out[c])) for c in
+                     (("total", "upper", "lower") if with_leaflets
+                      else ("total",))], axis=1)
+    np.testing.assert_array_equal(got.numpy(),
+                                  want if with_leaflets else want[:, 0])
+    with pytest.raises(ValueError, match="per_molecule"):
+        step.positions(t(pb["q"]), t(pb["box"]),
+                       t(np.array([0, 0, 1], np.float32)), t(pb["mask"]),
+                       inv_scale=t(pb["inv"]),
+                       classes=None if classes is None else t(classes))

@@ -178,8 +178,11 @@ def test_unported_option_raises(aa_files, ua_files, tmp_path, option):
     elif option == "geometry":
         kw["geometry"] = Geometry(kind="cuboid", xdim=(0.0, 5.0))
     elif option == "dynamic_normal":
+        # dynamic normals are ported; their export restricted to a
+        # geometry waits for geometry
         kw["membrane_normal"] = MembraneNormal.dynamic(
-            "resname POPC and name P")
+            "resname POPC and name P", collect=str(tmp_path / "n.yaml"))
+        kw["geometry"] = Geometry(kind="cuboid", xdim=(0.0, 5.0))
     if option == "ua_leaflets":
         a = chip_smoke.ua_analysis("ua", *ua_files, str(tmp_path / "x.yaml"))
         a.leaflets = kw["leaflets"]
@@ -187,8 +190,9 @@ def test_unported_option_raises(aa_files, ua_files, tmp_path, option):
         a = _aa(aa_files, tmp_path / "x.yaml", cls=gorder_tpu_torch.Analysis,
                 atype=gorder_tpu_torch.AnalysisType, **kw)
     with pytest.raises(gorder_tpu_torch.AnalysisError,
-                       match="not yet ported"):
+                       match="not yet ported") as err:
         gorder_tpu_torch.run(a, device="cpu")
+    assert "normal" not in str(err.value)
     assert not os.path.exists(tmp_path / "x.yaml")
 
 

@@ -223,9 +223,45 @@ def test_make_ua_step_refuses_unported(option):
     kw = {"with_leaflets": True, "normal_mode": "per_molecule",
           "map_spec": object(), "geom_spec": object()}
     extra = {}
-    if option == "with_leaflets":
-        # leaflets are ported; leaflets with per-molecule normals are not
-        extra["normal_mode"] = "per_molecule"
-    with pytest.raises(AnalysisError, match="not yet ported"):
+    if option in ("with_leaflets", "normal_mode"):
+        # leaflets and per-molecule normals are ported: the refusal names
+        # only the ordermaps beside them
+        extra["map_spec"] = object()
+    with pytest.raises(AnalysisError, match="not yet ported") as err:
         ua.make_ua_step(cats, btype, bmol, T, device="cpu",
                         **{option: kw[option]}, **extra)
+    assert "normal" not in str(err.value)
+
+
+@pytest.mark.parametrize("with_leaflets", [False, True])
+def test_make_ua_step_runs_per_molecule(monkeypatch, with_leaflets):
+    """The step options that used to be refused: the per-molecule UA step
+    (with leaflets too) now runs, and equals the JAX package's step op by
+    op on the categories without CH1u."""
+    monkeypatch.setenv("GORDER_TPU_PALLAS", "0")
+    coords, box, mask, cats, btype, bmol, T, n_mols = _ua_problem(
+        15, B=8, n_mols=20)
+    n = {c: len(cats[c]["target"]) * ua.N_HYDROGENS[c] for c in cats}
+    keep = np.concatenate([np.full(n[c], c != "ch1u")
+                           for c in ua.CATEGORIES if c in cats])
+    cats, btype = _no_ch1u(cats, btype)
+    bmol = bmol[keep]
+    rng = np.random.default_rng(16)
+    normals = rng.normal(0, 1, (len(box), n_mols, 3)).astype(np.float32)
+    classes = (rng.integers(0, 2, (len(box), n_mols)).astype(np.int32)
+               if with_leaflets else None)
+    step = ua.make_ua_step(cats, btype, bmol, T, device="cpu",
+                           with_leaflets=with_leaflets,
+                           normal_mode="per_molecule")
+    t = torch.from_numpy
+    got = step.positions(t(coords), t(box), t(normals), t(mask),
+                         classes=None if classes is None else t(classes))
+    jstep = jua.make_ua_step(cats, btype, bmol, T,
+                             with_leaflets=with_leaflets,
+                             normal_mode="per_molecule")
+    out, _ = jstep.impl(coords, box, normals, mask, leaflet_classes=classes)
+    want = np.stack([from_reference_rows(np.asarray(out[c])) for c in
+                     (("total", "upper", "lower") if with_leaflets
+                      else ("total",))], axis=1)
+    np.testing.assert_array_equal(got.numpy(),
+                                  want if with_leaflets else want[:, 0])

@@ -68,7 +68,25 @@ It imports nothing of JAX or of `gorder_tpu`. Phases, one line each:
    and category. Then that kernel against plain on the run's first batch
    with the normals its step used, and, for both kernels, per-molecule
    normals that are all (0, 0, 1) against the static normal on the `aa`
-   and `ua` first batches: equal bit for bit.
+   and `ua` first batches: equal bit for bit;
+12. run aa-ordermap, aa-ordermap-leaflets: the `aa` analysis with an
+   ordermap (static z normal, the default xy plane, 0.1 nm bins, auto
+   spans: 131 x 131 tiles), alone and with global leaflets, riding int16
+   (with the decoder's COG for the leaflets); each YAML must pass
+   `bench.validate_output` against `aa_10000.yaml` / `aa-leaflets_10000
+   .yaml` (the pair formulation of map runs may move a sample by one
+   quantum: the lines off are printed), the map state must hold every
+   sample of the run's type sums, per class, exactly (its entries, the
+   dump included, sum to the type sums' Σq and counts), and the map
+   directory must hold the expected files, each with 131 x 131 tile
+   lines. Then the pair_quantized P2 kernel with its map output against
+   the plain version on each run's first batch, for the type sums and a
+   freshly zeroed map state, in int64: int16 and f32 (dequantized), with
+   the classes the step used, and with `aa-dynamic`'s normals; and the
+   pair_quantized int16 type sums without a map;
+13. run ua-ordermap: the `ua` analysis with the same map on the UA box
+   (93 x 93 tiles), likewise against `ua_3000.yaml`, with the UA kernel's
+   map output against plain on its first batch, int16 and f32.
 
 Then one JSON line with the kernels of the path (with each one's bound:
 the least time the card could take, from the bytes it must move at the
@@ -120,6 +138,12 @@ UA_OPS = {"ch3": 323, "ch2": 257, "ch1u": 232, "ch1s": 142}
 P2_NORMAL_OPS = 7
 UA_NORMAL_OPS = {cat: 6 + k for cat, k in
                  (("ch3", 3), ("ch2", 2), ("ch1u", 1), ("ch1s", 1))}
+# what the map output adds per sample (common.cuh MapTable, p2.cu, ua.cu):
+# the bond midpoint 6, each plane component's tile 4 (subtract, divide,
+# add, floor); and the pair_quantized input's dequantization of both
+# positions, 3 more than the single rounding
+MAP_OPS = 14
+PAIR_OPS = 3
 #: the AA runs with membrane normals that are not static: tools/
 #: bench_modes.py's two dynamic modes (:339-344, :371-373), whose goldens
 #: are pinned, and the inline manual map of (0, 0, 1) for every molecule
@@ -369,9 +393,9 @@ def synthesize_ua(cache_dir, n_frames, n_lipids=None, total_atoms=None):
     return gro, bnd, xtc
 
 
-def ua_analysis(mode, gro, bnd, xtc, output_yaml=None):
+def ua_analysis(mode, gro, bnd, xtc, output_yaml=None, **kw):
     """tools/bench_modes.py `_make_analysis(mode)` for "ua" and
-    "ua-palmitoyl", built from the port's `Analysis`."""
+    "ua-palmitoyl", built from the port's `Analysis` (with `kw` added)."""
     from gorder_tpu_torch import Analysis, AnalysisType
 
     if mode == "ua-palmitoyl":
@@ -386,7 +410,7 @@ def ua_analysis(mode, gro, bnd, xtc, output_yaml=None):
     return Analysis(structure=gro, bonds=bnd, trajectory=xtc,
                     analysis_type=atype, output_yaml=output_yaml,
                     n_threads=os.cpu_count() or 1, silent=True,
-                    overwrite=True)
+                    overwrite=True, **kw)
 
 
 def aa_analysis(gro, bnd, xtc, output_yaml=None, **kw):
@@ -477,9 +501,10 @@ def bound(moved, ops):
 
 def compare(label, kernel, plain, counter, launches, shape):
     """One `kernel()` call: the launch count (`counter()`) must grow by
-    `launches`, and the int64 output of `shape` must equal `plain()`.
+    `launches`, and the int64 output of `shape` must equal `plain()`; a
+    call that also fills a map returns (output, map state), both compared.
     Then CUDA-event times in turns: plain, kernel, kernel, plain. →
-    dict(max_abs_err, ms, plain_ms)."""
+    dict(max_abs_err, ms, plain_ms, out[, map])."""
     import torch
 
     before = counter()
@@ -489,22 +514,28 @@ def compare(label, kernel, plain, counter, launches, shape):
         raise RuntimeError(f"{label}: the launch count grew by "
                            f"{counter() - before}, expected {launches}")
     want = plain()
-    if tuple(got.shape) != tuple(shape) or got.dtype != torch.int64:
-        raise RuntimeError(f"{label}: output {tuple(got.shape)} {got.dtype}"
-                           f", expected {tuple(shape)} int64")
-    err = int((got - want).abs().max())
-    if not torch.equal(got, want):
+    got, want = ((got, want) if isinstance(got, tuple)
+                 else ((got,), (want,)))
+    if tuple(got[0].shape) != tuple(shape) or got[0].dtype != torch.int64:
+        raise RuntimeError(f"{label}: output {tuple(got[0].shape)} "
+                           f"{got[0].dtype}, expected {tuple(shape)} int64")
+    err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
         raise RuntimeError(f"{label}: kernel != plain, max |diff| {err} "
                            f"quanta")
     plain_ms = cuda_ms(plain)
     ms = cuda_ms(kernel)
     ms2 = cuda_ms(kernel)
     plain_ms2 = cuda_ms(plain)
-    print(f"kernel {label}: kernel == plain (int64, max |diff| {err}); ms "
-          f"per call: plain {plain_ms:.4f}, kernel {ms:.4f}, kernel "
-          f"{ms2:.4f}, plain {plain_ms2:.4f}", flush=True)
-    return dict(max_abs_err=err, ms=min(ms, ms2),
-                plain_ms=min(plain_ms, plain_ms2), out=got)
+    print(f"kernel {label}: kernel == plain (int64"
+          f"{', type sums and map' if len(got) > 1 else ''}, max |diff| "
+          f"{err}); ms per call: plain {plain_ms:.4f}, kernel {ms:.4f}, "
+          f"kernel {ms2:.4f}, plain {plain_ms2:.4f}", flush=True)
+    numbers = dict(max_abs_err=err, ms=min(ms, ms2),
+                   plain_ms=min(plain_ms, plain_ms2), out=got[0])
+    if len(got) > 1:
+        numbers["map"] = got[1]
+    return numbers
 
 
 def with_bound(label, numbers, moved, ops):
@@ -609,56 +640,71 @@ def check_ua(label, step, inputs, frame, classes=None):
     """The UA kernel against its plain version for each of `inputs`
     ({input: (coords, scale)}) with `frame` (box, normal, mask): the
     static normal, or (B, M, 3) per-molecule normals (the per_bond_normal
-    variant); with `classes`, the with_leaflets variant. The int64 outputs
-    must be equal, and the kernel launched once per category. → {input:
-    numbers}."""
+    variant); with `classes`, the with_leaflets variant; with a step made
+    for an ordermap, also the map output, into a freshly zeroed state on
+    each call. The int64 outputs (and maps) must be equal, and the kernel
+    launched once per category. → {input: numbers}."""
     import torch
 
+    from gorder_tpu_torch.core.ordermap import init_map_state
     from gorder_tpu_torch.core.ua import N_HYDROGENS
     from gorder_tpu_torch.ops import ua
 
     leaflets = classes is not None
     per_mol = frame[1].dim() == 3
+    spec = step.map_spec
     n_types = step.n_types
     n_frames = frame[2].shape[0]
     shape = ((n_frames, 3, 2, n_types) if leaflets
              else (n_frames, 2, n_types))
-    count = ("ua_normals_launches" if per_mol
+    count = ("ua_map_launches" if spec is not None
+             else "ua_normals_launches" if per_mol
              else "ua_leaflets_launches" if leaflets else "ua_launches")
 
     def counter():
         return getattr(ua, count)
 
+    def with_map(fn, **kw):
+        """fn's output, or (output, map state) for a map run."""
+        if spec is None:
+            return fn(**kw)
+        state = init_map_state(3 if leaflets else 1, n_types, spec,
+                               frame[0].device)
+        return fn(map_spec=spec, map_state=state, **kw), state
+
     tag = (f"ua{' leaflets' if leaflets else ''}"
-           f"{' normals' if per_mol else ''} {label}")
+           f"{' normals' if per_mol else ''}"
+           f"{' map' if spec is not None else ''} {label}")
     ops = int(frame[2].sum()) * sum(
-        n * (UA_OPS[cat] + (UA_NORMAL_OPS[cat] if per_mol else 0))
+        n * (UA_OPS[cat] + (UA_NORMAL_OPS[cat] if per_mol else 0)
+             + (N_HYDROGENS[cat] * MAP_OPS if spec is not None else 0))
         for cat, n in step.layout)
     numbers = {}
     for name, (coords, scale) in inputs.items():
         def kernel(layout=step.layout, bond_type=step.bond_type,
                    coords=coords, scale=scale):
-            return ua.ua_positions(coords, scale, *frame, step.indices,
-                                   bond_type, n_types,
-                                   handle_pbc=step.handle_pbc, layout=layout,
-                                   classes=classes, bond_mol=step.bond_mol)
+            return with_map(lambda **kw: ua.ua_positions(
+                coords, scale, *frame, step.indices, bond_type, n_types,
+                handle_pbc=step.handle_pbc, layout=layout, classes=classes,
+                bond_mol=step.bond_mol, **kw))
 
         def plain(layout=step.layout, bond_type=step.bond_type,
                   coords=coords, scale=scale):
-            return ua.ua_positions_plain(coords, scale, *frame, step.indices,
-                                         bond_type, n_types,
-                                         handle_pbc=step.handle_pbc,
-                                         layout=layout, classes=classes,
-                                         bond_mol=step.bond_mol)
+            return with_map(lambda **kw: ua.ua_positions_plain(
+                coords, scale, *frame, step.indices, bond_type, n_types,
+                handle_pbc=step.handle_pbc, layout=layout, classes=classes,
+                bond_mol=step.bond_mol, **kw))
 
         print(f"kernel {tag} {name}: B={n_frames} samples="
               f"{step.bond_type.shape[0]} T={n_types} categories "
-              f"{[f'{c}:{n}' for c, n in step.layout]}", flush=True)
+              f"{[f'{c}:{n}' for c, n in step.layout]}"
+              + (f" map {spec.n0} x {spec.n1} tiles" if spec is not None
+                 else ""), flush=True)
         try:
             got = compare(f"{tag} {name}", kernel, plain, counter,
                           len(step.layout), shape)
         except RuntimeError:
-            if leaflets:
+            if leaflets or spec is not None:
                 raise
             # which category disagrees, and in how many (frame, type) cells
             detail = []
@@ -673,15 +719,156 @@ def check_ua(label, step, inputs, frame, classes=None):
             raise RuntimeError(f"{tag} {name}: " + "; ".join(detail))
         index_tensors = [ix for d in step.indices.values()
                          for ix in d.values()]
-        numbers[name] = with_bound(
-            f"{tag} {name}", got,
-            n_bytes(coords, scale, *frame, step.bond_type, classes,
-                    got["out"], *index_tensors), ops)
+        # a map state is read and written once
+        moved = n_bytes(coords, scale, *frame, step.bond_type, classes,
+                        got["out"], *index_tensors) + 2 * n_bytes(
+                            got.get("map"))
+        numbers[name] = with_bound(f"{tag} {name}", got, moved, ops)
         # the classifiers and ua_problem give classes in {0, 1} only
         if leaflets and not torch.equal(got["out"][:, 1] + got["out"][:, 2],
                                         got["out"][:, 0]):
             raise RuntimeError(f"{tag} {name}: upper + lower != total")
     return numbers
+
+
+def check_p2_map(label, db, normal=None, bond_mol=None, pair_alone=False):
+    """The pair_quantized P2 kernel with its map output against the plain
+    version on a map run's batch (`DeviceBatch`): int16 positions and, as
+    the f32 input, the same dequantized, with the classes the step used.
+    `normal` with `bond_mol` replaces the run's static normal with
+    per-molecule (B, M, 3) normals. The type sums and a freshly zeroed map
+    state must be equal in int64. With `pair_alone`, also the
+    pair_quantized int16 type sums without a map (the TPU variant as it
+    is). → {input: numbers}."""
+    from gorder_tpu_torch.core.ordermap import init_map_state
+    from gorder_tpu_torch.ops import p2
+
+    step = db.step
+    spec = step.map_spec
+    n_types = step.n_types
+    n_frames = db.mask.shape[0]
+    normal = db.normal if normal is None else normal
+    per_mol = normal.dim() == 3
+    classes = db.classes
+    n_classes = 3 if classes is not None else 1
+    extra = dict(classes=classes,
+                 bond_mol=(bond_mol if bond_mol is not None
+                           else step.bond_mol)
+                 if classes is not None or per_mol else None)
+    frame = (db.box, normal, db.mask, step.bond_type)
+    shape = ((n_frames, 3, 2, n_types) if classes is not None
+             else (n_frames, 2, n_types))
+    tag = (f"{label}{' leaflets' if classes is not None else ''}"
+           f"{' normals' if per_mol else ''} map")
+    print(f"kernel {tag}: {db.kind} batch, B={n_frames} "
+          f"N={step.bond_type.shape[0]} T={n_types}, map {spec.n0} x "
+          f"{spec.n1} tiles, {n_classes} x 2 x "
+          f"{n_types * spec.ncells + 1} int64", flush=True)
+    numbers = {}
+    for name, (coords, scale) in wire_inputs(db).items():
+        def run(fn, coords=coords, scale=scale):
+            state = init_map_state(n_classes, n_types, spec, coords.device)
+            return fn(coords, step.atom_a, step.atom_b, scale, *frame,
+                      n_types, handle_pbc=step.handle_pbc, pair=True,
+                      map_spec=spec, map_state=state, **extra), state
+
+        got = compare(f"{tag} {name}", lambda r=run: r(p2.p2_positions),
+                      lambda r=run: r(p2.p2_positions_plain),
+                      lambda c=f"p2_{name}_map_launches": getattr(p2, c), 1,
+                      shape)
+        numbers[name] = with_bound(
+            f"{tag} {name}", got,
+            n_bytes(coords, scale, step.atom_a, step.atom_b, *frame,
+                    got["out"], *extra.values()) + 2 * n_bytes(got["map"]),
+            int(db.mask.sum()) * step.bond_type.shape[0]
+            * (P2_OPS + MAP_OPS + (PAIR_OPS if name == "i16" else 0)
+               + (P2_NORMAL_OPS if per_mol else 0)))
+    if pair_alone:
+        coords, scale = wire_inputs(db)["i16"]
+
+        def alone(fn):
+            return fn(coords, step.atom_a, step.atom_b, scale, *frame,
+                      n_types, handle_pbc=step.handle_pbc, pair=True,
+                      **extra)
+
+        got = compare(f"{label} i16 pair, no map",
+                      lambda: alone(p2.p2_positions),
+                      lambda: alone(p2.p2_positions_plain),
+                      lambda: p2.p2_i16_pair_launches, 1, shape)
+        numbers["i16_pair"] = with_bound(
+            f"{label} i16 pair, no map", got,
+            n_bytes(coords, scale, step.atom_a, step.atom_b, *frame,
+                    got["out"], *extra.values()),
+            int(db.mask.sum()) * step.bond_type.shape[0]
+            * (P2_OPS + PAIR_OPS + (P2_NORMAL_OPS if per_mol else 0)))
+    return numbers
+
+
+class Conservation:
+    """Over a map run, per class: the Σq and counts of every batch's type
+    sums (valid frames, all types), and the run's map state, whose entries
+    (the dump included) must add up to them exactly. Call with each
+    `DeviceBatch`; then `check`."""
+
+    def __init__(self):
+        self.sums = None
+        self.state = None
+
+    def __call__(self, db):
+        out = db.out if db.out.dim() == 4 else db.out[:, None]
+        sums = out[db.mask].sum(dim=(0, 3))                    # (C, 2)
+        self.sums = sums if self.sums is None else self.sums + sums
+        self.state = db.map_state
+
+    def check(self, label):
+        import torch
+
+        got = self.state.sum(dim=-1)
+        if not torch.equal(got, self.sums):
+            raise RuntimeError(f"{label}: the map holds {got.tolist()} "
+                               f"[Σq, count] per class, the type sums "
+                               f"{self.sums.tolist()}")
+        dump = self.state[:, 1, -1].tolist()
+        print(f"check {label}: map conservation holds exactly: per class "
+              f"[Σq, count] {got.tolist()} == the run's type sums; samples "
+              f"outside the grid (dump) {dump}", flush=True)
+
+
+def check_map_files(label, results, directory):
+    """The map directory of a run: plot.py and one .dat file per class for
+    the system, each molecule type, atom and bond, each with n0 x n1 tile
+    lines. → (files, tile lines)."""
+    _, spec = results.map_params
+    n_classes = len(results.average_maps)
+    per_class = 1 + sum(1 + len(m.bonds) + sum(1 + len(a.bonds)
+                                               for a in m.atoms)
+                        for m in results.molecules)
+    dats = []
+    for root, _, files in os.walk(directory):
+        dats += [os.path.join(root, f) for f in files if f.endswith(".dat")]
+    if (not os.path.exists(os.path.join(directory, "plot.py"))
+            or len(dats) != n_classes * per_class):
+        raise RuntimeError(f"{label}: {len(dats)} .dat files in "
+                           f"{directory}, expected {n_classes} x "
+                           f"{per_class}, and plot.py")
+    for path in dats:
+        with open(path) as fh:
+            tiles = sum(1 for ln in fh if ln[0] not in "#@$")
+        if tiles != spec.ncells:
+            raise RuntimeError(f"{label}: {path} holds {tiles} tile lines, "
+                               f"expected {spec.n0} x {spec.n1}")
+    print(f"check {label}: {directory} holds plot.py and {len(dats)} .dat "
+          f"files, each {spec.n0} x {spec.n1} tile lines", flush=True)
+    return len(dats), len(dats) * spec.ncells
+
+
+def map_params(cache, label):
+    """The chip runs' ordermap: bench.py's default grid (0.1 nm bins, auto
+    spans; the plane from the static z normal, xy), written to the cache."""
+    from gorder_tpu_torch.input.config import OrderMapParams
+
+    return OrderMapParams(output_directory=os.path.join(cache,
+                                                        f"{label}_maps"))
 
 
 def check_ua_synthetic():
@@ -905,12 +1092,13 @@ def check_z_plane(aa_first, dyn_first, ua_first, ua_dyn_first, p2_static,
           "(int16, ua batch)", flush=True)
 
 
-def _run(label, analysis, counters, n_frames):
+def _run(label, analysis, counters, n_frames, watch=None):
     """`gorder_tpu_torch.run` with every launch count set to 0 just before
     and read just after; the counts named in `counters` must have their
-    value there and every other count must be 0. → (results, wall s,
-    launches by count name, wire-format log line, the first batch's
-    `DeviceBatch` as the run handed it to its step)."""
+    value there and every other count must be 0. `watch`, if given, sees
+    every batch's `DeviceBatch`. → (results, wall s, launches by count
+    name, wire-format log line, the first batch's `DeviceBatch` as the run
+    handed it to its step)."""
     import torch
 
     import gorder_tpu_torch
@@ -928,6 +1116,8 @@ def _run(label, analysis, counters, n_frames):
     def on_batch(db):
         if db.index == 0:
             first.append(db)
+        if watch is not None:
+            watch(db)
 
     logger = logging.getLogger("gorder")
     handler = Wire(logging.INFO)
@@ -949,10 +1139,13 @@ def _run(label, analysis, counters, n_frames):
         logger.removeHandler(handler)
         logger.setLevel(level)
     launches = {name: getattr(mod, name) for mod, name in names}
+    t0 = time.perf_counter()
     results.write()
+    write = time.perf_counter() - t0
     print(f"run {label}: {n_frames} frames in {wall:.3f} s = "
           f"{n_frames / wall:.1f} frames/s end to end; {wires[-1]}; "
-          f"launches {launches}; phases: {timers.summary()}", flush=True)
+          f"launches {launches}; phases: {timers.summary()}; outputs "
+          f"written in {write:.3f} s", flush=True)
     if results.n_analyzed_frames != n_frames:
         raise RuntimeError(f"{label}: analyzed {results.n_analyzed_frames} "
                            f"frames, expected {n_frames}")
@@ -983,7 +1176,7 @@ def off_lines(yaml_path, label, n_frames):
 
 
 def run_golden(label, analysis, counters, n_frames, golden=None, wire=None,
-               exact=False):
+               exact=False, watch=None):
     """`_run`, then the YAML must pass bench.validate_output against the
     pinned golden {golden}_{n_frames}.yaml (golden: the label by default),
     exactly if `exact`; the wire-format log line must hold `wire` if
@@ -992,7 +1185,7 @@ def run_golden(label, analysis, counters, n_frames, golden=None, wire=None,
 
     golden = golden or label
     results, _, launches, wire_line, first = _run(label, analysis, counters,
-                                                  n_frames)
+                                                  n_frames, watch)
     if wire is not None and wire not in wire_line:
         raise RuntimeError(f"{label}: rode {wire_line!r}, expected {wire!r}")
     status = bench.validate_output(analysis.output_yaml, golden, n_frames)
@@ -1189,6 +1382,40 @@ def main() -> int:
     del firsts
     time_normals(gro, bnd, xtc, cache)
 
+    # 12. the AA ordermap runs, on int16 (with the decoder's COG for the
+    # global leaflets): goldens, the map's conservation law over the whole
+    # run, the map files; then the pair_quantized P2 kernel with its map
+    # output against plain on each run's first batch, with the classes the
+    # step used, and with aa-dynamic's normals
+    from gorder_tpu_torch.input.config import LeafletClassification
+
+    map_launches, map_checks, map_firsts = {}, {}, {}
+    for label, golden, wire, kw in (
+            ("aa-ordermap", "aa", "wire format: i16", {}),
+            ("aa-ordermap-leaflets", "aa-leaflets", "membrane-COG",
+             dict(leaflets=LeafletClassification.global_("resname POPC",
+                                                         P_HEADS)))):
+        conservation = Conservation()
+        analysis = aa_analysis(gro, bnd, xtc,
+                               os.path.join(cache, f"smoke_{label}.yaml"),
+                               map=map_params(cache, label), **kw)
+        got, results, map_firsts[label] = run_golden(
+            label, analysis, {"p2_i16_map_launches": n_batches}, N_FRAMES,
+            golden=golden, wire=wire, watch=conservation)
+        map_launches[label] = got["p2_i16_map_launches"]
+        conservation.check(label)
+        check_map_files(label, results, analysis.map.output_directory)
+        map_checks[label] = check_p2_map(label, map_firsts[label],
+                                         pair_alone=label == "aa-ordermap")
+        del results
+    leaflet_first = map_firsts["aa-ordermap-leaflets"]
+    check_p2_map("aa-ordermap with aa-dynamic", map_firsts["aa-ordermap"],
+                 normal=dyn_first.normal,
+                 bond_mol=leaflet_first.step.bond_mol)
+    check_p2_map("aa-ordermap-leaflets with aa-dynamic", leaflet_first,
+                 normal=dyn_first.normal)
+    del map_firsts, leaflet_first
+
     # 8. UA synth
     t0 = time.perf_counter()
     from tools import bench_modes
@@ -1216,7 +1443,6 @@ def main() -> int:
     # totals must equal the ua run's, upper and lower must be finite; then
     # the with_leaflets UA kernel against plain on its first batch, with
     # the classes its step used
-    from gorder_tpu_torch.input.config import LeafletClassification
 
     a = ua_analysis("ua", *ua_files,
                     os.path.join(cache, "smoke_ua-leaflets.yaml"))
@@ -1267,6 +1493,21 @@ def main() -> int:
     check_z_plane(aa_first, dyn_first, ua_first, first,
                   p2_plain["resid"]["out"], ua_plain["i16"]["out"])
 
+    # 13. UA with the ordermap (int16): its golden, the conservation law,
+    # the map files; then the UA kernel's map output against plain on the
+    # run's first batch
+    conservation = Conservation()
+    a = ua_analysis("ua", *ua_files,
+                    os.path.join(cache, "smoke_ua-ordermap.yaml"),
+                    map=map_params(cache, "ua-ordermap"))
+    ua_map_runs, results, first = run_golden(
+        "ua-ordermap", a, {"ua_map_launches": ua_batches * 3}, ua_frames,
+        golden="ua", wire="wire format: i16", watch=conservation)
+    conservation.check("ua-ordermap")
+    check_map_files("ua-ordermap", results, a.map.output_directory)
+    ua_map = check_ua("ua-ordermap", first.step, wire_inputs(first),
+                      (first.box, first.normal, first.mask))
+
     p2_src, ua_src = ("gorder_tpu_torch/csrc/p2.cu",
                       "gorder_tpu_torch/csrc/ua.cu")
     p2_tpu, ua_tpu = ("gorder_tpu/ops/pallas_p2.py:163",
@@ -1291,7 +1532,15 @@ def main() -> int:
         kernel_entry("p2_i16_normals", p2_src, p2_tpu,
                      normal_launches["aa-manual-z"], p2_i16_normals["i16"]),
         kernel_entry("ua_normals", ua_src, ua_tpu,
-                     ua_dyn["ua_normals_launches"], ua_normals["i16"])]}))
+                     ua_dyn["ua_normals_launches"], ua_normals["i16"]),
+        kernel_entry("p2_i16_map", p2_src, p2_tpu,
+                     map_launches["aa-ordermap"],
+                     map_checks["aa-ordermap"]["i16"]),
+        kernel_entry("p2_i16_map_leaflets", p2_src, p2_tpu,
+                     map_launches["aa-ordermap-leaflets"],
+                     map_checks["aa-ordermap-leaflets"]["i16"]),
+        kernel_entry("ua_map", ua_src, ua_tpu,
+                     ua_map_runs["ua_map_launches"], ua_map["i16"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -4,9 +4,9 @@ The port of `gorder_tpu` (JAX on a TPU) to PyTorch and a hand-written
 Hopper kernels. It reads the same YAML configurations and writes the same
 output files; `gorder_tpu` stays the reference it is tested against. It
 covers all-atom (AA), coarse-grained (CG) and united-atom (UA) order
-parameters with a static membrane normal, overall and per leaflet (global,
-local, individual and manual assignment), without ordermaps or
-geometry::
+parameters with a static, dynamic or manual membrane normal, overall and
+per leaflet (global, local, individual and manual assignment), with or
+without ordermaps, and without geometry::
 
     import gorder_tpu_torch as gorder
 

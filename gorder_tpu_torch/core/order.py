@@ -1,6 +1,6 @@
 """The P2/order-parameter step (port of `gorder_tpu/core/order.py` for a
-static or per-molecule membrane normal, overall and per leaflet; no maps
-or geometry).
+static or per-molecule membrane normal, overall and per leaflet, with or
+without ordermaps; no geometry).
 
 Per bond instance and frame: bond vector → minimum image → projection on
 the normal (the static one, or the bond's molecule's dynamic or manual
@@ -9,7 +9,8 @@ normal) → S = 1.5·cos²θ − 0.5 → the reference's fixed-point sample
 sums and counts per frame and bond type, and with leaflet classes also
 per class: total, upper (class 0) and lower (class 1) of the bond's
 molecule (gorder_tpu/core/order.py:231-235). A class that is neither 0
-nor 1 counts in total only.
+nor 1 counts in total only. With an ordermap, each sample also goes to
+the map tile of its bond midpoint (`core/ordermap.py`).
 
 The JAX package reproduces that rounding in pure f32 with a two-product
 and sums it as 7-bit limbs on the MXU, because TPU kernels have no f64.
@@ -28,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ordermap import map_cells, update_maps
 from .pbc import min_image
 
 _SCALE = 1.0e6
@@ -54,25 +56,37 @@ def resid_vectors(r: torch.Tensor, base: torch.Tensor,
 
 def position_vectors(coords: torch.Tensor, atom_a: torch.Tensor,
                      atom_b: torch.Tensor,
-                     inv_scale: torch.Tensor | None = None) -> torch.Tensor:
+                     inv_scale: torch.Tensor | None = None, *,
+                     pair: bool = False):
     """(B, A, 3) positions → (B, N, 3) f32 bond vectors.
 
     Integer positions (with `inv_scale`) take the single-rounding integer
     difference f32(q_b − q_a)·s (gorder_tpu/core/order.py:144-167), bit for
     bit the b7 wire's vectors; f32 positions take the pair difference
-    p_b − p_a (:173-178)."""
+    p_b − p_a (:173-178). With `pair`, integer positions take the pair
+    difference of the dequantized positions too, f32(q_b)·s − f32(q_a)·s
+    (the `pair_quantized` formulation of ordermap runs, :144-162, whose
+    midpoints must be the reference's f32-position arithmetic bit for
+    bit), and the result is (d, p_a): the vectors and the (B, N, 3) f32
+    first atoms."""
+    if pair and inv_scale is not None:
+        coords = coords.to(torch.float32) * inv_scale[:, None, None]
+        inv_scale = None
     pa = coords.index_select(1, atom_a)
     pb = coords.index_select(1, atom_b)
     if inv_scale is None:
-        return pb - pa
-    d = pb.to(torch.int32) - pa.to(torch.int32)
-    return d.to(torch.float32) * inv_scale[:, None, None]
+        d = pb - pa
+    else:
+        d = (pb.to(torch.int32) - pa.to(torch.int32)).to(torch.float32) \
+            * inv_scale[:, None, None]
+    return (d, pa) if pair else d
 
 
 def p2_sums(d: torch.Tensor, box_diag: torch.Tensor, normal: torch.Tensor,
             frame_mask: torch.Tensor, bond_type: torch.Tensor, n_types: int,
             *, handle_pbc: bool, classes: torch.Tensor | None = None,
-            bond_mol: torch.Tensor | None = None) -> torch.Tensor:
+            bond_mol: torch.Tensor | None = None, pa=None, map_spec=None,
+            map_state=None) -> torch.Tensor:
     """(B, N, 3) f32 bond vectors → (B, 2, T) int64 per-frame, per-type
     [sum of quantized samples, sample count]; masked frames give zeros.
     With (B, M) int32 leaflet `classes` and the (N,) molecule of each bond
@@ -85,6 +99,13 @@ def p2_sums(d: torch.Tensor, box_diag: torch.Tensor, normal: torch.Tensor,
     1e-18)·n2), one product in the denominator (gorder_tpu/core/order.py:
     185-192, ops/pallas_p2.py:128-134). With n = (0, 0, 1) both branches
     give the same bits.
+
+    With an ordermap (`map_spec` and its (C, 2, S) int64 `map_state`, C the
+    classes of the output), each sample is also added to the state, in
+    place, at the tile of its bond midpoint pa + d·0.5 (d after the
+    minimum image; `pa` the (B, N, 3) f32 first atoms), with the same
+    sample and masks as the type sums (gorder_tpu/core/order.py:201-204,
+    :239-242).
 
     Every f32 operation is a separate, correctly rounded PyTorch op, in the
     order of the JAX Pallas kernel (gorder_tpu/ops/pallas_p2.py:120-141),
@@ -101,21 +122,32 @@ def p2_sums(d: torch.Tensor, box_diag: torch.Tensor, normal: torch.Tensor,
         proj = dx * nx + dy * ny + dz * nz
         n2 = torch.clamp(nx * nx + ny * ny + nz * nz, min=1e-18)
         cos2 = (proj * proj) / (torch.clamp(d2, min=1e-18) * n2)
-    sch = 1.5 * cos2 - 0.5
-    return class_sums(quantize(sch), frame_mask, bond_type, n_types,
-                      classes, bond_mol)
+    q = quantize(1.5 * cos2 - 0.5)
+    masks = class_masks(q, frame_mask, classes, bond_mol)
+    if map_state is not None:
+        cells, _ = map_cells(pa + d * 0.5, map_spec, bond_type, n_types)
+        update_maps(map_state, q, cells, masks)
+    return class_sums(q, masks, bond_type, n_types)
 
 
-def class_sums(q: torch.Tensor, frame_mask: torch.Tensor,
-               bond_type: torch.Tensor, n_types: int,
-               classes: torch.Tensor | None = None,
-               bond_mol: torch.Tensor | None = None) -> torch.Tensor:
-    """(B, N) int64 samples → per-type [sum, count] of the valid frames:
-    (B, 2, T), or (B, 3, 2, T) per class (total, upper, lower) when
-    `classes` (B, M) and each sample's molecule `bond_mol` (N,) are
-    given."""
+def class_masks(q: torch.Tensor, frame_mask: torch.Tensor,
+                classes: torch.Tensor | None = None,
+                bond_mol: torch.Tensor | None = None) -> list:
+    """The (B, N) int64 masks of the samples `q` that each class counts:
+    [valid frames], or with `classes` (B, M) and each sample's molecule
+    `bond_mol` (N,) [total, upper (class 0), lower (class 1)]."""
     valid = frame_mask.to(torch.int64)[:, None].expand_as(q)
+    if classes is None:
+        return [valid]
+    cls = classes.index_select(1, bond_mol)                  # (B, N)
+    return [valid, valid * (cls == 0), valid * (cls == 1)]
 
+
+def class_sums(q: torch.Tensor, masks: list, bond_type: torch.Tensor,
+               n_types: int) -> torch.Tensor:
+    """(B, N) int64 samples and their `class_masks` → per-type [sum,
+    count]: (B, 2, T) for one class, (B, 3, 2, T) for total, upper and
+    lower."""
     def reduce(m):
         shape = (q.shape[0], n_types)
         sums = torch.zeros(shape, dtype=torch.int64, device=q.device)
@@ -124,31 +156,44 @@ def class_sums(q: torch.Tensor, frame_mask: torch.Tensor,
         counts.index_add_(1, bond_type, m)
         return torch.stack([sums, counts], dim=1)
 
-    if classes is None:
-        return reduce(valid)
-    cls = classes.index_select(1, bond_mol)                  # (B, N)
-    return torch.stack([reduce(valid), reduce(valid * (cls == 0)),
-                        reduce(valid * (cls == 1))], dim=1)
+    if len(masks) == 1:
+        return reduce(masks[0])
+    return torch.stack([reduce(m) for m in masks], dim=1)
 
 
 def order_step(coords, box_diag, normal, frame_mask, atom_a, atom_b,
                bond_type, n_types: int, inv_scale=None, base=None, *,
-               handle_pbc: bool, classes=None,
-               bond_mol=None) -> torch.Tensor:
+               handle_pbc: bool, classes=None, bond_mol=None,
+               pair: bool = False, map_spec=None,
+               map_state=None) -> torch.Tensor:
     """The plain step for its three inputs → (B, 2, T) int64, or
     (B, 3, 2, T) with leaflet `classes` and `bond_mol`; `normal` (3,), or
     (B, M, 3) with `bond_mol` (`p2_sums`):
 
     - b7 residuals: `coords` (B, 3N) int16 with `base` and `inv_scale`;
-    - integer positions: `coords` (B, A, 3) int16 with `inv_scale`;
-    - f32 positions: `coords` (B, A, 3) f32."""
+    - integer positions: `coords` (B, A, 3) int16 with `inv_scale`, the
+      pair difference with `pair` (`position_vectors`);
+    - f32 positions: `coords` (B, A, 3) f32.
+
+    With `map_spec` and `map_state`, positions input only (integer ones
+    with `pair`), the samples are also added to the map state, in
+    place."""
+    if map_state is not None and (base is not None or (
+            inv_scale is not None and not pair)):
+        raise ValueError("an ordermap takes positions, integer ones with "
+                         "the pair difference")
+    pa = None
     if base is not None:
         d = resid_vectors(coords, base, inv_scale)
+    elif pair or map_state is not None:
+        d, pa = position_vectors(coords, atom_a, atom_b, inv_scale,
+                                 pair=True)
     else:
         d = position_vectors(coords, atom_a, atom_b, inv_scale)
     return p2_sums(d, box_diag, normal, frame_mask, bond_type, n_types,
                    handle_pbc=handle_pbc, classes=classes,
-                   bond_mol=bond_mol)
+                   bond_mol=bond_mol, pa=pa, map_spec=map_spec,
+                   map_state=map_state)
 
 
 class OrderStep:
@@ -158,11 +203,13 @@ class OrderStep:
     With `with_leaflets`, every call takes the batch's (B, M) classes and
     returns (B, 3, 2, T). With `normal_mode` "per_molecule", every call
     takes the batch's (B, M, 3) normals; "static", the (3,) normal. The
-    bonds' molecules `bond_mol` are kept for either."""
+    bonds' molecules `bond_mol` are kept for either. With a `map_spec`
+    (an ordermap run), integer positions take the pair difference, and a
+    call given the run's `map_state` adds its samples to it."""
 
     def __init__(self, atom_a, atom_b, bond_type, bond_mol, n_types: int, *,
                  handle_pbc: bool, with_leaflets: bool, device,
-                 normal_mode: str = "static"):
+                 normal_mode: str = "static", map_spec=None):
         def idx(a):
             return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
@@ -177,6 +224,7 @@ class OrderStep:
         self.n_types = int(n_types)
         self.handle_pbc = bool(handle_pbc)
         self.with_leaflets = bool(with_leaflets)
+        self.map_spec = map_spec
 
     def _molecules(self, normal, classes):
         if (classes is not None) != self.with_leaflets:
@@ -189,35 +237,39 @@ class OrderStep:
 
     def resid(self, r, base, inv_scale, box_diag, normal, frame_mask,
               classes=None):
-        """b7 wire input (the main path)."""
+        """b7 wire input (the main path of runs without maps)."""
         from ..ops.p2 import p2_resid
 
+        if self.map_spec is not None:
+            raise ValueError("an ordermap run never rides the b7 wire: its "
+                             "samples need the bond positions")
         return p2_resid(r, base, inv_scale, box_diag, normal, frame_mask,
                         self.bond_type, self.n_types,
                         handle_pbc=self.handle_pbc,
                         **self._molecules(normal, classes))
 
     def positions(self, coords, box_diag, normal, frame_mask,
-                  inv_scale=None, classes=None):
+                  inv_scale=None, classes=None, map_state=None):
         """i16 wire (with `inv_scale`) or f32 wire input."""
         from ..ops.p2 import p2_positions
 
+        if map_state is not None and self.map_spec is None:
+            raise ValueError("a map state needs a step made with a map_spec")
         return p2_positions(coords, self.atom_a, self.atom_b, inv_scale,
                             box_diag, normal, frame_mask, self.bond_type,
                             self.n_types, handle_pbc=self.handle_pbc,
+                            pair=self.map_spec is not None,
+                            map_spec=self.map_spec, map_state=map_state,
                             **self._molecules(normal, classes))
 
 
-def refuse_unported(*, map_spec, geom_spec) -> None:
+def refuse_unported(*, geom_spec) -> None:
     """Raise AnalysisError naming the step options this port lacks."""
-    missing = [name for name, on in (
-        ("ordermaps", map_spec is not None),
-        ("geometry selection", geom_spec is not None)) if on]
-    if missing:
+    if geom_spec is not None:
         from ..errors import AnalysisError
 
         raise AnalysisError(
-            "not yet ported to gorder_tpu_torch: " + ", ".join(missing))
+            "not yet ported to gorder_tpu_torch: geometry selection")
 
 
 def make_order_step(atom_a, atom_b, bond_type, bond_mol, n_types: int,
@@ -227,12 +279,14 @@ def make_order_step(atom_a, atom_b, bond_type, bond_mol, n_types: int,
                     geom_spec=None) -> OrderStep:
     """The reference's step factory (gorder_tpu/core/order.py:313), for the
     configurations this port covers: a static normal or per-molecule
-    (dynamic or manual) normals, with or without leaflets, and no maps or
-    geometry. `n_molecules` serves only those."""
-    refuse_unported(map_spec=map_spec, geom_spec=geom_spec)
+    (dynamic or manual) normals, with or without leaflets, with or without
+    an ordermap (`map_spec`), and no geometry. `n_molecules` serves only
+    those."""
+    refuse_unported(geom_spec=geom_spec)
     return OrderStep(atom_a, atom_b, bond_type, bond_mol, n_types,
                      handle_pbc=handle_pbc, with_leaflets=with_leaflets,
-                     device=device, normal_mode=normal_mode)
+                     device=device, normal_mode=normal_mode,
+                     map_spec=map_spec)
 
 
 def from_reference_rows(rows) -> np.ndarray:

@@ -1,7 +1,7 @@
 """United-atom virtual hydrogens and their order parameters (port of
 `gorder_tpu/core/ua.py` for a static membrane normal or per-molecule
-(dynamic or manual) normals, overall and per leaflet; no maps or
-geometry).
+(dynamic or manual) normals, overall and per leaflet, with or without
+ordermaps; no geometry).
 
 Per target carbon and frame: its helper atoms → the buildH prediction of
 its 1–3 hydrogens (src/analysis/uaorder.rs:944-1106) → per hydrogen the
@@ -9,7 +9,9 @@ C–H vector → minimum image → projection on the normal (the static one, or
 the carbon's molecule's) → S = 1.5·cos²θ − 0.5 → the reference's
 fixed-point sample (`core/order.py quantize`) → exact int64 sums and
 counts per frame and bond type (and per leaflet class, as
-`core/order.py class_sums` sums them).
+`core/order.py class_sums` sums them); with an ordermap, each sample also
+goes to the tile of its bond position, hydrogen + (C–H vector)/2
+(`core/ordermap.py`).
 
 Every f32 step is one correctly rounded PyTorch op, grouped as the JAX
 package's planar (structure-of-arrays) formulation groups it: a planar
@@ -31,7 +33,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .order import class_sums, quantize
+from .order import class_masks, class_sums, quantize
+from .ordermap import map_cells, update_maps
 
 TETRAHEDRAL_ANGLE = np.float32(1.910633)
 TETRAHEDRAL_ANGLE_HALF = np.float32(0.9553165)
@@ -178,9 +181,10 @@ _PREDICT = {"ch3": predict_ch3_planar, "ch2": predict_ch2_planar,
 
 def ua_step(coords, box_diag, normal, frame_mask, indices, bond_type,
             n_types: int, inv_scale=None, *, handle_pbc: bool,
-            layout, classes=None, bond_mol=None) -> torch.Tensor:
-    """The plain UA step (gorder_tpu/core/ua.py `_ua_step_impl` without maps
-    or geometry) → (B, 2, T) int64 per-frame, per-type [sum of quantized
+            layout, classes=None, bond_mol=None, map_spec=None,
+            map_state=None) -> torch.Tensor:
+    """The plain UA step (gorder_tpu/core/ua.py `_ua_step_impl` without
+    geometry) → (B, 2, T) int64 per-frame, per-type [sum of quantized
     samples, sample count]; masked frames give zeros. With (B, M) leaflet
     `classes` and each sample's molecule `bond_mol` → (B, 3, 2, T): total,
     upper and lower.
@@ -191,6 +195,12 @@ def ua_step(coords, box_diag, normal, frame_mask, indices, bond_type,
     S = 1.5·proj² / (max(v·v, 1e-18)·n2) − 0.5 (gorder_tpu/core/ua.py:
     282-301, ops/pallas_ua.py:136-141), grouped otherwise than the P2
     step's cos². With n = (0, 0, 1) both branches give the same bits.
+
+    With an ordermap (`map_spec` and its (C, 2, S) int64 `map_state`),
+    each sample is also added to the state, in place, at the tile of its
+    bond position h + v·0.5: the hydrogen h wrapped into the box and the
+    C–H vector v after the minimum image, when PBC is on (:302-306,
+    :354-357).
 
     coords: (B, A, 3) int16 with `inv_scale` (B,) f32, or f32 without;
     indices: {category: {"target", "h1", "h2"[, "h3"]: (n,) int}};
@@ -206,6 +216,7 @@ def ua_step(coords, box_diag, normal, frame_mask, indices, bond_type,
         return tuple(p.index_select(1, ix) for p in cpl)
 
     parts = []
+    mids = []
     for category, _n in layout:
         ix = indices[category]
         t = gather(ix["target"])
@@ -216,6 +227,7 @@ def ua_step(coords, box_diag, normal, frame_mask, indices, bond_type,
                         for i in range(3))                   # (B, n) planes
             n2 = torch.clamp(_pdot(nrm, nrm), min=1e-18)
         per_atom = []
+        per_atom_mid = []
         for hpos in hydrogens:
             if handle_pbc:
                 hpos = _pwrap(hpos, boxp)
@@ -230,11 +242,20 @@ def ua_step(coords, box_diag, normal, frame_mask, indices, bond_type,
                 proj = (vec[0] * normal[0] + vec[1] * normal[1]) \
                     + vec[2] * normal[2]
                 per_atom.append((1.5 * (proj * proj)) / d2 - 0.5)
+            if map_state is not None:
+                per_atom_mid.append(torch.stack(
+                    [hpos[i] + vec[i] * 0.5 for i in range(3)], dim=-1))
         # hydrogen-major per atom: (B, n, K) → (B, n·K)
         parts.append(torch.stack(per_atom, dim=-1).flatten(1))
-    sch = torch.cat(parts, dim=1)                           # (B, Nv)
-    return class_sums(quantize(sch), frame_mask, bond_type, n_types,
-                      classes, bond_mol)
+        if map_state is not None:
+            mids.append(torch.stack(per_atom_mid, dim=2).flatten(1, 2))
+    q = quantize(torch.cat(parts, dim=1))                   # (B, Nv)
+    masks = class_masks(q, frame_mask, classes, bond_mol)
+    if map_state is not None:
+        cells, _ = map_cells(torch.cat(mids, dim=1), map_spec, bond_type,
+                             n_types)
+        update_maps(map_state, q, cells, masks)
+    return class_sums(q, masks, bond_type, n_types)
 
 
 class UAStep:
@@ -245,11 +266,13 @@ class UAStep:
     returns (B, 3, 2, T); the plain version reads each sample's molecule
     (`bond_mol`), the kernel each carbon's (`mol`, the same molecules).
     With `normal_mode` "per_molecule", every call takes the batch's
-    (B, M, 3) normals, which both read by each carbon's `mol`."""
+    (B, M, 3) normals, which both read by each carbon's `mol`. With a
+    `map_spec` (an ordermap run), a call given the run's `map_state` adds
+    its samples to it."""
 
     def __init__(self, categories, bond_type, bond_mol, n_types: int, *,
                  handle_pbc: bool, with_leaflets: bool, device,
-                 normal_mode: str = "static"):
+                 normal_mode: str = "static", map_spec=None):
         def idx(a):
             return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
@@ -268,9 +291,10 @@ class UAStep:
         self.handle_pbc = bool(handle_pbc)
         self.with_leaflets = bool(with_leaflets)
         self.normal_mode = normal_mode
+        self.map_spec = map_spec
 
     def positions(self, coords, box_diag, normal, frame_mask,
-                  inv_scale=None, classes=None):
+                  inv_scale=None, classes=None, map_state=None):
         """i16 wire (with `inv_scale`) or f32 wire input."""
         from ..ops.ua import ua_positions
 
@@ -280,10 +304,13 @@ class UAStep:
         if (normal.dim() == 3) != (self.normal_mode == "per_molecule"):
             raise ValueError("(B, M, 3) normals must be given exactly when "
                              "the step was made per_molecule")
+        if map_state is not None and self.map_spec is None:
+            raise ValueError("a map state needs a step made with a map_spec")
         return ua_positions(coords, inv_scale, box_diag, normal, frame_mask,
                             self.indices, self.bond_type, self.n_types,
                             handle_pbc=self.handle_pbc, layout=self.layout,
-                            classes=classes, bond_mol=self.bond_mol)
+                            classes=classes, bond_mol=self.bond_mol,
+                            map_spec=self.map_spec, map_state=map_state)
 
 
 def make_ua_step(categories, bond_type, bond_mol, n_types: int, *,
@@ -292,12 +319,13 @@ def make_ua_step(categories, bond_type, bond_mol, n_types: int, *,
                  map_spec=None, geom_spec=None) -> UAStep:
     """The reference's step factory (gorder_tpu/core/ua.py:368), for the
     configurations this port covers: a static normal or per-molecule
-    (dynamic or manual) normals, with or without leaflets, and no maps or
-    geometry. With leaflets or per-molecule normals, every category needs
-    its per-carbon molecule index `mol`."""
+    (dynamic or manual) normals, with or without leaflets, with or without
+    an ordermap (`map_spec`), and no geometry. With leaflets or
+    per-molecule normals, every category needs its per-carbon molecule
+    index `mol`."""
     from .order import refuse_unported
 
-    refuse_unported(map_spec=map_spec, geom_spec=geom_spec)
+    refuse_unported(geom_spec=geom_spec)
     return UAStep(categories, bond_type, bond_mol, n_types,
                   handle_pbc=handle_pbc, with_leaflets=with_leaflets,
-                  device=device, normal_mode=normal_mode)
+                  device=device, normal_mode=normal_mode, map_spec=map_spec)

@@ -1,8 +1,9 @@
 // Device code shared by the order-parameter kernels (p2.cu, ua.cu): the
-// minimum image, the reference's fixed-point sample, and the per-block
-// table of per-type [sum, count] int64 that a block fills with
-// shared-memory atomics and adds to the output with one global atomic per
-// nonzero entry. The table is (2, T), or (3, 2, T) for the with_leaflets
+// minimum image, the reference's fixed-point sample, the per-block table
+// of per-type [sum, count] int64 that a block fills with shared-memory
+// atomics and adds to the output with one global atomic per nonzero entry,
+// and the ordermap table (MapTable) that each sample is added to in global
+// memory. The tables are (2, T), or (3, 2, T) for the with_leaflets
 // variants: total, upper (class 0) and lower (class 1); a sample whose
 // molecule's class is neither 0 nor 1 counts in total only, as the TPU
 // kernels' masks do (gorder_tpu/ops/pallas_p2.py:220-222).
@@ -108,6 +109,76 @@ __device__ __forceinline__ float normal_norm2(float3 n) {
                          __fmul_rn(n.z, n.z)),
                1e-18f);
 }
+
+// An ordermap's grid (gorder_tpu_torch/core/ordermap.py MapSpec) and its
+// run-long state, passed by value from ctypes. The state is int64
+// (kClasses, 2, T * n0 * n1 + 1): class x [sum of samples, count] x the
+// type-major cells (t * n0 + i0) * n1 + i1, then the dump entry that takes
+// every sample outside the grid. state null: the run has no map.
+struct MapGrid {
+  unsigned long long* state;
+  float start0, start1;  // f32 of the grid's starts and bin sizes, as the
+  float bin0, bin1;      // JAX package's map_cells takes them
+  int ax0, ax1;          // the plane's two axes (0 x, 1 y, 2 z)
+  int n0, n1;            // tiles along each
+};
+
+__device__ __forceinline__ float component(float x, float y, float z,
+                                           int axis) {
+  return axis == 0 ? x : (axis == 1 ? y : z);
+}
+
+// The tile of one plane component p: floor((p - start) / bin + 0.5) in
+// f32 (gorder_tpu/core/ordermap.py:90-91), or -1 outside [0, n). Bin
+// boundaries are sensitive to the last ulp, so every step is correctly
+// rounded.
+__device__ __forceinline__ int map_tile(float p, float start, float bin,
+                                        int n) {
+  const float f = floorf(__fadd_rn(__fdiv_rn(__fsub_rn(p, start), bin), 0.5f));
+  return (f >= 0.0f && f < static_cast<float>(n)) ? static_cast<int>(f) : -1;
+}
+
+// A kernel's view of the map: finds a sample's cell by its bond midpoint
+// and adds the sample and a count of 1 to it with 64-bit global atomics, in
+// total and, with kClasses == 3, in the upper or lower row (as TypeTable).
+template <int kClasses>
+struct MapTable {
+  MapGrid g;
+  long long n_entries;  // T * n0 * n1 + 1, the dump last
+
+  __device__ __forceinline__ MapTable(const MapGrid& grid, int n_types)
+      : g(grid),
+        n_entries(static_cast<long long>(n_types) * grid.n0 * grid.n1 + 1) {}
+
+  __device__ __forceinline__ bool active() const { return g.state != nullptr; }
+
+  // The cell of a sample of type t whose bond midpoint is (mx, my, mz).
+  __device__ __forceinline__ long long cell(int t, float mx, float my,
+                                            float mz) const {
+    const int i0 =
+        map_tile(component(mx, my, mz, g.ax0), g.start0, g.bin0, g.n0);
+    const int i1 =
+        map_tile(component(mx, my, mz, g.ax1), g.start1, g.bin1, g.n1);
+    if (i0 < 0 || i1 < 0) return n_entries - 1;
+    return (static_cast<long long>(t) * g.n0 + i0) * g.n1 + i1;
+  }
+
+  __device__ __forceinline__ void add_to(int c, long long cell,
+                                         long long q) const {
+    unsigned long long* row = g.state + static_cast<size_t>(c) * 2 * n_entries;
+    atomicAdd(row + cell, static_cast<unsigned long long>(q));
+    atomicAdd(row + n_entries + cell, 1ULL);
+  }
+
+  __device__ __forceinline__ void add(long long cell, long long q,
+                                      int cls) const {
+    add_to(0, cell, q);
+    if constexpr (kClasses == 3) {
+      if (cls == 0) add_to(1, cell, q);
+      else if (cls == 1) add_to(2, cell, q);
+    }
+  }
+};
 
 // The leaflet class of the molecule `mol` in frame b: classes (B, M) int32.
 // Without classes (the plain variants) every sample is class 0, which only

@@ -47,6 +47,18 @@
 // targets, which lie close together in a molecule, so the gathers mostly
 // hit the same cache lines.
 //
+// Ordermaps (every category x input, with and without classes and
+// normals): the TPU kernel has no map variant (pallas_ua.py:60-61 refuses
+// maps) and the JAX package runs UA map runs through XLA, scattering the
+// samples with segment_sum (gorder_tpu/core/ua.py:302-306, :354-357).
+// Here the thread that computes a sample also adds it to the ordermap
+// state at the tile of its bond position h + v*0.5 (h wrapped, v the
+// min-imaged C-H vector when PBC is on), with two 64-bit global atomics
+// per class (common.cuh MapTable); a null state pointer is a uniform
+// branch. What bounds it: those atomics into a table of T * n0 * n1
+// entries per row (0.59 M for the UA membrane at 0.1 nm) and about 14 f32
+// operations per sample.
+//
 // per_bond_normal (kMolNormal; replaces pallas_ua.py:110-113 and :136-141
 // with the operand gather at :234-240): dynamic or manual membrane
 // normals, (B, M, 3) f32, one per molecule and frame. Each thread reads
@@ -195,14 +207,19 @@ __device__ __forceinline__ void predict(V t, V a1, V a2, V a3, V box,
   }
 }
 
-// One C-H sample of hydrogen h on target t against the normal n: the
-// static one, or (kMolNormal) the molecule's, with n2 = max(n.n, 1e-18).
-template <bool kMolNormal>
-__device__ __forceinline__ long long ua_sample(V h, V t, V box, V n,
-                                               float n2, bool pbc) {
+// The C-H vector of hydrogen h on target t: with PBC, h is wrapped into
+// the box (in place: the map's bond position reads it) and the vector
+// min-imaged.
+__device__ __forceinline__ V ch_vector(V& h, V t, V box, bool pbc) {
   if (pbc) h = {wrap(h.x, box.x), wrap(h.y, box.y), wrap(h.z, box.z)};
-  V vec = vsub(h, t);
-  if (pbc) vec = vmin_image(vec, box);
+  const V vec = vsub(h, t);
+  return pbc ? vmin_image(vec, box) : vec;
+}
+
+// One C-H sample of the vector vec against the normal n: the static one,
+// or (kMolNormal) the molecule's, with n2 = max(n.n, 1e-18).
+template <bool kMolNormal>
+__device__ __forceinline__ long long ua_sample(V vec, V n, float n2) {
   const float proj = __fadd_rn(
       __fadd_rn(__fmul_rn(vec.x, n.x), __fmul_rn(vec.y, n.y)),
       __fmul_rn(vec.z, n.z));
@@ -249,19 +266,22 @@ struct Targets {
 
 // grid (ceil(n_cat / kTile), B); out (B, kClasses, 2, T) int64, added
 // into; classes (B, M) int32 when kClasses == 3; normal (3,) f32, or
-// (B, M, 3) f32 when kMolNormal.
+// (B, M, 3) f32 when kMolNormal; map: the ordermap, added into (state
+// null without one).
 template <int C, class Coords, bool kShared, int kClasses, bool kMolNormal>
 __global__ void __launch_bounds__(kThreads)
 ua_kernel(Coords coords, Targets tg, const float* __restrict__ box,
           const float* __restrict__ normal, Trig g,
           const uint8_t* __restrict__ mask,
-          const int32_t* __restrict__ classes, int n_molecules, int n_types,
-          int pbc, unsigned long long* __restrict__ out) {
+          const int32_t* __restrict__ classes, gorder::MapGrid map,
+          int n_molecules, int n_types, int pbc,
+          unsigned long long* __restrict__ out) {
   constexpr int K = n_hydrogens(C);
   extern __shared__ unsigned long long table[];  // when kShared
   const int b = blockIdx.y;
   if (!mask[b]) return;  // padding frame: its rows stay zero
   const gorder::TypeTable<kShared, kClasses> acc(table, out, b, n_types);
+  const gorder::MapTable<kClasses> tiles(map, n_types);
   const V L = {box[3 * b], box[3 * b + 1], box[3 * b + 2]};
   V n = {0.0f, 0.0f, 0.0f};
   if constexpr (!kMolNormal) n = {normal[0], normal[1], normal[2]};
@@ -288,8 +308,17 @@ ua_kernel(Coords coords, Targets tg, const float* __restrict__ box,
     predict<C>(t, a1, a2, a3, L, pbc != 0, g, h);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      acc.add(tg.bond_type[i * K + k],
-              ua_sample<kMolNormal>(h[k], t, L, n, n2, pbc != 0), cls);
+      const V vec = ch_vector(h[k], t, L, pbc != 0);
+      const int type = tg.bond_type[i * K + k];
+      const long long q = ua_sample<kMolNormal>(vec, n, n2);
+      acc.add(type, q, cls);
+      if (tiles.active()) {
+        // the bond position h + vec * 0.5 (gorder_tpu/core/ua.py:302-306)
+        tiles.add(tiles.cell(type, __fadd_rn(h[k].x, __fmul_rn(vec.x, 0.5f)),
+                             __fadd_rn(h[k].y, __fmul_rn(vec.y, 0.5f)),
+                             __fadd_rn(h[k].z, __fmul_rn(vec.z, 0.5f))),
+                  q, cls);
+      }
     }
   }
   acc.flush();
@@ -298,19 +327,20 @@ ua_kernel(Coords coords, Targets tg, const float* __restrict__ box,
 template <int C, class Coords, int kClasses, bool kMolNormal>
 void launch_table(const Coords& coords, const Targets& tg, const float* box,
                   const float* normal, const Trig& trig, const uint8_t* mask,
-                  const int32_t* classes, int n_molecules,
-                  unsigned long long* out, int n_frames, int n_types,
-                  int pbc, cudaStream_t s) {
+                  const int32_t* classes, const gorder::MapGrid& map,
+                  int n_molecules, unsigned long long* out, int n_frames,
+                  int n_types, int pbc, cudaStream_t s) {
   const dim3 grid((tg.n_cat + kTile - 1) / kTile, n_frames);
   if (gorder::table_fits(n_types, kClasses)) {
     ua_kernel<C, Coords, true, kClasses, kMolNormal>
         <<<grid, kThreads, gorder::table_bytes(n_types, kClasses), s>>>(
-            coords, tg, box, normal, trig, mask, classes, n_molecules,
+            coords, tg, box, normal, trig, mask, classes, map, n_molecules,
             n_types, pbc, out);
   } else {
     ua_kernel<C, Coords, false, kClasses, kMolNormal>
         <<<grid, kThreads, 0, s>>>(coords, tg, box, normal, trig, mask,
-                                   classes, n_molecules, n_types, pbc, out);
+                                   classes, map, n_molecules, n_types, pbc,
+                                   out);
   }
 }
 
@@ -318,16 +348,17 @@ template <int C, class Coords, bool kMolNormal>
 void launch_classes(const Coords& coords, const Targets& tg,
                     const float* box, const float* normal, const Trig& trig,
                     const uint8_t* mask, const int32_t* classes,
-                    int n_molecules, unsigned long long* out, int n_frames,
-                    int n_types, int pbc, cudaStream_t s) {
+                    const gorder::MapGrid& map, int n_molecules,
+                    unsigned long long* out, int n_frames, int n_types,
+                    int pbc, cudaStream_t s) {
   if (classes != nullptr) {
     launch_table<C, Coords, 3, kMolNormal>(coords, tg, box, normal, trig,
-                                           mask, classes, n_molecules, out,
-                                           n_frames, n_types, pbc, s);
+                                           mask, classes, map, n_molecules,
+                                           out, n_frames, n_types, pbc, s);
   } else {
     launch_table<C, Coords, 1, kMolNormal>(coords, tg, box, normal, trig,
-                                           mask, classes, n_molecules, out,
-                                           n_frames, n_types, pbc, s);
+                                           mask, classes, map, n_molecules,
+                                           out, n_frames, n_types, pbc, s);
   }
 }
 
@@ -335,17 +366,17 @@ template <int C, class Coords>
 void launch_category(const Coords& coords, const Targets& tg,
                      const float* box, const float* normal, const Trig& trig,
                      const uint8_t* mask, const int32_t* classes,
-                     int mol_normals, int n_molecules,
-                     unsigned long long* out, int n_frames, int n_types,
-                     int pbc, cudaStream_t s) {
+                     const gorder::MapGrid& map, int mol_normals,
+                     int n_molecules, unsigned long long* out, int n_frames,
+                     int n_types, int pbc, cudaStream_t s) {
   if (mol_normals) {
     launch_classes<C, Coords, true>(coords, tg, box, normal, trig, mask,
-                                    classes, n_molecules, out, n_frames,
+                                    classes, map, n_molecules, out, n_frames,
                                     n_types, pbc, s);
   } else {
     launch_classes<C, Coords, false>(coords, tg, box, normal, trig, mask,
-                                     classes, n_molecules, out, n_frames,
-                                     n_types, pbc, s);
+                                     classes, map, n_molecules, out,
+                                     n_frames, n_types, pbc, s);
   }
 }
 
@@ -354,11 +385,16 @@ int launch(int category, const Coords& coords, const void* target,
            const void* h1, const void* h2, const void* h3, const void* mol,
            const void* bond_type, const void* box, const void* normal,
            const Trig& trig, const void* mask, const void* classes,
-           void* out, int n_frames, int n_cat, int n_types, int pbc,
-           int mol_normals, int n_molecules, void* stream) {
+           void* out, const gorder::MapGrid& map, int n_frames, int n_cat,
+           int n_types, int pbc, int mol_normals, int n_molecules,
+           void* stream) {
   if (n_frames == 0 || n_cat == 0) return 0;
   if ((classes != nullptr || mol_normals != 0) &&
       (mol == nullptr || n_molecules <= 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (map.state != nullptr &&
+      (map.n0 <= 0 || map.n1 <= 0 || map.ax0 < 0 || map.ax0 > 2 ||
+       map.ax1 < 0 || map.ax1 > 2))
     return static_cast<int>(cudaErrorInvalidValue);
   const Targets tg{static_cast<const int32_t*>(target),
                    static_cast<const int32_t*>(h1),
@@ -374,21 +410,25 @@ int launch(int category, const Coords& coords, const void* target,
   auto s = static_cast<cudaStream_t>(stream);
   switch (category) {
     case kCH3:
-      launch_category<kCH3>(coords, tg, bx, nv, trig, mk, cl, mol_normals,
-                            n_molecules, o, n_frames, n_types, pbc, s);
+      launch_category<kCH3>(coords, tg, bx, nv, trig, mk, cl, map,
+                            mol_normals, n_molecules, o, n_frames, n_types,
+                            pbc, s);
       break;
     case kCH2:
-      launch_category<kCH2>(coords, tg, bx, nv, trig, mk, cl, mol_normals,
-                            n_molecules, o, n_frames, n_types, pbc, s);
+      launch_category<kCH2>(coords, tg, bx, nv, trig, mk, cl, map,
+                            mol_normals, n_molecules, o, n_frames, n_types,
+                            pbc, s);
       break;
     case kCH1U:
-      launch_category<kCH1U>(coords, tg, bx, nv, trig, mk, cl, mol_normals,
-                             n_molecules, o, n_frames, n_types, pbc, s);
+      launch_category<kCH1U>(coords, tg, bx, nv, trig, mk, cl, map,
+                             mol_normals, n_molecules, o, n_frames, n_types,
+                             pbc, s);
       break;
     case kCH1S:
       if (h3 == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-      launch_category<kCH1S>(coords, tg, bx, nv, trig, mk, cl, mol_normals,
-                             n_molecules, o, n_frames, n_types, pbc, s);
+      launch_category<kCH1S>(coords, tg, bx, nv, trig, mk, cl, map,
+                             mol_normals, n_molecules, o, n_frames, n_types,
+                             pbc, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -407,34 +447,37 @@ extern "C" {
 // with the category's per-carbon molecules mol select the with_leaflets
 // variant, out (B, 3, 2, T); classes null, the plain one, out (B, 2, T).
 // mol_normals = 1 selects the per_bond_normal variant: normal is then
-// (B, M, 3) f32 read by mol, else (3,); n_molecules is M.
+// (B, M, 3) f32 read by mol, else (3,); n_molecules is M. map: the
+// ordermap by value, its state (C, 2, T * n0 * n1 + 1) int64 with C the
+// classes of out, added into; a null state, no map.
 
 int ua_positions_i16(int category, const void* x, const void* scale,
                      const void* target, const void* h1, const void* h2,
                      const void* h3, const void* mol, const void* bond_type,
                      const void* box, const void* normal, Trig trig,
                      const void* mask, const void* classes, void* out,
-                     int n_frames, int n_atoms, int n_cat, int n_types,
-                     int pbc, int mol_normals, int n_molecules,
-                     void* stream) {
+                     gorder::MapGrid map, int n_frames, int n_atoms,
+                     int n_cat, int n_types, int pbc, int mol_normals,
+                     int n_molecules, void* stream) {
   const IntCoords coords{static_cast<const int16_t*>(x),
                          static_cast<const float*>(scale), n_atoms};
   return launch(category, coords, target, h1, h2, h3, mol, bond_type, box,
-                normal, trig, mask, classes, out, n_frames, n_cat, n_types,
-                pbc, mol_normals, n_molecules, stream);
+                normal, trig, mask, classes, out, map, n_frames, n_cat,
+                n_types, pbc, mol_normals, n_molecules, stream);
 }
 
 int ua_positions_f32(int category, const void* x, const void* target,
                      const void* h1, const void* h2, const void* h3,
                      const void* mol, const void* bond_type, const void* box,
                      const void* normal, Trig trig, const void* mask,
-                     const void* classes, void* out, int n_frames,
-                     int n_atoms, int n_cat, int n_types, int pbc,
-                     int mol_normals, int n_molecules, void* stream) {
+                     const void* classes, void* out, gorder::MapGrid map,
+                     int n_frames, int n_atoms, int n_cat, int n_types,
+                     int pbc, int mol_normals, int n_molecules,
+                     void* stream) {
   const FloatCoords coords{static_cast<const float*>(x), n_atoms};
   return launch(category, coords, target, h1, h2, h3, mol, bond_type, box,
-                normal, trig, mask, classes, out, n_frames, n_cat, n_types,
-                pbc, mol_normals, n_molecules, stream);
+                normal, trig, mask, classes, out, map, n_frames, n_cat,
+                n_types, pbc, mol_normals, n_molecules, stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 """The frame-batch loop: decode → device → kernel → accumulate (port of
 `gorder_tpu/engine/batches.py:61-1203` for the b7, int16 and f32 wires,
-with leaflets and membrane normals).
+with leaflets, membrane normals and ordermaps).
 
 A decode thread fills a prefetch ring of host buffers (the native codec
 releases the GIL) while the main thread copies batch k to the device and
@@ -24,9 +24,16 @@ guard stays on the device and is checked when the batch drains, so no
 batch waits on the host for it. Export runs collect the normals each
 batch used, in frame order, at drain.
 
+Ordermap runs keep one int64 map state on the device for the whole run
+(`core/ordermap.py`): zeroed once, added to by every batch's step, and
+copied to the host once, when the run drains. The JAX package fetches and
+adds up a per-batch map on the host every batch, because its f32 limb
+sums are exact only so far (gorder_tpu/engine/batches.py:183-198).
+
 A caller may pass `on_batch`, which receives each batch's `DeviceBatch`
 once its step has been dispatched: the device tensors, classes and
-normals the step was given, to inspect or to feed to a kernel again.
+normals the step was given, to inspect or to feed to a kernel again, and
+what the step gave back.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ import numpy as np
 import torch
 
 from ..core.order import OrderAccumulator
+from ..core.ordermap import init_map_state
 from ..errors import AnalysisError
 from ..io.native import b7_stride
 from ..io.traj import Trajectory, check_box_batch
@@ -73,6 +81,8 @@ class DeviceBatch:
     mask: torch.Tensor               # (B,) bool: False on padding frames
     classes: Optional[torch.Tensor]  # the (B, M) int32 classes the step used
     step: object                     # the OrderStep or UAStep
+    out: torch.Tensor                # the step's int64 per-type output
+    map_state: Optional[torch.Tensor]  # the run's map state (all batches)
 
 
 def _to_device(a: np.ndarray, device) -> torch.Tensor:
@@ -82,14 +92,16 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
 
 def run_batches(analysis, system, step, normal_vec, n_types: int, space,
                 bond_slots, leaflets=None, n_molecules: int = 0, *, device,
-                normals=None, batch_size: int = DEFAULT_BATCH_SIZE,
-                on_batch=None):
-    """→ (OrderAccumulator, Trajectory, analyzed frame indices).
+                normals=None, map_spec=None,
+                batch_size: int = DEFAULT_BATCH_SIZE, on_batch=None):
+    """→ (OrderAccumulator, Trajectory, analyzed frame indices, map): the
+    map is {class: (2, T·n0·n1 + 1) int64 [Σq, count]} of an ordermap run
+    (`map_spec`), else None.
 
     `bond_slots` (atom_a, atom_b) makes the b7 wire eligible; UA steps pass
-    None and ride int16 or f32 positions. `leaflets` is the run's
-    LeafletRuntime and `normals` its NormalsRuntime, or None; with
-    `normals`, `normal_vec` is unused. `on_batch`, if given, is called
+    None and ride int16 or f32 positions, as ordermap runs do. `leaflets`
+    is the run's LeafletRuntime and `normals` its NormalsRuntime, or None;
+    with `normals`, `normal_vec` is unused. `on_batch`, if given, is called
     with each batch's DeviceBatch after its step is dispatched."""
     device = torch.device(device)
     accum = OrderAccumulator(
@@ -112,7 +124,8 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
     n_threads = max(1, analysis.n_threads)
     plan = plan_wire(traj=traj, frame_indices=frame_indices, space=space,
                      bond_slots=bond_slots, leaflets=leaflets,
-                     normals=normals, n_molecules=n_molecules,
+                     normals=normals, map_spec=map_spec,
+                     n_molecules=n_molecules,
                      handle_pbc=analysis.handle_pbc, n_threads=n_threads,
                      batch_size=batch_size)
     # host classes (manual tables, frequency-gated methods) come from
@@ -123,7 +136,9 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
         channel_coords=plan.chan_coords[0] if plan.chan_coords else None,
         channel=plan.channel_classify, aux=plan.aux_classify,
         normals=normals.fused() if normals is not None else None,
-        aux_normals=plan.aux_normals)
+        aux_normals=plan.aux_normals,
+        map_state=(init_map_state(len(accum.classes), n_types, map_spec,
+                                  device) if map_spec is not None else None))
     manual_normals = normals is not None and normals.fused() is None
     chan_membrane, chan_axis = (plan.chan_coords[1] if plan.chan_coords
                                 else (None, None))
@@ -316,7 +331,7 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
             if on_batch is not None:
                 on_batch(DeviceBatch(b, kind, wire, scale_dev, box_dev,
                                      used.normal, mask_dev, used.classes,
-                                     step))
+                                     step, used.out, consumers.map_state))
             outputs.append((n_valid, used._replace(
                 classes=used.classes if collect and not host_classes
                 else None,
@@ -344,8 +359,12 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
                     used.classes[:n_valid].cpu().numpy().astype(np.int32))
             if used.normal is not None:
                 normals.collected.append(used.normal[:n_valid].cpu().numpy())
+        map_host = None
+        if consumers.map_state is not None:
+            map_host = dict(zip(accum.classes,
+                                consumers.map_state.cpu().numpy()))
     log.info("analyzed %d frames", accum.n_frames)
-    return accum, traj, frame_indices
+    return accum, traj, frame_indices, map_host
 
 
 def _host_classes(leaflets, kind, wire, scale, box, sparse, start: int,

@@ -20,7 +20,11 @@ consumers what they read:
   aux atom union                                         -> b7x
 
 Other runs (local leaflets, manual normals, dynamic normals with global
-or local leaflets, UA runs) ride int16 or f32; manual normals are host
+or local leaflets, ordermaps, UA runs) ride int16 or f32. An ordermap bins
+each sample by its bond midpoint, which needs absolute positions, so a map
+run never rides a b7 kind (gorder_tpu/engine/channels.py:77, 93-96,
+105-109, 120); with every-frame global leaflets it rides the `*g` kinds.
+Manual normals are host
 tables shipped beside the wire (`engine/batches.py`). Every-frame global
 leaflets with PBC on XTC input classify against the decoder's COG on every
 wire (the `*g` coordinate kinds), so the printed output is the same
@@ -111,18 +115,22 @@ def _aux_channel(leaflets, normals, n_out: int):
 
 
 def plan_wire(*, traj, frame_indices, space, bond_slots=None, leaflets=None,
-              normals=None, n_molecules: int = 0, handle_pbc: bool = True,
-              n_threads: int, batch_size: int) -> WirePlan:
+              normals=None, map_spec=None, n_molecules: int = 0,
+              handle_pbc: bool = True, n_threads: int,
+              batch_size: int) -> WirePlan:
     """Decide the run's channel class and wire, and size the per-frame
     payload. `bond_slots` (atom_a, atom_b) are the order step's bonds in
-    the decoded atom space; UA runs pass None and never ride b7.
-    `leaflets` and `normals` are the run's LeafletRuntime and
-    NormalsRuntime, or None."""
+    the decoded atom space; UA runs pass None and never ride b7, and nor
+    do ordermap runs (`map_spec`). `leaflets` and `normals` are the run's
+    LeafletRuntime and NormalsRuntime, or None."""
     n_out = space.n_out
     chan_coords = leaf_channels = aux = None
     plane_mode = False
     if leaflets is not None and handle_pbc and traj._all_xtc(frame_indices):
         chan_coords = leaflets.channel_coords_info()
+    n_bonds = len(bond_slots[0]) if bond_slots is not None else 0
+    if map_spec is not None:
+        bond_slots = None
     if bond_slots is not None:
         if leaflets is not None and normals is None:
             if chan_coords is not None:
@@ -135,7 +143,6 @@ def plan_wire(*, traj, frame_indices, space, bond_slots=None, leaflets=None,
         (leaflets is None and normals is None) or leaf_channels is not None
         or plane_mode or aux is not None)
 
-    n_bonds = len(bond_slots[0]) if bond_slots is not None else 0
     esc_cap = None
     if b7_ok:
         esc_cap = _probe_b7(traj, frame_indices, space, bond_slots[0],

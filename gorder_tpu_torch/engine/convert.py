@@ -1,16 +1,18 @@
 """Results conversion: exact integer sums → the results tree (port of
-`gorder_tpu/engine/convert.py:34-261` for bond-based and UA runs without
-ordermaps). The numpy arithmetic is the JAX package's own; only the
-accumulator is this port's, and the result classes are the shared ones.
+`gorder_tpu/engine/convert.py:34-261` for bond-based and UA runs, with
+their ordermaps). The numpy arithmetic is the JAX package's own; only the
+accumulator and the int64 map state are this port's, and the result
+classes are the shared ones.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..core.ordermap import aggregate_map, finalize_maps
 from ..core.timewise import estimate_error, prefix_average
 from ..errors import ErrorEstimationError
 from ..results.model import (
@@ -91,12 +93,38 @@ class _Collector:
         return out
 
 
+class _MapCollector:
+    """Per-slice ordermap aggregation over the run's map
+    (gorder_tpu/engine/convert.py:105-130): the drained {class: (2, S)
+    int64} state."""
+
+    def __init__(self, analysis, map_spec, map_state, n_types, sign):
+        self.spec = map_spec
+        self.enabled = map_spec is not None and map_state is not None
+        if self.enabled:
+            self.min_samples = analysis.map.min_samples
+            self.sign = sign
+            self.grids, self.raw = finalize_maps(
+                map_state, n_types, map_spec, self.min_samples, sign)
+
+    def for_types(self, type_indices) -> Optional[Dict[str, np.ndarray]]:
+        if not self.enabled:
+            return None
+        idx = np.asarray(type_indices, np.int64).reshape(-1)
+        return {cls: aggregate_map(self.raw[cls], idx, self.spec,
+                                   self.min_samples, self.sign)
+                for cls in self.raw}
+
+
 def convert_results(analysis, system, kinds, compiled, accum, traj,
-                    frame_indices: np.ndarray) -> AnalysisResults:
+                    frame_indices: np.ndarray, map_spec=None,
+                    map_state=None) -> AnalysisResults:
     mode = analysis.analysis_type.kind
     sign = -1.0 if mode in ("aa", "ua") else 1.0
     collector = _Collector(analysis, accum, sign)
     collection = collector.collection
+    maps = _MapCollector(analysis, map_spec, map_state, compiled.n_types,
+                         sign)
 
     molecules: List[MoleculeResults] = []
     for k, kind in enumerate(kinds):
@@ -108,12 +136,14 @@ def convert_results(analysis, system, kinds, compiled, accum, traj,
         )
         if collector.with_errors:
             mol.convergence = collector.convergence(slice(t0, t1))
+        mol.average_maps = maps.for_types(np.arange(t0, t1))
         if mode == "cg":
             for t, bt in enumerate(kind.bond_types):
                 mol.bonds.append(BondResults(
                     atom1=AtomDesc(bt.resname_a, bt.name_a, bt.rel_a),
                     atom2=AtomDesc(bt.resname_b, bt.name_b, bt.rel_b),
                     order=collection(slice(t0 + t, t0 + t + 1)),
+                    maps=maps.for_types([t0 + t]),
                 ))
         else:  # aa: group bond types by heavy atom (rel_a)
             by_heavy: Dict[int, List[int]] = {}
@@ -126,6 +156,7 @@ def convert_results(analysis, system, kinds, compiled, accum, traj,
                     atom=AtomDesc(bt0.resname_a, bt0.name_a, rel_a),
                     order=collection(
                         np.asarray([t0 + t for t in ts], np.int64)),
+                    maps=maps.for_types([t0 + t for t in ts]),
                 )
                 for t in ts:
                     bt = kind.bond_types[t]
@@ -133,11 +164,12 @@ def convert_results(analysis, system, kinds, compiled, accum, traj,
                         atom1=AtomDesc(bt.resname_a, bt.name_a, bt.rel_a),
                         atom2=AtomDesc(bt.resname_b, bt.name_b, bt.rel_b),
                         order=collection(slice(t0 + t, t0 + t + 1)),
+                        maps=maps.for_types([t0 + t]),
                     ))
                 mol.atoms.append(atom)
         molecules.append(mol)
 
-    return AnalysisResults(
+    return _attach_maps(AnalysisResults(
         mode=mode,
         average_order=collection(slice(None), for_average=True),
         molecules=molecules,
@@ -146,15 +178,26 @@ def convert_results(analysis, system, kinds, compiled, accum, traj,
         trajectory_paths=list(analysis.trajectory),
         frame_numbers=frame_indices,
         analysis=analysis,
-    )
+    ), maps, analysis, compiled.n_types)
+
+
+def _attach_maps(results, maps, analysis, n_types: int):
+    """The system-wide maps and the map parameters, for the presenter."""
+    if maps.enabled:
+        results.average_maps = maps.for_types(np.arange(n_types))
+        results.map_params = (analysis.map, maps.spec)
+    return results
 
 
 def convert_results_ua(analysis, system, kinds, compiled, accum, traj,
-                       frame_indices: np.ndarray) -> AnalysisResults:
+                       frame_indices: np.ndarray, map_spec=None,
+                       map_state=None) -> AnalysisResults:
     """gorder_tpu/engine/convert.py:208-261: one entry per UA carbon, one
     bond per virtual hydrogen."""
     collector = _Collector(analysis, accum, sign=-1.0)
     collection = collector.collection
+    maps = _MapCollector(analysis, map_spec, map_state, compiled.n_types,
+                         -1.0)
 
     molecules: List[MoleculeResults] = []
     for k, kind in enumerate(kinds):
@@ -166,11 +209,14 @@ def convert_results_ua(analysis, system, kinds, compiled, accum, traj,
         )
         if collector.with_errors:
             mol.convergence = collector.convergence(slice(t0, t1))
+        mol.average_maps = maps.for_types(np.arange(t0, t1))
         for spec, base in zip(compiled.atom_specs[k],
                               compiled.atom_type_base[k]):
             atom = AtomResults(
                 atom=AtomDesc(spec.resname, spec.name, spec.rel_index),
                 order=collection(slice(base, base + spec.n_hydrogens)),
+                maps=maps.for_types(
+                    np.arange(base, base + spec.n_hydrogens)),
             )
             for h in range(spec.n_hydrogens):
                 atom.bonds.append(BondResults(
@@ -178,11 +224,12 @@ def convert_results_ua(analysis, system, kinds, compiled, accum, traj,
                     atom2=None,
                     virtual_index=h,
                     order=collection(slice(base + h, base + h + 1)),
+                    maps=maps.for_types([base + h]),
                 ))
             mol.atoms.append(atom)
         molecules.append(mol)
 
-    return AnalysisResults(
+    return _attach_maps(AnalysisResults(
         mode="ua",
         average_order=collection(slice(None), for_average=True),
         molecules=molecules,
@@ -191,4 +238,4 @@ def convert_results_ua(analysis, system, kinds, compiled, accum, traj,
         trajectory_paths=list(analysis.trajectory),
         frame_numbers=frame_indices,
         analysis=analysis,
-    )
+    ), maps, analysis, compiled.n_types)

@@ -1,9 +1,9 @@
 """The per-mode drivers (port of `gorder_tpu/engine/drivers.py:38-207`):
 AA, CG and UA order parameters with a static, dynamic or manual membrane
 normal (with or without normals export), overall and per leaflet (global,
-local, individual and manual assignment), with no ordermaps or geometry.
-Any other configuration raises `AnalysisError` naming what is not ported
-yet; nothing falls back to the JAX package.
+local, individual and manual assignment), with or without ordermaps, and
+no geometry. Any other configuration raises `AnalysisError` naming what is
+not ported yet; nothing falls back to the JAX package.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from ..engine.prepare import (
 from ..errors import AnalysisError
 from ..utils.timers import timers
 from ..core.order import make_order_step
+from ..core.ordermap import build_map_spec
 from ..core.ua import make_ua_step
 from .batches import DEFAULT_BATCH_SIZE, run_batches
 from .convert import convert_results, convert_results_ua
@@ -39,8 +40,6 @@ def _not_ported(analysis) -> list:
             and analysis.leaflets.kind in CLUSTERING_METHODS:
         missing.append("leaflet classification by "
                        + CLUSTERING_METHODS[analysis.leaflets.kind])
-    if analysis.map is not None:
-        missing.append("ordermaps")
     if analysis.geometry is not None:
         missing.append("geometry selection")
     return missing
@@ -68,15 +67,19 @@ def run_analysis(analysis, device, batch_size: int = DEFAULT_BATCH_SIZE,
 
 def _runtimes(system, analysis, kinds, n_molecules, remap, device):
     """→ (static (3,) normal or zeros, NormalsRuntime or None,
-    LeafletRuntime or None): the membrane normals, and the leaflets on the
-    axis `_build_normals` gives them (gorder_tpu/engine/drivers.py:70-74)."""
+    LeafletRuntime or None, MapSpec or None): the membrane normals, the
+    leaflets on the axis `_build_normals` gives them, and the ordermap's
+    grid over the structure's box (gorder_tpu/engine/drivers.py:70-77)."""
     axis, normal_vec, normals = _build_normals(system, analysis, kinds,
                                                n_molecules, remap, device)
     leaflets = build_leaflet_runtime(system, analysis, kinds, n_molecules,
                                      axis, remap, device=device)
     if normal_vec is None:
         normal_vec = np.zeros(3, np.float32)
-    return normal_vec, normals, leaflets
+    map_spec = (build_map_spec(analysis.map,
+                               system.box if analysis.handle_pbc else None)
+                if analysis.map is not None else None)
+    return normal_vec, normals, leaflets, map_spec
 
 
 def _bounds(kinds):
@@ -127,7 +130,7 @@ def _run_bond_based(analysis, device, batch_size: int, on_batch):
         return _empty_results(analysis, system)
     space, remap = _build_atom_space(system, analysis,
                                      [compiled.atom_a, compiled.atom_b])
-    normal_vec, normals, leaflets = _runtimes(
+    normal_vec, normals, leaflets, map_spec = _runtimes(
         system, analysis, kinds, compiled.n_molecules, remap, device)
 
     atom_a, atom_b = remap(compiled.atom_a), remap(compiled.atom_b)
@@ -137,15 +140,17 @@ def _run_bond_based(analysis, device, batch_size: int, on_batch):
                            handle_pbc=analysis.handle_pbc, device=device,
                            with_leaflets=leaflets is not None,
                            normal_mode=("per_molecule" if normals is not None
-                                        else "static"))
+                                        else "static"),
+                           map_spec=map_spec)
     with timers.phase("trajectory"):
-        accum, traj, frame_indices = run_batches(
+        accum, traj, frame_indices, map_state = run_batches(
             analysis, system, step, normal_vec, compiled.n_types, space,
             (atom_a, atom_b), leaflets, compiled.n_molecules, device=device,
-            normals=normals, batch_size=batch_size, on_batch=on_batch)
+            normals=normals, map_spec=map_spec, batch_size=batch_size,
+            on_batch=on_batch)
     with timers.phase("convert"):
         results = convert_results(analysis, system, kinds, compiled, accum,
-                                  traj, frame_indices)
+                                  traj, frame_indices, map_spec, map_state)
     _attach_leaflet_data(results, analysis, kinds, leaflets)
     _attach_normals_data(results, analysis, kinds, normals)
     return results
@@ -167,21 +172,24 @@ def _run_ua(analysis, device, batch_size: int, on_batch):
     categories = {
         cat: {k: (remap(v) if k in atom_keys else v) for k, v in d.items()}
         for cat, d in compiled.categories.items()}
-    normal_vec, normals, leaflets = _runtimes(
+    normal_vec, normals, leaflets, map_spec = _runtimes(
         system, analysis, kinds, compiled.n_molecules, remap, device)
     step = make_ua_step(categories, compiled.bond_type, compiled.bond_mol,
                         compiled.n_types, handle_pbc=analysis.handle_pbc,
                         device=device, with_leaflets=leaflets is not None,
                         normal_mode=("per_molecule" if normals is not None
-                                     else "static"))
+                                     else "static"),
+                        map_spec=map_spec)
     with timers.phase("trajectory"):
-        accum, traj, frame_indices = run_batches(
+        accum, traj, frame_indices, map_state = run_batches(
             analysis, system, step, normal_vec, compiled.n_types, space,
             None, leaflets, compiled.n_molecules, device=device,
-            normals=normals, batch_size=batch_size, on_batch=on_batch)
+            normals=normals, map_spec=map_spec, batch_size=batch_size,
+            on_batch=on_batch)
     with timers.phase("convert"):
         results = convert_results_ua(analysis, system, kinds, compiled,
-                                     accum, traj, frame_indices)
+                                     accum, traj, frame_indices, map_spec,
+                                     map_state)
     _attach_leaflet_data(results, analysis, kinds, leaflets)
     _attach_normals_data(results, analysis, kinds, normals)
     return results

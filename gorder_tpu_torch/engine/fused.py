@@ -33,7 +33,9 @@ from .wire import b7_residuals
 class Consumers:
     """The coordinate consumers a run's wire kinds call besides the step:
     leaflet classifiers, flip applied, and the dynamic membrane normals;
-    None where the run has no such kind."""
+    None where the run has no such kind. `map_state` is an ordermap run's
+    (C, 2, T·n0·n1 + 1) int64 state, which the coordinate wires' step adds
+    every batch's samples to (map runs never ride b7)."""
 
     coords: Optional[Callable] = None          # (coords f32, box)
     channel_coords: Optional[Callable] = None  # (coords f32, cog, box)
@@ -41,6 +43,7 @@ class Consumers:
     aux: Optional[Callable] = None             # b7x: (aux f32, box)
     normals: Optional[Callable] = None         # (coords f32, box)
     aux_normals: Optional[Callable] = None     # b7x: (aux f32, box)
+    map_state: Optional[torch.Tensor] = None
 
 
 class Used(NamedTuple):
@@ -101,8 +104,9 @@ def run_b7x(step, w, scale, box, normal, mask, cs, classes=None):
 def _positions(step, coords, inv_scale, box, normal, mask, cs, classes,
                cog=None):
     """Coordinate wires: integer positions stay integer for the step (the
-    single-rounding bond difference); the classifier and the dynamic
-    normals read f32(q)·s."""
+    single-rounding bond difference, or the pair difference of an ordermap
+    run, whose samples the step adds to the run's map state); the
+    classifier and the dynamic normals read f32(q)·s."""
     classify = classes is None and (cs.coords is not None or cog is not None)
     cf = coords
     if (classify or cs.normals is not None) and inv_scale is not None:
@@ -112,7 +116,8 @@ def _positions(step, coords, inv_scale, box, normal, mask, cs, classes,
                    else cs.coords(cf, box))
     normal, guard = _normals(cs.normals, cf, box, normal, mask)
     return Used(step.positions(coords, box, normal, mask,
-                               inv_scale=inv_scale, classes=classes),
+                               inv_scale=inv_scale, classes=classes,
+                               map_state=cs.map_state),
                 classes, normal, guard)
 
 

@@ -44,19 +44,30 @@ class Trig(ctypes.Structure):
         "cos_tet", "sin_tet", "cos_half", "sin_half", "cos_ch3", "sin_ch3")]
 
 
+class MapGrid(ctypes.Structure):
+    """csrc/common.cuh `MapGrid`, passed by value: an ordermap's grid and
+    its int64 state (a null state: no map)."""
+    _fields_ = ([("state", ctypes.c_void_p)]
+                + [(name, ctypes.c_float)
+                   for name in ("start0", "start1", "bin0", "bin1")]
+                + [(name, ctypes.c_int)
+                   for name in ("ax0", "ax1", "n0", "n1")])
+
+
 _vp = ctypes.c_void_p
 _int = ctypes.c_int
 # category, x, [scale,] target, h1, h2, h3, mol, bond_type, box, normal,
-# trig, mask, classes, out, n_frames, n_atoms, n_cat, n_types, pbc,
+# trig, mask, classes, out, map, n_frames, n_atoms, n_cat, n_types, pbc,
 # mol_normals, n_molecules, stream
-_UA = [_int] + [_vp] * 8 + [_vp, _vp, Trig, _vp, _vp, _vp] + [_int] * 7 \
-    + [_vp]
-# every P2 entry point ends: classes, bond_mol, out, its ints, mol_normals,
-# n_molecules, stream
+_UA = [_int] + [_vp] * 8 + [_vp, _vp, Trig, _vp, _vp, _vp, MapGrid] \
+    + [_int] * 7 + [_vp]
+# every P2 entry point ends: classes, bond_mol, out, [map,] its ints,
+# mol_normals, n_molecules, stream
 _SIGNATURES = {
     "p2_resid": [_vp] * 10 + [_int] * 6 + [_vp],
     "p2_positions_i16": [_vp] * 11 + [_int] * 7 + [_vp],
-    "p2_positions_f32": [_vp] * 10 + [_int] * 7 + [_vp],
+    "p2_positions_i16_pair": [_vp] * 11 + [MapGrid] + [_int] * 7 + [_vp],
+    "p2_positions_f32": [_vp] * 10 + [MapGrid] + [_int] * 7 + [_vp],
     "ua_positions_i16": _UA,
     "ua_positions_f32": _UA[:2] + _UA[3:],
 }
@@ -193,6 +204,25 @@ def molecule_args(normal, classes, bond_mol, n_frames, n_samples, device):
         raise ValueError(f"normals of {n_normals} molecules and classes of "
                          f"{n_molecules}")
     return bool(n_normals), classes, bond_mol, n_molecules
+
+
+def map_args(spec, state, n_classes: int, n_types: int, device) -> MapGrid:
+    """Check an ordermap: `spec` a `core.ordermap.MapSpec` and `state` its
+    contiguous (n_classes, 2, T·n0·n1 + 1) int64 state on `device`.
+    Returns their MapGrid, or the null grid when `state` is None. ctypes
+    rounds the float fields to f32, as the JAX package's map_cells takes
+    its Python-float start and bin size."""
+    from ..core.ordermap import MapSpec
+
+    if state is None:
+        return MapGrid()
+    if not isinstance(spec, MapSpec):
+        raise TypeError(f"map_spec is {type(spec).__name__}, expected "
+                        f"MapSpec")
+    check_tensor("map_state", state, torch.int64,
+                 (n_classes, 2, n_types * spec.ncells + 1), device)
+    return MapGrid(state.data_ptr(), spec.start0, spec.start1, spec.bin0,
+                   spec.bin1, spec.ax0, spec.ax1, spec.n0, spec.n1)
 
 
 def call(fn_name: str, *args) -> None:

@@ -7,11 +7,14 @@ with leaflet `classes` (B, M) int32 and each bond's molecule `bond_mol`
 (N,) int32 (the `with_leaflets` variant), (B, 3, 2, T): total, upper and
 lower. `normal` is the static (3,) f32 normal, or (B, M, 3) f32
 per-molecule normals read through `bond_mol` (the `per_bond_normal`
-variant), with or without classes. For tensors on the CPU they run the
-plain version
-(`gorder_tpu_torch/core/order.py`); for CUDA tensors they launch the
-hand-written kernel (`csrc/p2.cu`) on the current stream, or raise. There
-is no fallback from the kernel to the plain version.
+variant), with or without classes. `p2_positions` with `pair` takes the
+pair difference of dequantized int16 positions (the `pair_quantized`
+variant of ordermap runs), and with an ordermap (`map_spec` and its
+(C, 2, T·n0·n1 + 1) int64 `map_state`) adds every sample to the map too,
+in place (`core/ordermap.py`). For tensors on the CPU they run the plain
+version (`gorder_tpu_torch/core/order.py`); for CUDA tensors they launch
+the hand-written kernel (`csrc/p2.cu`) on the current stream, or raise.
+There is no fallback from the kernel to the plain version.
 """
 
 from __future__ import annotations
@@ -19,13 +22,17 @@ from __future__ import annotations
 import torch
 
 from ..core.order import order_step
-from .build import call, check_tensor, device_of, frame_args, molecule_args
+from .build import (call, check_tensor, device_of, frame_args, map_args,
+                    molecule_args)
 
 #: launches of the P2 kernel since the last reset: the plain variant, for
 #: any input; the with_leaflets variant (classes with the static normal),
-#: by input; and the per_bond_normal variant ((B, M, 3) normals, with or
-#: without classes: a launch with both counts here only), by input. The
-#: plain version counts in none.
+#: by input; the per_bond_normal variant ((B, M, 3) normals, with or
+#: without classes: a launch with both counts here only), by input; the
+#: pair_quantized int16 variant without a map; and the map output, by
+#: input (pair int16, f32), with or without classes and normals. A launch
+#: counts in one count only: a map launch in its map count, a pair launch
+#: in the pair count. The plain version counts in none.
 p2_launches = 0
 p2_leaflets_launches = 0            # b7 residuals
 p2_i16_leaflets_launches = 0
@@ -33,6 +40,9 @@ p2_f32_leaflets_launches = 0
 p2_normals_launches = 0             # b7 residuals
 p2_i16_normals_launches = 0
 p2_f32_normals_launches = 0
+p2_i16_pair_launches = 0
+p2_i16_map_launches = 0
+p2_f32_map_launches = 0
 
 _LEAFLETS_COUNT = {"p2_resid": "p2_leaflets_launches",
                    "p2_positions_i16": "p2_i16_leaflets_launches",
@@ -53,16 +63,20 @@ def p2_resid_plain(r, base, inv_scale, box_diag, normal, frame_mask,
 
 def p2_positions_plain(coords, atom_a, atom_b, inv_scale, box_diag, normal,
                        frame_mask, bond_type, n_types: int, *,
-                       handle_pbc: bool, classes=None, bond_mol=None):
+                       handle_pbc: bool, classes=None, bond_mol=None,
+                       pair: bool = False, map_spec=None, map_state=None):
     return order_step(coords, box_diag, normal, frame_mask, atom_a, atom_b,
                       bond_type, n_types, inv_scale, handle_pbc=handle_pbc,
-                      classes=classes, bond_mol=bond_mol)
+                      classes=classes, bond_mol=bond_mol, pair=pair,
+                      map_spec=map_spec, map_state=map_state)
 
 
 def _launch(fn_name, n_frames, n_types, device, args_before_out,
-            ints_after_out, molecules):
+            ints_after_out, molecules, grid=None, count=None):
     """One launch into a zeroed output; `molecules` is the (per-molecule
-    normals?, classes, bond_mol, n_molecules) of `build.molecule_args`."""
+    normals?, classes, bond_mol, n_molecules) of `build.molecule_args`,
+    `grid` the `build.MapGrid` of the entry points that take one, and
+    `count` the launch count to add to when it is not the variant's."""
     global p2_launches
     mol_normals, classes, bond_mol, n_molecules = molecules
     shape = ((n_frames, 3, 2, n_types) if classes is not None
@@ -73,9 +87,11 @@ def _launch(fn_name, n_frames, n_types, device, args_before_out,
         call(fn_name, *args_before_out,
              classes.data_ptr() if classes is not None else None,
              bond_mol.data_ptr() if bond_mol is not None else None,
-             out.data_ptr(), *ints_after_out, int(mol_normals), n_molecules,
-             stream)
-    if mol_normals:
+             out.data_ptr(), *(() if grid is None else (grid,)),
+             *ints_after_out, int(mol_normals), n_molecules, stream)
+    if count is not None:
+        globals()[count] += 1
+    elif mol_normals:
         globals()[_NORMALS_COUNT[fn_name]] += 1
     elif classes is not None:
         globals()[_LEAFLETS_COUNT[fn_name]] += 1
@@ -116,16 +132,24 @@ def p2_resid(r, base, inv_scale, box_diag, normal, frame_mask, bond_type,
 
 def p2_positions(coords, atom_a, atom_b, inv_scale, box_diag, normal,
                  frame_mask, bond_type, n_types: int, *, handle_pbc: bool,
-                 classes=None, bond_mol=None):
-    """i16 wire: coords (B, A, 3) int16 with inv_scale (B,) f32; f32 wire:
-    coords (B, A, 3) f32 with inv_scale None. atom_a/atom_b (N,) int32;
-    the rest as for p2_resid → (B, 2, T) or (B, 3, 2, T) int64."""
+                 classes=None, bond_mol=None, pair: bool = False,
+                 map_spec=None, map_state=None):
+    """i16 wire: coords (B, A, 3) int16 with inv_scale (B,) f32, the pair
+    difference f32(q_b)·s − f32(q_a)·s with `pair` (`pair_quantized`),
+    else the single rounding f32(q_b − q_a)·s; f32 wire: coords (B, A, 3)
+    f32 with inv_scale None. atom_a/atom_b (N,) int32; the rest as for
+    p2_resid → (B, 2, T) or (B, 3, 2, T) int64. With `map_spec` and its
+    (C, 2, T·n0·n1 + 1) int64 `map_state` (C = 3 with classes, else 1;
+    integer positions with `pair` only), every sample is also added to the
+    map, in place."""
     device = device_of(coords)
     if device.type == "cpu":
         return p2_positions_plain(coords, atom_a, atom_b, inv_scale,
                                   box_diag, normal, frame_mask, bond_type,
                                   n_types, handle_pbc=handle_pbc,
-                                  classes=classes, bond_mol=bond_mol)
+                                  classes=classes, bond_mol=bond_mol,
+                                  pair=pair, map_spec=map_spec,
+                                  map_state=map_state)
     n_frames, n_atoms = coords.shape[:2]
     n_bonds = atom_a.shape[0]
     dtype = torch.int16 if inv_scale is not None else torch.float32
@@ -136,16 +160,27 @@ def p2_positions(coords, atom_a, atom_b, inv_scale, box_diag, normal,
                             n_bonds, device)
     molecules = molecule_args(normal, classes, bond_mol, n_frames, n_bonds,
                               device)
+    if map_state is not None and inv_scale is not None and not pair:
+        raise ValueError("an ordermap on int16 positions takes the pair "
+                         "difference (pair=True)")
+    grid = map_args(map_spec, map_state, 3 if classes is not None else 1,
+                    n_types, device)
     common = (box_diag.data_ptr(), normal.data_ptr(), frame_mask.data_ptr(),
               bond_type.data_ptr())
     ints = (n_frames, n_atoms, n_bonds, n_types, int(handle_pbc))
-    if inv_scale is not None:
-        check_tensor("inv_scale", inv_scale, torch.float32, (n_frames,),
-                     device)
-        return _launch("p2_positions_i16", n_frames, n_types, device,
+    if inv_scale is None:
+        return _launch("p2_positions_f32", n_frames, n_types, device,
                        (coords.data_ptr(), atom_a.data_ptr(),
-                        atom_b.data_ptr(), inv_scale.data_ptr(), *common),
+                        atom_b.data_ptr(), *common), ints, molecules, grid,
+                       "p2_f32_map_launches" if map_state is not None
+                       else None)
+    check_tensor("inv_scale", inv_scale, torch.float32, (n_frames,), device)
+    args = (coords.data_ptr(), atom_a.data_ptr(), atom_b.data_ptr(),
+            inv_scale.data_ptr(), *common)
+    if not pair:
+        return _launch("p2_positions_i16", n_frames, n_types, device, args,
                        ints, molecules)
-    return _launch("p2_positions_f32", n_frames, n_types, device,
-                   (coords.data_ptr(), atom_a.data_ptr(), atom_b.data_ptr(),
-                    *common), ints, molecules)
+    return _launch("p2_positions_i16_pair", n_frames, n_types, device, args,
+                   ints, molecules, grid,
+                   "p2_i16_map_launches" if map_state is not None
+                   else "p2_i16_pair_launches")

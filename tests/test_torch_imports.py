@@ -30,6 +30,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     "gorder_tpu_torch.core.ua",
     "gorder_tpu_torch.core.leaflets",
     "gorder_tpu_torch.core.normals",
+    "gorder_tpu_torch.core.ordermap",
     "gorder_tpu_torch.core.timewise",
     "gorder_tpu_torch.ops.p2",
     "gorder_tpu_torch.ops.ua",

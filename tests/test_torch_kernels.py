@@ -1,6 +1,7 @@
 """The hand-written P2 and UA kernels (gorder_tpu_torch/csrc/p2.cu, ua.cu),
-with and without leaflet classes, against their plain PyTorch versions,
-on the card. These tests need a CUDA device and
+with and without leaflet classes, per-molecule normals and ordermaps (the
+map state, and P2's pair_quantized int16 input), against their plain
+PyTorch versions, on the card. These tests need a CUDA device and
 skip without one; on the card run
 
     python -m pytest -m cuda tests/test_torch_kernels.py
@@ -379,3 +380,174 @@ def test_ua_normals_kernel_z_plane_equals_static(cuda, kind):
         out[mode] = step.positions(coords, t(pb["box"]), normal,
                                    t(pb["mask"]), inv_scale=scale)
     assert torch.equal(out["per_molecule"], out["static"])
+
+
+def _map_spec(bin_size=0.1, plane="xy"):
+    """A manual 4 x 4 nm grid: `_problem`'s midpoints spread over about
+    12 nm, so many of them fall outside it, into the dump."""
+    from gorder_tpu_torch.core.ordermap import build_map_spec
+    from gorder_tpu_torch.input.config import GridSpan, OrderMapParams
+
+    return build_map_spec(OrderMapParams(
+        bin_size=(bin_size, bin_size), plane=plane,
+        dim=(GridSpan.manual(0.0, 4.0), GridSpan.manual(-0.5, 3.5))), None)
+
+
+MAP_COUNTS = P2_COUNTS + ("p2_i16_pair_launches", "p2_i16_map_launches",
+                          "p2_f32_map_launches")
+
+
+@pytest.mark.parametrize("normals", [False, True])
+@pytest.mark.parametrize("leaflets", [False, True])
+@pytest.mark.parametrize("kind", ["i16", "f32"])
+@pytest.mark.parametrize("shape", [
+    (8, 300, 200, 7, 5),       # ragged single tile
+    (64, 5000, 3000, 80, 40),  # several tiles, AA-like type count
+    (4, 700, 400, 1025, 9),    # (3, 2, T) past the 48 KiB: global atomics
+])
+def test_map_kernel_matches_plain(cuda, kind, shape, leaflets, normals):
+    """The map output of the positions inputs (pair_quantized int16, f32),
+    with and without classes and per-molecule normals: the type sums and
+    a freshly zeroed map state equal the plain version's in int64, and a
+    launch counts as a map launch of its input only."""
+    from gorder_tpu_torch.core.ordermap import init_map_state
+
+    n_frames, n_bonds, n_atoms, n_types, n_mols = shape
+    pb = _problem(sum(shape), n_frames, n_bonds, n_atoms, n_types, cuda)
+    classes, bond_mol = _leaflets(sum(shape), n_frames, n_bonds, n_mols,
+                                  cuda)
+    classes = classes if leaflets else None
+    normal = (_normals(sum(shape), n_frames, n_mols, cuda) if normals
+              else pb["normal"])
+    kw = dict(handle_pbc=True, classes=classes,
+              bond_mol=bond_mol if leaflets or normals else None,
+              pair=True, map_spec=_map_spec())
+    c = (pb["box"], normal, pb["mask"], pb["bond_type"], pb["n_types"])
+    states = [init_map_state(3 if leaflets else 1, n_types, kw["map_spec"],
+                             cuda) for _ in range(2)]
+    before = {name: getattr(p2, name) for name in MAP_COUNTS}
+    got = p2.p2_positions(*pb[kind], *c, map_state=states[0], **kw)
+    torch.cuda.synchronize()
+    grown = f"p2_{kind}_map_launches"
+    assert {name: getattr(p2, name) - before[name] for name in MAP_COUNTS} \
+        == {name: int(name == grown) for name in MAP_COUNTS}
+    want = p2.p2_positions_plain(*pb[kind], *c, map_state=states[1], **kw)
+    assert torch.equal(got, want)
+    assert torch.equal(states[0], states[1])
+    # every counted sample is in the map once per class, the dump included
+    sums = got if leaflets else got[:, None]
+    assert torch.equal(states[0].sum(-1), sums.sum((0, 3)))
+    assert states[0][:, 1, -1].sum() > 0 and states[0][:, 1, :-1].sum() > 0
+
+
+@pytest.mark.parametrize("kind", ["resid", "i16", "f32"])
+def test_map_table_dump_takes_the_samples_outside(cuda, kind):
+    """MapTable: the samples whose midpoint lies outside the grid go to
+    the dump entry, which the plain version's map_cells gives; the b7
+    residuals and the single-rounding int16 input take no map."""
+    from gorder_tpu_torch.core.order import position_vectors
+    from gorder_tpu_torch.core.ordermap import init_map_state, map_cells
+    from gorder_tpu_torch.core.pbc import min_image
+
+    pb = _problem(11, 16, 4000, 2000, 30, cuda)
+    spec = _map_spec(plane="yz")
+    state = init_map_state(1, 30, spec, cuda)
+    c = (pb["box"], pb["normal"], pb["mask"], pb["bond_type"], 30)
+    if kind == "resid":
+        with pytest.raises(TypeError):      # p2_resid takes no map
+            p2.p2_resid(*pb["resid"], *c, handle_pbc=True, map_spec=spec,
+                        map_state=state)
+        with pytest.raises(ValueError, match="pair"):
+            p2.p2_positions(*pb["i16"], *c, handle_pbc=True, map_spec=spec,
+                            map_state=state)
+        return
+    p2.p2_positions(*pb[kind], *c, handle_pbc=True, pair=True,
+                    map_spec=spec, map_state=state)
+    coords, atom_a, atom_b, inv = pb[kind]
+    d, pa = position_vectors(coords, atom_a, atom_b, inv, pair=True)
+    d = min_image(d, pb["box"][:, None, :])
+    cells, inside = map_cells(pa + d * 0.5, spec, pb["bond_type"], 30)
+    valid = pb["mask"][:, None]
+    assert int(state[0, 1, -1]) == int((~inside & valid).sum()) > 0
+    assert int(state[0, 1, :-1].sum()) == int((inside & valid).sum()) > 0
+    with pytest.raises(ValueError):         # a state of the wrong shape
+        p2.p2_positions(*pb[kind], *c, handle_pbc=True, pair=True,
+                        map_spec=spec, map_state=state[:, :, :-1])
+
+
+@pytest.mark.parametrize("kind", ["resid", "i16"])
+def test_pair_kernel_matches_plain(cuda, kind):
+    """pair_quantized without a map: its own count, the plain version's
+    integers; `resid` checks the b7 input against the single rounding on
+    the same batch (the two formulations differ in some sample)."""
+    pb = _problem(13, 32, 5000, 3000, 40, cuda)
+    c = (pb["box"], pb["normal"], pb["mask"], pb["bond_type"], 40)
+    if kind == "resid":
+        single = p2.p2_positions(*pb["i16"], *c, handle_pbc=True)
+        assert torch.equal(single, p2.p2_resid(*pb["resid"], *c,
+                                               handle_pbc=True))
+        pair = p2.p2_positions(*pb["i16"], *c, handle_pbc=True, pair=True)
+        assert torch.equal(pair[:, 1], single[:, 1])
+        return
+    before = {name: getattr(p2, name) for name in MAP_COUNTS}
+    got = p2.p2_positions(*pb["i16"], *c, handle_pbc=True, pair=True)
+    torch.cuda.synchronize()
+    assert {name: getattr(p2, name) - before[name] for name in MAP_COUNTS} \
+        == {name: int(name == "p2_i16_pair_launches") for name in MAP_COUNTS}
+    assert torch.equal(got, p2.p2_positions_plain(*pb["i16"], *c,
+                                                  handle_pbc=True, pair=True))
+
+
+@pytest.mark.parametrize("normals", [False, True])
+@pytest.mark.parametrize("leaflets", [False, True])
+@pytest.mark.parametrize("kind", ["i16", "f32"])
+@pytest.mark.parametrize("shape", [
+    (6, 37, 7),                # ragged single tile per category
+    (64, 900, 68),             # several tiles, the UA cell's type count
+    (4, 60, 1025),             # (3, 2, T) past the 48 KiB: global atomics
+])
+def test_ua_map_kernel_matches_plain(cuda, kind, shape, leaflets, normals):
+    from gorder_tpu_torch.core.ordermap import init_map_state
+    from gorder_tpu_torch.core.ua import make_ua_step
+    from gorder_tpu_torch.ops import ua
+
+    import chip_smoke
+
+    n_frames, n_mols, n_types = shape
+    pb = chip_smoke.ua_problem(sum(shape), n_frames, n_mols, n_types)
+    spec = _map_spec(plane="xz")
+    step = make_ua_step(pb["categories"], pb["bond_type"], pb["bond_mol"],
+                        n_types, handle_pbc=True, device=cuda,
+                        with_leaflets=leaflets,
+                        normal_mode="per_molecule" if normals else "static",
+                        map_spec=spec)
+    coords = {"i16": torch.as_tensor(pb["q16"], device=cuda),
+              "f32": torch.as_tensor(pb["coords"], device=cuda)}[kind]
+    scale = (torch.as_tensor(pb["inv16"], device=cuda) if kind == "i16"
+             else None)
+    box = torch.as_tensor(pb["box"], device=cuda)
+    normal = (_normals(sum(shape), n_frames, n_mols, cuda) if normals
+              else torch.tensor([0.0, 0.0, 1.0], device=cuda))
+    mask = torch.as_tensor(pb["mask"], device=cuda)
+    classes = (torch.as_tensor(pb["classes"], device=cuda) if leaflets
+               else None)
+    states = [init_map_state(3 if leaflets else 1, n_types, spec, cuda)
+              for _ in range(2)]
+    counts = ("ua_launches", "ua_leaflets_launches", "ua_normals_launches",
+              "ua_map_launches")
+    before = {name: getattr(ua, name) for name in counts}
+    got = step.positions(coords, box, normal, mask, inv_scale=scale,
+                         classes=classes, map_state=states[0])
+    torch.cuda.synchronize()
+    assert {name: getattr(ua, name) - before[name] for name in counts} == {
+        name: 4 * int(name == "ua_map_launches") for name in counts}
+    want = ua.ua_positions_plain(coords, scale, box, normal, mask,
+                                 step.indices, step.bond_type, n_types,
+                                 handle_pbc=True, layout=step.layout,
+                                 classes=classes, bond_mol=step.bond_mol,
+                                 map_spec=spec, map_state=states[1])
+    assert torch.equal(got, want)
+    assert torch.equal(states[0], states[1])
+    sums = got if leaflets else got[:, None]
+    assert torch.equal(states[0].sum(-1), sums.sum((0, 3)))
+    assert states[0][:, 1, -1].sum() > 0 and states[0][:, 1, :-1].sum() > 0

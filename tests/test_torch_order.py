@@ -251,17 +251,18 @@ def test_step_routes_cpu_tensors_to_plain():
 
 
 @pytest.mark.parametrize("option", [
-    # leaflets and per-molecule normals are ported: the refusal names only
-    # the ordermaps or geometry beside them
-    dict(with_leaflets=True, normal_mode="per_molecule", map_spec=object()),
+    # leaflets, per-molecule normals and ordermaps are ported: the refusal
+    # names only the geometry beside them
+    dict(with_leaflets=True, normal_mode="per_molecule", geom_spec=object()),
     dict(normal_mode="per_molecule", geom_spec=object()),
-    dict(map_spec=object()), dict(geom_spec=object())])
+    dict(map_spec=object(), geom_spec=object()), dict(geom_spec=object())])
 def test_make_order_step_rejects_unported(option):
     with pytest.raises(AnalysisError, match="not yet ported") as err:
         make_order_step(np.zeros(2, np.int32), np.ones(2, np.int32),
                         np.zeros(2, np.int32), np.zeros(2, np.int32), 1, 1,
                         device="cpu", **option)
     assert "normal" not in str(err.value)
+    assert "geometry" in str(err.value) and "map" not in str(err.value)
 
 
 @pytest.mark.parametrize("with_leaflets", [False, True])

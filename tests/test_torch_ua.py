@@ -223,14 +223,15 @@ def test_make_ua_step_refuses_unported(option):
     kw = {"with_leaflets": True, "normal_mode": "per_molecule",
           "map_spec": object(), "geom_spec": object()}
     extra = {}
-    if option in ("with_leaflets", "normal_mode"):
-        # leaflets and per-molecule normals are ported: the refusal names
-        # only the ordermaps beside them
-        extra["map_spec"] = object()
+    if option != "geom_spec":
+        # leaflets, per-molecule normals and ordermaps are ported: the
+        # refusal names only the geometry beside them
+        extra["geom_spec"] = object()
     with pytest.raises(AnalysisError, match="not yet ported") as err:
         ua.make_ua_step(cats, btype, bmol, T, device="cpu",
                         **{option: kw[option]}, **extra)
     assert "normal" not in str(err.value)
+    assert "geometry" in str(err.value) and "map" not in str(err.value)
 
 
 @pytest.mark.parametrize("with_leaflets", [False, True])

@@ -86,7 +86,27 @@ It imports nothing of JAX or of `gorder_tpu`. Phases, one line each:
    pair_quantized int16 type sums without a map;
 13. run ua-ordermap: the `ua` analysis with the same map on the UA box
    (93 x 93 tiles), likewise against `ua_3000.yaml`, with the UA kernel's
-   map output against plain on its first batch, int16 and f32.
+   map output against plain on its first batch, int16 and f32;
+14. run aa-geometry, aa-geometry-i16: tools/bench_modes.py's geometry
+   mode (a cylinder of radius 4 nm along z around the per-frame center of
+   `resname POPC`) over the same 10,000 frames, riding b7 with the
+   decoder's geometry bitplane (b7geo), and forced onto int16 (the `i16G`
+   kind, the same bitplane); both YAMLs must pass `bench.validate_output`
+   against `aa-geometry_10000.yaml`, and the with_geom P2 kernel must have
+   been launched once per batch. Then that kernel against its plain
+   version on each run's first batch, with the bitplane the step was
+   given: b7 residuals as handed over, with `aa-leaflets`' classes and
+   with `aa-dynamic`'s normals; int16, f32 (dequantized), and the
+   pair_quantized int16 input with a map output into a freshly zeroed
+   state, whose entries, the dump included, must sum to the batch's
+   inside-only type sums;
+15. run ua-geometry, ua-geometry-invert: the `ua` analysis with the same
+   cylinder, and inverted, over the 3,000 UA frames on int16; no golden
+   is pinned, so per bond type the int64 sums and counts of the two runs
+   must add up to the `ua` run's exactly, and the UA kernel's geometry
+   test must have been launched once per batch and category. Then that
+   kernel against plain on the first batch, int16 and f32, with the
+   reference the step computed from the batch.
 
 Then one JSON line with the kernels of the path (with each one's bound:
 the least time the card could take, from the bytes it must move at the
@@ -144,6 +164,12 @@ UA_NORMAL_OPS = {cat: 6 + k for cat, k in
 # positions, 3 more than the single rounding
 MAP_OPS = 14
 PAIR_OPS = 3
+# what the geometry test adds per UA sample (ua.cu, common.cuh
+# geo_inside), for the chip runs' cylinder of infinite span: the bond
+# position 6, the offset from the reference 3, two minimum images 8 and the
+# radial distance 3. The P2 kernel reads a bit per bond and computes only
+# the samples inside, so its bound counts those (P2_OPS each).
+GEO_OPS = 20
 #: the AA runs with membrane normals that are not static: tools/
 #: bench_modes.py's two dynamic modes (:339-344, :371-373), whose goldens
 #: are pinned, and the inline manual map of (0, 0, 1) for every molecule
@@ -469,6 +495,15 @@ def normals_analysis(mode, gro, bnd, xtc, cache, output_yaml=None):
     return aa_analysis(gro, bnd, xtc, output_yaml, membrane_normal=normal)
 
 
+def geometry_params(invert=False):
+    """tools/bench_modes.py's geometry mode (:374-380): a cylinder of radius
+    4 nm along z around the per-frame center of the lipids."""
+    from gorder_tpu_torch.input.config import Geometry
+
+    return Geometry("cylinder", reference="resname POPC", radius=4.0,
+                    orientation="z", invert=invert)
+
+
 def cuda_ms(fn, reps=20, warmup=3):
     """Mean device time of one call, from CUDA events around `reps` calls."""
     import torch
@@ -636,16 +671,19 @@ def check_p2(label, db, leaflets):
     return numbers
 
 
-def check_ua(label, step, inputs, frame, classes=None):
+def check_ua(label, step, inputs, frame, classes=None, geom_ref=None):
     """The UA kernel against its plain version for each of `inputs`
     ({input: (coords, scale)}) with `frame` (box, normal, mask): the
     static normal, or (B, M, 3) per-molecule normals (the per_bond_normal
     variant); with `classes`, the with_leaflets variant; with a step made
     for an ordermap, also the map output, into a freshly zeroed state on
-    each call. The int64 outputs (and maps) must be equal, and the kernel
-    launched once per category. → {input: numbers}."""
+    each call; with a step made for a geometry, the inside test against
+    the reference that `geom_ref` gives for the input (the batch's, as
+    `DeviceBatch.geom_ref`). The int64 outputs (and maps) must be equal,
+    and the kernel launched once per category. → {input: numbers}."""
     import torch
 
+    from gorder_tpu_torch.core.order import geometry_reference
     from gorder_tpu_torch.core.ordermap import init_map_state
     from gorder_tpu_torch.core.ua import N_HYDROGENS
     from gorder_tpu_torch.ops import ua
@@ -653,11 +691,13 @@ def check_ua(label, step, inputs, frame, classes=None):
     leaflets = classes is not None
     per_mol = frame[1].dim() == 3
     spec = step.map_spec
+    geom = step.geom_spec
     n_types = step.n_types
     n_frames = frame[2].shape[0]
     shape = ((n_frames, 3, 2, n_types) if leaflets
              else (n_frames, 2, n_types))
-    count = ("ua_map_launches" if spec is not None
+    count = ("ua_geom_launches" if geom is not None
+             else "ua_map_launches" if spec is not None
              else "ua_normals_launches" if per_mol
              else "ua_leaflets_launches" if leaflets else "ua_launches")
 
@@ -674,26 +714,35 @@ def check_ua(label, step, inputs, frame, classes=None):
 
     tag = (f"ua{' leaflets' if leaflets else ''}"
            f"{' normals' if per_mol else ''}"
-           f"{' map' if spec is not None else ''} {label}")
+           f"{' map' if spec is not None else ''}"
+           f"{' geometry' if geom is not None else ''} {label}")
     ops = int(frame[2].sum()) * sum(
         n * (UA_OPS[cat] + (UA_NORMAL_OPS[cat] if per_mol else 0)
-             + (N_HYDROGENS[cat] * MAP_OPS if spec is not None else 0))
+             + (N_HYDROGENS[cat] * MAP_OPS if spec is not None else 0)
+             + (N_HYDROGENS[cat] * GEO_OPS if geom is not None else 0))
         for cat, n in step.layout)
     numbers = {}
     for name, (coords, scale) in inputs.items():
+        geometry = {}
+        if geom is not None:
+            coords_f = (coords if scale is None else
+                        coords.to(torch.float32) * scale[:, None, None])
+            geometry = dict(geom_spec=geom, reference=geometry_reference(
+                coords_f, frame[0], geom_ref, step.handle_pbc).contiguous())
+
         def kernel(layout=step.layout, bond_type=step.bond_type,
-                   coords=coords, scale=scale):
+                   coords=coords, scale=scale, geometry=geometry):
             return with_map(lambda **kw: ua.ua_positions(
                 coords, scale, *frame, step.indices, bond_type, n_types,
                 handle_pbc=step.handle_pbc, layout=layout, classes=classes,
-                bond_mol=step.bond_mol, **kw))
+                bond_mol=step.bond_mol, **geometry, **kw))
 
         def plain(layout=step.layout, bond_type=step.bond_type,
-                  coords=coords, scale=scale):
+                  coords=coords, scale=scale, geometry=geometry):
             return with_map(lambda **kw: ua.ua_positions_plain(
                 coords, scale, *frame, step.indices, bond_type, n_types,
                 handle_pbc=step.handle_pbc, layout=layout, classes=classes,
-                bond_mol=step.bond_mol, **kw))
+                bond_mol=step.bond_mol, **geometry, **kw))
 
         print(f"kernel {tag} {name}: B={n_frames} samples="
               f"{step.bond_type.shape[0]} T={n_types} categories "
@@ -704,7 +753,7 @@ def check_ua(label, step, inputs, frame, classes=None):
             got = compare(f"{tag} {name}", kernel, plain, counter,
                           len(step.layout), shape)
         except RuntimeError:
-            if leaflets or spec is not None:
+            if leaflets or spec is not None or geom is not None:
                 raise
             # which category disagrees, and in how many (frame, type) cells
             detail = []
@@ -721,7 +770,8 @@ def check_ua(label, step, inputs, frame, classes=None):
                          for ix in d.values()]
         # a map state is read and written once
         moved = n_bytes(coords, scale, *frame, step.bond_type, classes,
-                        got["out"], *index_tensors) + 2 * n_bytes(
+                        got["out"], *index_tensors,
+                        geometry.get("reference")) + 2 * n_bytes(
                             got.get("map"))
         numbers[name] = with_bound(f"{tag} {name}", got, moved, ops)
         # the classifiers and ua_problem give classes in {0, 1} only
@@ -802,6 +852,114 @@ def check_p2_map(label, db, normal=None, bond_mol=None, pair_alone=False):
             int(db.mask.sum()) * step.bond_type.shape[0]
             * (P2_OPS + PAIR_OPS + (P2_NORMAL_OPS if per_mol else 0)))
     return numbers
+
+
+def check_p2_geom(label, db, classes=None, normal=None, bond_mol=None,
+                  map_spec=None):
+    """The with_geom P2 kernel against its plain version on a geometry
+    run's batch (`DeviceBatch`), with the bitplane the step was given (the
+    last wire tensor): b7 residuals (b7geo), or int16 positions and, as the
+    f32 input, the same dequantized (i16G). `classes` with `bond_mol` add
+    the with_leaflets variant; `normal` (B, M, 3) with `bond_mol` the
+    per_bond_normal one. With `map_spec`, the pair_quantized int16 input
+    with the map output into a freshly zeroed state instead, whose entries,
+    the dump included, must sum to the batch's type sums. The int64
+    outputs must be equal, and every valid sample counted must be one
+    whose bit is set. → {input: numbers}."""
+    import torch
+
+    from gorder_tpu_torch.core.ordermap import init_map_state
+    from gorder_tpu_torch.engine.wire import geo_bits
+    from gorder_tpu_torch.ops import p2
+
+    step = db.step
+    geo = db.wire[-1]
+    normal = db.normal if normal is None else normal
+    per_mol = normal.dim() == 3
+    n_types = step.n_types
+    n_frames = db.mask.shape[0]
+    n_bonds = step.bond_type.shape[0]
+    n_classes = 3 if classes is not None else 1
+    extra = dict(classes=classes, geo=geo,
+                 bond_mol=bond_mol if classes is not None or per_mol
+                 else None)
+    frame = (db.box, normal, db.mask, step.bond_type)
+    shape = ((n_frames, 3, 2, n_types) if classes is not None
+             else (n_frames, 2, n_types))
+    inside = int(geo_bits(geo, n_bonds)[db.mask].sum())
+    tag = (f"{label} geometry{' leaflets' if classes is not None else ''}"
+           f"{' normals' if per_mol else ''}"
+           f"{' map' if map_spec is not None else ''}")
+    print(f"kernel {tag}: {db.kind} batch, B={n_frames} N={n_bonds} "
+          f"T={n_types}, bitplane {tuple(geo.shape)} uint8: {inside} of "
+          f"{int(db.mask.sum()) * n_bonds} valid samples inside", flush=True)
+    inputs = wire_inputs(db)
+    if map_spec is not None:
+        inputs = {"i16_pair": inputs["i16"]}
+    numbers = {}
+    for name, inp in inputs.items():
+        if name == "resid":
+            kernel, plain, args, kw = (p2.p2_resid, p2.p2_resid_plain, inp,
+                                       {})
+        else:
+            coords, scale = inp
+            kernel, plain = p2.p2_positions, p2.p2_positions_plain
+            args = (coords, step.atom_a, step.atom_b, scale)
+            kw = dict(pair=True, map_spec=map_spec) if map_spec else {}
+
+        def run(fn, args=args, kw=kw):
+            if map_spec is None:
+                return fn(*args, *frame, n_types, handle_pbc=step.handle_pbc,
+                          **kw, **extra)
+            state = init_map_state(n_classes, n_types, map_spec,
+                                   db.box.device)
+            return fn(*args, *frame, n_types, handle_pbc=step.handle_pbc,
+                      map_state=state, **kw, **extra), state
+
+        count = {"resid": "p2_geom_launches", "i16": "p2_i16_geom_launches",
+                 "i16_pair": "p2_i16_pair_geom_launches",
+                 "f32": "p2_f32_geom_launches"}[name]
+        got = compare(f"{tag} {name}", lambda r=run, k=kernel: r(k),
+                      lambda r=run, f=plain: r(f),
+                      lambda c=count: getattr(p2, c), 1, shape)
+        out = got["out"] if classes is not None else got["out"][:, None]
+        if int(out[:, 0, 1].sum()) != inside:
+            raise RuntimeError(f"{tag} {name}: {int(out[:, 0, 1].sum())} "
+                               f"samples counted, {inside} inside")
+        if map_spec is not None:
+            if not torch.equal(got["map"].sum(-1), out[db.mask].sum((0, 3))):
+                raise RuntimeError(f"{tag} {name}: the map's entries do not "
+                                   f"sum to the inside-only type sums")
+            print(f"check {tag} {name}: the map's entries, dump included, "
+                  f"sum to the batch's inside-only type sums "
+                  f"{got['map'].sum(-1).tolist()}", flush=True)
+        # the bytes the function must move: the per-bond b7 residuals of
+        # the samples inside only, every other input once
+        per_bond = args[0] if name == "resid" else None
+        share = inside / max(int(db.mask.sum()) * n_bonds, 1)
+        moved = (n_bytes(*args[1:] if per_bond is not None else args,
+                         *frame, got["out"], *extra.values())
+                 + (int(n_bytes(per_bond) * share) if per_bond is not None
+                    else 0) + 2 * n_bytes(got.get("map")))
+        numbers[name] = with_bound(
+            f"{tag} {name}", got, moved,
+            inside * (P2_OPS + (P2_NORMAL_OPS if per_mol else 0)
+                      + (MAP_OPS + PAIR_OPS if map_spec is not None
+                         else 0)))
+    return numbers
+
+
+class TypeSums:
+    """Over a run, per bond type, the int64 [Σq, count] of its total class
+    on the valid frames. Call with each `DeviceBatch`."""
+
+    def __init__(self):
+        self.value = None
+
+    def __call__(self, db):
+        out = db.out if db.out.dim() == 3 else db.out[:, 0]
+        sums = out[db.mask].sum(0)
+        self.value = sums if self.value is None else self.value + sums
 
 
 class Conservation:
@@ -1379,6 +1537,49 @@ def main() -> int:
              dataclasses.replace(dyn_first,
                                  classes=firsts["aa-leaflets"].classes),
              True)
+
+    # 14. the AA geometry runs: b7 with the decoder's bitplane (b7geo), and
+    # forced onto int16 (i16G, the same bitplane), both against the
+    # aa-geometry golden; then the with_geom P2 kernel against plain on
+    # their first batches: b7 as handed over, with aa-leaflets' classes and
+    # with aa-dynamic's normals; int16, f32, and the pair input with a map
+    from gorder_tpu_torch.core.ordermap import build_map_spec
+    from gorder_tpu_torch.engine import channels
+    from gorder_tpu_torch.input.config import OrderMapParams
+
+    geom_launches, geom_checks = {}, {}
+    for label, count, wire in (
+            ("aa-geometry", "p2_geom_launches", "geometry mask bitplane"),
+            ("aa-geometry-i16", "p2_i16_geom_launches",
+             "wire format: i16")):
+        probe = channels._probe_b7
+        if label == "aa-geometry-i16":
+            # a trajectory that does not fit b7 (as the CPU tests force it)
+            channels._probe_b7 = lambda *a, **k: None
+        try:
+            got, results, first = run_golden(
+                label, aa_analysis(gro, bnd, xtc,
+                                   os.path.join(cache, f"smoke_{label}.yaml"),
+                                   geometry=geometry_params()),
+                {count: n_batches}, N_FRAMES, golden="aa-geometry",
+                wire=wire)
+        finally:
+            channels._probe_b7 = probe
+        geom_launches[label] = got[count]
+        if label == "aa-geometry":
+            geom_checks["resid"] = check_p2_geom(label, first)["resid"]
+            check_p2_geom(label, first,
+                          classes=firsts["aa-leaflets"].classes,
+                          bond_mol=firsts["aa-leaflets"].step.bond_mol)
+            check_p2_geom(label, first, normal=dyn_first.normal,
+                          bond_mol=dyn_first.step.bond_mol)
+        else:
+            geom_checks.update(check_p2_geom(label, first))
+            geom_checks.update(check_p2_geom(
+                label, first, map_spec=build_map_spec(
+                    OrderMapParams(plane="xy"),
+                    np.diag(bench.BOX).astype(np.float32))))
+        del results, first
     del firsts
     time_normals(gro, bnd, xtc, cache)
 
@@ -1428,10 +1629,12 @@ def main() -> int:
     # 9. the UA runs, end to end; then the UA kernel against plain on the
     # first batch of the ua run
     ua_batches = math.ceil(ua_frames / BATCH)
+    ua_sums = TypeSums()
     ua_launches, ua_results, ua_first = run_golden(
         "ua", ua_analysis("ua", *ua_files, os.path.join(cache,
                                                         "smoke_ua.yaml")),
-        {"ua_launches": ua_batches * 3}, ua_frames)    # ch3, ch2, ch1u
+        {"ua_launches": ua_batches * 3}, ua_frames,    # ch3, ch2, ch1u
+        watch=ua_sums)
     ua_plain = check_ua("ua_3000", ua_first.step, wire_inputs(ua_first),
                         (ua_first.box, ua_first.normal, ua_first.mask))
     run_golden("ua-palmitoyl",
@@ -1508,11 +1711,43 @@ def main() -> int:
     ua_map = check_ua("ua-ordermap", first.step, wire_inputs(first),
                       (first.box, first.normal, first.mask))
 
+    # 15. UA with the geometry cylinder, and inverted (int16): no golden;
+    # per bond type, the two runs' int64 sums and counts add up to the ua
+    # run's exactly; then the UA kernel's geometry test against plain on
+    # the first batch, with the reference the step computed
+    halves = {}
+    ua_geom_runs = 0
+    for label, invert in (("ua-geometry", False),
+                          ("ua-geometry-invert", True)):
+        halves[label] = TypeSums()
+        a = ua_analysis("ua", *ua_files,
+                        os.path.join(cache, f"smoke_{label}.yaml"),
+                        geometry=geometry_params(invert))
+        _, _, geo_launches, wire_line, first = _run(
+            label, a, {"ua_geom_launches": ua_batches * 3}, ua_frames,
+            watch=halves[label])
+        if "wire format: i16" not in wire_line:
+            raise RuntimeError(f"{label}: {wire_line}")
+        ua_geom_runs += geo_launches["ua_geom_launches"]
+        if label == "ua-geometry":
+            ua_geom = check_ua(label, first.step, wire_inputs(first),
+                               (first.box, first.normal, first.mask),
+                               geom_ref=first.geom_ref)
+    inside, outside = (halves[k].value for k in halves)
+    if not torch.equal(inside + outside, ua_sums.value):
+        raise RuntimeError("ua-geometry + ua-geometry-invert != ua: "
+                           f"{(inside + outside - ua_sums.value).abs().max()}"
+                           " quanta off")
+    print(f"check ua-geometry: per bond type, the int64 sums and counts of "
+          f"the cylinder ({int(inside[1].sum())} samples) and of its inverse "
+          f"({int(outside[1].sum())}) add up to the ua run's "
+          f"({int(ua_sums.value[1].sum())}) exactly", flush=True)
+
     p2_src, ua_src = ("gorder_tpu_torch/csrc/p2.cu",
                       "gorder_tpu_torch/csrc/ua.cu")
     p2_tpu, ua_tpu = ("gorder_tpu/ops/pallas_p2.py:163",
                       "gorder_tpu/ops/pallas_ua.py:69")
-    print(json.dumps({"kernels": [
+    kernels = [
         kernel_entry("p2", p2_src, p2_tpu, launches["p2_launches"],
                      p2_plain["resid"]),
         kernel_entry("p2_leaflets", p2_src, p2_tpu,
@@ -1540,7 +1775,17 @@ def main() -> int:
                      map_launches["aa-ordermap-leaflets"],
                      map_checks["aa-ordermap-leaflets"]["i16"]),
         kernel_entry("ua_map", ua_src, ua_tpu,
-                     ua_map_runs["ua_map_launches"], ua_map["i16"])]}))
+                     ua_map_runs["ua_map_launches"], ua_map["i16"]),
+        kernel_entry("p2_geom", p2_src, p2_tpu,
+                     geom_launches["aa-geometry"], geom_checks["resid"]),
+        kernel_entry("p2_i16_geom", p2_src, p2_tpu,
+                     geom_launches["aa-geometry-i16"], geom_checks["i16"]),
+        kernel_entry("ua_geom", ua_src, ua_tpu, ua_geom_runs,
+                     ua_geom["i16"])]
+    idle = [k["name"] for k in kernels if k["launches"] <= 0]
+    if idle:
+        raise RuntimeError(f"kernels never launched on their runs: {idle}")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -6,7 +6,7 @@ output files; `gorder_tpu` stays the reference it is tested against. It
 covers all-atom (AA), coarse-grained (CG) and united-atom (UA) order
 parameters with a static, dynamic or manual membrane normal, overall and
 per leaflet (global, local, individual and manual assignment), with or
-without ordermaps, and without geometry::
+without ordermaps and geometry selection::
 
     import gorder_tpu_torch as gorder
 

@@ -1,6 +1,6 @@
 """The P2/order-parameter step (port of `gorder_tpu/core/order.py` for a
 static or per-molecule membrane normal, overall and per leaflet, with or
-without ordermaps; no geometry).
+without ordermaps and geometry selection).
 
 Per bond instance and frame: bond vector → minimum image → projection on
 the normal (the static one, or the bond's molecule's dynamic or manual
@@ -10,7 +10,9 @@ sums and counts per frame and bond type, and with leaflet classes also
 per class: total, upper (class 0) and lower (class 1) of the bond's
 molecule (gorder_tpu/core/order.py:231-235). A class that is neither 0
 nor 1 counts in total only. With an ordermap, each sample also goes to
-the map tile of its bond midpoint (`core/ordermap.py`).
+the map tile of its bond midpoint (`core/ordermap.py`). With a geometry
+selection, a sample whose bond midpoint lies outside the shape counts in
+no class, no type sum and no map tile (`core/geometry.py`).
 
 The JAX package reproduces that rounding in pure f32 with a two-product
 and sums it as 7-bit limbs on the MXU, because TPU kernels have no f64.
@@ -29,8 +31,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .geometry import inside_mask
 from .ordermap import map_cells, update_maps
-from .pbc import min_image
+from .pbc import circular_mean_cog, min_image, naive_cog
 
 _SCALE = 1.0e6
 _LIMB = 128      # the JAX kernel's limb radix (gorder_tpu/core/order.py)
@@ -86,7 +89,7 @@ def p2_sums(d: torch.Tensor, box_diag: torch.Tensor, normal: torch.Tensor,
             frame_mask: torch.Tensor, bond_type: torch.Tensor, n_types: int,
             *, handle_pbc: bool, classes: torch.Tensor | None = None,
             bond_mol: torch.Tensor | None = None, pa=None, map_spec=None,
-            map_state=None) -> torch.Tensor:
+            map_state=None, geo: torch.Tensor | None = None) -> torch.Tensor:
     """(B, N, 3) f32 bond vectors → (B, 2, T) int64 per-frame, per-type
     [sum of quantized samples, sample count]; masked frames give zeros.
     With (B, M) int32 leaflet `classes` and the (N,) molecule of each bond
@@ -107,6 +110,12 @@ def p2_sums(d: torch.Tensor, box_diag: torch.Tensor, normal: torch.Tensor,
     sample and masks as the type sums (gorder_tpu/core/order.py:201-204,
     :239-242).
 
+    With a geometry selection, `geo` is the (B, N) bool inside-shape mask
+    of the samples (`geometry_plane`, or the decoder's bitplane unpacked):
+    a sample outside counts nowhere, as the TPU kernel's `with_geom` plane
+    multiplies every accumulator's mask (gorder_tpu/ops/pallas_p2.py:
+    217-219).
+
     Every f32 operation is a separate, correctly rounded PyTorch op, in the
     order of the JAX Pallas kernel (gorder_tpu/ops/pallas_p2.py:120-141),
     with d² written as dx·dx + dy·dy + dz·dz (:127)."""
@@ -123,7 +132,7 @@ def p2_sums(d: torch.Tensor, box_diag: torch.Tensor, normal: torch.Tensor,
         n2 = torch.clamp(nx * nx + ny * ny + nz * nz, min=1e-18)
         cos2 = (proj * proj) / (torch.clamp(d2, min=1e-18) * n2)
     q = quantize(1.5 * cos2 - 0.5)
-    masks = class_masks(q, frame_mask, classes, bond_mol)
+    masks = class_masks(q, frame_mask, classes, bond_mol, geo)
     if map_state is not None:
         cells, _ = map_cells(pa + d * 0.5, map_spec, bond_type, n_types)
         update_maps(map_state, q, cells, masks)
@@ -132,11 +141,15 @@ def p2_sums(d: torch.Tensor, box_diag: torch.Tensor, normal: torch.Tensor,
 
 def class_masks(q: torch.Tensor, frame_mask: torch.Tensor,
                 classes: torch.Tensor | None = None,
-                bond_mol: torch.Tensor | None = None) -> list:
+                bond_mol: torch.Tensor | None = None,
+                geo: torch.Tensor | None = None) -> list:
     """The (B, N) int64 masks of the samples `q` that each class counts:
     [valid frames], or with `classes` (B, M) and each sample's molecule
-    `bond_mol` (N,) [total, upper (class 0), lower (class 1)]."""
+    `bond_mol` (N,) [total, upper (class 0), lower (class 1)]; with the
+    (B, N) bool geometry mask `geo`, only the samples inside the shape."""
     valid = frame_mask.to(torch.int64)[:, None].expand_as(q)
+    if geo is not None:
+        valid = valid * geo
     if classes is None:
         return [valid]
     cls = classes.index_select(1, bond_mol)                  # (B, N)
@@ -164,8 +177,8 @@ def class_sums(q: torch.Tensor, masks: list, bond_type: torch.Tensor,
 def order_step(coords, box_diag, normal, frame_mask, atom_a, atom_b,
                bond_type, n_types: int, inv_scale=None, base=None, *,
                handle_pbc: bool, classes=None, bond_mol=None,
-               pair: bool = False, map_spec=None,
-               map_state=None) -> torch.Tensor:
+               pair: bool = False, map_spec=None, map_state=None,
+               geo=None) -> torch.Tensor:
     """The plain step for its three inputs → (B, 2, T) int64, or
     (B, 3, 2, T) with leaflet `classes` and `bond_mol`; `normal` (3,), or
     (B, M, 3) with `bond_mol` (`p2_sums`):
@@ -177,7 +190,7 @@ def order_step(coords, box_diag, normal, frame_mask, atom_a, atom_b,
 
     With `map_spec` and `map_state`, positions input only (integer ones
     with `pair`), the samples are also added to the map state, in
-    place."""
+    place. `geo` is the (B, N) bool geometry mask (`p2_sums`)."""
     if map_state is not None and (base is not None or (
             inv_scale is not None and not pair)):
         raise ValueError("an ordermap takes positions, integer ones with "
@@ -193,7 +206,55 @@ def order_step(coords, box_diag, normal, frame_mask, atom_a, atom_b,
     return p2_sums(d, box_diag, normal, frame_mask, bond_type, n_types,
                    handle_pbc=handle_pbc, classes=classes,
                    bond_mol=bond_mol, pa=pa, map_spec=map_spec,
-                   map_state=map_state)
+                   map_state=map_state, geo=geo)
+
+
+def geometry_reference(coords: torch.Tensor, box_diag: torch.Tensor,
+                       geom_ref: torch.Tensor,
+                       handle_pbc: bool) -> torch.Tensor:
+    """The geometry's (B, 3) reference point per frame (port of
+    `_geometry_reference`, gorder_tpu/core/order.py:108-123): `geom_ref`
+    as it is when it is already (B, 3) (a fixed point tiled, or the box
+    center), else the (K,) int32 atom indices of a selection, whose center
+    is recomputed every frame from the f32 positions `coords` (B, A, 3):
+    the refined circular mean under PBC, the plain mean without. The
+    centers' sums reduce in another order than XLA's and take torch's
+    cos/sin, so a selection's center agrees with the JAX package's to
+    float noise, not bit for bit."""
+    if geom_ref.dim() == 2:
+        return geom_ref
+    pts = coords.index_select(1, geom_ref)             # (B, K, 3)
+    mask = torch.ones(pts.shape[:-1], dtype=coords.dtype,
+                      device=coords.device)
+    if handle_pbc:
+        return circular_mean_cog(pts, mask, box_diag)
+    return naive_cog(pts, mask)
+
+
+def geometry_plane(coords, atom_a, atom_b, inv_scale, box_diag, geom_ref,
+                   geom_spec, *, handle_pbc: bool,
+                   pair: bool = False) -> torch.Tensor:
+    """(B, N) bool: whether each bond's midpoint lies inside the geometry,
+    from positions, computed on the device as the JAX package computes it
+    where no decoder bitplane rides the wire (gorder_tpu/core/order.py:
+    163-178, :201-214, :488-509). The midpoint is p_a + d·0.5 with d
+    after the minimum image, and d is the step's own bond vector: the
+    single rounding f32(q_b − q_a)·s for integer positions, the pair
+    difference of an ordermap run's dequantized positions (`pair`), or
+    p_b − p_a for f32 positions; p_a = f32(q_a)·s or the f32 position.
+    The reference is `geometry_reference` of the f32 positions."""
+    coords_f = (coords if inv_scale is None
+                else coords.to(torch.float32) * inv_scale[:, None, None])
+    if pair:
+        d, pa = position_vectors(coords, atom_a, atom_b, inv_scale,
+                                 pair=True)
+    else:
+        d = position_vectors(coords, atom_a, atom_b, inv_scale)
+        pa = coords_f.index_select(1, atom_a)
+    if handle_pbc:
+        d = min_image(d, box_diag[:, None, :])
+    ref = geometry_reference(coords_f, box_diag, geom_ref, handle_pbc)
+    return inside_mask(pa + d * 0.5, ref, box_diag, geom_spec, handle_pbc)
 
 
 class OrderStep:
@@ -205,11 +266,16 @@ class OrderStep:
     takes the batch's (B, M, 3) normals; "static", the (3,) normal. The
     bonds' molecules `bond_mol` are kept for either. With a `map_spec`
     (an ordermap run), integer positions take the pair difference, and a
-    call given the run's `map_state` adds its samples to it."""
+    call given the run's `map_state` adds its samples to it. With a
+    `geom_spec` (a geometry selection), every call takes the batch's
+    (B, ⌈N/8⌉) uint8 inside-shape bitplane `geo` (`engine/wire.py`
+    layout), or, for positions, the batch's `geom_ref` from which the
+    step computes it (`geometry_plane`)."""
 
     def __init__(self, atom_a, atom_b, bond_type, bond_mol, n_types: int, *,
                  handle_pbc: bool, with_leaflets: bool, device,
-                 normal_mode: str = "static", map_spec=None):
+                 normal_mode: str = "static", map_spec=None,
+                 geom_spec=None):
         def idx(a):
             return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
@@ -225,19 +291,24 @@ class OrderStep:
         self.handle_pbc = bool(handle_pbc)
         self.with_leaflets = bool(with_leaflets)
         self.map_spec = map_spec
+        self.geom_spec = geom_spec
 
-    def _molecules(self, normal, classes):
+    def _molecules(self, normal, classes, geo):
         if (classes is not None) != self.with_leaflets:
             raise ValueError("leaflet classes must be given exactly when "
                              "the step was made with_leaflets")
         if (normal.dim() == 3) != (self.normal_mode == "per_molecule"):
             raise ValueError("(B, M, 3) normals must be given exactly when "
                              "the step was made per_molecule")
-        return dict(classes=classes, bond_mol=self.bond_mol)
+        if (geo is not None) != (self.geom_spec is not None):
+            raise ValueError("a geometry bitplane must be given exactly "
+                             "when the step was made with a geom_spec")
+        return dict(classes=classes, bond_mol=self.bond_mol, geo=geo)
 
     def resid(self, r, base, inv_scale, box_diag, normal, frame_mask,
-              classes=None):
-        """b7 wire input (the main path of runs without maps)."""
+              classes=None, geo=None):
+        """b7 wire input (the main path of runs without maps); `geo` the
+        decoder's bitplane of a geometry run (b7geo)."""
         from ..ops.p2 import p2_resid
 
         if self.map_spec is not None:
@@ -246,30 +317,34 @@ class OrderStep:
         return p2_resid(r, base, inv_scale, box_diag, normal, frame_mask,
                         self.bond_type, self.n_types,
                         handle_pbc=self.handle_pbc,
-                        **self._molecules(normal, classes))
+                        **self._molecules(normal, classes, geo))
 
     def positions(self, coords, box_diag, normal, frame_mask,
-                  inv_scale=None, classes=None, map_state=None):
-        """i16 wire (with `inv_scale`) or f32 wire input."""
+                  inv_scale=None, classes=None, map_state=None, geo=None,
+                  geom_ref=None):
+        """i16 wire (with `inv_scale`) or f32 wire input. A geometry run
+        gives the decoder's bitplane `geo` (the `*G` kinds) or the batch's
+        `geom_ref`, from which the bitplane is computed here."""
+        from ..engine.wire import pack_geo_bits
         from ..ops.p2 import p2_positions
 
         if map_state is not None and self.map_spec is None:
             raise ValueError("a map state needs a step made with a map_spec")
+        pair = self.map_spec is not None
+        if self.geom_spec is not None and geo is None:
+            if geom_ref is None:
+                raise ValueError("a geometry run needs the batch's bitplane "
+                                 "or its geom_ref")
+            geo = pack_geo_bits(geometry_plane(
+                coords, self.atom_a, self.atom_b, inv_scale, box_diag,
+                geom_ref, self.geom_spec, handle_pbc=self.handle_pbc,
+                pair=pair))
         return p2_positions(coords, self.atom_a, self.atom_b, inv_scale,
                             box_diag, normal, frame_mask, self.bond_type,
                             self.n_types, handle_pbc=self.handle_pbc,
-                            pair=self.map_spec is not None,
-                            map_spec=self.map_spec, map_state=map_state,
-                            **self._molecules(normal, classes))
-
-
-def refuse_unported(*, geom_spec) -> None:
-    """Raise AnalysisError naming the step options this port lacks."""
-    if geom_spec is not None:
-        from ..errors import AnalysisError
-
-        raise AnalysisError(
-            "not yet ported to gorder_tpu_torch: geometry selection")
+                            pair=pair, map_spec=self.map_spec,
+                            map_state=map_state,
+                            **self._molecules(normal, classes, geo))
 
 
 def make_order_step(atom_a, atom_b, bond_type, bond_mol, n_types: int,
@@ -277,16 +352,14 @@ def make_order_step(atom_a, atom_b, bond_type, bond_mol, n_types: int,
                     device="cuda", with_leaflets: bool = False,
                     normal_mode: str = "static", map_spec=None,
                     geom_spec=None) -> OrderStep:
-    """The reference's step factory (gorder_tpu/core/order.py:313), for the
-    configurations this port covers: a static normal or per-molecule
-    (dynamic or manual) normals, with or without leaflets, with or without
-    an ordermap (`map_spec`), and no geometry. `n_molecules` serves only
-    those."""
-    refuse_unported(geom_spec=geom_spec)
+    """The reference's step factory (gorder_tpu/core/order.py:313): a
+    static normal or per-molecule (dynamic or manual) normals, with or
+    without leaflets, an ordermap (`map_spec`) and a geometry selection
+    (`geom_spec`). `n_molecules` serves only those."""
     return OrderStep(atom_a, atom_b, bond_type, bond_mol, n_types,
                      handle_pbc=handle_pbc, with_leaflets=with_leaflets,
                      device=device, normal_mode=normal_mode,
-                     map_spec=map_spec)
+                     map_spec=map_spec, geom_spec=geom_spec)
 
 
 def from_reference_rows(rows) -> np.ndarray:

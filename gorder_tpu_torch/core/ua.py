@@ -1,7 +1,7 @@
 """United-atom virtual hydrogens and their order parameters (port of
 `gorder_tpu/core/ua.py` for a static membrane normal or per-molecule
 (dynamic or manual) normals, overall and per leaflet, with or without
-ordermaps; no geometry).
+ordermaps and geometry selection).
 
 Per target carbon and frame: its helper atoms → the buildH prediction of
 its 1–3 hydrogens (src/analysis/uaorder.rs:944-1106) → per hydrogen the
@@ -11,7 +11,8 @@ fixed-point sample (`core/order.py quantize`) → exact int64 sums and
 counts per frame and bond type (and per leaflet class, as
 `core/order.py class_sums` sums them); with an ordermap, each sample also
 goes to the tile of its bond position, hydrogen + (C–H vector)/2
-(`core/ordermap.py`).
+(`core/ordermap.py`); with a geometry selection, a sample whose bond
+position lies outside the shape counts nowhere (`core/geometry.py`).
 
 Every f32 step is one correctly rounded PyTorch op, grouped as the JAX
 package's planar (structure-of-arrays) formulation groups it: a planar
@@ -33,7 +34,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .order import class_masks, class_sums, quantize
+from .geometry import inside_mask
+from .order import class_masks, class_sums, geometry_reference, quantize
 from .ordermap import map_cells, update_maps
 
 TETRAHEDRAL_ANGLE = np.float32(1.910633)
@@ -182,9 +184,9 @@ _PREDICT = {"ch3": predict_ch3_planar, "ch2": predict_ch2_planar,
 def ua_step(coords, box_diag, normal, frame_mask, indices, bond_type,
             n_types: int, inv_scale=None, *, handle_pbc: bool,
             layout, classes=None, bond_mol=None, map_spec=None,
-            map_state=None) -> torch.Tensor:
-    """The plain UA step (gorder_tpu/core/ua.py `_ua_step_impl` without
-    geometry) → (B, 2, T) int64 per-frame, per-type [sum of quantized
+            map_state=None, geom_spec=None, reference=None) -> torch.Tensor:
+    """The plain UA step (gorder_tpu/core/ua.py `_ua_step_impl`) → (B, 2, T)
+    int64 per-frame, per-type [sum of quantized
     samples, sample count]; masked frames give zeros. With (B, M) leaflet
     `classes` and each sample's molecule `bond_mol` → (B, 3, 2, T): total,
     upper and lower.
@@ -202,6 +204,11 @@ def ua_step(coords, box_diag, normal, frame_mask, indices, bond_type,
     C–H vector v after the minimum image, when PBC is on (:302-306,
     :354-357).
 
+    With a geometry selection (`geom_spec` and its (B, 3) f32 `reference`
+    point per frame, `core/order.py geometry_reference` of the f32
+    positions), a sample counts only where that bond position lies inside
+    the shape (`core/geometry.py inside_mask`; :325-333).
+
     coords: (B, A, 3) int16 with `inv_scale` (B,) f32, or f32 without;
     indices: {category: {"target", "h1", "h2"[, "h3"]: (n,) int}};
     layout: ((category, n), ...) in concatenation order; bond_type and
@@ -215,6 +222,7 @@ def ua_step(coords, box_diag, normal, frame_mask, indices, bond_type,
     def gather(ix):
         return tuple(p.index_select(1, ix) for p in cpl)
 
+    with_pos = map_state is not None or geom_spec is not None
     parts = []
     mids = []
     for category, _n in layout:
@@ -242,18 +250,20 @@ def ua_step(coords, box_diag, normal, frame_mask, indices, bond_type,
                 proj = (vec[0] * normal[0] + vec[1] * normal[1]) \
                     + vec[2] * normal[2]
                 per_atom.append((1.5 * (proj * proj)) / d2 - 0.5)
-            if map_state is not None:
+            if with_pos:
                 per_atom_mid.append(torch.stack(
                     [hpos[i] + vec[i] * 0.5 for i in range(3)], dim=-1))
         # hydrogen-major per atom: (B, n, K) → (B, n·K)
         parts.append(torch.stack(per_atom, dim=-1).flatten(1))
-        if map_state is not None:
+        if with_pos:
             mids.append(torch.stack(per_atom_mid, dim=2).flatten(1, 2))
     q = quantize(torch.cat(parts, dim=1))                   # (B, Nv)
-    masks = class_masks(q, frame_mask, classes, bond_mol)
+    bond_pos = torch.cat(mids, dim=1) if with_pos else None
+    geo = (inside_mask(bond_pos, reference, box_diag, geom_spec, handle_pbc)
+           if geom_spec is not None else None)
+    masks = class_masks(q, frame_mask, classes, bond_mol, geo)
     if map_state is not None:
-        cells, _ = map_cells(torch.cat(mids, dim=1), map_spec, bond_type,
-                             n_types)
+        cells, _ = map_cells(bond_pos, map_spec, bond_type, n_types)
         update_maps(map_state, q, cells, masks)
     return class_sums(q, masks, bond_type, n_types)
 
@@ -268,11 +278,15 @@ class UAStep:
     With `normal_mode` "per_molecule", every call takes the batch's
     (B, M, 3) normals, which both read by each carbon's `mol`. With a
     `map_spec` (an ordermap run), a call given the run's `map_state` adds
-    its samples to it."""
+    its samples to it. With a `geom_spec`, every call takes the batch's
+    `geom_ref` (a (B, 3) point or box center, or a selection's (K,) atom
+    indices), whose per-frame reference the kernel tests each bond
+    position against."""
 
     def __init__(self, categories, bond_type, bond_mol, n_types: int, *,
                  handle_pbc: bool, with_leaflets: bool, device,
-                 normal_mode: str = "static", map_spec=None):
+                 normal_mode: str = "static", map_spec=None,
+                 geom_spec=None):
         def idx(a):
             return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
@@ -292,9 +306,11 @@ class UAStep:
         self.with_leaflets = bool(with_leaflets)
         self.normal_mode = normal_mode
         self.map_spec = map_spec
+        self.geom_spec = geom_spec
 
     def positions(self, coords, box_diag, normal, frame_mask,
-                  inv_scale=None, classes=None, map_state=None):
+                  inv_scale=None, classes=None, map_state=None,
+                  geom_ref=None):
         """i16 wire (with `inv_scale`) or f32 wire input."""
         from ..ops.ua import ua_positions
 
@@ -306,26 +322,33 @@ class UAStep:
                              "the step was made per_molecule")
         if map_state is not None and self.map_spec is None:
             raise ValueError("a map state needs a step made with a map_spec")
+        if (geom_ref is not None) != (self.geom_spec is not None):
+            raise ValueError("geom_ref must be given exactly when the step "
+                             "was made with a geom_spec")
+        reference = None
+        if geom_ref is not None:
+            coords_f = (coords if inv_scale is None else
+                        coords.to(torch.float32) * inv_scale[:, None, None])
+            reference = geometry_reference(coords_f, box_diag, geom_ref,
+                                           self.handle_pbc).contiguous()
         return ua_positions(coords, inv_scale, box_diag, normal, frame_mask,
                             self.indices, self.bond_type, self.n_types,
                             handle_pbc=self.handle_pbc, layout=self.layout,
                             classes=classes, bond_mol=self.bond_mol,
-                            map_spec=self.map_spec, map_state=map_state)
+                            map_spec=self.map_spec, map_state=map_state,
+                            geom_spec=self.geom_spec, reference=reference)
 
 
 def make_ua_step(categories, bond_type, bond_mol, n_types: int, *,
                  handle_pbc: bool = True, device="cuda",
                  with_leaflets: bool = False, normal_mode: str = "static",
                  map_spec=None, geom_spec=None) -> UAStep:
-    """The reference's step factory (gorder_tpu/core/ua.py:368), for the
-    configurations this port covers: a static normal or per-molecule
-    (dynamic or manual) normals, with or without leaflets, with or without
-    an ordermap (`map_spec`), and no geometry. With leaflets or
-    per-molecule normals, every category needs its per-carbon molecule
-    index `mol`."""
-    from .order import refuse_unported
-
-    refuse_unported(geom_spec=geom_spec)
+    """The reference's step factory (gorder_tpu/core/ua.py:368): a static
+    normal or per-molecule (dynamic or manual) normals, with or without
+    leaflets, an ordermap (`map_spec`) and a geometry selection
+    (`geom_spec`). With leaflets or per-molecule normals, every category
+    needs its per-carbon molecule index `mol`."""
     return UAStep(categories, bond_type, bond_mol, n_types,
                   handle_pbc=handle_pbc, with_leaflets=with_leaflets,
-                  device=device, normal_mode=normal_mode, map_spec=map_spec)
+                  device=device, normal_mode=normal_mode, map_spec=map_spec,
+                  geom_spec=geom_spec)

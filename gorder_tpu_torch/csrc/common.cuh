@@ -180,6 +180,75 @@ struct MapTable {
   }
 };
 
+// A geometry selection's inside test (gorder_tpu_torch/core/geometry.py,
+// port of gorder_tpu/core/geometry.py inside_mask), passed by value from
+// ctypes: kind 0 cuboid, 1 cylinder, 2 sphere (-1: no geometry); per axis
+// whether its span is bounded, and the f32 of its lower end lo and of its
+// extent hi - lo, each rounded once from the f64 value as the JAX package's
+// weak typing rounds them; the f32 of radius * radius when has_radius. A
+// cylinder's span lies on its orientation axis only.
+struct GeoShape {
+  int kind, invert, orientation, has_radius;
+  int bounded[3];
+  float lo[3];
+  float extent[3];
+  float radius2;
+};
+
+// One axis of the test: the corner-relative coordinate delta - lo, wrapped
+// into the box with floor(shifted / L) under PBC, within [0, extent].
+__device__ __forceinline__ bool geo_axis_ok(const GeoShape& g, int axis,
+                                            float delta, float box,
+                                            bool pbc) {
+  if (!g.bounded[axis]) return true;
+  float shifted = __fsub_rn(delta, g.lo[axis]);
+  if (pbc) {
+    shifted = __fsub_rn(shifted,
+                        __fmul_rn(box, floorf(__fdiv_rn(shifted, box))));
+  }
+  return shifted >= 0.0f && shifted <= g.extent[axis];
+}
+
+// Whether the point p lies inside the shape placed at ref (the frame's
+// reference point), in a box with diagonal L: the cylinder's radial and
+// the sphere's distances take the minimum image under PBC (rint: half to
+// even), and the sphere's d2 is (d0*d0 + d1*d1) + d2*d2, as jnp.sum adds
+// a size-3 axis; every step correctly rounded.
+__device__ __forceinline__ bool geo_inside(const GeoShape& g, float3 p,
+                                           float3 ref, float3 L, bool pbc) {
+  const float rel[3] = {__fsub_rn(p.x, ref.x), __fsub_rn(p.y, ref.y),
+                        __fsub_rn(p.z, ref.z)};
+  const float box[3] = {L.x, L.y, L.z};
+  bool ok;
+  if (g.kind == 0) {
+    ok = geo_axis_ok(g, 0, rel[0], box[0], pbc) &&
+         geo_axis_ok(g, 1, rel[1], box[1], pbc) &&
+         geo_axis_ok(g, 2, rel[2], box[2], pbc);
+  } else if (g.kind == 1) {
+    const int a = g.orientation;
+    const int p0 = a == 0 ? 1 : 0;
+    const int p1 = a == 2 ? 1 : 2;
+    float d0 = rel[p0], d1 = rel[p1];
+    if (pbc) {
+      d0 = min_image(d0, box[p0]);
+      d1 = min_image(d1, box[p1]);
+    }
+    const bool radial =
+        !g.has_radius ||
+        __fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1)) <= g.radius2;
+    ok = radial && geo_axis_ok(g, a, rel[a], box[a], pbc);
+  } else {
+    float d[3] = {rel[0], rel[1], rel[2]};
+    if (pbc) {
+      for (int k = 0; k < 3; ++k) d[k] = min_image(d[k], box[k]);
+    }
+    ok = !g.has_radius ||
+         __fadd_rn(__fadd_rn(__fmul_rn(d[0], d[0]), __fmul_rn(d[1], d[1])),
+                   __fmul_rn(d[2], d[2])) <= g.radius2;
+  }
+  return g.invert ? !ok : ok;
+}
+
 // The leaflet class of the molecule `mol` in frame b: classes (B, M) int32.
 // Without classes (the plain variants) every sample is class 0, which only
 // the (2, T) table reads, and ignores.

@@ -75,6 +75,24 @@
 // MB a class: above the 50 MB L2 with classes), and about 14 f32
 // operations. This first version is plain.
 //
+// with_geom (replaces pallas_p2.py:204-206 and :218-219, with the plane
+// built at :384-391) and diff_input (:276-286): a geometry selection keeps
+// only the samples whose bond midpoint lies inside the shape. The TPU
+// kernel multiplies a (B, N) f32 inside plane into the mask of every
+// accumulator; here every entry point takes the (B, ceil(N/8)) uint8
+// bitplane `geo` (bit i & 7 of byte i >> 3 is bond i), the layout in which
+// the XTC decoder evaluates it host-side (native/xdr.cpp xtc_geo_mask,
+// the b7geo wire and the coordinate wires' *G kinds) and in which the
+// device-computed mask is packed (engine/wire.py pack_geo_bits). A thread
+// whose bond bit is 0 adds nothing to the type sums, the counts or the
+// map. A null `geo` is a uniform branch, not another template axis.
+// diff_input is the TPU kernel's input of bond vectors (the b7 wires
+// dequantized outside the kernel); the b7geo wire hands this kernel its
+// residuals instead, and p2_resid rebuilds the same f32(base + r) * s in
+// registers (:192-197), so diff_input needs no entry point of its own.
+// What bounds it: 1/8 byte a bond more, against the TPU kernel's 4-byte
+// f32 plane; a sample outside the shape costs the bit test only.
+//
 // What bounds it on this card: it reads about 2 bytes of b7 residual per
 // value (6 per sample) plus the per-slot base, and does two 64-bit atomic
 // adds per sample; arithmetic is a few dozen flops. Memory and atomics
@@ -209,16 +227,27 @@ struct Molecules {
   int n_molecules;
 };
 
+// Whether bond i of frame b lies inside the geometry: bit i & 7 of byte
+// i >> 3 of the frame's row of the (B, ceil(N/8)) bitplane; every bond
+// without one (geo null).
+__device__ __forceinline__ bool inside(const uint8_t* geo, int b, int i,
+                                       int n_bonds) {
+  if (geo == nullptr) return true;
+  const size_t row = static_cast<size_t>(b) * ((n_bonds + 7) >> 3);
+  return (geo[row + (i >> 3)] >> (i & 7)) & 1;
+}
+
 // grid (ceil(N / kTile), B); out (B, kClasses, 2, T) int64, zeroed by the
-// caller; normal (3,) f32, or (B, M, 3) f32 when kMolNormal; map: the
-// ordermap, added into (positions inputs only; state null without one).
+// caller; normal (3,) f32, or (B, M, 3) f32 when kMolNormal; geo: the
+// geometry bitplane (null without one); map: the ordermap, added into
+// (positions inputs only; state null without one).
 template <class Input, bool kShared, int kClasses, bool kMolNormal>
 __global__ void __launch_bounds__(kThreads)
 p2_kernel(Input input, const float* __restrict__ box,
           const float* __restrict__ normal, const uint8_t* __restrict__ mask,
           const int32_t* __restrict__ bond_type, Molecules lf,
-          gorder::MapGrid map, int n_bonds, int n_types, int pbc,
-          unsigned long long* __restrict__ out) {
+          const uint8_t* __restrict__ geo, gorder::MapGrid map, int n_bonds,
+          int n_types, int pbc, unsigned long long* __restrict__ out) {
   extern __shared__ unsigned long long table[];  // when kShared
   const int b = blockIdx.y;
   if (!mask[b]) return;  // padding frame: its rows stay zero
@@ -231,6 +260,7 @@ p2_kernel(Input input, const float* __restrict__ box,
   const int stop = min(start + kTile, n_bonds);
   for (int i = start + static_cast<int>(threadIdx.x); i < stop;
        i += kThreads) {
+    if (!inside(geo, b, i, n_bonds)) continue;
     float3 d, pa;
     input(b, i, d, pa);
     if (pbc) {
@@ -271,6 +301,7 @@ struct Launch {
   const uint8_t* mask;
   const int32_t* bond_type;
   Molecules lf;
+  const uint8_t* geo;
   gorder::MapGrid map;
   int n_bonds, n_types, pbc;
   unsigned long long* out;
@@ -283,11 +314,11 @@ void launch_classes(const Input& input, const Launch& l) {
     p2_kernel<Input, true, kClasses, kMolNormal>
         <<<l.grid, kThreads, gorder::table_bytes(l.n_types, kClasses),
            l.stream>>>(input, l.box, l.normal, l.mask, l.bond_type, l.lf,
-                       l.map, l.n_bonds, l.n_types, l.pbc, l.out);
+                       l.geo, l.map, l.n_bonds, l.n_types, l.pbc, l.out);
   } else {
     p2_kernel<Input, false, kClasses, kMolNormal>
         <<<l.grid, kThreads, 0, l.stream>>>(input, l.box, l.normal, l.mask,
-                                            l.bond_type, l.lf, l.map,
+                                            l.bond_type, l.lf, l.geo, l.map,
                                             l.n_bonds, l.n_types, l.pbc,
                                             l.out);
   }
@@ -305,9 +336,10 @@ void launch_normals(const Input& input, const Launch& l, int mol_normals) {
 template <class Input>
 int launch(const Input& input, const void* box, const void* normal,
            const void* mask, const void* bond_type, const void* classes,
-           const void* bond_mol, void* out, const gorder::MapGrid& map,
-           int n_frames, int n_bonds, int n_types, int pbc, int mol_normals,
-           int n_molecules, void* stream) {
+           const void* bond_mol, const void* geo, void* out,
+           const gorder::MapGrid& map, int n_frames, int n_bonds,
+           int n_types, int pbc, int mol_normals, int n_molecules,
+           void* stream) {
   if (n_frames == 0 || n_bonds == 0) return 0;
   const bool by_mol = classes != nullptr || mol_normals != 0;
   if (by_mol != (bond_mol != nullptr) || (by_mol && n_molecules <= 0))
@@ -323,8 +355,8 @@ int launch(const Input& input, const void* box, const void* normal,
                  static_cast<const int32_t*>(bond_type),
                  Molecules{static_cast<const int32_t*>(classes),
                            static_cast<const int32_t*>(bond_mol), n_molecules},
-                 map, n_bonds, n_types, pbc,
-                 static_cast<unsigned long long*>(out),
+                 static_cast<const uint8_t*>(geo), map, n_bonds, n_types,
+                 pbc, static_cast<unsigned long long*>(out),
                  static_cast<cudaStream_t>(stream)};
   if (classes != nullptr) {
     launch_normals<Input, 3>(input, l, mol_normals);
@@ -346,35 +378,36 @@ extern "C" {
 // classes or per-molecule normals are; n_molecules is their M. The
 // positions entry points of ordermap runs (pair int16, f32) take the map
 // by value, its state (C, 2, T * n0 * n1 + 1) int64 with C the classes of
-// out, added into; a null state, no map.
+// out, added into; a null state, no map. geo (B, ceil(N/8)) uint8 is the
+// geometry bitplane (the with_geom variant); null, every bond counts.
 
 int p2_resid(const void* r, const void* base, const void* scale,
              const void* box, const void* normal, const void* mask,
              const void* bond_type, const void* classes,
-             const void* bond_mol, void* out, int n_frames, int n_bonds,
-             int n_types, int pbc, int mol_normals, int n_molecules,
-             void* stream) {
+             const void* bond_mol, const void* geo, void* out, int n_frames,
+             int n_bonds, int n_types, int pbc, int mol_normals,
+             int n_molecules, void* stream) {
   const ResidInput input{static_cast<const int16_t*>(r),
                          static_cast<const int32_t*>(base),
                          static_cast<const float*>(scale), 3 * n_bonds};
-  return launch(input, box, normal, mask, bond_type, classes, bond_mol, out,
-                gorder::MapGrid{}, n_frames, n_bonds, n_types, pbc,
+  return launch(input, box, normal, mask, bond_type, classes, bond_mol, geo,
+                out, gorder::MapGrid{}, n_frames, n_bonds, n_types, pbc,
                 mol_normals, n_molecules, stream);
 }
 
 int p2_positions_i16(const void* x, const void* atom_a, const void* atom_b,
                      const void* scale, const void* box, const void* normal,
                      const void* mask, const void* bond_type,
-                     const void* classes, const void* bond_mol, void* out,
-                     int n_frames, int n_atoms, int n_bonds, int n_types,
-                     int pbc, int mol_normals, int n_molecules,
-                     void* stream) {
+                     const void* classes, const void* bond_mol,
+                     const void* geo, void* out, int n_frames, int n_atoms,
+                     int n_bonds, int n_types, int pbc, int mol_normals,
+                     int n_molecules, void* stream) {
   const IntPositions input{static_cast<const int16_t*>(x),
                            static_cast<const int32_t*>(atom_a),
                            static_cast<const int32_t*>(atom_b),
                            static_cast<const float*>(scale), n_atoms};
-  return launch(input, box, normal, mask, bond_type, classes, bond_mol, out,
-                gorder::MapGrid{}, n_frames, n_bonds, n_types, pbc,
+  return launch(input, box, normal, mask, bond_type, classes, bond_mol, geo,
+                out, gorder::MapGrid{}, n_frames, n_bonds, n_types, pbc,
                 mol_normals, n_molecules, stream);
 }
 
@@ -383,30 +416,31 @@ int p2_positions_i16_pair(const void* x, const void* atom_a,
                           const void* box, const void* normal,
                           const void* mask, const void* bond_type,
                           const void* classes, const void* bond_mol,
-                          void* out, gorder::MapGrid map, int n_frames,
-                          int n_atoms, int n_bonds, int n_types, int pbc,
-                          int mol_normals, int n_molecules, void* stream) {
+                          const void* geo, void* out, gorder::MapGrid map,
+                          int n_frames, int n_atoms, int n_bonds,
+                          int n_types, int pbc, int mol_normals,
+                          int n_molecules, void* stream) {
   const PairIntPositions input{static_cast<const int16_t*>(x),
                                static_cast<const int32_t*>(atom_a),
                                static_cast<const int32_t*>(atom_b),
                                static_cast<const float*>(scale), n_atoms};
-  return launch(input, box, normal, mask, bond_type, classes, bond_mol, out,
-                map, n_frames, n_bonds, n_types, pbc, mol_normals,
+  return launch(input, box, normal, mask, bond_type, classes, bond_mol, geo,
+                out, map, n_frames, n_bonds, n_types, pbc, mol_normals,
                 n_molecules, stream);
 }
 
 int p2_positions_f32(const void* x, const void* atom_a, const void* atom_b,
                      const void* box, const void* normal, const void* mask,
                      const void* bond_type, const void* classes,
-                     const void* bond_mol, void* out, gorder::MapGrid map,
-                     int n_frames, int n_atoms, int n_bonds, int n_types,
-                     int pbc, int mol_normals, int n_molecules,
-                     void* stream) {
+                     const void* bond_mol, const void* geo, void* out,
+                     gorder::MapGrid map, int n_frames, int n_atoms,
+                     int n_bonds, int n_types, int pbc, int mol_normals,
+                     int n_molecules, void* stream) {
   const FloatPositions input{static_cast<const float*>(x),
                              static_cast<const int32_t*>(atom_a),
                              static_cast<const int32_t*>(atom_b), n_atoms};
-  return launch(input, box, normal, mask, bond_type, classes, bond_mol, out,
-                map, n_frames, n_bonds, n_types, pbc, mol_normals,
+  return launch(input, box, normal, mask, bond_type, classes, bond_mol, geo,
+                out, map, n_frames, n_bonds, n_types, pbc, mol_normals,
                 n_molecules, stream);
 }
 

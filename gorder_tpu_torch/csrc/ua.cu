@@ -76,6 +76,19 @@
 // shared atomics. This first version is plain: making it fast is later
 // work.
 
+// Geometry selection (GeoShape; every category x input, with and without
+// classes, normals and a map): the TPU kernel has no geometry variant
+// (pallas_ua.py:60-61 refuses it) and the JAX package runs UA geometry
+// runs through XLA (gorder_tpu/core/ua.py:302-333): the inside test of
+// each sample's bond position h + v*0.5 against the frame's reference
+// point. That position exists only inside this kernel, so the test is
+// made here, on the position the map output also reads
+// (common.cuh geo_inside); the (B, 3) f32 reference of each frame (a fixed
+// point, the box center, or a selection's center) is computed outside. A
+// sample outside the shape adds nothing to the sums, the counts or the
+// map. A null reference is a uniform branch. What bounds it: 12 bytes of
+// reference a frame and about 15-25 f32 operations a sample.
+
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -267,13 +280,15 @@ struct Targets {
 // grid (ceil(n_cat / kTile), B); out (B, kClasses, 2, T) int64, added
 // into; classes (B, M) int32 when kClasses == 3; normal (3,) f32, or
 // (B, M, 3) f32 when kMolNormal; map: the ordermap, added into (state
-// null without one).
+// null without one); shape and ref (B, 3) f32: the geometry and its
+// reference points (ref null without one).
 template <int C, class Coords, bool kShared, int kClasses, bool kMolNormal>
 __global__ void __launch_bounds__(kThreads)
 ua_kernel(Coords coords, Targets tg, const float* __restrict__ box,
           const float* __restrict__ normal, Trig g,
           const uint8_t* __restrict__ mask,
           const int32_t* __restrict__ classes, gorder::MapGrid map,
+          gorder::GeoShape shape, const float* __restrict__ ref,
           int n_molecules, int n_types, int pbc,
           unsigned long long* __restrict__ out) {
   constexpr int K = n_hydrogens(C);
@@ -283,6 +298,10 @@ ua_kernel(Coords coords, Targets tg, const float* __restrict__ box,
   const gorder::TypeTable<kShared, kClasses> acc(table, out, b, n_types);
   const gorder::MapTable<kClasses> tiles(map, n_types);
   const V L = {box[3 * b], box[3 * b + 1], box[3 * b + 2]};
+  const float3 ref_b = ref != nullptr
+                           ? make_float3(ref[3 * b], ref[3 * b + 1],
+                                         ref[3 * b + 2])
+                           : make_float3(0.0f, 0.0f, 0.0f);
   V n = {0.0f, 0.0f, 0.0f};
   if constexpr (!kMolNormal) n = {normal[0], normal[1], normal[2]};
   const int start = static_cast<int>(blockIdx.x) * kTile;
@@ -309,15 +328,20 @@ ua_kernel(Coords coords, Targets tg, const float* __restrict__ box,
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const V vec = ch_vector(h[k], t, L, pbc != 0);
+      // the bond position h + vec * 0.5 (gorder_tpu/core/ua.py:302-306)
+      const float3 pos =
+          make_float3(__fadd_rn(h[k].x, __fmul_rn(vec.x, 0.5f)),
+                      __fadd_rn(h[k].y, __fmul_rn(vec.y, 0.5f)),
+                      __fadd_rn(h[k].z, __fmul_rn(vec.z, 0.5f)));
+      if (ref != nullptr &&
+          !gorder::geo_inside(shape, pos, ref_b, make_float3(L.x, L.y, L.z),
+                              pbc != 0))
+        continue;  // outside the geometry: counts nowhere
       const int type = tg.bond_type[i * K + k];
       const long long q = ua_sample<kMolNormal>(vec, n, n2);
       acc.add(type, q, cls);
       if (tiles.active()) {
-        // the bond position h + vec * 0.5 (gorder_tpu/core/ua.py:302-306)
-        tiles.add(tiles.cell(type, __fadd_rn(h[k].x, __fmul_rn(vec.x, 0.5f)),
-                             __fadd_rn(h[k].y, __fmul_rn(vec.y, 0.5f)),
-                             __fadd_rn(h[k].z, __fmul_rn(vec.z, 0.5f))),
-                  q, cls);
+        tiles.add(tiles.cell(type, pos.x, pos.y, pos.z), q, cls);
       }
     }
   }
@@ -328,19 +352,20 @@ template <int C, class Coords, int kClasses, bool kMolNormal>
 void launch_table(const Coords& coords, const Targets& tg, const float* box,
                   const float* normal, const Trig& trig, const uint8_t* mask,
                   const int32_t* classes, const gorder::MapGrid& map,
+                  const gorder::GeoShape& shape, const float* ref,
                   int n_molecules, unsigned long long* out, int n_frames,
                   int n_types, int pbc, cudaStream_t s) {
   const dim3 grid((tg.n_cat + kTile - 1) / kTile, n_frames);
   if (gorder::table_fits(n_types, kClasses)) {
     ua_kernel<C, Coords, true, kClasses, kMolNormal>
         <<<grid, kThreads, gorder::table_bytes(n_types, kClasses), s>>>(
-            coords, tg, box, normal, trig, mask, classes, map, n_molecules,
-            n_types, pbc, out);
+            coords, tg, box, normal, trig, mask, classes, map, shape, ref,
+            n_molecules, n_types, pbc, out);
   } else {
     ua_kernel<C, Coords, false, kClasses, kMolNormal>
         <<<grid, kThreads, 0, s>>>(coords, tg, box, normal, trig, mask,
-                                   classes, map, n_molecules, n_types, pbc,
-                                   out);
+                                   classes, map, shape, ref, n_molecules,
+                                   n_types, pbc, out);
   }
 }
 
@@ -348,17 +373,20 @@ template <int C, class Coords, bool kMolNormal>
 void launch_classes(const Coords& coords, const Targets& tg,
                     const float* box, const float* normal, const Trig& trig,
                     const uint8_t* mask, const int32_t* classes,
-                    const gorder::MapGrid& map, int n_molecules,
+                    const gorder::MapGrid& map, const gorder::GeoShape& shape,
+                    const float* ref, int n_molecules,
                     unsigned long long* out, int n_frames, int n_types,
                     int pbc, cudaStream_t s) {
   if (classes != nullptr) {
     launch_table<C, Coords, 3, kMolNormal>(coords, tg, box, normal, trig,
-                                           mask, classes, map, n_molecules,
-                                           out, n_frames, n_types, pbc, s);
+                                           mask, classes, map, shape, ref,
+                                           n_molecules, out, n_frames,
+                                           n_types, pbc, s);
   } else {
     launch_table<C, Coords, 1, kMolNormal>(coords, tg, box, normal, trig,
-                                           mask, classes, map, n_molecules,
-                                           out, n_frames, n_types, pbc, s);
+                                           mask, classes, map, shape, ref,
+                                           n_molecules, out, n_frames,
+                                           n_types, pbc, s);
   }
 }
 
@@ -366,17 +394,19 @@ template <int C, class Coords>
 void launch_category(const Coords& coords, const Targets& tg,
                      const float* box, const float* normal, const Trig& trig,
                      const uint8_t* mask, const int32_t* classes,
-                     const gorder::MapGrid& map, int mol_normals,
-                     int n_molecules, unsigned long long* out, int n_frames,
-                     int n_types, int pbc, cudaStream_t s) {
+                     const gorder::MapGrid& map,
+                     const gorder::GeoShape& shape, const float* ref,
+                     int mol_normals, int n_molecules,
+                     unsigned long long* out, int n_frames, int n_types,
+                     int pbc, cudaStream_t s) {
   if (mol_normals) {
     launch_classes<C, Coords, true>(coords, tg, box, normal, trig, mask,
-                                    classes, map, n_molecules, out, n_frames,
-                                    n_types, pbc, s);
+                                    classes, map, shape, ref, n_molecules,
+                                    out, n_frames, n_types, pbc, s);
   } else {
     launch_classes<C, Coords, false>(coords, tg, box, normal, trig, mask,
-                                     classes, map, n_molecules, out,
-                                     n_frames, n_types, pbc, s);
+                                     classes, map, shape, ref, n_molecules,
+                                     out, n_frames, n_types, pbc, s);
   }
 }
 
@@ -385,8 +415,9 @@ int launch(int category, const Coords& coords, const void* target,
            const void* h1, const void* h2, const void* h3, const void* mol,
            const void* bond_type, const void* box, const void* normal,
            const Trig& trig, const void* mask, const void* classes,
-           void* out, const gorder::MapGrid& map, int n_frames, int n_cat,
-           int n_types, int pbc, int mol_normals, int n_molecules,
+           void* out, const gorder::MapGrid& map,
+           const gorder::GeoShape& shape, const void* ref, int n_frames,
+           int n_cat, int n_types, int pbc, int mol_normals, int n_molecules,
            void* stream) {
   if (n_frames == 0 || n_cat == 0) return 0;
   if ((classes != nullptr || mol_normals != 0) &&
@@ -395,6 +426,9 @@ int launch(int category, const Coords& coords, const void* target,
   if (map.state != nullptr &&
       (map.n0 <= 0 || map.n1 <= 0 || map.ax0 < 0 || map.ax0 > 2 ||
        map.ax1 < 0 || map.ax1 > 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((ref != nullptr) != (shape.kind >= 0) || shape.kind > 2 ||
+      shape.orientation < 0 || shape.orientation > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const Targets tg{static_cast<const int32_t*>(target),
                    static_cast<const int32_t*>(h1),
@@ -406,29 +440,30 @@ int launch(int category, const Coords& coords, const void* target,
   const auto* nv = static_cast<const float*>(normal);
   const auto* mk = static_cast<const uint8_t*>(mask);
   const auto* cl = static_cast<const int32_t*>(classes);
+  const auto* rf = static_cast<const float*>(ref);
   auto* o = static_cast<unsigned long long*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   switch (category) {
     case kCH3:
       launch_category<kCH3>(coords, tg, bx, nv, trig, mk, cl, map,
-                            mol_normals, n_molecules, o, n_frames, n_types,
-                            pbc, s);
+                            shape, rf, mol_normals, n_molecules, o, n_frames,
+                            n_types, pbc, s);
       break;
     case kCH2:
       launch_category<kCH2>(coords, tg, bx, nv, trig, mk, cl, map,
-                            mol_normals, n_molecules, o, n_frames, n_types,
-                            pbc, s);
+                            shape, rf, mol_normals, n_molecules, o, n_frames,
+                            n_types, pbc, s);
       break;
     case kCH1U:
       launch_category<kCH1U>(coords, tg, bx, nv, trig, mk, cl, map,
-                             mol_normals, n_molecules, o, n_frames, n_types,
-                             pbc, s);
+                             shape, rf, mol_normals, n_molecules, o, n_frames,
+                             n_types, pbc, s);
       break;
     case kCH1S:
       if (h3 == nullptr) return static_cast<int>(cudaErrorInvalidValue);
       launch_category<kCH1S>(coords, tg, bx, nv, trig, mk, cl, map,
-                             mol_normals, n_molecules, o, n_frames, n_types,
-                             pbc, s);
+                             shape, rf, mol_normals, n_molecules, o, n_frames,
+                             n_types, pbc, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -449,21 +484,24 @@ extern "C" {
 // mol_normals = 1 selects the per_bond_normal variant: normal is then
 // (B, M, 3) f32 read by mol, else (3,); n_molecules is M. map: the
 // ordermap by value, its state (C, 2, T * n0 * n1 + 1) int64 with C the
-// classes of out, added into; a null state, no map.
+// classes of out, added into; a null state, no map. shape: the geometry
+// by value, with ref (B, 3) f32 its reference point per frame; a null ref
+// (and shape.kind -1), no geometry.
 
 int ua_positions_i16(int category, const void* x, const void* scale,
                      const void* target, const void* h1, const void* h2,
                      const void* h3, const void* mol, const void* bond_type,
                      const void* box, const void* normal, Trig trig,
                      const void* mask, const void* classes, void* out,
-                     gorder::MapGrid map, int n_frames, int n_atoms,
-                     int n_cat, int n_types, int pbc, int mol_normals,
-                     int n_molecules, void* stream) {
+                     gorder::MapGrid map, gorder::GeoShape shape,
+                     const void* ref, int n_frames, int n_atoms, int n_cat,
+                     int n_types, int pbc, int mol_normals, int n_molecules,
+                     void* stream) {
   const IntCoords coords{static_cast<const int16_t*>(x),
                          static_cast<const float*>(scale), n_atoms};
   return launch(category, coords, target, h1, h2, h3, mol, bond_type, box,
-                normal, trig, mask, classes, out, map, n_frames, n_cat,
-                n_types, pbc, mol_normals, n_molecules, stream);
+                normal, trig, mask, classes, out, map, shape, ref, n_frames,
+                n_cat, n_types, pbc, mol_normals, n_molecules, stream);
 }
 
 int ua_positions_f32(int category, const void* x, const void* target,
@@ -471,13 +509,13 @@ int ua_positions_f32(int category, const void* x, const void* target,
                      const void* mol, const void* bond_type, const void* box,
                      const void* normal, Trig trig, const void* mask,
                      const void* classes, void* out, gorder::MapGrid map,
-                     int n_frames, int n_atoms, int n_cat, int n_types,
-                     int pbc, int mol_normals, int n_molecules,
-                     void* stream) {
+                     gorder::GeoShape shape, const void* ref, int n_frames,
+                     int n_atoms, int n_cat, int n_types, int pbc,
+                     int mol_normals, int n_molecules, void* stream) {
   const FloatCoords coords{static_cast<const float*>(x), n_atoms};
   return launch(category, coords, target, h1, h2, h3, mol, bond_type, box,
-                normal, trig, mask, classes, out, map, n_frames, n_cat,
-                n_types, pbc, mol_normals, n_molecules, stream);
+                normal, trig, mask, classes, out, map, shape, ref, n_frames,
+                n_cat, n_types, pbc, mol_normals, n_molecules, stream);
 }
 
 }  // extern "C"

@@ -24,6 +24,17 @@ guard stays on the device and is checked when the batch drains, so no
 batch waits on the host for it. Export runs collect the normals each
 batch used, in frame order, at drain.
 
+Geometry runs give the step the batch's inside-shape test. A run in the
+geometry channel class (`engine/channels.py`) reads the decoder's per-bond
+bitplane beside the wire: inline in the b7 decode (b7geo), or by a
+standalone pass for coordinate-wire batches (the `*G` kinds). Any other
+geometry run gives the step the batch's reference (`geom_ref`): a
+selection's atom indices, the fixed point tiled to (B, 3), or the box
+center, box·0.5 (gorder_tpu/engine/batches.py:285-298, :359-386,
+:465-490, :776-778, :1006-1020). An export of normals restricted to a
+geometry marks, per frame, the molecules with no bond midpoint inside as
+NaN (`NormalsRuntime.molecule_inside`).
+
 Ordermap runs keep one int64 map state on the device for the whole run
 (`core/ordermap.py`): zeroed once, added to by every batch's step, and
 copied to the host once, when the run drains. The JAX package fetches and
@@ -52,7 +63,7 @@ import torch
 from ..core.order import OrderAccumulator
 from ..core.ordermap import init_map_state
 from ..errors import AnalysisError
-from ..io.native import b7_stride
+from ..io.native import b7_stride, geo_stride
 from ..io.traj import Trajectory, check_box_batch
 from ..utils.progress import ProgressPrinter
 from ..utils.timers import timers
@@ -83,6 +94,9 @@ class DeviceBatch:
     step: object                     # the OrderStep or UAStep
     out: torch.Tensor                # the step's int64 per-type output
     map_state: Optional[torch.Tensor]  # the run's map state (all batches)
+    # a geometry run's reference for the batch: (B, 3), a selection's
+    # (K,) slot indices, or None (no geometry)
+    geom_ref: Optional[torch.Tensor] = None
 
 
 def _to_device(a: np.ndarray, device) -> torch.Tensor:
@@ -92,11 +106,16 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
 
 def run_batches(analysis, system, step, normal_vec, n_types: int, space,
                 bond_slots, leaflets=None, n_molecules: int = 0, *, device,
-                normals=None, map_spec=None,
+                normals=None, map_spec=None, geom_spec=None,
+                geom_mode=None, geom_payload=None,
                 batch_size: int = DEFAULT_BATCH_SIZE, on_batch=None):
     """→ (OrderAccumulator, Trajectory, analyzed frame indices, map): the
     map is {class: (2, T·n0·n1 + 1) int64 [Σq, count]} of an ordermap run
     (`map_spec`), else None.
+
+    A geometry run gives its `geom_spec` with `geom_mode` "point" (the
+    (3,) `geom_payload`), "center", or "selection" (`geom_payload` the
+    selection's slot indices): `engine/prepare.py _prepare_geometry`.
 
     `bond_slots` (atom_a, atom_b) makes the b7 wire eligible; UA steps pass
     None and ride int16 or f32 positions, as ordermap runs do. `leaflets`
@@ -125,6 +144,7 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
     plan = plan_wire(traj=traj, frame_indices=frame_indices, space=space,
                      bond_slots=bond_slots, leaflets=leaflets,
                      normals=normals, map_spec=map_spec,
+                     geometry=geom_mode is not None,
                      n_molecules=n_molecules,
                      handle_pbc=analysis.handle_pbc, n_threads=n_threads,
                      batch_size=batch_size)
@@ -171,6 +191,16 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
     # decoder COG of coordinate-wire batches in the COG channel class
     cog_bufs = ([np.zeros(batch_size, np.float32) for _ in range(prefetch)]
                 if plan.chan_coords is not None else None)
+    # the decoder's geometry bitplanes of the geometry channel class, and
+    # its reference: 0 a point, 1 the box center, 2 a selection's center
+    geo_bufs = geo_args = None
+    if plan.geo_channel:
+        geo_bufs = [np.zeros((batch_size, geo_stride(plan.n_bonds)),
+                             np.uint8) for _ in range(prefetch)]
+        geo_args = (geom_spec,
+                    {"point": 0, "center": 1, "selection": 2}[geom_mode],
+                    geom_payload if geom_mode == "point" else None,
+                    geom_payload if geom_mode == "selection" else None)
     # sparse assignment-frame coordinates of the class plane: (i16, f32)
     plane_bufs = ([(np.zeros((plan.assign_cap, n_out, 3), np.int16),
                     np.zeros((plan.assign_cap, n_out, 3), np.float32))
@@ -228,11 +258,23 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
         traj.read_frames(chunk[rows], space, n_threads=n_threads, out=fbuf)
         return rows, fbuf[:len(rows)], None
 
+    def geo_plane(chunk, b):
+        """The decoder's geometry bitplane of a coordinate-wire batch in
+        the geometry channel class (the b7 decode computes it inline);
+        padding rows zero."""
+        gb = geo_bufs[b % prefetch]
+        gb[len(chunk):] = 0
+        traj.read_geo_mask(chunk, space, bond_slots[0], bond_slots[1],
+                           *geo_args, gb, handle_pbc=analysis.handle_pbc,
+                           n_threads=n_threads)
+        return gb
+
     def decode_b7(b, chunk, buf):
         pk, eg, ev = buf[:3]
         side = buf[3:]
+        geo_buf = geo_bufs[b % prefetch] if plan.geo_channel else None
         # padding rows decode to the (masked) base differences
-        for a in buf:
+        for a in buf + ((geo_buf,) if geo_buf is not None else ()):
             a[len(chunk):] = 0
         res, _ = traj.read_frames_b7(
             chunk, space, bond_slots[0], bond_slots[1], pk, eg, ev,
@@ -241,13 +283,18 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
                        else plan.aux_wire_slots),
             aux_out=side[0] if side else None,
             cog_slots=plan.ch_membrane, cog_axis=plan.ch_axis,
-            cog_out=side[1] if plan.ch_heads is not None else None)
+            cog_out=side[1] if plan.ch_heads is not None else None,
+            geo=(geo_args + (analysis.handle_pbc,)
+                 if geo_buf is not None else None),
+            geo_out=geo_buf)
         if res is not None:
             base, inv_prec, boxes, _, _ = res
             wire = (pk, eg.view(np.int16), ev, base) + side
             kind = ("b7g" if plan.ch_heads is not None
                     else "b7x" if plan.aux_wire_slots is not None
                     else "b7m" if plan.plane_active else "b7")
+            if geo_buf is not None:
+                kind, wire = "b7geo", wire + (geo_buf,)
             extra = (plane_sparse_read(chunk, b) if plan.plane_sparse
                      else None)
             return (kind, wire), inv_prec, boxes, extra
@@ -269,12 +316,31 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
                 out = decode_i16(chunk, buf, b)
             else:
                 out = decode_f32(chunk, buf, b)
+            (kind, arrays), rest = out[0], out[1:]
+            if plan.geo_channel and kind != "b7geo":
+                # a coordinate-wire (or fallback) batch of the geometry
+                # channel class: the same bitplane, by the standalone pass
+                out = ((kind + "G", arrays + (geo_plane(chunk, b),)),) + rest
             return out + (len(chunk),)
         finally:
             timers.add("decode", time.perf_counter() - t0)
 
     normal_dev = torch.as_tensor(np.asarray(normal_vec, np.float32),
                                  device=device)
+    # the geometry's reference on the device, for the steps that compute
+    # the inside mask themselves (not the geometry channel class): a
+    # selection's slot indices, or the fixed point tiled to (B, 3); the box
+    # center is taken per batch
+    device_geom = None if plan.geo_channel else geom_mode
+    geom_const = None
+    if device_geom == "selection":
+        geom_const = torch.as_tensor(np.asarray(geom_payload, np.int32),
+                                     device=device)
+    elif device_geom == "point":
+        geom_const = torch.as_tensor(np.tile(np.asarray(
+            geom_payload, np.float32), (batch_size, 1)), device=device)
+    molecule_inside = (normals.molecule_inside if collect_normals
+                       else None)
     executor = cf.ThreadPoolExecutor(max_workers=1)
     progress = ProgressPrinter(len(frame_indices)) \
         if not analysis.silent else None
@@ -323,19 +389,29 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
                 with timers.phase("transfer"):
                     normal = normals.manual_for_batch(
                         b * batch_size, n_valid, batch_size, device)
+            geom_ref = (box_dev * 0.5 if device_geom == "center"
+                        else geom_const)
             with timers.phase("dispatch"):
                 used = BY_KIND[kind](step, wire, scale_dev, box_dev, normal,
-                                     mask_dev, consumers, classes)
+                                     mask_dev, consumers, classes,
+                                     geom_ref=geom_ref)
+                inside = None
+                if molecule_inside is not None:
+                    coords_f = (wire[0] if scale_dev is None else
+                                wire[0].to(torch.float32)
+                                * scale_dev[:, None, None])
+                    inside = molecule_inside(coords_f, box_dev, geom_ref)
             if used.classes is not None and not host_classes and b == 0:
                 leaflets.log_first_stats(used.classes[0].cpu().numpy())
             if on_batch is not None:
                 on_batch(DeviceBatch(b, kind, wire, scale_dev, box_dev,
                                      used.normal, mask_dev, used.classes,
-                                     step, used.out, consumers.map_state))
+                                     step, used.out, consumers.map_state,
+                                     geom_ref))
             outputs.append((n_valid, used._replace(
                 classes=used.classes if collect and not host_classes
                 else None,
-                normal=used.normal if collect_normals else None)))
+                normal=used.normal if collect_normals else None), inside))
             if progress is not None:
                 progress.update(min((b + 1) * batch_size,
                                     len(frame_indices)))
@@ -348,17 +424,22 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
             progress.finish()
 
     with timers.phase("drain"):
-        for n_valid, used in outputs:
+        for n_valid, used, inside in outputs:
             if used.guard is not None:
                 check_normal_guard(used.guard)
             accum.add_step(used.out[:n_valid].cpu().numpy(), n_valid)
             # the classes and normals this batch's step consumed, in frame
-            # order
+            # order; restricted to a geometry, NaN for a molecule with no
+            # bond inside (gorder_tpu/engine/normals_runtime.py:50-57)
             if used.classes is not None:
                 leaflets.collect_frames.extend(
                     used.classes[:n_valid].cpu().numpy().astype(np.int32))
             if used.normal is not None:
-                normals.collected.append(used.normal[:n_valid].cpu().numpy())
+                values = used.normal[:n_valid].cpu().numpy()
+                if inside is not None:
+                    values = values.copy()
+                    values[~inside[:n_valid].cpu().numpy()] = np.nan
+                normals.collected.append(values)
         map_host = None
         if consumers.map_state is not None:
             map_host = dict(zip(accum.classes,

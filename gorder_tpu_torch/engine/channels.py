@@ -18,13 +18,21 @@ consumers what they read:
   the exact integer positions of the atoms they read
   (heads and methyls; the normal-heads cloud), as one
   aux atom union                                         -> b7x
+- a geometry selection alone (no leaflets, normals or
+  map), on XTC input: the decoder's per-bond inside-shape
+  bitplane (native/xdr.cpp xtc_geo_mask)                 -> b7geo
 
 Other runs (local leaflets, manual normals, dynamic normals with global
-or local leaflets, ordermaps, UA runs) ride int16 or f32. An ordermap bins
-each sample by its bond midpoint, which needs absolute positions, so a map
-run never rides a b7 kind (gorder_tpu/engine/channels.py:77, 93-96,
-105-109, 120); with every-frame global leaflets it rides the `*g` kinds.
-Manual normals are host
+or local leaflets, ordermaps, geometry with leaflets, normals or a map, UA
+runs) ride int16 or f32. An ordermap bins each sample by its bond
+midpoint, which needs absolute positions, so a map run never rides a b7
+kind (gorder_tpu/engine/channels.py:77, 93-96, 105-109, 120); with
+every-frame global leaflets it rides the `*g` kinds. A geometry run
+outside the geometry channel class computes its inside mask on the device
+from positions (:172-183). A run in that class consumes the decoder's
+bitplane on every wire: b7geo, or the `*G` coordinate kinds when the
+trajectory does not fit b7, so its output is the same whichever wire a
+batch rides. Manual normals are host
 tables shipped beside the wire (`engine/batches.py`). Every-frame global
 leaflets with PBC on XTC input classify against the decoder's COG on every
 wire (the `*g` coordinate kinds), so the printed output is the same
@@ -40,7 +48,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from ..io.native import b7_stride
+from ..io.native import b7_stride, geo_stride
 from .wire import _probe_b7
 
 log = logging.getLogger("gorder")
@@ -69,6 +77,9 @@ class WirePlan:
     aux_wire_slots: Optional[np.ndarray] = None
     aux_classify: Optional[Callable] = None
     aux_normals: Optional[Callable] = None
+    # geometry channel class: the decoder's (B, ⌈N/8⌉) bitplane rides
+    # every batch (b7geo, or the *G kinds)
+    geo_channel: bool = False
 
 
 def _aux_channel(leaflets, normals, n_out: int):
@@ -115,21 +126,25 @@ def _aux_channel(leaflets, normals, n_out: int):
 
 
 def plan_wire(*, traj, frame_indices, space, bond_slots=None, leaflets=None,
-              normals=None, map_spec=None, n_molecules: int = 0,
-              handle_pbc: bool = True, n_threads: int,
+              normals=None, map_spec=None, geometry: bool = False,
+              n_molecules: int = 0, handle_pbc: bool = True, n_threads: int,
               batch_size: int) -> WirePlan:
     """Decide the run's channel class and wire, and size the per-frame
     payload. `bond_slots` (atom_a, atom_b) are the order step's bonds in
     the decoded atom space; UA runs pass None and never ride b7, and nor
     do ordermap runs (`map_spec`). `leaflets` and `normals` are the run's
-    LeafletRuntime and NormalsRuntime, or None."""
+    LeafletRuntime and NormalsRuntime, or None; `geometry` whether the run
+    has a geometry selection."""
     n_out = space.n_out
     chan_coords = leaf_channels = aux = None
     plane_mode = False
-    if leaflets is not None and handle_pbc and traj._all_xtc(frame_indices):
+    xtc = traj._all_xtc(frame_indices)
+    if leaflets is not None and handle_pbc and xtc:
         chan_coords = leaflets.channel_coords_info()
     n_bonds = len(bond_slots[0]) if bond_slots is not None else 0
-    if map_spec is not None:
+    geo_channel = (geometry and bond_slots is not None and leaflets is None
+                   and normals is None and map_spec is None and xtc)
+    if map_spec is not None or (geometry and not geo_channel):
         bond_slots = None
     if bond_slots is not None:
         if leaflets is not None and normals is None:
@@ -147,9 +162,11 @@ def plan_wire(*, traj, frame_indices, space, bond_slots=None, leaflets=None,
     if b7_ok:
         esc_cap = _probe_b7(traj, frame_indices, space, bond_slots[0],
                             bond_slots[1], n_threads, batch_size)
+    geo_bytes = geo_stride(n_bonds) if geo_channel else 0
     if esc_cap is not None:
-        plan = WirePlan("b7", esc_cap, n_bonds, 0, chan_coords=chan_coords)
-        extra = ""
+        plan = WirePlan("b7", esc_cap, n_bonds, geo_bytes,
+                        chan_coords=chan_coords, geo_channel=geo_channel)
+        extra = " + decoder geometry mask bitplane" if geo_channel else ""
         if leaf_channels is not None:
             plan.channel_classify, (plan.ch_membrane, plan.ch_heads,
                                     plan.ch_axis) = leaf_channels
@@ -178,13 +195,16 @@ def plan_wire(*, traj, frame_indices, space, bond_slots=None, leaflets=None,
     probe = frame_indices[np.unique([0, n // 2, n - 1])]
     if traj.read_frames_quantized(probe, space,
                                   n_threads=n_threads) is not None:
-        plan = WirePlan("i16", 0, n_bonds, n_out * 6, chan_coords=chan_coords)
+        plan = WirePlan("i16", 0, n_bonds, n_out * 6 + geo_bytes,
+                        chan_coords=chan_coords, geo_channel=geo_channel)
     else:
-        plan = WirePlan("f32", 0, n_bonds, n_out * 12,
-                        chan_coords=chan_coords)
+        plan = WirePlan("f32", 0, n_bonds, n_out * 12 + geo_bytes,
+                        chan_coords=chan_coords, geo_channel=geo_channel)
     if chan_coords is not None:
         plan.wire_bytes += 4
+    extra = (" + decoder membrane-COG channel" if chan_coords is not None
+             else " + decoder geometry mask bitplane" if geo_channel
+             else "")
     log.info("wire format: %s — %d atoms%s, %.1f KB/frame", plan.wire,
-             space.n_sel, " + decoder membrane-COG channel"
-             if chan_coords is not None else "", plan.wire_bytes / 1024)
+             space.n_sel, extra, plan.wire_bytes / 1024)
     return plan

@@ -1,9 +1,9 @@
 """The per-mode drivers (port of `gorder_tpu/engine/drivers.py:38-207`):
 AA, CG and UA order parameters with a static, dynamic or manual membrane
 normal (with or without normals export), overall and per leaflet (global,
-local, individual and manual assignment), with or without ordermaps, and
-no geometry. Any other configuration raises `AnalysisError` naming what is
-not ported yet; nothing falls back to the JAX package.
+local, individual and manual assignment), with or without ordermaps and
+geometry selection. The clustering leaflet methods raise `AnalysisError`
+naming what is not ported yet; nothing falls back to the JAX package.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from ..engine.prepare import (
     _build_atom_space,
     _empty_results,
     _prepare_bond_kinds,
+    _prepare_geometry,
     _prepare_ua_kinds,
     load_structure,
 )
@@ -28,7 +29,7 @@ from ..core.ua import make_ua_step
 from .batches import DEFAULT_BATCH_SIZE, run_batches
 from .convert import convert_results, convert_results_ua
 from .leaflet_runtime import CLUSTERING_METHODS, build_leaflet_runtime
-from .normals_runtime import _build_normals
+from .normals_runtime import _build_normals, _make_molecule_inside
 
 log = logging.getLogger("gorder")
 
@@ -40,8 +41,6 @@ def _not_ported(analysis) -> list:
             and analysis.leaflets.kind in CLUSTERING_METHODS:
         missing.append("leaflet classification by "
                        + CLUSTERING_METHODS[analysis.leaflets.kind])
-    if analysis.geometry is not None:
-        missing.append("geometry selection")
     return missing
 
 
@@ -67,9 +66,11 @@ def run_analysis(analysis, device, batch_size: int = DEFAULT_BATCH_SIZE,
 
 def _runtimes(system, analysis, kinds, n_molecules, remap, device):
     """→ (static (3,) normal or zeros, NormalsRuntime or None,
-    LeafletRuntime or None, MapSpec or None): the membrane normals, the
-    leaflets on the axis `_build_normals` gives them, and the ordermap's
-    grid over the structure's box (gorder_tpu/engine/drivers.py:70-77)."""
+    LeafletRuntime or None, MapSpec or None, geometry): the membrane
+    normals, the leaflets on the axis `_build_normals` gives them, the
+    ordermap's grid over the structure's box, and the geometry's
+    `run_batches` keywords, a selection's atoms remapped into slot space
+    (gorder_tpu/engine/drivers.py:70-80)."""
     axis, normal_vec, normals = _build_normals(system, analysis, kinds,
                                                n_molecules, remap, device)
     leaflets = build_leaflet_runtime(system, analysis, kinds, n_molecules,
@@ -79,7 +80,12 @@ def _runtimes(system, analysis, kinds, n_molecules, remap, device):
     map_spec = (build_map_spec(analysis.map,
                                system.box if analysis.handle_pbc else None)
                 if analysis.map is not None else None)
-    return normal_vec, normals, leaflets, map_spec
+    geom_spec, geom_mode, geom_payload = _prepare_geometry(system, analysis)
+    if geom_mode == "selection":
+        geom_payload = remap(geom_payload)
+    geometry = dict(geom_spec=geom_spec, geom_mode=geom_mode,
+                    geom_payload=geom_payload)
+    return normal_vec, normals, leaflets, map_spec, geometry
 
 
 def _bounds(kinds):
@@ -130,10 +136,16 @@ def _run_bond_based(analysis, device, batch_size: int, on_batch):
         return _empty_results(analysis, system)
     space, remap = _build_atom_space(system, analysis,
                                      [compiled.atom_a, compiled.atom_b])
-    normal_vec, normals, leaflets, map_spec = _runtimes(
+    normal_vec, normals, leaflets, map_spec, geometry = _runtimes(
         system, analysis, kinds, compiled.n_molecules, remap, device)
 
     atom_a, atom_b = remap(compiled.atom_a), remap(compiled.atom_b)
+    geom_spec = geometry["geom_spec"]
+    if (normals is not None and normals.collected is not None
+            and geom_spec is not None):
+        normals.molecule_inside = _make_molecule_inside(
+            atom_a, atom_b, compiled.molecule, compiled.n_molecules,
+            geom_spec, analysis.handle_pbc, device)
     step = make_order_step(atom_a, atom_b, compiled.bond_type,
                            compiled.molecule, compiled.n_types,
                            compiled.n_molecules,
@@ -141,13 +153,13 @@ def _run_bond_based(analysis, device, batch_size: int, on_batch):
                            with_leaflets=leaflets is not None,
                            normal_mode=("per_molecule" if normals is not None
                                         else "static"),
-                           map_spec=map_spec)
+                           map_spec=map_spec, geom_spec=geom_spec)
     with timers.phase("trajectory"):
         accum, traj, frame_indices, map_state = run_batches(
             analysis, system, step, normal_vec, compiled.n_types, space,
             (atom_a, atom_b), leaflets, compiled.n_molecules, device=device,
             normals=normals, map_spec=map_spec, batch_size=batch_size,
-            on_batch=on_batch)
+            on_batch=on_batch, **geometry)
     with timers.phase("convert"):
         results = convert_results(analysis, system, kinds, compiled, accum,
                                   traj, frame_indices, map_spec, map_state)
@@ -172,20 +184,20 @@ def _run_ua(analysis, device, batch_size: int, on_batch):
     categories = {
         cat: {k: (remap(v) if k in atom_keys else v) for k, v in d.items()}
         for cat, d in compiled.categories.items()}
-    normal_vec, normals, leaflets, map_spec = _runtimes(
+    normal_vec, normals, leaflets, map_spec, geometry = _runtimes(
         system, analysis, kinds, compiled.n_molecules, remap, device)
     step = make_ua_step(categories, compiled.bond_type, compiled.bond_mol,
                         compiled.n_types, handle_pbc=analysis.handle_pbc,
                         device=device, with_leaflets=leaflets is not None,
                         normal_mode=("per_molecule" if normals is not None
                                      else "static"),
-                        map_spec=map_spec)
+                        map_spec=map_spec, geom_spec=geometry["geom_spec"])
     with timers.phase("trajectory"):
         accum, traj, frame_indices, map_state = run_batches(
             analysis, system, step, normal_vec, compiled.n_types, space,
             None, leaflets, compiled.n_molecules, device=device,
             normals=normals, map_spec=map_spec, batch_size=batch_size,
-            on_batch=on_batch)
+            on_batch=on_batch, **geometry)
     with timers.phase("convert"):
         results = convert_results_ua(analysis, system, kinds, compiled,
                                      accum, traj, frame_indices, map_spec,

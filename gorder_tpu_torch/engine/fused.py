@@ -6,17 +6,21 @@ read, and run the order step. PyTorch runs eagerly, so these are plain
 functions; the JAX package traces each into one XLA program.
 
 Each takes (step, wire tensors, inv_scale, box_diag, normal, frame_mask,
-consumers, classes) and returns a `Used`: the step's int64 output, the
-(B, M) classes and the normal it used, and the dynamic normals' guard.
-`classes` are host classes shipped with the batch (manual tables,
-frequency-gated methods); without them a leaflet run classifies here with
-the run's `Consumers`. `normal` is the static (3,) normal or a manual
-(B, M, 3) table; a dynamic-normal run replaces it here with the (B, M, 3)
-normals computed from the batch.
+consumers, classes, geom_ref) and returns a `Used`: the step's int64
+output, the (B, M) classes and the normal it used, and the dynamic
+normals' guard. `classes` are host classes shipped with the batch (manual
+tables, frequency-gated methods); without them a leaflet run classifies
+here with the run's `Consumers`. `normal` is the static (3,) normal or a
+manual (B, M, 3) table; a dynamic-normal run replaces it here with the
+(B, M, 3) normals computed from the batch. `geom_ref` is a geometry run's
+reference for the batch ((B, 3), or a selection's atom indices), from
+which the step computes the inside mask on the coordinate kinds that carry
+no decoder bitplane (gorder_tpu/core/order.py:480-515).
 
 Kinds: `b7` (no leaflets), `b7g` (heads + decoder COG), `b7x` (aux atoms),
-`b7m` (host class plane), and the coordinate wires `i16`/`f32`, with a
-trailing decoder COG as `i16g`/`f32g`.
+`b7m` (host class plane), `b7geo` (the decoder's geometry bitplane), and
+the coordinate wires `i16`/`f32`, with a trailing decoder COG as
+`i16g`/`f32g` or a trailing geometry bitplane as `i16G`/`f32G`.
 """
 
 from __future__ import annotations
@@ -68,21 +72,32 @@ def _normals(fn, cf, box, normal, mask):
     return normal, guard
 
 
-def _resid(step, w, scale, box, normal, mask, classes, guard=None):
+def _resid(step, w, scale, box, normal, mask, classes, guard=None,
+           geo=None):
     pk, gp, vl, base = w[:4]
     r = b7_residuals(pk, gp, vl, base.shape[0])
     return Used(step.resid(r, base, scale, box, normal, mask,
-                           classes=classes), classes, normal, guard)
+                           classes=classes, geo=geo), classes, normal, guard)
 
 
-def run_b7(step, w, scale, box, normal, mask, cs, classes=None):
+def run_b7(step, w, scale, box, normal, mask, cs, classes=None,
+           geom_ref=None):
     """b7 wire: the escape-applied int16 residuals go straight into the
     kernel, which adds the per-slot base and dequantizes (resid input).
     A b7m batch comes here too, with its host class plane as `classes`."""
     return _resid(step, w, scale, box, normal, mask, classes)
 
 
-def run_b7g(step, w, scale, box, normal, mask, cs, classes=None):
+def run_b7geo(step, w, scale, box, normal, mask, cs, classes=None,
+              geom_ref=None):
+    """b7 + the decoder's (B, ⌈N/8⌉) geometry bitplane: the kernel takes
+    the residuals and the bitplane (the TPU kernel's `diff_input` and
+    `with_geom` variants)."""
+    return _resid(step, w, scale, box, normal, mask, classes, geo=w[4])
+
+
+def run_b7g(step, w, scale, box, normal, mask, cs, classes=None,
+            geom_ref=None):
     """b7 + heads and the decoder's membrane COG: the heads dequantize as
     the coordinate wires do, f32(int)·s, a bit-identical gather."""
     heads = w[4].to(scale.dtype) * scale[:, None, None]
@@ -90,7 +105,8 @@ def run_b7g(step, w, scale, box, normal, mask, cs, classes=None):
     return _resid(step, w, scale, box, normal, mask, classes)
 
 
-def run_b7x(step, w, scale, box, normal, mask, cs, classes=None):
+def run_b7x(step, w, scale, box, normal, mask, cs, classes=None,
+            geom_ref=None):
     """b7 + the exact integer positions of the atoms the other consumers
     read (individual leaflets: heads and methyls; dynamic normals: the
     normal-heads cloud)."""
@@ -102,11 +118,13 @@ def run_b7x(step, w, scale, box, normal, mask, cs, classes=None):
 
 
 def _positions(step, coords, inv_scale, box, normal, mask, cs, classes,
-               cog=None):
+               cog=None, geo=None, geom_ref=None):
     """Coordinate wires: integer positions stay integer for the step (the
     single-rounding bond difference, or the pair difference of an ordermap
     run, whose samples the step adds to the run's map state); the
-    classifier and the dynamic normals read f32(q)·s."""
+    classifier and the dynamic normals read f32(q)·s. A geometry run's
+    step takes the decoder's bitplane `geo` (the `*G` kinds), or computes
+    the mask from the positions and `geom_ref`."""
     classify = classes is None and (cs.coords is not None or cog is not None)
     cf = coords
     if (classify or cs.normals is not None) and inv_scale is not None:
@@ -115,34 +133,57 @@ def _positions(step, coords, inv_scale, box, normal, mask, cs, classes,
         classes = (cs.channel_coords(cf, cog, box) if cog is not None
                    else cs.coords(cf, box))
     normal, guard = _normals(cs.normals, cf, box, normal, mask)
+    geometry = (dict(geo=geo) if geo is not None
+                else dict(geom_ref=geom_ref) if geom_ref is not None else {})
     return Used(step.positions(coords, box, normal, mask,
                                inv_scale=inv_scale, classes=classes,
-                               map_state=cs.map_state),
+                               map_state=cs.map_state, **geometry),
                 classes, normal, guard)
 
 
-def run_i16(step, w, scale, box, normal, mask, cs, classes=None):
+def run_i16(step, w, scale, box, normal, mask, cs, classes=None,
+            geom_ref=None):
     """int16 XTC integers."""
-    return _positions(step, w[0], scale, box, normal, mask, cs, classes)
+    return _positions(step, w[0], scale, box, normal, mask, cs, classes,
+                      geom_ref=geom_ref)
 
 
-def run_f32(step, w, scale, box, normal, mask, cs, classes=None):
+def run_f32(step, w, scale, box, normal, mask, cs, classes=None,
+            geom_ref=None):
     """f32 positions (non-XTC input): pair differences."""
-    return _positions(step, w[0], None, box, normal, mask, cs, classes)
+    return _positions(step, w[0], None, box, normal, mask, cs, classes,
+                      geom_ref=geom_ref)
 
 
-def run_i16g(step, w, scale, box, normal, mask, cs, classes=None):
+def run_i16g(step, w, scale, box, normal, mask, cs, classes=None,
+             geom_ref=None):
     """int16 + the decoder's membrane COG."""
     return _positions(step, w[0], scale, box, normal, mask, cs, classes,
-                      cog=w[1])
+                      cog=w[1], geom_ref=geom_ref)
 
 
-def run_f32g(step, w, scale, box, normal, mask, cs, classes=None):
+def run_f32g(step, w, scale, box, normal, mask, cs, classes=None,
+             geom_ref=None):
     """f32 + the decoder's membrane COG."""
     return _positions(step, w[0], None, box, normal, mask, cs, classes,
-                      cog=w[1])
+                      cog=w[1], geom_ref=geom_ref)
+
+
+def run_i16G(step, w, scale, box, normal, mask, cs, classes=None,
+             geom_ref=None):
+    """int16 + the decoder's geometry bitplane."""
+    return _positions(step, w[0], scale, box, normal, mask, cs, classes,
+                      geo=w[1])
+
+
+def run_f32G(step, w, scale, box, normal, mask, cs, classes=None,
+             geom_ref=None):
+    """f32 + the decoder's geometry bitplane."""
+    return _positions(step, w[0], None, box, normal, mask, cs, classes,
+                      geo=w[1])
 
 
 BY_KIND = {"b7": run_b7, "b7g": run_b7g, "b7x": run_b7x, "b7m": run_b7,
-           "i16": run_i16, "f32": run_f32, "i16g": run_i16g,
-           "f32g": run_f32g}
+           "b7geo": run_b7geo, "i16": run_i16, "f32": run_f32,
+           "i16g": run_i16g, "f32g": run_f32g, "i16G": run_i16G,
+           "f32G": run_f32G}

@@ -1,24 +1,25 @@
 """Membrane normals at run time (port of
 `gorder_tpu/engine/normals_runtime.py:25-266`): dynamic (per-molecule PCA)
 normals, manual normal tables (from a file or an inline map), the axis
-leaflet classification takes when the normal is not static, and the
-collection of the normals each batch used, for export.
-
-The geometry-restricted molecule-inside mask of normal collection
-(`_make_molecule_inside`) waits for geometry, which the drivers refuse.
-Reference parity notes cite src/analysis/normal.rs and src/errors.rs per
-function.
+leaflet classification takes when the normal is not static, the
+collection of the normals each batch used, for export, and the
+molecule-inside mask that restricts that export to a geometry
+(`_make_molecule_inside`). Reference parity notes cite
+src/analysis/normal.rs and src/errors.rs per function.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
+from ..core.geometry import inside_mask
 from ..core.normals import DynamicNormals
+from ..core.order import geometry_reference
+from ..core.pbc import min_image
 from ..errors import ConfigError, DynamicNormalError, ManualNormalError
 from ..select import select_mask
 from ..topology.classify import MoleculeKind
@@ -35,6 +36,12 @@ class NormalsRuntime:
     compute: Optional[DynamicNormals] = None
     table: Optional[np.ndarray] = None    # (F, M, 3) manual normals
     collected: Optional[List[np.ndarray]] = None
+    # an export restricted to a geometry: (coords f32, box, geom_ref) →
+    # (B, M) bool, True where the molecule has a bond inside the region.
+    # The reference computes normals lazily per requesting bond
+    # (normal.rs OnceCell), so a molecule with no analyzed bond exports
+    # NaN.
+    molecule_inside: Optional[Callable] = None
 
     def validate(self, n_analyzed: int) -> None:
         if self.mode == "manual" and len(self.table) != n_analyzed:
@@ -73,6 +80,33 @@ def check_normal_guard(guard) -> None:
             f"(hint: try increasing the 'radius' in the "
             f"'membrane_normal' section of your input configuration "
             f"file)")
+
+
+def _make_molecule_inside(atom_a, atom_b, bond_mol, n_molecules: int,
+                          geom_spec, handle_pbc: bool, device="cpu"):
+    """(coords, box_diag, geom_ref) → (B, M) bool: the molecule has ≥ 1 bond
+    midpoint inside the geometry (port of gorder_tpu/engine/
+    normals_runtime.py:111-142). Like the JAX package, it takes the pair
+    difference p_b − p_a of the f32 positions, not the order step's single
+    rounding, and the reference of `core/order.py geometry_reference`."""
+    def idx(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=device)
+
+    aa, ab, mol = idx(atom_a), idx(atom_b), idx(bond_mol)
+
+    def fn(coords, box_diag, geom_ref):
+        pa = coords.index_select(1, aa)
+        d = coords.index_select(1, ab) - pa
+        if handle_pbc:
+            d = min_image(d, box_diag[:, None, :])
+        ref = geometry_reference(coords, box_diag, geom_ref, handle_pbc)
+        geo = inside_mask(pa + d * 0.5, ref, box_diag, geom_spec,
+                          handle_pbc)
+        out = torch.zeros((coords.shape[0], n_molecules), dtype=torch.int32,
+                          device=coords.device)
+        return out.index_add_(1, mol, geo.to(torch.int32)) > 0
+
+    return fn
 
 
 def _build_normals(system, analysis, kinds: List[MoleculeKind],

@@ -265,6 +265,34 @@ def _empty_results(analysis: Analysis, system: System) -> AnalysisResults:
         analysis=analysis,
     )
 
+def _prepare_geometry(system: System, analysis: Analysis):
+    """(GeometrySpec, mode, payload) or (None, None, None).
+    payload: the (3,) point for 'point', None for the box 'center' (taken
+    per batch), or the atom indices of a selection whose center is the
+    reference of each frame (gorder_tpu/engine/prepare.py:268-292)."""
+    from ..core.geometry import build_geometry_spec
+
+    spec = build_geometry_spec(analysis.geometry)
+    if spec is None:
+        return None, None, None
+    ref = analysis.geometry.reference
+    if ref is None:
+        if not analysis.handle_pbc:
+            # wording: src/errors.rs:42-43
+            # (GeometryConfigError::InvalidBoxCenter)
+            raise ConfigError(
+                "cannot use dynamic center of simulation box as the "
+                "reference position since periodic boundary conditions are "
+                "ignored")
+        return spec, "center", None
+    if isinstance(ref, str):
+        mask = select_mask(system, ref)
+        if not mask.any():
+            raise _empty_group_error("GeomReference")
+        return spec, "selection", np.nonzero(mask)[0].astype(np.int32)
+    return spec, "point", np.asarray(ref, np.float32)
+
+
 def _prepare_ua_kinds(system: System, analysis: Analysis):
     """→ (kinds, CompiledUA or None): selections + classification +
     virtual-bond compilation shared by the run and merge paths."""

@@ -1,8 +1,9 @@
 """The b7 wire: its host-side probe and its device-side decoders on
-tensors (port of `gorder_tpu/engine/wire.py:89-133` and `_probe_b7`), and
-the int16 dequantization. In the JAX package the decoders are XLA code,
-not Pallas, so here they are plain PyTorch ops on whatever device the
-payload lies on.
+tensors (port of `gorder_tpu/engine/wire.py:89-133` and `_probe_b7`), the
+int16 dequantization, and the geometry bitplane (`geo_bits`, port of
+`gorder_tpu/engine/fused.py:69-76`, and its inverse `pack_geo_bits`). In
+the JAX package the decoders are XLA code, not Pallas, so here they are
+plain PyTorch ops on whatever device the payload lies on.
 
 The bit arithmetic runs in int32: every intermediate below fits, and
 PyTorch's unsigned types lack most operations.
@@ -81,3 +82,25 @@ def dequant(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """int XTC integers → f32 nm, f32(q)·s, bit-identical to the host
     decode (port of `_dequant_impl`)."""
     return q.to(torch.float32) * s[:, None, None]
+
+
+def geo_bits(geo: torch.Tensor, n_bonds: int) -> torch.Tensor:
+    """(B, ⌈N/8⌉) uint8 geometry bitplane → (B, n_bonds) bool: bit j of
+    byte j >> 3 is bond j inside the shape, the layout of the decoder's
+    bitplane (native/xdr.cpp xtc_geo_mask; gorder_tpu/engine/fused.py
+    geo_bits, which gives the same bits as f32)."""
+    shifts = torch.arange(8, dtype=torch.int32, device=geo.device)
+    bits = (geo.to(torch.int32)[:, :, None] >> shifts) & 1
+    return bits.reshape(geo.shape[0], -1)[:, :n_bonds].to(torch.bool)
+
+
+def pack_geo_bits(mask: torch.Tensor) -> torch.Tensor:
+    """(B, N) bool inside-shape mask → the (B, ⌈N/8⌉) uint8 bitplane of
+    `geo_bits`, so that a mask computed on the device and the decoder's
+    reach the P2 kernel in one layout."""
+    b, n = mask.shape
+    pad = (-n) % 8
+    bits = torch.nn.functional.pad(mask.to(torch.int32), (0, pad))
+    weights = 1 << torch.arange(8, dtype=torch.int32, device=mask.device)
+    return (bits.reshape(b, -1, 8) * weights).sum(-1, dtype=torch.int32) \
+        .to(torch.uint8)

@@ -54,20 +54,29 @@ class MapGrid(ctypes.Structure):
                    for name in ("ax0", "ax1", "n0", "n1")])
 
 
+class GeoShape(ctypes.Structure):
+    """csrc/common.cuh `GeoShape`, passed by value: a geometry's inside
+    test (`core/geometry.py ShapeBounds`), kind -1 without one."""
+    _fields_ = [("kind", ctypes.c_int), ("invert", ctypes.c_int),
+                ("orientation", ctypes.c_int), ("has_radius", ctypes.c_int),
+                ("bounded", ctypes.c_int * 3), ("lo", ctypes.c_float * 3),
+                ("extent", ctypes.c_float * 3), ("radius2", ctypes.c_float)]
+
+
 _vp = ctypes.c_void_p
 _int = ctypes.c_int
 # category, x, [scale,] target, h1, h2, h3, mol, bond_type, box, normal,
-# trig, mask, classes, out, map, n_frames, n_atoms, n_cat, n_types, pbc,
-# mol_normals, n_molecules, stream
-_UA = [_int] + [_vp] * 8 + [_vp, _vp, Trig, _vp, _vp, _vp, MapGrid] \
-    + [_int] * 7 + [_vp]
-# every P2 entry point ends: classes, bond_mol, out, [map,] its ints,
+# trig, mask, classes, out, map, geo, reference, n_frames, n_atoms, n_cat,
+# n_types, pbc, mol_normals, n_molecules, stream
+_UA = [_int] + [_vp] * 8 + [_vp, _vp, Trig, _vp, _vp, _vp, MapGrid,
+                            GeoShape, _vp] + [_int] * 7 + [_vp]
+# every P2 entry point ends: classes, bond_mol, geo, out, [map,] its ints,
 # mol_normals, n_molecules, stream
 _SIGNATURES = {
-    "p2_resid": [_vp] * 10 + [_int] * 6 + [_vp],
-    "p2_positions_i16": [_vp] * 11 + [_int] * 7 + [_vp],
-    "p2_positions_i16_pair": [_vp] * 11 + [MapGrid] + [_int] * 7 + [_vp],
-    "p2_positions_f32": [_vp] * 10 + [MapGrid] + [_int] * 7 + [_vp],
+    "p2_resid": [_vp] * 11 + [_int] * 6 + [_vp],
+    "p2_positions_i16": [_vp] * 12 + [_int] * 7 + [_vp],
+    "p2_positions_i16_pair": [_vp] * 12 + [MapGrid] + [_int] * 7 + [_vp],
+    "p2_positions_f32": [_vp] * 11 + [MapGrid] + [_int] * 7 + [_vp],
     "ua_positions_i16": _UA,
     "ua_positions_f32": _UA[:2] + _UA[3:],
 }
@@ -204,6 +213,38 @@ def molecule_args(normal, classes, bond_mol, n_frames, n_samples, device):
         raise ValueError(f"normals of {n_normals} molecules and classes of "
                          f"{n_molecules}")
     return bool(n_normals), classes, bond_mol, n_molecules
+
+
+def shape_args(spec, reference, n_frames, device) -> GeoShape:
+    """Check a UA geometry: `spec` a `core.geometry.GeometrySpec` and
+    `reference` its contiguous (B, 3) f32 point per frame on `device`, or
+    both None. Returns their GeoShape (kind -1 without one): the f32
+    bounds of `core.geometry.shape_bounds`, which ctypes passes exactly."""
+    from ..core.geometry import shape_bounds
+
+    if (spec is None) != (reference is None):
+        raise ValueError("a geometry needs its reference, and a reference "
+                         "its geometry")
+    if spec is None:
+        return GeoShape(kind=-1)
+    check_tensor("reference", reference, torch.float32, (n_frames, 3),
+                 device)
+    g = shape_bounds(spec)
+    return GeoShape(g.kind, int(g.invert), g.orientation,
+                    int(g.radius2 is not None),
+                    (ctypes.c_int * 3)(*map(int, g.bounded)),
+                    (ctypes.c_float * 3)(*g.lo),
+                    (ctypes.c_float * 3)(*g.extent),
+                    g.radius2 if g.radius2 is not None else 0.0)
+
+
+def geo_args(geo, n_frames, n_bonds, device):
+    """Check a geometry bitplane: (B, ⌈N/8⌉) contiguous uint8 on `device`
+    (`engine/wire.py geo_bits`), or None. Returns it."""
+    if geo is not None:
+        check_tensor("geo", geo, torch.uint8, (n_frames, (n_bonds + 7) // 8),
+                     device)
+    return geo
 
 
 def map_args(spec, state, n_classes: int, n_types: int, device) -> MapGrid:

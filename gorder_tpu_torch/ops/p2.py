@@ -11,7 +11,12 @@ variant), with or without classes. `p2_positions` with `pair` takes the
 pair difference of dequantized int16 positions (the `pair_quantized`
 variant of ordermap runs), and with an ordermap (`map_spec` and its
 (C, 2, T·n0·n1 + 1) int64 `map_state`) adds every sample to the map too,
-in place (`core/ordermap.py`). For tensors on the CPU they run the plain
+in place (`core/ordermap.py`). With a geometry selection (the
+`with_geom` variant), `geo` is the (B, ⌈N/8⌉) uint8 inside-shape bitplane
+(`engine/wire.py geo_bits`): a bond whose bit is 0 adds nothing to the
+sums, the counts or the map. The b7geo wire gives it to `p2_resid`, which
+is how the TPU kernel's `diff_input` variant (bond vectors with a geometry
+plane) is ported. For tensors on the CPU they run the plain
 version (`gorder_tpu_torch/core/order.py`); for CUDA tensors they launch
 the hand-written kernel (`csrc/p2.cu`) on the current stream, or raise.
 There is no fallback from the kernel to the plain version.
@@ -22,8 +27,8 @@ from __future__ import annotations
 import torch
 
 from ..core.order import order_step
-from .build import (call, check_tensor, device_of, frame_args, map_args,
-                    molecule_args)
+from .build import (call, check_tensor, device_of, frame_args, geo_args,
+                    map_args, molecule_args)
 
 #: launches of the P2 kernel since the last reset: the plain variant, for
 #: any input; the with_leaflets variant (classes with the static normal),
@@ -32,7 +37,9 @@ from .build import (call, check_tensor, device_of, frame_args, map_args,
 #: pair_quantized int16 variant without a map; and the map output, by
 #: input (pair int16, f32), with or without classes and normals. A launch
 #: counts in one count only: a map launch in its map count, a pair launch
-#: in the pair count. The plain version counts in none.
+#: in the pair count. A launch with a geometry bitplane counts in the
+#: with_geom count of its input only, whatever else it takes. The plain
+#: version counts in none.
 p2_launches = 0
 p2_leaflets_launches = 0            # b7 residuals
 p2_i16_leaflets_launches = 0
@@ -43,6 +50,10 @@ p2_f32_normals_launches = 0
 p2_i16_pair_launches = 0
 p2_i16_map_launches = 0
 p2_f32_map_launches = 0
+p2_geom_launches = 0                # b7 residuals (the b7geo wire)
+p2_i16_geom_launches = 0
+p2_i16_pair_geom_launches = 0       # with or without a map
+p2_f32_geom_launches = 0
 
 _LEAFLETS_COUNT = {"p2_resid": "p2_leaflets_launches",
                    "p2_positions_i16": "p2_i16_leaflets_launches",
@@ -50,33 +61,48 @@ _LEAFLETS_COUNT = {"p2_resid": "p2_leaflets_launches",
 _NORMALS_COUNT = {"p2_resid": "p2_normals_launches",
                   "p2_positions_i16": "p2_i16_normals_launches",
                   "p2_positions_f32": "p2_f32_normals_launches"}
+_GEOM_COUNT = {"p2_resid": "p2_geom_launches",
+               "p2_positions_i16": "p2_i16_geom_launches",
+               "p2_positions_i16_pair": "p2_i16_pair_geom_launches",
+               "p2_positions_f32": "p2_f32_geom_launches"}
+
+
+def _geo_mask(geo, n_bonds: int):
+    """The plain version's (B, N) bool mask of a bitplane, or None."""
+    from ..engine.wire import geo_bits
+
+    return None if geo is None else geo_bits(geo, n_bonds)
 
 
 def p2_resid_plain(r, base, inv_scale, box_diag, normal, frame_mask,
                    bond_type, n_types: int, *, handle_pbc: bool,
-                   classes=None, bond_mol=None):
+                   classes=None, bond_mol=None, geo=None):
     return order_step(r, box_diag, normal, frame_mask, None, None,
                       bond_type, n_types, inv_scale, base,
                       handle_pbc=handle_pbc, classes=classes,
-                      bond_mol=bond_mol)
+                      bond_mol=bond_mol,
+                      geo=_geo_mask(geo, bond_type.shape[0]))
 
 
 def p2_positions_plain(coords, atom_a, atom_b, inv_scale, box_diag, normal,
                        frame_mask, bond_type, n_types: int, *,
                        handle_pbc: bool, classes=None, bond_mol=None,
-                       pair: bool = False, map_spec=None, map_state=None):
+                       pair: bool = False, map_spec=None, map_state=None,
+                       geo=None):
     return order_step(coords, box_diag, normal, frame_mask, atom_a, atom_b,
                       bond_type, n_types, inv_scale, handle_pbc=handle_pbc,
                       classes=classes, bond_mol=bond_mol, pair=pair,
-                      map_spec=map_spec, map_state=map_state)
+                      map_spec=map_spec, map_state=map_state,
+                      geo=_geo_mask(geo, bond_type.shape[0]))
 
 
 def _launch(fn_name, n_frames, n_types, device, args_before_out,
-            ints_after_out, molecules, grid=None, count=None):
+            ints_after_out, molecules, geo, grid=None, count=None):
     """One launch into a zeroed output; `molecules` is the (per-molecule
     normals?, classes, bond_mol, n_molecules) of `build.molecule_args`,
-    `grid` the `build.MapGrid` of the entry points that take one, and
-    `count` the launch count to add to when it is not the variant's."""
+    `geo` the checked bitplane or None, `grid` the `build.MapGrid` of the
+    entry points that take one, and `count` the launch count to add to
+    when it is not the variant's."""
     global p2_launches
     mol_normals, classes, bond_mol, n_molecules = molecules
     shape = ((n_frames, 3, 2, n_types) if classes is not None
@@ -87,9 +113,12 @@ def _launch(fn_name, n_frames, n_types, device, args_before_out,
         call(fn_name, *args_before_out,
              classes.data_ptr() if classes is not None else None,
              bond_mol.data_ptr() if bond_mol is not None else None,
+             geo.data_ptr() if geo is not None else None,
              out.data_ptr(), *(() if grid is None else (grid,)),
              *ints_after_out, int(mol_normals), n_molecules, stream)
-    if count is not None:
+    if geo is not None:
+        globals()[_GEOM_COUNT[fn_name]] += 1
+    elif count is not None:
         globals()[count] += 1
     elif mol_normals:
         globals()[_NORMALS_COUNT[fn_name]] += 1
@@ -101,18 +130,19 @@ def _launch(fn_name, n_frames, n_types, device, args_before_out,
 
 
 def p2_resid(r, base, inv_scale, box_diag, normal, frame_mask, bond_type,
-             n_types: int, *, handle_pbc: bool, classes=None, bond_mol=None):
+             n_types: int, *, handle_pbc: bool, classes=None, bond_mol=None,
+             geo=None):
     """b7 wire: r (B, 3N) int16 residuals, base (3N,) int32, inv_scale (B,)
     f32, box_diag (B, 3) f32, normal (3,) f32 or (B, M, 3) f32 with
     bond_mol, frame_mask (B,) bool/uint8, bond_type (N,) int32 → (B, 2, T)
     int64; with classes (B, M) int32 and bond_mol (N,) int32 →
-    (B, 3, 2, T)."""
+    (B, 3, 2, T); geo (B, ⌈N/8⌉) uint8 or None."""
     device = device_of(r)
     if device.type == "cpu":
         return p2_resid_plain(r, base, inv_scale, box_diag, normal,
                               frame_mask, bond_type, n_types,
                               handle_pbc=handle_pbc, classes=classes,
-                              bond_mol=bond_mol)
+                              bond_mol=bond_mol, geo=geo)
     n_frames, n_values = r.shape
     n_bonds = n_values // 3
     check_tensor("r", r, torch.int16, (n_frames, 3 * n_bonds), device)
@@ -127,13 +157,14 @@ def p2_resid(r, base, inv_scale, box_diag, normal, frame_mask, bond_type,
          box_diag.data_ptr(), normal.data_ptr(), frame_mask.data_ptr(),
          bond_type.data_ptr()),
         (n_frames, n_bonds, n_types, int(handle_pbc)),
-        molecule_args(normal, classes, bond_mol, n_frames, n_bonds, device))
+        molecule_args(normal, classes, bond_mol, n_frames, n_bonds, device),
+        geo_args(geo, n_frames, n_bonds, device))
 
 
 def p2_positions(coords, atom_a, atom_b, inv_scale, box_diag, normal,
                  frame_mask, bond_type, n_types: int, *, handle_pbc: bool,
                  classes=None, bond_mol=None, pair: bool = False,
-                 map_spec=None, map_state=None):
+                 map_spec=None, map_state=None, geo=None):
     """i16 wire: coords (B, A, 3) int16 with inv_scale (B,) f32, the pair
     difference f32(q_b)·s − f32(q_a)·s with `pair` (`pair_quantized`),
     else the single rounding f32(q_b − q_a)·s; f32 wire: coords (B, A, 3)
@@ -141,7 +172,7 @@ def p2_positions(coords, atom_a, atom_b, inv_scale, box_diag, normal,
     p2_resid → (B, 2, T) or (B, 3, 2, T) int64. With `map_spec` and its
     (C, 2, T·n0·n1 + 1) int64 `map_state` (C = 3 with classes, else 1;
     integer positions with `pair` only), every sample is also added to the
-    map, in place."""
+    map, in place. geo (B, ⌈N/8⌉) uint8 or None, as for p2_resid."""
     device = device_of(coords)
     if device.type == "cpu":
         return p2_positions_plain(coords, atom_a, atom_b, inv_scale,
@@ -149,7 +180,7 @@ def p2_positions(coords, atom_a, atom_b, inv_scale, box_diag, normal,
                                   n_types, handle_pbc=handle_pbc,
                                   classes=classes, bond_mol=bond_mol,
                                   pair=pair, map_spec=map_spec,
-                                  map_state=map_state)
+                                  map_state=map_state, geo=geo)
     n_frames, n_atoms = coords.shape[:2]
     n_bonds = atom_a.shape[0]
     dtype = torch.int16 if inv_scale is not None else torch.float32
@@ -160,6 +191,7 @@ def p2_positions(coords, atom_a, atom_b, inv_scale, box_diag, normal,
                             n_bonds, device)
     molecules = molecule_args(normal, classes, bond_mol, n_frames, n_bonds,
                               device)
+    geo = geo_args(geo, n_frames, n_bonds, device)
     if map_state is not None and inv_scale is not None and not pair:
         raise ValueError("an ordermap on int16 positions takes the pair "
                          "difference (pair=True)")
@@ -171,16 +203,16 @@ def p2_positions(coords, atom_a, atom_b, inv_scale, box_diag, normal,
     if inv_scale is None:
         return _launch("p2_positions_f32", n_frames, n_types, device,
                        (coords.data_ptr(), atom_a.data_ptr(),
-                        atom_b.data_ptr(), *common), ints, molecules, grid,
-                       "p2_f32_map_launches" if map_state is not None
+                        atom_b.data_ptr(), *common), ints, molecules, geo,
+                       grid, "p2_f32_map_launches" if map_state is not None
                        else None)
     check_tensor("inv_scale", inv_scale, torch.float32, (n_frames,), device)
     args = (coords.data_ptr(), atom_a.data_ptr(), atom_b.data_ptr(),
             inv_scale.data_ptr(), *common)
     if not pair:
         return _launch("p2_positions_i16", n_frames, n_types, device, args,
-                       ints, molecules)
+                       ints, molecules, geo)
     return _launch("p2_positions_i16_pair", n_frames, n_types, device, args,
-                   ints, molecules, grid,
+                   ints, molecules, geo, grid,
                    "p2_i16_map_launches" if map_state is not None
                    else "p2_i16_pair_launches")

@@ -8,7 +8,12 @@ is the static (3,) f32 normal, or (B, M, 3) f32 per-molecule normals read
 by each carbon's molecule (the `per_bond_normal` variant), with or
 without classes. With an ordermap (`map_spec` and its (C, 2, T·n0·n1 + 1)
 int64 `map_state`) every sample is also added to the map, in place
-(`core/ordermap.py`). For tensors on the CPU it runs the
+(`core/ordermap.py`). With a geometry selection (`geom_spec` and the
+(B, 3) f32 `reference` point of each frame), a sample counts only where
+its bond position lies inside the shape: the TPU kernel has no geometry
+variant (pallas_ua.py:60-61) and the JAX package runs it in XLA, but the
+bond position exists only inside this kernel, so the test is made there
+(`csrc/common.cuh GeoShape`). For tensors on the CPU it runs the
 plain version (`gorder_tpu_torch/core/ua.py ua_step`); for CUDA tensors it
 zeroes the output once and makes one launch of the hand-written kernel
 (`csrc/ua.cu`) per category present, each adding into it, on the current
@@ -22,19 +27,21 @@ import torch
 
 from ..core.ua import N_HYDROGENS, TRIG, ua_step
 from .build import (Trig, call, check_tensor, device_of, frame_args,
-                    leaflet_args, map_args, normal_args)
+                    leaflet_args, map_args, normal_args, shape_args)
 
 #: launches of the UA kernel (one per category and batch) since the last
 #: reset: the plain variant; the with_leaflets variant (classes with the
 #: static normal); the per_bond_normal variant ((B, M, 3) normals, with or
-#: without classes); and the map output (with or without classes and
-#: normals). A launch counts in one count only: a map launch in the map
-#: count, one with normals in the normals count. The plain version counts
-#: in none.
+#: without classes); the map output (with or without classes and
+#: normals); and the geometry test (with or without any of those). A
+#: launch counts in one count only: a geometry launch in the geometry
+#: count, a map launch in the map count, one with normals in the normals
+#: count. The plain version counts in none.
 ua_launches = 0
 ua_leaflets_launches = 0
 ua_normals_launches = 0
 ua_map_launches = 0
+ua_geom_launches = 0
 
 _CATEGORY_ID = {"ch3": 0, "ch2": 1, "ch1u": 2, "ch1s": 3}
 
@@ -42,16 +49,19 @@ _CATEGORY_ID = {"ch3": 0, "ch2": 1, "ch1u": 2, "ch1s": 3}
 def ua_positions_plain(coords, inv_scale, box_diag, normal, frame_mask,
                        indices, bond_type, n_types: int, *,
                        handle_pbc: bool, layout, classes=None,
-                       bond_mol=None, map_spec=None, map_state=None):
+                       bond_mol=None, map_spec=None, map_state=None,
+                       geom_spec=None, reference=None):
     return ua_step(coords, box_diag, normal, frame_mask, indices, bond_type,
                    n_types, inv_scale, handle_pbc=handle_pbc, layout=layout,
                    classes=classes, bond_mol=bond_mol, map_spec=map_spec,
-                   map_state=map_state)
+                   map_state=map_state, geom_spec=geom_spec,
+                   reference=reference)
 
 
 def ua_positions(coords, inv_scale, box_diag, normal, frame_mask, indices,
                  bond_type, n_types: int, *, handle_pbc: bool, layout,
-                 classes=None, bond_mol=None, map_spec=None, map_state=None):
+                 classes=None, bond_mol=None, map_spec=None, map_state=None,
+                 geom_spec=None, reference=None):
     """int16 input: coords (B, A, 3) int16 with inv_scale (B,) f32; f32
     input: coords (B, A, 3) f32 with inv_scale None. indices: {category:
     {"target", "h1", "h2"[, "h3"][, "mol"]: (n,) int32}}; layout:
@@ -64,16 +74,18 @@ def ua_positions(coords, inv_scale, box_diag, normal, frame_mask, indices,
     (the same molecules). Per-molecule normals are read by "mol" in
     both. With `map_spec` and its (C, 2, T·n0·n1 + 1) int64 `map_state`
     (C = 3 with classes, else 1), every sample is also added to the map,
-    in place."""
+    in place. With `geom_spec` and its (B, 3) f32 `reference`, only the
+    samples inside the shape count."""
     global ua_launches, ua_leaflets_launches, ua_normals_launches
-    global ua_map_launches
+    global ua_map_launches, ua_geom_launches
     device = device_of(coords)
     if device.type == "cpu":
         return ua_positions_plain(coords, inv_scale, box_diag, normal,
                                   frame_mask, indices, bond_type, n_types,
                                   handle_pbc=handle_pbc, layout=layout,
                                   classes=classes, bond_mol=bond_mol,
-                                  map_spec=map_spec, map_state=map_state)
+                                  map_spec=map_spec, map_state=map_state,
+                                  geom_spec=geom_spec, reference=reference)
     n_frames, n_atoms = coords.shape[:2]
     n_samples = sum(n * N_HYDROGENS[cat] for cat, n in layout)
     dtype = torch.int16 if inv_scale is not None else torch.float32
@@ -92,6 +104,7 @@ def ua_positions(coords, inv_scale, box_diag, normal, frame_mask, indices,
     n_molecules = n_normals or n_molecules
     grid = map_args(map_spec, map_state, 3 if classes is not None else 1,
                     n_types, device)
+    shape = shape_args(geom_spec, reference, n_frames, device)
     by_mol = classes is not None or n_normals > 0
     for cat, n in layout:
         for key, ix in indices[cat].items():
@@ -103,14 +116,16 @@ def ua_positions(coords, inv_scale, box_diag, normal, frame_mask, indices,
                              f"mol, for leaflet classes or per-molecule "
                              f"normals")
 
-    shape = ((n_frames, 3, 2, n_types) if classes is not None
-             else (n_frames, 2, n_types))
-    out = torch.zeros(shape, dtype=torch.int64, device=device)
+    out = torch.zeros((n_frames, 3, 2, n_types) if classes is not None
+                      else (n_frames, 2, n_types), dtype=torch.int64,
+                      device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     common = (box_diag.data_ptr(), normal.data_ptr(), Trig(*TRIG),
               frame_mask.data_ptr(),
               classes.data_ptr() if classes is not None else None,
-              out.data_ptr(), grid, n_frames, n_atoms)
+              out.data_ptr(), grid, shape,
+              reference.data_ptr() if reference is not None else None,
+              n_frames, n_atoms)
     offset = 0
     for cat, n in layout:
         ix = indices[cat]
@@ -131,7 +146,9 @@ def ua_positions(coords, inv_scale, box_diag, normal, frame_mask, indices,
                 else:
                     call("ua_positions_f32", _CATEGORY_ID[cat],
                          coords.data_ptr(), *atoms, *common, *ints)
-            if map_state is not None:
+            if reference is not None:
+                ua_geom_launches += 1
+            elif map_state is not None:
                 ua_map_launches += 1
             elif n_normals:
                 ua_normals_launches += 1

@@ -16,6 +16,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 @pytest.mark.parametrize("module", [
     "gorder_tpu_torch",
     "gorder_tpu_torch.__main__",
+    "gorder_tpu_torch.cli",
+    "gorder_tpu_torch.input.export",
+    "gorder_tpu_torch.core.geometry",
     "gorder_tpu_torch.engine.drivers",
     "gorder_tpu_torch.engine.batches",
     "gorder_tpu_torch.engine.channels",

@@ -551,3 +551,148 @@ def test_ua_map_kernel_matches_plain(cuda, kind, shape, leaflets, normals):
     sums = got if leaflets else got[:, None]
     assert torch.equal(states[0].sum(-1), sums.sum((0, 3)))
     assert states[0][:, 1, -1].sum() > 0 and states[0][:, 1, :-1].sum() > 0
+
+
+GEOM_COUNTS = MAP_COUNTS + ("p2_geom_launches", "p2_i16_geom_launches",
+                            "p2_i16_pair_geom_launches",
+                            "p2_f32_geom_launches")
+
+
+def _bitplane(seed, n_frames, n_bonds, dev):
+    """A seeded (B, ⌈N/8⌉) geometry bitplane with about 60 % of the bonds
+    inside; the spare bits of the last byte set, which no bond reads."""
+    from gorder_tpu_torch.engine.wire import pack_geo_bits
+
+    rng = np.random.default_rng(seed)
+    inside = torch.as_tensor(rng.random((n_frames, n_bonds)) < 0.6)
+    geo = pack_geo_bits(inside)
+    if n_bonds % 8:
+        geo[:, -1] |= (0xFF << (n_bonds % 8)) & 0xFF
+    return geo.to(dev)
+
+
+@pytest.mark.parametrize("normals", [False, True])
+@pytest.mark.parametrize("leaflets", [False, True])
+@pytest.mark.parametrize("kind", ["resid", "i16", "i16_pair", "f32"])
+@pytest.mark.parametrize("shape", [
+    (8, 301, 200, 7, 5),       # ragged single tile, a ragged last byte
+    (64, 5000, 3000, 80, 40),  # several tiles, AA-like type count
+])
+def test_geom_kernel_matches_plain(cuda, kind, shape, leaflets, normals):
+    """with_geom: every input, with and without classes and per-molecule
+    normals (the pair and f32 inputs with a map): a bond whose bit is 0
+    adds nothing; the int64 outputs and the map equal the plain version's
+    and a launch counts in the with_geom count of its input only."""
+    from gorder_tpu_torch.core.ordermap import init_map_state
+
+    n_frames, n_bonds, n_atoms, n_types, n_mols = shape
+    pb = _problem(sum(shape), n_frames, n_bonds, n_atoms, n_types, cuda)
+    classes, bond_mol = _leaflets(sum(shape), n_frames, n_bonds, n_mols,
+                                  cuda)
+    geo = _bitplane(sum(shape), n_frames, n_bonds, cuda)
+    normal = (_normals(sum(shape), n_frames, n_mols, cuda) if normals
+              else pb["normal"])
+    c = (pb["box"], normal, pb["mask"], pb["bond_type"], pb["n_types"])
+    kw = dict(handle_pbc=True, classes=classes if leaflets else None,
+              bond_mol=bond_mol if leaflets or normals else None, geo=geo)
+    if kind == "resid":
+        kernel_fn, plain_fn, args = p2.p2_resid, p2.p2_resid_plain, \
+            pb["resid"]
+    else:
+        kernel_fn, plain_fn = p2.p2_positions, p2.p2_positions_plain
+        args = pb["i16" if kind.startswith("i16") else "f32"]
+    states = [None, None]
+    if kind in ("i16_pair", "f32"):
+        spec = _map_spec()
+        states = [init_map_state(3 if leaflets else 1, n_types, spec, cuda)
+                  for _ in range(2)]
+        kw.update(pair=True, map_spec=spec)
+    before = {name: getattr(p2, name) for name in GEOM_COUNTS}
+    got = kernel_fn(*args, *c, map_state=states[0], **kw) \
+        if states[0] is not None else kernel_fn(*args, *c, **kw)
+    torch.cuda.synchronize()
+    grown = {"resid": "p2_geom_launches", "i16": "p2_i16_geom_launches",
+             "i16_pair": "p2_i16_pair_geom_launches",
+             "f32": "p2_f32_geom_launches"}[kind]
+    assert {name: getattr(p2, name) - before[name] for name in GEOM_COUNTS} \
+        == {name: int(name == grown) for name in GEOM_COUNTS}
+    want = plain_fn(*args, *c, map_state=states[1], **kw) \
+        if states[1] is not None else plain_fn(*args, *c, **kw)
+    assert torch.equal(got, want)
+    if states[0] is not None:
+        assert torch.equal(states[0], states[1])
+    # the samples outside count nowhere: fewer than without the bitplane
+    total = got[:, 0] if leaflets else got
+    assert 0 < int(total[:, 1].sum()) < int((n_frames - 1) * n_bonds)
+    assert not got[-1].any()
+
+
+@pytest.mark.parametrize("pbc", [True, False])
+@pytest.mark.parametrize("kind", ["i16", "f32"])
+@pytest.mark.parametrize("shape", ["cuboid", "cylinder", "sphere"])
+def test_ua_geom_kernel_matches_plain(cuda, kind, shape, pbc):
+    """The UA kernel's inside test against the plain version, for each
+    shape (the sphere inverted), with a selection's per-frame center as the
+    reference; with classes, per-molecule normals and a map too. Every
+    launch counts in the geometry count."""
+    from gorder_tpu_torch.core.geometry import GeometrySpec
+    from gorder_tpu_torch.core.ordermap import init_map_state
+    from gorder_tpu_torch.core.ua import make_ua_step
+    from gorder_tpu_torch.ops import ua
+
+    import chip_smoke
+
+    spec = {"cuboid": GeometrySpec("cuboid", xdim=(-1.5, 1.0),
+                                   zdim=(-2.0, 0.5)),
+            "cylinder": GeometrySpec("cylinder", radius=1.7,
+                                     span=(-1.0, 2.0), orientation=1),
+            "sphere": GeometrySpec("sphere", radius=2.2, invert=True)}[shape]
+    pb = chip_smoke.ua_problem(7, 32, 400, 68)
+    counts = ("ua_launches", "ua_leaflets_launches", "ua_normals_launches",
+              "ua_map_launches", "ua_geom_launches")
+    selection = torch.arange(0, 400 * 10, 37, dtype=torch.int32,
+                             device=cuda)
+    for extra in ("alone", "classes, normals and map"):
+        full = extra != "alone"
+        step = make_ua_step(pb["categories"], pb["bond_type"],
+                            pb["bond_mol"], 68, handle_pbc=pbc, device=cuda,
+                            with_leaflets=full,
+                            normal_mode="per_molecule" if full else "static",
+                            map_spec=_map_spec(plane="xz") if full else None,
+                            geom_spec=spec)
+        coords = {"i16": torch.as_tensor(pb["q16"], device=cuda),
+                  "f32": torch.as_tensor(pb["coords"], device=cuda)}[kind]
+        scale = (torch.as_tensor(pb["inv16"], device=cuda) if kind == "i16"
+                 else None)
+        box = torch.as_tensor(pb["box"], device=cuda)
+        normal = (_normals(3, 32, 400, cuda) if full
+                  else torch.tensor([0.0, 0.0, 1.0], device=cuda))
+        mask = torch.as_tensor(pb["mask"], device=cuda)
+        classes = (torch.as_tensor(pb["classes"], device=cuda) if full
+                   else None)
+        states = [init_map_state(3, 68, step.map_spec, cuda) if full
+                  else None for _ in range(2)]
+        before = {name: getattr(ua, name) for name in counts}
+        got = step.positions(coords, box, normal, mask, inv_scale=scale,
+                             classes=classes, map_state=states[0],
+                             geom_ref=selection)
+        torch.cuda.synchronize()
+        assert {name: getattr(ua, name) - before[name] for name in counts} \
+            == {name: 4 * int(name == "ua_geom_launches") for name in counts}
+        coords_f = (coords if scale is None
+                    else coords.to(torch.float32) * scale[:, None, None])
+        from gorder_tpu_torch.core.order import geometry_reference
+
+        reference = geometry_reference(coords_f, box, selection, pbc)
+        want = ua.ua_positions_plain(coords, scale, box, normal, mask,
+                                     step.indices, step.bond_type, 68,
+                                     handle_pbc=pbc, layout=step.layout,
+                                     classes=classes, bond_mol=step.bond_mol,
+                                     map_spec=step.map_spec,
+                                     map_state=states[1], geom_spec=spec,
+                                     reference=reference)
+        assert torch.equal(got, want), extra
+        if full:
+            assert torch.equal(states[0], states[1])
+        n_in = int((got[:, 0] if full else got)[:, 1].sum())
+        assert 0 < n_in < 30 * 400 * 11

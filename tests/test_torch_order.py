@@ -18,7 +18,7 @@ import torch
 from gorder_tpu.core.order import OrderAccumulator as JaxAccumulator
 from gorder_tpu.core.order import make_order_step as jax_make_order_step
 from gorder_tpu.core.order import quantize_split, recombine_limbs
-from gorder_tpu_torch.errors import AnalysisError
+from gorder_tpu_torch.core.geometry import GeometrySpec
 from gorder_tpu_torch.core.order import (
     OrderAccumulator,
     from_reference_rows,
@@ -250,19 +250,34 @@ def test_step_routes_cpu_tensors_to_plain():
     np.testing.assert_array_equal(got16.numpy(), got.numpy())
 
 
+_SPHERE = GeometrySpec("sphere", radius=1.0)
+
+
 @pytest.mark.parametrize("option", [
-    # leaflets, per-molecule normals and ordermaps are ported: the refusal
-    # names only the geometry beside them
-    dict(with_leaflets=True, normal_mode="per_molecule", geom_spec=object()),
-    dict(normal_mode="per_molecule", geom_spec=object()),
-    dict(map_spec=object(), geom_spec=object()), dict(geom_spec=object())])
+    # leaflets, per-molecule normals, ordermaps and geometry are all
+    # ported: the factory takes each (it refused geometry once), and a
+    # geometry step refuses a call that gives it neither the batch's
+    # bitplane nor its reference
+    dict(with_leaflets=True, normal_mode="per_molecule", geom_spec=_SPHERE),
+    dict(normal_mode="per_molecule", geom_spec=_SPHERE),
+    dict(map_spec=object(), geom_spec=_SPHERE), dict(geom_spec=_SPHERE)])
 def test_make_order_step_rejects_unported(option):
-    with pytest.raises(AnalysisError, match="not yet ported") as err:
-        make_order_step(np.zeros(2, np.int32), np.ones(2, np.int32),
-                        np.zeros(2, np.int32), np.zeros(2, np.int32), 1, 1,
-                        device="cpu", **option)
-    assert "normal" not in str(err.value)
-    assert "geometry" in str(err.value) and "map" not in str(err.value)
+    step = make_order_step(np.zeros(2, np.int32), np.ones(2, np.int32),
+                           np.zeros(2, np.int32), np.zeros(2, np.int32), 1, 1,
+                           device="cpu", **option)
+    assert step.geom_spec is _SPHERE
+    normal = (torch.zeros((1, 1, 3)) if "normal_mode" in option
+              else torch.tensor([0.0, 0.0, 1.0]))
+    classes = (torch.zeros((1, 1), dtype=torch.int32)
+               if option.get("with_leaflets") else None)
+    with pytest.raises(ValueError, match="geom_ref"):
+        step.positions(torch.zeros((1, 2, 3)), torch.ones((1, 3)), normal,
+                       torch.ones(1, dtype=torch.bool), classes=classes)
+    with pytest.raises(ValueError, match="geometry bitplane|ordermap"):
+        step.resid(torch.zeros((1, 3), dtype=torch.int16),
+                   torch.zeros(3, dtype=torch.int32), torch.ones(1),
+                   torch.ones((1, 3)), normal,
+                   torch.ones(1, dtype=torch.bool), classes=classes)
 
 
 @pytest.mark.parametrize("with_leaflets", [False, True])

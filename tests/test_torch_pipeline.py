@@ -164,25 +164,61 @@ def test_aa_mid_run_fallback_matches_jax(aa_files, tmp_path, monkeypatch,
     assert got == want
 
 
+def _geometry_matches_jax(aa_files, tmp_path, option):
+    """A cuboid around the box center, and with it an export of dynamic
+    normals (radius 10 nm: each of the 4 lipids' clouds holds every head):
+    the YAML equals gorder_tpu's (the dynamic normals agree to float noise,
+    so there the rule of `bench.validate_output`, one 4-dp print quantum
+    on at most 10 % of the values, holds), and the exported normals are
+    NaN for the same molecules and frames, the rest equal up to sign
+    within 1e-5."""
+    import yaml
+    from gorder_tpu.input.config import Geometry, MembraneNormal
+
+    kw = dict(geometry=Geometry(kind="cuboid", xdim=(0.0, 5.0)))
+    if option == "dynamic_normal":
+        kw["membrane_normal"] = MembraneNormal.dynamic(
+            "resname POPC and name P", 10.0,
+            collect=str(tmp_path / "jax_n.yaml"))
+    want = _jax_lines(_aa(aa_files, tmp_path / "jax.yaml", **kw))
+    port = _aa(aa_files, tmp_path / "port.yaml", **kw)
+    if option == "dynamic_normal":
+        port.membrane_normal.collect = type(port.membrane_normal.collect)(
+            True, str(tmp_path / "port_n.yaml"))
+    got = _port_lines(port)
+    if option == "geometry":
+        assert got == want
+        return
+    off = sum(a != b for a, b in zip(got, want))
+    assert len(got) == len(want) and off <= len(want) // 10
+    exported = []
+    for who in ("jax", "port"):
+        with open(tmp_path / f"{who}_n.yaml") as fh:
+            exported.append(np.asarray(yaml.safe_load(fh)["POPC"],
+                                       np.float64))
+    j, p = exported
+    assert j.shape == p.shape == (AA_FRAMES, AA_LIPIDS, 3)
+    np.testing.assert_array_equal(np.isnan(p), np.isnan(j))
+    assert np.isnan(p).any() and not np.isnan(p).all()
+    keep = ~np.isnan(j)
+    assert np.minimum(np.abs(p - j), np.abs(p + j))[keep].max() <= 1e-5
+
+
 @pytest.mark.parametrize("option", ["leaflets", "ua_leaflets", "geometry",
                                     "dynamic_normal"])
 def test_unported_option_raises(aa_files, ua_files, tmp_path, option):
-    from gorder_tpu_torch.input.config import (
-        Geometry, LeafletClassification, MembraneNormal)
+    """The clustering leaflet methods wait for a later slice and raise the
+    port's "not yet ported" error before any output is written. Geometry,
+    and an export of dynamic normals restricted to a geometry, raised it
+    once: they are ported now and equal gorder_tpu's output."""
+    from gorder_tpu_torch.input.config import LeafletClassification
 
-    kw = {}
-    if option in ("leaflets", "ua_leaflets"):
-        # the clustering methods wait for a later slice
-        kw["leaflets"] = LeafletClassification.clustering(
-            "resname POPC and name P")
-    elif option == "geometry":
-        kw["geometry"] = Geometry(kind="cuboid", xdim=(0.0, 5.0))
-    elif option == "dynamic_normal":
-        # dynamic normals are ported; their export restricted to a
-        # geometry waits for geometry
-        kw["membrane_normal"] = MembraneNormal.dynamic(
-            "resname POPC and name P", collect=str(tmp_path / "n.yaml"))
-        kw["geometry"] = Geometry(kind="cuboid", xdim=(0.0, 5.0))
+    if option in ("geometry", "dynamic_normal"):
+        _geometry_matches_jax(aa_files, tmp_path, option)
+        return
+    # the clustering methods wait for a later slice
+    kw = dict(leaflets=LeafletClassification.clustering(
+        "resname POPC and name P"))
     if option == "ua_leaflets":
         a = chip_smoke.ua_analysis("ua", *ua_files, str(tmp_path / "x.yaml"))
         a.leaflets = kw["leaflets"]

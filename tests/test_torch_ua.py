@@ -25,7 +25,6 @@ import pytest
 import torch
 
 from gorder_tpu.core import ua as jua
-from gorder_tpu_torch.errors import AnalysisError
 from gorder_tpu_torch.core import ua
 from gorder_tpu_torch.core.order import from_reference_rows
 
@@ -219,19 +218,27 @@ def test_wrapper_runs_plain_on_cpu():
 @pytest.mark.parametrize("option", ["with_leaflets", "normal_mode",
                                     "map_spec", "geom_spec"])
 def test_make_ua_step_refuses_unported(option):
-    _, _, _, cats, btype, bmol, T, _ = _ua_problem(0, B=2, n_mols=2)
+    """Leaflets, per-molecule normals, ordermaps and geometry are all
+    ported: the factory takes each beside a geometry (it refused geometry
+    once), and a geometry step refuses a call without the batch's
+    reference."""
+    from gorder_tpu_torch.core.geometry import GeometrySpec
+
+    coords, box, mask, cats, btype, bmol, T, _ = _ua_problem(0, B=2,
+                                                             n_mols=2)
+    spec = GeometrySpec("sphere", radius=1.0)
     kw = {"with_leaflets": True, "normal_mode": "per_molecule",
-          "map_spec": object(), "geom_spec": object()}
-    extra = {}
-    if option != "geom_spec":
-        # leaflets, per-molecule normals and ordermaps are ported: the
-        # refusal names only the geometry beside them
-        extra["geom_spec"] = object()
-    with pytest.raises(AnalysisError, match="not yet ported") as err:
-        ua.make_ua_step(cats, btype, bmol, T, device="cpu",
-                        **{option: kw[option]}, **extra)
-    assert "normal" not in str(err.value)
-    assert "geometry" in str(err.value) and "map" not in str(err.value)
+          "map_spec": object(), "geom_spec": spec}
+    step = ua.make_ua_step(cats, btype, bmol, T, device="cpu",
+                           **{option: kw[option], "geom_spec": spec})
+    assert step.geom_spec is spec
+    normal = (torch.zeros((2, 2, 3)) if option == "normal_mode"
+              else torch.tensor([0.0, 0.0, 1.0]))
+    classes = (torch.zeros((2, 2), dtype=torch.int32)
+               if option == "with_leaflets" else None)
+    with pytest.raises(ValueError, match="geom_ref"):
+        step.positions(torch.from_numpy(coords), torch.from_numpy(box),
+                       normal, torch.from_numpy(mask), classes=classes)
 
 
 @pytest.mark.parametrize("with_leaflets", [False, True])

@@ -23,14 +23,15 @@ It imports nothing of JAX or of `gorder_tpu`. Phases, one line each:
    `tools/bench_golden/aa_10000.yaml`, and the P2 kernel must have been
    launched once per batch. Then the P2 kernel against its plain version
    on the first batch (B = 512) exactly as the run handed it to its step
-   (`run(..., on_batch=...)`): b7 residuals, int64 (B, 2, T) outputs
-   equal; CUDA-event times of both;
+   (`run(..., on_batch=...)`): the packed b7 wire, which the kernel
+   unpacks itself, int64 (B, 2, T) outputs equal; CUDA-event times of
+   both, and the kernel's time being the batch's whole device work;
 6. run aa-leaflets ... aa-fromfile-leaflets: the seven AA leaflet modes of
    tools/bench_modes.py over the same 10,000 frames; each YAML must pass
    `bench.validate_output` against its golden (the lines off by a print
    quantum, if any, counted by key), and the with_leaflets P2 kernel must
    have been launched once per batch. Then that kernel against its plain
-   version on the first batch of `aa-leaflets` (b7 residuals, with the
+   version on the first batch of `aa-leaflets` (the b7 wire, with the
    classes from the decoder's head and COG channels) and of
    `aa-local-leaflets` (int16 positions, also dequantized as f32 input,
    with the local classes), and the plain variant on the latter: the int64
@@ -95,7 +96,7 @@ It imports nothing of JAX or of `gorder_tpu`. Phases, one line each:
    against `aa-geometry_10000.yaml`, and the with_geom P2 kernel must have
    been launched once per batch. Then that kernel against its plain
    version on each run's first batch, with the bitplane the step was
-   given: b7 residuals as handed over, with `aa-leaflets`' classes and
+   given: the b7 wire as handed over, with `aa-leaflets`' classes and
    with `aa-dynamic`'s normals; int16, f32 (dequantized), and the
    pair_quantized int16 input with a map output into a freshly zeroed
    state, whose entries, the dump included, must sum to the batch's
@@ -583,17 +584,14 @@ def with_bound(label, numbers, moved, ops):
 
 def wire_inputs(db):
     """The kernel inputs of a batch the main path handed to its step (a
-    `DeviceBatch`): the b7 residuals as the path unpacks them, or the
+    `DeviceBatch`): the packed b7 wire as the decoder ships it (codes,
+    escape gaps and values, per-slot base) with its scale, or the
     coordinate wire's positions, int16 ones also dequantized, f32(q)·s, as
     the f32 input. → {input: (tensors before the frame arguments)}."""
     import torch
 
-    from gorder_tpu_torch.engine.wire import b7_residuals
-
     if db.kind.startswith("b7"):
-        pk, gp, vl, base = db.wire[:4]
-        return {"resid": (b7_residuals(pk, gp, vl, base.shape[0]), base,
-                          db.scale)}
+        return {"b7": (*db.wire[:4], db.scale)}
     coords = db.wire[0]
     if db.scale is None:
         return {"f32": (coords, None)}
@@ -604,10 +602,10 @@ def wire_inputs(db):
 
 #: the launch count of each P2 input with classes, and with (B, M, 3)
 #: normals (with or without classes)
-P2_LEAFLET_COUNTS = {"resid": "p2_leaflets_launches",
+P2_LEAFLET_COUNTS = {"b7": "p2_leaflets_launches",
                      "i16": "p2_i16_leaflets_launches",
                      "f32": "p2_f32_leaflets_launches"}
-P2_NORMAL_COUNTS = {"resid": "p2_normals_launches",
+P2_NORMAL_COUNTS = {"b7": "p2_normals_launches",
                     "i16": "p2_i16_normals_launches",
                     "f32": "p2_f32_normals_launches"}
 
@@ -644,8 +642,8 @@ def check_p2(label, db, leaflets):
              if leaflets else ""), flush=True)
     numbers = {}
     for name, inputs in wire_inputs(db).items():
-        if name == "resid":
-            kernel, plain, args = p2.p2_resid, p2.p2_resid_plain, inputs
+        if name == "b7":
+            kernel, plain, args = p2.p2_b7, p2.p2_b7_plain, inputs
         else:
             coords, scale = inputs
             kernel, plain = p2.p2_positions, p2.p2_positions_plain
@@ -858,8 +856,8 @@ def check_p2_geom(label, db, classes=None, normal=None, bond_mol=None,
                   map_spec=None):
     """The with_geom P2 kernel against its plain version on a geometry
     run's batch (`DeviceBatch`), with the bitplane the step was given (the
-    last wire tensor): b7 residuals (b7geo), or int16 positions and, as the
-    f32 input, the same dequantized (i16G). `classes` with `bond_mol` add
+    last wire tensor): the packed b7 wire (b7geo), or int16 positions and,
+    as the f32 input, the same dequantized (i16G). `classes` with `bond_mol` add
     the with_leaflets variant; `normal` (B, M, 3) with `bond_mol` the
     per_bond_normal one. With `map_spec`, the pair_quantized int16 input
     with the map output into a freshly zeroed state instead, whose entries,
@@ -898,9 +896,8 @@ def check_p2_geom(label, db, classes=None, normal=None, bond_mol=None,
         inputs = {"i16_pair": inputs["i16"]}
     numbers = {}
     for name, inp in inputs.items():
-        if name == "resid":
-            kernel, plain, args, kw = (p2.p2_resid, p2.p2_resid_plain, inp,
-                                       {})
+        if name == "b7":
+            kernel, plain, args, kw = p2.p2_b7, p2.p2_b7_plain, inp, {}
         else:
             coords, scale = inp
             kernel, plain = p2.p2_positions, p2.p2_positions_plain
@@ -916,7 +913,7 @@ def check_p2_geom(label, db, classes=None, normal=None, bond_mol=None,
             return fn(*args, *frame, n_types, handle_pbc=step.handle_pbc,
                       map_state=state, **kw, **extra), state
 
-        count = {"resid": "p2_geom_launches", "i16": "p2_i16_geom_launches",
+        count = {"b7": "p2_geom_launches", "i16": "p2_i16_geom_launches",
                  "i16_pair": "p2_i16_pair_geom_launches",
                  "f32": "p2_f32_geom_launches"}[name]
         got = compare(f"{tag} {name}", lambda r=run, k=kernel: r(k),
@@ -933,9 +930,9 @@ def check_p2_geom(label, db, classes=None, normal=None, bond_mol=None,
             print(f"check {tag} {name}: the map's entries, dump included, "
                   f"sum to the batch's inside-only type sums "
                   f"{got['map'].sum(-1).tolist()}", flush=True)
-        # the bytes the function must move: the per-bond b7 residuals of
-        # the samples inside only, every other input once
-        per_bond = args[0] if name == "resid" else None
+        # the bytes the function must move: the b7 codes of the samples
+        # inside only, every other input once
+        per_bond = args[0] if name == "b7" else None
         share = inside / max(int(db.mask.sum()) * n_bonds, 1)
         moved = (n_bytes(*args[1:] if per_bond is not None else args,
                          *frame, got["out"], *extra.values())
@@ -1055,14 +1052,18 @@ def check_ua_synthetic():
                  t(pb["classes"]) if leaflets else None)
 
 
-def ua_problem(seed, n_frames, n_mols, n_types=7):
+def ua_problem(seed, n_frames, n_mols, n_types=7, type_major=False):
     """A numpy-seeded UA problem with all four categories, laid out as
     tests/test_pallas_ua.py `_ua_problem` lays its own: molecules of 10
     atoms with 1 CH3, 3 CH2, 1 CH1u and 1 CH1s each, uniform positions in
     a 6 nm box, the last two frames masked, sample types (i·K + k) mod
     n_types per category, and seeded leaflet classes in {0, 1} per frame
-    and molecule. → dict of numpy arrays, with the positions also as int16
-    XTC integers at precision 1000."""
+    and molecule. With `type_major`, each category's targets are laid out
+    as the compiled UA topology lays them (topology/ua.py): for each
+    carbon, that carbon of every molecule, and the samples of its k-th
+    hydrogens of one type, (c·K + k) mod n_types for the category's c-th
+    carbon. → dict of numpy arrays, with the positions also as int16 XTC
+    integers at precision 1000."""
     rng = np.random.default_rng(seed)
     per = 10
     coords = rng.uniform(0, 6, (n_frames, n_mols * per, 3)).astype(np.float32)
@@ -1078,12 +1079,21 @@ def ua_problem(seed, n_frames, n_mols, n_types=7):
         "ch1s": {"target": base + 7, "h1": base + 6, "h2": base + 8,
                  "h3": base + 9},
     }
-    for d in categories.values():
-        d["mol"] = (d["target"] // per).astype(np.int32)
     k_of = {"ch3": 3, "ch2": 2, "ch1u": 1, "ch1s": 1}
-    bond_type = np.concatenate([
-        np.arange(len(d["target"]) * k_of[c]) % n_types
-        for c, d in categories.items()]).astype(np.int32)
+    types = {}
+    for c, d in categories.items():
+        n = len(d["target"])
+        sample = np.arange(n * k_of[c])
+        if type_major:
+            carbons = n // n_mols
+            order = (np.arange(n_mols)[None, :] * carbons
+                     + np.arange(carbons)[:, None]).ravel()
+            for key in d:
+                d[key] = d[key][order]
+            sample = sample // k_of[c] // n_mols * k_of[c] + sample % k_of[c]
+        d["mol"] = (d["target"] // per).astype(np.int32)
+        types[c] = sample % n_types
+    bond_type = np.concatenate(list(types.values())).astype(np.int32)
     bond_mol = np.concatenate([
         np.repeat(d["mol"], k_of[c])
         for c, d in categories.items()]).astype(np.int32)
@@ -1224,14 +1234,13 @@ def check_z_plane(aa_first, dyn_first, ua_first, ua_dyn_first, p2_static,
     from gorder_tpu_torch.ops import p2, ua
 
     z = torch.tensor([0.0, 0.0, 1.0], device="cuda")
-    r, base, scale = wire_inputs(aa_first)["resid"]
     n_frames = aa_first.mask.shape[0]
     plane = z.expand(n_frames, dyn_first.normal.shape[1], 3).contiguous()
     step = aa_first.step
-    got = p2.p2_resid(r, base, scale, aa_first.box, plane, aa_first.mask,
-                      step.bond_type, step.n_types,
-                      handle_pbc=step.handle_pbc,
-                      bond_mol=dyn_first.step.bond_mol)
+    got = p2.p2_b7(*wire_inputs(aa_first)["b7"], aa_first.box, plane,
+                   aa_first.mask, step.bond_type, step.n_types,
+                   handle_pbc=step.handle_pbc,
+                   bond_mol=dyn_first.step.bond_mol)
     if not torch.equal(got, p2_static):
         raise RuntimeError("p2 normals: the z plane != the static normal")
     coords, scale = wire_inputs(ua_first)["i16"]
@@ -1388,19 +1397,16 @@ def kernel_entry(name, source, replaces, launches, numbers):
 
 def main_path_batch_ms(db):
     """CUDA-event time of a b7 batch's whole device work on the main path:
-    the b7 unpack, then the P2 kernel."""
-    from gorder_tpu_torch.engine.wire import b7_residuals
+    the P2 kernel, from the packed wire in to the type sums out."""
     from gorder_tpu_torch.ops import p2
 
-    pk, gp, vl, base = db.wire[:4]
     step = db.step
-    unpack_ms = cuda_ms(lambda: b7_residuals(pk, gp, vl, base.shape[0]))
-    batch_ms = cuda_ms(lambda: p2.p2_resid(
-        b7_residuals(pk, gp, vl, base.shape[0]), base, db.scale, db.box,
-        db.normal, db.mask, step.bond_type, step.n_types,
-        handle_pbc=step.handle_pbc))
-    print(f"kernel: device time per batch on the main path: b7 unpack "
-          f"{unpack_ms:.4f} ms + P2 kernel = {batch_ms:.4f} ms", flush=True)
+    batch_ms = cuda_ms(lambda: p2.p2_b7(
+        *db.wire[:4], db.scale, db.box, db.normal, db.mask, step.bond_type,
+        step.n_types, handle_pbc=step.handle_pbc))
+    print(f"kernel: device time per batch on the main path (the P2 kernel, "
+          f"packed b7 wire in, type sums out): {batch_ms:.4f} ms",
+          flush=True)
     return batch_ms
 
 
@@ -1484,10 +1490,10 @@ def main() -> int:
     local = firsts["aa-local-leaflets"]
     p2_positions = check_p2("aa-local-leaflets", local, False)
     p2_local = check_p2("aa-local-leaflets", local, True)
-    if not torch.equal(p2_plain["resid"]["out"], p2_positions["i16"]["out"]):
-        raise RuntimeError("b7 residual input and int16 positions disagree: "
+    if not torch.equal(p2_plain["b7"]["out"], p2_positions["i16"]["out"]):
+        raise RuntimeError("b7 wire input and int16 positions disagree: "
                            "both must give the same integer bond vectors")
-    print("kernel: b7 residual input == int16 positions on the first batch "
+    print("kernel: b7 wire input == int16 positions on the first batch "
           "(same integer bond vectors)", flush=True)
     del local
 
@@ -1567,7 +1573,7 @@ def main() -> int:
             channels._probe_b7 = probe
         geom_launches[label] = got[count]
         if label == "aa-geometry":
-            geom_checks["resid"] = check_p2_geom(label, first)["resid"]
+            geom_checks["b7"] = check_p2_geom(label, first)["b7"]
             check_p2_geom(label, first,
                           classes=firsts["aa-leaflets"].classes,
                           bond_mol=firsts["aa-leaflets"].step.bond_mol)
@@ -1694,7 +1700,7 @@ def main() -> int:
     ua_normals = check_ua("ua-dynamic", first.step, wire_inputs(first),
                           (first.box, first.normal, first.mask))
     check_z_plane(aa_first, dyn_first, ua_first, first,
-                  p2_plain["resid"]["out"], ua_plain["i16"]["out"])
+                  p2_plain["b7"]["out"], ua_plain["i16"]["out"])
 
     # 13. UA with the ordermap (int16): its golden, the conservation law,
     # the map files; then the UA kernel's map output against plain on the
@@ -1749,11 +1755,11 @@ def main() -> int:
                       "gorder_tpu/ops/pallas_ua.py:69")
     kernels = [
         kernel_entry("p2", p2_src, p2_tpu, launches["p2_launches"],
-                     p2_plain["resid"]),
+                     p2_plain["b7"]),
         kernel_entry("p2_leaflets", p2_src, p2_tpu,
                      sum(n for mode, n in leaflet_launches.items()
                          if mode != "aa-local-leaflets"),
-                     p2_global["resid"]),
+                     p2_global["b7"]),
         kernel_entry("p2_i16_leaflets", p2_src, p2_tpu,
                      leaflet_launches["aa-local-leaflets"], p2_local["i16"]),
         kernel_entry("ua", ua_src, ua_tpu, ua_launches["ua_launches"],
@@ -1763,7 +1769,7 @@ def main() -> int:
         kernel_entry("p2_normals", p2_src, p2_tpu,
                      normal_launches["aa-dynamic"]
                      + normal_launches["aa-dynamic-export"],
-                     p2_normals["resid"]),
+                     p2_normals["b7"]),
         kernel_entry("p2_i16_normals", p2_src, p2_tpu,
                      normal_launches["aa-manual-z"], p2_i16_normals["i16"]),
         kernel_entry("ua_normals", ua_src, ua_tpu,
@@ -1777,7 +1783,7 @@ def main() -> int:
         kernel_entry("ua_map", ua_src, ua_tpu,
                      ua_map_runs["ua_map_launches"], ua_map["i16"]),
         kernel_entry("p2_geom", p2_src, p2_tpu,
-                     geom_launches["aa-geometry"], geom_checks["resid"]),
+                     geom_launches["aa-geometry"], geom_checks["b7"]),
         kernel_entry("p2_i16_geom", p2_src, p2_tpu,
                      geom_launches["aa-geometry-i16"], geom_checks["i16"]),
         kernel_entry("ua_geom", ua_src, ua_tpu, ua_geom_runs,

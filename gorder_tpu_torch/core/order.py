@@ -305,19 +305,20 @@ class OrderStep:
                              "when the step was made with a geom_spec")
         return dict(classes=classes, bond_mol=self.bond_mol, geo=geo)
 
-    def resid(self, r, base, inv_scale, box_diag, normal, frame_mask,
-              classes=None, geo=None):
-        """b7 wire input (the main path of runs without maps); `geo` the
-        decoder's bitplane of a geometry run (b7geo)."""
-        from ..ops.p2 import p2_resid
+    def b7(self, pk, gp, vl, base, inv_scale, box_diag, normal,
+           frame_mask, classes=None, geo=None):
+        """b7 wire input, packed as the decoder ships it (the main path of
+        runs without maps); `geo` the decoder's bitplane of a geometry run
+        (b7geo)."""
+        from ..ops.p2 import p2_b7
 
         if self.map_spec is not None:
             raise ValueError("an ordermap run never rides the b7 wire: its "
                              "samples need the bond positions")
-        return p2_resid(r, base, inv_scale, box_diag, normal, frame_mask,
-                        self.bond_type, self.n_types,
-                        handle_pbc=self.handle_pbc,
-                        **self._molecules(normal, classes, geo))
+        return p2_b7(pk, gp, vl, base, inv_scale, box_diag, normal,
+                     frame_mask, self.bond_type, self.n_types,
+                     handle_pbc=self.handle_pbc,
+                     **self._molecules(normal, classes, geo))
 
     def positions(self, coords, box_diag, normal, frame_mask,
                   inv_scale=None, classes=None, map_state=None, geo=None,

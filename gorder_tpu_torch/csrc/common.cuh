@@ -1,12 +1,12 @@
 // Device code shared by the order-parameter kernels (p2.cu, ua.cu): the
 // minimum image, the reference's fixed-point sample, the per-block table
-// of per-type [sum, count] int64 that a block fills with shared-memory
-// atomics and adds to the output with one global atomic per nonzero entry,
-// and the ordermap table (MapTable) that each sample is added to in global
-// memory. The tables are (2, T), or (3, 2, T) for the with_leaflets
-// variants: total, upper (class 0) and lower (class 1); a sample whose
-// molecule's class is neither 0 nor 1 counts in total only, as the TPU
-// kernels' masks do (gorder_tpu/ops/pallas_p2.py:220-222).
+// of per-type [sum, count] int64 that a warp adds its samples to with one
+// add where its lanes hold one type (warp-aggregated), the grid that gives
+// a block a whole frame, and the ordermap table (MapTable) that each
+// sample is added to in global memory. The tables are (2, T), or (3, 2, T)
+// for the with_leaflets variants: total, upper (class 0) and lower (class
+// 1); a sample whose molecule's class is neither 0 nor 1 counts in total
+// only, as the TPU kernels' masks do (gorder_tpu/ops/pallas_p2.py:220-222).
 #pragma once
 
 #include <cstdint>
@@ -16,6 +16,8 @@ namespace gorder {
 
 // The default shared memory a block may use without opting in.
 constexpr size_t kSharedBytes = 48 * 1024;
+constexpr unsigned kFullWarp = 0xffffffffu;
+constexpr int kWarpSize = 32;
 
 // d - L*rint(d/L): rint rounds half to even, like jnp.round/torch.round.
 __device__ __forceinline__ float min_image(float d, float box) {
@@ -29,8 +31,29 @@ __device__ __forceinline__ long long quantum(float sch) {
   return llround(__dmul_rn(static_cast<double>(sch), 1.0e6));
 }
 
+// How a block's shared table reaches the frame's rows of the output:
+// stored (the block owns the frame and writes every entry, zeros
+// included), added with plain loads and stores (the block owns the frame
+// and a launch before it on the stream stored the rows), or added with
+// global atomics (several blocks share the frame; the rows were zeroed or
+// stored before).
+enum Flush : int { kStore = 0, kAdd = 1, kAtomic = 2 };
+
 // A block's table of per-type [sum, count] for its frame: (kClasses, 2, T)
-// in shared memory when kShared, else the frame's rows of the output.
+// in shared memory when kShared, else the frame's rows of the output,
+// which a launch then adds into with global atomics.
+//
+// Samples arrive a warp at a time (`add`). Where the lanes hold one type,
+// as the type-major layouts give, the warp's int32 sum is one redux.sync
+// (a sample is |q| <= 10^6, so 32 of them fit int32), its count a
+// popcount, and one lane does the two int64 atomics, instead of 32 lanes
+// serialized on one address. A warp across the boundary of two type runs
+// makes two such groups; the other lanes of a warp of mixed types add
+// their own samples: there __match_any_sync and a redux.sync per group
+// cost more than the atomics they save (on an H100 the AA batch permuted
+// molecule-major ran 4.6x slower with them than with per-lane atomics;
+// gorder_tpu_torch/diagnostics/layout.py). Integer sums are exact in any
+// order.
 template <bool kShared, int kClasses>
 struct TypeTable {
   static_assert(kClasses == 1 || kClasses == 3, "total, or total/upper/lower");
@@ -53,35 +76,93 @@ struct TypeTable {
     }
   }
 
-  __device__ __forceinline__ void add_to(int c, int t, long long q) const {
+  __device__ __forceinline__ void add_to(int c, int t, int sum,
+                                         int count) const {
     unsigned long long* row = acc + static_cast<size_t>(c) * 2 * n_types;
-    atomicAdd(row + t, static_cast<unsigned long long>(q));
-    atomicAdd(row + n_types + t, 1ULL);
+    atomicAdd(row + t, static_cast<unsigned long long>(
+                           static_cast<long long>(sum)));
+    atomicAdd(row + n_types + t, static_cast<unsigned long long>(count));
   }
 
-  // Sample q of type t, of a molecule in leaflet class cls (read only by
-  // the with_leaflets table).
-  __device__ __forceinline__ void add(int t, long long q, int cls) const {
-    add_to(0, t, q);
+  // The lanes `group` of the warp, all of type t, as one add per class:
+  // their sum is one full-warp redux.sync of the group's samples (every
+  // lane takes part with the same mask), their count a popcount, and the
+  // group's first lane adds both. up, lo: the lanes of class 0 and 1.
+  __device__ __forceinline__ void add_group(int t, unsigned group, int qi,
+                                            unsigned up, unsigned lo) const {
+    const unsigned lane = 1u << (threadIdx.x & (kWarpSize - 1));
+    const int mine = (group & lane) ? qi : 0;
+    const int sum = __reduce_add_sync(kFullWarp, mine);
+    const bool leader = lane == (group & (0u - group));
     if constexpr (kClasses == 3) {
-      if (cls == 0) add_to(1, t, q);
-      else if (cls == 1) add_to(2, t, q);
+      const int sum_up = __reduce_add_sync(kFullWarp, (up & lane) ? mine : 0);
+      const int sum_lo = __reduce_add_sync(kFullWarp, (lo & lane) ? mine : 0);
+      if (leader) {
+        if (const int n = __popc(group & up)) add_to(1, t, sum_up, n);
+        if (const int n = __popc(group & lo)) add_to(2, t, sum_lo, n);
+      }
+    }
+    if (leader) add_to(0, t, sum, __popc(group));
+  }
+
+  // Every lane of the warp calls this together, converged: lane sample q
+  // of type t, of a molecule in leaflet class cls (read only by the
+  // with_leaflets table), counted when `valid`. A lane that counts nothing
+  // (a masked frame, a sample outside the geometry, the ragged end of a
+  // tile) passes valid = false. The lanes of the first counting lane's
+  // type are one group; so, when it differs, are those of the last one's
+  // (a warp across the boundary of two type runs); any other lane (a warp
+  // of mixed types) adds its own sample, to an address that the warp's
+  // other lanes seldom share.
+  __device__ __forceinline__ void add(int t, long long q, bool valid,
+                                      int cls) const {
+    const unsigned active = __ballot_sync(kFullWarp, valid);
+    if (active == 0u) return;  // warp-uniform
+    const int qi = valid ? static_cast<int>(q) : 0;
+    const int first = __shfl_sync(kFullWarp, t, __ffs(active) - 1);
+    const int last = __shfl_sync(kFullWarp, t, 31 - __clz(active));
+    const unsigned up =
+        kClasses == 3 ? __ballot_sync(kFullWarp, valid && cls == 0) : 0u;
+    const unsigned lo =
+        kClasses == 3 ? __ballot_sync(kFullWarp, valid && cls == 1) : 0u;
+    const unsigned head = active & __ballot_sync(kFullWarp, t == first);
+    add_group(first, head, qi, up, lo);
+    unsigned rest = active & ~head;
+    if (rest == 0u) return;  // one type: the type-major layouts' case
+    if (last != first) {
+      const unsigned tail = rest & __ballot_sync(kFullWarp, t == last);
+      add_group(last, tail, qi, up, lo);
+      rest &= ~tail;
+    }
+    if (rest & (1u << (threadIdx.x & (kWarpSize - 1)))) {
+      add_to(0, t, qi, 1);
+      if constexpr (kClasses == 3) {
+        if (cls == 0) add_to(1, t, qi, 1);
+        else if (cls == 1) add_to(2, t, qi, 1);
+      }
     }
   }
 
   // Every thread of the block calls this once, after its last add.
-  __device__ __forceinline__ void flush() const {
+  __device__ __forceinline__ void flush(int mode) const {
     if constexpr (kShared) {
       __syncthreads();
       for (int k = threadIdx.x; k < kClasses * 2 * n_types; k += blockDim.x) {
-        if (acc[k] != 0ULL) atomicAdd(frame_out + k, acc[k]);
+        const unsigned long long v = acc[k];
+        if (mode == kStore) {
+          frame_out[k] = v;
+        } else if (mode == kAdd) {
+          frame_out[k] += v;
+        } else if (v != 0ULL) {
+          atomicAdd(frame_out + k, v);
+        }
       }
     }
   }
 };
 
 // Shared-memory bytes of a kShared table of n_types.
-inline size_t table_bytes(int n_types, int n_classes) {
+__host__ __device__ inline size_t table_bytes(int n_types, int n_classes) {
   return static_cast<size_t>(n_classes) * 2 * static_cast<size_t>(n_types) *
          sizeof(unsigned long long);
 }
@@ -90,6 +171,56 @@ inline size_t table_bytes(int n_types, int n_classes) {
 // T <= 1024 for (3, 2, T); larger tables add straight into the output.
 inline bool table_fits(int n_types, int n_classes) {
   return table_bytes(n_types, n_classes) <= kSharedBytes;
+}
+
+// How a launch over n_frames frames of n_items samples (bonds, targets)
+// cuts its work: `splits` blocks a frame, grid (splits, B), and each warp
+// of a block a contiguous chunk of `chunk` items (a multiple of the warp
+// size, so that every lane of a warp runs the same iterations). One block
+// a frame when there are frames enough to fill the card twice over;
+// otherwise a frame is split, at most until each warp has one iteration.
+struct Grid {
+  int splits;
+  int chunk;
+};
+
+inline Grid frame_grid(int n_frames, int n_items, int threads) {
+  int device = 0, sms = 132;
+  if (cudaGetDevice(&device) == cudaSuccess) {
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  const int warps = threads / kWarpSize;
+  const int most = (n_items + threads - 1) / threads;
+  int splits = (2 * sms + n_frames - 1) / n_frames;
+  splits = splits < 1 ? 1 : (splits > most ? most : splits);
+  const int per_warp = (n_items + splits * warps - 1) / (splits * warps);
+  return Grid{splits, (per_warp + kWarpSize - 1) / kWarpSize * kWarpSize};
+}
+
+// The flush (*mode) of a launch that writes (accumulate = 0) or adds into
+// (accumulate = 1) an output of out_bytes, zeroing the output on the
+// stream when its blocks will add with atomics into rows nothing has
+// written yet.
+inline cudaError_t flush_mode(bool shared, int splits, int accumulate,
+                              void* out, size_t out_bytes,
+                              cudaStream_t stream, int* mode) {
+  if (shared && splits == 1) {
+    *mode = accumulate ? kAdd : kStore;
+    return cudaSuccess;
+  }
+  *mode = kAtomic;
+  return accumulate ? cudaSuccess
+                    : cudaMemsetAsync(out, 0, out_bytes, stream);
+}
+
+// Opt a kernel in to `bytes` of dynamic shared memory when they pass the
+// default 48 KiB (up to the card's 227 KiB a block).
+template <class Kernel>
+inline cudaError_t allow_shared(Kernel kernel, size_t bytes) {
+  if (bytes <= kSharedBytes) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
 // The per_bond_normal variants' normal of molecule `mol` in frame b:

@@ -21,12 +21,13 @@
 //      minimum image (rint), proj = (vx*nx + vy*ny) + vz*nz,
 //      d2 = max(v.v, 1e-18), S = (1.5*proj^2)/d2 - 0.5, and the fixed-point
 //      sample q = llround(f64(S) * 1e6);
-//   5. q and a count into the block's (2, T) int64 table in shared memory
-//      at the sample's type (sample = category offset + i*K + k), then one
-//      global atomic per nonzero entry (common.cuh). with_leaflets: the
-//      table is (3, 2, T) and the carbon's class classes[b, mol[i]] picks
-//      upper or lower beside total, from the per-carbon molecule index
-//      that the compiled UA topology carries (pallas_ua.py:179-183).
+//   5. per hydrogen k, the warp's samples into the block's (2, T) int64
+//      table at each sample's type (sample = category offset + i*K + k),
+//      aggregated per type over the warp (common.cuh TypeTable).
+//      with_leaflets: the table is (3, 2, T) and the carbon's class
+//      classes[b, mol[i]] picks upper or lower beside total, from the
+//      per-carbon molecule index that the compiled UA topology carries
+//      (pallas_ua.py:179-183).
 // Every f32 add, multiply and divide is an _rn intrinsic, grouped as the
 // planar JAX formulation groups it, so nothing is contracted into an FMA;
 // sqrtf (with -prec-sqrt=true), atan2f, cosf and sinf are the accurate CUDA
@@ -40,13 +41,27 @@
 // The TPU kernel reads pre-gathered (B, n) planes per coordinate and sums
 // 7-bit limbs with one-hot matmuls on the MXU. Here each thread gathers its
 // own atoms and sums in int64, exact in any order. What bounds it on this
-// card: the gather of 3-4 atoms x 6 bytes per target on the int16 input
-// (12 bytes on f32), about 100-200 f32 operations plus one or two accurate
-// transcendentals (sqrt; atan2, cos, sin for CH1u) per sample, and 2 int64
-// shared-memory atomics per sample. Consecutive threads take consecutive
-// targets, which lie close together in a molecule, so the gathers mostly
-// hit the same cache lines.
-//
+// card: the operations, about 100-200 f32 operations plus one or two
+// accurate transcendentals (sqrt; atan2, cos, sin for CH1u) a sample,
+// against the gather of 3-4 atoms x 6 bytes a target on the int16 input
+// (12 bytes on f32). What the design does about it:
+//   - the targets are laid out type-major (topology/ua.py: for each
+//     carbon, that carbon of every molecule), so the 32 lanes of a warp
+//     hold one carbon and, for each k, one sample type: the per-type sums
+//     are warp-aggregated (common.cuh TypeTable), one add per warp and k
+//     instead of 32 serialized shared atomics on one address, which made
+//     the samples' add cost several times their arithmetic;
+//   - a block owns one frame and each warp a contiguous chunk of the
+//     category's targets, so that the first category's launch stores the
+//     frame's rows of the type table and the later ones add to them with
+//     plain loads and stores: no global atomics and no zeroing. With fewer
+//     frames than twice the SMs, a frame is split over several blocks,
+//     which add with global atomics (into an output the first launch zeroes
+//     on the stream);
+//   - consecutive lanes take the same carbon of consecutive molecules, so a
+//     warp's gathers are strided by a molecule's atoms: what the warp reads
+//     of a frame it reads once, from L1/L2.
+
 // Ordermaps (every category x input, with and without classes and
 // normals): the TPU kernel has no map variant (pallas_ua.py:60-61 refuses
 // maps) and the JAX package runs UA map runs through XLA, scattering the
@@ -72,9 +87,8 @@
 // frame row stays in L1/L2. It combines with the class plane (both read
 // mol). What bounds it: 12 more bytes gathered per carbon (from cache; the
 // bytes the function must move are the normals once, 12 * M per frame),
-// 6 f32 operations per carbon and 1 per hydrogen more, and the same int64
-// shared atomics. This first version is plain: making it fast is later
-// work.
+// 6 f32 operations per carbon and 1 per hydrogen more, and the same
+// warp-aggregated adds.
 
 // Geometry selection (GeoShape; every category x input, with and without
 // classes, normals and a map): the TPU kernel has no geometry variant
@@ -86,7 +100,8 @@
 // (common.cuh geo_inside); the (B, 3) f32 reference of each frame (a fixed
 // point, the box center, or a selection's center) is computed outside. A
 // sample outside the shape adds nothing to the sums, the counts or the
-// map. A null reference is a uniform branch. What bounds it: 12 bytes of
+// map, but its lane stays in the warp's add. A null reference is a
+// uniform branch. What bounds it: 12 bytes of
 // reference a frame and about 15-25 f32 operations a sample.
 
 #include <cstdint>
@@ -102,8 +117,10 @@ struct Trig {
 
 namespace {
 
+using gorder::kWarpSize;
+
 constexpr int kThreads = 256;
-constexpr int kTile = kThreads * 2;      // targets per block
+constexpr int kWarps = kThreads / kWarpSize;
 constexpr float kBondLength = 0.109f;    // f32(0.109), core/ua.py
 constexpr float kPi = 3.14159265358979f;  // f32(pi), as jnp.pi - x takes it
 
@@ -277,8 +294,10 @@ struct Targets {
   int n_cat;
 };
 
-// grid (ceil(n_cat / kTile), B); out (B, kClasses, 2, T) int64, added
-// into; classes (B, M) int32 when kClasses == 3; normal (3,) f32, or
+// grid (splits, B): block (s, b) takes frame b's targets
+// [s * kWarps * chunk, (s + 1) * kWarps * chunk), a chunk a warp;
+// out (B, kClasses, 2, T) int64, reached by `flush` (gorder::Flush);
+// classes (B, M) int32 when kClasses == 3; normal (3,) f32, or
 // (B, M, 3) f32 when kMolNormal; map: the ordermap, added into (state
 // null without one); shape and ref (B, 3) f32: the geometry and its
 // reference points (ref null without one).
@@ -289,125 +308,139 @@ ua_kernel(Coords coords, Targets tg, const float* __restrict__ box,
           const uint8_t* __restrict__ mask,
           const int32_t* __restrict__ classes, gorder::MapGrid map,
           gorder::GeoShape shape, const float* __restrict__ ref,
-          int n_molecules, int n_types, int pbc,
+          int n_molecules, int n_types, int pbc, int chunk, int flush,
           unsigned long long* __restrict__ out) {
   constexpr int K = n_hydrogens(C);
   extern __shared__ unsigned long long table[];  // when kShared
   const int b = blockIdx.y;
-  if (!mask[b]) return;  // padding frame: its rows stay zero
+  const bool live = mask[b] != 0;
+  // a padding frame: its rows are zeroed, or stored by its block
+  if (!live && flush != gorder::kStore) return;
   const gorder::TypeTable<kShared, kClasses> acc(table, out, b, n_types);
-  const gorder::MapTable<kClasses> tiles(map, n_types);
-  const V L = {box[3 * b], box[3 * b + 1], box[3 * b + 2]};
-  const float3 ref_b = ref != nullptr
-                           ? make_float3(ref[3 * b], ref[3 * b + 1],
-                                         ref[3 * b + 2])
-                           : make_float3(0.0f, 0.0f, 0.0f);
-  V n = {0.0f, 0.0f, 0.0f};
-  if constexpr (!kMolNormal) n = {normal[0], normal[1], normal[2]};
-  const int start = static_cast<int>(blockIdx.x) * kTile;
-  const int stop = min(start + kTile, tg.n_cat);
-  for (int i = start + static_cast<int>(threadIdx.x); i < stop;
-       i += kThreads) {
-    const V t = coords(b, tg.target[i]);
-    const V a1 = coords(b, tg.h1[i]);
-    const V a2 = coords(b, tg.h2[i]);
-    const V a3 = C == kCH1S ? coords(b, tg.h3[i]) : V{0.0f, 0.0f, 0.0f};
-    int cls = 0;
-    if constexpr (kClasses == 3) {
-      cls = gorder::leaflet_class(classes, b, n_molecules, tg.mol[i]);
-    }
-    float n2 = 1.0f;
-    if constexpr (kMolNormal) {
-      const float3 nm =
-          gorder::molecule_normal(normal, b, n_molecules, tg.mol[i]);
-      n = {nm.x, nm.y, nm.z};
-      n2 = gorder::normal_norm2(nm);
-    }
-    V h[K];
-    predict<C>(t, a1, a2, a3, L, pbc != 0, g, h);
+  if (live) {
+    const gorder::MapTable<kClasses> tiles(map, n_types);
+    const V L = {box[3 * b], box[3 * b + 1], box[3 * b + 2]};
+    const float3 ref_b = ref != nullptr
+                             ? make_float3(ref[3 * b], ref[3 * b + 1],
+                                           ref[3 * b + 2])
+                             : make_float3(0.0f, 0.0f, 0.0f);
+    V n = {0.0f, 0.0f, 0.0f};
+    if constexpr (!kMolNormal) n = {normal[0], normal[1], normal[2]};
+    const int first =
+        (static_cast<int>(blockIdx.x) * kWarps + threadIdx.x / kWarpSize) *
+        chunk;
+    const int last = min(first + chunk, tg.n_cat);
+    // the same iterations for every lane of the warp: a lane past the
+    // chunk, or a hydrogen outside the geometry, adds nothing but takes
+    // part in the warp's add of each hydrogen k
+    for (int i0 = first; i0 < last; i0 += kWarpSize) {
+      const int i = i0 + static_cast<int>(threadIdx.x & (kWarpSize - 1));
+      const bool in = i < last;
+      V t = {0.0f, 0.0f, 0.0f};
+      V h[K];
+      int cls = 0;
+      float n2 = 1.0f;
+      if (in) {
+        t = coords(b, tg.target[i]);
+        const V a1 = coords(b, tg.h1[i]);
+        const V a2 = coords(b, tg.h2[i]);
+        const V a3 = C == kCH1S ? coords(b, tg.h3[i]) : V{0.0f, 0.0f, 0.0f};
+        if constexpr (kClasses == 3) {
+          cls = gorder::leaflet_class(classes, b, n_molecules, tg.mol[i]);
+        }
+        if constexpr (kMolNormal) {
+          const float3 nm =
+              gorder::molecule_normal(normal, b, n_molecules, tg.mol[i]);
+          n = {nm.x, nm.y, nm.z};
+          n2 = gorder::normal_norm2(nm);
+        }
+        predict<C>(t, a1, a2, a3, L, pbc != 0, g, h);
+      }
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const V vec = ch_vector(h[k], t, L, pbc != 0);
-      // the bond position h + vec * 0.5 (gorder_tpu/core/ua.py:302-306)
-      const float3 pos =
-          make_float3(__fadd_rn(h[k].x, __fmul_rn(vec.x, 0.5f)),
-                      __fadd_rn(h[k].y, __fmul_rn(vec.y, 0.5f)),
-                      __fadd_rn(h[k].z, __fmul_rn(vec.z, 0.5f)));
-      if (ref != nullptr &&
-          !gorder::geo_inside(shape, pos, ref_b, make_float3(L.x, L.y, L.z),
-                              pbc != 0))
-        continue;  // outside the geometry: counts nowhere
-      const int type = tg.bond_type[i * K + k];
-      const long long q = ua_sample<kMolNormal>(vec, n, n2);
-      acc.add(type, q, cls);
-      if (tiles.active()) {
-        tiles.add(tiles.cell(type, pos.x, pos.y, pos.z), q, cls);
+      for (int k = 0; k < K; ++k) {
+        bool valid = in;
+        long long q = 0;
+        int type = 0;
+        if (in) {
+          const V vec = ch_vector(h[k], t, L, pbc != 0);
+          // the bond position h + vec * 0.5 (gorder_tpu/core/ua.py:302-306)
+          const float3 pos =
+              make_float3(__fadd_rn(h[k].x, __fmul_rn(vec.x, 0.5f)),
+                          __fadd_rn(h[k].y, __fmul_rn(vec.y, 0.5f)),
+                          __fadd_rn(h[k].z, __fmul_rn(vec.z, 0.5f)));
+          // outside the geometry: counts nowhere
+          valid = ref == nullptr ||
+                  gorder::geo_inside(shape, pos, ref_b,
+                                     make_float3(L.x, L.y, L.z), pbc != 0);
+          if (valid) {
+            type = tg.bond_type[i * K + k];
+            q = ua_sample<kMolNormal>(vec, n, n2);
+            if (tiles.active()) {
+              tiles.add(tiles.cell(type, pos.x, pos.y, pos.z), q, cls);
+            }
+          }
+        }
+        acc.add(type, q, valid, cls);
       }
     }
   }
-  acc.flush();
+  acc.flush(flush);
 }
+
+// What one category's launch shares with the others of a call.
+struct Launch {
+  const float* box;
+  const float* normal;
+  Trig trig;
+  const uint8_t* mask;
+  const int32_t* classes;
+  gorder::MapGrid map;
+  gorder::GeoShape shape;
+  const float* ref;
+  int n_molecules, n_frames, n_types, pbc, accumulate;
+  unsigned long long* out;
+  cudaStream_t stream;
+};
 
 template <int C, class Coords, int kClasses, bool kMolNormal>
-void launch_table(const Coords& coords, const Targets& tg, const float* box,
-                  const float* normal, const Trig& trig, const uint8_t* mask,
-                  const int32_t* classes, const gorder::MapGrid& map,
-                  const gorder::GeoShape& shape, const float* ref,
-                  int n_molecules, unsigned long long* out, int n_frames,
-                  int n_types, int pbc, cudaStream_t s) {
-  const dim3 grid((tg.n_cat + kTile - 1) / kTile, n_frames);
-  if (gorder::table_fits(n_types, kClasses)) {
+cudaError_t launch_table(const Coords& coords, const Targets& tg,
+                         const Launch& l) {
+  const bool shared = gorder::table_fits(l.n_types, kClasses);
+  const gorder::Grid grid =
+      gorder::frame_grid(l.n_frames, tg.n_cat, kThreads);
+  int flush = 0;
+  cudaError_t err = gorder::flush_mode(
+      shared, grid.splits, l.accumulate, l.out,
+      static_cast<size_t>(l.n_frames) * gorder::table_bytes(l.n_types,
+                                                            kClasses),
+      l.stream, &flush);
+  if (err != cudaSuccess) return err;
+  const dim3 blocks(grid.splits, l.n_frames);
+  if (shared) {
     ua_kernel<C, Coords, true, kClasses, kMolNormal>
-        <<<grid, kThreads, gorder::table_bytes(n_types, kClasses), s>>>(
-            coords, tg, box, normal, trig, mask, classes, map, shape, ref,
-            n_molecules, n_types, pbc, out);
+        <<<blocks, kThreads, gorder::table_bytes(l.n_types, kClasses),
+           l.stream>>>(coords, tg, l.box, l.normal, l.trig, l.mask,
+                       l.classes, l.map, l.shape, l.ref, l.n_molecules,
+                       l.n_types, l.pbc, grid.chunk, flush, l.out);
   } else {
     ua_kernel<C, Coords, false, kClasses, kMolNormal>
-        <<<grid, kThreads, 0, s>>>(coords, tg, box, normal, trig, mask,
-                                   classes, map, shape, ref, n_molecules,
-                                   n_types, pbc, out);
+        <<<blocks, kThreads, 0, l.stream>>>(
+            coords, tg, l.box, l.normal, l.trig, l.mask, l.classes, l.map,
+            l.shape, l.ref, l.n_molecules, l.n_types, l.pbc, grid.chunk,
+            flush, l.out);
   }
-}
-
-template <int C, class Coords, bool kMolNormal>
-void launch_classes(const Coords& coords, const Targets& tg,
-                    const float* box, const float* normal, const Trig& trig,
-                    const uint8_t* mask, const int32_t* classes,
-                    const gorder::MapGrid& map, const gorder::GeoShape& shape,
-                    const float* ref, int n_molecules,
-                    unsigned long long* out, int n_frames, int n_types,
-                    int pbc, cudaStream_t s) {
-  if (classes != nullptr) {
-    launch_table<C, Coords, 3, kMolNormal>(coords, tg, box, normal, trig,
-                                           mask, classes, map, shape, ref,
-                                           n_molecules, out, n_frames,
-                                           n_types, pbc, s);
-  } else {
-    launch_table<C, Coords, 1, kMolNormal>(coords, tg, box, normal, trig,
-                                           mask, classes, map, shape, ref,
-                                           n_molecules, out, n_frames,
-                                           n_types, pbc, s);
-  }
+  return cudaGetLastError();
 }
 
 template <int C, class Coords>
-void launch_category(const Coords& coords, const Targets& tg,
-                     const float* box, const float* normal, const Trig& trig,
-                     const uint8_t* mask, const int32_t* classes,
-                     const gorder::MapGrid& map,
-                     const gorder::GeoShape& shape, const float* ref,
-                     int mol_normals, int n_molecules,
-                     unsigned long long* out, int n_frames, int n_types,
-                     int pbc, cudaStream_t s) {
-  if (mol_normals) {
-    launch_classes<C, Coords, true>(coords, tg, box, normal, trig, mask,
-                                    classes, map, shape, ref, n_molecules,
-                                    out, n_frames, n_types, pbc, s);
-  } else {
-    launch_classes<C, Coords, false>(coords, tg, box, normal, trig, mask,
-                                     classes, map, shape, ref, n_molecules,
-                                     out, n_frames, n_types, pbc, s);
+cudaError_t launch_category(const Coords& coords, const Targets& tg,
+                            const Launch& l, int mol_normals) {
+  if (l.classes != nullptr) {
+    return mol_normals ? launch_table<C, Coords, 3, true>(coords, tg, l)
+                       : launch_table<C, Coords, 3, false>(coords, tg, l);
   }
+  return mol_normals ? launch_table<C, Coords, 1, true>(coords, tg, l)
+                     : launch_table<C, Coords, 1, false>(coords, tg, l);
 }
 
 template <class Coords>
@@ -418,7 +451,7 @@ int launch(int category, const Coords& coords, const void* target,
            void* out, const gorder::MapGrid& map,
            const gorder::GeoShape& shape, const void* ref, int n_frames,
            int n_cat, int n_types, int pbc, int mol_normals, int n_molecules,
-           void* stream) {
+           int accumulate, void* stream) {
   if (n_frames == 0 || n_cat == 0) return 0;
   if ((classes != nullptr || mol_normals != 0) &&
       (mol == nullptr || n_molecules <= 0))
@@ -436,39 +469,40 @@ int launch(int category, const Coords& coords, const void* target,
                    static_cast<const int32_t*>(h3),
                    static_cast<const int32_t*>(mol),
                    static_cast<const int32_t*>(bond_type), n_cat};
-  const auto* bx = static_cast<const float*>(box);
-  const auto* nv = static_cast<const float*>(normal);
-  const auto* mk = static_cast<const uint8_t*>(mask);
-  const auto* cl = static_cast<const int32_t*>(classes);
-  const auto* rf = static_cast<const float*>(ref);
-  auto* o = static_cast<unsigned long long*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
+  const Launch l{static_cast<const float*>(box),
+                 static_cast<const float*>(normal),
+                 trig,
+                 static_cast<const uint8_t*>(mask),
+                 static_cast<const int32_t*>(classes),
+                 map,
+                 shape,
+                 static_cast<const float*>(ref),
+                 n_molecules,
+                 n_frames,
+                 n_types,
+                 pbc,
+                 accumulate,
+                 static_cast<unsigned long long*>(out),
+                 static_cast<cudaStream_t>(stream)};
+  cudaError_t err;
   switch (category) {
     case kCH3:
-      launch_category<kCH3>(coords, tg, bx, nv, trig, mk, cl, map,
-                            shape, rf, mol_normals, n_molecules, o, n_frames,
-                            n_types, pbc, s);
+      err = launch_category<kCH3>(coords, tg, l, mol_normals);
       break;
     case kCH2:
-      launch_category<kCH2>(coords, tg, bx, nv, trig, mk, cl, map,
-                            shape, rf, mol_normals, n_molecules, o, n_frames,
-                            n_types, pbc, s);
+      err = launch_category<kCH2>(coords, tg, l, mol_normals);
       break;
     case kCH1U:
-      launch_category<kCH1U>(coords, tg, bx, nv, trig, mk, cl, map,
-                             shape, rf, mol_normals, n_molecules, o, n_frames,
-                             n_types, pbc, s);
+      err = launch_category<kCH1U>(coords, tg, l, mol_normals);
       break;
     case kCH1S:
       if (h3 == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-      launch_category<kCH1S>(coords, tg, bx, nv, trig, mk, cl, map,
-                             shape, rf, mol_normals, n_molecules, o, n_frames,
-                             n_types, pbc, s);
+      err = launch_category<kCH1S>(coords, tg, l, mol_normals);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -476,17 +510,18 @@ int launch(int category, const Coords& coords, const void* target,
 extern "C" {
 
 // Each entry point enqueues one launch for one category (0 CH3, 1 CH2,
-// 2 CH1u, 3 CH1s) on `stream`, adding into out, and returns
-// cudaGetLastError() (0 = launched). h3 is null except for CH1s;
-// bond_type points at the category's first sample. classes (B, M) int32
-// with the category's per-carbon molecules mol select the with_leaflets
-// variant, out (B, 3, 2, T); classes null, the plain one, out (B, 2, T).
-// mol_normals = 1 selects the per_bond_normal variant: normal is then
-// (B, M, 3) f32 read by mol, else (3,); n_molecules is M. map: the
-// ordermap by value, its state (C, 2, T * n0 * n1 + 1) int64 with C the
-// classes of out, added into; a null state, no map. shape: the geometry
-// by value, with ref (B, 3) f32 its reference point per frame; a null ref
-// (and shape.kind -1), no geometry.
+// 2 CH1u, 3 CH1s) on `stream` and returns the first error (0 =
+// launched). accumulate = 0 writes out whole (the first category of a
+// call: no need to zero it), 1 adds into it (the later ones). h3 is null
+// except for CH1s; bond_type points at the category's first sample.
+// classes (B, M) int32 with the category's per-carbon molecules mol select
+// the with_leaflets variant, out (B, 3, 2, T); classes null, the plain
+// one, out (B, 2, T). mol_normals = 1 selects the per_bond_normal variant:
+// normal is then (B, M, 3) f32 read by mol, else (3,); n_molecules is M.
+// map: the ordermap by value, its state (C, 2, T * n0 * n1 + 1) int64 with
+// C the classes of out, added into; a null state, no map. shape: the
+// geometry by value, with ref (B, 3) f32 its reference point per frame; a
+// null ref (and shape.kind -1), no geometry.
 
 int ua_positions_i16(int category, const void* x, const void* scale,
                      const void* target, const void* h1, const void* h2,
@@ -496,12 +531,13 @@ int ua_positions_i16(int category, const void* x, const void* scale,
                      gorder::MapGrid map, gorder::GeoShape shape,
                      const void* ref, int n_frames, int n_atoms, int n_cat,
                      int n_types, int pbc, int mol_normals, int n_molecules,
-                     void* stream) {
+                     int accumulate, void* stream) {
   const IntCoords coords{static_cast<const int16_t*>(x),
                          static_cast<const float*>(scale), n_atoms};
   return launch(category, coords, target, h1, h2, h3, mol, bond_type, box,
                 normal, trig, mask, classes, out, map, shape, ref, n_frames,
-                n_cat, n_types, pbc, mol_normals, n_molecules, stream);
+                n_cat, n_types, pbc, mol_normals, n_molecules, accumulate,
+                stream);
 }
 
 int ua_positions_f32(int category, const void* x, const void* target,
@@ -511,11 +547,13 @@ int ua_positions_f32(int category, const void* x, const void* target,
                      const void* classes, void* out, gorder::MapGrid map,
                      gorder::GeoShape shape, const void* ref, int n_frames,
                      int n_atoms, int n_cat, int n_types, int pbc,
-                     int mol_normals, int n_molecules, void* stream) {
+                     int mol_normals, int n_molecules, int accumulate,
+                     void* stream) {
   const FloatCoords coords{static_cast<const float*>(x), n_atoms};
   return launch(category, coords, target, h1, h2, h3, mol, bond_type, box,
                 normal, trig, mask, classes, out, map, shape, ref, n_frames,
-                n_cat, n_types, pbc, mol_normals, n_molecules, stream);
+                n_cat, n_types, pbc, mol_normals, n_molecules, accumulate,
+                stream);
 }
 
 }  // extern "C"

@@ -30,8 +30,6 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from .wire import b7_residuals
-
 
 @dataclass
 class Consumers:
@@ -72,28 +70,26 @@ def _normals(fn, cf, box, normal, mask):
     return normal, guard
 
 
-def _resid(step, w, scale, box, normal, mask, classes, guard=None,
-           geo=None):
-    pk, gp, vl, base = w[:4]
-    r = b7_residuals(pk, gp, vl, base.shape[0])
-    return Used(step.resid(r, base, scale, box, normal, mask,
-                           classes=classes, geo=geo), classes, normal, guard)
+def _b7(step, w, scale, box, normal, mask, classes, guard=None, geo=None):
+    return Used(step.b7(*w[:4], scale, box, normal, mask, classes=classes,
+                        geo=geo), classes, normal, guard)
 
 
 def run_b7(step, w, scale, box, normal, mask, cs, classes=None,
            geom_ref=None):
-    """b7 wire: the escape-applied int16 residuals go straight into the
-    kernel, which adds the per-slot base and dequantizes (resid input).
-    A b7m batch comes here too, with its host class plane as `classes`."""
-    return _resid(step, w, scale, box, normal, mask, classes)
+    """b7 wire: the packed codes, escapes and per-slot base go straight
+    into the kernel, which unpacks them, adds the base and dequantizes
+    (the TPU kernel's resid input). A b7m batch comes here too, with its
+    host class plane as `classes`."""
+    return _b7(step, w, scale, box, normal, mask, classes)
 
 
 def run_b7geo(step, w, scale, box, normal, mask, cs, classes=None,
               geom_ref=None):
     """b7 + the decoder's (B, ⌈N/8⌉) geometry bitplane: the kernel takes
-    the residuals and the bitplane (the TPU kernel's `diff_input` and
+    the packed wire and the bitplane (the TPU kernel's `diff_input` and
     `with_geom` variants)."""
-    return _resid(step, w, scale, box, normal, mask, classes, geo=w[4])
+    return _b7(step, w, scale, box, normal, mask, classes, geo=w[4])
 
 
 def run_b7g(step, w, scale, box, normal, mask, cs, classes=None,
@@ -102,7 +98,7 @@ def run_b7g(step, w, scale, box, normal, mask, cs, classes=None,
     the coordinate wires do, f32(int)·s, a bit-identical gather."""
     heads = w[4].to(scale.dtype) * scale[:, None, None]
     classes = cs.channel(heads, w[5], box)
-    return _resid(step, w, scale, box, normal, mask, classes)
+    return _b7(step, w, scale, box, normal, mask, classes)
 
 
 def run_b7x(step, w, scale, box, normal, mask, cs, classes=None,
@@ -114,7 +110,7 @@ def run_b7x(step, w, scale, box, normal, mask, cs, classes=None,
     if cs.aux is not None:
         classes = cs.aux(aux, box)
     normal, guard = _normals(cs.aux_normals, aux, box, normal, mask)
-    return _resid(step, w, scale, box, normal, mask, classes, guard)
+    return _b7(step, w, scale, box, normal, mask, classes, guard)
 
 
 def _positions(step, coords, inv_scale, box, normal, mask, cs, classes,

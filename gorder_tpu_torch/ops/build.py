@@ -67,13 +67,13 @@ _vp = ctypes.c_void_p
 _int = ctypes.c_int
 # category, x, [scale,] target, h1, h2, h3, mol, bond_type, box, normal,
 # trig, mask, classes, out, map, geo, reference, n_frames, n_atoms, n_cat,
-# n_types, pbc, mol_normals, n_molecules, stream
+# n_types, pbc, mol_normals, n_molecules, accumulate, stream
 _UA = [_int] + [_vp] * 8 + [_vp, _vp, Trig, _vp, _vp, _vp, MapGrid,
-                            GeoShape, _vp] + [_int] * 7 + [_vp]
+                            GeoShape, _vp] + [_int] * 8 + [_vp]
 # every P2 entry point ends: classes, bond_mol, geo, out, [map,] its ints,
 # mol_normals, n_molecules, stream
 _SIGNATURES = {
-    "p2_resid": [_vp] * 11 + [_int] * 6 + [_vp],
+    "p2_b7": [_vp] * 13 + [_int] * 8 + [_vp],
     "p2_positions_i16": [_vp] * 12 + [_int] * 7 + [_vp],
     "p2_positions_i16_pair": [_vp] * 12 + [MapGrid] + [_int] * 7 + [_vp],
     "p2_positions_f32": [_vp] * 11 + [MapGrid] + [_int] * 7 + [_vp],

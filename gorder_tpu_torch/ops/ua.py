@@ -15,10 +15,11 @@ variant (pallas_ua.py:60-61) and the JAX package runs it in XLA, but the
 bond position exists only inside this kernel, so the test is made there
 (`csrc/common.cuh GeoShape`). For tensors on the CPU it runs the
 plain version (`gorder_tpu_torch/core/ua.py ua_step`); for CUDA tensors it
-zeroes the output once and makes one launch of the hand-written kernel
-(`csrc/ua.cu`) per category present, each adding into it, on the current
-stream — as the TPU wrapper makes one `pallas_call` per category — or
-raises. There is no fallback from the kernel to the plain version.
+makes one launch of the hand-written kernel (`csrc/ua.cu`) per category
+present, on the current stream — as the TPU wrapper makes one
+`pallas_call` per category — or raises: the first launch writes the whole
+output (so it is allocated with `torch.empty`), each later one adds into
+it. There is no fallback from the kernel to the plain version.
 """
 
 from __future__ import annotations
@@ -116,9 +117,10 @@ def ua_positions(coords, inv_scale, box_diag, normal, frame_mask, indices,
                              f"mol, for leaflet classes or per-molecule "
                              f"normals")
 
-    out = torch.zeros((n_frames, 3, 2, n_types) if classes is not None
-                      else (n_frames, 2, n_types), dtype=torch.int64,
-                      device=device)
+    # the first category's launch writes every entry
+    alloc = torch.empty if any(n > 0 for _, n in layout) else torch.zeros
+    out = alloc((n_frames, 3, 2, n_types) if classes is not None
+                else (n_frames, 2, n_types), dtype=torch.int64, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     common = (box_diag.data_ptr(), normal.data_ptr(), Trig(*TRIG),
               frame_mask.data_ptr(),
@@ -127,6 +129,7 @@ def ua_positions(coords, inv_scale, box_diag, normal, frame_mask, indices,
               reference.data_ptr() if reference is not None else None,
               n_frames, n_atoms)
     offset = 0
+    launched = False
     for cat, n in layout:
         ix = indices[cat]
         k = N_HYDROGENS[cat]
@@ -137,7 +140,8 @@ def ua_positions(coords, inv_scale, box_diag, normal, frame_mask, indices,
                      ix["mol"].data_ptr() if by_mol else None,
                      bond_type[offset:].data_ptr())
             ints = (n, n_types, int(handle_pbc), int(n_normals > 0),
-                    n_molecules, stream)
+                    n_molecules, int(launched), stream)
+            launched = True
             with torch.cuda.device(device):
                 if inv_scale is not None:
                     call("ua_positions_i16", _CATEGORY_ID[cat],

@@ -34,6 +34,7 @@ from gorder_tpu_torch.engine.wire import geo_bits, pack_geo_bits
 from gorder_tpu_torch.ops import p2
 
 from .test_pallas_ua import _ua_problem
+from .test_torch_b7 import encode_b7
 
 t = torch.as_tensor
 
@@ -334,16 +335,16 @@ def test_step_computes_the_plane_as_jax(case):
 
 
 def test_resid_with_bitplane_matches_pallas_diff_input():
-    """`p2_resid` with the bitplane (the b7geo wire's route) against the TPU
+    """`p2_b7` with the bitplane (the b7geo wire's route) against the TPU
     kernel's `diff_input` + `with_geom` variant in interpret mode, on the
     same bond vectors: equal counts, |Δsum| ≤ n_samples."""
     from gorder_tpu.ops.pallas_p2 import make_pallas_order_step
 
     pb = _p2_problem(31)
-    got = p2.p2_resid(t(pb["r"]), t(pb["base"]), t(pb["inv"]), t(pb["box"]),
-                      t(np.array([0, 0, 1], np.float32)), t(pb["mask"]),
-                      t(pb["btype"]), pb["T"], handle_pbc=True,
-                      geo=pack_geo_bits(t(pb["plane"]))).numpy()
+    got = p2.p2_b7(*map(t, encode_b7(pb["r"])), t(pb["base"]), t(pb["inv"]),
+                   t(pb["box"]), t(np.array([0, 0, 1], np.float32)),
+                   t(pb["mask"]), t(pb["btype"]), pb["T"], handle_pbc=True,
+                   geo=pack_geo_bits(t(pb["plane"]))).numpy()
     step = make_pallas_order_step(pb["atom_a"], pb["atom_b"], pb["btype"],
                                   pb["bond_mol"], pb["T"], diff_input=True,
                                   with_geom=True)
@@ -359,16 +360,16 @@ def test_resid_with_bitplane_matches_pallas_diff_input():
 
 @pytest.mark.parametrize("classes", [False, True])
 def test_resid_with_bitplane_matches_xla_diff_input(classes):
-    """`p2_resid` with the bitplane against the XLA path's `diff_input`
+    """`p2_b7` with the bitplane against the XLA path's `diff_input`
     with the geometry plane (the b7geo route of `step_impl`), op by op: bit
     for bit, with and without classes."""
     pb = _p2_problem(37)
-    got = p2.p2_resid(t(pb["r"]), t(pb["base"]), t(pb["inv"]), t(pb["box"]),
-                      t(np.array([0, 0, 1], np.float32)), t(pb["mask"]),
-                      t(pb["btype"]), pb["T"], handle_pbc=True,
-                      classes=t(pb["classes"]) if classes else None,
-                      bond_mol=t(pb["bond_mol"]) if classes else None,
-                      geo=pack_geo_bits(t(pb["plane"]))).numpy()
+    got = p2.p2_b7(*map(t, encode_b7(pb["r"])), t(pb["base"]), t(pb["inv"]),
+                   t(pb["box"]), t(np.array([0, 0, 1], np.float32)),
+                   t(pb["mask"]), t(pb["btype"]), pb["T"], handle_pbc=True,
+                   classes=t(pb["classes"]) if classes else None,
+                   bond_mol=t(pb["bond_mol"]) if classes else None,
+                   geo=pack_geo_bits(t(pb["plane"]))).numpy()
     jstep = jax_make_order_step(pb["atom_a"], pb["atom_b"], pb["btype"],
                                 pb["bond_mol"], pb["T"], pb["M"],
                                 with_leaflets=classes)

@@ -60,6 +60,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     "gorder_tpu_torch.present.normals_out",
     "gorder_tpu_torch.utils.logcolor",
     "gorder_tpu_torch.version",
+    "gorder_tpu_torch.diagnostics.layout",
     "chip_smoke",
 ])
 def test_import_leaves_jax_out(module):

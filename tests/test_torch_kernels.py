@@ -1,8 +1,11 @@
 """The hand-written P2 and UA kernels (gorder_tpu_torch/csrc/p2.cu, ua.cu),
 with and without leaflet classes, per-molecule normals and ordermaps (the
 map state, and P2's pair_quantized int16 input), against their plain
-PyTorch versions, on the card. These tests need a CUDA device and
-skip without one; on the card run
+PyTorch versions, on the card; P2 also on the packed b7 wire with the
+escape patterns the decoder can ship, and both kernels on the layouts of
+their warp-aggregated type sums: type-major runs of a few lengths, and
+mixed types. These tests need a CUDA device and skip without one; on the
+card run
 
     python -m pytest -m cuda tests/test_torch_kernels.py
 
@@ -16,7 +19,15 @@ import torch
 
 from gorder_tpu_torch.ops import p2
 
+from .test_torch_b7 import encode_b7
+
 pytestmark = pytest.mark.cuda
+
+#: bond type layouts: random types, or type-major runs of this many bonds
+#: (the compiled topologies' layout, runs of n_molecules; a warp holds 32)
+LAYOUTS = ["random", 1, 5, 31, 32, 33, 256]
+#: UA target layouts (chip_smoke.ua_problem): mixed types, or type-major
+UA_LAYOUTS = ["mixed", "type_major"]
 
 
 @pytest.fixture
@@ -26,30 +37,37 @@ def cuda():
     return torch.device("cuda")
 
 
-def _problem(seed, n_frames, n_bonds, n_atoms, n_types, dev):
+def _problem(seed, n_frames, n_bonds, n_atoms, n_types, dev,
+             layout="random"):
+    """Positions that jitter by up to 40 XTC integers around a fixed
+    structure, so that the b7 wire of their bond differences (against the
+    first frame's) is mostly 7-bit codes with a few escapes."""
     rng = np.random.default_rng(seed)
     box = rng.uniform(3.0, 6.0, (n_frames, 3)).astype(np.float32)
-    q = rng.integers(-3000, 9000, (n_frames, n_atoms, 3)).astype(np.int16)
+    q = (rng.integers(-3000, 9000, (1, n_atoms, 3))
+         + rng.integers(-40, 41, (n_frames, n_atoms, 3))).astype(np.int16)
     atom_a = rng.integers(0, n_atoms, n_bonds).astype(np.int32)
     atom_b = rng.integers(0, n_atoms, n_bonds).astype(np.int32)
     inv = np.full(n_frames, 1e-3, np.float32)
     d = (q[:, atom_b].astype(np.int32) - q[:, atom_a].astype(np.int32))
     flat = d.reshape(n_frames, 3 * n_bonds)
     base = flat[0].astype(np.int32)
-    r = np.clip(flat - base[None], -32768, 32767).astype(np.int16)
     mask = np.ones(n_frames, bool)
     mask[-1] = False
+    bond_type = (rng.integers(0, n_types, n_bonds) if layout == "random"
+                 else (np.arange(n_bonds) // layout) % n_types)
 
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=dev)
 
+    pk, gp, vl = encode_b7(flat - base[None])
     common = dict(
         box=t(box), normal=t(np.array([0.0, 0.0, 1.0], np.float32)),
-        mask=t(mask), bond_type=t(rng.integers(0, n_types, n_bonds)
-                                  .astype(np.int32)), n_types=n_types)
+        mask=t(mask), bond_type=t(bond_type.astype(np.int32)),
+        n_types=n_types)
     return dict(
         common,
-        resid=(t(r), t(base), t(inv)),
+        b7=(t(pk), t(gp.view(np.int16)), t(vl), t(base), t(inv)),
         i16=(t(q), t(atom_a), t(atom_b), t(inv)),
         f32=(t(q.astype(np.float32) * inv[:, None, None]), t(atom_a),
              t(atom_b), None))
@@ -61,16 +79,18 @@ def _call(fn, kind, pb):
     return fn(*pb[kind], *c, handle_pbc=True)
 
 
-@pytest.mark.parametrize("kind", ["resid", "i16", "f32"])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("kind", ["b7", "i16", "f32"])
 @pytest.mark.parametrize("shape", [
     (8, 300, 200, 7),          # ragged single tile
-    (64, 5000, 3000, 80),      # several tiles, AA-like type count
+    (64, 5000, 3000, 80),      # several blocks a frame, AA-like type count
+    (300, 2000, 1000, 30),     # a block a frame: the table stored
     (4, 700, 400, 4000),       # T too large for shared memory: global path
 ])
-def test_kernel_matches_plain(cuda, kind, shape):
-    pb = _problem(sum(shape), *shape, cuda)
-    kernel_fn = p2.p2_resid if kind == "resid" else p2.p2_positions
-    plain_fn = p2.p2_resid_plain if kind == "resid" \
+def test_kernel_matches_plain(cuda, kind, shape, layout):
+    pb = _problem(sum(shape), *shape, cuda, layout)
+    kernel_fn = p2.p2_b7 if kind == "b7" else p2.p2_positions
+    plain_fn = p2.p2_b7_plain if kind == "b7" \
         else p2.p2_positions_plain
     before = p2.p2_launches
     got = _call(kernel_fn, kind, pb)
@@ -92,21 +112,24 @@ def _leaflets(seed, n_frames, n_bonds, n_mols, dev):
             torch.as_tensor(bond_mol, device=dev))
 
 
-@pytest.mark.parametrize("kind", ["resid", "i16", "f32"])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("kind", ["b7", "i16", "f32"])
 @pytest.mark.parametrize("shape", [
     (8, 300, 200, 7, 5),       # ragged single tile
-    (64, 5000, 3000, 80, 40),  # several tiles, AA-like type count
+    (64, 5000, 3000, 80, 40),  # several blocks a frame, AA-like type count
+    (300, 2000, 1000, 30, 20),  # a block a frame: the table stored
     (4, 700, 400, 1024, 9),    # (3, 2, T) fills the 48 KiB exactly
     (4, 700, 400, 1025, 9),    # one type more: global atomics
     (4, 700, 400, 1500, 9),
 ])
-def test_leaflet_kernel_matches_plain(cuda, kind, shape):
+def test_leaflet_kernel_matches_plain(cuda, kind, shape, layout):
     n_frames, n_bonds, n_atoms, n_types, n_mols = shape
-    pb = _problem(sum(shape), n_frames, n_bonds, n_atoms, n_types, cuda)
+    pb = _problem(sum(shape), n_frames, n_bonds, n_atoms, n_types, cuda,
+                  layout)
     classes, bond_mol = _leaflets(sum(shape), n_frames, n_bonds, n_mols,
                                   cuda)
-    kernel_fn = p2.p2_resid if kind == "resid" else p2.p2_positions
-    plain_fn = p2.p2_resid_plain if kind == "resid" \
+    kernel_fn = p2.p2_b7 if kind == "b7" else p2.p2_positions
+    plain_fn = p2.p2_b7_plain if kind == "b7" \
         else p2.p2_positions_plain
     c = (pb["box"], pb["normal"], pb["mask"], pb["bond_type"],
          pb["n_types"])
@@ -116,7 +139,7 @@ def test_leaflet_kernel_matches_plain(cuda, kind, shape):
     got = kernel_fn(*pb[kind], *c, handle_pbc=True, classes=classes,
                     bond_mol=bond_mol)
     torch.cuda.synchronize()
-    grown = {"resid": "p2_leaflets_launches",
+    grown = {"b7": "p2_leaflets_launches",
              "i16": "p2_i16_leaflets_launches",
              "f32": "p2_f32_leaflets_launches"}[kind]
     assert {name: getattr(p2, name) - before[name] for name in counts} == {
@@ -134,18 +157,82 @@ def test_leaflet_kernel_matches_plain(cuda, kind, shape):
 
 def test_kernel_rejects_wrong_dtype(cuda):
     pb = _problem(1, 4, 50, 30, 3, cuda)
-    r, base, inv = pb["resid"]
+    pk, gp, vl, base, inv = pb["b7"]
     with pytest.raises(TypeError):
-        p2.p2_resid(r.to(torch.int32), base, inv, pb["box"], pb["normal"],
-                    pb["mask"], pb["bond_type"], pb["n_types"],
-                    handle_pbc=True)
+        p2.p2_b7(pk.to(torch.int16), gp, vl, base, inv, pb["box"],
+                 pb["normal"], pb["mask"], pb["bond_type"], pb["n_types"],
+                 handle_pbc=True)
 
 
-def _ua_case(seed, n_frames, n_mols, n_types, dev):
+def _escape_wire(seed, gaps, n_bonds, dev):
+    """A b7 wire of random bytes (every code position of the 7-byte
+    groups) with the escape gaps `gaps` (B, cap) as given, random escape
+    values and a random base."""
+    rng = np.random.default_rng(seed)
+    gaps = np.asarray(gaps, np.uint16)
+    n_frames, cap = gaps.shape
+    pk = rng.integers(0, 256, (n_frames, (3 * n_bonds + 7) // 8 * 7),
+                      np.uint8)
+    vl = rng.integers(-32768, 32767, (n_frames, cap), np.int16)
+    base = rng.integers(-200, 200, 3 * n_bonds).astype(np.int32)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    return t(pk), t(gaps.view(np.int16)), t(vl), t(base)
+
+
+#: escape gap patterns (B, cap) and the bonds they are laid over: those of
+#: tests/test_torch_wire.py test_b7_residuals_random_payload (gaps above
+#: 2^15, a padding gap mid-row, positions past the end) on 3N = 40,002
+#: values; zero gaps in mid-stream; escapes at value 0 and at value nv − 1;
+#: positions past nv, one of them right at nv
+ESCAPES = {
+    "random_payload": ([[40_000, 7, 1], [1, 65_535, 0], [0, 0, 0],
+                        [39_999, 3, 5], [20_000, 20_000, 10]], 13_334),
+    "zero_gaps_mid_stream": ([[5, 0, 0, 3, 0, 2, 0, 100],
+                              [0, 0, 1, 0, 1, 0, 0, 7],
+                              [64, 0, 64, 0, 0, 0, 64, 0]], 301),
+    "first_and_last_value": ([[1, 902, 0], [1, 0, 902], [903, 0, 0]], 301),
+    "past_the_end": ([[901, 1, 1, 1, 1], [904, 1, 0, 0, 0],
+                      [300, 603, 1, 60_000, 2]], 301),
+}
+
+
+@pytest.mark.parametrize("layout", ["random", 32])
+@pytest.mark.parametrize("case", list(ESCAPES))
+def test_b7_escapes_match_plain(cuda, case, layout):
+    """The kernel's own unpack of the packed wire against `b7_residuals`
+    (the plain version) in int64: every escape applied where its gap puts
+    it, a gap of 0 overriding nothing, a position >= nv dropped."""
+    gaps, n_bonds = ESCAPES[case]
+    pk, gp, vl, base = _escape_wire(len(case), gaps, n_bonds, cuda)
+    n_frames = pk.shape[0]
+    rng = np.random.default_rng(3)
+    bond_type = torch.as_tensor(
+        (rng.integers(0, 7, n_bonds) if layout == "random"
+         else (np.arange(n_bonds) // layout) % 7).astype(np.int32),
+        device=cuda)
+    frame = (torch.full((n_frames,), 1e-3, device=cuda),
+             torch.full((n_frames, 3), 5.0, device=cuda),
+             torch.tensor([0.0, 0.0, 1.0], device=cuda),
+             torch.ones(n_frames, dtype=torch.bool, device=cuda), bond_type,
+             7)
+    before = p2.p2_launches
+    got = p2.p2_b7(pk, gp, vl, base, *frame, handle_pbc=True)
+    torch.cuda.synchronize()
+    assert p2.p2_launches == before + 1
+    assert torch.equal(got, p2.p2_b7_plain(pk, gp, vl, base, *frame,
+                                           handle_pbc=True))
+    assert int(got[:, 1].sum()) == n_frames * n_bonds
+
+
+def _ua_case(seed, n_frames, n_mols, n_types, dev, layout="mixed"):
     import chip_smoke
     from gorder_tpu_torch.core.ua import make_ua_step
 
-    pb = chip_smoke.ua_problem(seed, n_frames, n_mols, n_types)
+    pb = chip_smoke.ua_problem(seed, n_frames, n_mols, n_types,
+                               type_major=layout == "type_major")
     step = make_ua_step(pb["categories"], pb["bond_type"], pb["bond_mol"],
                         n_types, handle_pbc=True, device=dev)
 
@@ -159,17 +246,19 @@ def _ua_case(seed, n_frames, n_mols, n_types, dev):
     return step, frame, inputs
 
 
+@pytest.mark.parametrize("layout", UA_LAYOUTS)
 @pytest.mark.parametrize("kind", ["i16", "f32"])
 @pytest.mark.parametrize("handle_pbc", [True, False])
 @pytest.mark.parametrize("shape", [
     (6, 37, 7),                # ragged single tile per category
-    (64, 900, 68),             # several tiles, the UA cell's type count
+    (64, 900, 68),             # several blocks a frame, the UA type count
+    (300, 100, 68),            # a block a frame: stored, then added
     (4, 60, 4000),             # T too large for shared memory: global path
 ])
-def test_ua_kernel_matches_plain(cuda, kind, handle_pbc, shape):
+def test_ua_kernel_matches_plain(cuda, kind, handle_pbc, shape, layout):
     from gorder_tpu_torch.ops import ua
 
-    step, frame, inputs = _ua_case(sum(shape), *shape, cuda)
+    step, frame, inputs = _ua_case(sum(shape), *shape, cuda, layout)
     coords, scale = inputs[kind]
     before = ua.ua_launches
     got = ua.ua_positions(coords, scale, *frame, handle_pbc=handle_pbc,
@@ -184,21 +273,24 @@ def test_ua_kernel_matches_plain(cuda, kind, handle_pbc, shape):
     assert got[:-2, 1].sum() == 11 * shape[1] * (shape[0] - 2)
 
 
+@pytest.mark.parametrize("layout", UA_LAYOUTS)
 @pytest.mark.parametrize("kind", ["i16", "f32"])
 @pytest.mark.parametrize("shape", [
     (6, 37, 7),                # ragged single tile per category
-    (64, 900, 68),             # several tiles, the UA cell's type count
+    (64, 900, 68),             # several blocks a frame, the UA type count
+    (300, 100, 68),            # a block a frame: stored, then added
     (4, 60, 1024),             # (3, 2, T) fills the 48 KiB exactly
     (4, 60, 1025),             # one type more: global atomics
 ])
-def test_ua_leaflet_kernel_matches_plain(cuda, kind, shape):
+def test_ua_leaflet_kernel_matches_plain(cuda, kind, shape, layout):
     from gorder_tpu_torch.core.ua import make_ua_step
     from gorder_tpu_torch.ops import ua
 
     import chip_smoke
 
     n_frames, n_mols, n_types = shape
-    pb = chip_smoke.ua_problem(sum(shape), n_frames, n_mols, n_types)
+    pb = chip_smoke.ua_problem(sum(shape), n_frames, n_mols, n_types,
+                               type_major=layout == "type_major")
     step = make_ua_step(pb["categories"], pb["bond_type"], pb["bond_mol"],
                         n_types, handle_pbc=True, device=cuda,
                         with_leaflets=True)
@@ -253,31 +345,33 @@ P2_COUNTS = ("p2_launches", "p2_leaflets_launches", "p2_i16_leaflets_launches",
              "p2_i16_normals_launches", "p2_f32_normals_launches")
 
 
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("leaflets", [False, True])
-@pytest.mark.parametrize("kind", ["resid", "i16", "f32"])
+@pytest.mark.parametrize("kind", ["b7", "i16", "f32"])
 @pytest.mark.parametrize("shape", [
     (8, 300, 200, 7, 5),       # ragged single tile
-    (64, 5000, 3000, 80, 40),  # several tiles, AA-like type count
+    (64, 5000, 3000, 80, 40),  # several blocks a frame, AA-like type count
     (4, 700, 400, 1025, 9),    # (3, 2, T) past the 48 KiB: global atomics
 ])
-def test_normals_kernel_matches_plain(cuda, kind, shape, leaflets):
+def test_normals_kernel_matches_plain(cuda, kind, shape, leaflets, layout):
     """The per_bond_normal variant, with and without classes: a launch
     with both counts as a normals launch of its input."""
     n_frames, n_bonds, n_atoms, n_types, n_mols = shape
-    pb = _problem(sum(shape), n_frames, n_bonds, n_atoms, n_types, cuda)
+    pb = _problem(sum(shape), n_frames, n_bonds, n_atoms, n_types, cuda,
+                  layout)
     classes, bond_mol = _leaflets(sum(shape), n_frames, n_bonds, n_mols,
                                   cuda)
     classes = classes if leaflets else None
     normals = _normals(sum(shape), n_frames, n_mols, cuda)
-    kernel_fn = p2.p2_resid if kind == "resid" else p2.p2_positions
-    plain_fn = p2.p2_resid_plain if kind == "resid" \
+    kernel_fn = p2.p2_b7 if kind == "b7" else p2.p2_positions
+    plain_fn = p2.p2_b7_plain if kind == "b7" \
         else p2.p2_positions_plain
     c = (pb["box"], normals, pb["mask"], pb["bond_type"], pb["n_types"])
     before = {name: getattr(p2, name) for name in P2_COUNTS}
     got = kernel_fn(*pb[kind], *c, handle_pbc=True, classes=classes,
                     bond_mol=bond_mol)
     torch.cuda.synchronize()
-    grown = {"resid": "p2_normals_launches",
+    grown = {"b7": "p2_normals_launches",
              "i16": "p2_i16_normals_launches",
              "f32": "p2_f32_normals_launches"}[kind]
     assert {name: getattr(p2, name) - before[name] for name in P2_COUNTS} \
@@ -289,14 +383,14 @@ def test_normals_kernel_matches_plain(cuda, kind, shape, leaflets):
     assert not got[-1].any()
 
 
-@pytest.mark.parametrize("kind", ["resid", "i16", "f32"])
+@pytest.mark.parametrize("kind", ["b7", "i16", "f32"])
 def test_normals_kernel_z_plane_equals_static(cuda, kind):
     """(B, M, 3) normals that are all (0, 0, 1) give the static kernel's
     integers bit for bit."""
     pb = _problem(5, 16, 2000, 900, 40, cuda)
     _, bond_mol = _leaflets(5, 16, 2000, 30, cuda)
     plane = pb["normal"].expand(16, 30, 3).contiguous()
-    kernel_fn = p2.p2_resid if kind == "resid" else p2.p2_positions
+    kernel_fn = p2.p2_b7 if kind == "b7" else p2.p2_positions
     got = kernel_fn(*pb[kind], pb["box"], plane, pb["mask"],
                     pb["bond_type"], pb["n_types"], handle_pbc=True,
                     bond_mol=bond_mol)
@@ -306,30 +400,32 @@ def test_normals_kernel_z_plane_equals_static(cuda, kind):
 def test_normals_kernel_rejects_wrong_shape(cuda):
     pb = _problem(3, 4, 50, 30, 3, cuda)
     _, bond_mol = _leaflets(3, 4, 50, 6, cuda)
-    r, base, inv = pb["resid"]
     for bad in (torch.zeros(4, 6, 2, device=cuda),
                 torch.zeros(3, 6, 3, device=cuda)):
         with pytest.raises(ValueError):
-            p2.p2_resid(r, base, inv, pb["box"], bad, pb["mask"],
-                        pb["bond_type"], pb["n_types"], handle_pbc=True,
-                        bond_mol=bond_mol)
+            p2.p2_b7(*pb["b7"], pb["box"], bad, pb["mask"],
+                     pb["bond_type"], pb["n_types"], handle_pbc=True,
+                     bond_mol=bond_mol)
 
 
+@pytest.mark.parametrize("layout", UA_LAYOUTS)
 @pytest.mark.parametrize("leaflets", [False, True])
 @pytest.mark.parametrize("kind", ["i16", "f32"])
 @pytest.mark.parametrize("shape", [
     (6, 37, 7),                # ragged single tile per category
-    (64, 900, 68),             # several tiles, the UA cell's type count
+    (64, 900, 68),             # several blocks a frame, the UA type count
     (4, 60, 1025),             # (3, 2, T) past the 48 KiB: global atomics
 ])
-def test_ua_normals_kernel_matches_plain(cuda, kind, shape, leaflets):
+def test_ua_normals_kernel_matches_plain(cuda, kind, shape, leaflets,
+                                         layout):
     from gorder_tpu_torch.core.ua import make_ua_step
     from gorder_tpu_torch.ops import ua
 
     import chip_smoke
 
     n_frames, n_mols, n_types = shape
-    pb = chip_smoke.ua_problem(sum(shape), n_frames, n_mols, n_types)
+    pb = chip_smoke.ua_problem(sum(shape), n_frames, n_mols, n_types,
+                               type_major=layout == "type_major")
     step = make_ua_step(pb["categories"], pb["bond_type"], pb["bond_mol"],
                         n_types, handle_pbc=True, device=cuda,
                         with_leaflets=leaflets, normal_mode="per_molecule")
@@ -397,15 +493,17 @@ MAP_COUNTS = P2_COUNTS + ("p2_i16_pair_launches", "p2_i16_map_launches",
                           "p2_f32_map_launches")
 
 
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("normals", [False, True])
 @pytest.mark.parametrize("leaflets", [False, True])
 @pytest.mark.parametrize("kind", ["i16", "f32"])
 @pytest.mark.parametrize("shape", [
     (8, 300, 200, 7, 5),       # ragged single tile
-    (64, 5000, 3000, 80, 40),  # several tiles, AA-like type count
+    (64, 5000, 3000, 80, 40),  # several blocks a frame, AA-like type count
     (4, 700, 400, 1025, 9),    # (3, 2, T) past the 48 KiB: global atomics
 ])
-def test_map_kernel_matches_plain(cuda, kind, shape, leaflets, normals):
+def test_map_kernel_matches_plain(cuda, kind, shape, leaflets, normals,
+                                  layout):
     """The map output of the positions inputs (pair_quantized int16, f32),
     with and without classes and per-molecule normals: the type sums and
     a freshly zeroed map state equal the plain version's in int64, and a
@@ -413,7 +511,8 @@ def test_map_kernel_matches_plain(cuda, kind, shape, leaflets, normals):
     from gorder_tpu_torch.core.ordermap import init_map_state
 
     n_frames, n_bonds, n_atoms, n_types, n_mols = shape
-    pb = _problem(sum(shape), n_frames, n_bonds, n_atoms, n_types, cuda)
+    pb = _problem(sum(shape), n_frames, n_bonds, n_atoms, n_types, cuda,
+                  layout)
     classes, bond_mol = _leaflets(sum(shape), n_frames, n_bonds, n_mols,
                                   cuda)
     classes = classes if leaflets else None
@@ -440,11 +539,11 @@ def test_map_kernel_matches_plain(cuda, kind, shape, leaflets, normals):
     assert states[0][:, 1, -1].sum() > 0 and states[0][:, 1, :-1].sum() > 0
 
 
-@pytest.mark.parametrize("kind", ["resid", "i16", "f32"])
+@pytest.mark.parametrize("kind", ["b7", "i16", "f32"])
 def test_map_table_dump_takes_the_samples_outside(cuda, kind):
     """MapTable: the samples whose midpoint lies outside the grid go to
     the dump entry, which the plain version's map_cells gives; the b7
-    residuals and the single-rounding int16 input take no map."""
+    wire and the single-rounding int16 input take no map."""
     from gorder_tpu_torch.core.order import position_vectors
     from gorder_tpu_torch.core.ordermap import init_map_state, map_cells
     from gorder_tpu_torch.core.pbc import min_image
@@ -453,10 +552,10 @@ def test_map_table_dump_takes_the_samples_outside(cuda, kind):
     spec = _map_spec(plane="yz")
     state = init_map_state(1, 30, spec, cuda)
     c = (pb["box"], pb["normal"], pb["mask"], pb["bond_type"], 30)
-    if kind == "resid":
-        with pytest.raises(TypeError):      # p2_resid takes no map
-            p2.p2_resid(*pb["resid"], *c, handle_pbc=True, map_spec=spec,
-                        map_state=state)
+    if kind == "b7":
+        with pytest.raises(TypeError):      # p2_b7 takes no map
+            p2.p2_b7(*pb["b7"], *c, handle_pbc=True, map_spec=spec,
+                     map_state=state)
         with pytest.raises(ValueError, match="pair"):
             p2.p2_positions(*pb["i16"], *c, handle_pbc=True, map_spec=spec,
                             map_state=state)
@@ -475,17 +574,17 @@ def test_map_table_dump_takes_the_samples_outside(cuda, kind):
                         map_spec=spec, map_state=state[:, :, :-1])
 
 
-@pytest.mark.parametrize("kind", ["resid", "i16"])
+@pytest.mark.parametrize("kind", ["b7", "i16"])
 def test_pair_kernel_matches_plain(cuda, kind):
     """pair_quantized without a map: its own count, the plain version's
-    integers; `resid` checks the b7 input against the single rounding on
+    integers; `b7` checks the b7 input against the single rounding on
     the same batch (the two formulations differ in some sample)."""
     pb = _problem(13, 32, 5000, 3000, 40, cuda)
     c = (pb["box"], pb["normal"], pb["mask"], pb["bond_type"], 40)
-    if kind == "resid":
+    if kind == "b7":
         single = p2.p2_positions(*pb["i16"], *c, handle_pbc=True)
-        assert torch.equal(single, p2.p2_resid(*pb["resid"], *c,
-                                               handle_pbc=True))
+        assert torch.equal(single, p2.p2_b7(*pb["b7"], *c,
+                                            handle_pbc=True))
         pair = p2.p2_positions(*pb["i16"], *c, handle_pbc=True, pair=True)
         assert torch.equal(pair[:, 1], single[:, 1])
         return
@@ -498,15 +597,17 @@ def test_pair_kernel_matches_plain(cuda, kind):
                                                   handle_pbc=True, pair=True))
 
 
+@pytest.mark.parametrize("layout", UA_LAYOUTS)
 @pytest.mark.parametrize("normals", [False, True])
 @pytest.mark.parametrize("leaflets", [False, True])
 @pytest.mark.parametrize("kind", ["i16", "f32"])
 @pytest.mark.parametrize("shape", [
     (6, 37, 7),                # ragged single tile per category
-    (64, 900, 68),             # several tiles, the UA cell's type count
+    (64, 900, 68),             # several blocks a frame, the UA type count
     (4, 60, 1025),             # (3, 2, T) past the 48 KiB: global atomics
 ])
-def test_ua_map_kernel_matches_plain(cuda, kind, shape, leaflets, normals):
+def test_ua_map_kernel_matches_plain(cuda, kind, shape, leaflets, normals,
+                                     layout):
     from gorder_tpu_torch.core.ordermap import init_map_state
     from gorder_tpu_torch.core.ua import make_ua_step
     from gorder_tpu_torch.ops import ua
@@ -514,7 +615,8 @@ def test_ua_map_kernel_matches_plain(cuda, kind, shape, leaflets, normals):
     import chip_smoke
 
     n_frames, n_mols, n_types = shape
-    pb = chip_smoke.ua_problem(sum(shape), n_frames, n_mols, n_types)
+    pb = chip_smoke.ua_problem(sum(shape), n_frames, n_mols, n_types,
+                               type_major=layout == "type_major")
     spec = _map_spec(plane="xz")
     step = make_ua_step(pb["categories"], pb["bond_type"], pb["bond_mol"],
                         n_types, handle_pbc=True, device=cuda,
@@ -560,7 +662,8 @@ GEOM_COUNTS = MAP_COUNTS + ("p2_geom_launches", "p2_i16_geom_launches",
 
 def _bitplane(seed, n_frames, n_bonds, dev):
     """A seeded (B, ⌈N/8⌉) geometry bitplane with about 60 % of the bonds
-    inside; the spare bits of the last byte set, which no bond reads."""
+    inside (about half the lanes of a warp out); the spare bits of the
+    last byte set, which no bond reads."""
     from gorder_tpu_torch.engine.wire import pack_geo_bits
 
     rng = np.random.default_rng(seed)
@@ -571,14 +674,16 @@ def _bitplane(seed, n_frames, n_bonds, dev):
     return geo.to(dev)
 
 
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("normals", [False, True])
 @pytest.mark.parametrize("leaflets", [False, True])
-@pytest.mark.parametrize("kind", ["resid", "i16", "i16_pair", "f32"])
+@pytest.mark.parametrize("kind", ["b7", "i16", "i16_pair", "f32"])
 @pytest.mark.parametrize("shape", [
     (8, 301, 200, 7, 5),       # ragged single tile, a ragged last byte
-    (64, 5000, 3000, 80, 40),  # several tiles, AA-like type count
+    (64, 5000, 3000, 80, 40),  # several blocks a frame, AA-like type count
 ])
-def test_geom_kernel_matches_plain(cuda, kind, shape, leaflets, normals):
+def test_geom_kernel_matches_plain(cuda, kind, shape, leaflets, normals,
+                                   layout):
     """with_geom: every input, with and without classes and per-molecule
     normals (the pair and f32 inputs with a map): a bond whose bit is 0
     adds nothing; the int64 outputs and the map equal the plain version's
@@ -586,7 +691,8 @@ def test_geom_kernel_matches_plain(cuda, kind, shape, leaflets, normals):
     from gorder_tpu_torch.core.ordermap import init_map_state
 
     n_frames, n_bonds, n_atoms, n_types, n_mols = shape
-    pb = _problem(sum(shape), n_frames, n_bonds, n_atoms, n_types, cuda)
+    pb = _problem(sum(shape), n_frames, n_bonds, n_atoms, n_types, cuda,
+                  layout)
     classes, bond_mol = _leaflets(sum(shape), n_frames, n_bonds, n_mols,
                                   cuda)
     geo = _bitplane(sum(shape), n_frames, n_bonds, cuda)
@@ -595,9 +701,8 @@ def test_geom_kernel_matches_plain(cuda, kind, shape, leaflets, normals):
     c = (pb["box"], normal, pb["mask"], pb["bond_type"], pb["n_types"])
     kw = dict(handle_pbc=True, classes=classes if leaflets else None,
               bond_mol=bond_mol if leaflets or normals else None, geo=geo)
-    if kind == "resid":
-        kernel_fn, plain_fn, args = p2.p2_resid, p2.p2_resid_plain, \
-            pb["resid"]
+    if kind == "b7":
+        kernel_fn, plain_fn, args = p2.p2_b7, p2.p2_b7_plain, pb["b7"]
     else:
         kernel_fn, plain_fn = p2.p2_positions, p2.p2_positions_plain
         args = pb["i16" if kind.startswith("i16") else "f32"]
@@ -611,7 +716,7 @@ def test_geom_kernel_matches_plain(cuda, kind, shape, leaflets, normals):
     got = kernel_fn(*args, *c, map_state=states[0], **kw) \
         if states[0] is not None else kernel_fn(*args, *c, **kw)
     torch.cuda.synchronize()
-    grown = {"resid": "p2_geom_launches", "i16": "p2_i16_geom_launches",
+    grown = {"b7": "p2_geom_launches", "i16": "p2_i16_geom_launches",
              "i16_pair": "p2_i16_pair_geom_launches",
              "f32": "p2_f32_geom_launches"}[kind]
     assert {name: getattr(p2, name) - before[name] for name in GEOM_COUNTS} \
@@ -627,10 +732,11 @@ def test_geom_kernel_matches_plain(cuda, kind, shape, leaflets, normals):
     assert not got[-1].any()
 
 
+@pytest.mark.parametrize("layout", UA_LAYOUTS)
 @pytest.mark.parametrize("pbc", [True, False])
 @pytest.mark.parametrize("kind", ["i16", "f32"])
 @pytest.mark.parametrize("shape", ["cuboid", "cylinder", "sphere"])
-def test_ua_geom_kernel_matches_plain(cuda, kind, shape, pbc):
+def test_ua_geom_kernel_matches_plain(cuda, kind, shape, pbc, layout):
     """The UA kernel's inside test against the plain version, for each
     shape (the sphere inverted), with a selection's per-frame center as the
     reference; with classes, per-molecule normals and a map too. Every
@@ -647,7 +753,8 @@ def test_ua_geom_kernel_matches_plain(cuda, kind, shape, pbc):
             "cylinder": GeometrySpec("cylinder", radius=1.7,
                                      span=(-1.0, 2.0), orientation=1),
             "sphere": GeometrySpec("sphere", radius=2.2, invert=True)}[shape]
-    pb = chip_smoke.ua_problem(7, 32, 400, 68)
+    pb = chip_smoke.ua_problem(7, 32, 400, 68,
+                               type_major=layout == "type_major")
     counts = ("ua_launches", "ua_leaflets_launches", "ua_normals_launches",
               "ua_map_launches", "ua_geom_launches")
     selection = torch.arange(0, 400 * 10, 37, dtype=torch.int32,

@@ -29,6 +29,8 @@ from gorder_tpu_torch.core.order import (
 from gorder_tpu_torch.core.pbc import min_image
 from gorder_tpu_torch.ops import p2
 
+from .test_torch_b7 import encode_b7
+
 NORMALS = {"z": [0.0, 0.0, 1.0], "x": [1.0, 0.0, 0.0]}
 
 
@@ -239,8 +241,9 @@ def test_step_routes_cpu_tensors_to_plain():
                            device="cpu")
     t = torch.as_tensor
     before = p2.p2_launches
-    got = step.resid(t(pb["r"]), t(pb["base"]), t(pb["inv"]), t(pb["box"]),
-                     t(np.asarray(NORMALS["z"], np.float32)), t(pb["mask"]))
+    got = step.b7(*map(t, encode_b7(pb["r"])), t(pb["base"]), t(pb["inv"]),
+                  t(pb["box"]), t(np.asarray(NORMALS["z"], np.float32)),
+                  t(pb["mask"]))
     assert p2.p2_launches == before     # the plain version is no launch
     np.testing.assert_array_equal(got.numpy(),
                                   _port(pb, "resid", NORMALS["z"], True))
@@ -274,10 +277,12 @@ def test_make_order_step_rejects_unported(option):
         step.positions(torch.zeros((1, 2, 3)), torch.ones((1, 3)), normal,
                        torch.ones(1, dtype=torch.bool), classes=classes)
     with pytest.raises(ValueError, match="geometry bitplane|ordermap"):
-        step.resid(torch.zeros((1, 3), dtype=torch.int16),
-                   torch.zeros(3, dtype=torch.int32), torch.ones(1),
-                   torch.ones((1, 3)), normal,
-                   torch.ones(1, dtype=torch.bool), classes=classes)
+        step.b7(torch.zeros((1, 7), dtype=torch.uint8),
+                torch.zeros((1, 1), dtype=torch.int16),
+                torch.zeros((1, 1), dtype=torch.int16),
+                torch.zeros(6, dtype=torch.int32), torch.ones(1),
+                torch.ones((1, 3)), normal,
+                torch.ones(1, dtype=torch.bool), classes=classes)
 
 
 @pytest.mark.parametrize("with_leaflets", [False, True])

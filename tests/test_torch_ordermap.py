@@ -39,6 +39,7 @@ from gorder_tpu_torch.errors import OrderMapError
 from gorder_tpu_torch.ops import p2
 
 from .test_pallas_ua import _ua_problem
+from .test_torch_b7 import encode_b7
 from .test_torch_order import _problem
 from .test_torch_ua import _inputs, _no_ch1u
 
@@ -282,8 +283,8 @@ def test_step_routes_cpu_map_to_plain():
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(state.numpy(), want_map)
     with pytest.raises(ValueError, match="b7"):
-        step.resid(_t(pb["r"]), _t(pb["base"]), _t(pb["inv"]),
-                   _t(pb["box"]), normal, _t(pb["mask"]))
+        step.b7(*map(_t, encode_b7(pb["r"])), _t(pb["base"]), _t(pb["inv"]),
+                _t(pb["box"]), normal, _t(pb["mask"]))
     with pytest.raises(ValueError, match="pair"):
         order_step(_t(pb["q"]), _t(pb["box"]), normal, _t(pb["mask"]),
                    _t(pb["atom_a"]), _t(pb["atom_b"]), _t(pb["btype"]),

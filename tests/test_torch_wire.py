@@ -1,6 +1,8 @@
 """The port's device-side wire decoders (gorder_tpu_torch/engine/wire.py)
 against the JAX package's (gorder_tpu/engine/wire.py `_b7_residuals_impl`,
-`_b7_impl`, `_dequant_impl`): the outputs must be equal."""
+`_b7_impl`, `_dequant_impl`): the outputs must be equal; and the P2
+step's packed b7 entry (`p2_b7`) against the JAX package's order step on
+the same decoded wire."""
 
 import numpy as np
 import pytest
@@ -109,3 +111,38 @@ def test_dequant_matches_jax(b7_payload):
     got = dequant(torch.as_tensor(p["q"]), torch.as_tensor(s)).numpy()
     want = np.asarray(_dequant_impl(p["q"], s))
     np.testing.assert_array_equal(got, want)
+
+
+def test_packed_entry_matches_jax(b7_payload, monkeypatch):
+    """`p2_b7` on the decoder's packed wire (the plain version on the CPU:
+    the unpack, then the step) equals the JAX package's order step (XLA
+    path, op by op) on the residuals its own decoder unpacks."""
+    from gorder_tpu.core.order import make_order_step as jax_make_order_step
+    from gorder_tpu_torch.core.order import from_reference_rows
+    from gorder_tpu_torch.ops import p2
+
+    monkeypatch.setenv("GORDER_TPU_PALLAS", "0")
+    p = b7_payload
+    rows = N_FRAMES + PAD
+    atom_a = np.arange(0, 2 * N_PAIRS, 2, dtype=np.int32)
+    btype = (np.arange(N_PAIRS) // 4).astype(np.int32)   # runs of 4
+    n_types = int(btype.max()) + 1
+    box = np.full((rows, 3), 6.0, np.float32)
+    mask = np.arange(rows) < N_FRAMES
+    inv = np.zeros(rows, np.float32)
+    inv[:N_FRAMES] = p["inv"]
+    normal = np.array([0.0, 0.0, 1.0], np.float32)
+    t = torch.as_tensor
+    got = p2.p2_b7(*_port_args(p), t(p["base"]), t(inv), t(box), t(normal),
+                   t(mask), t(btype), n_types, handle_pbc=True).numpy()
+    step = jax_make_order_step(atom_a, atom_a + 1, btype,
+                               np.zeros(N_PAIRS, np.int32), n_types, 1)
+    r = np.asarray(_b7_residuals_impl(p["pk"], p["eg"], p["ev"],
+                                      3 * N_PAIRS))
+    out, _ = step.impl((r, p["base"]), box, normal, mask, inv_scale=inv,
+                       resid_input=True, use_pallas=False)
+    np.testing.assert_array_equal(got,
+                                  from_reference_rows(np.asarray(
+                                      out["total"])))
+    assert got[:N_FRAMES, 1].sum() == N_FRAMES * N_PAIRS
+    assert not got[N_FRAMES:].any()

@@ -107,14 +107,44 @@ It imports nothing of JAX or of `gorder_tpu`. Phases, one line each:
    must add up to the `ua` run's exactly, and the UA kernel's geometry
    test must have been launched once per batch and category. Then that
    kernel against plain on the first batch, int16 and f32, with the
-   reference the step computed from the batch.
+   reference the step computed from the batch;
+16. synth aab: tools/bench_modes.py's clustering bilayer
+   (`synth_aa_bilayer`: bench.py's lipid, 256 POPC, 64.5k atoms, box 13 x
+   13 x 11 nm, heads 2 nm from the midplane, chains inward, seed 31,
+   10,000 frames), synthesized byte for byte likewise, once the AA
+   trajectory is no longer needed;
+17. run aa-clustering-leaflets: spectral clustering on the P heads over
+   every frame (int16; labels oriented into leaflets on the host); its
+   YAML must pass `bench.validate_output` against its golden and the
+   with_leaflets P2 kernel must have been launched once per batch. Then
+   that kernel against plain on the first batch with the classes the step
+   used, and the classifier's CUDA-event time a batch in both algebras
+   (the matmul branch the card runs, and batched `eigh`), their labels
+   compared with each other's and the CPU's. Then every 10th frame (b7
+   with the host class plane): its totals must equal the every-frame
+   run's;
+18. run aa-spherical-leaflets: spherical clustering on the aa membrane
+   (int16, the classifier with the step), against its golden, with the
+   same kernel check and classifier time; and the `ua` analysis with
+   spherical leaflets, whose totals must equal the `ua` run's. The
+   clustering phases first assert that f32 matmuls run in full precision
+   (TF32 off);
+19. run aa-sharded, aa-clustering-sharded: `aa` as 3 frame shards through
+   `Analysis.run_partial(i, 3)` on the card, each state written with
+   `save_partial` and read back with `load_partial`, then `Analysis
+   .merge`: the merged YAML must equal phase 5's byte for byte; and
+   `aa-clustering-leaflets` as 2 shards, whose shard 1 orients its
+   clusters against global frame 0's: equal to phase 17's YAML byte for
+   byte. The kernel must have been launched once per shard batch.
 
-Then one JSON line with the kernels of the path (with each one's bound:
-the least time the card could take, from the bytes it must move at the
-H100's 3.35 TB/s and its f32 operations at 67 TFLOP/s), and last the
-result line `{"ok": true, "device": {...}}`. Any failure raises and exits
-non-zero. Without a CUDA device, or without the repository beside it, it
-exits non-zero and prints no result.
+The phases run in the order 1-7, 18, 19 (aa), 14, 12, 8-11, 18 (ua), 13,
+15, 16, 17, 19 (clustering), and the total time is printed. Then one JSON
+line with the kernels of the path (with each one's bound: the least time
+the card could take, from the bytes it must move at the H100's 3.35 TB/s
+and its f32 operations at 67 TFLOP/s), and last the result line
+`{"ok": true, "device": {...}}`. Any failure raises and exits non-zero.
+Without a CUDA device, or without the repository beside it, it exits
+non-zero and prints no result.
 """
 
 import dataclasses
@@ -134,8 +164,9 @@ BATCH = 512
 HEAVY = "resname POPC and name r'^C'"
 HYDROGENS = "resname POPC and name r'^H'"
 P_HEADS = "resname POPC and name P"
-#: the AA leaflet modes of tools/bench_modes.py with a pinned golden that
-#: this port covers (the clustering modes wait for a later slice)
+#: the AA leaflet modes of tools/bench_modes.py with a pinned golden on
+#: bench.py's membrane but the clustering ones, which run apart (phases
+#: 17-18; `leaflet_analysis` builds them too)
 LEAFLET_MODES = ("aa-leaflets", "aa-leaflets-export", "aa-leaflets-every10",
                  "aa-leaflets-once", "aa-local-leaflets",
                  "aa-individual-leaflets", "aa-fromfile-leaflets")
@@ -304,28 +335,26 @@ def synthesize_trajectory(cache_dir, system, n_frames):
     return xtc_path
 
 
-def synthesize_ua(cache_dir, n_frames, n_lipids=None, total_atoms=None):
-    """tools/bench_modes.py `_synthesize("ua", ...)` (synth_ua: 256
-    Berger-like POPC, 44.3k atoms, seed 29), through the port's host
-    modules: ua_bench.gro, ua_bench.bnd and ua_bench_{n_frames}.xtc, each
-    written unless cached. One rng stream feeds the structure and then the
-    trajectory, and the trajectory starts from the in-memory positions,
-    not from the GRO read back."""
-    from tools import bench_modes as bm
-
+def synthesize(cache_dir, tag, template, n_frames, n_mols, total_atoms, box,
+               seed, water_names, z_offset=0.4, chains_inward=False):
+    """tools/bench_modes.py `_synthesize(tag, ...)` for the atomistic and
+    united-atom templates, through the port's host modules:
+    {tag}_bench.gro, {tag}_bench.bnd and {tag}_bench_{n_frames}.xtc, each
+    written unless cached. Lipids are bonded random walks on a leaflet
+    grid, `z_offset` nm from the box's midplane, chains outward (or inward
+    with `chains_inward`), then water. One rng stream (`seed`) feeds the
+    structure and then the trajectory, which starts from the in-memory
+    positions, not from the GRO read back."""
     from gorder_tpu_torch.io import native
     from gorder_tpu_torch.io.gro import write_gro
     from gorder_tpu_torch.system import System, canonical_bonds
 
-    n_mols = bm.UA_LIPIDS if n_lipids is None else n_lipids
-    total_atoms = bm.UA_TOTAL_ATOMS if total_atoms is None else total_atoms
-    box = bm.UA_BOX
-    water_names = ["OW", "HW1", "HW2"]
-    gro = os.path.join(cache_dir, "ua_bench.gro")
-    bnd = os.path.join(cache_dir, "ua_bench.bnd")
-    xtc = os.path.join(cache_dir, f"ua_bench_{n_frames}.xtc")
+    box = np.asarray(box, np.float32)
+    gro = os.path.join(cache_dir, f"{tag}_bench.gro")
+    bnd = os.path.join(cache_dir, f"{tag}_bench.bnd")
+    xtc = os.path.join(cache_dir, f"{tag}_bench_{n_frames}.xtc")
 
-    lipid_names, lipid_bonds = bm._ua_template()
+    lipid_names, lipid_bonds = template()
     per = len(lipid_names)
     n_lipid_atoms = per * n_mols
     n_water = (total_atoms - n_lipid_atoms) // len(water_names)
@@ -336,7 +365,7 @@ def synthesize_ua(cache_dir, n_frames, n_lipids=None, total_atoms=None):
         if need_traj:
             os.remove(xtc)
 
-    rng = np.random.default_rng(29)
+    rng = np.random.default_rng(seed)
     names, resids, resnames = [], [], []
     bonds = []
     n_atoms = n_lipid_atoms + n_water * len(water_names)
@@ -350,14 +379,15 @@ def synthesize_ua(cache_dir, n_frames, n_lipids=None, total_atoms=None):
         gx, gy = cell % grid, (cell // grid) % grid
         sign = 1.0 if leaflet == 0 else -1.0
         base = np.array([(gx + 0.5) * spacing, (gy + 0.5) * spacing,
-                         box[2] / 2 + sign * 0.4], np.float32)
+                         box[2] / 2 + sign * z_offset], np.float32)
+        z_dir = -sign if chains_inward else sign
         walk = base.copy()
         for name in lipid_names:
             names.append(name)
             resids.append(m + 1)
             resnames.append("POPC")
             step = rng.normal(0, 1, 3).astype(np.float32)
-            step[2] += sign * 1.2
+            step[2] += z_dir * 1.2
             step /= max(np.linalg.norm(step), 1e-6)
             walk = walk + step * 0.14
             positions[idx] = walk
@@ -379,7 +409,7 @@ def synthesize_ua(cache_dir, n_frames, n_lipids=None, total_atoms=None):
     positions %= box
 
     system = System(
-        name="gorder-tpu ua benchmark",
+        name=f"gorder-tpu {tag} benchmark",
         atom_names=np.array(names, dtype="U8"),
         resids=np.array(resids, np.int64),
         resnames=np.array(resnames, dtype="U8"),
@@ -420,6 +450,35 @@ def synthesize_ua(cache_dir, n_frames, n_lipids=None, total_atoms=None):
     return gro, bnd, xtc
 
 
+def synthesize_ua(cache_dir, n_frames, n_lipids=None, total_atoms=None):
+    """tools/bench_modes.py `synth_ua` (256 Berger-like POPC, 44.3k atoms,
+    seed 29), or a cut of it to `n_lipids` and `total_atoms`."""
+    from tools import bench_modes as bm
+
+    return synthesize(
+        cache_dir, "ua", bm._ua_template, n_frames,
+        bm.UA_LIPIDS if n_lipids is None else n_lipids,
+        bm.UA_TOTAL_ATOMS if total_atoms is None else total_atoms,
+        bm.UA_BOX, 29, ["OW", "HW1", "HW2"])
+
+
+#: tools/bench_modes.py `synth_aa_bilayer` (:270): bench.py's lipid at the
+#: headline scale with realistic leaflet separation, heads 2 nm from the
+#: midplane, chains inward
+AAB = dict(n_mols=256, total_atoms=64500, box=(13.0, 13.0, 11.0), seed=31,
+           water_names=["OH2", "H1", "H2"], z_offset=2.0,
+           chains_inward=True)
+
+
+def synthesize_aab(cache_dir, n_frames, **cut):
+    """The clustering benchmark's bilayer (`AAB`, with `cut` replacing any
+    of its sizes): aab_bench.gro, .bnd and _{n_frames}.xtc."""
+    import bench
+
+    return synthesize(cache_dir, "aab", bench.build_lipid_template,
+                      n_frames, **{**AAB, **cut})
+
+
 def ua_analysis(mode, gro, bnd, xtc, output_yaml=None, **kw):
     """tools/bench_modes.py `_make_analysis(mode)` for "ua" and
     "ua-palmitoyl", built from the port's `Analysis` (with `kw` added)."""
@@ -451,7 +510,8 @@ def aa_analysis(gro, bnd, xtc, output_yaml=None, **kw):
 
 def leaflet_analysis(mode, gro, bnd, xtc, cache, output_yaml=None):
     """tools/bench_modes.py `_make_analysis(mode)` for the AA leaflet modes
-    (bench_modes.py:314-370), built from the port's classes."""
+    (bench_modes.py:314-370) and CLUSTERING_MODES, built from the port's
+    classes, on the membrane given (`aa-clustering-*` on `AAB`'s)."""
     import bench
     from gorder_tpu_torch.input.config import (Frequency,
                                                LeafletClassification)
@@ -474,6 +534,13 @@ def leaflet_analysis(mode, gro, bnd, xtc, cache, output_yaml=None):
         "aa-fromfile-leaflets": lambda: LeafletClassification.from_map(
             {"POPC": [[1 - (m % 2) for m in range(bench.N_LIPIDS)]]
              * N_FRAMES}),
+        "aa-spherical-leaflets": lambda: LeafletClassification.spherical(
+            P_HEADS),
+        "aa-clustering-leaflets": lambda: LeafletClassification.clustering(
+            P_HEADS),
+        "aa-clustering-leaflets-every10":
+            lambda: LeafletClassification.clustering(
+                P_HEADS).with_frequency(Frequency.every(10)),
     }[mode]()
     return aa_analysis(gro, bnd, xtc, output_yaml, leaflets=leaflets)
 
@@ -1187,6 +1254,102 @@ def time_normals(gro, bnd, xtc, cache):
     return ms, eigh_ms
 
 
+def check_f32_matmuls():
+    """Clustering's products must run in full f32: TF32 off, the f32
+    matmul precision "highest" (PyTorch's defaults)."""
+    import torch
+
+    precision = torch.get_float32_matmul_precision()
+    if torch.backends.cuda.matmul.allow_tf32 or precision != "highest":
+        raise RuntimeError(f"TF32 matmuls are on (allow_tf32 "
+                           f"{torch.backends.cuda.matmul.allow_tf32}, "
+                           f"precision {precision!r}): clustering needs f32")
+    print("clustering: f32 matmuls in full precision (allow_tf32 False, "
+          "precision 'highest')", flush=True)
+
+
+def time_clustering(label, analysis, db):
+    """CUDA-event time of the run's clustering classifier on its first
+    batch (`db`, the f32 coordinates of the int16 wire), per batch of 512
+    frames: spectral in both algebras (the card's matmul branch and
+    batched `eigh`), spherical in its one. The two spectral branches' raw
+    labels are compared frame by frame, and with the CPU's (LAPACK eigh),
+    and the frames that differ counted. → {branch: ms}."""
+    import torch
+
+    from gorder_tpu_torch.core import clustering
+    from gorder_tpu_torch.engine.leaflet_runtime import _cluster_head_cloud
+    from gorder_tpu_torch.engine.prepare import (
+        _build_atom_space, _prepare_bond_kinds, load_structure)
+
+    system = load_structure(analysis)
+    kinds, compiled = _prepare_bond_kinds(system, analysis)
+    _, remap = _build_atom_space(system, analysis,
+                                 [compiled.atom_a, compiled.atom_b])
+    cloud, _ = _cluster_head_cloud(system, kinds, analysis.leaflets.heads)
+    heads = remap(cloud)
+    coords = db.wire[0].to(torch.float32) * db.scale[:, None, None]
+    valid = db.mask
+    out, labels = {}, {}
+    if analysis.leaflets.kind == "spherical":
+        branches = {"spherical": clustering.make_spherical_classifier(
+            heads, analysis.handle_pbc, device="cuda")}
+    else:
+        branches = {f"spectral {algebra}": clustering.make_spectral_labels(
+            heads, analysis.handle_pbc, device="cuda", algebra=algebra)
+            for algebra in ("matmul", "eigh")}
+    for name, fn in branches.items():
+        labels[name] = fn(coords, db.box)[valid].cpu()
+        out[name] = cuda_ms(lambda f=fn: f(coords, db.box), reps=3, warmup=1)
+    cpu = (clustering.make_spectral_labels if len(branches) > 1 else
+           clustering.make_spherical_classifier)(heads, analysis.handle_pbc)(
+        coords[valid].cpu(), db.box[valid].cpu())
+    agree = ", ".join(f"{name} vs cpu {int((l != cpu).any(1).sum())}"
+                      for name, l in labels.items())
+    print(f"classify {label}: device ms per batch of {int(valid.sum())} "
+          f"frames, M={len(heads)} heads: "
+          + ", ".join(f"{name} {ms:.4f}" for name, ms in out.items())
+          + f"; frames whose raw labels differ: {agree}", flush=True)
+    return out
+
+
+def run_sharded(label, analysis, n_shards, counters, reference, cache):
+    """`analysis` as `n_shards` frame shards through `Analysis.run_partial`
+    on the card, each state written with `save_partial` and read back with
+    `load_partial`, then `Analysis.merge`; with every launch count set to
+    0 just before the shards and read just after (`counters` as in
+    `_run`). The merged YAML must equal the `reference` file byte for
+    byte. → launches."""
+    import torch
+
+    from gorder_tpu_torch.parallel.shard import load_partial, save_partial
+
+    zero_launches()
+    paths = []
+    t0 = time.perf_counter()
+    for i in range(n_shards):
+        state = analysis.run_partial(i, n_shards)
+        paths.append(os.path.join(cache, f"{label}_part{i}.npz"))
+        save_partial(paths[-1], state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check_launches(label, launches, counters)
+    t0 = time.perf_counter()
+    results = analysis.merge([load_partial(p) for p in paths])
+    results.write()
+    merge = time.perf_counter() - t0
+    with open(analysis.output_yaml) as fh, open(reference) as ref:
+        if fh.read() != ref.read():
+            raise RuntimeError(f"{label}: the merged YAML differs from "
+                               f"{reference}")
+    print(f"check {label}: {n_shards} shards in {wall:.3f} s, merged and "
+          f"written in {merge:.3f} s; launches {counters} as expected; the "
+          f"merged YAML equals {os.path.basename(reference)} byte for byte",
+          flush=True)
+    return launches
+
+
 def check_exported_normals(results, path, first):
     """The export of `aa-dynamic-export`: the normals file holds one finite
     unit vector per analyzed frame and molecule, its first batch's rows are
@@ -1269,7 +1432,6 @@ def _run(label, analysis, counters, n_frames, watch=None):
     import torch
 
     import gorder_tpu_torch
-    from gorder_tpu_torch.ops import p2, ua
     from gorder_tpu_torch.utils.timers import timers
 
     wires = []
@@ -1291,10 +1453,7 @@ def _run(label, analysis, counters, n_frames, watch=None):
     level = logger.level
     logger.addHandler(handler)
     logger.setLevel(logging.INFO)
-    names = [(mod, name) for mod in (p2, ua) for name in dir(mod)
-             if name.endswith("_launches")]
-    for mod, name in names:
-        setattr(mod, name, 0)
+    zero_launches()
     timers.reset()
     try:
         t0 = time.perf_counter()
@@ -1305,7 +1464,7 @@ def _run(label, analysis, counters, n_frames, watch=None):
     finally:
         logger.removeHandler(handler)
         logger.setLevel(level)
-    launches = {name: getattr(mod, name) for mod, name in names}
+    launches = read_launches()
     t0 = time.perf_counter()
     results.write()
     write = time.perf_counter() - t0
@@ -1316,12 +1475,35 @@ def _run(label, analysis, counters, n_frames, watch=None):
     if results.n_analyzed_frames != n_frames:
         raise RuntimeError(f"{label}: analyzed {results.n_analyzed_frames} "
                            f"frames, expected {n_frames}")
+    check_launches(label, launches, counters)
+    return results, wall, launches, wires[-1], first[0]
+
+
+def _launch_counts():
+    from gorder_tpu_torch.ops import p2, ua
+
+    return [(mod, name) for mod in (p2, ua) for name in dir(mod)
+            if name.endswith("_launches")]
+
+
+def zero_launches():
+    """Set every kernel wrapper's launch count to 0."""
+    for mod, name in _launch_counts():
+        setattr(mod, name, 0)
+
+
+def read_launches():
+    return {name: getattr(mod, name) for mod, name in _launch_counts()}
+
+
+def check_launches(label, launches, counters):
+    """The counts named in `counters` must have their value, every other
+    count must be 0."""
     for name, got in launches.items():
         if got != counters.get(name, 0):
             raise RuntimeError(f"{label}: {name} {got} != "
                                f"{counters.get(name, 0)} (expected "
                                f"{counters})")
-    return results, wall, launches, wires[-1], first[0]
 
 
 def off_lines(yaml_path, label, n_frames):
@@ -1416,6 +1598,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    started = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
 
@@ -1498,6 +1681,37 @@ def main() -> int:
     del local
 
     time_classifiers(gro, bnd, xtc, cache)
+
+    # 18. spherical clustering on the aa membrane (int16, the classifier
+    # with the step): its golden, then the with_leaflets P2 kernel against
+    # plain on its first batch, and the classifier's time a batch
+    check_f32_matmuls()
+    clustering_launches = {}
+    spherical = leaflet_analysis(
+        "aa-spherical-leaflets", gro, bnd, xtc, cache,
+        os.path.join(cache, "smoke_aa-spherical-leaflets.yaml"))
+    got, _, first = run_golden(
+        "aa-spherical-leaflets", spherical,
+        {"p2_i16_leaflets_launches": n_batches}, N_FRAMES,
+        wire="wire format: i16")
+    clustering_launches["aa-spherical-leaflets"] = \
+        got["p2_i16_leaflets_launches"]
+    check_p2("aa-spherical-leaflets", first, True)
+    time_clustering("aa-spherical-leaflets", spherical, first)
+    del first
+
+    # 19a. aa as 3 frame shards on the card, merged: byte for byte the YAML
+    # of phase 5
+    from gorder_tpu_torch.engine.batches import _shard_block
+
+    shard_batches = sum(math.ceil(len(range(*block)) / BATCH) for block in (
+        _shard_block(N_FRAMES, (i, 3), 1) for i in range(3)))
+    sharded = run_sharded(
+        "aa-sharded", aa_analysis(gro, bnd, xtc, os.path.join(
+            cache, "smoke_aa-sharded.yaml")), 3,
+        {"p2_launches": shard_batches}, os.path.join(cache,
+                                                     "smoke_order.yaml"),
+        cache)
 
     # 7. the AA runs with membrane normals that are not static: the two
     # dynamic modes ride b7x (the normal-heads cloud as aux atoms) and
@@ -1656,7 +1870,7 @@ def main() -> int:
     a = ua_analysis("ua", *ua_files,
                     os.path.join(cache, "smoke_ua-leaflets.yaml"))
     a.leaflets = LeafletClassification.global_("resname POPC", P_HEADS)
-    results, _, got, _, first = _run(
+    results, _, ua_leaflet_runs, _, first = _run(
         "ua-leaflets", a, {"ua_leaflets_launches": ua_batches * 3},
         ua_frames)
     if _orders(results, "total") != _orders(ua_results, "total"):
@@ -1678,6 +1892,19 @@ def main() -> int:
     ua_leaflets = check_ua("ua-leaflets", first.step, wire_inputs(first),
                            (first.box, first.normal, first.mask),
                            first.classes)
+
+    # 18b. UA with spherical clustering leaflets (int16, the classifier
+    # with the step): no golden; totals must equal the ua run's
+    a = ua_analysis("ua", *ua_files,
+                    os.path.join(cache, "smoke_ua-spherical-leaflets.yaml"))
+    a.leaflets = LeafletClassification.spherical(P_HEADS)
+    results, _, got_spherical, _, _ = _run(
+        "ua-spherical-leaflets", a,
+        {"ua_leaflets_launches": ua_batches * 3}, ua_frames)
+    if _orders(results, "total") != _orders(ua_results, "total"):
+        raise RuntimeError("ua-spherical-leaflets: total order parameters "
+                           "differ from the ua run's")
+    print("check ua-spherical-leaflets: totals == the ua run's", flush=True)
 
     # 11. UA with dynamic normals on the P heads (int16): no golden; the
     # totals must be finite; then the per_bond_normal UA kernel against
@@ -1749,23 +1976,77 @@ def main() -> int:
           f"({int(outside[1].sum())}) add up to the ua run's "
           f"({int(ua_sums.value[1].sum())}) exactly", flush=True)
 
+    # 16. the clustering benchmark's bilayer (tools/bench_modes.py
+    # synth_aa_bilayer): 256 POPC, heads 2 nm from the midplane, chains
+    # inward, 64,500 atoms, 10,000 frames, seed 31; the AA trajectory is
+    # done with, and goes first to bound the disk
+    os.remove(xtc)
+    t0 = time.perf_counter()
+    aab = synthesize_aab(cache, N_FRAMES)
+    print(f"synth aab: {N_FRAMES} frames in {time.perf_counter() - t0:.1f} s "
+          f"({os.path.getsize(aab[2])} bytes of XTC)", flush=True)
+
+    # 17. spectral clustering over all frames (int16, labels oriented on
+    # the host): its golden, then the with_leaflets P2 kernel against plain
+    # on its first batch and the classifier's time a batch, both algebras;
+    # every 10th frame (b7 with the class plane): totals equal the
+    # every-frame run's
+    clustering = leaflet_analysis(
+        "aa-clustering-leaflets", *aab, cache,
+        os.path.join(cache, "smoke_aa-clustering-leaflets.yaml"))
+    got, clustered, first = run_golden(
+        "aa-clustering-leaflets", clustering,
+        {"p2_i16_leaflets_launches": n_batches}, N_FRAMES,
+        wire="wire format: i16")
+    clustering_launches["aa-clustering-leaflets"] = \
+        got["p2_i16_leaflets_launches"]
+    check_p2("aa-clustering-leaflets", first, True)
+    time_clustering("aa-clustering-leaflets", clustering, first)
+    del first
+    results, _, got_every10, _, _ = _run(
+        "aa-clustering-leaflets-every10", leaflet_analysis(
+            "aa-clustering-leaflets-every10", *aab, cache,
+            os.path.join(cache, "smoke_aa-clustering-every10.yaml")),
+        {"p2_leaflets_launches": n_batches}, N_FRAMES)
+    if _orders(results, "total") != _orders(clustered, "total"):
+        raise RuntimeError("aa-clustering-leaflets-every10: totals differ "
+                           "from the every-frame run's")
+    print("check aa-clustering-leaflets-every10: totals == the every-frame "
+          "run's", flush=True)
+
+    # 19b. aa-clustering-leaflets as 2 frame shards: shard 1 orients its
+    # clusters against global frame 0's; byte for byte phase 17's YAML
+    shard_batches = 2 * math.ceil(N_FRAMES / 2 / BATCH)
+    sharded_clustering = run_sharded(
+        "aa-clustering-sharded", leaflet_analysis(
+            "aa-clustering-leaflets", *aab, cache,
+            os.path.join(cache, "smoke_aa-clustering-sharded.yaml")), 2,
+        {"p2_i16_leaflets_launches": shard_batches},
+        clustering.output_yaml, cache)
+
     p2_src, ua_src = ("gorder_tpu_torch/csrc/p2.cu",
                       "gorder_tpu_torch/csrc/ua.cu")
     p2_tpu, ua_tpu = ("gorder_tpu/ops/pallas_p2.py:163",
                       "gorder_tpu/ops/pallas_ua.py:69")
     kernels = [
-        kernel_entry("p2", p2_src, p2_tpu, launches["p2_launches"],
-                     p2_plain["b7"]),
+        kernel_entry("p2", p2_src, p2_tpu, launches["p2_launches"]
+                     + sharded["p2_launches"], p2_plain["b7"]),
         kernel_entry("p2_leaflets", p2_src, p2_tpu,
                      sum(n for mode, n in leaflet_launches.items()
-                         if mode != "aa-local-leaflets"),
+                         if mode != "aa-local-leaflets")
+                     + got_every10["p2_leaflets_launches"],
                      p2_global["b7"]),
         kernel_entry("p2_i16_leaflets", p2_src, p2_tpu,
-                     leaflet_launches["aa-local-leaflets"], p2_local["i16"]),
+                     leaflet_launches["aa-local-leaflets"]
+                     + sum(clustering_launches.values())
+                     + sharded_clustering["p2_i16_leaflets_launches"],
+                     p2_local["i16"]),
         kernel_entry("ua", ua_src, ua_tpu, ua_launches["ua_launches"],
                      ua_plain["i16"]),
         kernel_entry("ua_leaflets", ua_src, ua_tpu,
-                     got["ua_leaflets_launches"], ua_leaflets["i16"]),
+                     ua_leaflet_runs["ua_leaflets_launches"]
+                     + got_spherical["ua_leaflets_launches"],
+                     ua_leaflets["i16"]),
         kernel_entry("p2_normals", p2_src, p2_tpu,
                      normal_launches["aa-dynamic"]
                      + normal_launches["aa-dynamic-export"],
@@ -1791,6 +2072,7 @@ def main() -> int:
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:
         raise RuntimeError(f"kernels never launched on their runs: {idle}")
+    print(f"total: {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -5,8 +5,9 @@ Hopper kernels. It reads the same YAML configurations and writes the same
 output files; `gorder_tpu` stays the reference it is tested against. It
 covers all-atom (AA), coarse-grained (CG) and united-atom (UA) order
 parameters with a static, dynamic or manual membrane normal, overall and
-per leaflet (global, local, individual and manual assignment), with or
-without ordermaps and geometry selection::
+per leaflet (global, local, individual, spectral or spherical clustering
+and manual assignment), with or without ordermaps and geometry
+selection, in one run or in frame shards merged afterwards::
 
     import gorder_tpu_torch as gorder
 
@@ -14,10 +15,12 @@ without ordermaps and geometry selection::
     results = gorder.run(analysis)            # on the GPU
     results.write()
 
-`analysis.run()` does the same. The host code (trajectory readers and
-their C++ codec, selections, topology, configuration, results and
-presenters) is this package's own copy of `gorder_tpu`'s; this package
-imports neither jax nor `gorder_tpu`.
+`analysis.run()` does the same. `analysis.run_partial(i, n)` runs the
+i-th of n contiguous frame shards (one process per GPU) and
+`analysis.merge(states)` joins their states into the same results. The
+host code (trajectory readers and their C++ codec, selections, topology,
+configuration, results and presenters) is this package's own copy of
+`gorder_tpu`'s; this package imports neither jax nor `gorder_tpu`.
 """
 
 from .errors import (  # noqa: F401

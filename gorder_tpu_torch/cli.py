@@ -4,9 +4,10 @@ Behavioral reference: src/application/mod.rs:25-211 — `gorder-tpu-torch
 CONFIG.yaml [--silent] [--overwrite] [--export-config FILE] [--device
 DEVICE]`, YAML output required in CLI mode, banner + ✔/✖ footer, exit code
 0/1. It prints the lines `gorder-tpu` prints and exits with its codes; the
-analysis runs on the GPU, or on `--device`. `--frame-shard`, `--partial`
-and `--merge` parse, and then fail with the port's "not yet ported"
-error: sharded runs are not ported yet.
+analysis runs on the GPU, or on `--device`. `--frame-shard I/N --partial
+FILE` runs one contiguous frame shard and writes its partial state, and
+`--merge FILE…` merges such states (of either package) into the
+configured outputs: one process per GPU, then a merge.
 """
 
 from __future__ import annotations
@@ -41,15 +42,14 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--frame-shard", metavar="I/N", default=None,
         help="process only frame shard I of N (contiguous block); "
-             "requires --partial (not yet ported)")
+             "requires --partial (one process per GPU, then --merge)")
     parser.add_argument(
         "--partial", metavar="FILE.npz", default=None,
-        help="write the shard's raw partial state instead of results "
-             "(not yet ported)")
+        help="write the shard's raw partial state instead of results")
     parser.add_argument(
         "--merge", metavar="FILE.npz", nargs="+", default=None,
-        help="merge partial states into the configured outputs (not yet "
-             "ported)")
+        help="merge partial states (paths or globs) into the configured "
+             "outputs — byte-identical to a single-process run")
     parser.add_argument(
         "--device", default="cuda",
         help="torch device to run on (default: cuda)")
@@ -113,12 +113,19 @@ def main(argv=None) -> int:
             print(f"error: invalid --frame-shard '{args.frame_shard}' "
                   f"(expected I/N)", file=sys.stderr)
             return 1
+        from .parallel.shard import save_partial
+
         try:
-            # raises: sharded runs are not ported yet
-            analysis.run_partial(shard_index, shard_count)
+            state = analysis.run_partial(shard_index, shard_count,
+                                         device=args.device)
+            save_partial(args.partial, state)
         except GorderError as e:
             print(f"error: {e}", file=sys.stderr)
-        return 1
+            return 1
+        if not analysis.silent:
+            print(f"\n✔ shard {shard_index}/{shard_count} state written "
+                  f"to '{args.partial}'")
+        return 0
 
     if analysis.output_yaml is None:
         # wording: src/errors.rs:297-298 (ConfigError::NoYamlOutput)
@@ -135,12 +142,17 @@ def main(argv=None) -> int:
         return 1
 
     if args.merge is not None:
+        from .parallel.shard import expand_partial_paths
+
         try:
-            # raises: merging partial states is not ported yet
-            analysis.merge(args.merge)
+            results = analysis.merge(expand_partial_paths(args.merge))
+            results.write()
         except GorderError as e:
             print(f"error: {e}", file=sys.stderr)
-        return 1
+            return 1
+        if not analysis.silent:
+            print("\n✔ merged partial states; results written")
+        return 0
 
     from .utils.timers import timers
 

@@ -45,6 +45,17 @@ A caller may pass `on_batch`, which receives each batch's `DeviceBatch`
 once its step has been dispatched: the device tensors, classes and
 normals the step was given, to inspect or to feed to a kernel again, and
 what the step gave back.
+
+A sharded run (`shard=(i, n)`) analyzes only shard i's contiguous block
+of the analyzed frames, its start aligned to the leaflet assignment
+frequency so that the shard owns the assignment frames its block uses.
+Every per-frame index (assignment frames, manual tables) is the global
+analyzed-frame ordinal, so the shards' partial states merge into the
+single run's output exactly. A shard that starts after frame 0 first
+classifies global frame 0: a `once` assignment is carried from it, and
+spectral clustering orients its clusters against it, so that the
+cluster→leaflet identities of every shard are shard 0's
+(gorder_tpu/engine/batches.py:51-61, :104-150).
 """
 
 from __future__ import annotations
@@ -104,14 +115,44 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device, copy=True)
 
 
+def _shard_block(n_frames: int, shard, align: int):
+    """The contiguous block [start, end) of analyzed frames of shard (i,
+    n), its start aligned to `align` (the leaflet assignment frequency)."""
+    i, n = shard
+    base = -(-n_frames // n)                 # ceil
+    base = -(-base // max(align, 1)) * max(align, 1)
+    start = min(i * base, n_frames)
+    end = min(start + base, n_frames)
+    return start, end
+
+
+def _bootstrap_shard(leaflets, traj, frame0, space, n_threads: int, device):
+    """Classify global frame 0 for a shard that starts after it: its
+    (oriented) assignment becomes the carried state, and its population
+    log belongs to shard 0."""
+    coords, boxes, _, _ = traj.read_frames(frame0, space,
+                                           n_threads=n_threads)
+    box = np.ascontiguousarray(boxes[:, [0, 1, 2], [0, 1, 2]])
+    assigned = leaflets.classify(_to_device(coords, device),
+                                 _to_device(box, device)).cpu().numpy()[0]
+    if leaflets.orienter is not None:
+        assigned = leaflets.orienter.orient(assigned)
+    leaflets.carried = assigned
+    leaflets._logged_stats = True
+
+
 def run_batches(analysis, system, step, normal_vec, n_types: int, space,
                 bond_slots, leaflets=None, n_molecules: int = 0, *, device,
                 normals=None, map_spec=None, geom_spec=None,
                 geom_mode=None, geom_payload=None,
-                batch_size: int = DEFAULT_BATCH_SIZE, on_batch=None):
-    """→ (OrderAccumulator, Trajectory, analyzed frame indices, map): the
-    map is {class: (2, T·n0·n1 + 1) int64 [Σq, count]} of an ordermap run
-    (`map_spec`), else None.
+                batch_size: int = DEFAULT_BATCH_SIZE, on_batch=None,
+                shard=None):
+    """→ (OrderAccumulator, Trajectory, analyzed frame indices, map, shard
+    start): the map is {class: (2, T·n0·n1 + 1) int64 [Σq, count]} of an
+    ordermap run (`map_spec`), else None. The frame indices are all the
+    run's analyzed frames, also when `shard=(i, n)` restricts the loop to
+    shard i's block, which starts at analyzed frame `shard start` (0
+    without a shard).
 
     A geometry run gives its `geom_spec` with `geom_mode` "point" (the
     (3,) `geom_payload`), "center", or "selection" (`geom_payload` the
@@ -141,6 +182,30 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
         normals.validate(len(frame_indices))
 
     n_threads = max(1, analysis.n_threads)
+    full_frame_indices = frame_indices
+    shard_start = 0
+    if shard is not None:
+        align = 1
+        if (leaflets is not None and leaflets.classify is not None
+                and leaflets.frequency.kind == "every"):
+            align = leaflets.frequency.n
+        shard_start, shard_end = _shard_block(len(frame_indices), shard,
+                                              align)
+        frame_indices = frame_indices[shard_start:shard_end]
+        log.info("shard %d/%d: frames %d..%d of %d", shard[0], shard[1],
+                 shard_start, shard_end, len(full_frame_indices))
+        if len(frame_indices) == 0:
+            empty_map = None
+            if map_spec is not None:
+                n_seg = n_types * map_spec.ncells + 1
+                empty_map = {cls: np.zeros((2, n_seg), np.int64)
+                             for cls in accum.classes}
+            return accum, traj, full_frame_indices, empty_map, shard_start
+        if (shard_start > 0 and leaflets is not None
+                and leaflets.classify is not None):
+            _bootstrap_shard(leaflets, traj, full_frame_indices[:1], space,
+                             n_threads, device)
+
     plan = plan_wire(traj=traj, frame_indices=frame_indices, space=space,
                      bond_slots=bond_slots, leaflets=leaflets,
                      normals=normals, map_spec=map_spec,
@@ -246,7 +311,7 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
         `!every N`, one frame for `!once`) → (batch rows, i16 coords and
         scale, or f32 coords and None), or None when no frame assigns."""
         qbuf, fbuf = plane_bufs[b % prefetch]
-        a0 = b * batch_size
+        a0 = shard_start + b * batch_size
         ana = np.arange(a0, a0 + len(chunk), dtype=np.int64)
         rows = np.nonzero(leaflets.assignment_source(ana) == ana)[0]
         if not len(rows):
@@ -382,13 +447,14 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
                 with timers.phase("classify"):
                     classes = _host_classes(
                         leaflets, kind, wire, scale_dev, box_dev, sparse,
-                        b * batch_size, n_valid, batch_size, n_molecules,
-                        device)
+                        shard_start + b * batch_size, n_valid, batch_size,
+                        n_molecules, device)
             normal = normal_dev
             if manual_normals:
                 with timers.phase("transfer"):
                     normal = normals.manual_for_batch(
-                        b * batch_size, n_valid, batch_size, device)
+                        shard_start + b * batch_size, n_valid, batch_size,
+                        device)
             geom_ref = (box_dev * 0.5 if device_geom == "center"
                         else geom_const)
             with timers.phase("dispatch"):
@@ -445,7 +511,7 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
             map_host = dict(zip(accum.classes,
                                 consumers.map_state.cpu().numpy()))
     log.info("analyzed %d frames", accum.n_frames)
-    return accum, traj, frame_indices, map_host
+    return accum, traj, full_frame_indices, map_host, shard_start
 
 
 def _host_classes(leaflets, kind, wire, scale, box, sparse, start: int,
@@ -462,10 +528,12 @@ def _host_classes(leaflets, kind, wire, scale, box, sparse, start: int,
             coords = (q.to(torch.float32) * sc[:, None, None]
                       if sc is not None else q)
     elif leaflets.manual_table is None:
-        coords = wire[0]
+        # the valid frames only: padding frames are never classified
+        coords = wire[0][:n_valid]
         if kind.startswith("i16"):
-            coords = coords.to(torch.float32) * scale[:, None, None]
-    classes = leaflets.classes_for_batch(coords, box, analyzed, rows=rows)
+            coords = coords.to(torch.float32) * scale[:n_valid, None, None]
+    classes = leaflets.classes_for_batch(coords, box[:n_valid], analyzed,
+                                         rows=rows)
     full = np.zeros((batch_size, n_molecules), np.int32)
     full[:n_valid] = classes
     return torch.from_numpy(full).to(device)

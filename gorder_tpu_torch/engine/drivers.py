@@ -1,13 +1,22 @@
-"""The per-mode drivers (port of `gorder_tpu/engine/drivers.py:38-207`):
-AA, CG and UA order parameters with a static, dynamic or manual membrane
-normal (with or without normals export), overall and per leaflet (global,
-local, individual and manual assignment), with or without ordermaps and
-geometry selection. The clustering leaflet methods raise `AnalysisError`
-naming what is not ported yet; nothing falls back to the JAX package.
+"""The per-mode drivers and the sharded entry points (port of
+`gorder_tpu/engine/drivers.py`): AA, CG and UA order parameters with a
+static, dynamic or manual membrane normal (with or without normals
+export), overall and per leaflet (global, local, individual, clustering,
+spherical and manual assignment), with or without ordermaps and geometry
+selection; and a run split into contiguous frame shards, each run on its
+own (`run_analysis_partial`, one process per GPU) and merged on the host
+(`merge_partial_states`) into the single run's output, byte for byte.
+
+A partial state is the dict `gorder_tpu` writes: the same fingerprint,
+the same keys and the same arrays, so that the states of the two packages
+merge with each other. An ordermap's state is stored in `gorder_tpu`'s
+four rows [l2, l1, l0, count], whose Σq = l2·16384 + l1·128 + l0: the
+port writes [0, 0, Σq, count].
 """
 
 from __future__ import annotations
 
+import json
 import logging
 
 import numpy as np
@@ -22,46 +31,57 @@ from ..engine.prepare import (
     load_structure,
 )
 from ..errors import AnalysisError
+from ..io.traj import Trajectory
 from ..utils.timers import timers
-from ..core.order import make_order_step
+from ..core.order import OrderAccumulator, make_order_step
 from ..core.ordermap import build_map_spec
 from ..core.ua import make_ua_step
 from .batches import DEFAULT_BATCH_SIZE, run_batches
 from .convert import convert_results, convert_results_ua
-from .leaflet_runtime import CLUSTERING_METHODS, build_leaflet_runtime
+from .leaflet_runtime import build_leaflet_runtime
 from .normals_runtime import _build_normals, _make_molecule_inside
 
 log = logging.getLogger("gorder")
 
 
-def _not_ported(analysis) -> list:
-    """What this configuration needs that the port does not have yet."""
-    missing = []
-    if analysis.leaflets is not None \
-            and analysis.leaflets.kind in CLUSTERING_METHODS:
-        missing.append("leaflet classification by "
-                       + CLUSTERING_METHODS[analysis.leaflets.kind])
-    return missing
+def _check_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise AnalysisError("device 'cuda' requested but no CUDA device is "
+                            "available")
+    return device
+
+
+def _run(analysis, device, batch_size, on_batch, shard=None,
+         as_partial=False):
+    if analysis.analysis_type.kind in ("aa", "cg"):
+        return _run_bond_based(analysis, device, batch_size, on_batch,
+                               shard, as_partial)
+    return _run_ua(analysis, device, batch_size, on_batch, shard,
+                   as_partial)
 
 
 def run_analysis(analysis, device, batch_size: int = DEFAULT_BATCH_SIZE,
                  on_batch=None):
     """Run `analysis` on `device` → AnalysisResults. `on_batch` receives
     each batch's `batches.DeviceBatch` (see `run_batches`)."""
-    missing = _not_ported(analysis)
-    if missing:
-        raise AnalysisError(
-            "not yet ported to gorder_tpu_torch: " + ", ".join(missing))
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise AnalysisError("device 'cuda' requested but no CUDA device is "
-                            "available")
-    if analysis.analysis_type.kind in ("aa", "cg"):
-        results = _run_bond_based(analysis, device, batch_size, on_batch)
-    else:
-        results = _run_ua(analysis, device, batch_size, on_batch)
+    results = _run(analysis, _check_device(device), batch_size, on_batch)
     log.info("phase times: %s", timers.summary())
     return results
+
+
+def run_analysis_partial(analysis, shard_index: int, shard_count: int,
+                         device) -> dict:
+    """Run shard `shard_index` of `shard_count`, a contiguous block of the
+    analyzed frames, on `device` → its raw partial state, to be merged by
+    `merge_partial_states` (gorder_tpu/engine/drivers.py:258-284)."""
+    if not (0 <= shard_index < shard_count):
+        raise AnalysisError(
+            f"invalid shard {shard_index}/{shard_count}")
+    state = _run(analysis, _check_device(device), DEFAULT_BATCH_SIZE, None,
+                 shard=(shard_index, shard_count), as_partial=True)
+    log.info("phase times: %s", timers.summary())
+    return state
 
 
 def _runtimes(system, analysis, kinds, n_molecules, remap, device):
@@ -127,7 +147,8 @@ def _attach_normals_data(results, analysis, kinds, normals) -> None:
     }
 
 
-def _run_bond_based(analysis, device, batch_size: int, on_batch):
+def _run_bond_based(analysis, device, batch_size: int, on_batch,
+                    shard=None, as_partial=False):
     with timers.phase("structure"):
         system = load_structure(analysis)
     with timers.phase("topology"):
@@ -155,11 +176,15 @@ def _run_bond_based(analysis, device, batch_size: int, on_batch):
                                         else "static"),
                            map_spec=map_spec, geom_spec=geom_spec)
     with timers.phase("trajectory"):
-        accum, traj, frame_indices, map_state = run_batches(
+        accum, traj, frame_indices, map_state, shard_start = run_batches(
             analysis, system, step, normal_vec, compiled.n_types, space,
             (atom_a, atom_b), leaflets, compiled.n_molecules, device=device,
             normals=normals, map_spec=map_spec, batch_size=batch_size,
-            on_batch=on_batch, **geometry)
+            on_batch=on_batch, shard=shard, **geometry)
+    if as_partial:
+        return _assemble_partial(analysis, kinds, compiled, accum,
+                                 map_state, leaflets, normals, shard_start,
+                                 len(frame_indices))
     with timers.phase("convert"):
         results = convert_results(analysis, system, kinds, compiled, accum,
                                   traj, frame_indices, map_spec, map_state)
@@ -168,7 +193,8 @@ def _run_bond_based(analysis, device, batch_size: int, on_batch):
     return results
 
 
-def _run_ua(analysis, device, batch_size: int, on_batch):
+def _run_ua(analysis, device, batch_size: int, on_batch, shard=None,
+            as_partial=False):
     with timers.phase("structure"):
         system = load_structure(analysis)
     kinds, compiled = _prepare_ua_kinds(system, analysis)
@@ -193,15 +219,162 @@ def _run_ua(analysis, device, batch_size: int, on_batch):
                                      else "static"),
                         map_spec=map_spec, geom_spec=geometry["geom_spec"])
     with timers.phase("trajectory"):
-        accum, traj, frame_indices, map_state = run_batches(
+        accum, traj, frame_indices, map_state, shard_start = run_batches(
             analysis, system, step, normal_vec, compiled.n_types, space,
             None, leaflets, compiled.n_molecules, device=device,
             normals=normals, map_spec=map_spec, batch_size=batch_size,
-            on_batch=on_batch, **geometry)
+            on_batch=on_batch, shard=shard, **geometry)
+    if as_partial:
+        return _assemble_partial(analysis, kinds, compiled, accum,
+                                 map_state, leaflets, normals, shard_start,
+                                 len(frame_indices))
     with timers.phase("convert"):
         results = convert_results_ua(analysis, system, kinds, compiled,
                                      accum, traj, frame_indices, map_spec,
                                      map_state)
     _attach_leaflet_data(results, analysis, kinds, leaflets)
     _attach_normals_data(results, analysis, kinds, normals)
+    return results
+
+
+def _fingerprint(analysis, kinds, compiled, n_total: int) -> str:
+    """The topology and request a partial state must share to merge, as
+    `gorder_tpu` writes it (the same JSON)."""
+    return json.dumps({
+        "mode": analysis.analysis_type.kind,
+        "kinds": [(k.name, int(k.n_molecules)) for k in kinds],
+        "n_types": int(compiled.n_types),
+        "type_offsets": [int(v) for v in compiled.type_offsets],
+        "n_total_frames": int(n_total),
+        "step": int(analysis.step),
+        "with_leaflets": analysis.leaflets is not None,
+        "with_errors": analysis.estimate_error is not None,
+        "with_map": analysis.map is not None,
+    }, sort_keys=True)
+
+
+def _assemble_partial(analysis, kinds, compiled, accum, map_state, leaflets,
+                      normals, shard_start: int, n_total: int) -> dict:
+    """A shard's raw state: exact int64 sums, and every per-frame series
+    of its block in frame order (gorder_tpu/engine/drivers.py:225-255)."""
+    state = {
+        "fingerprint": _fingerprint(analysis, kinds, compiled, n_total),
+        "shard_start": int(shard_start),
+        "n_shard_frames": int(accum.n_frames),
+        "classes": list(accum.classes),
+    }
+    for cls in accum.classes:
+        state[f"sums_{cls}"] = accum.sums[cls]
+        state[f"counts_{cls}"] = accum.counts[cls]
+        if accum.keep_timewise and accum.n_frames:
+            tw_sums, tw_counts = accum.timewise(cls)
+            state[f"tw_sums_{cls}"] = tw_sums
+            state[f"tw_counts_{cls}"] = tw_counts
+    if map_state is not None:
+        for cls, arr in map_state.items():
+            zero = np.zeros_like(arr[0])
+            state[f"map_{cls}"] = np.stack([zero, zero, arr[0], arr[1]])
+    if leaflets is not None and leaflets.collect_frames is not None:
+        frames = leaflets.collect_frames
+        if leaflets.manual_table is not None and not frames \
+                and shard_start == 0:
+            frames = list(leaflets.manual_table)
+        if frames:
+            state["leaflet_rows"] = np.stack(
+                [np.asarray(f) for f in frames])
+    if normals is not None and normals.collected:
+        state["normals_rows"] = np.concatenate(normals.collected, axis=0)
+    return state
+
+
+def merge_partial_states(analysis, states):
+    """Merge shard states (of this package or of `gorder_tpu`) into the
+    AnalysisResults of the whole run, equal to a single run's: the int64
+    sums add up exactly, and the per-frame series join in global frame
+    order (gorder_tpu/engine/drivers.py:287-388). Host work only."""
+    with timers.phase("structure"):
+        system = load_structure(analysis)
+    ua_mode = analysis.analysis_type.kind not in ("cg", "aa")
+    if ua_mode:
+        kinds, compiled = _prepare_ua_kinds(system, analysis)
+    else:
+        with timers.phase("topology"):
+            kinds, compiled = _prepare_bond_kinds(system, analysis)
+    if not kinds or compiled is None:
+        return _empty_results(analysis, system)
+
+    traj = Trajectory(analysis.trajectory, expected_atoms=system.n_atoms)
+    frame_indices = traj.select_frames(
+        analysis.begin if np.isfinite(analysis.begin) else None,
+        analysis.end if np.isfinite(analysis.end) else None,
+        analysis.step,
+    )
+    expected_fp = _fingerprint(analysis, kinds, compiled,
+                               len(frame_indices))
+    states = sorted(states, key=lambda s: int(s["shard_start"]))
+    for s in states:
+        if str(s["fingerprint"]) != expected_fp:
+            raise AnalysisError(
+                "partial state does not match this analysis (different "
+                "topology, trajectory window, or request)")
+    total = sum(int(s["n_shard_frames"]) for s in states)
+    if total != len(frame_indices):
+        raise AnalysisError(
+            f"partial states cover {total} frames but the analysis "
+            f"visits {len(frame_indices)} — shards missing or duplicated")
+
+    classes = tuple(states[0]["classes"])
+    keep_tw = analysis.estimate_error is not None
+    accum = OrderAccumulator(compiled.n_types, classes,
+                             keep_timewise=keep_tw)
+    accum.n_frames = total
+    for s in states:
+        for cls in classes:
+            accum.sums[cls] += np.asarray(s[f"sums_{cls}"], np.int64)
+            accum.counts[cls] += np.asarray(s[f"counts_{cls}"], np.int64)
+            if keep_tw and f"tw_sums_{cls}" in s:
+                accum.timewise_sums[cls].append(
+                    np.asarray(s[f"tw_sums_{cls}"], np.int64))
+                accum.timewise_counts[cls].append(
+                    np.asarray(s[f"tw_counts_{cls}"], np.int64))
+
+    map_spec = (build_map_spec(analysis.map,
+                               system.box if analysis.handle_pbc else None)
+                if analysis.map is not None else None)
+    map_state = None
+    if map_spec is not None:
+        n_seg = compiled.n_types * map_spec.ncells + 1
+        map_state = {cls: np.zeros((2, n_seg), np.int64) for cls in classes}
+        for s in states:
+            for cls in classes:
+                if f"map_{cls}" in s:
+                    l2, l1, l0, counts = np.asarray(s[f"map_{cls}"],
+                                                    np.int64)
+                    map_state[cls] += np.stack(
+                        [l2 * 16384 + l1 * 128 + l0, counts])
+
+    with timers.phase("convert"):
+        convert = convert_results_ua if ua_mode else convert_results
+        results = convert(analysis, system, kinds, compiled, accum, traj,
+                          frame_indices, map_spec, map_state)
+
+    leaflet_rows = [row for s in states if "leaflet_rows" in s
+                    for row in np.asarray(s["leaflet_rows"])]
+    if leaflet_rows and analysis.leaflets is not None:
+        results.leaflets_data = {
+            "frames": leaflet_rows,
+            "kinds": _bounds(kinds),
+            "step": analysis.step,
+            "frequency_n": (analysis.leaflets.frequency.n
+                            if analysis.leaflets.frequency.kind == "every"
+                            else 1),
+        }
+    normals_rows = [np.asarray(s["normals_rows"]) for s in states
+                    if "normals_rows" in s]
+    if normals_rows:
+        results.normals_data = {
+            "frames": np.concatenate(normals_rows, axis=0),
+            "kinds": _bounds(kinds),
+            "step": analysis.step,
+        }
     return results

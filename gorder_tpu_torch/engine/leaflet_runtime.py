@@ -6,7 +6,10 @@ side channel a run can ride (`engine/channels.py`).
 
 Reference behavior: src/analysis/leaflets.rs, src/input/frequency.rs:13-55
 and the error wordings of src/errors.rs cited per function. The
-clustering methods (spectral and spherical) are not ported yet and raise.
+clustering methods (spectral and spherical, `core/clustering.py`) classify
+every atom that matches the heads query, and `cloud_to_mol` picks each
+analyzed molecule's head from that cloud; spectral cluster labels are
+oriented into leaflets frame after frame on the host (`SpectralOrienter`).
 """
 
 from __future__ import annotations
@@ -18,12 +21,22 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..core.clustering import (
+    SpectralOrienter,
+    make_spectral_labels,
+    make_spherical_classifier,
+)
 from ..core.leaflets import (
     GlobalClassifier,
     IndividualClassifier,
     LocalClassifier,
 )
-from ..errors import AnalysisError, ManualLeafletError, NdxLeafletError
+from ..errors import (
+    AnalysisError,
+    ManualLeafletError,
+    NdxLeafletError,
+    TopologyError,
+)
 from ..select import select_mask
 from ..topology.classify import MoleculeKind
 from .prepare import (
@@ -34,10 +47,6 @@ from .prepare import (
 )
 
 log = logging.getLogger("gorder")
-
-#: leaflet methods this port has not ported yet (ROADMAP Queue 1 item 12)
-CLUSTERING_METHODS = {"clustering": "clustering",
-                      "spherical": "spherical clustering"}
 
 
 def _flipped(fn):
@@ -62,6 +71,13 @@ class LeafletRuntime:
     collect_frames: Optional[List[np.ndarray]] = None  # per assignment frame
     kinds: Optional[List[MoleculeKind]] = None
     flip: bool = False
+    # spectral clustering: raw cluster labels → leaflets, frame by frame
+    orienter: Optional[SpectralOrienter] = None
+    # clustering methods classify every atom matching the heads query (the
+    # reference's ClusterHeads group spans the whole system, not just the
+    # analyzed molecules); the cloud position of each analyzed molecule
+    cloud_to_mol: Optional[np.ndarray] = None
+    device: object = "cpu"                      # where `classify` runs
     _logged_stats: bool = False
 
     def log_first_stats(self, classes: np.ndarray) -> None:
@@ -121,13 +137,24 @@ class LeafletRuntime:
 
     def fused_classify(self):
         """(coords f32, box) → (B, M) classes, flip applied, when the
-        classes are a pure function of each batch (global, local or
-        individual at every-frame frequency) and so are computed with the
-        order step on the device; else None (frequency-gated methods carry
-        state and manual tables are host data: `classes_for_batch`)."""
-        if self.classify is None or not self._every_frame():
+        classes are a pure function of each batch (global, local,
+        individual or spherical at every-frame frequency) and so are
+        computed with the order step on the device; else None
+        (frequency-gated methods carry state, spectral labels are oriented
+        frame after frame and manual tables are host data:
+        `classes_for_batch`)."""
+        if (self.classify is None or self.orienter is not None
+                or not self._every_frame()):
             return None
-        return _flipped(self.classify) if self.flip else self.classify
+        classify = self.classify
+        if self.cloud_to_mol is not None:
+            cloud = classify
+            pick = torch.as_tensor(np.asarray(self.cloud_to_mol, np.int64),
+                                   device=self.device)
+
+            def classify(coords, box_diag):
+                return cloud(coords, box_diag).index_select(1, pick)
+        return _flipped(classify) if self.flip else classify
 
     def fused_channel(self):
         """((heads f32, cog, box) → classes, (membrane slots, head slots,
@@ -200,13 +227,18 @@ class LeafletRuntime:
         else:
             batch_start = analyzed_idx[0]
             if rows is not None:
-                assigned = np.zeros((len(analyzed_idx), self.n_molecules),
-                                    np.int32)
                 got = self.classify(coords, box[torch.as_tensor(
-                    rows, device=box.device)])
-                assigned[rows] = got.cpu().numpy()
+                    rows, device=box.device)]).cpu().numpy()
+                assigned = np.zeros((len(analyzed_idx), got.shape[1]),
+                                    np.int32)
+                assigned[rows] = got
             else:
                 assigned = self.classify(coords, box).cpu().numpy()
+            if self.orienter is not None:
+                # cluster identities are resolved frame after frame
+                # (clustering.rs classify_by_match)
+                for i in np.nonzero(is_assign)[0]:
+                    assigned[i] = self.orienter.orient(assigned[i])
             in_batch = src >= batch_start
             local = np.clip(src - batch_start, 0, len(analyzed_idx) - 1)
             classes = np.where(
@@ -218,6 +250,8 @@ class LeafletRuntime:
             if is_assign.any():
                 last = np.nonzero(is_assign)[0][-1]
                 self.carried = assigned[last]
+        if self.cloud_to_mol is not None:
+            classes = classes[:, self.cloud_to_mol]
         if self.flip:
             classes = 1 - classes
         if self.collect_frames is not None:
@@ -226,6 +260,32 @@ class LeafletRuntime:
         if len(classes):
             self.log_first_stats(np.asarray(classes[0]))
         return classes.astype(np.int32)
+
+
+def _require_cluster_atoms(n_atoms: int) -> None:
+    """Clustering needs at least two head atoms
+    (leaflets.rs:103-113 NotEnoughAtomsToCluster)."""
+    if n_atoms < 2:
+        raise TopologyError(
+            f"clustering leaflet classification has been requested but "
+            f"only '{n_atoms}' headgroup atom has been provided; need at "
+            f"least '2' atoms")
+
+
+def _cluster_head_cloud(system, kinds: List[MoleculeKind], query: str):
+    """Clustering operates on every atom matching the heads query (the
+    reference's ClusterHeads group spans the whole system: clustering.rs
+    create_similarity_matrix iterates the raw group), while each analyzed
+    molecule takes the cluster of its own head. → (cloud atom indices, the
+    cloud position of each analyzed molecule's head)."""
+    cloud = np.nonzero(select_mask(system, query))[0].astype(np.int64)
+    heads = _single_atom_per_molecule(system, kinds, query, "cluster heads")
+    mol_pos = np.searchsorted(cloud, heads)
+    if not np.array_equal(cloud[mol_pos], heads):  # pragma: no cover
+        raise TopologyError(
+            "internal error: analyzed molecule heads missing from the "
+            "cluster head cloud")
+    return cloud, mol_pos
 
 
 def build_leaflet_runtime(system, analysis, kinds: List[MoleculeKind],
@@ -243,7 +303,7 @@ def build_leaflet_runtime(system, analysis, kinds: List[MoleculeKind],
     if params.membrane_normal is not None:
         axis = _AXIS_INDEX[params.membrane_normal]
 
-    runtime = LeafletRuntime()
+    runtime = LeafletRuntime(device=device)
     runtime.frequency = params.frequency
     runtime.n_molecules = n_molecules
     runtime.kinds = kinds
@@ -299,10 +359,17 @@ def build_leaflet_runtime(system, analysis, kinds: List[MoleculeKind],
     elif params.kind == "from_ndx":
         runtime.manual_table = _ndx_leaflet_table(system, kinds, params)
         runtime.manual_source = "ndx"
-    elif params.kind in CLUSTERING_METHODS:
-        raise AnalysisError(
-            f"not yet ported to gorder_tpu_torch: leaflet classification "
-            f"by {CLUSTERING_METHODS[params.kind]}")
+    elif params.kind in ("clustering", "spherical"):
+        cloud, mol_pos = _cluster_head_cloud(system, kinds, params.heads)
+        _require_cluster_atoms(len(cloud))
+        if params.kind == "clustering":
+            runtime.classify = make_spectral_labels(
+                remap(cloud), analysis.handle_pbc, device=device)
+            runtime.orienter = SpectralOrienter(cloud)
+        else:
+            runtime.classify = make_spherical_classifier(
+                remap(cloud), analysis.handle_pbc, device=device)
+        runtime.cloud_to_mol = mol_pos
     else:
         raise AnalysisError(
             f"leaflet classification method '{params.kind}' is not yet "

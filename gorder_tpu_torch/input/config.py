@@ -15,8 +15,8 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import yaml
 
-from ..errors import (AnalysisError, ConfigError, ErrorEstimationError,
-                      FrequencyError, GeometryError, OrderMapError, fnum)
+from ..errors import (ConfigError, ErrorEstimationError, FrequencyError,
+                      GeometryError, OrderMapError, fnum)
 
 # ------------------------------------------------------------- YAML with tags
 
@@ -950,14 +950,23 @@ class Analysis:
 
         return run_analysis(self, device)
 
-    def run_partial(self, shard_index: int, shard_count: int) -> dict:
-        """Sharded runs are not ported yet."""
-        raise AnalysisError(
-            "not yet ported to gorder_tpu_torch: partial runs "
-            "(Analysis.run_partial)")
+    def run_partial(self, shard_index: int, shard_count: int,
+                    device: str = "cuda") -> dict:
+        """Run frame shard `shard_index` of `shard_count` (a contiguous
+        block) on `device` and return its raw partial state, to be merged
+        by `merge` (one process per GPU; the GPU by default)."""
+        from ..engine.drivers import run_analysis_partial
+
+        return run_analysis_partial(self, shard_index, shard_count, device)
 
     def merge(self, states):
-        """Merging partial states is not ported yet."""
-        raise AnalysisError(
-            "not yet ported to gorder_tpu_torch: merging partial states "
-            "(Analysis.merge)")
+        """Merge partial states (dicts, or paths of the files
+        `parallel.shard.save_partial` writes, of this package or of
+        gorder_tpu) into the results of the whole run, byte for byte a
+        single run's. Host work only."""
+        from ..engine.drivers import merge_partial_states
+        from ..parallel.shard import load_partial
+
+        loaded = [load_partial(s) if isinstance(s, str) else s
+                  for s in states]
+        return merge_partial_states(self, loaded)

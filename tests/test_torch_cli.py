@@ -174,25 +174,65 @@ def test_version_matches_jax(capsys):
     ("--frame-shard", "x", "--partial", "p.npz")])
 def test_sharding_flags_parse_and_are_not_ported(cg_files, tmp_path, capsys,
                                                  monkeypatch, args):
-    """--frame-shard, --partial and --merge parse (no argparse exit 2), and
-    a sharded run or a merge fails with the port's "not yet ported" error
-    and exit code 1; a malformed shard is refused with gorder_tpu's
-    text."""
-    text = _config(tmp_path / "c.yaml", cg_files,
-                   extra="silent: true\n").read_text()
-    d = tmp_path / "port"
-    d.mkdir()
-    (d / "cfg.yaml").write_text(text)
-    monkeypatch.chdir(d)
-    assert cli.main(["cfg.yaml", *args, "--device", "cpu"]) == 1
-    err = capsys.readouterr().err
-    if "p.npz" in args and "x" not in args or "--merge" in args:
-        assert "not yet ported to gorder_tpu_torch" in err
+    """--frame-shard, --partial and --merge do what gorder-tpu's do: a
+    shard writes its partial state (the same arrays), a merge of two shards
+    (written beforehand by the same CLI) writes the single run's YAML, and
+    a shard without --partial or a malformed shard is refused. The same
+    exit codes, standard output (banner and ✔ line), error lines and
+    files (the merged YAML also equal to a single run's, byte for
+    byte)."""
+    import numpy as np
+
+    from gorder_tpu_torch.parallel.shard import load_partial
+
+    text = _config(tmp_path / "c.yaml", cg_files).read_text()
+    merge = args[0] == "--merge"
+    out = {}
+    for who, main in (("jax", jax_cli.main), ("port", cli.main)):
+        d = tmp_path / who
+        d.mkdir()
+        (d / "cfg.yaml").write_text(text)
+        monkeypatch.chdir(d)
+        device = ["--device", "cpu"] if who == "port" else []
+        if merge:
+            for i, name in enumerate(("a.npz", "b.npz")):
+                assert main(["cfg.yaml", "-s", "--frame-shard", f"{i}/2",
+                             "--partial", name, *device]) == 0
+            capsys.readouterr()
+        rc = main(["cfg.yaml", *args, *device])
+        captured = capsys.readouterr()
+        out[who] = (rc, captured.out, captured.err, d)
+    (rc, stdout, err, d), (jrc, jout, jerr, jd) = out["port"], out["jax"]
+    assert rc == jrc
+    assert stdout == jout
+    assert _errors(err) == _errors(jerr)
+    assert _files(d) == _files(jd)
+    if "x" in args or "--partial" not in args and not merge:
+        assert rc == 1 and _errors(err)[0].startswith("error: ")
+        assert not (d / "order.yaml").exists()
+    elif merge:
+        assert rc == 0 and "✔ merged partial states" in stdout
+        assert _yaml(d) == _yaml(jd)
+        direct = tmp_path / "direct"
+        direct.mkdir()
+        (direct / "cfg.yaml").write_text(text)
+        monkeypatch.chdir(direct)
+        assert cli.main(["cfg.yaml", "-s", "--device", "cpu"]) == 0
+        assert (d / "order.yaml").read_text() == (
+            direct / "order.yaml").read_text()
     else:
-        jd = tmp_path / "jax"
-        jd.mkdir()
-        (jd / "cfg.yaml").write_text(text)
-        monkeypatch.chdir(jd)
-        assert jax_cli.main(["cfg.yaml", *args]) == 1
-        assert err == capsys.readouterr().err
-    assert not (d / "order.yaml").exists()
+        assert rc == 0 and "✔ shard 0/2 state written to 'p.npz'" in stdout
+        assert not (d / "order.yaml").exists()
+        # the same keys, fingerprint and counts; the int64 sums within
+        # one 1e-6 quantum a sample of gorder_tpu's jitted XLA:CPU program
+        # (ROADMAP.md's exactness contract)
+        mine, theirs = (load_partial(str(x / "p.npz")) for x in (d, jd))
+        assert mine.keys() == theirs.keys()
+        for key, value in mine.items():
+            if key == "sums_total":
+                bound = mine["counts_total"]
+                assert (np.abs(value - theirs[key]) <= bound).all()
+            elif isinstance(value, np.ndarray):
+                np.testing.assert_array_equal(value, theirs[key])
+            else:
+                assert value == theirs[key], key

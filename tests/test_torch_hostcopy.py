@@ -124,9 +124,12 @@ def test_analysis_run_is_the_ports(aa_files, tmp_path, monkeypatch):
 
 def test_analysis_run_without_card_raises_and_loads_no_jax(aa_files,
                                                           tmp_path):
+    """Without a card the default device raises for `run` and
+    `run_partial`; a merge is host work, and of no state it raises that
+    the states cover no frame."""
     gro, bnd, xtc, _ = aa_files
     out = tmp_path / "o.yaml"
-    _fresh(
+    printed = _fresh(
         "import torch\n"
         "if torch.cuda.is_available():\n"
         "    raise SystemExit(0)  # the default device works here\n"
@@ -134,8 +137,8 @@ def test_analysis_run_without_card_raises_and_loads_no_jax(aa_files,
         f"a = g.Analysis(structure={gro!r}, bonds={bnd!r},\n"
         f"               trajectory={xtc!r}, output_yaml={str(out)!r},\n"
         "               analysis_type=g.AnalysisType.aaorder(\n"
-        "                   'resname POPC and name r\"^C\"',\n"
-        "                   'resname POPC and name r\"^H\"'),\n"
+        f"                   {chip_smoke.HEAVY!r},\n"
+        f"                   {chip_smoke.HYDROGENS!r}),\n"
         "               silent=True)\n"
         "for call in (a.run, lambda: a.run_partial(0, 2),\n"
         "             lambda: a.merge([])):\n"
@@ -147,12 +150,17 @@ def test_analysis_run_without_card_raises_and_loads_no_jax(aa_files,
         "        raise AssertionError('no AnalysisError')\n"
         + _NO_JAX_PACKAGE)
     assert not out.exists()
+    if printed:
+        lines = printed.splitlines()
+        assert lines[0] == lines[1] and "no CUDA device" in lines[0]
+        assert lines[2].startswith("partial states cover 0 frames")
 
 
 def test_chip_smoke_path_loads_no_jax_package(tmp_path):
     """What chip_smoke.py runs, at a tiny size and on the CPU: the
-    synthesis of both membranes, the analyses it builds (with a leaflet
-    run), the port's run and the harness's validation."""
+    synthesis of the three membranes, the analyses it builds (with a
+    leaflet run and a clustering one), the port's run, a sharded run
+    through the partial-state files, and the harness's validation."""
     d = str(tmp_path)
     _fresh(
         "import chip_smoke, bench, os\n"
@@ -173,4 +181,16 @@ def test_chip_smoke_path_loads_no_jax_package(tmp_path):
         "u = chip_smoke.ua_analysis('ua', *files, os.path.join(d, 'u.yaml'))\n"
         "gorder_tpu_torch.run(u, device='cpu').write()\n"
         "chip_smoke.ua_problem(1, 4, 3)\n"
+        "aab = chip_smoke.synthesize_aab(d, 20, n_mols=8,\n"
+        "                                total_atoms=8 * 134 + 30,\n"
+        "                                box=(2.4, 2.4, 11.0))\n"
+        "c = chip_smoke.leaflet_analysis('aa-clustering-leaflets', *aab, d,\n"
+        "                                os.path.join(d, 'c.yaml'))\n"
+        "gorder_tpu_torch.run(c, device='cpu').write()\n"
+        "from gorder_tpu_torch.parallel.shard import load_partial, "
+        "save_partial\n"
+        "for i in range(2):\n"
+        "    save_partial(os.path.join(d, f'p{i}.npz'),\n"
+        "                 c.run_partial(i, 2, device='cpu'))\n"
+        "c.merge([os.path.join(d, f'p{i}.npz') for i in range(2)])\n"
         + _NO_JAX_PACKAGE)

@@ -20,6 +20,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     "gorder_tpu_torch.input.export",
     "gorder_tpu_torch.core.geometry",
     "gorder_tpu_torch.engine.drivers",
+    "gorder_tpu_torch.parallel",
+    "gorder_tpu_torch.parallel.shard",
     "gorder_tpu_torch.engine.batches",
     "gorder_tpu_torch.engine.channels",
     "gorder_tpu_torch.engine.convert",
@@ -32,6 +34,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     "gorder_tpu_torch.core.pbc",
     "gorder_tpu_torch.core.ua",
     "gorder_tpu_torch.core.leaflets",
+    "gorder_tpu_torch.core.clustering",
     "gorder_tpu_torch.core.normals",
     "gorder_tpu_torch.core.ordermap",
     "gorder_tpu_torch.core.timewise",
@@ -61,6 +64,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     "gorder_tpu_torch.utils.logcolor",
     "gorder_tpu_torch.version",
     "gorder_tpu_torch.diagnostics.layout",
+    "gorder_tpu_torch.diagnostics.clustering",
     "chip_smoke",
 ])
 def test_import_leaves_jax_out(module):

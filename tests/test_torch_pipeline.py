@@ -3,7 +3,6 @@ device="cpu")`) against `gorder_tpu`'s `a.run()`: both write YAML, and
 every line but the `#` header must be equal."""
 
 import logging
-import os
 
 import numpy as np
 import pytest
@@ -19,6 +18,7 @@ from gorder_tpu_torch.engine import channels
 from gorder_tpu_torch.engine.drivers import run_analysis
 
 from .synthetic import make_flat_bilayer
+from .test_torch_clustering_pipeline import files, plans  # noqa: F401
 
 AA_LIPIDS = 4
 AA_FRAMES = 600          # two batches of 512, the second one padded
@@ -206,30 +206,30 @@ def _geometry_matches_jax(aa_files, tmp_path, option):
 
 @pytest.mark.parametrize("option", ["leaflets", "ua_leaflets", "geometry",
                                     "dynamic_normal"])
-def test_unported_option_raises(aa_files, ua_files, tmp_path, option):
-    """The clustering leaflet methods wait for a later slice and raise the
-    port's "not yet ported" error before any output is written. Geometry,
-    and an export of dynamic normals restricted to a geometry, raised it
-    once: they are ported now and equal gorder_tpu's output."""
-    from gorder_tpu_torch.input.config import LeafletClassification
+def test_unported_option_raises(aa_files, tmp_path, request, option):
+    """Options the port once refused with its "not yet ported" error, each
+    now equal to gorder_tpu's output: geometry, an export of dynamic
+    normals restricted to a geometry, and the clustering leaflet methods
+    (spectral and spherical) for AA and CG, and for UA, on systems where
+    clustering is well posed (tests/test_torch_clustering_pipeline.py)."""
+    from gorder_tpu.input.config import LeafletClassification
+
+    from .test_torch_clustering_pipeline import _analysis, compare
 
     if option in ("geometry", "dynamic_normal"):
         _geometry_matches_jax(aa_files, tmp_path, option)
         return
-    # the clustering methods wait for a later slice
-    kw = dict(leaflets=LeafletClassification.clustering(
-        "resname POPC and name P"))
-    if option == "ua_leaflets":
-        a = chip_smoke.ua_analysis("ua", *ua_files, str(tmp_path / "x.yaml"))
-        a.leaflets = kw["leaflets"]
-    else:
-        a = _aa(aa_files, tmp_path / "x.yaml", cls=gorder_tpu_torch.Analysis,
-                atype=gorder_tpu_torch.AnalysisType, **kw)
-    with pytest.raises(gorder_tpu_torch.AnalysisError,
-                       match="not yet ported") as err:
-        gorder_tpu_torch.run(a, device="cpu")
-    assert "normal" not in str(err.value)
-    assert not os.path.exists(tmp_path / "x.yaml")
+    files = request.getfixturevalue("files")
+    plans = request.getfixturevalue("plans")
+    runs = ([("aa", "resname POPC and name P"), ("vesicle", "name PO4")]
+            if option == "leaflets" else
+            [("ua", "resname POPC and name P")] * 2)
+    for (system, heads), method in zip(runs, ("clustering", "spherical")):
+        leaflets = getattr(LeafletClassification, method)(heads)
+        out = tmp_path / f"{system}_{method}"
+        out.mkdir()
+        assert compare(_analysis(files, system, leaflets), out,
+                       plans) == "i16"
 
 
 def test_default_device_without_card_raises(aa_files, tmp_path):

@@ -135,14 +135,46 @@ It imports nothing of JAX or of `gorder_tpu`. Phases, one line each:
    .merge`: the merged YAML must equal phase 5's byte for byte; and
    `aa-clustering-leaflets` as 2 shards, whose shard 1 orients its
    clusters against global frame 0's: equal to phase 17's YAML byte for
-   byte. The kernel must have been launched once per shard batch.
+   byte. The kernel must have been launched once per shard batch;
+20. run aa-palmitoyl: the sn-1 chain of the AA membrane (tools/
+   bench_modes.py's aa-palmitoyl) as pygorder code runs it: `import
+   gorder_tpu_torch.compat as gorder`, `gorder.Analysis(...,
+   analysis_type=gorder.analysis_types.AAOrder(...))` and `.run()` with no
+   argument, on the card by default; its YAML must pass
+   `aa-palmitoyl_10000.yaml`, with one P2 launch (b7) per batch;
+21. run aa-concat: `aa` over the AA XTC split in two files at frame 4,000
+   (byte copies of the frame records, by `native.xtc_scan`'s offsets): its
+   YAML must equal phase 5's but the header line;
+22. run aa-window, aa-window-file: `aa` with begin 20,000 ps, end 79,990
+   ps and step 3 (2,000 frames, selected here from the frame times), and
+   `aa` over an XTC of just those frames (byte copies): equal YAMLs but
+   the header;
+23. synth cg: tools/bench_modes.py's CG membrane (`synth_cg`: 512
+   Martini-like POPC, 16,800 beads, box 12.8 x 12.8 x 10.0, 10,000 XTC
+   frames, seed 23), synthesized byte for byte likewise;
+24. run cg: the CG analysis through the pygorder drop-in, `.run()` with no
+   argument; its YAML must pass `cg_10000.yaml` with one P2 launch (b7)
+   per batch, and every molecule's `average_order().total().value()` and
+   bond's `order().total().value()` must print as the YAML's values;
+25. run cg-errors: the same with `estimate_error.EstimateError(n_blocks=5,
+   output_convergence=...)` and TAB, CSV and XVG output: every `value()`
+   equal to phase 24's, every `error()` finite, each molecule's
+   convergence curve ending at its average order at 4 decimals, and the
+   TAB, CSV and per-molecule XVG files holding the YAML's values;
+26. run cg-xtc, cg-trr: the first 1,024 CG frames as read back from the
+   XTC, written as a single-precision TRR (`write_trr`), run on the f32
+   wire (one `p2_positions_f32` launch per batch), whose YAML must pass
+   `bench.validate_output`'s tolerance against `cg` over the same 1,024
+   frames of the XTC (`end` at the last one's time); then that kernel
+   against its plain version on the TRR run's first batch.
 
-The phases run in the order 1-7, 18, 19 (aa), 14, 12, 8-11, 18 (ua), 13,
-15, 16, 17, 19 (clustering), and the total time is printed. Then one JSON
-line with the kernels of the path (with each one's bound: the least time
-the card could take, from the bytes it must move at the H100's 3.35 TB/s
-and its f32 operations at 67 TFLOP/s), and last the result line
-`{"ok": true, "device": {...}}`. Any failure raises and exits non-zero.
+The phases run in the order 1-7, 18, 19 (aa), 14, 12, 20-22, 8-11, 18
+(ua), 13, 15, 23-26, 16, 17, 19 (clustering), and the total time is
+printed. Then one JSON line with the kernels of the path (with each
+one's bound: the least time the card could take, from the bytes it must
+move at the H100's 3.35 TB/s and its f32 operations at 67 TFLOP/s), and
+last the result line `{"ok": true, "device": {...}}`. Any failure raises
+and exits non-zero.
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result.
 """
@@ -207,6 +239,16 @@ GEO_OPS = 20
 #: are pinned, and the inline manual map of (0, 0, 1) for every molecule
 #: and frame, which must give the static golden exactly
 NORMAL_MODES = ("aa-dynamic", "aa-dynamic-export", "aa-manual-z")
+#: tools/bench_modes.py's aa-palmitoyl selections (:381-384), the sn-1
+#: chain: its heavy atoms and hydrogens
+PALMITOYL = ("resname POPC and name r'^C2\\d+$'",
+             "resname POPC and name r'^H\\d+[RST]2$'")
+#: the frame at which aa-concat splits the AA trajectory in two files
+CONCAT_AT = 4000
+#: aa-window's begin and end (ps; frames lie at t = 10 i) and step
+WINDOW = (20000.0, 79990.0, 3)
+#: the CG frames cg-trr writes into a TRR
+TRR_FRAMES = 1024
 
 
 def synthesize_structure(cache_dir, n_lipids=None, total_atoms=None):
@@ -337,14 +379,16 @@ def synthesize_trajectory(cache_dir, system, n_frames):
 
 def synthesize(cache_dir, tag, template, n_frames, n_mols, total_atoms, box,
                seed, water_names, z_offset=0.4, chains_inward=False):
-    """tools/bench_modes.py `_synthesize(tag, ...)` for the atomistic and
-    united-atom templates, through the port's host modules:
-    {tag}_bench.gro, {tag}_bench.bnd and {tag}_bench_{n_frames}.xtc, each
-    written unless cached. Lipids are bonded random walks on a leaflet
-    grid, `z_offset` nm from the box's midplane, chains outward (or inward
-    with `chains_inward`), then water. One rng stream (`seed`) feeds the
-    structure and then the trajectory, which starts from the in-memory
-    positions, not from the GRO read back."""
+    """tools/bench_modes.py `_synthesize(tag, ...)` for the atomistic,
+    united-atom and coarse-grained templates, through the port's host
+    modules: {tag}_bench.gro, {tag}_bench.bnd and
+    {tag}_bench_{n_frames}.xtc, each written unless cached. Lipids are
+    bonded random walks on a leaflet grid (0.3 nm steps for "cg", 0.14 nm
+    otherwise), `z_offset` nm from the box's midplane, chains outward (or
+    inward with `chains_inward`), then water (resname W for "cg", SOL
+    otherwise; bonded only with more than one atom a molecule). One rng
+    stream (`seed`) feeds the structure and then the trajectory, which
+    starts from the in-memory positions, not from the GRO read back."""
     from gorder_tpu_torch.io import native
     from gorder_tpu_torch.io.gro import write_gro
     from gorder_tpu_torch.system import System, canonical_bonds
@@ -389,7 +433,7 @@ def synthesize(cache_dir, tag, template, n_frames, n_mols, total_atoms, box,
             step = rng.normal(0, 1, 3).astype(np.float32)
             step[2] += z_dir * 1.2
             step /= max(np.linalg.norm(step), 1e-6)
-            walk = walk + step * 0.14
+            walk = walk + step * (0.3 if tag == "cg" else 0.14)
             positions[idx] = walk
             idx += 1
         off = m * per
@@ -399,13 +443,14 @@ def synthesize(cache_dir, tag, template, n_frames, n_mols, total_atoms, box,
         for k, name in enumerate(water_names):
             names.append(name)
             resids.append(n_mols + w + 1)
-            resnames.append("SOL")
+            resnames.append("W" if tag == "cg" else "SOL")
             d = rng.normal(0, 1, 3).astype(np.float32)
             d /= max(np.linalg.norm(d), 1e-6)
             positions[idx] = base + (0.0957 * k) * d
             idx += 1
-        o = n_lipid_atoms + w * len(water_names)
-        bonds += [(o, o + k) for k in range(1, len(water_names))]
+        if len(water_names) > 1:
+            o = n_lipid_atoms + w * len(water_names)
+            bonds += [(o, o + k) for k in range(1, len(water_names))]
     positions %= box
 
     system = System(
@@ -462,6 +507,19 @@ def synthesize_ua(cache_dir, n_frames, n_lipids=None, total_atoms=None):
         bm.UA_BOX, 29, ["OW", "HW1", "HW2"])
 
 
+def synthesize_cg(cache_dir, n_frames, n_lipids=None, total_atoms=None):
+    """tools/bench_modes.py `synth_cg` (512 Martini-like POPC of 12 beads,
+    single-bead water to 16,800 beads, box 12.8 x 12.8 x 10.0, seed 23),
+    or a cut of it to `n_lipids` and `total_atoms`."""
+    from tools import bench_modes as bm
+
+    return synthesize(
+        cache_dir, "cg", bm._cg_template, n_frames,
+        bm.CG_LIPIDS if n_lipids is None else n_lipids,
+        bm.CG_TOTAL_BEADS if total_atoms is None else total_atoms,
+        bm.CG_BOX, 23, ["W"])
+
+
 #: tools/bench_modes.py `synth_aa_bilayer` (:270): bench.py's lipid at the
 #: headline scale with realistic leaflet separation, heads 2 nm from the
 #: midplane, chains inward
@@ -477,6 +535,57 @@ def synthesize_aab(cache_dir, n_frames, **cut):
 
     return synthesize(cache_dir, "aab", bench.build_lipid_template,
                       n_frames, **{**AAB, **cut})
+
+
+def copy_frames(src, dst, frames):
+    """Write the XTC frames `frames` (ascending indices) of `src` to `dst`
+    as a byte copy of their records, by the frame offsets of
+    `native.xtc_scan`: nothing is decoded or encoded again."""
+    from gorder_tpu_torch.io import native
+
+    offsets = native.xtc_scan(src)["offsets"]
+    ends = np.append(offsets[1:], os.path.getsize(src))
+    frames = np.asarray(frames, np.int64)
+    with open(src, "rb") as fin, open(dst, "wb") as fout:
+        # runs of consecutive frames are one contiguous byte range
+        cuts = np.flatnonzero(np.diff(frames) != 1) + 1
+        for run in np.split(frames, cuts):
+            fin.seek(int(offsets[run[0]]))
+            fout.write(fin.read(int(ends[run[-1]] - offsets[run[0]])))
+    return dst
+
+
+def select_window(times, begin, end, step):
+    """The indices of the frames at `times` (ps) that a run with `begin`,
+    `end` and `step` analyzes: those with begin <= t <= end (compared in
+    f32, as the trajectory's times are), then every `step`-th."""
+    times = np.asarray(times, np.float32)
+    inside = np.flatnonzero((times >= np.float32(begin))
+                            & (times <= np.float32(end)))
+    return inside[::step]
+
+
+def write_trr(path, coords, boxes, times, steps):
+    """A single-precision GROMACS TRR of positions only: per frame the XDR
+    header (magic 1993, "GMX_trn_file", the block sizes of a 3 x 3 box and
+    N x 3 positions, N, the step, time and lambda 0) and then the box and
+    the positions, all big-endian. coords (F, N, 3), boxes (F, 3, 3) f32;
+    times (F,) ps; steps (F,)."""
+    n_frames, n_atoms = coords.shape[:2]
+    version = b"GMX_trn_file"
+    head = np.array([1993, len(version) + 1, len(version)], ">i4").tobytes()
+    head += version + b"\0" * (-len(version) % 4)
+    # ir, e, box, vir, pres, top, sym, x, v, f, natoms (then step, nre)
+    sizes = np.array([0, 0, 36, 0, 0, 0, 0, 12 * n_atoms, 0, 0, n_atoms],
+                     ">i4").tobytes()
+    with open(path, "wb") as fh:
+        for i in range(n_frames):
+            fh.write(head + sizes)
+            fh.write(np.array([steps[i], 0], ">i4").tobytes())
+            fh.write(np.array([times[i], 0.0], ">f4").tobytes())
+            fh.write(np.asarray(boxes[i], ">f4").tobytes())
+            fh.write(np.asarray(coords[i], ">f4").tobytes())
+    return path
 
 
 def ua_analysis(mode, gro, bnd, xtc, output_yaml=None, **kw):
@@ -1422,13 +1531,16 @@ def check_z_plane(aa_first, dyn_first, ua_first, ua_dyn_first, p2_static,
           "(int16, ua batch)", flush=True)
 
 
-def _run(label, analysis, counters, n_frames, watch=None):
+def _run(label, analysis, counters, n_frames, watch=None, compat=False):
     """`gorder_tpu_torch.run` with every launch count set to 0 just before
     and read just after; the counts named in `counters` must have their
     value there and every other count must be 0. `watch`, if given, sees
-    every batch's `DeviceBatch`. → (results, wall s, launches by count
-    name, wire-format log line, the first batch's `DeviceBatch` as the run
-    handed it to its step)."""
+    every batch's `DeviceBatch`. With `compat`, `analysis` is a
+    `gorder_tpu_torch.compat.Analysis` run as pygorder code runs it,
+    `analysis.run()` with no argument (on the card by default), which
+    hands out no batch. → (results, wall s, launches by count name,
+    wire-format log line, the first batch's `DeviceBatch` as the run
+    handed it to its step, or None with `compat`)."""
     import torch
 
     import gorder_tpu_torch
@@ -1457,8 +1569,8 @@ def _run(label, analysis, counters, n_frames, watch=None):
     timers.reset()
     try:
         t0 = time.perf_counter()
-        results = gorder_tpu_torch.run(analysis, device="cuda",
-                                       on_batch=on_batch)
+        results = (analysis.run() if compat else gorder_tpu_torch.run(
+            analysis, device="cuda", on_batch=on_batch))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -1472,11 +1584,13 @@ def _run(label, analysis, counters, n_frames, watch=None):
           f"{n_frames / wall:.1f} frames/s end to end; {wires[-1]}; "
           f"launches {launches}; phases: {timers.summary()}; outputs "
           f"written in {write:.3f} s", flush=True)
-    if results.n_analyzed_frames != n_frames:
-        raise RuntimeError(f"{label}: analyzed {results.n_analyzed_frames} "
-                           f"frames, expected {n_frames}")
+    analyzed = (results.n_analyzed_frames() if compat
+                else results.n_analyzed_frames)
+    if analyzed != n_frames:
+        raise RuntimeError(f"{label}: analyzed {analyzed} frames, expected "
+                           f"{n_frames}")
     check_launches(label, launches, counters)
-    return results, wall, launches, wires[-1], first[0]
+    return results, wall, launches, wires[-1], first[0] if first else None
 
 
 def _launch_counts():
@@ -1525,7 +1639,7 @@ def off_lines(yaml_path, label, n_frames):
 
 
 def run_golden(label, analysis, counters, n_frames, golden=None, wire=None,
-               exact=False, watch=None):
+               exact=False, watch=None, compat=False):
     """`_run`, then the YAML must pass bench.validate_output against the
     pinned golden {golden}_{n_frames}.yaml (golden: the label by default),
     exactly if `exact`; the wire-format log line must hold `wire` if
@@ -1534,7 +1648,7 @@ def run_golden(label, analysis, counters, n_frames, golden=None, wire=None,
 
     golden = golden or label
     results, _, launches, wire_line, first = _run(label, analysis, counters,
-                                                  n_frames, watch)
+                                                  n_frames, watch, compat)
     if wire is not None and wire not in wire_line:
         raise RuntimeError(f"{label}: rode {wire_line!r}, expected {wire!r}")
     status = bench.validate_output(analysis.output_yaml, golden, n_frames)
@@ -1543,7 +1657,9 @@ def run_golden(label, analysis, counters, n_frames, golden=None, wire=None,
     if exact and status != "exact":
         raise RuntimeError(f"{label}: {status} against {golden}, expected "
                            f"exact")
-    values = [m.average_order.total.value for m in results.molecules]
+    values = ([m.average_order().total().value() for m in results.molecules()]
+              if compat else
+              [m.average_order.total.value for m in results.molecules])
     if not all(math.isfinite(v) for v in values):
         raise RuntimeError(f"{label}: non-finite average order: {values}")
     where = ("" if status == "exact" else
@@ -1575,6 +1691,141 @@ def kernel_entry(name, source, replaces, launches, numbers):
             "bound_by": numbers["bound_by"],
             # no one PyTorch call computes these order-parameter sums
             "library_ms": None}
+
+
+def cg_analysis(g, gro, bnd, trajectory, output_yaml=None, **kw):
+    """tools/bench_modes.py `_make_analysis("cg")`, built from the
+    namespace `g`: the pygorder drop-in `gorder_tpu_torch.compat` or the
+    package itself."""
+    return g.Analysis(structure=gro, bonds=bnd, trajectory=trajectory,
+                      analysis_type=g.analysis_types.CGOrder("resname POPC"),
+                      output_yaml=output_yaml, n_threads=os.cpu_count() or 1,
+                      silent=True, overwrite=True, **kw)
+
+
+def _mean_error(node):
+    """(mean, error) of a YAML order entry: `total: v`, or `total:` with
+    `mean:` and `error:` under it (error estimation)."""
+    node = node["total"]
+    return ((node["mean"], node["error"]) if isinstance(node, dict)
+            else (node, None))
+
+
+def cg_yaml_orders(path):
+    """A CG run's YAML as {molecule: {"average" or bond key: (mean,
+    error)}}, bond keys as printed ("POPC NC3 (0) - POPC PO4 (1)")."""
+    import yaml
+
+    with open(path) as fh:
+        doc = yaml.safe_load(fh)
+    return {name: {"average": _mean_error(node["average order"]),
+                   **{key: _mean_error(bond) for key, bond
+                      in node["order parameters"].items()}}
+            for name, node in doc.items() if name != "average order"}
+
+
+def check_cg_views(label, results, yaml_path):
+    """The method-style views of a CG run (pygorder's `results`): every
+    molecule's `average_order().total()` and every bond's
+    `order().total()`, their `value()` printed at 4 decimals, must be the
+    YAML's values. → {(molecule, key): (value(), error())}."""
+    printed = cg_yaml_orders(yaml_path)
+    views = {}
+    for mol in results.molecules():
+        name = mol.molecule()
+        views[name, "average"] = mol.average_order().total()
+        for bond in mol.bonds():
+            a, b = bond.atoms()
+            views[name, f"{a.residue_name()} {a.atom_name()} "
+                        f"({a.relative_index()}) - {b.residue_name()} "
+                        f"{b.atom_name()} ({b.relative_index()})"] = \
+                bond.order().total()
+    if len(views) != sum(len(v) for v in printed.values()):
+        raise RuntimeError(f"{label}: {len(views)} views, the YAML holds "
+                           f"{sum(len(v) for v in printed.values())} values")
+    for (name, key), order in views.items():
+        if float(f"{order.value():.4f}") != printed[name][key][0]:
+            raise RuntimeError(f"{label}: {name} {key}: value() "
+                               f"{order.value()}, the YAML "
+                               f"{printed[name][key][0]}")
+    print(f"check {label}: {len(views)} values through the method-style "
+          f"views (average_order().total().value(), order().total()"
+          f".value()) print as the YAML's at 4 decimals", flush=True)
+    return {key: (order.value(), order.error())
+            for key, order in views.items()}
+
+
+def check_cg_files(label, analysis, molecules):
+    """The TAB and CSV files and the XVG file of each molecule type of a
+    CG run with error estimation must hold the YAML's means and errors at
+    their printed 4 decimals (the XVG, the means), every bond and average
+    once. → {file: values compared}."""
+    import collections
+    import re
+
+    from gorder_tpu_torch.present.xvg_out import xvg_path_for
+
+    want = {}
+    for name, orders in cg_yaml_orders(analysis.output_yaml).items():
+        for key, mean_error in orders.items():
+            short = "AVERAGE" if key == "average" else re.sub(
+                r"\S+ (\S+) \(\d+\) - \S+ (\S+) \(\d+\)", r"\1 - \2", key)
+            want[name, short] = mean_error
+    seen = collections.Counter()
+
+    def same(kind, name, short, mean, error=None):
+        m, e = want[name, short]
+        if float(mean) != m or (error is not None and float(error) != e):
+            raise RuntimeError(f"{label}: {kind} {name} {short}: {mean} ± "
+                               f"{error}, the YAML {m} ± {e}")
+        seen[kind] += 1
+
+    with open(analysis.output_csv) as fh:
+        for row in fh.read().splitlines()[1:]:
+            mol, a, b, mean, error = row.split(",")
+            same("csv", mol, f"{a} - {b}", mean, error)
+    mol = None
+    with open(analysis.output_tab) as fh:
+        for line in fh:
+            if line.startswith("Molecule type "):
+                mol = line.split()[-1]
+            elif line.startswith("All molecule types"):
+                mol = None
+            found = re.match(r"(\S+ - \S+|AVERAGE)\s+(-?\d+\.\d+) ± "
+                             r"(\d+\.\d+)", line)
+            if found and mol is not None:
+                same("tab", mol, found[1], found[2], found[3])
+    for name in molecules:
+        with open(xvg_path_for(analysis.output_xvg, name)) as fh:
+            lines = fh.read().splitlines()
+        for head, row in zip(lines, lines[1:]):
+            found = re.match(r"# Bond (\S+ - \S+):", head)
+            if found:
+                same("xvg", name, found[1], row.split()[1])
+    n_bonds = len(want) - len(molecules)
+    expected = {"csv": n_bonds, "tab": len(want), "xvg": n_bonds}
+    if dict(seen) != expected:
+        raise RuntimeError(f"{label}: values found {dict(seen)}, expected "
+                           f"{expected}")
+    print(f"check {label}: TAB, CSV and {len(molecules)} XVG file(s) hold "
+          f"the YAML's values at 4 decimals ({dict(seen)} values)",
+          flush=True)
+    return dict(seen)
+
+
+def same_lines(label, path, reference):
+    """The YAML at `path` must equal `reference` line for line but the
+    `#` header."""
+    def lines(p):
+        with open(p) as fh:
+            return [ln for ln in fh.read().splitlines()
+                    if not ln.startswith("#")]
+
+    if lines(path) != lines(reference):
+        raise RuntimeError(f"{label}: {path} differs from {reference}")
+    print(f"check {label}: the YAML equals {os.path.basename(reference)} "
+          f"line for line but the header ({len(lines(path))} lines)",
+          flush=True)
 
 
 def main_path_batch_ms(db):
@@ -1837,6 +2088,61 @@ def main() -> int:
                  normal=dyn_first.normal)
     del map_firsts, leaflet_first
 
+    # 20. the sn-1 chain of the AA membrane (tools/bench_modes.py
+    # aa-palmitoyl) through the pygorder drop-in, run() with no argument:
+    # its golden, one p2_b7 launch a batch
+    import gorder_tpu_torch.compat as gorder
+
+    palmitoyl_launches, _, _ = run_golden(
+        "aa-palmitoyl", gorder.Analysis(
+            structure=gro, bonds=bnd, trajectory=xtc,
+            analysis_type=gorder.analysis_types.AAOrder(*PALMITOYL),
+            output_yaml=os.path.join(cache, "smoke_aa-palmitoyl.yaml"),
+            n_threads=os.cpu_count() or 1, silent=True, overwrite=True),
+        {"p2_launches": n_batches}, N_FRAMES, wire="wire format: b7",
+        compat=True)
+
+    # 21. aa over the XTC split in two at frame 4,000 (byte copies of the
+    # frame records): the YAML of phase 5 but the header
+    t0 = time.perf_counter()
+    parts = [copy_frames(xtc, os.path.join(cache, "aa_part1.xtc"),
+                         range(CONCAT_AT)),
+             copy_frames(xtc, os.path.join(cache, "aa_part2.xtc"),
+                         range(CONCAT_AT, N_FRAMES))]
+    print(f"split: {xtc} into 2 files at frame {CONCAT_AT} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    concat_yaml = os.path.join(cache, "smoke_aa-concat.yaml")
+    _, _, concat_launches, _, _ = _run(
+        "aa-concat", aa_analysis(gro, bnd, parts, concat_yaml),
+        {"p2_launches": n_batches}, N_FRAMES)
+    same_lines("aa-concat", concat_yaml, os.path.join(cache,
+                                                      "smoke_order.yaml"))
+    for part in parts:
+        os.remove(part)
+
+    # 22. aa over a time window (begin, end, step), and over an XTC of just
+    # the frames the window selects (byte copies): equal YAMLs
+    from gorder_tpu_torch.io import native
+
+    begin, end, stride = WINDOW
+    frames = select_window(native.xtc_scan(xtc)["times"], begin, end, stride)
+    window_batches = math.ceil(len(frames) / BATCH)
+    window_xtc = copy_frames(xtc, os.path.join(cache, "aa_window.xtc"),
+                             frames)
+    window_launches = 0
+    for label, traj, kw in (
+            ("aa-window", xtc, dict(begin=begin, end=end, step=stride)),
+            ("aa-window-file", window_xtc, {})):
+        _, _, got, _, _ = _run(label, aa_analysis(
+            gro, bnd, traj, os.path.join(cache, f"smoke_{label}.yaml"), **kw),
+            {"p2_launches": window_batches}, len(frames))
+        window_launches += got["p2_launches"]
+    same_lines("aa-window", os.path.join(cache, "smoke_aa-window.yaml"),
+               os.path.join(cache, "smoke_aa-window-file.yaml"))
+    print(f"check aa-window: begin {begin} end {end} step {stride} selects "
+          f"{len(frames)} frames, {frames[0]}..{frames[-1]}", flush=True)
+    os.remove(window_xtc)
+
     # 8. UA synth
     t0 = time.perf_counter()
     from tools import bench_modes
@@ -1976,6 +2282,114 @@ def main() -> int:
           f"({int(outside[1].sum())}) add up to the ua run's "
           f"({int(ua_sums.value[1].sum())}) exactly", flush=True)
 
+    # 23. synth cg: tools/bench_modes.py synth_cg (512 POPC of 12 beads,
+    # 16,800 beads, 10,000 frames, seed 23)
+    t0 = time.perf_counter()
+    cg_frames = bench_modes.CG_FRAMES
+    cg_files = synthesize_cg(cache, cg_frames)
+    print(f"synth cg: {cg_frames} frames in {time.perf_counter() - t0:.1f} "
+          f"s ({os.path.getsize(cg_files[2])} bytes of XTC)", flush=True)
+
+    # 24. cg as pygorder code runs it (gorder_tpu_torch.compat, run() with
+    # no argument): its golden, one p2_b7 launch a batch, and the
+    # method-style views' values printed as the YAML's
+    import gorder_tpu_torch
+
+    cg_batches = math.ceil(cg_frames / BATCH)
+    cg_launches, cg_results, _ = run_golden(
+        "cg", cg_analysis(gorder, *cg_files,
+                          os.path.join(cache, "smoke_cg.yaml")),
+        {"p2_launches": cg_batches}, cg_frames, wire="wire format: b7",
+        compat=True)
+    cg_values = check_cg_views("cg", cg_results,
+                               os.path.join(cache, "smoke_cg.yaml"))
+
+    # 25. cg with error estimation and every output file: the same values,
+    # finite errors, convergence curves ending at the averages, and TAB,
+    # CSV and XVG files holding the YAML's values
+    out = os.path.join(cache, "cg-errors")
+    os.makedirs(out, exist_ok=True)
+    errors = cg_analysis(
+        gorder, *cg_files, os.path.join(out, "order.yaml"),
+        output_tab=os.path.join(out, "order.tab"),
+        output_csv=os.path.join(out, "order.csv"),
+        output_xvg=os.path.join(out, "order.xvg"),
+        estimate_error=gorder.estimate_error.EstimateError(
+            n_blocks=5, output_convergence=os.path.join(out, "conv.xvg")))
+    errors_results, _, errors_launches, _, _ = _run(
+        "cg-errors", errors, {"p2_launches": cg_batches}, cg_frames,
+        compat=True)
+    errors_values = check_cg_views("cg-errors", errors_results,
+                                   errors.output_yaml)
+    if ({key: v for key, (v, _) in errors_values.items()}
+            != {key: v for key, (v, _) in cg_values.items()}):
+        raise RuntimeError("cg-errors: value() differs from the cg run's")
+    bad = [key for key, (_, e) in errors_values.items()
+           if e is None or not math.isfinite(e)]
+    if bad:
+        raise RuntimeError(f"cg-errors: no finite error() for {bad}")
+    for mol in errors_results.molecules():
+        last = mol.convergence().total()[-1]
+        average = mol.average_order().total().value()
+        if f"{last:.4f}" != f"{average:.4f}":
+            raise RuntimeError(f"cg-errors: {mol.molecule()}'s convergence "
+                               f"curve ends at {last}, its average is "
+                               f"{average}")
+        print(f"check cg-errors: {mol.molecule()}: value() == the cg run's "
+              f"for all {len(errors_values)} values, errors finite (average "
+              f"{average:.6f} ± {mol.average_order().total().error():.6f}), "
+              f"the convergence curve of {len(mol.convergence().frames())} "
+              f"frames ends at {last:.6f}", flush=True)
+    check_cg_files("cg-errors", errors,
+                   [mol.molecule() for mol in errors_results.molecules()])
+    if not os.path.exists(os.path.join(out, "conv.xvg")):
+        raise RuntimeError("cg-errors: no convergence file")
+
+    # 26. the first 1,024 CG frames as read back from the XTC, written as a
+    # single-precision TRR, through the f32 wire: within bench
+    # .validate_output's tolerance of cg over the same frames of the XTC;
+    # then the P2 kernel against plain on its first batch (f32 positions)
+    from gorder_tpu_torch.io.traj import Trajectory
+
+    t0 = time.perf_counter()
+    source = Trajectory(cg_files[2])
+    coords, boxes, times, steps = source.read_frames(
+        np.arange(TRR_FRAMES), int(source.files[0].natoms[0]))
+    trr = write_trr(os.path.join(cache, f"cg_bench_{TRR_FRAMES}.trr"),
+                    coords, boxes, times, steps)
+    del coords
+    print(f"trr: the first {TRR_FRAMES} CG frames as read back, written in "
+          f"{time.perf_counter() - t0:.1f} s ({os.path.getsize(trr)} bytes)",
+          flush=True)
+    trr_batches = math.ceil(TRR_FRAMES / BATCH)
+    reference = os.path.join(cache, f"cg-xtc_{TRR_FRAMES}.yaml")
+    _, _, xtc_launches, wire_line, _ = _run(
+        "cg-xtc", cg_analysis(gorder_tpu_torch, *cg_files, reference,
+                              end=float(times[-1])),
+        {"p2_launches": trr_batches}, TRR_FRAMES)
+    if "wire format: b7" not in wire_line:
+        raise RuntimeError(f"cg-xtc: {wire_line}")
+    kinds = set()
+    trr_yaml = os.path.join(cache, "smoke_cg-trr.yaml")
+    _, _, trr_launches, wire_line, trr_first = _run(
+        "cg-trr", cg_analysis(gorder_tpu_torch, *cg_files[:2], trr, trr_yaml),
+        {"p2_launches": trr_batches}, TRR_FRAMES,
+        watch=lambda db: kinds.add(db.kind))
+    if "wire format: f32" not in wire_line or kinds != {"f32"}:
+        raise RuntimeError(f"cg-trr: {wire_line}; batch kinds {kinds}")
+    golden_dir = bench.GOLDEN_DIR
+    bench.GOLDEN_DIR = cache
+    try:
+        status = bench.validate_output(trr_yaml, "cg-xtc", TRR_FRAMES)
+    finally:
+        bench.GOLDEN_DIR = golden_dir
+    print(f"check cg-trr: every batch rode the f32 wire; {trr_batches} P2 "
+          f"launches (p2_positions_f32); against cg over the XTC's same "
+          f"frames: {status}", flush=True)
+    p2_f32 = check_p2("cg-trr", trr_first, leaflets=False)["f32"]
+    del trr_first
+    os.remove(trr)
+
     # 16. the clustering benchmark's bilayer (tools/bench_modes.py
     # synth_aa_bilayer): 256 POPC, heads 2 nm from the midplane, chains
     # inward, 64,500 atoms, 10,000 frames, seed 31; the AA trajectory is
@@ -2030,7 +2444,14 @@ def main() -> int:
                       "gorder_tpu/ops/pallas_ua.py:69")
     kernels = [
         kernel_entry("p2", p2_src, p2_tpu, launches["p2_launches"]
-                     + sharded["p2_launches"], p2_plain["b7"]),
+                     + sharded["p2_launches"]
+                     + palmitoyl_launches["p2_launches"]
+                     + concat_launches["p2_launches"] + window_launches
+                     + cg_launches["p2_launches"]
+                     + errors_launches["p2_launches"]
+                     + xtc_launches["p2_launches"], p2_plain["b7"]),
+        kernel_entry("p2_f32", p2_src, p2_tpu, trr_launches["p2_launches"],
+                     p2_f32),
         kernel_entry("p2_leaflets", p2_src, p2_tpu,
                      sum(n for mode, n in leaflet_launches.items()
                          if mode != "aa-local-leaflets")

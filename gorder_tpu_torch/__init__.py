@@ -1,6 +1,6 @@
 """gorder_tpu_torch: lipid order parameters with PyTorch on an NVIDIA GPU.
 
-The port of `gorder_tpu` (JAX on a TPU) to PyTorch and a hand-written
+The port of `gorder_tpu` (JAX on a TPU) to PyTorch and hand-written
 Hopper kernels. It reads the same YAML configurations and writes the same
 output files; `gorder_tpu` stays the reference it is tested against. It
 covers all-atom (AA), coarse-grained (CG) and united-atom (UA) order
@@ -17,23 +17,77 @@ selection, in one run or in frame shards merged afterwards::
 
 `analysis.run()` does the same. `analysis.run_partial(i, n)` runs the
 i-th of n contiguous frame shards (one process per GPU) and
-`analysis.merge(states)` joins their states into the same results. The
-host code (trajectory readers and their C++ codec, selections, topology,
+`analysis.merge(states)` joins their states into the same results.
+
+Code written against pygorder, the reference's Python package, runs
+unchanged through the drop-in namespace, on the GPU by default::
+
+    import gorder_tpu_torch.compat as gorder   # was: import gorder
+
+    results = gorder.Analysis(
+        structure="system.tpr", trajectory="md.xtc",
+        analysis_type=gorder.analysis_types.CGOrder("@membrane"),
+    ).run()
+    print(results.average_order().total().value())
+
+The pygorder namespaces (`analysis_types`, `leaflets`, `geometry`, ...)
+are also attributes of this package, as in `gorder_tpu`. The host code
+(trajectory readers and their C++ codec, selections, topology,
 configuration, results and presenters) is this package's own copy of
 `gorder_tpu`'s; this package imports neither jax nor `gorder_tpu`.
 """
 
+from .version import __version__  # noqa: F401
 from .errors import (  # noqa: F401
     AnalysisError,
     ConfigError,
     GorderError,
+    SelectionError,
+    TopologyError,
+    WriteError,
 )
 from .input.config import (  # noqa: F401
     Analysis,
     AnalysisType,
+    Collect,
     EstimateError,
+    Frequency,
+    Geometry,
+    GridSpan,
+    LeafletClassification,
     MembraneNormal,
+    OrderMapParams,
 )
+from .results.model import (  # noqa: F401
+    AnalysisResults,
+    AtomResults,
+    BondResults,
+    MoleculeResults,
+    Order,
+    OrderCollection,
+)
+
+# pygorder-compatible namespaces (gorder.analysis_types.AAOrder, ...)
+from .compat import (  # noqa: F401,E402
+    analysis_types,
+    estimate_error as estimate_error_module,
+    exceptions,
+    geometry,
+    leaflets,
+    membrane_normal,
+    ordermap,
+)
+
+# pygorder spells it `gorder.estimate_error.EstimateError`; the top-level
+# EstimateError class import above stays for this package's own API
+estimate_error = estimate_error_module
+
+import sys as _sys  # noqa: E402
+
+for _name in ("analysis_types", "estimate_error", "leaflets", "geometry",
+              "membrane_normal", "ordermap", "exceptions"):
+    _sys.modules[f"{__name__}.{_name}"] = globals()[_name]
+del _name
 
 
 def run(analysis, device="cuda", on_batch=None):

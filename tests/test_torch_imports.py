@@ -15,6 +15,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.mark.parametrize("module", [
     "gorder_tpu_torch",
+    "gorder_tpu_torch.compat",
+    "gorder_tpu_torch.compat.analysis",
+    "gorder_tpu_torch.results.pyapi",
+    "gorder_tpu_torch.analysis_types",
     "gorder_tpu_torch.__main__",
     "gorder_tpu_torch.cli",
     "gorder_tpu_torch.input.export",

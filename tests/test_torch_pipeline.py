@@ -330,3 +330,22 @@ def test_ua_synthesis_matches_bench_modes(tmp_path, monkeypatch):
     for name in ("ua_bench.gro", "ua_bench.bnd", f"ua_bench_{frames}.xtc"):
         assert (tmp_path / "b" / name).read_bytes() \
             == (tmp_path / "p" / name).read_bytes(), name
+
+
+def test_cg_synthesis_matches_bench_modes(tmp_path, monkeypatch):
+    """chip_smoke's CG synthesis writes tools/bench_modes.py's files byte
+    for byte (the 0.3 nm walk, water resname W, unbonded one-bead
+    water)."""
+    from tools import bench_modes
+
+    n_lipids, total, frames = 3, 3 * 12 + 30, 5
+    (tmp_path / "b").mkdir()
+    (tmp_path / "p").mkdir()
+    monkeypatch.setattr(bench_modes, "CACHE", str(tmp_path / "b"))
+    bench_modes._synthesize("cg", bench_modes._cg_template, n_lipids, total,
+                            bench_modes.CG_BOX, "POPC", ["W"], frames,
+                            seed=23)
+    chip_smoke.synthesize_cg(str(tmp_path / "p"), frames, n_lipids, total)
+    for name in ("cg_bench.gro", "cg_bench.bnd", f"cg_bench_{frames}.xtc"):
+        assert (tmp_path / "b" / name).read_bytes() \
+            == (tmp_path / "p" / name).read_bytes(), name

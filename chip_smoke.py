@@ -6,7 +6,11 @@ kernels are built for sm_90a):
 
     python3 chip_smoke.py
 
-It imports nothing of JAX or of `gorder_tpu`. Phases, one line each:
+It imports nothing of JAX or of `gorder_tpu`. The runs that rode int16
+before the wire pick preferred s6 and d8 (every coordinate run on a box
+that int16 fits) keep int16, forced with GORDER_TPU_WIRE=i16, so that
+their kernel variants stay on the path; phases 27-31 drive the pick and
+the s6, d8 and i12 wires. Phases, one line each:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc builds `gorder_tpu_torch/csrc/*.cu`;
@@ -166,24 +170,61 @@ It imports nothing of JAX or of `gorder_tpu`. Phases, one line each:
    wire (one `p2_positions_f32` launch per batch), whose YAML must pass
    `bench.validate_output`'s tolerance against `cg` over the same 1,024
    frames of the XTC (`end` at the last one's time); then that kernel
-   against its plain version on the TRR run's first batch.
+   against its plain version on the TRR run's first batch;
+27. run ua-d8, ua-s6: the `ua` analysis forced onto d8 and onto s6, the
+   int32 XTC integers (`ua_positions_i32`, one launch a batch and
+   category): each YAML must equal the int16 `ua` run's line for line;
+   each decoder on the card against the CPU's on the run's first batch,
+   integer for integer, with its CUDA-event time; the int32 UA kernel
+   against plain on the d8 run's first batch;
+28. run aa-ordermap-d8: `aa-ordermap` forced onto d8
+   (`p2_positions_i32_pair` with its map): the YAML and every file of its
+   map directory must equal the int16 run's byte for byte, the map hold
+   the run's samples exactly; then that kernel against plain on its first
+   batch, int32 and f32;
+29. run cg-i16, cg-i12: the first 1,024 CG frames re-encoded at precision
+   100, Martini's published compressed-x-precision, forced onto int16 and
+   onto i12 (12-bit packed, unpacked to int16 on the card): every batch
+   rides the wire forced, and the YAMLs are equal line for line;
+30. synth ves: a CG vesicle (`synthesize_vesicle`: the CG lipid, 4,350
+   heads on a 15.0 nm shell with chains inward and 2,300 on an 11.0 nm
+   shell with chains outward, "W" water to 150,000 beads, a 36.0 nm box
+   whose XTC integers overflow int16, 1,000 frames, seed 37);
+31. run ves, ves-spherical, ves-spherical-{s6|d8}, ves-spherical-f32,
+   ves-spherical-traced, ves-chain: CGOrder of the vesicle on b7
+   (`p2_b7`), and with spherical leaflets and dynamic normals on PO4
+   (radius 2.0 nm) every frame, which must ride the pick's s6 or d8
+   (`p2_positions_i32` with classes and normals), with finite values in
+   every class; its decoder against the CPU's and the kernel against plain
+   on its first batch; forced onto the other of s6 and d8, an equal YAML
+   (s6 keeps each residue's median a frame in int16: where that overflows,
+   the pick falls to d8, as printed); forced onto f32, the difference of
+   its values from the integer wire's is printed (what the port gave on
+   such a box before it had s6 and d8); traced with torch.profiler
+   (GORDER_TPU_PROFILE), equal YAML, its top device operations and busy
+   share printed; then its first 64 frames on the card and on the CPU:
+   the decoded integers and the classes equal, and the card's int64 sums
+   equal to the CPU plain step's with the card's normals (the CPU's own
+   normals, from another eigensolver, and its sums' difference printed).
 
-The phases run in the order 1-7, 18, 19 (aa), 14, 12, 20-22, 8-11, 18
-(ua), 13, 15, 23-26, 16, 17, 19 (clustering), and the total time is
-printed. Then one JSON line with the kernels of the path (with each
-one's bound: the least time the card could take, from the bytes it must
-move at the H100's 3.35 TB/s and its f32 operations at 67 TFLOP/s), and
-last the result line `{"ok": true, "device": {...}}`. Any failure raises
-and exits non-zero.
+The phases run in the order 1-7, 18, 19 (aa), 14, 12, 28, 20-22, 8, 9,
+27, 10, 11, 18 (ua), 13, 15, 23-26, 29-31, 16, 17, 19 (clustering), and
+the total time is printed. Then one JSON line with the kernels of the
+path (with each one's bound: the least time the card could take, from
+the bytes it must move at the H100's 3.35 TB/s and its f32 operations at
+67 TFLOP/s), and last the result line `{"ok": true, "device": {...}}`.
+Any failure raises and exits non-zero.
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result.
 """
 
+import contextlib
 import dataclasses
 import json
 import logging
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -247,8 +288,20 @@ PALMITOYL = ("resname POPC and name r'^C2\\d+$'",
 CONCAT_AT = 4000
 #: aa-window's begin and end (ps; frames lie at t = 10 i) and step
 WINDOW = (20000.0, 79990.0, 3)
-#: the CG frames cg-trr writes into a TRR
+#: the CG frames cg-trr writes into a TRR, and cg-i12 re-encodes at
+#: Martini's published compressed-x-precision
 TRR_FRAMES = 1024
+I12_PRECISION = 100.0
+#: the CG vesicle (`synthesize_vesicle`): tools/bench_modes.py's Martini-
+#: like POPC with heads on two shells, water to 150,000 beads, in a box
+#: whose XTC integers overflow int16 at precision 1000
+VESICLE = dict(n_outer=4350, r_outer=15.0, n_inner=2300, r_inner=11.0,
+               total_beads=150_000, box=36.0, seed=37)
+VESICLE_FRAMES = 1000
+#: ves-spherical's leaflets and dynamic normals (heads, radius in nm)
+VESICLE_HEADS = ("name PO4", 2.0)
+#: the frames of the card-against-CPU chain of ves-spherical
+CHAIN_FRAMES = 64
 
 
 def synthesize_structure(cache_dir, n_lipids=None, total_atoms=None):
@@ -537,6 +590,127 @@ def synthesize_aab(cache_dir, n_frames, **cut):
                       n_frames, **{**AAB, **cut})
 
 
+def _fibonacci_shell(n, radius, center):
+    """(n, 3) points spread evenly on a sphere, and their unit normals."""
+    i = np.arange(n, dtype=np.float64)
+    z = 1.0 - 2.0 * (i + 0.5) / n
+    r = np.sqrt(1.0 - z * z)
+    theta = np.pi * (3.0 - np.sqrt(5.0)) * i
+    unit = np.stack([r * np.cos(theta), r * np.sin(theta), z], axis=1)
+    return center + radius * unit, unit
+
+
+def synthesize_vesicle(cache_dir, n_frames, n_outer=None, r_outer=None,
+                       n_inner=None, r_inner=None, total_beads=None,
+                       box=None, seed=None):
+    """A Martini-like CG vesicle (`VESICLE`, with any size replaced):
+    tools/bench_modes.py's 12-bead POPC with its first bead on one of two
+    Fibonacci shells around the box center, chains inward on the outer
+    shell and outward on the inner one (0.3 nm random-walk steps biased
+    along the chain), then single-bead "W" water uniform in the cubic box
+    up to `total_beads`; the trajectory as `synthesize` makes it
+    (per-molecule drift and per-bead jitter, one rng stream after the
+    structure's), at precision 1000. → ves_bench.gro, .bnd and
+    _{n_frames}.xtc in `cache_dir`, each written unless cached."""
+    from gorder_tpu_torch.io import native
+    from gorder_tpu_torch.io.gro import write_gro
+    from gorder_tpu_torch.system import System, canonical_bonds
+    from tools import bench_modes as bm
+
+    v = dict(VESICLE, **{k: val for k, val in dict(
+        n_outer=n_outer, r_outer=r_outer, n_inner=n_inner, r_inner=r_inner,
+        total_beads=total_beads, box=box, seed=seed).items()
+        if val is not None})
+    gro = os.path.join(cache_dir, "ves_bench.gro")
+    bnd = os.path.join(cache_dir, "ves_bench.bnd")
+    xtc = os.path.join(cache_dir, f"ves_bench_{n_frames}.xtc")
+    if all(os.path.exists(f) for f in (gro, bnd, xtc)) and len(
+            native.xtc_scan(xtc)["offsets"]) == n_frames:
+        return gro, bnd, xtc
+    box3 = np.full(3, v["box"], np.float32)
+    center = box3.astype(np.float64) / 2
+    rng = np.random.default_rng(v["seed"])
+    names, bonds_t = bm._cg_template()
+    per = len(names)
+    outer, n_out = _fibonacci_shell(v["n_outer"], v["r_outer"], center)
+    inner, n_in = _fibonacci_shell(v["n_inner"], v["r_inner"], center)
+    heads = np.concatenate([outer, inner])
+    chains = np.concatenate([-n_out, n_in])       # the direction of a chain
+    n_mols = len(heads)
+    n_water = v["total_beads"] - n_mols * per
+    positions = np.zeros((n_mols * per + n_water, 3), np.float32)
+    for m in range(n_mols):
+        walk = heads[m].astype(np.float32)
+        for k in range(per):
+            step = rng.normal(0, 1, 3).astype(np.float32)
+            step += (chains[m] * 1.2).astype(np.float32)
+            step /= max(np.linalg.norm(step), 1e-6)
+            if k:
+                walk = walk + step * 0.3
+            positions[m * per + k] = walk
+    positions[n_mols * per:] = rng.random((n_water, 3)).astype(
+        np.float32) * box3
+    positions %= box3
+    resids = np.concatenate([np.repeat(np.arange(1, n_mols + 1), per),
+                             np.arange(n_mols + 1, n_mols + n_water + 1)])
+    system = System(
+        name="gorder-tpu-torch CG vesicle",
+        atom_names=np.array(names * n_mols + ["W"] * n_water, dtype="U8"),
+        resids=resids.astype(np.int64),
+        resnames=np.array(["POPC"] * (n_mols * per) + ["W"] * n_water,
+                          dtype="U8"),
+        serials=np.arange(1, len(positions) + 1, dtype=np.int64),
+        positions=positions, box=np.diag(box3))
+    system.bonds = canonical_bonds(np.asarray(
+        [(m * per + a, m * per + b) for m in range(n_mols)
+         for a, b in bonds_t], np.int64))
+    write_gro(gro, system)
+    with open(bnd, "w") as fh:
+        for a, b in system.bonds:
+            fh.write(f"{a + 1} {b + 1}\n")
+    if os.path.exists(xtc):
+        os.remove(xtc)
+    mol_of_atom = resids - 1
+    drift = np.zeros((n_mols + n_water, 3), np.float32)
+    chunk = 100
+    boxes = np.tile(np.diag(box3), (chunk, 1, 1))
+    written = 0
+    while written < n_frames:
+        n = min(chunk, n_frames - written)
+        coords = np.empty((n, len(positions), 3), np.float32)
+        for i in range(n):
+            drift += rng.standard_normal(drift.shape, dtype=np.float32) \
+                * 0.015
+            drift *= 0.995
+            jitter = rng.standard_normal(positions.shape,
+                                         dtype=np.float32) * 0.012
+            coords[i] = (positions + drift[mol_of_atom] + jitter) % box3
+        times = (np.arange(written, written + n) * 10.0).astype(np.float32)
+        steps = (np.arange(written, written + n) * 100).astype(np.int32)
+        native.xtc_write(xtc, coords, boxes[:n], times, steps,
+                         precision=1000.0, append=written > 0)
+        written += n
+    return gro, bnd, xtc
+
+
+def vesicle_analysis(files, output_yaml=None, spherical=False, **kw):
+    """CGOrder of the vesicle's POPC (`ves`), with spherical-clustering
+    leaflets and dynamic normals on `VESICLE_HEADS` (`ves-spherical`)."""
+    from gorder_tpu_torch import Analysis, AnalysisType
+    from gorder_tpu_torch.input.config import (LeafletClassification,
+                                               MembraneNormal)
+
+    if spherical:
+        heads, radius = VESICLE_HEADS
+        kw.update(leaflets=LeafletClassification.spherical(heads),
+                  membrane_normal=MembraneNormal.dynamic(heads, radius))
+    gro, bnd, xtc = files
+    return Analysis(structure=gro, bonds=bnd, trajectory=xtc,
+                    analysis_type=AnalysisType.cgorder("resname POPC"),
+                    output_yaml=output_yaml, n_threads=os.cpu_count() or 1,
+                    silent=True, overwrite=True, **kw)
+
+
 def copy_frames(src, dst, frames):
     """Write the XTC frames `frames` (ascending indices) of `src` to `dst`
     as a byte copy of their records, by the frame offsets of
@@ -762,16 +936,20 @@ def wire_inputs(db):
     """The kernel inputs of a batch the main path handed to its step (a
     `DeviceBatch`): the packed b7 wire as the decoder ships it (codes,
     escape gaps and values, per-slot base) with its scale, or the
-    coordinate wire's positions, int16 ones also dequantized, f32(q)·s, as
+    coordinate wire's positions as reconstructed on the card (int16 for
+    i16, int32 for s6 and d8), the integers also dequantized, f32(q)·s, as
     the f32 input. → {input: (tensors before the frame arguments)}."""
     import torch
 
+    from gorder_tpu_torch.engine.fused import decode_positions
+
     if db.kind.startswith("b7"):
         return {"b7": (*db.wire[:4], db.scale)}
-    coords = db.wire[0]
+    coords = decode_positions(db.kind, db.wire, 0)
     if db.scale is None:
         return {"f32": (coords, None)}
-    return {"i16": (coords, db.scale),
+    name = "i32" if coords.dtype == torch.int32 else "i16"
+    return {name: (coords, db.scale),
             "f32": (coords.to(torch.float32) * db.scale[:, None, None],
                     None)}
 
@@ -780,9 +958,11 @@ def wire_inputs(db):
 #: normals (with or without classes)
 P2_LEAFLET_COUNTS = {"b7": "p2_leaflets_launches",
                      "i16": "p2_i16_leaflets_launches",
+                     "i32": "p2_i32_leaflets_launches",
                      "f32": "p2_f32_leaflets_launches"}
 P2_NORMAL_COUNTS = {"b7": "p2_normals_launches",
                     "i16": "p2_i16_normals_launches",
+                    "i32": "p2_i32_normals_launches",
                     "f32": "p2_f32_normals_launches"}
 
 
@@ -825,7 +1005,8 @@ def check_p2(label, db, leaflets):
             kernel, plain = p2.p2_positions, p2.p2_positions_plain
             args = (coords, step.atom_a, step.atom_b, scale)
         count = (P2_NORMAL_COUNTS[name] if per_mol
-                 else P2_LEAFLET_COUNTS[name] if leaflets else "p2_launches")
+                 else P2_LEAFLET_COUNTS[name] if leaflets
+                 else "p2_i32_launches" if name == "i32" else "p2_launches")
         got = compare(
             f"{tag} {name}",
             lambda k=kernel, a=args: k(*a, *frame, n_types,
@@ -875,9 +1056,6 @@ def check_ua(label, step, inputs, frame, classes=None, geom_ref=None):
              else "ua_normals_launches" if per_mol
              else "ua_leaflets_launches" if leaflets else "ua_launches")
 
-    def counter():
-        return getattr(ua, count)
-
     def with_map(fn, **kw):
         """fn's output, or (output, map state) for a map run."""
         if spec is None:
@@ -924,7 +1102,9 @@ def check_ua(label, step, inputs, frame, classes=None, geom_ref=None):
               + (f" map {spec.n0} x {spec.n1} tiles" if spec is not None
                  else ""), flush=True)
         try:
-            got = compare(f"{tag} {name}", kernel, plain, counter,
+            got = compare(f"{tag} {name}", kernel, plain,
+                          lambda c=("ua_i32_launches" if name == "i32"
+                                    else count): getattr(ua, c),
                           len(step.layout), shape)
         except RuntimeError:
             if leaflets or spec is not None or geom is not None:
@@ -957,8 +1137,9 @@ def check_ua(label, step, inputs, frame, classes=None, geom_ref=None):
 
 def check_p2_map(label, db, normal=None, bond_mol=None, pair_alone=False):
     """The pair_quantized P2 kernel with its map output against the plain
-    version on a map run's batch (`DeviceBatch`): int16 positions and, as
-    the f32 input, the same dequantized, with the classes the step used.
+    version on a map run's batch (`DeviceBatch`): integer positions (int16,
+    or int32 from s6 or d8) and, as the f32 input, the same dequantized,
+    with the classes the step used.
     `normal` with `bond_mol` replaces the run's static normal with
     per-molecule (B, M, 3) normals. The type sums and a freshly zeroed map
     state must be equal in int64. With `pair_alone`, also the
@@ -1005,7 +1186,7 @@ def check_p2_map(label, db, normal=None, bond_mol=None, pair_alone=False):
             n_bytes(coords, scale, step.atom_a, step.atom_b, *frame,
                     got["out"], *extra.values()) + 2 * n_bytes(got["map"]),
             int(db.mask.sum()) * step.bond_type.shape[0]
-            * (P2_OPS + MAP_OPS + (PAIR_OPS if name == "i16" else 0)
+            * (P2_OPS + MAP_OPS + (PAIR_OPS if name != "f32" else 0)
                + (P2_NORMAL_OPS if per_mol else 0)))
     if pair_alone:
         coords, scale = wire_inputs(db)["i16"]
@@ -1384,8 +1565,6 @@ def time_clustering(label, analysis, db):
     batched `eigh`), spherical in its one. The two spectral branches' raw
     labels are compared frame by frame, and with the CPU's (LAPACK eigh),
     and the frames that differ counted. → {branch: ms}."""
-    import torch
-
     from gorder_tpu_torch.core import clustering
     from gorder_tpu_torch.engine.leaflet_runtime import _cluster_head_cloud
     from gorder_tpu_torch.engine.prepare import (
@@ -1397,7 +1576,7 @@ def time_clustering(label, analysis, db):
                                  [compiled.atom_a, compiled.atom_b])
     cloud, _ = _cluster_head_cloud(system, kinds, analysis.leaflets.heads)
     heads = remap(cloud)
-    coords = db.wire[0].to(torch.float32) * db.scale[:, None, None]
+    coords = wire_inputs(db)["f32"][0]
     valid = db.mask
     out, labels = {}, {}
     if analysis.leaflets.kind == "spherical":
@@ -1422,7 +1601,8 @@ def time_clustering(label, analysis, db):
     return out
 
 
-def run_sharded(label, analysis, n_shards, counters, reference, cache):
+def run_sharded(label, analysis, n_shards, counters, reference, cache,
+                force=None):
     """`analysis` as `n_shards` frame shards through `Analysis.run_partial`
     on the card, each state written with `save_partial` and read back with
     `load_partial`, then `Analysis.merge`; with every launch count set to
@@ -1437,7 +1617,8 @@ def run_sharded(label, analysis, n_shards, counters, reference, cache):
     paths = []
     t0 = time.perf_counter()
     for i in range(n_shards):
-        state = analysis.run_partial(i, n_shards)
+        with forced_wire(force):
+            state = analysis.run_partial(i, n_shards)
         paths.append(os.path.join(cache, f"{label}_part{i}.npz"))
         save_partial(paths[-1], state)
     torch.cuda.synchronize()
@@ -1531,19 +1712,39 @@ def check_z_plane(aa_first, dyn_first, ua_first, ua_dyn_first, p2_static,
           "(int16, ua batch)", flush=True)
 
 
-def _run(label, analysis, counters, n_frames, watch=None, compat=False):
+@contextlib.contextmanager
+def forced_wire(wire):
+    """GORDER_TPU_WIRE = `wire` for the runs inside (None: the pick)."""
+    old = os.environ.pop("GORDER_TPU_WIRE", None)
+    if wire is not None:
+        os.environ["GORDER_TPU_WIRE"] = wire
+    try:
+        yield
+    finally:
+        os.environ.pop("GORDER_TPU_WIRE", None)
+        if old is not None:
+            os.environ["GORDER_TPU_WIRE"] = old
+
+
+def _run(label, analysis, counters, n_frames, watch=None, compat=False,
+         force=None, device="cuda", batch_size=None):
     """`gorder_tpu_torch.run` with every launch count set to 0 just before
     and read just after; the counts named in `counters` must have their
     value there and every other count must be 0. `watch`, if given, sees
     every batch's `DeviceBatch`. With `compat`, `analysis` is a
     `gorder_tpu_torch.compat.Analysis` run as pygorder code runs it,
     `analysis.run()` with no argument (on the card by default), which
-    hands out no batch. → (results, wall s, launches by count name,
+    hands out no batch. `force` names the wire GORDER_TPU_WIRE forces (the
+    earlier phases that rode int16 before the wire pick preferred s6 and
+    d8 keep it so). `batch_size` replaces the default batch of 512 frames
+    (`engine.drivers.run_analysis`). → (results, wall s, launches by count
+    name,
     wire-format log line, the first batch's `DeviceBatch` as the run
     handed it to its step, or None with `compat`)."""
     import torch
 
     import gorder_tpu_torch
+    from gorder_tpu_torch.engine.drivers import run_analysis
     from gorder_tpu_torch.utils.timers import timers
 
     wires = []
@@ -1568,11 +1769,18 @@ def _run(label, analysis, counters, n_frames, watch=None, compat=False):
     zero_launches()
     timers.reset()
     try:
-        t0 = time.perf_counter()
-        results = (analysis.run() if compat else gorder_tpu_torch.run(
-            analysis, device="cuda", on_batch=on_batch))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with forced_wire(force):
+            t0 = time.perf_counter()
+            if compat:
+                results = analysis.run()
+            elif batch_size is not None:
+                results = run_analysis(analysis, device, batch_size,
+                                       on_batch=on_batch)
+            else:
+                results = gorder_tpu_torch.run(analysis, device=device,
+                                               on_batch=on_batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
     finally:
         logger.removeHandler(handler)
         logger.setLevel(level)
@@ -1639,7 +1847,7 @@ def off_lines(yaml_path, label, n_frames):
 
 
 def run_golden(label, analysis, counters, n_frames, golden=None, wire=None,
-               exact=False, watch=None, compat=False):
+               exact=False, watch=None, compat=False, force=None):
     """`_run`, then the YAML must pass bench.validate_output against the
     pinned golden {golden}_{n_frames}.yaml (golden: the label by default),
     exactly if `exact`; the wire-format log line must hold `wire` if
@@ -1648,7 +1856,8 @@ def run_golden(label, analysis, counters, n_frames, golden=None, wire=None,
 
     golden = golden or label
     results, _, launches, wire_line, first = _run(label, analysis, counters,
-                                                  n_frames, watch, compat)
+                                                  n_frames, watch, compat,
+                                                  force)
     if wire is not None and wire not in wire_line:
         raise RuntimeError(f"{label}: rode {wire_line!r}, expected {wire!r}")
     status = bench.validate_output(analysis.output_yaml, golden, n_frames)
@@ -1676,6 +1885,7 @@ def _orders(results, cls):
     out = []
     for mol in results.molecules:
         out.append(getattr(mol.average_order, cls).value)
+        out += [getattr(bond.order, cls).value for bond in mol.bonds]  # CG
         for atom in mol.atoms:
             out.append(getattr(atom.order, cls).value)
             out += [getattr(bond.order, cls).value for bond in atom.bonds]
@@ -1828,6 +2038,151 @@ def same_lines(label, path, reference):
           flush=True)
 
 
+def same_tree(label, directory, reference):
+    """Every file under `directory` must equal the one at the same path
+    under `reference` byte for byte, and neither may hold one the other
+    lacks."""
+    def files(root):
+        return sorted(os.path.relpath(os.path.join(d, f), root)
+                      for d, _, names in os.walk(root) for f in names)
+
+    got, want = files(directory), files(reference)
+    if got != want:
+        raise RuntimeError(f"{label}: {directory} holds {len(got)} files, "
+                           f"{reference} {len(want)}, or other names")
+    for rel in got:
+        with open(os.path.join(directory, rel), "rb") as a, \
+                open(os.path.join(reference, rel), "rb") as b:
+            if a.read() != b.read():
+                raise RuntimeError(f"{label}: {rel} differs from "
+                                   f"{reference}'s")
+    print(f"check {label}: all {len(got)} files of {directory} equal "
+          f"{os.path.basename(reference)}'s byte for byte", flush=True)
+
+
+def check_decoder(label, db):
+    """The card's reconstruction of a batch of the s6 or d8 wire (the
+    int32 XTC integers the step takes) against the CPU's on the same
+    payload: equal integer for integer. → CUDA-event ms of one decode."""
+    import torch
+
+    from gorder_tpu_torch.engine.fused import decode_positions
+
+    got = decode_positions(db.kind, db.wire, 0)
+    want = decode_positions(db.kind, tuple(w.cpu() for w in db.wire), 0)
+    if got.dtype != torch.int32 or not torch.equal(got.cpu(), want):
+        raise RuntimeError(f"{label}: the card's {db.kind} decode differs "
+                           f"from the CPU's")
+    ms = cuda_ms(lambda: decode_positions(db.kind, db.wire, 0), reps=10)
+    print(f"check {label}: the {db.kind} decode on the card == the CPU's, "
+          f"{tuple(got.shape)} int32, values {int(got.min())}.."
+          f"{int(got.max())}; {ms:.4f} ms a batch on the card "
+          f"({n_bytes(*db.wire)} wire bytes)", flush=True)
+    return ms
+
+
+def trace_summary(label, directory, wall, top=12):
+    """The device operations of the torch.profiler trace a run wrote into
+    `directory` (GORDER_TPU_PROFILE): each kernel's time summed under the
+    PyTorch operation that launched it (the trace's "External id"), or
+    under its own name where none did (the hand-written kernels, launched
+    through ctypes); the `top` ones printed with their share, and the
+    device's busy share of the run's wall (which the tracing lengthens).
+    → {operation: ms}."""
+    import collections
+    import glob
+
+    paths = glob.glob(os.path.join(directory, "trace-*.json"))
+    if len(paths) != 1:
+        raise RuntimeError(f"{label}: {len(paths)} traces in {directory}")
+    with open(paths[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    op_of = {ev["args"]["External id"]: ev["name"] for ev in events
+             if ev.get("cat") == "cpu_op"
+             and "External id" in ev.get("args", {})}
+    device = collections.Counter()
+    for ev in events:
+        if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            name = op_of.get(ev.get("args", {}).get("External id"),
+                             ev["name"])
+            device[name] += ev.get("dur", 0) / 1e3
+    total = sum(device.values())
+    if not total:
+        raise RuntimeError(f"{label}: the trace holds no device time")
+    print(f"trace {label}: {len(events)} events, device busy {total:.3f} ms "
+          f"of the {wall * 1e3:.1f} ms wall ({total / (wall * 1e3):.1%}); "
+          f"{len(device)} device operations, the top {top}:", flush=True)
+    for name, ms in device.most_common(top):
+        print(f"trace {label}:   {ms:10.3f} ms {ms / total:6.1%} "
+              f"{name[:100]}", flush=True)
+    ours = sum(ms for n, ms in device.items()
+               if "p2_kernel" in n or "ua_kernel" in n)
+    print(f"trace {label}: the hand-written kernels {ours:.3f} ms "
+          f"({ours / total:.1%} of the device time)", flush=True)
+    return dict(device)
+
+
+def check_chain(label, files, cache):
+    """The first `CHAIN_FRAMES` frames of ves-spherical on the card and on
+    the CPU, whose run the CPU tests hold to gorder_tpu's: the int32
+    integers decoded and the leaflet classes must be equal, and the card's
+    per-frame, per-type int64 sums must equal the CPU plain step's on the
+    CPU's integers with the card's classes and normals. The normals come
+    from two eigensolvers (cuSOLVER, LAPACK); their largest difference, up
+    to sign, and the difference of the two runs' own sums are printed, the
+    sums held to the port's bar: equal counts and |Δsum| ≤ the samples of
+    each (frame, type). The batch is the chain's frames, so that the CPU
+    computes no padding frame."""
+    import torch
+
+    from gorder_tpu_torch.engine.fused import decode_positions
+    from gorder_tpu_torch.ops import p2
+
+    end = (CHAIN_FRAMES - 1) * 10.0
+    firsts = {}
+    for device in ("cuda", "cpu"):
+        _, _, _, wire_line, firsts[device] = _run(
+            f"{label} on {device}", vesicle_analysis(
+                files, os.path.join(cache, f"smoke_{label}-{device}.yaml"),
+                spherical=True, end=end),
+            {"p2_i32_normals_launches": 1} if device == "cuda" else {},
+            CHAIN_FRAMES, device=device, batch_size=CHAIN_FRAMES)
+        if not any(f"wire format: {w}" in wire_line for w in ("s6", "d8")):
+            raise RuntimeError(f"{label} on {device}: {wire_line}")
+    card, host = firsts["cuda"], firsts["cpu"]
+    q = decode_positions(host.kind, host.wire, 0)
+    if not torch.equal(decode_positions(card.kind, card.wire, 0).cpu(), q):
+        raise RuntimeError(f"{label}: the decoded integers differ")
+    if not torch.equal(card.classes.cpu(), host.classes):
+        raise RuntimeError(f"{label}: the leaflet classes differ")
+    step = host.step
+    want = p2.p2_positions_plain(
+        q, step.atom_a, step.atom_b, host.scale, host.box,
+        card.normal.cpu(), host.mask, step.bond_type, step.n_types,
+        handle_pbc=step.handle_pbc, classes=card.classes.cpu(),
+        bond_mol=step.bond_mol)
+    got = card.out.cpu()
+    if not torch.equal(got, want):
+        raise RuntimeError(f"{label}: the card's sums differ from the CPU "
+                           f"plain step's with the card's normals")
+    valid = host.mask
+    a, b = card.normal.cpu()[valid], host.normal[valid]
+    normal_diff = float(torch.minimum((a - b).abs(), (a + b).abs()).max())
+    own = host.out
+    off = (own - got)[valid]
+    if (not torch.equal(own[valid][..., 1, :], got[valid][..., 1, :])
+            or (off[..., 0, :].abs() > got[valid][..., 1, :]).any()):
+        raise RuntimeError(f"{label}: the CPU run's own sums leave the bar")
+    print(f"check {label}: {int(valid.sum())} frames, card == CPU: the "
+          f"{host.kind} integers and the classes equal; the card's int64 "
+          f"sums == the CPU plain step's with the card's normals; the CPU's "
+          f"own normals "
+          f"differ from the card's by at most {normal_diff:.3e} (up to "
+          f"sign), its own sums in {int((off != 0).sum())} of "
+          f"{off.numel()} entries, by at most {int(off.abs().max())} "
+          f"quanta (counts equal)", flush=True)
+
+
 def main_path_batch_ms(db):
     """CUDA-event time of a b7 batch's whole device work on the main path:
     the P2 kernel, from the packed wire in to the type sums out."""
@@ -1918,7 +2273,8 @@ def main() -> int:
         got, _, firsts[mode] = run_golden(
             mode, leaflet_analysis(mode, gro, bnd, xtc, cache,
                                    os.path.join(cache, f"smoke_{mode}.yaml")),
-            {count: n_batches}, N_FRAMES)
+            {count: n_batches}, N_FRAMES,
+            force="i16" if mode == "aa-local-leaflets" else None)
         leaflet_launches[mode] = got[count]
     p2_global = check_p2("aa-leaflets", firsts["aa-leaflets"], True)
     local = firsts["aa-local-leaflets"]
@@ -1944,7 +2300,7 @@ def main() -> int:
     got, _, first = run_golden(
         "aa-spherical-leaflets", spherical,
         {"p2_i16_leaflets_launches": n_batches}, N_FRAMES,
-        wire="wire format: i16")
+        wire="wire format: i16", force="i16")
     clustering_launches["aa-spherical-leaflets"] = \
         got["p2_i16_leaflets_launches"]
     check_p2("aa-spherical-leaflets", first, True)
@@ -1995,7 +2351,7 @@ def main() -> int:
             mode, analysis, {count: n_batches}, N_FRAMES,
             golden="aa" if manual else None,
             wire="wire format: i16" if manual else "aux channel",
-            exact=manual)
+            exact=manual, force="i16" if manual else None)
         normal_launches[mode] = got[count]
         if analysis.membrane_normal.collect.enabled:
             check_exported_normals(results,
@@ -2015,7 +2371,6 @@ def main() -> int:
     # their first batches: b7 as handed over, with aa-leaflets' classes and
     # with aa-dynamic's normals; int16, f32, and the pair input with a map
     from gorder_tpu_torch.core.ordermap import build_map_spec
-    from gorder_tpu_torch.engine import channels
     from gorder_tpu_torch.input.config import OrderMapParams
 
     geom_launches, geom_checks = {}, {}
@@ -2023,19 +2378,12 @@ def main() -> int:
             ("aa-geometry", "p2_geom_launches", "geometry mask bitplane"),
             ("aa-geometry-i16", "p2_i16_geom_launches",
              "wire format: i16")):
-        probe = channels._probe_b7
-        if label == "aa-geometry-i16":
-            # a trajectory that does not fit b7 (as the CPU tests force it)
-            channels._probe_b7 = lambda *a, **k: None
-        try:
-            got, results, first = run_golden(
-                label, aa_analysis(gro, bnd, xtc,
-                                   os.path.join(cache, f"smoke_{label}.yaml"),
-                                   geometry=geometry_params()),
-                {count: n_batches}, N_FRAMES, golden="aa-geometry",
-                wire=wire)
-        finally:
-            channels._probe_b7 = probe
+        got, results, first = run_golden(
+            label, aa_analysis(gro, bnd, xtc,
+                               os.path.join(cache, f"smoke_{label}.yaml"),
+                               geometry=geometry_params()),
+            {count: n_batches}, N_FRAMES, golden="aa-geometry", wire=wire,
+            force="i16" if label == "aa-geometry-i16" else None)
         geom_launches[label] = got[count]
         if label == "aa-geometry":
             geom_checks["b7"] = check_p2_geom(label, first)["b7"]
@@ -2073,7 +2421,7 @@ def main() -> int:
                                map=map_params(cache, label), **kw)
         got, results, map_firsts[label] = run_golden(
             label, analysis, {"p2_i16_map_launches": n_batches}, N_FRAMES,
-            golden=golden, wire=wire, watch=conservation)
+            golden=golden, wire=wire, watch=conservation, force="i16")
         map_launches[label] = got["p2_i16_map_launches"]
         conservation.check(label)
         check_map_files(label, results, analysis.map.output_directory)
@@ -2087,6 +2435,29 @@ def main() -> int:
     check_p2_map("aa-ordermap-leaflets with aa-dynamic", leaflet_first,
                  normal=dyn_first.normal)
     del map_firsts, leaflet_first
+
+    # 28. aa-ordermap forced onto d8: int32 positions through the
+    # pair_quantized kernel with its map; the YAML and every map file
+    # equal the int16 run's; then that kernel against plain on its first
+    # batch, int32 and f32
+    label = "aa-ordermap-d8"
+    conservation = Conservation()
+    analysis = aa_analysis(gro, bnd, xtc,
+                           os.path.join(cache, f"smoke_{label}.yaml"),
+                           map=map_params(cache, label))
+    got, results, first = run_golden(
+        label, analysis, {"p2_i32_map_launches": n_batches}, N_FRAMES,
+        golden="aa", wire="wire format: d8", watch=conservation,
+        force="d8")
+    d8_map_launches = got["p2_i32_map_launches"]
+    conservation.check(label)
+    check_map_files(label, results, analysis.map.output_directory)
+    same_lines(label, analysis.output_yaml,
+               os.path.join(cache, "smoke_aa-ordermap.yaml"))
+    same_tree(label, analysis.map.output_directory,
+              map_params(cache, "aa-ordermap").output_directory)
+    map_checks[label] = check_p2_map(label, first)
+    del results, first
 
     # 20. the sn-1 chain of the AA membrane (tools/bench_modes.py
     # aa-palmitoyl) through the pygorder drop-in, run() with no argument:
@@ -2160,13 +2531,36 @@ def main() -> int:
         "ua", ua_analysis("ua", *ua_files, os.path.join(cache,
                                                         "smoke_ua.yaml")),
         {"ua_launches": ua_batches * 3}, ua_frames,    # ch3, ch2, ch1u
-        watch=ua_sums)
+        watch=ua_sums, wire="wire format: i16", force="i16")
     ua_plain = check_ua("ua_3000", ua_first.step, wire_inputs(ua_first),
                         (ua_first.box, ua_first.normal, ua_first.mask))
+
+    # 27. ua forced onto d8, then s6: int32 XTC integers, the same as the
+    # int16 ones, so each YAML equals the ua run's line for line (and so
+    # its golden); ua_positions_i32 against plain on the d8 run's first
+    # batch, and each decoder on the card against the CPU's
+    ua_i32_runs, decode_ms = 0, {}
+    for wire in ("d8", "s6"):
+        label = f"ua-{wire}"
+        path = os.path.join(cache, f"smoke_{label}.yaml")
+        _, _, got, wire_line, first = _run(
+            label, ua_analysis("ua", *ua_files, path),
+            {"ua_i32_launches": ua_batches * 3}, ua_frames, force=wire)
+        if f"wire format: {wire}" not in wire_line:
+            raise RuntimeError(f"{label}: {wire_line}")
+        same_lines(label, path, os.path.join(cache, "smoke_ua.yaml"))
+        ua_i32_runs += got["ua_i32_launches"]
+        decode_ms[label] = check_decoder(label, first)
+        if wire == "d8":
+            ua_i32 = check_ua(label, first.step,
+                              {"i32": wire_inputs(first)["i32"]},
+                              (first.box, first.normal, first.mask))
+    del first
     run_golden("ua-palmitoyl",
                ua_analysis("ua-palmitoyl", *ua_files,
                            os.path.join(cache, "smoke_ua-palmitoyl.yaml")),
-               {"ua_launches": ua_batches * 2}, ua_frames)   # ch3, ch2
+               {"ua_launches": ua_batches * 2}, ua_frames,   # ch3, ch2
+               force="i16")
 
     # 10. UA with global leaflets (int16 + the decoder's COG): no golden;
     # totals must equal the ua run's, upper and lower must be finite; then
@@ -2178,7 +2572,7 @@ def main() -> int:
     a.leaflets = LeafletClassification.global_("resname POPC", P_HEADS)
     results, _, ua_leaflet_runs, _, first = _run(
         "ua-leaflets", a, {"ua_leaflets_launches": ua_batches * 3},
-        ua_frames)
+        ua_frames, force="i16")
     if _orders(results, "total") != _orders(ua_results, "total"):
         raise RuntimeError("ua-leaflets: total order parameters differ from "
                            "the ua run's")
@@ -2206,7 +2600,7 @@ def main() -> int:
     a.leaflets = LeafletClassification.spherical(P_HEADS)
     results, _, got_spherical, _, _ = _run(
         "ua-spherical-leaflets", a,
-        {"ua_leaflets_launches": ua_batches * 3}, ua_frames)
+        {"ua_leaflets_launches": ua_batches * 3}, ua_frames, force="i16")
     if _orders(results, "total") != _orders(ua_results, "total"):
         raise RuntimeError("ua-spherical-leaflets: total order parameters "
                            "differ from the ua run's")
@@ -2222,7 +2616,8 @@ def main() -> int:
                     os.path.join(cache, "smoke_ua-dynamic.yaml"))
     a.membrane_normal = MembraneNormal.dynamic(P_HEADS)
     results, _, ua_dyn, wire_line, first = _run(
-        "ua-dynamic", a, {"ua_normals_launches": ua_batches * 3}, ua_frames)
+        "ua-dynamic", a, {"ua_normals_launches": ua_batches * 3}, ua_frames,
+        force="i16")
     totals = _orders(results, "total")
     if "wire format: i16" not in wire_line or not all(
             math.isfinite(v) for v in totals):
@@ -2244,7 +2639,8 @@ def main() -> int:
                     map=map_params(cache, "ua-ordermap"))
     ua_map_runs, results, first = run_golden(
         "ua-ordermap", a, {"ua_map_launches": ua_batches * 3}, ua_frames,
-        golden="ua", wire="wire format: i16", watch=conservation)
+        golden="ua", wire="wire format: i16", watch=conservation,
+        force="i16")
     conservation.check("ua-ordermap")
     check_map_files("ua-ordermap", results, a.map.output_directory)
     ua_map = check_ua("ua-ordermap", first.step, wire_inputs(first),
@@ -2264,7 +2660,7 @@ def main() -> int:
                         geometry=geometry_params(invert))
         _, _, geo_launches, wire_line, first = _run(
             label, a, {"ua_geom_launches": ua_batches * 3}, ua_frames,
-            watch=halves[label])
+            watch=halves[label], force="i16")
         if "wire format: i16" not in wire_line:
             raise RuntimeError(f"{label}: {wire_line}")
         ua_geom_runs += geo_launches["ua_geom_launches"]
@@ -2357,6 +2753,9 @@ def main() -> int:
         np.arange(TRR_FRAMES), int(source.files[0].natoms[0]))
     trr = write_trr(os.path.join(cache, f"cg_bench_{TRR_FRAMES}.trr"),
                     coords, boxes, times, steps)
+    i12_xtc = os.path.join(cache, f"cg_bench_{TRR_FRAMES}_p100.xtc")
+    native.xtc_write(i12_xtc, coords, boxes, times, steps.astype(np.int32),
+                     precision=I12_PRECISION)
     del coords
     print(f"trr: the first {TRR_FRAMES} CG frames as read back, written in "
           f"{time.perf_counter() - t0:.1f} s ({os.path.getsize(trr)} bytes)",
@@ -2390,6 +2789,118 @@ def main() -> int:
     del trr_first
     os.remove(trr)
 
+    # 29. cg-i12: the same frames re-encoded at precision 100 (Martini's
+    # published compressed-x-precision), forced onto i12 (12-bit packed
+    # integers, unpacked to int16 on the card) and onto int16: every batch
+    # rides the kind forced, and the two YAMLs are equal line for line
+    for wire in ("i16", "i12"):
+        kinds = set()
+        _run(f"cg-{wire}", cg_analysis(
+            gorder_tpu_torch, *cg_files[:2], i12_xtc,
+            os.path.join(cache, f"smoke_cg-{wire}.yaml")),
+            {"p2_launches": trr_batches}, TRR_FRAMES,
+            watch=lambda db: kinds.add(db.kind), force=wire)
+        if kinds != {wire}:
+            raise RuntimeError(f"cg-{wire}: batch kinds {kinds}")
+    same_lines("cg-i12", os.path.join(cache, "smoke_cg-i12.yaml"),
+               os.path.join(cache, "smoke_cg-i16.yaml"))
+    os.remove(i12_xtc)
+
+    # 30. synth ves: the CG vesicle in a 36 nm box (`synthesize_vesicle`:
+    # 6,650 POPC of 12 beads on shells of 15.0 and 11.0 nm, water to
+    # 150,000 beads, 1,000 frames, seed 37)
+    t0 = time.perf_counter()
+    ves_files = synthesize_vesicle(cache, VESICLE_FRAMES)
+    print(f"synth ves: {VESICLE_FRAMES} frames in "
+          f"{time.perf_counter() - t0:.1f} s "
+          f"({os.path.getsize(ves_files[2])} bytes of XTC)", flush=True)
+
+    # 31. the vesicle: `ves` (CGOrder, static normal) rides b7;
+    # `ves-spherical` (spherical leaflets and dynamic normals every frame)
+    # rides the pick's s6 or d8 into p2_positions_i32 with classes and
+    # normals, its decoder checked against the CPU's and the kernel against
+    # plain on its first batch; forced onto the other of the two, the same
+    # YAML (or, where s6 cannot carry the box, d8 again); forced onto f32,
+    # the wire the port rode before it had s6 and d8, the values move (the
+    # gap, printed); traced once with torch.profiler (the same YAML); then
+    # its first 64 frames on the card against the CPU
+    ves_batches = math.ceil(VESICLE_FRAMES / BATCH)
+    _, _, ves_launches, wire_line, _ = _run(
+        "ves", vesicle_analysis(ves_files, os.path.join(cache,
+                                                        "smoke_ves.yaml")),
+        {"p2_launches": ves_batches}, VESICLE_FRAMES)
+    if "wire format: b7" not in wire_line:
+        raise RuntimeError(f"ves: {wire_line}")
+    spherical_yaml = os.path.join(cache, "smoke_ves-spherical.yaml")
+    ves_results, _, ves_runs, wire_line, ves_first = _run(
+        "ves-spherical", vesicle_analysis(ves_files, spherical_yaml,
+                                          spherical=True),
+        {"p2_i32_normals_launches": ves_batches}, VESICLE_FRAMES)
+    picked = next((w for w in ("s6", "d8")
+                   if f"wire format: {w}" in wire_line), None)
+    if picked is None:
+        raise RuntimeError(f"ves-spherical: {wire_line}")
+    values = {cls: _orders(ves_results, cls)
+              for cls in ("total", "upper", "lower")}
+    if not all(math.isfinite(v) for vs in values.values() for v in vs):
+        raise RuntimeError(f"ves-spherical: non-finite values {values}")
+    print(f"check ves-spherical: {picked}; {len(values['total'])} finite "
+          f"values a class; average order total/upper/lower "
+          f"{[values[c][0] for c in ('total', 'upper', 'lower')]}; first "
+          f"batch classes {int((ves_first.classes == 0).sum())} upper, "
+          f"{int((ves_first.classes == 1).sum())} lower (molecule-frames)",
+          flush=True)
+    decode_ms["ves-spherical"] = check_decoder("ves-spherical", ves_first)
+    p2_i32 = check_p2("ves-spherical", ves_first, True)
+    del ves_first
+    other = {"s6": "d8", "d8": "s6"}[picked]
+    other_yaml = os.path.join(cache, f"smoke_ves-spherical-{other}.yaml")
+    _, _, other_runs, wire_line, first = _run(
+        f"ves-spherical-{other}", vesicle_analysis(ves_files, other_yaml,
+                                                   spherical=True),
+        {"p2_i32_normals_launches": ves_batches}, VESICLE_FRAMES,
+        force=other)
+    same_lines(f"ves-spherical-{other}", other_yaml, spherical_yaml)
+    if f"wire format: {other}" in wire_line:
+        decode_ms[f"ves-spherical-{other}"] = check_decoder(
+            f"ves-spherical-{other}", first)
+    else:
+        print(f"check ves-spherical-{other}: {other} cannot carry the "
+              f"{VESICLE['box']} nm box (s6 keeps each residue's median "
+              f"a frame in int16): {wire_line}", flush=True)
+    del first
+    f32_yaml = os.path.join(cache, "smoke_ves-spherical-f32.yaml")
+    f32_results, _, _, _, _ = _run(
+        "ves-spherical-f32", vesicle_analysis(ves_files, f32_yaml,
+                                              spherical=True),
+        {"p2_f32_normals_launches": ves_batches}, VESICLE_FRAMES,
+        force="f32")
+    gap = [abs(a - b) for cls in ("total", "upper", "lower")
+           for a, b in zip(_orders(f32_results, cls), values[cls])]
+    with open(f32_yaml) as fa, open(spherical_yaml) as fb:
+        lines_off = sum(a != b for a, b in zip(fa, fb)
+                        if not a.startswith("#"))
+    print(f"gap ves-spherical-f32: {sum(g > 0 for g in gap)} of {len(gap)} "
+          f"values differ from {picked}'s, by at most {max(gap):.3e}; "
+          f"{lines_off} YAML lines differ", flush=True)
+    del f32_results
+    trace_dir = os.path.join(cache, "ves-spherical_trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    os.environ["GORDER_TPU_PROFILE"] = trace_dir
+    try:
+        traced_yaml = os.path.join(cache, "smoke_ves-spherical-traced.yaml")
+        _, traced_wall, traced_runs, _, _ = _run(
+            "ves-spherical-traced", vesicle_analysis(
+                ves_files, traced_yaml, spherical=True),
+            {"p2_i32_normals_launches": ves_batches}, VESICLE_FRAMES)
+    finally:
+        del os.environ["GORDER_TPU_PROFILE"]
+    same_lines("ves-spherical-traced", traced_yaml, spherical_yaml)
+    trace_summary("ves-spherical", trace_dir, traced_wall)
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    check_chain("ves-chain", ves_files, cache)
+    os.remove(ves_files[2])
+
     # 16. the clustering benchmark's bilayer (tools/bench_modes.py
     # synth_aa_bilayer): 256 POPC, heads 2 nm from the midplane, chains
     # inward, 64,500 atoms, 10,000 frames, seed 31; the AA trajectory is
@@ -2411,7 +2922,7 @@ def main() -> int:
     got, clustered, first = run_golden(
         "aa-clustering-leaflets", clustering,
         {"p2_i16_leaflets_launches": n_batches}, N_FRAMES,
-        wire="wire format: i16")
+        wire="wire format: i16", force="i16")
     clustering_launches["aa-clustering-leaflets"] = \
         got["p2_i16_leaflets_launches"]
     check_p2("aa-clustering-leaflets", first, True)
@@ -2436,7 +2947,7 @@ def main() -> int:
             "aa-clustering-leaflets", *aab, cache,
             os.path.join(cache, "smoke_aa-clustering-sharded.yaml")), 2,
         {"p2_i16_leaflets_launches": shard_batches},
-        clustering.output_yaml, cache)
+        clustering.output_yaml, cache, force="i16")
 
     p2_src, ua_src = ("gorder_tpu_torch/csrc/p2.cu",
                       "gorder_tpu_torch/csrc/ua.cu")
@@ -2449,7 +2960,8 @@ def main() -> int:
                      + concat_launches["p2_launches"] + window_launches
                      + cg_launches["p2_launches"]
                      + errors_launches["p2_launches"]
-                     + xtc_launches["p2_launches"], p2_plain["b7"]),
+                     + xtc_launches["p2_launches"]
+                     + ves_launches["p2_launches"], p2_plain["b7"]),
         kernel_entry("p2_f32", p2_src, p2_tpu, trr_launches["p2_launches"],
                      p2_f32),
         kernel_entry("p2_leaflets", p2_src, p2_tpu,
@@ -2489,10 +3001,27 @@ def main() -> int:
         kernel_entry("p2_i16_geom", p2_src, p2_tpu,
                      geom_launches["aa-geometry-i16"], geom_checks["i16"]),
         kernel_entry("ua_geom", ua_src, ua_tpu, ua_geom_runs,
-                     ua_geom["i16"])]
+                     ua_geom["i16"]),
+        # the int32 positions of the s6 and d8 wires: the TPU kernel's
+        # quantized path on int32 coords (pallas_p2.py:287-294 single
+        # difference, :295-304 pair; pallas_ua.py:202-203)
+        kernel_entry("p2_i32_normals_leaflets", p2_src,
+                     "gorder_tpu/ops/pallas_p2.py:287",
+                     ves_runs["p2_i32_normals_launches"]
+                     + other_runs["p2_i32_normals_launches"]
+                     + traced_runs["p2_i32_normals_launches"],
+                     p2_i32["i32"]),
+        kernel_entry("p2_i32_pair_map", p2_src,
+                     "gorder_tpu/ops/pallas_p2.py:295", d8_map_launches,
+                     map_checks["aa-ordermap-d8"]["i32"]),
+        kernel_entry("ua_i32", ua_src, "gorder_tpu/ops/pallas_ua.py:202",
+                     ua_i32_runs, ua_i32["i32"])]
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:
         raise RuntimeError(f"kernels never launched on their runs: {idle}")
+    print("decode: CUDA-event ms of one batch's reconstruction on the card: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in decode_ms.items()),
+          flush=True)
     print(f"total: {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -184,8 +184,8 @@ def order_step(coords, box_diag, normal, frame_mask, atom_a, atom_b,
     (B, M, 3) with `bond_mol` (`p2_sums`):
 
     - b7 residuals: `coords` (B, 3N) int16 with `base` and `inv_scale`;
-    - integer positions: `coords` (B, A, 3) int16 with `inv_scale`, the
-      pair difference with `pair` (`position_vectors`);
+    - integer positions: `coords` (B, A, 3) int16 or int32 with
+      `inv_scale`, the pair difference with `pair` (`position_vectors`);
     - f32 positions: `coords` (B, A, 3) f32.
 
     With `map_spec` and `map_state`, positions input only (integer ones
@@ -323,9 +323,10 @@ class OrderStep:
     def positions(self, coords, box_diag, normal, frame_mask,
                   inv_scale=None, classes=None, map_state=None, geo=None,
                   geom_ref=None):
-        """i16 wire (with `inv_scale`) or f32 wire input. A geometry run
-        gives the decoder's bitplane `geo` (the `*G` kinds) or the batch's
-        `geom_ref`, from which the bitplane is computed here."""
+        """Integer positions (with `inv_scale`) or f32 positions. A
+        geometry run gives the decoder's bitplane `geo` (the `*G` kinds) or
+        the batch's `geom_ref`, from which the bitplane is computed
+        here."""
         from ..engine.wire import pack_geo_bits
         from ..ops.p2 import p2_positions
 

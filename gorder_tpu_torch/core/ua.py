@@ -209,8 +209,8 @@ def ua_step(coords, box_diag, normal, frame_mask, indices, bond_type,
     positions), a sample counts only where that bond position lies inside
     the shape (`core/geometry.py inside_mask`; :325-333).
 
-    coords: (B, A, 3) int16 with `inv_scale` (B,) f32, or f32 without;
-    indices: {category: {"target", "h1", "h2"[, "h3"]: (n,) int}};
+    coords: (B, A, 3) int16 or int32 with `inv_scale` (B,) f32, or f32
+    without; indices: {category: {"target", "h1", "h2"[, "h3"]: (n,) int}};
     layout: ((category, n), ...) in concatenation order; bond_type and
     bond_mol: per sample, category by category and hydrogen-major within
     one (sample = category offset + i·K + k)."""
@@ -311,7 +311,7 @@ class UAStep:
     def positions(self, coords, box_diag, normal, frame_mask,
                   inv_scale=None, classes=None, map_state=None,
                   geom_ref=None):
-        """i16 wire (with `inv_scale`) or f32 wire input."""
+        """Integer positions (with `inv_scale`) or f32 positions."""
         from ..ops.ua import ua_positions
 
         if (classes is not None) != self.with_leaflets:

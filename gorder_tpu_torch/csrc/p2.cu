@@ -3,9 +3,10 @@
 // Replaces the TPU kernel gorder_tpu/ops/pallas_p2.py `_p2_kernel` (with
 // its tile math `_p2_limbs` and reduction `_accumulate`), in its
 // `resid_input` variant (b7 wire) and its positions variants (the
-// single-rounding integer difference and the f32 pair difference), each
-// with and without `with_leaflets` (the class plane gathered at
-// pallas_p2.py:393-400, the masks at :220-222).
+// single-rounding integer difference, on int16 or int32 XTC integers as
+// the TPU kernel takes either at pallas_p2.py:287-294, and the f32 pair
+// difference), each with and without `with_leaflets` (the class plane
+// gathered at pallas_p2.py:393-400, the masks at :220-222).
 //
 // Per sample (frame b, bond i): bond vector d -> minimum image
 // d - L*rint(d/L) -> proj = d.n, d2 = dx*dx + dy*dy + dz*dz ->
@@ -78,15 +79,16 @@
 // sample (from cache; the bytes the function must move are the (B, M, 3)
 // normals once, 12 * M per frame) and about 8 more f32 operations.
 //
-// pair_quantized (PairIntPositions; replaces pallas_p2.py:287-304): int16
-// positions of an ordermap run take the pair difference of the dequantized
-// positions, d = f32(q_b)*s - f32(q_a)*s, the reference's f32-position
-// arithmetic, instead of the single rounding f32(q_b - q_a)*s: map-bin
-// boundaries are sensitive to the last ulp, and XTC positions at precision
-// 1000 put many bond midpoints exactly on a 0.1 nm boundary. The type sums
+// pair_quantized (PairIntPositions; replaces pallas_p2.py:287-304):
+// integer positions of an ordermap run take the pair difference of the
+// dequantized positions, d = f32(q_b)*s - f32(q_a)*s, the reference's
+// f32-position arithmetic, instead of the single rounding f32(q_b - q_a)*s:
+// map-bin boundaries are sensitive to the last ulp, and XTC positions at
+// precision 1000 put many bond midpoints exactly on a 0.1 nm boundary. The
+// type sums
 // take the same d (gorder_tpu/core/order.py:144-162).
 //
-// Ordermaps (the positions inputs, pair int16 and f32; with and without
+// Ordermaps (the positions inputs, pair integer and f32; with and without
 // classes and per-molecule normals): the JAX package computes each sample
 // twice, once in the Pallas kernel for the type sums and once in XLA for
 // the map (core/order.py `_map_only_impl`, a segment_sum of 7-bit f32
@@ -295,11 +297,21 @@ struct NoEscapes {
   }
 };
 
-// i16 wire: x (B, A, 3) int16 XTC integers, scale (B,) f32:
-// d = f32(q_b - q_a) * s, the single rounding of the exact difference.
+// Integer positions: x (B, A, 3) XTC integers, int16 (the i16 and i12
+// wires) or int32 (s6 and d8, for trajectories whose integers overflow
+// int16), scale (B,) f32: d = f32(q_b - q_a) * s, the single rounding of
+// the exact difference. int(q_b) - int(q_a) is exact for int32 input as
+// long as |q| < 2^30, and __int2float_rn of the difference and of q is
+// exact for |q| < 2^24 (16,777 nm at precision 1000): the JAX package's
+// f32(int32) casts round the same values the same way. What bounds the
+// int32 input: the bytes of the positions, 12 an atom a frame against
+// int16's 6 (each gathered once per bond end, from L1/L2); the arithmetic
+// is the same.
+template <class T>
 struct IntPositions : NoEscapes {
+  using Value = T;
   static constexpr bool kPositions = false;
-  const int16_t* __restrict__ x;
+  const T* __restrict__ x;
   const int32_t* __restrict__ atom_a;
   const int32_t* __restrict__ atom_b;
   const float* __restrict__ scale;
@@ -308,9 +320,9 @@ struct IntPositions : NoEscapes {
                                              const Escapes&, int&, float3& d,
                                              float3&) const {
     if (!load) return;
-    const int16_t* xb = x + static_cast<size_t>(b) * n_atoms * 3;
-    const int16_t* pa = xb + 3 * atom_a[i];
-    const int16_t* pb = xb + 3 * atom_b[i];
+    const T* xb = x + static_cast<size_t>(b) * n_atoms * 3;
+    const T* pa = xb + 3 * atom_a[i];
+    const T* pb = xb + 3 * atom_b[i];
     const float s = scale[b];
     d = make_float3(__fmul_rn(__int2float_rn(int(pb[0]) - int(pa[0])), s),
                     __fmul_rn(__int2float_rn(int(pb[1]) - int(pa[1])), s),
@@ -318,11 +330,13 @@ struct IntPositions : NoEscapes {
   }
 };
 
-// i16 wire of an ordermap run (pair_quantized): the positions dequantized
-// first, p = f32(q) * s, then d = p_b - p_a.
+// Integer positions of an ordermap run (pair_quantized), int16 or int32:
+// the positions dequantized first, p = f32(q) * s, then d = p_b - p_a.
+template <class T>
 struct PairIntPositions : NoEscapes {
+  using Value = T;
   static constexpr bool kPositions = true;
-  const int16_t* __restrict__ x;
+  const T* __restrict__ x;
   const int32_t* __restrict__ atom_a;
   const int32_t* __restrict__ atom_b;
   const float* __restrict__ scale;
@@ -331,9 +345,9 @@ struct PairIntPositions : NoEscapes {
                                              const Escapes&, int&, float3& d,
                                              float3& pa) const {
     if (!load) return;
-    const int16_t* xb = x + static_cast<size_t>(b) * n_atoms * 3;
-    const int16_t* qa = xb + 3 * atom_a[i];
-    const int16_t* qb = xb + 3 * atom_b[i];
+    const T* xb = x + static_cast<size_t>(b) * n_atoms * 3;
+    const T* qa = xb + 3 * atom_a[i];
+    const T* qb = xb + 3 * atom_b[i];
     const float s = scale[b];
     pa = make_float3(__fmul_rn(__int2float_rn(qa[0]), s),
                      __fmul_rn(__int2float_rn(qa[1]), s),
@@ -532,6 +546,26 @@ int launch(const Input& input, const void* box, const void* normal,
   return static_cast<int>(err);
 }
 
+// The integer positions inputs (IntPositions, PairIntPositions) of x.
+template <class Input>
+int launch_int(const void* x, const void* atom_a, const void* atom_b,
+               const void* scale, const void* box, const void* normal,
+               const void* mask, const void* bond_type, const void* classes,
+               const void* bond_mol, const void* geo, void* out,
+               const gorder::MapGrid& map, int n_frames, int n_atoms,
+               int n_bonds, int n_types, int pbc, int mol_normals,
+               int n_molecules, void* stream) {
+  Input input;
+  input.x = static_cast<const typename Input::Value*>(x);
+  input.atom_a = static_cast<const int32_t*>(atom_a);
+  input.atom_b = static_cast<const int32_t*>(atom_b);
+  input.scale = static_cast<const float*>(scale);
+  input.n_atoms = n_atoms;
+  return launch(input, box, normal, mask, bond_type, classes, bond_mol, geo,
+                out, map, n_frames, n_bonds, n_types, pbc, mol_normals,
+                n_molecules, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -543,10 +577,11 @@ extern "C" {
 // mol_normals = 1 selects the per_bond_normal variant: normal is then
 // (B, M, 3) f32, else (3,). bond_mol (N,) int32 is given exactly when
 // classes or per-molecule normals are; n_molecules is their M. The
-// positions entry points of ordermap runs (pair int16, f32) take the map
-// by value, its state (C, 2, T * n0 * n1 + 1) int64 with C the classes of
-// out, added into; a null state, no map. geo (B, ceil(N/8)) uint8 is the
-// geometry bitplane (the with_geom variant); null, every bond counts.
+// positions entry points of ordermap runs (pair int16 and int32, f32)
+// take the map by value, its state (C, 2, T * n0 * n1 + 1) int64 with C
+// the classes of out, added into; a null state, no map. geo (B, ceil(N/8))
+// uint8 is the geometry bitplane (the with_geom variant); null, every bond
+// counts.
 
 // The b7 wire as the decoder ships it: pk (B, stride) uint8, gp (B, cap)
 // u16 gaps, vl (B, cap) int16, base (3N,) int32, scale (B,) f32;
@@ -579,15 +614,10 @@ int p2_positions_i16(const void* x, const void* atom_a, const void* atom_b,
                      const void* geo, void* out, int n_frames, int n_atoms,
                      int n_bonds, int n_types, int pbc, int mol_normals,
                      int n_molecules, void* stream) {
-  IntPositions input;
-  input.x = static_cast<const int16_t*>(x);
-  input.atom_a = static_cast<const int32_t*>(atom_a);
-  input.atom_b = static_cast<const int32_t*>(atom_b);
-  input.scale = static_cast<const float*>(scale);
-  input.n_atoms = n_atoms;
-  return launch(input, box, normal, mask, bond_type, classes, bond_mol, geo,
-                out, gorder::MapGrid{}, n_frames, n_bonds, n_types, pbc,
-                mol_normals, n_molecules, stream);
+  return launch_int<IntPositions<int16_t>>(
+      x, atom_a, atom_b, scale, box, normal, mask, bond_type, classes,
+      bond_mol, geo, out, gorder::MapGrid{}, n_frames, n_atoms, n_bonds,
+      n_types, pbc, mol_normals, n_molecules, stream);
 }
 
 int p2_positions_i16_pair(const void* x, const void* atom_a,
@@ -599,15 +629,40 @@ int p2_positions_i16_pair(const void* x, const void* atom_a,
                           int n_frames, int n_atoms, int n_bonds,
                           int n_types, int pbc, int mol_normals,
                           int n_molecules, void* stream) {
-  PairIntPositions input;
-  input.x = static_cast<const int16_t*>(x);
-  input.atom_a = static_cast<const int32_t*>(atom_a);
-  input.atom_b = static_cast<const int32_t*>(atom_b);
-  input.scale = static_cast<const float*>(scale);
-  input.n_atoms = n_atoms;
-  return launch(input, box, normal, mask, bond_type, classes, bond_mol, geo,
-                out, map, n_frames, n_bonds, n_types, pbc, mol_normals,
-                n_molecules, stream);
+  return launch_int<PairIntPositions<int16_t>>(
+      x, atom_a, atom_b, scale, box, normal, mask, bond_type, classes,
+      bond_mol, geo, out, map, n_frames, n_atoms, n_bonds, n_types, pbc,
+      mol_normals, n_molecules, stream);
+}
+
+// The s6 and d8 wires: x (B, A, 3) int32 XTC integers; otherwise as
+// p2_positions_i16 and p2_positions_i16_pair.
+int p2_positions_i32(const void* x, const void* atom_a, const void* atom_b,
+                     const void* scale, const void* box, const void* normal,
+                     const void* mask, const void* bond_type,
+                     const void* classes, const void* bond_mol,
+                     const void* geo, void* out, int n_frames, int n_atoms,
+                     int n_bonds, int n_types, int pbc, int mol_normals,
+                     int n_molecules, void* stream) {
+  return launch_int<IntPositions<int32_t>>(
+      x, atom_a, atom_b, scale, box, normal, mask, bond_type, classes,
+      bond_mol, geo, out, gorder::MapGrid{}, n_frames, n_atoms, n_bonds,
+      n_types, pbc, mol_normals, n_molecules, stream);
+}
+
+int p2_positions_i32_pair(const void* x, const void* atom_a,
+                          const void* atom_b, const void* scale,
+                          const void* box, const void* normal,
+                          const void* mask, const void* bond_type,
+                          const void* classes, const void* bond_mol,
+                          const void* geo, void* out, gorder::MapGrid map,
+                          int n_frames, int n_atoms, int n_bonds,
+                          int n_types, int pbc, int mol_normals,
+                          int n_molecules, void* stream) {
+  return launch_int<PairIntPositions<int32_t>>(
+      x, atom_a, atom_b, scale, box, normal, mask, bond_type, classes,
+      bond_mol, geo, out, map, n_frames, n_atoms, n_bonds, n_types, pbc,
+      mol_normals, n_molecules, stream);
 }
 
 int p2_positions_f32(const void* x, const void* atom_a, const void* atom_b,

@@ -4,15 +4,15 @@
 // by `make_pallas_ua_step`), for a static membrane normal or per-molecule
 // normals (`per_bond_normal`, below), with and without leaflet classes
 // (`with_leaflets`: the class plane gathered at pallas_ua.py:253-258, the
-// masks at :120-122), on int16 XTC positions with a per-frame scale or on
-// f32 positions. It computes what the JAX package's XLA path computes
-// (gorder_tpu/core/ua.py `_ua_step_impl` with the planar predictors at
-// :145-226), not the TPU kernel's acos-free CH1u variant, which exists only
-// because Mosaic has no acos.
+// masks at :120-122), on int16 or int32 XTC positions with a per-frame
+// scale or on f32 positions. It computes what the JAX package's XLA path
+// computes (gorder_tpu/core/ua.py `_ua_step_impl` with the planar
+// predictors at :145-226), not the TPU kernel's acos-free CH1u variant,
+// which exists only because Mosaic has no acos.
 //
 // One thread per (frame, target carbon) of one category:
 //   1. gather the target and its 2-3 helper atoms, dequantized
-//      f32(q) * s on the int16 input;
+//      f32(q) * s on the integer inputs;
 //   2. the min-imaged helper differences;
 //   3. the buildH prediction of the category's K hydrogens (CH3 K = 3,
 //      CH2 K = 2, CH1-unsaturated and CH1-saturated K = 1;
@@ -44,7 +44,7 @@
 // card: the operations, about 100-200 f32 operations plus one or two
 // accurate transcendentals (sqrt; atan2, cos, sin for CH1u) a sample,
 // against the gather of 3-4 atoms x 6 bytes a target on the int16 input
-// (12 bytes on f32). What the design does about it:
+// (12 bytes on int32 and f32). What the design does about it:
 //   - the targets are laid out type-major (topology/ua.py: for each
 //     carbon, that carbon of every molecule), so the 32 lanes of a warp
 //     hold one carbon and, for each k, one sample type: the per-type sums
@@ -260,13 +260,17 @@ __device__ __forceinline__ long long ua_sample(V vec, V n, float n2) {
   return gorder::quantum(sch);
 }
 
-// int16 input: x (B, A, 3) XTC integers, scale (B,) f32: p = f32(q) * s.
+// Integer input: x (B, A, 3) XTC integers, int16 (the i16 and i12 wires)
+// or int32 (s6 and d8; pallas_ua.py:202-203 takes either), scale (B,) f32:
+// p = f32(q) * s, __int2float_rn exact for |q| < 2^24 (16,777 nm at
+// precision 1000). The int32 input gathers 12 bytes an atom against 6.
+template <class T>
 struct IntCoords {
-  const int16_t* __restrict__ x;
+  const T* __restrict__ x;
   const float* __restrict__ scale;
   int n_atoms;
   __device__ __forceinline__ V operator()(int b, int a) const {
-    const int16_t* p = x + (static_cast<size_t>(b) * n_atoms + a) * 3;
+    const T* p = x + (static_cast<size_t>(b) * n_atoms + a) * 3;
     const float s = scale[b];
     return {__fmul_rn(__int2float_rn(p[0]), s),
             __fmul_rn(__int2float_rn(p[1]), s),
@@ -532,8 +536,27 @@ int ua_positions_i16(int category, const void* x, const void* scale,
                      const void* ref, int n_frames, int n_atoms, int n_cat,
                      int n_types, int pbc, int mol_normals, int n_molecules,
                      int accumulate, void* stream) {
-  const IntCoords coords{static_cast<const int16_t*>(x),
-                         static_cast<const float*>(scale), n_atoms};
+  const IntCoords<int16_t> coords{static_cast<const int16_t*>(x),
+                                  static_cast<const float*>(scale), n_atoms};
+  return launch(category, coords, target, h1, h2, h3, mol, bond_type, box,
+                normal, trig, mask, classes, out, map, shape, ref, n_frames,
+                n_cat, n_types, pbc, mol_normals, n_molecules, accumulate,
+                stream);
+}
+
+// The s6 and d8 wires: x (B, A, 3) int32 XTC integers; otherwise as
+// ua_positions_i16.
+int ua_positions_i32(int category, const void* x, const void* scale,
+                     const void* target, const void* h1, const void* h2,
+                     const void* h3, const void* mol, const void* bond_type,
+                     const void* box, const void* normal, Trig trig,
+                     const void* mask, const void* classes, void* out,
+                     gorder::MapGrid map, gorder::GeoShape shape,
+                     const void* ref, int n_frames, int n_atoms, int n_cat,
+                     int n_types, int pbc, int mol_normals, int n_molecules,
+                     int accumulate, void* stream) {
+  const IntCoords<int32_t> coords{static_cast<const int32_t*>(x),
+                                  static_cast<const float*>(scale), n_atoms};
   return launch(category, coords, target, h1, h2, h3, mol, bond_type, box,
                 normal, trig, mask, classes, out, map, shape, ref, n_frames,
                 n_cat, n_types, pbc, mol_normals, n_molecules, accumulate,

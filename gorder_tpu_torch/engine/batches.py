@@ -1,14 +1,18 @@
 """The frame-batch loop: decode → device → kernel → accumulate (port of
-`gorder_tpu/engine/batches.py:61-1203` for the b7, int16 and f32 wires,
-with leaflets, membrane normals and ordermaps).
+`gorder_tpu/engine/batches.py:61-1203`, with leaflets, membrane normals,
+ordermaps and geometry).
 
 A decode thread fills a prefetch ring of host buffers (the native codec
 releases the GIL) while the main thread copies batch k to the device and
 launches its kernels. The decoder reuses its buffers, so the main thread
 copies each batch to the device synchronously (pageable `copy_`) before
-it releases the ring slot. Padding frames of the last batch are masked. A
-batch that no longer fits the b7 wire mid-run falls back to int16, and a
-batch that no longer fits int16 to f32, as in the JAX package.
+it releases the ring slot. Padding frames of the last batch are masked:
+their rows are zero, but a d8 batch's padding rows repeat its last frame
+(no delta, no correction), since its integers are a sum over the batch.
+A batch that no longer fits the b7, s6 or d8 wire mid-run falls back to
+int16, a batch that no longer fits int16 (or i12) to f32, as in the JAX
+package (gorder_tpu/engine/batches.py:466-590). The s6 wire's per-value
+group index rides to the device once a run.
 
 Leaflet runs read the decoder's side channels beside the wire
 (`engine/channels.py`): heads and the membrane COG (b7g), the aux atoms
@@ -74,13 +78,14 @@ import torch
 from ..core.order import OrderAccumulator
 from ..core.ordermap import init_map_state
 from ..errors import AnalysisError
-from ..io.native import b7_stride, geo_stride
+from ..io.native import b7_stride, geo_stride, i12_stride, s6_stride
 from ..io.traj import Trajectory, check_box_batch
 from ..utils.progress import ProgressPrinter
 from ..utils.timers import timers
 from .channels import plan_wire
-from .fused import BY_KIND, Consumers
+from .fused import BY_KIND, Consumers, decode_positions
 from .normals_runtime import check_normal_guard
+from .wire import wire_groups
 
 log = logging.getLogger("gorder")
 
@@ -206,13 +211,15 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
             _bootstrap_shard(leaflets, traj, full_frame_indices[:1], space,
                              n_threads, device)
 
+    group_of, n_groups, vgidx = wire_groups(system, space)
     plan = plan_wire(traj=traj, frame_indices=frame_indices, space=space,
                      bond_slots=bond_slots, leaflets=leaflets,
                      normals=normals, map_spec=map_spec,
                      geometry=geom_mode is not None,
                      n_molecules=n_molecules,
                      handle_pbc=analysis.handle_pbc, n_threads=n_threads,
-                     batch_size=batch_size)
+                     batch_size=batch_size, group_of=group_of,
+                     n_groups=n_groups)
     # host classes (manual tables, frequency-gated methods) come from
     # classes_for_batch; every-frame methods classify with the step
     host_classes = leaflets is not None and leaflets.fused_classify() is None
@@ -223,7 +230,8 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
         normals=normals.fused() if normals is not None else None,
         aux_normals=plan.aux_normals,
         map_state=(init_map_state(len(accum.classes), n_types, map_spec,
-                                  device) if map_spec is not None else None))
+                                  device) if map_spec is not None else None),
+        n_atoms=space.n_out)
     manual_normals = normals is not None and normals.fused() is None
     chan_membrane, chan_axis = (plan.chan_coords[1] if plan.chan_coords
                                 else (None, None))
@@ -249,10 +257,26 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
                     np.zeros((batch_size, plan.esc_cap), np.uint16),
                     np.zeros((batch_size, plan.esc_cap), np.int16)) + side()
                    for _ in range(prefetch)]
+    elif plan.wire == "s6":
+        buffers = [(np.zeros((batch_size, s6_stride(n_out)), np.uint8),
+                    np.zeros((batch_size, plan.esc_cap), np.uint16),
+                    np.zeros((batch_size, plan.esc_cap), np.int16),
+                    np.zeros((batch_size, (n_groups + 1) * 3), np.int16))
+                   for _ in range(prefetch)]
+    elif plan.wire == "d8":
+        buffers = [(np.zeros((batch_size, n_out, 3), np.int8),
+                    np.zeros((batch_size, plan.corr_cap), np.int32),
+                    np.zeros((batch_size, plan.corr_cap), np.int16))
+                   for _ in range(prefetch)]
+    elif plan.wire == "i12":
+        buffers = [np.zeros((batch_size, i12_stride(n_out)), np.uint8)
+                   for _ in range(prefetch)]
     else:
         dtype = np.int16 if plan.wire == "i16" else np.float32
         buffers = [np.zeros((batch_size, n_out, 3), dtype)
                    for _ in range(prefetch)]
+    vgidx_dev = (torch.as_tensor(vgidx, device=device) if plan.wire == "s6"
+                 else None)
     # decoder COG of coordinate-wire batches in the COG channel class
     cog_bufs = ([np.zeros(batch_size, np.float32) for _ in range(prefetch)]
                 if plan.chan_coords is not None else None)
@@ -305,6 +329,50 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
         _, inv_prec, boxes, _, _ = res
         buf[len(chunk):] = 0
         return with_cog("i16", (buf,), chunk, b), inv_prec, boxes, None
+
+    def fallback_i16(chunk, b, wire, what):
+        log.warning("wire fallback: batch %d exceeds the %s format (%s "
+                    "changed mid-run); shipping int16", b, wire, what)
+        return decode_i16(chunk, np.zeros((batch_size, n_out, 3), np.int16),
+                          b)
+
+    def decode_s6(chunk, buf, b):
+        pk, eg, ev, gm = buf
+        # padding rows decode to the (masked) base frame
+        for a in buf:
+            a[len(chunk):] = 0
+        res, _ = traj.read_frames_s6(chunk, space, group_of, n_groups, pk,
+                                     eg, ev, gm, n_threads=n_threads)
+        if res is None:
+            return fallback_i16(chunk, b, "s6",
+                                "escape demand or value range")
+        base, inv_prec, boxes, _, _ = res
+        return (with_cog("s6", (pk, eg.view(np.int16), ev, base, gm),
+                         chunk, b), inv_prec, boxes, None)
+
+    def decode_d8(chunk, buf, b):
+        lo, ci, ch = buf
+        # padding rows add nothing: they repeat the batch's last frame
+        lo[len(chunk):] = 0
+        ci[len(chunk):] = n_out * 3
+        ch[len(chunk):] = 0
+        res, _ = traj.read_frames_delta8(chunk, space, lo, ci, ch,
+                                         n_threads=n_threads)
+        if res is None:
+            return fallback_i16(chunk, b, "d8", "correction demand or "
+                                "compression precision")
+        abs0, inv_prec, boxes, _, _ = res
+        return (with_cog("d8", (lo, ci, ch, abs0), chunk, b), inv_prec,
+                boxes, None)
+
+    def decode_i12(chunk, buf, b):
+        res = traj.read_frames_packed12(chunk, space, n_threads=n_threads,
+                                        out=buf)
+        if res is None:
+            return decode_f32(chunk, np.zeros((batch_size, n_out, 3),
+                                              np.float32), b)
+        buf[len(chunk):] = 0
+        return with_cog("i12", (buf,), chunk, b), res[1], res[2], None
 
     def plane_sparse_read(chunk, b):
         """Decode only this batch's assignment frames (1/N of frames for
@@ -363,11 +431,7 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
             extra = (plane_sparse_read(chunk, b) if plan.plane_sparse
                      else None)
             return (kind, wire), inv_prec, boxes, extra
-        log.warning("wire fallback: batch %d exceeds the b7 format (escape "
-                    "demand or value range changed mid-run); shipping int16",
-                    b)
-        return decode_i16(chunk, np.zeros((batch_size, n_out, 3), np.int16),
-                          b)
+        return fallback_i16(chunk, b, "b7", "escape demand or value range")
 
     def decode_batch(b):
         slots.acquire()
@@ -377,10 +441,10 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
             buf = buffers[b % prefetch]
             if plan.wire == "b7":
                 out = decode_b7(b, chunk, buf)
-            elif plan.wire == "i16":
-                out = decode_i16(chunk, buf, b)
             else:
-                out = decode_f32(chunk, buf, b)
+                out = {"s6": decode_s6, "d8": decode_d8, "i12": decode_i12,
+                       "i16": decode_i16, "f32": decode_f32}[plan.wire](
+                           chunk, buf, b)
             (kind, arrays), rest = out[0], out[1:]
             if plan.geo_channel and kind != "b7geo":
                 # a coordinate-wire (or fallback) batch of the geometry
@@ -430,6 +494,8 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
                 scale[n_valid:] = inv_prec[n_valid - 1]
             with timers.phase("transfer"):
                 wire = tuple(_to_device(a, device) for a in arrays)
+                if kind.startswith("s6"):
+                    wire = wire[:5] + (vgidx_dev,) + wire[5:]
                 box_dev = _to_device(box, device)
                 mask_dev = _to_device(mask, device)
                 scale_dev = (_to_device(scale, device)
@@ -448,7 +514,7 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
                     classes = _host_classes(
                         leaflets, kind, wire, scale_dev, box_dev, sparse,
                         shard_start + b * batch_size, n_valid, batch_size,
-                        n_molecules, device)
+                        n_molecules, device, n_out)
             normal = normal_dev
             if manual_normals:
                 with timers.phase("transfer"):
@@ -463,9 +529,10 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
                                      geom_ref=geom_ref)
                 inside = None
                 if molecule_inside is not None:
-                    coords_f = (wire[0] if scale_dev is None else
-                                wire[0].to(torch.float32)
-                                * scale_dev[:, None, None])
+                    coords_f = decode_positions(kind, wire, n_out)
+                    if scale_dev is not None:
+                        coords_f = (coords_f.to(torch.float32)
+                                    * scale_dev[:, None, None])
                     inside = molecule_inside(coords_f, box_dev, geom_ref)
             if used.classes is not None and not host_classes and b == 0:
                 leaflets.log_first_stats(used.classes[0].cpu().numpy())
@@ -515,7 +582,8 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
 
 
 def _host_classes(leaflets, kind, wire, scale, box, sparse, start: int,
-                  n_valid: int, batch_size: int, n_molecules: int, device):
+                  n_valid: int, batch_size: int, n_molecules: int, device,
+                  n_atoms: int):
     """The batch's (B, M) int32 host classes on `device`: manual table rows,
     or frequency-gated classification of its assignment frames (the sparse
     read of a b7m batch, or the full coordinates of a coordinate-wire
@@ -529,8 +597,8 @@ def _host_classes(leaflets, kind, wire, scale, box, sparse, start: int,
                       if sc is not None else q)
     elif leaflets.manual_table is None:
         # the valid frames only: padding frames are never classified
-        coords = wire[0][:n_valid]
-        if kind.startswith("i16"):
+        coords = decode_positions(kind, wire, n_atoms)[:n_valid]
+        if scale is not None:
             coords = coords.to(torch.float32) * scale[:n_valid, None, None]
     classes = leaflets.classes_for_batch(coords, box[:n_valid], analyzed,
                                          rows=rows)

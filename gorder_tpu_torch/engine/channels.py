@@ -1,12 +1,16 @@
 """Wire planning: which wire a run rides and which decoder side channels
 feed its leaflet classification and dynamic membrane normals (port of
-`gorder_tpu/engine/channels.py` for the b7, int16 and f32 wires).
+`gorder_tpu/engine/channels.py`).
 
-The wire: b7 when the run's bond slots are eligible and the trajectory
-fits the bond-vector wire, else int16 XTC integers, else f32 positions.
-Bond slots are eligible when nothing but the order step needs absolute
-positions, or when a decoder side channel gives the other coordinate
-consumers what they read:
+The wire is `engine/wire.py pick_wire_format`'s, the JAX package's pick
+when it measures no link rate: b7 when the run's bond slots are eligible
+and the trajectory fits the bond-vector wire, else the smaller of s6 and
+d8, else i12, int16, f32 — or the wire `GORDER_TPU_WIRE` forces. s6 and
+d8 carry int32 XTC integers, so a trajectory whose integers overflow
+int16 (a box over 32.767 nm at precision 1000) still rides exact
+integers. Bond slots are eligible when nothing but the order step needs
+absolute positions, or when a decoder side channel gives the other
+coordinate consumers what they read:
 
 - no leaflets, a static or no normal                     -> b7
 - every-frame global leaflets: heads + the decoder's
@@ -24,20 +28,21 @@ consumers what they read:
 
 Other runs (local leaflets, manual normals, dynamic normals with global
 or local leaflets, ordermaps, geometry with leaflets, normals or a map, UA
-runs) ride int16 or f32. An ordermap bins each sample by its bond
-midpoint, which needs absolute positions, so a map run never rides a b7
-kind (gorder_tpu/engine/channels.py:77, 93-96, 105-109, 120); with
-every-frame global leaflets it rides the `*g` kinds. A geometry run
-outside the geometry channel class computes its inside mask on the device
-from positions (:172-183). A run in that class consumes the decoder's
-bitplane on every wire: b7geo, or the `*G` coordinate kinds when the
-trajectory does not fit b7, so its output is the same whichever wire a
-batch rides. Manual normals are host
-tables shipped beside the wire (`engine/batches.py`). Every-frame global
+runs) ride a coordinate wire: s6, d8, i12, int16 or f32. An ordermap bins
+each sample by its bond midpoint, which needs absolute positions, so a
+map run never rides a b7 kind (gorder_tpu/engine/channels.py:77, 93-96,
+105-109, 120); with every-frame global leaflets it rides the `*g` kinds.
+A geometry run outside the geometry channel class computes its inside
+mask on the device from positions (:172-183). A run in that class
+consumes the decoder's bitplane on every wire: b7geo, or the `*G`
+coordinate kinds when b7 is not picked, so its output is the same
+whichever wire a batch rides. Manual normals are host tables shipped
+beside the wire (`engine/batches.py`). Every-frame global
 leaflets with PBC on XTC input classify against the decoder's COG on every
 wire (the `*g` coordinate kinds), so the printed output is the same
-whichever wire a batch rides. The JAX package picks among more wires by
-the measured link rate; that pick and the s6/d8/i12 wires are not ported.
+whichever wire a batch rides. The JAX package can also pick by the
+measured host-to-device rate (`gorder_tpu/engine/wire.py:329-397`); that
+pick is not ported.
 """
 
 from __future__ import annotations
@@ -48,18 +53,19 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from ..io.native import b7_stride, geo_stride
-from .wire import _probe_b7
+from ..io.native import b7_stride, geo_stride, i12_stride
+from .wire import pick_wire_format, s6_bytes
 
 log = logging.getLogger("gorder")
 
 
 @dataclass
 class WirePlan:
-    wire: str            # 'b7' | 'i16' | 'f32'
-    esc_cap: int         # b7 escape capacity per frame (0 otherwise)
+    wire: str            # 'b7' | 's6' | 'd8' | 'i12' | 'i16' | 'f32'
+    esc_cap: int         # b7 and s6 escape capacity per frame
     n_bonds: int
     wire_bytes: int      # bytes per frame on the wire
+    corr_cap: int = 0    # d8 correction capacity per frame
     # decoder-COG channel class: (classify(coords, cog, box), (membrane
     # slots, axis)) for coordinate wires, and on b7 (b7g) the channel
     # classifier(heads, cog, box) with its head slots
@@ -128,13 +134,14 @@ def _aux_channel(leaflets, normals, n_out: int):
 def plan_wire(*, traj, frame_indices, space, bond_slots=None, leaflets=None,
               normals=None, map_spec=None, geometry: bool = False,
               n_molecules: int = 0, handle_pbc: bool = True, n_threads: int,
-              batch_size: int) -> WirePlan:
+              batch_size: int, group_of=None, n_groups: int = 0) -> WirePlan:
     """Decide the run's channel class and wire, and size the per-frame
     payload. `bond_slots` (atom_a, atom_b) are the order step's bonds in
     the decoded atom space; UA runs pass None and never ride b7, and nor
     do ordermap runs (`map_spec`). `leaflets` and `normals` are the run's
     LeafletRuntime and NormalsRuntime, or None; `geometry` whether the run
-    has a geometry selection."""
+    has a geometry selection; `group_of` and `n_groups` the s6 wire's
+    residue groups (`engine/wire.py wire_groups`)."""
     n_out = space.n_out
     chan_coords = leaf_channels = aux = None
     plane_mode = False
@@ -158,13 +165,12 @@ def plan_wire(*, traj, frame_indices, space, bond_slots=None, leaflets=None,
         (leaflets is None and normals is None) or leaf_channels is not None
         or plane_mode or aux is not None)
 
-    esc_cap = None
-    if b7_ok:
-        esc_cap = _probe_b7(traj, frame_indices, space, bond_slots[0],
-                            bond_slots[1], n_threads, batch_size)
+    wire, cap = pick_wire_format(traj, frame_indices, space, n_threads,
+                                 group_of, n_groups, batch_size,
+                                 bond_slots=bond_slots if b7_ok else None)
     geo_bytes = geo_stride(n_bonds) if geo_channel else 0
-    if esc_cap is not None:
-        plan = WirePlan("b7", esc_cap, n_bonds, geo_bytes,
+    if wire == "b7":
+        plan = WirePlan("b7", cap, n_bonds, geo_bytes,
                         chan_coords=chan_coords, geo_channel=geo_channel)
         extra = " + decoder geometry mask bitplane" if geo_channel else ""
         if leaf_channels is not None:
@@ -186,20 +192,17 @@ def plan_wire(*, traj, frame_indices, space, bond_slots=None, leaflets=None,
             plan.aux_wire_slots, plan.aux_classify, plan.aux_normals = aux
             plan.wire_bytes += len(plan.aux_wire_slots) * 12
             extra = f" + {len(plan.aux_wire_slots)}-atom aux channel"
-        plan.wire_bytes += b7_stride(n_bonds) + esc_cap * 4
+        plan.wire_bytes += b7_stride(n_bonds) + cap * 4
         log.info("wire format: b7 — %d bond vectors (of %d selected atoms)"
                  "%s, %.1f KB/frame", n_bonds, space.n_sel, extra,
                  plan.wire_bytes / 1024)
         return plan
-    n = len(frame_indices)
-    probe = frame_indices[np.unique([0, n // 2, n - 1])]
-    if traj.read_frames_quantized(probe, space,
-                                  n_threads=n_threads) is not None:
-        plan = WirePlan("i16", 0, n_bonds, n_out * 6 + geo_bytes,
-                        chan_coords=chan_coords, geo_channel=geo_channel)
-    else:
-        plan = WirePlan("f32", 0, n_bonds, n_out * 12 + geo_bytes,
-                        chan_coords=chan_coords, geo_channel=geo_channel)
+    size = {"s6": s6_bytes(n_out, n_groups, cap), "d8": n_out * 3 + cap * 6,
+            "i12": i12_stride(n_out), "i16": n_out * 6,
+            "f32": n_out * 12}[wire]
+    plan = WirePlan(wire, cap if wire == "s6" else 0, n_bonds,
+                    size + geo_bytes, corr_cap=cap if wire == "d8" else 0,
+                    chan_coords=chan_coords, geo_channel=geo_channel)
     if chan_coords is not None:
         plan.wire_bytes += 4
     extra = (" + decoder membrane-COG channel" if chan_coords is not None

@@ -32,7 +32,7 @@ from ..engine.prepare import (
 )
 from ..errors import AnalysisError
 from ..io.traj import Trajectory
-from ..utils.timers import timers
+from ..utils.timers import profiled_run, timers
 from ..core.order import OrderAccumulator, make_order_step
 from ..core.ordermap import build_map_spec
 from ..core.ua import make_ua_step
@@ -65,7 +65,9 @@ def run_analysis(analysis, device, batch_size: int = DEFAULT_BATCH_SIZE,
                  on_batch=None):
     """Run `analysis` on `device` → AnalysisResults. `on_batch` receives
     each batch's `batches.DeviceBatch` (see `run_batches`)."""
-    results = _run(analysis, _check_device(device), batch_size, on_batch)
+    device = _check_device(device)
+    with profiled_run():
+        results = _run(analysis, device, batch_size, on_batch)
     log.info("phase times: %s", timers.summary())
     return results
 
@@ -78,8 +80,10 @@ def run_analysis_partial(analysis, shard_index: int, shard_count: int,
     if not (0 <= shard_index < shard_count):
         raise AnalysisError(
             f"invalid shard {shard_index}/{shard_count}")
-    state = _run(analysis, _check_device(device), DEFAULT_BATCH_SIZE, None,
-                 shard=(shard_index, shard_count), as_partial=True)
+    device = _check_device(device)
+    with profiled_run():
+        state = _run(analysis, device, DEFAULT_BATCH_SIZE, None,
+                     shard=(shard_index, shard_count), as_partial=True)
     log.info("phase times: %s", timers.summary())
     return state
 

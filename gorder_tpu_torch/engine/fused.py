@@ -1,9 +1,9 @@
 """Per-batch programs, one per wire kind (port of
-`gorder_tpu/engine/fused.py` `_build_fused_steps` for the b7, int16 and
-f32 wires): decode the shipped payload on the device, classify leaflets
-and compute dynamic membrane normals where the batch carries what they
-read, and run the order step. PyTorch runs eagerly, so these are plain
-functions; the JAX package traces each into one XLA program.
+`gorder_tpu/engine/fused.py` `_build_fused_steps`): decode the shipped
+payload on the device, classify leaflets and compute dynamic membrane
+normals where the batch carries what they read, and run the order step.
+PyTorch runs eagerly, so these are plain functions; the JAX package
+traces each into one XLA program.
 
 Each takes (step, wire tensors, inv_scale, box_diag, normal, frame_mask,
 consumers, classes, geom_ref) and returns a `Used`: the step's int64
@@ -19,8 +19,12 @@ no decoder bitplane (gorder_tpu/core/order.py:480-515).
 
 Kinds: `b7` (no leaflets), `b7g` (heads + decoder COG), `b7x` (aux atoms),
 `b7m` (host class plane), `b7geo` (the decoder's geometry bitplane), and
-the coordinate wires `i16`/`f32`, with a trailing decoder COG as
-`i16g`/`f32g` or a trailing geometry bitplane as `i16G`/`f32G`.
+the coordinate wires `s6`, `d8`, `i12`, `i16` and `f32`, each also with a
+trailing decoder COG (`s6g` ... `f32g`) or a trailing geometry bitplane
+(`s6G` ... `f32G`). A coordinate wire is reconstructed on the device
+(`engine/wire.py`: s6 and d8 into int32 XTC integers, i12 into int16) and
+its integers go to the step as they are (gorder_tpu/engine/fused.py:
+236-280).
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from .wire import d8_ints, s6_ints, unpack12
 
 
 @dataclass
@@ -46,6 +52,7 @@ class Consumers:
     normals: Optional[Callable] = None         # (coords f32, box)
     aux_normals: Optional[Callable] = None     # b7x: (aux f32, box)
     map_state: Optional[torch.Tensor] = None
+    n_atoms: int = 0                           # the wire's atoms (i12)
 
 
 class Used(NamedTuple):
@@ -137,49 +144,44 @@ def _positions(step, coords, inv_scale, box, normal, mask, cs, classes,
                 classes, normal, guard)
 
 
-def run_i16(step, w, scale, box, normal, mask, cs, classes=None,
+#: the coordinate wires: (tensors of the wire, reconstruction → positions)
+_COORDINATES = {
+    "s6": (6, lambda w, n: s6_ints(*w)),
+    "d8": (4, lambda w, n: d8_ints(*w)),
+    "i12": (1, lambda w, n: unpack12(w[0], n)),
+    "i16": (1, lambda w, n: w[0]),
+    "f32": (1, lambda w, n: w[0]),
+}
+
+
+def decode_positions(kind: str, w, n_atoms: int) -> torch.Tensor:
+    """The (B, A, 3) positions a coordinate-wire batch of `kind` carries,
+    reconstructed on its device: int32 (s6, d8) or int16 (i12, i16) XTC
+    integers, or f32 positions. `n_atoms` (A) is read by i12 only."""
+    n, decode = _COORDINATES[kind.rstrip("gG")]
+    return decode(w[:n], n_atoms)
+
+
+def _coordinate_kind(base: str, side: str):
+    """The program of coordinate kind `base` + `side`: "" (positions
+    alone), "g" (a trailing decoder COG) or "G" (a trailing geometry
+    bitplane)."""
+    n = _COORDINATES[base][0]
+
+    def run(step, w, scale, box, normal, mask, cs, classes=None,
             geom_ref=None):
-    """int16 XTC integers."""
-    return _positions(step, w[0], scale, box, normal, mask, cs, classes,
-                      geom_ref=geom_ref)
-
-
-def run_f32(step, w, scale, box, normal, mask, cs, classes=None,
-            geom_ref=None):
-    """f32 positions (non-XTC input): pair differences."""
-    return _positions(step, w[0], None, box, normal, mask, cs, classes,
-                      geom_ref=geom_ref)
-
-
-def run_i16g(step, w, scale, box, normal, mask, cs, classes=None,
-             geom_ref=None):
-    """int16 + the decoder's membrane COG."""
-    return _positions(step, w[0], scale, box, normal, mask, cs, classes,
-                      cog=w[1], geom_ref=geom_ref)
-
-
-def run_f32g(step, w, scale, box, normal, mask, cs, classes=None,
-             geom_ref=None):
-    """f32 + the decoder's membrane COG."""
-    return _positions(step, w[0], None, box, normal, mask, cs, classes,
-                      cog=w[1], geom_ref=geom_ref)
-
-
-def run_i16G(step, w, scale, box, normal, mask, cs, classes=None,
-             geom_ref=None):
-    """int16 + the decoder's geometry bitplane."""
-    return _positions(step, w[0], scale, box, normal, mask, cs, classes,
-                      geo=w[1])
-
-
-def run_f32G(step, w, scale, box, normal, mask, cs, classes=None,
-             geom_ref=None):
-    """f32 + the decoder's geometry bitplane."""
-    return _positions(step, w[0], None, box, normal, mask, cs, classes,
-                      geo=w[1])
+        coords = decode_positions(base, w, cs.n_atoms)
+        inv_scale = None if base == "f32" else scale
+        if side == "G":
+            return _positions(step, coords, inv_scale, box, normal, mask, cs,
+                              classes, geo=w[n])
+        return _positions(step, coords, inv_scale, box, normal, mask, cs,
+                          classes, cog=w[n] if side == "g" else None,
+                          geom_ref=geom_ref)
+    return run
 
 
 BY_KIND = {"b7": run_b7, "b7g": run_b7g, "b7x": run_b7x, "b7m": run_b7,
-           "b7geo": run_b7geo, "i16": run_i16, "f32": run_f32,
-           "i16g": run_i16g, "f32g": run_f32g, "i16G": run_i16G,
-           "f32G": run_f32G}
+           "b7geo": run_b7geo}
+BY_KIND.update({base + side: _coordinate_kind(base, side)
+                for base in _COORDINATES for side in ("", "g", "G")})

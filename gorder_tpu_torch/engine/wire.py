@@ -1,20 +1,41 @@
-"""The b7 wire: its host-side probe and its device-side decoders on
-tensors (port of `gorder_tpu/engine/wire.py:89-133` and `_probe_b7`), the
-int16 dequantization, and the geometry bitplane (`geo_bits`, port of
+"""The wires: their host-side probes, the pick among them, and their
+device-side decoders on tensors (port of `gorder_tpu/engine/wire.py`),
+the int16 dequantization, and the geometry bitplane (`geo_bits`, port of
 `gorder_tpu/engine/fused.py:69-76`, and its inverse `pack_geo_bits`). In
 the JAX package the decoders are XLA code, not Pallas, so here they are
 plain PyTorch ops on whatever device the payload lies on.
 
+- b7: bond-vector differences, 7-bit residuals (`b7_residuals`, `b7`);
+- s6: absolute XTC integers as a per-batch base, per-frame residue-group
+  medians and 6-bit residuals (`s6_ints`);
+- d8: 8-bit temporal deltas with sparse high-byte corrections, summed
+  over the batch on top of its first frame (`d8_ints`);
+- i12: 12-bit packed absolute integers (`unpack12`);
+- i16 and f32: positions as they are.
+
+s6 and d8 give int32 XTC integers (they exist for trajectories whose
+integers overflow int16), i12 gives int16. `pick_wire_format` is the JAX
+package's bytes policy (`_pick_wire_format` with no measured link rate):
+the smallest wire the trajectory fits, or the one `GORDER_TPU_WIRE` names.
+Every wire carries the same integers, so the pick never changes a result.
+
 The bit arithmetic runs in int32: every intermediate below fits, and
-PyTorch's unsigned types lack most operations.
+PyTorch's unsigned types lack most operations. A scatter whose JAX form
+drops out-of-range indices (`mode="drop"`) writes them into one spare
+column past the end, sliced off after.
 """
 
 from __future__ import annotations
 
+import logging
+import os
+
 import numpy as np
 import torch
 
-from ..io.native import b7_stride
+from ..io.native import b7_stride, s6_stride
+
+log = logging.getLogger("gorder")
 
 
 def _probe_b7(traj, frame_indices, space, bond_a, bond_b, n_threads,
@@ -38,6 +59,228 @@ def _probe_b7(traj, frame_indices, space, bond_a, bond_b, n_threads,
             return None  # unfit for reasons other than capacity
         esc_cap = min(8192, ((int(nesc * 2) + 127) // 128) * 128)
     return None
+
+
+def _probe_s6(traj, frame_indices, space, group_of, n_groups, n_threads,
+              batch_size):
+    """Probe the s6 wire format over one batch-sized window (escape demand
+    grows with distance from the in-batch base window, so short probes
+    under-estimate it). Returns a sized esc_cap or None when unfit."""
+    n = len(frame_indices)
+    w = frame_indices[:min(batch_size, n)]
+    esc_cap = 512
+    for _attempt in range(2):
+        pack = np.zeros((len(w), s6_stride(space.n_out)), np.uint8)
+        gaps = np.zeros((len(w), esc_cap), np.uint16)
+        vals = np.zeros((len(w), esc_cap), np.int16)
+        gmean = np.zeros((len(w), (n_groups + 1) * 3), np.int16)
+        res, nesc = traj.read_frames_s6(w, space, group_of, n_groups,
+                                        pack, gaps, vals, gmean,
+                                        n_threads=n_threads)
+        if res is not None:
+            # headroom for batches the probe did not see (a mid-run
+            # overflow falls back to int16 for that batch)
+            cap = int(nesc * 1.4) + 64
+            return max(128, min(8192, (cap + 127) // 128 * 128))
+        if nesc <= esc_cap or nesc > 8192:
+            return None  # unfit for reasons other than capacity
+        esc_cap = min(8192, ((int(nesc * 2) + 127) // 128) * 128)
+    return None
+
+
+def _probe_d8(traj, windows, space, n_threads):
+    """d8 eligibility probe: correction capacity (rounded up, with 2×
+    headroom for unseen batches) or None when the windows do not fit."""
+    corr_cap = 64
+    for _attempt in range(2):
+        demand = 0
+        ok = True
+        for w in windows:
+            lo = np.zeros((len(w), space.n_out, 3), np.int8)
+            ci = np.zeros((len(w), corr_cap), np.int32)
+            ch = np.zeros((len(w), corr_cap), np.int16)
+            res, ncorr = traj.read_frames_delta8(w, space, lo, ci, ch,
+                                                 n_threads=n_threads)
+            demand = max(demand, ncorr)
+            if res is None:
+                ok = False
+        if ok:
+            corr_cap = max(64, min(4096, int(demand * 2) + 32))
+            return ((corr_cap + 63) // 64) * 64
+        if demand <= corr_cap or demand > 4096:
+            return None  # unfit for reasons other than capacity
+        corr_cap = min(4096, ((int(demand * 2) + 63) // 64) * 64)
+    return None
+
+
+def wire_groups(system, space):
+    """(group_of, n_groups, vgidx) of the s6 wire: each slot's residue
+    group (padding slots -1, which decode to exact zeros), and each
+    value's index into the (n_groups + 1)-wide table of group medians
+    (the last group is the always-zero padding group)."""
+    sel = space.sel if space.sel is not None \
+        else np.arange(space.first_n, dtype=np.int64)
+    res_ids = np.asarray(system.resids)[sel]
+    _, ginv = np.unique(res_ids, return_inverse=True)
+    group_of = np.full(space.n_out, -1, np.int32)
+    group_of[:len(sel)] = ginv.astype(np.int32)
+    n_groups = int(ginv.max()) + 1 if len(sel) else 0
+    g_rep = np.repeat(group_of, 3)
+    k_rep = np.tile(np.arange(3), space.n_out)
+    vgidx = np.where(g_rep >= 0, g_rep * 3 + k_rep,
+                     n_groups * 3 + k_rep).astype(np.int32)
+    return group_of, n_groups, vgidx
+
+
+def s6_bytes(n_out: int, n_groups: int, esc_cap: int) -> int:
+    """Bytes a frame of the s6 wire ships."""
+    return s6_stride(n_out) + (n_groups + 1) * 6 + esc_cap * 4
+
+
+def pick_wire_format(traj, frame_indices, space, n_threads, group_of=None,
+                     n_groups=0, batch_size=512, bond_slots=None):
+    """The most compact transfer the trajectory fits, or the one
+    `GORDER_TPU_WIRE` forces: 7-bit bond-vector differences (`bond_slots`
+    given: runs whose only consumer of positions is the order step, or one
+    of the channel classes) → 6-bit smoothed-base residuals → 8-bit
+    temporal deltas (s6 and d8 compared by bytes a frame) → 12-bit packed
+    absolutes → int16 → f32. → ('b7', esc_cap) / ('s6', esc_cap) /
+    ('d8', corr_cap) / ('i12', 0) / ('i16', 0) / ('f32', 0). The port of
+    `gorder_tpu/engine/wire.py:399-495` without a measured link rate (the
+    rate-aware pick, :329-397, is not ported)."""
+    n = len(frame_indices)
+    windows = [frame_indices[:min(8, n)]]
+    if n > 16:
+        mid = n // 2
+        windows.append(frame_indices[mid:mid + 8])
+
+    forced = os.environ.get("GORDER_TPU_WIRE", "")
+    if bond_slots is not None and forced in ("", "b7"):
+        b7_cap = _probe_b7(traj, frame_indices, space, bond_slots[0],
+                           bond_slots[1], n_threads, batch_size)
+        if b7_cap is not None:
+            # b7 ships ~0.875 B per bond value against s6's ~0.75 B per
+            # atom value: b7 wins unless bonds outnumber atoms
+            nb = len(bond_slots[0])
+            b7_bytes = b7_stride(nb) + b7_cap * 4 \
+                + nb * 12 // max(batch_size, 1)
+            s6_bytes_min = s6_stride(space.n_out) + (n_groups + 1) * 6
+            if forced == "b7" or b7_bytes < s6_bytes_min:
+                return "b7", b7_cap
+    if forced == "b7":
+        log.warning("GORDER_TPU_WIRE=b7 requested but the run is not "
+                    "eligible (non-XTC input, escape overflow, or a "
+                    "subsystem needs absolute coordinates); probing the "
+                    "coordinate formats instead")
+    if forced in ("i12", "i16", "f32"):
+        probe_idx = frame_indices[np.unique([0, n // 2, n - 1])]
+        if forced == "i12" and traj.read_frames_packed12(
+                probe_idx, space, n_threads=n_threads) is not None:
+            return "i12", 0
+        if forced != "f32" and traj.read_frames_quantized(
+                probe_idx, space, n_threads=n_threads) is not None:
+            return "i16", 0
+        return "f32", 0
+
+    esc_cap = None
+    if group_of is not None and n_groups > 0 and forced in ("", "s6"):
+        esc_cap = _probe_s6(traj, frame_indices, space, group_of, n_groups,
+                            n_threads, batch_size)
+    if forced == "s6" and esc_cap is not None:
+        return "s6", esc_cap
+
+    d8_cap = None
+    if forced in ("", "d8", "s6"):
+        d8_cap = _probe_d8(traj, windows, space, n_threads)
+
+    if esc_cap is not None or d8_cap is not None:
+        nv = space.n_out * 3
+        s6_size = (s6_bytes(space.n_out, n_groups, esc_cap)
+                   + nv * 4 // max(batch_size, 1)
+                   if esc_cap is not None else None)
+        d8_size = nv + d8_cap * 6 if d8_cap is not None else None
+        if s6_size is not None and (d8_size is None or s6_size < d8_size):
+            return "s6", esc_cap
+        if d8_size is not None:
+            return "d8", d8_cap
+
+    probe_idx = frame_indices[np.unique([0, n // 2, n - 1])]
+    if traj.read_frames_packed12(probe_idx, space,
+                                 n_threads=n_threads) is not None:
+        return "i12", 0
+    if traj.read_frames_quantized(probe_idx, space,
+                                  n_threads=n_threads) is not None:
+        return "i16", 0
+    return "f32", 0
+
+
+def _drop_scatter_index(idx: torch.Tensor, width: int) -> torch.Tensor:
+    """int64 indices for a scatter into `width` + 1 columns: those outside
+    [0, width) go to the spare column `width`, sliced off after (JAX's
+    `mode="drop"`)."""
+    return torch.where((idx < 0) | (idx >= width), width, idx).to(
+        torch.int64)
+
+
+def unpack12(p: torch.Tensor, n: int) -> torch.Tensor:
+    """i12 wire → (B, n, 3) int16 XTC integers (port of `_unpack12_impl`):
+    two two's-complement 12-bit values per 3 bytes, little endian.
+    p (B, i12_stride(n)) uint8."""
+    b = p.shape[0]
+    by = p.reshape(b, -1, 3).to(torch.int32).unbind(-1)
+    v0 = by[0] | ((by[1] & 0xF) << 8)
+    v1 = (by[1] >> 4) | (by[2] << 4)
+    vals = torch.stack([(v0 ^ 0x800) - 0x800, (v1 ^ 0x800) - 0x800],
+                       dim=-1).reshape(b, -1)
+    return vals[:, :n * 3].reshape(b, n, 3).to(torch.int16)
+
+
+def d8_ints(lo: torch.Tensor, ci: torch.Tensor, ch: torch.Tensor,
+            a0: torch.Tensor) -> torch.Tensor:
+    """d8 wire → (B, n, 3) int32 absolute XTC integers (port of
+    `_d8_ints_impl`): each value's int8 delta against the frame before,
+    plus its sparse high-byte correction (ch << 8 at value index ci; the
+    index n·3 marks an unused slot), summed over the batch on top of the
+    first frame's integers a0. lo (B, n, 3) int8, ci (B, cap) int32, ch
+    (B, cap) int16, a0 (n, 3) int32."""
+    b, n, _ = lo.shape
+    nv = n * 3
+    corr = torch.zeros((b, nv + 1), dtype=torch.int32, device=lo.device)
+    corr.scatter_add_(1, _drop_scatter_index(ci, nv),
+                      ch.to(torch.int32) << 8)
+    delta = lo.reshape(b, nv).to(torch.int32) + corr[:, :nv]
+    # torch sums int32 in int64; the integers fit int32 (d8's own range)
+    absr = a0.reshape(1, nv).to(torch.int32) \
+        + torch.cumsum(delta, dim=0).to(torch.int32)
+    return absr.reshape(b, n, 3)
+
+
+def s6_ints(pk: torch.Tensor, gp: torch.Tensor, vl: torch.Tensor,
+            bs: torch.Tensor, gm: torch.Tensor,
+            vg: torch.Tensor) -> torch.Tensor:
+    """s6 wire → (B, n, 3) int32 absolute XTC integers (port of
+    `_s6_ints_impl`): 6-bit residual codes, four per 3 bytes little
+    endian, sign-extended; the sparse escapes (u16 gaps, int16 values;
+    gap 0 is padding) set in; plus each value's group median of the frame
+    and the per-batch base. pk (B, s6_stride(n)) uint8; gp (B, cap) u16
+    gaps carried in int16 (the bits are widened here: a gap may pass
+    32,767); vl (B, cap) int16; bs (n·3,) int32 base; gm (B, (G + 1)·3)
+    int16 medians; vg (n·3,) int32 indices into a row of gm."""
+    b = pk.shape[0]
+    nv = vg.shape[0]
+    by = pk.reshape(b, -1, 3).to(torch.int32).unbind(-1)
+    u = by[0] | (by[1] << 8) | (by[2] << 16)
+    codes = torch.stack([u & 63, (u >> 6) & 63, (u >> 12) & 63,
+                         (u >> 18) & 63], dim=-1).reshape(b, -1)
+    r = torch.zeros((b, nv + 1), dtype=torch.int32, device=pk.device)
+    r[:, :nv] = ((codes[:, :nv] + 32) & 63) - 32          # sign-extend
+    gaps = gp.to(torch.int32) & 0xFFFF
+    pos = torch.cumsum(gaps, dim=1).to(torch.int32) - 1
+    pos = torch.where(gaps == 0, nv, pos)                  # padding
+    r.scatter_(1, _drop_scatter_index(pos, nv), vl.to(torch.int32))
+    gmv = gm.to(torch.int32).index_select(1, vg.to(torch.int64))
+    absr = bs.reshape(1, nv).to(torch.int32) + gmv + r[:, :nv]
+    return absr.reshape(b, nv // 3, 3)
 
 
 def b7_residuals(pk: torch.Tensor, gp: torch.Tensor, vl: torch.Tensor,
@@ -64,9 +307,8 @@ def b7_residuals(pk: torch.Tensor, gp: torch.Tensor, vl: torch.Tensor,
     r[:, :nv] = codes[:, :nv]
     gaps = gp.to(torch.int32) & 0xFFFF
     pos = torch.cumsum(gaps, dim=1, dtype=torch.int32) - 1
-    # gap 0 is padding: scatter it into the spare column nv, sliced off
-    pos = torch.where((gaps == 0) | (pos >= nv), nv, pos)
-    r.scatter_(1, pos.to(torch.int64), vl.to(torch.int16))
+    pos = torch.where(gaps == 0, nv, pos)                  # padding
+    r.scatter_(1, _drop_scatter_index(pos, nv), vl.to(torch.int16))
     return r[:, :nv].contiguous()
 
 

@@ -76,8 +76,11 @@ _SIGNATURES = {
     "p2_b7": [_vp] * 13 + [_int] * 8 + [_vp],
     "p2_positions_i16": [_vp] * 12 + [_int] * 7 + [_vp],
     "p2_positions_i16_pair": [_vp] * 12 + [MapGrid] + [_int] * 7 + [_vp],
+    "p2_positions_i32": [_vp] * 12 + [_int] * 7 + [_vp],
+    "p2_positions_i32_pair": [_vp] * 12 + [MapGrid] + [_int] * 7 + [_vp],
     "p2_positions_f32": [_vp] * 11 + [MapGrid] + [_int] * 7 + [_vp],
     "ua_positions_i16": _UA,
+    "ua_positions_i32": _UA,
     "ua_positions_f32": _UA[:2] + _UA[3:],
 }
 

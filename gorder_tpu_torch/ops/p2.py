@@ -1,14 +1,18 @@
 """The P2 kernel's wrappers and their plain PyTorch versions (port of
 `gorder_tpu/ops/pallas_p2.py`).
 
-`p2_b7` (b7 wire) and `p2_positions` (i16 or f32 wire) return the
+`p2_b7` (b7 wire) and `p2_positions` (integer or f32 positions) return
+the
 (B, 2, T) int64 per-frame, per-type [sum, count] of the quantized samples;
 with leaflet `classes` (B, M) int32 and each bond's molecule `bond_mol`
 (N,) int32 (the `with_leaflets` variant), (B, 3, 2, T): total, upper and
 lower. `normal` is the static (3,) f32 normal, or (B, M, 3) f32
 per-molecule normals read through `bond_mol` (the `per_bond_normal`
-variant), with or without classes. `p2_positions` with `pair` takes the
-pair difference of dequantized int16 positions (the `pair_quantized`
+variant), with or without classes. Integer positions are the XTC
+integers of the i16 and i12 wires (int16) or of the s6 and d8 wires
+(int32, for trajectories whose integers overflow int16); the TPU kernel
+takes either. `p2_positions` with `pair` takes the pair difference of
+dequantized integer positions (the `pair_quantized`
 variant of ordermap runs), and with an ordermap (`map_spec` and its
 (C, 2, T·n0·n1 + 1) int64 `map_state`) adds every sample to the map too,
 in place (`core/ordermap.py`). With a geometry selection (the
@@ -39,39 +43,52 @@ from .build import (call, check_tensor, device_of, frame_args, geo_args,
 MAX_ESCAPES = 8192
 
 #: launches of the P2 kernel since the last reset: the plain variant, for
-#: any input; the with_leaflets variant (classes with the static normal),
-#: by input; the per_bond_normal variant ((B, M, 3) normals, with or
-#: without classes: a launch with both counts here only), by input; the
-#: pair_quantized int16 variant without a map; and the map output, by
-#: input (pair int16, f32), with or without classes and normals. A launch
-#: counts in one count only: a map launch in its map count, a pair launch
-#: in the pair count. A launch with a geometry bitplane counts in the
-#: with_geom count of its input only, whatever else it takes. The plain
-#: version counts in none.
+#: any input but int32; the with_leaflets variant (classes with the static
+#: normal), by input; the per_bond_normal variant ((B, M, 3) normals, with
+#: or without classes: a launch with both counts here only), by input; the
+#: pair_quantized variant without a map, by integer input; and the map
+#: output, by input (pair int16, pair int32, f32), with or without classes
+#: and normals. A launch counts in one count only: a map launch in its map
+#: count, a pair launch in the pair count. A launch with a geometry
+#: bitplane counts in the with_geom count of its input only, whatever else
+#: it takes. The int32 input (s6, d8) has its own count of each. The
+#: plain version counts in none.
 p2_launches = 0
+p2_i32_launches = 0
 p2_leaflets_launches = 0            # b7 wire
 p2_i16_leaflets_launches = 0
 p2_f32_leaflets_launches = 0
 p2_normals_launches = 0             # b7 wire
+p2_i32_leaflets_launches = 0
 p2_i16_normals_launches = 0
+p2_i32_normals_launches = 0
 p2_f32_normals_launches = 0
 p2_i16_pair_launches = 0
+p2_i32_pair_launches = 0
 p2_i16_map_launches = 0
+p2_i32_map_launches = 0
 p2_f32_map_launches = 0
 p2_geom_launches = 0                # b7 wire (b7geo)
 p2_i16_geom_launches = 0
+p2_i32_geom_launches = 0
 p2_i16_pair_geom_launches = 0       # with or without a map
+p2_i32_pair_geom_launches = 0
 p2_f32_geom_launches = 0
 
+_PLAIN_COUNT = {"p2_positions_i32": "p2_i32_launches"}
 _LEAFLETS_COUNT = {"p2_b7": "p2_leaflets_launches",
                    "p2_positions_i16": "p2_i16_leaflets_launches",
+                   "p2_positions_i32": "p2_i32_leaflets_launches",
                    "p2_positions_f32": "p2_f32_leaflets_launches"}
 _NORMALS_COUNT = {"p2_b7": "p2_normals_launches",
                   "p2_positions_i16": "p2_i16_normals_launches",
+                  "p2_positions_i32": "p2_i32_normals_launches",
                   "p2_positions_f32": "p2_f32_normals_launches"}
 _GEOM_COUNT = {"p2_b7": "p2_geom_launches",
                "p2_positions_i16": "p2_i16_geom_launches",
+               "p2_positions_i32": "p2_i32_geom_launches",
                "p2_positions_i16_pair": "p2_i16_pair_geom_launches",
+               "p2_positions_i32_pair": "p2_i32_pair_geom_launches",
                "p2_positions_f32": "p2_f32_geom_launches"}
 
 
@@ -138,6 +155,8 @@ def _launch(fn_name, n_frames, n_bonds, n_types, device, args_before_out,
         globals()[_NORMALS_COUNT[fn_name]] += 1
     elif classes is not None:
         globals()[_LEAFLETS_COUNT[fn_name]] += 1
+    elif fn_name in _PLAIN_COUNT:
+        globals()[_PLAIN_COUNT[fn_name]] += 1
     else:
         p2_launches += 1
     return out
@@ -188,11 +207,12 @@ def p2_positions(coords, atom_a, atom_b, inv_scale, box_diag, normal,
                  frame_mask, bond_type, n_types: int, *, handle_pbc: bool,
                  classes=None, bond_mol=None, pair: bool = False,
                  map_spec=None, map_state=None, geo=None):
-    """i16 wire: coords (B, A, 3) int16 with inv_scale (B,) f32, the pair
-    difference f32(q_b)·s − f32(q_a)·s with `pair` (`pair_quantized`),
-    else the single rounding f32(q_b − q_a)·s; f32 wire: coords (B, A, 3)
-    f32 with inv_scale None. atom_a/atom_b (N,) int32; the rest as for
-    p2_b7 → (B, 2, T) or (B, 3, 2, T) int64. With `map_spec` and its
+    """Integer positions: coords (B, A, 3) int16 or int32 with inv_scale
+    (B,) f32, the pair difference f32(q_b)·s − f32(q_a)·s with `pair`
+    (`pair_quantized`), else the single rounding f32(q_b − q_a)·s; f32
+    positions: coords (B, A, 3) f32 with inv_scale None. atom_a/atom_b
+    (N,) int32; the rest as for p2_b7 → (B, 2, T) or (B, 3, 2, T) int64.
+    With `map_spec` and its
     (C, 2, T·n0·n1 + 1) int64 `map_state` (C = 3 with classes, else 1;
     integer positions with `pair` only), every sample is also added to the
     map, in place. geo (B, ⌈N/8⌉) uint8 or None, as for p2_b7."""
@@ -206,7 +226,8 @@ def p2_positions(coords, atom_a, atom_b, inv_scale, box_diag, normal,
                                   map_state=map_state, geo=geo)
     n_frames, n_atoms = coords.shape[:2]
     n_bonds = atom_a.shape[0]
-    dtype = torch.int16 if inv_scale is not None else torch.float32
+    dtype = (torch.float32 if inv_scale is None
+             else torch.int32 if coords.dtype == torch.int32 else torch.int16)
     check_tensor("coords", coords, dtype, (n_frames, n_atoms, 3), device)
     check_tensor("atom_a", atom_a, torch.int32, (n_bonds,), device)
     check_tensor("atom_b", atom_b, torch.int32, (n_bonds,), device)
@@ -216,7 +237,7 @@ def p2_positions(coords, atom_a, atom_b, inv_scale, box_diag, normal,
                               device)
     geo = geo_args(geo, n_frames, n_bonds, device)
     if map_state is not None and inv_scale is not None and not pair:
-        raise ValueError("an ordermap on int16 positions takes the pair "
+        raise ValueError("an ordermap on integer positions takes the pair "
                          "difference (pair=True)")
     grid = map_args(map_spec, map_state, 3 if classes is not None else 1,
                     n_types, device)
@@ -232,10 +253,11 @@ def p2_positions(coords, atom_a, atom_b, inv_scale, box_diag, normal,
     check_tensor("inv_scale", inv_scale, torch.float32, (n_frames,), device)
     args = (coords.data_ptr(), atom_a.data_ptr(), atom_b.data_ptr(),
             inv_scale.data_ptr(), *common)
+    bits = "i32" if dtype == torch.int32 else "i16"
     if not pair:
-        return _launch("p2_positions_i16", n_frames, n_bonds, n_types,
+        return _launch(f"p2_positions_{bits}", n_frames, n_bonds, n_types,
                        device, args, ints, molecules, geo)
-    return _launch("p2_positions_i16_pair", n_frames, n_bonds, n_types,
+    return _launch(f"p2_positions_{bits}_pair", n_frames, n_bonds, n_types,
                    device, args, ints, molecules, geo, grid,
-                   "p2_i16_map_launches" if map_state is not None
-                   else "p2_i16_pair_launches")
+                   f"p2_{bits}_map_launches" if map_state is not None
+                   else f"p2_{bits}_pair_launches")

@@ -34,11 +34,14 @@ from .build import (Trig, call, check_tensor, device_of, frame_args,
 #: reset: the plain variant; the with_leaflets variant (classes with the
 #: static normal); the per_bond_normal variant ((B, M, 3) normals, with or
 #: without classes); the map output (with or without classes and
-#: normals); and the geometry test (with or without any of those). A
-#: launch counts in one count only: a geometry launch in the geometry
-#: count, a map launch in the map count, one with normals in the normals
-#: count. The plain version counts in none.
+#: normals); and the geometry test (with or without any of those), on
+#: int16 or f32 positions; and every launch on int32 positions (the s6
+#: and d8 wires), whatever its variant. A launch counts in one count
+#: only: an int32 launch in the int32 count, a geometry launch in the
+#: geometry count, a map launch in the map count, one with normals in the
+#: normals count. The plain version counts in none.
 ua_launches = 0
+ua_i32_launches = 0
 ua_leaflets_launches = 0
 ua_normals_launches = 0
 ua_map_launches = 0
@@ -63,8 +66,9 @@ def ua_positions(coords, inv_scale, box_diag, normal, frame_mask, indices,
                  bond_type, n_types: int, *, handle_pbc: bool, layout,
                  classes=None, bond_mol=None, map_spec=None, map_state=None,
                  geom_spec=None, reference=None):
-    """int16 input: coords (B, A, 3) int16 with inv_scale (B,) f32; f32
-    input: coords (B, A, 3) f32 with inv_scale None. indices: {category:
+    """Integer input: coords (B, A, 3) int16 or int32 XTC integers with
+    inv_scale (B,) f32; f32 input: coords (B, A, 3) f32 with inv_scale
+    None. indices: {category:
     {"target", "h1", "h2"[, "h3"][, "mol"]: (n,) int32}}; layout:
     ((category, n), ...) in concatenation order; bond_type (n_samples,)
     int32, category by category and hydrogen-major; box_diag (B, 3) f32,
@@ -78,7 +82,7 @@ def ua_positions(coords, inv_scale, box_diag, normal, frame_mask, indices,
     in place. With `geom_spec` and its (B, 3) f32 `reference`, only the
     samples inside the shape count."""
     global ua_launches, ua_leaflets_launches, ua_normals_launches
-    global ua_map_launches, ua_geom_launches
+    global ua_map_launches, ua_geom_launches, ua_i32_launches
     device = device_of(coords)
     if device.type == "cpu":
         return ua_positions_plain(coords, inv_scale, box_diag, normal,
@@ -89,7 +93,8 @@ def ua_positions(coords, inv_scale, box_diag, normal, frame_mask, indices,
                                   geom_spec=geom_spec, reference=reference)
     n_frames, n_atoms = coords.shape[:2]
     n_samples = sum(n * N_HYDROGENS[cat] for cat, n in layout)
-    dtype = torch.int16 if inv_scale is not None else torch.float32
+    dtype = (torch.float32 if inv_scale is None
+             else torch.int32 if coords.dtype == torch.int32 else torch.int16)
     check_tensor("coords", coords, dtype, (n_frames, n_atoms, 3), device)
     if inv_scale is not None:
         check_tensor("inv_scale", inv_scale, torch.float32, (n_frames,),
@@ -144,13 +149,16 @@ def ua_positions(coords, inv_scale, box_diag, normal, frame_mask, indices,
             launched = True
             with torch.cuda.device(device):
                 if inv_scale is not None:
-                    call("ua_positions_i16", _CATEGORY_ID[cat],
+                    call("ua_positions_i32" if dtype == torch.int32
+                         else "ua_positions_i16", _CATEGORY_ID[cat],
                          coords.data_ptr(), inv_scale.data_ptr(), *atoms,
                          *common, *ints)
                 else:
                     call("ua_positions_f32", _CATEGORY_ID[cat],
                          coords.data_ptr(), *atoms, *common, *ints)
-            if reference is not None:
+            if dtype == torch.int32:
+                ua_i32_launches += 1
+            elif reference is not None:
                 ua_geom_launches += 1
             elif map_state is not None:
                 ua_map_launches += 1

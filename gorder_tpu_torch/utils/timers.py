@@ -8,14 +8,21 @@ and logs one summary line at INFO level.
 Timers are monotonic (`time.perf_counter`) and additive: entering the same
 phase several times accumulates. Decode time is recorded from the prefetch
 worker thread; a lock keeps the counters consistent.
+
+`profiled_run` wraps one run: it resets the timers, times the run as
+"total" and, when `GORDER_TPU_PROFILE` names a directory, traces the run
+with `torch.profiler` (host and CUDA activity) into a Chrome trace there
+(port of `gorder_tpu/utils/timers.py:75-118`, a `jax.profiler` trace).
 """
 
 from __future__ import annotations
 
+import logging
+import os
 import threading
 import time
 from contextlib import contextmanager
-from typing import Dict
+from typing import Dict, Optional
 
 
 class PhaseTimers:
@@ -63,3 +70,53 @@ class PhaseTimers:
 
 #: process-wide registry used by the analysis pipeline
 timers = PhaseTimers()
+
+
+class _Profiler:
+    """Opt-in torch.profiler trace around a run (GORDER_TPU_PROFILE=dir)."""
+
+    def __init__(self) -> None:
+        self.dir: Optional[str] = os.environ.get("GORDER_TPU_PROFILE") or None
+        self._prof = None
+
+    def start(self) -> None:
+        if not self.dir:
+            return
+        import torch
+
+        try:
+            os.makedirs(self.dir, exist_ok=True)
+        except OSError as e:
+            logging.getLogger("gorder").warning(
+                "cannot write profiler trace to '%s' (%s); profiling "
+                "disabled for this run", self.dir, e)
+            return
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self._prof = torch.profiler.profile(activities=activities)
+        self._prof.start()
+
+    def stop(self) -> None:
+        if self._prof is None:
+            return
+        self._prof.stop()
+        path = os.path.join(self.dir, f"trace-{os.getpid()}-"
+                            f"{time.time_ns()}.json")
+        self._prof.export_chrome_trace(path)
+        self._prof = None
+        logging.getLogger("gorder").info("profiler trace written to %s",
+                                         path)
+
+
+@contextmanager
+def profiled_run():
+    """Reset timers and (optionally) trace the device for one analysis run."""
+    timers.reset()
+    prof = _Profiler()
+    prof.start()
+    try:
+        with timers.phase("total"):
+            yield timers
+    finally:
+        prof.stop()

@@ -4,9 +4,10 @@ spectral and spherical, at every frequency, with flip, collection and
 dynamic normals. Every non-`#` YAML line must be equal, and the exported
 leaflet file too; each run asserts the wire it took:
 
-- every-frame spectral clustering rides a coordinate wire (int16 here),
-  its labels oriented on the host frame after frame;
-- every-frame spherical clustering rides int16 and classifies with the
+- every-frame spectral clustering rides a coordinate wire (s6 or d8
+  here, as `gorder_tpu` picks), its labels oriented on the host frame
+  after frame;
+- every-frame spherical clustering rides s6 or d8 and classifies with the
   step;
 - every-N and once clustering ride the b7 class plane with sparse reads
   of the assignment frames (UA runs never ride b7).
@@ -139,7 +140,7 @@ def _spherical(heads=P_HEADS):
 
 CASES = {
     "aa_spectral_collect": ("aa", lambda: _spectral().with_collect(True),
-                            {}, "i16"),
+                            {}, "s6"),
     "aa_spectral_every7_flip": (
         "aa", lambda: _spectral().with_frequency(Frequency.every(7))
         .with_flip().with_collect(True), {}, "b7m sparse"),
@@ -148,37 +149,37 @@ CASES = {
         "b7m sparse"),
     "aa_spherical_flip_collect": (
         "aa", lambda: _spherical().with_flip().with_collect(True), {},
-        "i16"),
+        "s6"),
     "aa_spherical_every5": (
         "aa", lambda: _spherical().with_frequency(Frequency.every(5)), {},
         "b7m sparse"),
     "aa_spectral_dynamic_normals": (
         "aa", _spectral,
-        dict(membrane_normal=MembraneNormal.dynamic(P_HEADS, 2.5)), "i16"),
+        dict(membrane_normal=MembraneNormal.dynamic(P_HEADS, 2.5)), "s6"),
     "cg_spectral_every4": (
         "cg", lambda: _spectral("name PO4").with_frequency(
             Frequency.every(4)).with_collect(True), {}, "b7m sparse"),
     "cg_spherical_vesicle": ("vesicle", lambda: _spherical("name PO4"), {},
-                             "i16"),
+                             "d8"),
     # lipid 0 flips to the lower leaflet at frame 4: only the orienter's
     # frame-to-frame matching keeps the leaflets' identities
     "cg_spectral_scrambling": (
         "scrambling", lambda: _spectral("name PO4").with_collect(True), {},
-        "i16"),
+        "d8"),
     # a part of the membrane analyzed: the head cloud still spans every
     # lipid, and each analyzed molecule takes its own head's class
     "cg_spectral_part": (
         "cg", lambda: _spectral("name PO4").with_collect(True),
-        dict(atoms="resname POPC and resid 5 to 40"), "i16"),
+        dict(atoms="resname POPC and resid 5 to 40"), "d8"),
     "cg_spherical_part_vesicle": (
         "vesicle", lambda: _spherical("name PO4").with_flip()
         .with_collect(True), dict(atoms="resname POPC and resid 250 to 330"),
-        "i16"),
+        "d8"),
     "ua_spectral": ("ua", lambda: _spectral().with_collect(True), {},
-                    "i16"),
+                    "d8"),
     "ua_spherical_once_flip": (
         "ua", lambda: _spherical().with_frequency(Frequency.once())
-        .with_flip(), {}, "i16"),
+        .with_flip(), {}, "d8"),
 }
 
 

@@ -23,7 +23,6 @@ import chip_smoke
 from gorder_tpu.input import Analysis as JaxAnalysis
 from gorder_tpu.input import AnalysisType as JaxAnalysisType
 from gorder_tpu.input.config import Geometry, LeafletClassification
-from gorder_tpu_torch.engine import channels
 from gorder_tpu_torch.engine.drivers import run_analysis
 from gorder_tpu_torch.errors import ConfigError
 
@@ -109,11 +108,11 @@ CHANNEL_CASES = {
 def test_geometry_channel_matches_jax(aa_files, cg_files, tmp_path, plans,
                                       monkeypatch, case):
     """Geometry alone: b7geo with the decoder's bitplane, and forced onto
-    int16 (`_probe_b7` refusing), `i16G` with the same bitplane: equal to
-    the jitted engine."""
+    int16, `i16G` with the same bitplane: equal to the jitted engine. The
+    wire is forced with GORDER_TPU_WIRE in both packages: on the AA cut s6
+    ships fewer bytes a frame than b7, and both would pick it."""
     geometry, wire = CHANNEL_CASES[case]
-    if wire == "i16":
-        monkeypatch.setattr(channels, "_probe_b7", lambda *a, **k: None)
+    monkeypatch.setenv("GORDER_TPU_WIRE", wire)
     files, make = (cg_files, _cg) if case.startswith("cg") \
         else (aa_files, _aa)
     want = _compare(make(files, geometry=geometry), tmp_path)
@@ -145,7 +144,7 @@ def test_device_geometry_matches_jax(aa_short, ua_short, tmp_path, plans,
     want = _compare(a, tmp_path, op_by_op=True)
     plan = plans[-1]
     assert not plan.geo_channel
-    assert _kind(plan) == ("i16g" if case == "global_leaflets" else "i16")
+    assert _kind(plan) == ("s6g" if case == "global_leaflets" else "s6")
     assert any("upper" in ln for ln in want) == (case == "global_leaflets")
 
 

@@ -66,6 +66,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     "gorder_tpu_torch.present.ordermaps_out",
     "gorder_tpu_torch.present.normals_out",
     "gorder_tpu_torch.utils.logcolor",
+    "gorder_tpu_torch.utils.timers",
     "gorder_tpu_torch.version",
     "gorder_tpu_torch.diagnostics.layout",
     "gorder_tpu_torch.diagnostics.clustering",

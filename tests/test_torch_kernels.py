@@ -1,7 +1,8 @@
 """The hand-written P2 and UA kernels (gorder_tpu_torch/csrc/p2.cu, ua.cu),
 with and without leaflet classes, per-molecule normals and ordermaps (the
-map state, and P2's pair_quantized int16 input), against their plain
-PyTorch versions, on the card; P2 also on the packed b7 wire with the
+map state, and P2's pair_quantized integer input), on int16, int32 (the
+s6 and d8 wires) and f32 positions, against their plain PyTorch
+versions, on the card; P2 also on the packed b7 wire with the
 escape patterns the decoder can ship, and both kernels on the layouts of
 their warp-aggregated type sums: type-major runs of a few lengths, and
 mixed types. These tests need a CUDA device and skip without one; on the
@@ -320,12 +321,14 @@ def test_ua_leaflet_kernel_matches_plain(cuda, kind, shape, layout):
 
 
 def test_ua_kernel_rejects_wrong_dtype(cuda):
+    """int16 and int32 integers are taken (the i16, i12, s6 and d8 wires),
+    int64 is not."""
     from gorder_tpu_torch.ops import ua
 
     step, frame, inputs = _ua_case(2, 4, 10, 7, cuda)
     coords, scale = inputs["i16"]
     with pytest.raises(TypeError):
-        ua.ua_positions(coords.to(torch.int32), scale, *frame,
+        ua.ua_positions(coords.to(torch.int64), scale, *frame,
                         handle_pbc=True, layout=step.layout)
 
 
@@ -803,3 +806,144 @@ def test_ua_geom_kernel_matches_plain(cuda, kind, shape, pbc, layout):
             assert torch.equal(states[0], states[1])
         n_in = int((got[:, 0] if full else got)[:, 1].sum())
         assert 0 < n_in < 30 * 400 * 11
+
+
+#: every P2 launch count an int32 launch may touch
+I32_COUNTS = GEOM_COUNTS + ("p2_i32_launches", "p2_i32_leaflets_launches",
+                            "p2_i32_normals_launches", "p2_i32_geom_launches",
+                            "p2_i32_pair_launches", "p2_i32_map_launches",
+                            "p2_i32_pair_geom_launches")
+#: int32 variants: (classes, normals, bitplane, pair, map) → the count
+I32_VARIANTS = {
+    "plain": ((), "p2_i32_launches"),
+    "leaflets": (("classes",), "p2_i32_leaflets_launches"),
+    "normals": (("normals",), "p2_i32_normals_launches"),
+    "leaflets_normals": (("classes", "normals"), "p2_i32_normals_launches"),
+    "geom_leaflets_normals": (("classes", "normals", "geo"),
+                              "p2_i32_geom_launches"),
+    "pair": (("pair",), "p2_i32_pair_launches"),
+    "pair_map_leaflets_normals": (("pair", "map", "classes", "normals"),
+                                  "p2_i32_map_launches"),
+    "pair_map_geom": (("pair", "map", "geo"), "p2_i32_pair_geom_launches"),
+}
+
+
+@pytest.mark.parametrize("layout", ["random", 32])
+@pytest.mark.parametrize("variant", list(I32_VARIANTS))
+@pytest.mark.parametrize("shape", [
+    (8, 301, 200, 7, 5),       # ragged single tile, a ragged last byte
+    (64, 5000, 3000, 80, 40),  # several blocks a frame, AA-like type count
+])
+def test_int32_kernel_matches_plain(cuda, variant, shape, layout):
+    """`p2_positions_i32` and `p2_positions_i32_pair`: int32 XTC integers
+    moved 35 nm along z, past int16's range, with every option; the
+    int64 outputs and the map equal the plain version's, a launch counts
+    in its variant's int32 count only, and the single difference gives
+    the int16 kernel's sums on the unmoved integers (the differences are
+    the same)."""
+    from gorder_tpu_torch.core.ordermap import init_map_state
+
+    n_frames, n_bonds, n_atoms, n_types, n_mols = shape
+    options, grown = I32_VARIANTS[variant]
+    pb = _problem(sum(shape), n_frames, n_bonds, n_atoms, n_types, cuda,
+                  layout)
+    q16, atom_a, atom_b, inv = pb["i16"]
+    q32 = q16.to(torch.int32)
+    q32[..., 2] += 35_000
+    classes, bond_mol = _leaflets(sum(shape), n_frames, n_bonds, n_mols,
+                                  cuda)
+    normal = (_normals(sum(shape), n_frames, n_mols, cuda)
+              if "normals" in options else pb["normal"])
+    kw = dict(handle_pbc=True,
+              classes=classes if "classes" in options else None,
+              bond_mol=(bond_mol if {"classes", "normals"} & set(options)
+                        else None),
+              geo=(_bitplane(sum(shape), n_frames, n_bonds, cuda)
+                   if "geo" in options else None),
+              pair="pair" in options)
+    c = (pb["box"], normal, pb["mask"], pb["bond_type"], pb["n_types"])
+    states = [None, None]
+    if "map" in options:
+        kw["map_spec"] = _map_spec()
+        states = [init_map_state(3 if "classes" in options else 1, n_types,
+                                 kw["map_spec"], cuda) for _ in range(2)]
+    before = {name: getattr(p2, name) for name in I32_COUNTS}
+    got = p2.p2_positions(q32, atom_a, atom_b, inv, *c,
+                          map_state=states[0], **kw)
+    torch.cuda.synchronize()
+    assert {name: getattr(p2, name) - before[name] for name in I32_COUNTS} \
+        == {name: int(name == grown) for name in I32_COUNTS}
+    want = p2.p2_positions_plain(q32, atom_a, atom_b, inv, *c,
+                                 map_state=states[1], **kw)
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    if states[0] is not None:
+        assert torch.equal(states[0], states[1])
+        sums = got if "classes" in options else got[:, None]
+        assert torch.equal(states[0].sum(-1), sums.sum((0, 3)))
+    if not kw["pair"]:
+        assert torch.equal(got, p2.p2_positions(q16, atom_a, atom_b, inv,
+                                                *c, **kw))
+    assert not got[-1].any()
+
+
+@pytest.mark.parametrize("variant", ["static", "leaflets_normals", "map",
+                                     "geometry"])
+@pytest.mark.parametrize("layout", UA_LAYOUTS)
+def test_ua_int32_kernel_matches_plain(cuda, variant, layout):
+    """`ua_positions_i32`: the UA problem's integers moved 35 nm along z,
+    with each option; every launch counts in the int32 count only."""
+    from gorder_tpu_torch.core.geometry import GeometrySpec
+    from gorder_tpu_torch.core.order import geometry_reference
+    from gorder_tpu_torch.core.ordermap import init_map_state
+    from gorder_tpu_torch.core.ua import make_ua_step
+    from gorder_tpu_torch.ops import ua
+
+    import chip_smoke
+
+    pb = chip_smoke.ua_problem(11, 32, 400, 68,
+                               type_major=layout == "type_major")
+    full = variant == "leaflets_normals"
+    step = make_ua_step(
+        pb["categories"], pb["bond_type"], pb["bond_mol"], 68,
+        handle_pbc=True, device=cuda, with_leaflets=full,
+        normal_mode="per_molecule" if full else "static",
+        map_spec=_map_spec(plane="xy") if variant == "map" else None,
+        geom_spec=(GeometrySpec("cylinder", radius=1.7, orientation=2)
+                   if variant == "geometry" else None))
+    q = torch.as_tensor(pb["q16"], device=cuda).to(torch.int32)
+    q[..., 2] += 35_000
+    scale = torch.as_tensor(pb["inv16"], device=cuda)
+    box = torch.as_tensor(pb["box"], device=cuda)
+    normal = (_normals(3, 32, 400, cuda) if full
+              else torch.tensor([0.0, 0.0, 1.0], device=cuda))
+    mask = torch.as_tensor(pb["mask"], device=cuda)
+    classes = (torch.as_tensor(pb["classes"], device=cuda) if full
+               else None)
+    states = [init_map_state(1, 68, step.map_spec, cuda)
+              if variant == "map" else None for _ in range(2)]
+    selection = torch.arange(0, 4000, 37, dtype=torch.int32, device=cuda)
+    counts = ("ua_launches", "ua_leaflets_launches", "ua_normals_launches",
+              "ua_map_launches", "ua_geom_launches", "ua_i32_launches")
+    before = {name: getattr(ua, name) for name in counts}
+    got = step.positions(q, box, normal, mask, inv_scale=scale,
+                         classes=classes, map_state=states[0],
+                         geom_ref=selection if variant == "geometry"
+                         else None)
+    torch.cuda.synchronize()
+    assert {name: getattr(ua, name) - before[name] for name in counts} \
+        == {name: 4 * int(name == "ua_i32_launches") for name in counts}
+    reference = None
+    if variant == "geometry":
+        reference = geometry_reference(q.to(torch.float32)
+                                       * scale[:, None, None], box,
+                                       selection, True)
+    want = ua.ua_positions_plain(
+        q, scale, box, normal, mask, step.indices, step.bond_type, 68,
+        handle_pbc=True, layout=step.layout, classes=classes,
+        bond_mol=step.bond_mol, map_spec=step.map_spec, map_state=states[1],
+        geom_spec=step.geom_spec, reference=reference)
+    assert torch.equal(got, want)
+    if states[0] is not None:
+        assert torch.equal(states[0], states[1])
+    assert not got[-2:].any() and int(got[:, 1].sum() if got.dim() == 3
+                                       else got[:, 0, 1].sum()) > 0

@@ -367,7 +367,7 @@ AA_CASES = {
     "global_once": (lambda f, t: _global().with_frequency(Frequency.once()),
                     "b7m sparse"),
     "local": (lambda f, t: LeafletClassification.local(
-        "resname POPC", P_HEADS, 2.5), "i16"),
+        "resname POPC", P_HEADS, 2.5), "s6"),
     "individual": (lambda f, t: LeafletClassification.individual(
         P_HEADS, "resname POPC and name C217 C317"), "b7x"),
     "from_map": (lambda f, t: LeafletClassification.from_map(
@@ -541,19 +541,19 @@ def _ua(files, leaflets):
 
 @pytest.mark.parametrize("case", ["global", "every2", "from_map"])
 def test_ua_leaflets_match_jax(ua_files, tmp_path, plans, case):
-    """Global rides int16 with the decoder's COG (i16g); frequency-gated
-    classification of the int16 coordinates and a manual table ship host
-    classes with the int16 wire."""
+    """Global rides s6 with the decoder's COG (s6g); frequency-gated
+    classification of the s6 coordinates and a manual table ship host
+    classes with the s6 wire."""
     if case == "global":
         lf, kind = LeafletClassification.global_("resname POPC",
-                                                 P_HEADS), "i16g"
+                                                 P_HEADS), "s6g"
     elif case == "every2":
         lf, kind = LeafletClassification.global_(
             "resname POPC", P_HEADS).with_frequency(Frequency.every(2)), \
-            "i16"
+            "s6"
     else:
         lf, kind = LeafletClassification.from_map(
-            {"POPC": [_upper_lower_row(6)] * 600}), "i16"
+            {"POPC": [_upper_lower_row(6)] * 600}), "s6"
     assert _compare(_ua(ua_files, lf), tmp_path, plans) == kind
 
 

@@ -124,8 +124,9 @@ def _unit_rows(rng, n_frames, n_mols):
 
 @pytest.mark.parametrize("source", ["map", "file", "map_export"])
 def test_aa_manual_normals_match_jax(aa_files, tmp_path, plans, source):
-    """Manual normals ride int16 (the table is host data), and the output
-    equals `gorder_tpu`'s line for line."""
+    """Manual normals ride s6, the wire `gorder_tpu` picks for this
+    coordinate run (the table is host data), and the output equals
+    `gorder_tpu`'s line for line."""
     rows = _unit_rows(np.random.default_rng(3), FRAMES, AA_LIPIDS)
     if source == "file":
         import yaml
@@ -137,7 +138,7 @@ def test_aa_manual_normals_match_jax(aa_files, tmp_path, plans, source):
         normal = MembraneNormal.from_map(
             {"POPC": rows}, collect=source == "map_export")
     (jy, jn), (py, pn) = _run_both(_aa(aa_files, normal), tmp_path)
-    assert _kind(plans[-1]) == "i16"
+    assert _kind(plans[-1]) == "s6"
     assert _lines(py) == _lines(jy) and len(_lines(jy)) > 100
     if pn is not None:
         assert _lines(pn) == _lines(jn)
@@ -150,8 +151,8 @@ def test_aa_dynamic_normals_match_jax(aa_files, tmp_path, plans,
                                       monkeypatch, case):
     """Dynamic normals alone, or with individual leaflets, ride b7x (the
     aux channel ships the union of the normal-heads cloud and the
-    classifier's atoms); beside global leaflets they ride int16 with the
-    decoder's COG; with every-2 leaflets, int16 with host classes."""
+    classifier's atoms); beside global leaflets they ride s6 with the
+    decoder's COG; with every-2 leaflets, s6 with host classes."""
     kw = {}
     normal = MembraneNormal.dynamic(P_HEADS, AA_RADIUS,
                                     collect=case == "export")
@@ -170,8 +171,8 @@ def test_aa_dynamic_normals_match_jax(aa_files, tmp_path, plans,
         kw["leaflets"].with_membrane_normal("z")
     (jy, jn), (py, pn) = _run_both(_aa(aa_files, normal, **kw), tmp_path)
     assert _kind(plans[-1]) == {"dynamic": "b7x", "export": "b7x",
-                                "individual": "b7x", "global": "i16g",
-                                "every2": "i16"}[case]
+                                "individual": "b7x", "global": "s6g",
+                                "every2": "s6"}[case]
     status, off = _validate(py, jy, tmp_path, monkeypatch)
     print(f"aa dynamic {case}: {status}, {off} lines off")
     if "leaflets" in kw:
@@ -187,7 +188,7 @@ def test_aa_dynamic_normals_match_jax(aa_files, tmp_path, plans,
 
 @pytest.mark.parametrize("case", ["dynamic", "manual"])
 def test_ua_normals_match_jax(ua_files, tmp_path, plans, monkeypatch, case):
-    """UA runs ride int16: dynamic normals within the print-quantum rule,
+    """UA runs ride s6: dynamic normals within the print-quantum rule,
     manual ones line for line."""
     if case == "dynamic":
         normal = MembraneNormal.dynamic(P_HEADS, UA_RADIUS)
@@ -196,7 +197,7 @@ def test_ua_normals_match_jax(ua_files, tmp_path, plans, monkeypatch, case):
             {"POPC": _unit_rows(np.random.default_rng(5), FRAMES,
                                 UA_LIPIDS)})
     (jy, _), (py, _) = _run_both(_ua(ua_files, normal), tmp_path)
-    assert _kind(plans[-1]) == "i16"
+    assert _kind(plans[-1]) == "s6"
     if case == "manual":
         assert _lines(py) == _lines(jy)
     status, off = _validate(py, jy, tmp_path, monkeypatch)

@@ -147,7 +147,7 @@ def test_aa_ordermaps_match_jax(aa_files, tmp_path, plans, case):
               if case == "dynamic" else MembraneNormal.static("z"))
     out = _run_both(_aa(aa_files, normal, map=params, **kw), tmp_path,
                     op_by_op=case in ("static", "manual"))
-    assert _kind(plans[-1]) == ("i16g" if case == "global" else "i16")
+    assert _kind(plans[-1]) == ("s6g" if case == "global" else "s6")
     total, off = _check(out, n_tiles, ("full", "upper", "lower")
                         if case == "global" else ("full",))
     print(f"aa {case}: {total} tile lines, {off} off against jitted")
@@ -163,7 +163,7 @@ def test_cg_ordermaps_match_jax(tmp_path, plans):
                     analysis_type=JaxAnalysisType.cgorder("resname POPC"),
                     map=_map(tmp_path), silent=True, overwrite=True)
     out = _run_both(a, tmp_path, op_by_op=True)
-    assert _kind(plans[-1]) == "i16"
+    assert _kind(plans[-1]) == "d8"
     total, off = _check(out, 81 * 81)  # the 8 nm box at the default 0.1 nm
     print(f"cg: {total} tile lines, {off} off against jitted")
 
@@ -172,7 +172,7 @@ def test_ua_ordermaps_match_jax(ua_files, tmp_path, plans):
     a = _ua(ua_files, MembraneNormal.static("z"),
             map=_map(tmp_path, bin_size=[0.25, 0.25]))
     out = _run_both(a, tmp_path)
-    assert _kind(plans[-1]) == "i16"
+    assert _kind(plans[-1]) == "s6"
     from tools import bench_modes
 
     n = int(np.floor(bench_modes.UA_BOX[0] / 0.25 + 0.5)) + 1
@@ -182,8 +182,8 @@ def test_ua_ordermaps_match_jax(ua_files, tmp_path, plans):
 
 def test_geometry_still_refused(aa_files, tmp_path, plans):
     """A map run with a geometry selection, refused once, now runs: a
-    cylinder around the membrane's per-frame center, on int16 with the
-    pair difference, its inside mask computed on the device. Op by op the
+    cylinder around the membrane's per-frame center, on s6 with the pair
+    difference, its inside mask computed on the device. Op by op the
     YAML and every map file equal gorder_tpu's line for line; against the
     jitted engine the YAML is equal and at most 0.1 % of the tile lines
     differ (`_check`)."""
@@ -194,7 +194,7 @@ def test_geometry_still_refused(aa_files, tmp_path, plans):
             geometry=Geometry("cylinder", reference="resname POPC",
                               radius=3.0, orientation="z"))
     out = _run_both(a, tmp_path, op_by_op=True)
-    assert _kind(plans[-1]) == "i16"
+    assert _kind(plans[-1]) == "s6"
     total, off = _check(out, 53 * 53)
     print(f"aa geometry map: {total} tile lines, {off} off against jitted")
 

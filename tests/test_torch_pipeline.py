@@ -14,7 +14,6 @@ import gorder_tpu_torch
 from gorder_tpu.input import Analysis as JaxAnalysis
 from gorder_tpu.input import AnalysisType as JaxAnalysisType
 from gorder_tpu_torch.io.traj import Trajectory
-from gorder_tpu_torch.engine import channels
 from gorder_tpu_torch.engine.drivers import run_analysis
 
 from .synthetic import make_flat_bilayer
@@ -114,11 +113,15 @@ def test_cg_matches_jax(cg_files, tmp_path):
     assert got == want
 
 
-def test_aa_i16_wire_matches_jax(aa_files, tmp_path, monkeypatch):
-    """A trajectory that does not fit b7 rides the int16 wire."""
-    monkeypatch.setattr(channels, "_probe_b7", lambda *a, **k: None)
+def test_aa_i16_wire_matches_jax(aa_files, tmp_path, monkeypatch, caplog):
+    """The int16 wire, forced by GORDER_TPU_WIRE=i16 (a trajectory that
+    does not fit b7 now rides s6 or d8: tests/test_torch_wires.py)."""
     want = _jax_lines(_aa(aa_files, tmp_path / "jax.yaml"))
-    assert _port_lines(_aa(aa_files, tmp_path / "port.yaml")) == want
+    monkeypatch.setenv("GORDER_TPU_WIRE", "i16")
+    with caplog.at_level(logging.INFO, logger="gorder"):
+        got = _port_lines(_aa(aa_files, tmp_path / "port.yaml"))
+    assert "wire format: i16" in caplog.text
+    assert got == want
 
 
 def test_cg_f32_wire_matches_jax(cg_files, tmp_path):
@@ -145,7 +148,9 @@ def test_cg_f32_wire_matches_jax(cg_files, tmp_path):
 def test_aa_mid_run_fallback_matches_jax(aa_files, tmp_path, monkeypatch,
                                          caplog):
     """A batch that stops fitting b7 mid-run falls back to int16 for that
-    batch; the output does not change."""
+    batch; the output does not change. GORDER_TPU_WIRE=b7: on this small
+    cut s6 ships fewer bytes a frame, and both packages would pick it."""
+    monkeypatch.setenv("GORDER_TPU_WIRE", "b7")
     real = Trajectory.read_frames_b7
     calls = []
 
@@ -221,15 +226,17 @@ def test_unported_option_raises(aa_files, tmp_path, request, option):
         return
     files = request.getfixturevalue("files")
     plans = request.getfixturevalue("plans")
-    runs = ([("aa", "resname POPC and name P"), ("vesicle", "name PO4")]
+    runs = ([("aa", "resname POPC and name P", "s6"),
+             ("vesicle", "name PO4", "d8")]
             if option == "leaflets" else
-            [("ua", "resname POPC and name P")] * 2)
-    for (system, heads), method in zip(runs, ("clustering", "spherical")):
+            [("ua", "resname POPC and name P", "d8")] * 2)
+    for (system, heads, wire), method in zip(runs, ("clustering",
+                                                    "spherical")):
         leaflets = getattr(LeafletClassification, method)(heads)
         out = tmp_path / f"{system}_{method}"
         out.mkdir()
         assert compare(_analysis(files, system, leaflets), out,
-                       plans) == "i16"
+                       plans) == wire
 
 
 def test_default_device_without_card_raises(aa_files, tmp_path):
@@ -304,10 +311,10 @@ def test_ua_matches_jax(ua_files, tmp_path):
 
 
 def test_ua_f32_wire_matches_jax(ua_files, tmp_path, monkeypatch, caplog):
-    """A trajectory that does not fit int16 rides the f32 wire."""
+    """The f32 wire, forced by GORDER_TPU_WIRE=f32 (a trajectory that does
+    not fit int16 now rides s6 or d8: tests/test_torch_wires.py)."""
     want = _jax_lines(_ua(ua_files, tmp_path / "jax.yaml", "ua"))
-    monkeypatch.setattr(Trajectory, "read_frames_quantized",
-                        lambda *a, **k: None)
+    monkeypatch.setenv("GORDER_TPU_WIRE", "f32")
     with caplog.at_level(logging.INFO, logger="gorder"):
         got = _port_lines(_ua(ua_files, tmp_path / "port.yaml", "ua"))
     assert "wire format: f32" in caplog.text

@@ -304,6 +304,55 @@ def test_views_match_jax(request, system, option):
             mol["average_order"]["total"][1] is not None
 
 
+#: the vesicle of a 36 nm box: its XTC integers overflow int16
+VESICLE_FRAMES = 8
+
+
+@pytest.fixture(scope="module")
+def vesicle_files(tmp_path_factory):
+    from . import synthetic
+
+    d = tmp_path_factory.mktemp("vesicle")
+    return synthetic.make_vesicle(d, r_outer=16.5, r_inner=12.0,
+                                  n_frames=VESICLE_FRAMES)[:3]
+
+
+def test_vesicle_in_a_wide_box_matches_jax(vesicle_files, monkeypatch,
+                                           caplog):
+    """A box over 32.767 nm at precision 1000: both packages ride d8, the
+    exact int32 XTC integers, and every view is equal at tolerance 0. On
+    the f32 wire (what the port rode before it had d8) the bond vectors
+    subtract two rounded positions and the values differ. `gorder_tpu`
+    runs op by op in batches of 8: its spherical classifier maps over the
+    frames of a batch one at a time without jit."""
+    import logging
+
+    import gorder_tpu.analysis
+
+    monkeypatch.setattr(gorder_tpu.analysis, "DEFAULT_BATCH_SIZE", 8)
+
+    def analysis(g):
+        gro, bnd, xtc = vesicle_files
+        return g.Analysis(
+            structure=gro, bonds=bnd, trajectory=xtc,
+            analysis_type=g.analysis_types.CGOrder("resname POPC"),
+            leaflets=g.leaflets.SphericalClusteringClassification(
+                "name PO4"), silent=True, overwrite=True)
+
+    with caplog.at_level(logging.INFO, logger="gorder"):
+        want = snapshot(_jax_run(analysis(jax_gorder)))
+        got = snapshot(analysis(port_gorder).run(device="cpu"))
+    wires = [r.getMessage() for r in caplog.records
+             if r.getMessage().startswith("wire format")]
+    assert len(wires) == 2 and all("wire format: d8" in w for w in wires)
+    assert_same(got, want)
+    assert want["n_analyzed_frames"] == VESICLE_FRAMES
+    monkeypatch.setenv("GORDER_TPU_WIRE", "f32")
+    f32 = snapshot(analysis(port_gorder).run(device="cpu"))
+    with pytest.raises(AssertionError):
+        assert_same(f32, want)
+
+
 def test_api_error_messages(aa_files, cg_files, ua_files):
     """The reference's APIError messages, word for word, from both
     packages: a missing molecule, atom and bond, a CG atom lookup, UA bond

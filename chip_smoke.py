@@ -7,10 +7,12 @@ kernels are built for sm_90a):
     python3 chip_smoke.py
 
 It imports nothing of JAX or of `gorder_tpu`. The runs that rode int16
-before the wire pick preferred s6 and d8 (every coordinate run on a box
-that int16 fits) keep int16, forced with GORDER_TPU_WIRE=i16, so that
-their kernel variants stay on the path; phases 27-31 drive the pick and
-the s6, d8 and i12 wires. Phases, one line each:
+before the bytes pick preferred s6 and d8 keep int16, forced with
+GORDER_TPU_WIRE=i16, and the runs that check a b7 kind force b7 (on the
+card the link-rate pick takes int16), so that their kernel variants stay
+on the path; phases 27-31 drive the s6, d8 and i12 wires, 32 the pick.
+Every phase but 33 runs with GORDER_TPU_MESH=0, on one card. Phases, one
+line each:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc builds `gorder_tpu_torch/csrc/*.cu`;
@@ -205,10 +207,26 @@ the s6, d8 and i12 wires. Phases, one line each:
    share printed; then its first 64 frames on the card and on the CPU:
    the decoded integers and the classes equal, and the card's int64 sums
    equal to the CPU plain step's with the card's normals (the CPU's own
-   normals, from another eigensolver, and its sums' difference printed).
+   normals, from another eigensolver, and its sums' difference printed);
+32. pick: `aa`, `ua` and `cg` with no GORDER_TPU_WIRE: the measured link
+   rate, the pick's log line (link, host int16 rate), the wire it took,
+   frames/s, each golden, and the P2 kernel against plain on the first
+   batch of the input it fed;
+33. mesh: `aa` (b7), `ua` (int16) and `ua` on d8 with
+   `parallel.context.visible_devices` giving two copies of cuda:0: the
+   "data-parallel over 2 devices" line, two launches a batch (UA: a
+   category), each YAML byte for byte the single run's, and each slice of
+   the first batch equal to the plain version on its own inputs; with
+   more than one card visible, `aa` over all of them too;
+34. knobs: GORDER_TPU_BATCH_SIZE=256 on `aa` (40 batches, the same YAML),
+   GORDER_TPU_B7_LEAFLETS=0 on `aa-leaflets` and GORDER_TPU_GEO_CHANNEL=0
+   on `aa-geometry`, each with b7 asked for (int16, no decoder side
+   channel, against the golden), GORDER_TPU_PREFETCH=2 on `ua` (the same
+   YAML).
 
 The phases run in the order 1-7, 18, 19 (aa), 14, 12, 28, 20-22, 8, 9,
-27, 10, 11, 18 (ua), 13, 15, 23-26, 29-31, 16, 17, 19 (clustering), and
+27, 10, 11, 18 (ua), 13, 15, 23-26, 29, 32-34, 30, 31, 16, 17, 19
+(clustering), and
 the total time is printed. Then one JSON line with the kernels of the
 path (with each one's bound: the least time the card could take, from
 the bytes it must move at the H100's 3.35 TB/s and its f32 operations at
@@ -218,6 +236,7 @@ Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result.
 """
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -1713,17 +1732,26 @@ def check_z_plane(aa_first, dyn_first, ua_first, ua_dyn_first, p2_static,
 
 
 @contextlib.contextmanager
-def forced_wire(wire):
-    """GORDER_TPU_WIRE = `wire` for the runs inside (None: the pick)."""
-    old = os.environ.pop("GORDER_TPU_WIRE", None)
-    if wire is not None:
-        os.environ["GORDER_TPU_WIRE"] = wire
+def environ(**values):
+    """The environment variables `values` (None: unset) for the runs
+    inside, restored after."""
+    old = {name: os.environ.get(name) for name in values}
     try:
+        for name, value in values.items():
+            os.environ.pop(name, None)
+            if value is not None:
+                os.environ[name] = value
         yield
     finally:
-        os.environ.pop("GORDER_TPU_WIRE", None)
-        if old is not None:
-            os.environ["GORDER_TPU_WIRE"] = old
+        for name, value in old.items():
+            os.environ.pop(name, None)
+            if value is not None:
+                os.environ[name] = value
+
+
+def forced_wire(wire):
+    """GORDER_TPU_WIRE = `wire` for the runs inside (None: the pick)."""
+    return environ(GORDER_TPU_WIRE=wire)
 
 
 def _run(label, analysis, counters, n_frames, watch=None, compat=False,
@@ -1736,24 +1764,31 @@ def _run(label, analysis, counters, n_frames, watch=None, compat=False,
     `analysis.run()` with no argument (on the card by default), which
     hands out no batch. `force` names the wire GORDER_TPU_WIRE forces (the
     earlier phases that rode int16 before the wire pick preferred s6 and
-    d8 keep it so). `batch_size` replaces the default batch of 512 frames
-    (`engine.drivers.run_analysis`). → (results, wall s, launches by count
-    name,
-    wire-format log line, the first batch's `DeviceBatch` as the run
-    handed it to its step, or None with `compat`)."""
+    d8 keep it so; the runs of the b7 kinds force b7, since on the card
+    the wire pick weighs the link rate and may take int16). `batch_size`
+    replaces the default batch of 512 frames
+    (`engine.drivers.run_analysis`). With `counters` None the launch counts
+    are not checked here. The rate pick's and the frame mesh's log lines,
+    if any, are printed with the run's. → (results, wall s, launches by
+    count name, wire-format log line, the first batch's `DeviceBatch` as
+    the run handed it to its step (its first slice under a mesh), or None
+    with `compat`)."""
     import torch
 
     import gorder_tpu_torch
     from gorder_tpu_torch.engine.drivers import run_analysis
     from gorder_tpu_torch.utils.timers import timers
 
-    wires = []
+    wires, notes = [], []
     first = []
 
     class Wire(logging.Handler):
         def emit(self, record):
-            if record.getMessage().startswith("wire format"):
-                wires.append(record.getMessage())
+            message = record.getMessage()
+            if message.startswith("wire format"):
+                wires.append(message)
+            elif message.startswith(("wire: ", "data-parallel")):
+                notes.append(message)
 
     def on_batch(db):
         if db.index == 0:
@@ -1790,15 +1825,22 @@ def _run(label, analysis, counters, n_frames, watch=None, compat=False,
     write = time.perf_counter() - t0
     print(f"run {label}: {n_frames} frames in {wall:.3f} s = "
           f"{n_frames / wall:.1f} frames/s end to end; {wires[-1]}; "
-          f"launches {launches}; phases: {timers.summary()}; outputs "
+          + "".join(f"{note}; " for note in notes)
+          + f"launches {launches}; phases: {timers.summary()}; outputs "
           f"written in {write:.3f} s", flush=True)
     analyzed = (results.n_analyzed_frames() if compat
                 else results.n_analyzed_frames)
     if analyzed != n_frames:
         raise RuntimeError(f"{label}: analyzed {analyzed} frames, expected "
                            f"{n_frames}")
-    check_launches(label, launches, counters)
+    if counters is not None:
+        check_launches(label, launches, counters)
+    run_notes[label] = notes
     return results, wall, launches, wires[-1], first[0] if first else None
+
+
+#: the rate pick's and the frame mesh's log lines of each `_run`, by label
+run_notes = {}
 
 
 def _launch_counts():
@@ -1831,8 +1873,6 @@ def check_launches(label, launches, counters):
 def off_lines(yaml_path, label, n_frames):
     """The lines of the YAML that differ from the pinned golden, counted by
     their key (`total`, `upper`, `lower`, ...)."""
-    import collections
-
     import bench
 
     def lines(path):
@@ -1970,7 +2010,6 @@ def check_cg_files(label, analysis, molecules):
     CG run with error estimation must hold the YAML's means and errors at
     their printed 4 decimals (the XVG, the means), every bond and average
     once. → {file: values compared}."""
-    import collections
     import re
 
     from gorder_tpu_torch.present.xvg_out import xvg_path_for
@@ -2038,6 +2077,15 @@ def same_lines(label, path, reference):
           flush=True)
 
 
+def same_bytes(label, path, reference):
+    """The file at `path` must equal `reference` byte for byte."""
+    with open(path, "rb") as a, open(reference, "rb") as b:
+        if a.read() != b.read():
+            raise RuntimeError(f"{label}: {path} differs from {reference}")
+    print(f"check {label}: {os.path.basename(path)} equals "
+          f"{os.path.basename(reference)} byte for byte", flush=True)
+
+
 def same_tree(label, directory, reference):
     """Every file under `directory` must equal the one at the same path
     under `reference` byte for byte, and neither may hold one the other
@@ -2089,7 +2137,6 @@ def trace_summary(label, directory, wall, top=12):
     through ctypes); the `top` ones printed with their share, and the
     device's busy share of the run's wall (which the tracing lengthens).
     → {operation: ms}."""
-    import collections
     import glob
 
     paths = glob.glob(os.path.join(directory, "trace-*.json"))
@@ -2183,6 +2230,224 @@ def check_chain(label, files, cache):
           f"quanta (counts equal)", flush=True)
 
 
+def _input_of(kind):
+    """The P2 or UA kernel input a wire kind feeds: b7, i16 (i16, i12),
+    i32 (s6, d8) or f32."""
+    base = kind.rstrip("gG")
+    return ("b7" if kind.startswith("b7") else "i32" if base in ("s6", "d8")
+            else "f32" if base == "f32" else "i16")
+
+
+def pick_phase(gro, bnd, xtc, ua_files, cg_files, cache):
+    """aa, ua and cg with no GORDER_TPU_WIRE: the wire the rate pick takes
+    on the card (`engine/wire.py`: the link rate measured, the host's
+    int16 decode rate, the model), each YAML against its golden, the
+    launch count of the kernel input the pick fed (one a batch, UA one a
+    category), and the P2 kernel against plain on the first batch of the
+    aa and cg runs. → ({kernel entry: launches}, {input: check_p2
+    numbers} of the P2 inputs the picks fed)."""
+    import bench
+    import gorder_tpu_torch
+    from gorder_tpu_torch.engine.wire import measure_link_mbps
+    from tools import bench_modes
+
+    link = measure_link_mbps("cuda")
+    print(f"pick: host-to-device rate of one pageable 6 MiB copy "
+          f"(measure_link_mbps): {link:.1f} MiB/s", flush=True)
+    launches, numbers = {}, {}
+    ua_frames, cg_frames = bench_modes.UA_FRAMES, bench_modes.CG_FRAMES
+    for label, golden, n_frames, analysis in (
+            ("aa-pick", "aa", N_FRAMES, aa_analysis(
+                gro, bnd, xtc, os.path.join(cache, "smoke_aa-pick.yaml"))),
+            ("ua-pick", "ua", ua_frames, ua_analysis(
+                "ua", *ua_files, os.path.join(cache, "smoke_ua-pick.yaml"))),
+            ("cg-pick", "cg", cg_frames, cg_analysis(
+                gorder_tpu_torch, *cg_files,
+                os.path.join(cache, "smoke_cg-pick.yaml")))):
+        kinds = set()
+        _, wall, got, wire_line, first = _run(
+            label, analysis, None, n_frames,
+            watch=lambda db: kinds.add(db.kind))
+        inputs = {_input_of(k) for k in kinds}
+        if len(inputs) != 1:
+            raise RuntimeError(f"{label}: batches of kinds {kinds}")
+        inp = inputs.pop()
+        batches = math.ceil(n_frames / BATCH)
+        if label == "ua-pick":
+            count = "ua_i32_launches" if inp == "i32" else "ua_launches"
+            counters = {count: batches * 3}
+            entry = "ua_i32" if inp == "i32" else "ua"
+        else:
+            count = "p2_i32_launches" if inp == "i32" else "p2_launches"
+            counters = {count: batches}
+            entry = "p2" if inp == "b7" else f"p2_{inp}"
+        check_launches(label, got, counters)
+        launches[entry] = launches.get(entry, 0) + got[count]
+        status = bench.validate_output(analysis.output_yaml, golden,
+                                       n_frames)
+        if status is None:
+            raise RuntimeError(f"{label}: no pinned golden {golden}")
+        print(f"check {label}: the pick took {wire_line!r} "
+              f"({' '.join(sorted(kinds))}): {n_frames / wall:.1f} frames/s"
+              f"; {'; '.join(run_notes[label]) or 'no rate-pick line'}; "
+              f"launches {counters} as expected; golden {golden}_{n_frames}"
+              f".yaml: {status}", flush=True)
+        if label != "ua-pick" and inp not in numbers:
+            numbers[inp] = check_p2(label, first, leaflets=False)[inp]
+    return launches, numbers
+
+
+def mesh_phase(gro, bnd, xtc, ua_files, cache):
+    """aa (b7), ua (int16) and ua on d8 (each slice's integers on top of
+    the slice before it) split over two copies of cuda:0
+    (`parallel.context.visible_devices` replaced): the log line, exactly
+    two launches a batch (UA: a category), each YAML byte for byte the
+    single-device run's, and each slice's output on the first batch equal
+    to the plain version on that slice's inputs alone; then, where more
+    than one card is visible, aa over all of them. → {kernel entry:
+    launches}."""
+    import torch
+
+    from gorder_tpu_torch.engine.fused import decode_positions
+    from gorder_tpu_torch.ops import p2, ua
+    from gorder_tpu_torch.parallel import context
+    from tools import bench_modes
+
+    ua_frames = bench_modes.UA_FRAMES
+    aa_batches = math.ceil(N_FRAMES / BATCH)
+    ua_batches = math.ceil(ua_frames / BATCH)
+    card = torch.device("cuda", 0)
+    visible = context.visible_devices
+    launches = {}
+
+    def path(label):
+        return os.path.join(cache, f"smoke_{label}.yaml")
+
+    runs = (
+        ("aa-mesh", aa_analysis(gro, bnd, xtc, path("aa-mesh")), N_FRAMES,
+         "b7", {"p2_launches": 2 * aa_batches}, "p2", "smoke_order.yaml"),
+        ("ua-mesh", ua_analysis("ua", *ua_files, path("ua-mesh")),
+         ua_frames, "i16", {"ua_launches": 2 * ua_batches * 3}, "ua",
+         "smoke_ua.yaml"),
+        ("ua-mesh-d8", ua_analysis("ua", *ua_files, path("ua-mesh-d8")),
+         ua_frames, "d8", {"ua_i32_launches": 2 * ua_batches * 3},
+         "ua_i32", "smoke_ua-d8.yaml"))
+    try:
+        context.visible_devices = lambda device: [card, card]
+        with environ(GORDER_TPU_MESH=None):
+            for (label, analysis, n_frames, wire, counters, entry,
+                 ref) in runs:
+                slices = []
+                _, _, got, _, _ = _run(
+                    label, analysis, counters, n_frames,
+                    watch=lambda db: slices.append(db) if db.index == 0
+                    else None, force=wire)
+                if run_notes[label] != [
+                        "data-parallel over 2 devices ('frames' mesh)"]:
+                    raise RuntimeError(f"{label}: {run_notes[label]}")
+                launches[entry] = got[next(iter(counters))]
+                same_bytes(label, analysis.output_yaml,
+                           os.path.join(cache, ref))
+                if [db.shard for db in slices] != [0, 1]:
+                    raise RuntimeError(f"{label}: first batch slices "
+                                       f"{[db.shard for db in slices]}")
+                for db in slices:
+                    step = db.step
+                    if db.kind.startswith("b7"):
+                        want = p2.p2_b7_plain(
+                            *db.wire[:4], db.scale, db.box, db.normal,
+                            db.mask, step.bond_type, step.n_types,
+                            handle_pbc=step.handle_pbc)
+                    else:
+                        want = ua.ua_positions_plain(
+                            decode_positions(db.kind, db.wire, 0), db.scale,
+                            db.box, db.normal, db.mask, step.indices,
+                            step.bond_type, step.n_types,
+                            handle_pbc=step.handle_pbc, layout=step.layout)
+                    if not torch.equal(db.out, want):
+                        raise RuntimeError(f"{label}: slice {db.shard} of "
+                                           f"the first batch != plain")
+                print(f"check {label}: the first batch's two slices of "
+                      f"{slices[0].mask.shape[0]} frames ({slices[0].kind})"
+                      f" each equal the plain version on their own inputs",
+                      flush=True)
+    finally:
+        context.visible_devices = visible
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"mesh over all cards: not run ({n_cards} card visible)",
+              flush=True)
+        return launches
+    n = n_cards
+    while BATCH % n:
+        n -= 1
+    with environ(GORDER_TPU_MESH=None):
+        _, _, got, _, _ = _run("aa-mesh-cards", aa_analysis(
+            gro, bnd, xtc, path("aa-mesh-cards")),
+            {"p2_launches": n * aa_batches}, N_FRAMES, force="b7")
+    same_bytes("aa-mesh-cards", path("aa-mesh-cards"),
+               os.path.join(cache, "smoke_order.yaml"))
+    print(f"mesh over all cards: {n_cards} visible, batches split over "
+          f"{n}", flush=True)
+    launches["p2"] += got["p2_launches"]
+    return launches
+
+
+def knob_phase(gro, bnd, xtc, ua_files, cache):
+    """The environment knobs on the card: GORDER_TPU_BATCH_SIZE=256 (aa,
+    twice the batches, the same YAML), GORDER_TPU_B7_LEAFLETS=0
+    (aa-leaflets with b7 asked for: no b7 kind and no decoder COG, the
+    membrane center taken on the card, against the golden),
+    GORDER_TPU_GEO_CHANNEL=0 (aa-geometry with b7 asked for: no decoder
+    bitplane, the inside test on the card, against the golden) and
+    GORDER_TPU_PREFETCH=2 (ua, the same YAML). → {kernel entry:
+    launches}."""
+    from tools import bench_modes
+
+    n_batches = math.ceil(N_FRAMES / BATCH)
+    ua_frames = bench_modes.UA_FRAMES
+    launches = {}
+    with environ(GORDER_TPU_BATCH_SIZE="256"):
+        path = os.path.join(cache, "smoke_aa-batch256.yaml")
+        _, _, got, _, _ = _run("aa-batch256", aa_analysis(gro, bnd, xtc, path),
+                               {"p2_launches": math.ceil(N_FRAMES / 256)},
+                               N_FRAMES, force="b7")
+    same_bytes("aa-batch256", path, os.path.join(cache, "smoke_order.yaml"))
+    launches["p2"] = got["p2_launches"]
+    for label, knob, golden, analysis, count, entry in (
+            ("aa-leaflets-b7off", "GORDER_TPU_B7_LEAFLETS", "aa-leaflets",
+             leaflet_analysis("aa-leaflets", gro, bnd, xtc, cache, os.path.join(
+                 cache, "smoke_aa-leaflets-b7off.yaml")),
+             "p2_i16_leaflets_launches", "p2_i16_leaflets"),
+            ("aa-geometry-geooff", "GORDER_TPU_GEO_CHANNEL", "aa-geometry",
+             aa_analysis(gro, bnd, xtc, os.path.join(
+                 cache, "smoke_aa-geometry-geooff.yaml"),
+                 geometry=geometry_params()),
+             "p2_i16_geom_launches", "p2_i16_geom")):
+        kinds = set()
+        with environ(**{knob: "0"}):
+            got, _, _ = run_golden(label, analysis, {count: n_batches},
+                                   N_FRAMES, golden=golden,
+                                   watch=lambda db: kinds.add(db.kind),
+                                   force="b7")
+        if kinds != {"i16"}:
+            raise RuntimeError(f"{label}: batch kinds {kinds}, expected "
+                               f"i16 alone (no b7 kind, no decoder side "
+                               f"channel)")
+        print(f"check {label}: {knob}=0 with b7 asked for: every batch "
+              f"rode i16, with no decoder side channel", flush=True)
+        launches[entry] = got[count]
+    with environ(GORDER_TPU_PREFETCH="2"):
+        path = os.path.join(cache, "smoke_ua-prefetch2.yaml")
+        _, _, got, _, _ = _run(
+            "ua-prefetch2", ua_analysis("ua", *ua_files, path),
+            {"ua_launches": math.ceil(ua_frames / BATCH) * 3}, ua_frames,
+            force="i16")
+    same_bytes("ua-prefetch2", path, os.path.join(cache, "smoke_ua.yaml"))
+    launches["ua"] = got["ua_launches"]
+    return launches
+
+
 def main_path_batch_ms(db):
     """CUDA-event time of a b7 batch's whole device work on the main path:
     the P2 kernel, from the packed wire in to the type sums out."""
@@ -2220,6 +2485,9 @@ def main() -> int:
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible)",
           flush=True)
     print(smi, flush=True)
+    # every phase but the mesh phase runs on one card: a run on "cuda"
+    # would split its batches over every visible card
+    os.environ["GORDER_TPU_MESH"] = "0"
 
     # 2. build
     t0 = time.perf_counter()
@@ -2256,7 +2524,7 @@ def main() -> int:
     launches, _, aa_first = run_golden(
         "aa", aa_analysis(gro, bnd, xtc,
                           os.path.join(cache, "smoke_order.yaml")),
-        {"p2_launches": n_batches}, N_FRAMES)
+        {"p2_launches": n_batches}, N_FRAMES, force="b7")
     p2_plain = check_p2("aa", aa_first, leaflets=False)
     batch_ms = main_path_batch_ms(aa_first)
     print(f"run aa on {kind}: device work ~{n_batches} x {batch_ms:.3f} ms "
@@ -2274,7 +2542,7 @@ def main() -> int:
             mode, leaflet_analysis(mode, gro, bnd, xtc, cache,
                                    os.path.join(cache, f"smoke_{mode}.yaml")),
             {count: n_batches}, N_FRAMES,
-            force="i16" if mode == "aa-local-leaflets" else None)
+            force="i16" if mode == "aa-local-leaflets" else "b7")
         leaflet_launches[mode] = got[count]
     p2_global = check_p2("aa-leaflets", firsts["aa-leaflets"], True)
     local = firsts["aa-local-leaflets"]
@@ -2318,7 +2586,7 @@ def main() -> int:
             cache, "smoke_aa-sharded.yaml")), 3,
         {"p2_launches": shard_batches}, os.path.join(cache,
                                                      "smoke_order.yaml"),
-        cache)
+        cache, force="b7")
 
     # 7. the AA runs with membrane normals that are not static: the two
     # dynamic modes ride b7x (the normal-heads cloud as aux atoms) and
@@ -2351,7 +2619,7 @@ def main() -> int:
             mode, analysis, {count: n_batches}, N_FRAMES,
             golden="aa" if manual else None,
             wire="wire format: i16" if manual else "aux channel",
-            exact=manual, force="i16" if manual else None)
+            exact=manual, force="i16" if manual else "b7")
         normal_launches[mode] = got[count]
         if analysis.membrane_normal.collect.enabled:
             check_exported_normals(results,
@@ -2383,7 +2651,7 @@ def main() -> int:
                                os.path.join(cache, f"smoke_{label}.yaml"),
                                geometry=geometry_params()),
             {count: n_batches}, N_FRAMES, golden="aa-geometry", wire=wire,
-            force="i16" if label == "aa-geometry-i16" else None)
+            force="i16" if label == "aa-geometry-i16" else "b7")
         geom_launches[label] = got[count]
         if label == "aa-geometry":
             geom_checks["b7"] = check_p2_geom(label, first)["b7"]
@@ -2471,7 +2739,7 @@ def main() -> int:
             output_yaml=os.path.join(cache, "smoke_aa-palmitoyl.yaml"),
             n_threads=os.cpu_count() or 1, silent=True, overwrite=True),
         {"p2_launches": n_batches}, N_FRAMES, wire="wire format: b7",
-        compat=True)
+        compat=True, force="b7")
 
     # 21. aa over the XTC split in two at frame 4,000 (byte copies of the
     # frame records): the YAML of phase 5 but the header
@@ -2485,7 +2753,7 @@ def main() -> int:
     concat_yaml = os.path.join(cache, "smoke_aa-concat.yaml")
     _, _, concat_launches, _, _ = _run(
         "aa-concat", aa_analysis(gro, bnd, parts, concat_yaml),
-        {"p2_launches": n_batches}, N_FRAMES)
+        {"p2_launches": n_batches}, N_FRAMES, force="b7")
     same_lines("aa-concat", concat_yaml, os.path.join(cache,
                                                       "smoke_order.yaml"))
     for part in parts:
@@ -2506,7 +2774,7 @@ def main() -> int:
             ("aa-window-file", window_xtc, {})):
         _, _, got, _, _ = _run(label, aa_analysis(
             gro, bnd, traj, os.path.join(cache, f"smoke_{label}.yaml"), **kw),
-            {"p2_launches": window_batches}, len(frames))
+            {"p2_launches": window_batches}, len(frames), force="b7")
         window_launches += got["p2_launches"]
     same_lines("aa-window", os.path.join(cache, "smoke_aa-window.yaml"),
                os.path.join(cache, "smoke_aa-window-file.yaml"))
@@ -2696,7 +2964,7 @@ def main() -> int:
         "cg", cg_analysis(gorder, *cg_files,
                           os.path.join(cache, "smoke_cg.yaml")),
         {"p2_launches": cg_batches}, cg_frames, wire="wire format: b7",
-        compat=True)
+        compat=True, force="b7")
     cg_values = check_cg_views("cg", cg_results,
                                os.path.join(cache, "smoke_cg.yaml"))
 
@@ -2714,7 +2982,7 @@ def main() -> int:
             n_blocks=5, output_convergence=os.path.join(out, "conv.xvg")))
     errors_results, _, errors_launches, _, _ = _run(
         "cg-errors", errors, {"p2_launches": cg_batches}, cg_frames,
-        compat=True)
+        compat=True, force="b7")
     errors_values = check_cg_views("cg-errors", errors_results,
                                    errors.output_yaml)
     if ({key: v for key, (v, _) in errors_values.items()}
@@ -2765,7 +3033,7 @@ def main() -> int:
     _, _, xtc_launches, wire_line, _ = _run(
         "cg-xtc", cg_analysis(gorder_tpu_torch, *cg_files, reference,
                               end=float(times[-1])),
-        {"p2_launches": trr_batches}, TRR_FRAMES)
+        {"p2_launches": trr_batches}, TRR_FRAMES, force="b7")
     if "wire format: b7" not in wire_line:
         raise RuntimeError(f"cg-xtc: {wire_line}")
     kinds = set()
@@ -2805,6 +3073,15 @@ def main() -> int:
     same_lines("cg-i12", os.path.join(cache, "smoke_cg-i12.yaml"),
                os.path.join(cache, "smoke_cg-i16.yaml"))
     os.remove(i12_xtc)
+
+    # 32. aa, ua and cg as the wire pick takes them on the card, by the
+    # link rate (the runs above force the wires they check)
+    pick_launches, pick_numbers = pick_phase(gro, bnd, xtc, ua_files,
+                                             cg_files, cache)
+    # 33. aa and ua split over two copies of cuda:0 by frames
+    mesh_launches = mesh_phase(gro, bnd, xtc, ua_files, cache)
+    # 34. the environment knobs
+    knob_launches = knob_phase(gro, bnd, xtc, ua_files, cache)
 
     # 30. synth ves: the CG vesicle in a 36 nm box (`synthesize_vesicle`:
     # 6,650 POPC of 12 beads on shells of 15.0 and 11.0 nm, water to
@@ -2932,7 +3209,7 @@ def main() -> int:
         "aa-clustering-leaflets-every10", leaflet_analysis(
             "aa-clustering-leaflets-every10", *aab, cache,
             os.path.join(cache, "smoke_aa-clustering-every10.yaml")),
-        {"p2_leaflets_launches": n_batches}, N_FRAMES)
+        {"p2_leaflets_launches": n_batches}, N_FRAMES, force="b7")
     if _orders(results, "total") != _orders(clustered, "total"):
         raise RuntimeError("aa-clustering-leaflets-every10: totals differ "
                            "from the every-frame run's")
@@ -3016,6 +3293,21 @@ def main() -> int:
                      map_checks["aa-ordermap-d8"]["i32"]),
         kernel_entry("ua_i32", ua_src, "gorder_tpu/ops/pallas_ua.py:202",
                      ua_i32_runs, ua_i32["i32"])]
+    # the launches of the pick, mesh and knob phases, by kernel entry; the
+    # inputs the pick fed that no entry above has get their own
+    extra = collections.Counter()
+    for got in (pick_launches, mesh_launches, knob_launches):
+        extra.update(got)
+    for k in kernels:
+        k["launches"] += extra.pop(k["name"], 0)
+    for inp, numbers in pick_numbers.items():
+        name = f"p2_{inp}"
+        if name in extra:
+            kernels.append(kernel_entry(
+                name, p2_src, "gorder_tpu/ops/pallas_p2.py:287"
+                if inp == "i32" else p2_tpu, extra.pop(name), numbers))
+    if extra:
+        raise RuntimeError(f"launches of no kernel entry: {dict(extra)}")
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:
         raise RuntimeError(f"kernels never launched on their runs: {idle}")

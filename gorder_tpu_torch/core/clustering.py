@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..errors import ClusterError
+from ..parallel.mesh import Replicas
 from .pbc import circular_mean_cog, min_image, naive_cog
 
 PRECISE_SIGMA = 1.0
@@ -284,26 +285,27 @@ def make_spectral_labels(head_indices, handle_pbc=True, device="cpu",
     DENSE_CLUSTER_HEADS heads, Nyström above. `algebra` ('eigh' or
     'matmul') overrides the choice by the coordinates' device."""
     head_indices = np.asarray(head_indices, np.int64)
-    head_d = torch.as_tensor(head_indices, device=device)
+    head_d = Replicas(torch.as_tensor(head_indices, device=device))
     n = len(head_indices)
     if n <= DENSE_CLUSTER_HEADS:
         def chunk(coords, box_diag):
             return _spectral_chunk(
-                coords.index_select(1, head_d), box_diag, handle_pbc,
-                _algebra(coords.device, algebra))
+                coords.index_select(1, head_d.on(coords.device)), box_diag,
+                handle_pbc, _algebra(coords.device, algebra))
 
         per_frame = n * n
     else:
         # deterministic stride-sampled landmarks (positions into the heads)
         m = min(NYSTROM_LANDMARKS, n)
-        landmark_d = torch.as_tensor(np.unique(
+        landmark_d = Replicas(torch.as_tensor(np.unique(
             np.linspace(0, n - 1, m).round().astype(np.int64)),
-            device=device)
+            device=device))
 
         def chunk(coords, box_diag):
+            here = coords.device
             return _nystrom_chunk(
-                coords.index_select(1, head_d), box_diag, landmark_d,
-                handle_pbc, _algebra(coords.device, algebra))
+                coords.index_select(1, head_d.on(here)), box_diag,
+                landmark_d.on(here), handle_pbc, _algebra(here, algebra))
 
         per_frame = n * len(landmark_d)
 
@@ -424,10 +426,11 @@ def make_spherical_classifier(head_indices, handle_pbc=True, device="cpu"):
     coordinates and (B, 3) box lengths → (B, M) int32 classes. It is a
     pure function of each batch, so every-frame runs call it with the
     order step on the device."""
-    head_d = torch.as_tensor(np.asarray(head_indices, np.int64),
-                             device=device)
+    head_d = Replicas(torch.as_tensor(np.asarray(head_indices, np.int64),
+                                      device=device))
 
     def classify(coords, box_diag):
-        return _spherical_classes(coords, box_diag, head_d, handle_pbc)
+        return _spherical_classes(coords, box_diag,
+                                  head_d.on(coords.device), handle_pbc)
 
     return classify

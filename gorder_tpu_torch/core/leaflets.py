@@ -10,8 +10,10 @@ Classes are int32: 0 = upper, 1 = lower (the reference's Leaflet enum).
 Frequency gating (`once`, `every N`) is the caller's: a classifier
 returns classes for every frame it is given.
 
-Each classifier holds its index arrays on `device` and is called with
-(B, A, 3) f32 coordinates and (B, 3) box lengths → (B, M) int32 classes.
+Each classifier holds its index arrays on `device`, and a replica on any
+other device it is called on (`parallel/mesh.py Replicas`, for a run
+split over several devices), and is called with (B, A, 3) f32
+coordinates and (B, 3) box lengths → (B, M) int32 classes.
 The sums the local and global centers take reduce in another order than
 XLA's, so centers agree with the JAX package to float noise and the
 classes agree wherever a head is not within that noise of its center.
@@ -24,11 +26,12 @@ import math
 import numpy as np
 import torch
 
+from ..parallel.mesh import Replicas
 from .pbc import circular_mean_cog, min_image, naive_cog
 
 
-def _idx(a, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a, np.int64), device=device)
+def _idx(a, device) -> Replicas:
+    return Replicas(torch.as_tensor(np.asarray(a, np.int64), device=device))
 
 
 def _sidedness(delta: torch.Tensor, length, handle_pbc: bool):
@@ -58,14 +61,16 @@ class GlobalClassifier:
 
     def __call__(self, coords, box_diag):
         """Against a center computed here (gorder_tpu `impl`)."""
-        membrane = coords.index_select(1, self.membrane)      # (B, Nm, 3)
+        membrane = coords.index_select(
+            1, self.membrane.on(coords.device))                # (B, Nm, 3)
         ones = torch.ones(membrane.shape[:-1], dtype=coords.dtype,
                           device=coords.device)
         if self.handle_pbc:
             center = circular_mean_cog(membrane, ones, box_diag)
         else:
             center = naive_cog(membrane, ones)
-        heads = coords.index_select(1, self.heads)            # (B, M, 3)
+        heads = coords.index_select(
+            1, self.heads.on(coords.device))                   # (B, M, 3)
         delta = heads[..., self.axis] - center[:, None, self.axis]
         return _sidedness(delta, self._length(box_diag), self.handle_pbc)
 
@@ -82,8 +87,9 @@ class GlobalClassifier:
         """Full coordinates + the decoder's COG channel (gorder_tpu
         `channel_coords_impl`): every wire classifies against the same
         per-frame center, so the output is identical across wires."""
-        return self.channel(coords.index_select(1, self.heads), cog,
-                            box_diag)
+        return self.channel(
+            coords.index_select(1, self.heads.on(coords.device)), cog,
+            box_diag)
 
 
 class LocalClassifier:
@@ -107,8 +113,10 @@ class LocalClassifier:
 
     def _chunk(self, coords, box_diag):
         ax = self.axis
-        membrane = coords.index_select(1, self.membrane)      # (c, Nm, 3)
-        heads = coords.index_select(1, self.heads)            # (c, M, 3)
+        membrane = coords.index_select(
+            1, self.membrane.on(coords.device))                # (c, Nm, 3)
+        heads = coords.index_select(
+            1, self.heads.on(coords.device))                   # (c, M, 3)
         d_plane2 = None
         for a in self.plane_axes:
             # only the in-plane components of membrane − head enter the
@@ -177,9 +185,10 @@ class IndividualClassifier:
 
     def __call__(self, coords, box_diag):
         ax = self.axis
-        heads = coords.index_select(1, self.heads)            # (B, M, 3)
-        methyls = coords.index_select(1, self.methyls)        # (B, K, 3)
-        head_of_methyl = heads.index_select(1, self.methyl_mol)
+        here = coords.device
+        heads = coords.index_select(1, self.heads.on(here))   # (B, M, 3)
+        methyls = coords.index_select(1, self.methyls.on(here))  # (B, K, 3)
+        head_of_methyl = heads.index_select(1, self.methyl_mol.on(here))
         delta = head_of_methyl[..., ax] - methyls[..., ax]    # (B, K)
         if self.handle_pbc:
             length = box_diag[:, None, ax]
@@ -187,5 +196,5 @@ class IndividualClassifier:
         # per-molecule sums; exact in any order for the usual two methyls
         total = torch.zeros((delta.shape[0], self.n_molecules),
                             dtype=delta.dtype, device=delta.device)
-        total.index_add_(1, self.methyl_mol, delta)           # (B, M)
+        total.index_add_(1, self.methyl_mol.on(here), delta)  # (B, M)
         return torch.where(total >= 0, 0, 1).to(torch.int32)

@@ -29,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.mesh import Replicas
 from .pbc import min_image
 
 #: bytes one (F, M, C, 3) f32 intermediate may take (frames are chunked)
@@ -98,8 +99,8 @@ def dynamic_normals(coords, box_diag, head_idx, cloud_idx, radius: float,
 
 class DynamicNormals:
     """The dynamic-normal computation of one run (gorder_tpu
-    `make_dynamic_normals`): its head and cloud indices live on `device`;
-    called with (B, A, 3) f32 coordinates and (B, 3) box lengths →
+    `make_dynamic_normals`): its head and cloud indices live on `device`,
+    with a replica on any other device it is called on; called with (B, A, 3) f32 coordinates and (B, 3) box lengths →
     ((B, M, 3) normals, (B, M) cloud counts).
 
     `aux_atoms` are the atoms it reads, and `rebuild(pos_of)` gives the
@@ -116,6 +117,7 @@ class DynamicNormals:
         self.device = device
         self.heads = _idx(head_indices, device)
         self.cloud = _idx(cloud_indices, device)
+        self._replicas = (Replicas(self.heads), Replicas(self.cloud))
         self.aux_atoms = np.unique(np.concatenate([self.head_indices,
                                                    self.cloud_indices]))
 
@@ -127,5 +129,6 @@ class DynamicNormals:
                               self.handle_pbc, self.device)
 
     def __call__(self, coords, box_diag):
-        return dynamic_normals(coords, box_diag, self.heads, self.cloud,
-                               self.radius, self.handle_pbc)
+        heads, cloud = (r.on(coords.device) for r in self._replicas)
+        return dynamic_normals(coords, box_diag, heads, cloud, self.radius,
+                               self.handle_pbc)

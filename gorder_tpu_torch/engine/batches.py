@@ -50,6 +50,20 @@ once its step has been dispatched: the device tensors, classes and
 normals the step was given, to inspect or to feed to a kernel again, and
 what the step gave back.
 
+Under a frame mesh (`parallel/context.py`) the decode ring still holds
+host batches of B frames, and each batch is split at the copy to the
+devices: every wire array with a frame axis into N slices of B/N frames,
+slice i on device i, while the b7 and s6 wires' per-batch base is copied
+whole to each. A d8 slice decodes on top of the last frame of the slice
+before it (`engine/wire.py d8_last`), one small copy from device to
+device. Each device runs its own step, with its own replica of the run's
+constants and its own map state, and `on_batch` receives one
+`DeviceBatch` a slice. Classes carried between frames (manual tables,
+frequency-gated and spectral classification) are made for the whole
+batch on the first device and split like the wire. At drain the slices'
+outputs join in frame order, and the map states add up on the host,
+exactly in int64 (gorder_tpu/parallel/context.py).
+
 A sharded run (`shard=(i, n)`) analyzes only shard i's contiguous block
 of the analyzed frames, its start aligned to the leaflet assignment
 frequency so that the shard owns the assignment frames its block uses.
@@ -66,7 +80,9 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures as cf
+import dataclasses
 import logging
+import os
 import threading
 import time
 from dataclasses import dataclass
@@ -80,19 +96,34 @@ from ..core.ordermap import init_map_state
 from ..errors import AnalysisError
 from ..io.native import b7_stride, geo_stride, i12_stride, s6_stride
 from ..io.traj import Trajectory, check_box_batch
+from ..parallel.mesh import gather, replicate, shard_batch, to_device
 from ..utils.progress import ProgressPrinter
 from ..utils.timers import timers
 from .channels import plan_wire
 from .fused import BY_KIND, Consumers, decode_positions
 from .normals_runtime import check_normal_guard
-from .wire import wire_groups
+from .wire import d8_last, wire_groups
 
 log = logging.getLogger("gorder")
 
-#: frames per device batch: the JAX package's accelerator default
-#: (gorder_tpu/analysis.py:32); results do not depend on it
-DEFAULT_BATCH_SIZE = 512
-_PREFETCH = 4
+
+def default_batch_size(device) -> int:
+    """Frames a batch: `GORDER_TPU_BATCH_SIZE`, else 512 on the card, whose
+    launches and copies it amortizes, and 128 on the CPU, where short
+    trajectories would otherwise be mostly padding (gorder_tpu/analysis.py
+    :23-32). Results do not depend on it."""
+    env = os.environ.get("GORDER_TPU_BATCH_SIZE")
+    if env:
+        return int(env)
+    return 128 if torch.device(device).type == "cpu" else 512
+
+
+def prefetch_depth(n_batches: int) -> int:
+    """Host batches the decoder may run ahead of the copies to the device:
+    `GORDER_TPU_PREFETCH` (at least 2, 4 by default), at most the run's
+    batches (gorder_tpu/engine/batches.py:227-234)."""
+    prefetch = max(2, int(os.environ.get("GORDER_TPU_PREFETCH", "4")))
+    return min(prefetch, max(2, n_batches))
 
 
 @dataclass
@@ -113,11 +144,31 @@ class DeviceBatch:
     # a geometry run's reference for the batch: (B, 3), a selection's
     # (K,) slot indices, or None (no geometry)
     geom_ref: Optional[torch.Tensor] = None
+    shard: int = 0                   # the frame slice under a mesh
 
 
-def _to_device(a: np.ndarray, device) -> torch.Tensor:
-    """A copy of the host array on `device` that no longer reads `a`."""
-    return torch.from_numpy(a).to(device, copy=True)
+def _shard_wire(kind, arrays, mesh):
+    """The wire arrays of one host batch on the mesh → one tuple of tensors
+    a slice: arrays with a frame axis split by frames; the b7 and s6
+    wires' per-batch base (index 3) copied whole to each device; the d8
+    wire's first-frame integers (index 3) to the first, and each later
+    slice's the last frame of the slice before it."""
+    const = 3 if kind[:2] in ("b7", "s6", "d8") else None
+    d8 = kind.startswith("d8")
+    parts = []
+    for j, a in enumerate(arrays):
+        if j != const:
+            parts.append(shard_batch(mesh, a))
+        elif d8:
+            parts.append([to_device(a, mesh.devices[0])]
+                         + [None] * (mesh.size - 1))
+        else:
+            parts.append(replicate(mesh, a))
+    slices = [list(p) for p in zip(*parts)]
+    if d8:
+        for i in range(1, mesh.size):
+            slices[i][3] = d8_last(*slices[i - 1][:4]).to(mesh.devices[i])
+    return [tuple(w) for w in slices]
 
 
 def _shard_block(n_frames: int, shard, align: int):
@@ -138,20 +189,19 @@ def _bootstrap_shard(leaflets, traj, frame0, space, n_threads: int, device):
     coords, boxes, _, _ = traj.read_frames(frame0, space,
                                            n_threads=n_threads)
     box = np.ascontiguousarray(boxes[:, [0, 1, 2], [0, 1, 2]])
-    assigned = leaflets.classify(_to_device(coords, device),
-                                 _to_device(box, device)).cpu().numpy()[0]
+    assigned = leaflets.classify(to_device(coords, device),
+                                 to_device(box, device)).cpu().numpy()[0]
     if leaflets.orienter is not None:
         assigned = leaflets.orienter.orient(assigned)
     leaflets.carried = assigned
     leaflets._logged_stats = True
 
 
-def run_batches(analysis, system, step, normal_vec, n_types: int, space,
-                bond_slots, leaflets=None, n_molecules: int = 0, *, device,
-                normals=None, map_spec=None, geom_spec=None,
-                geom_mode=None, geom_payload=None,
-                batch_size: int = DEFAULT_BATCH_SIZE, on_batch=None,
-                shard=None):
+def run_batches(analysis, system, steps, normal_vec, n_types: int, space,
+                bond_slots, leaflets=None, n_molecules: int = 0, *, mesh,
+                batch_size: int, normals=None, map_spec=None,
+                geom_spec=None, geom_mode=None, geom_payload=None,
+                on_batch=None, shard=None):
     """→ (OrderAccumulator, Trajectory, analyzed frame indices, map, shard
     start): the map is {class: (2, T·n0·n1 + 1) int64 [Σq, count]} of an
     ordermap run (`map_spec`), else None. The frame indices are all the
@@ -167,8 +217,15 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
     None and ride int16 or f32 positions, as ordermap runs do. `leaflets`
     is the run's LeafletRuntime and `normals` its NormalsRuntime, or None;
     with `normals`, `normal_vec` is unused. `on_batch`, if given, is called
-    with each batch's DeviceBatch after its step is dispatched."""
-    device = torch.device(device)
+    with each slice's DeviceBatch after its step is dispatched.
+
+    `mesh` is the run's `parallel.mesh.FrameMesh` (of one device without
+    data parallelism) and `steps` the step of each of its devices; the
+    batch size is a multiple of the mesh's size. Host work (the leaflet
+    runtime's carried state, the bootstrap of a shard) runs on the first
+    device."""
+    device = mesh.devices[0]
+    n_dev = mesh.size
     accum = OrderAccumulator(
         n_types, ("total", "upper", "lower") if leaflets else ("total",),
         keep_timewise=analysis.estimate_error is not None)
@@ -219,7 +276,7 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
                      n_molecules=n_molecules,
                      handle_pbc=analysis.handle_pbc, n_threads=n_threads,
                      batch_size=batch_size, group_of=group_of,
-                     n_groups=n_groups)
+                     n_groups=n_groups, device=device)
     # host classes (manual tables, frequency-gated methods) come from
     # classes_for_batch; every-frame methods classify with the step
     host_classes = leaflets is not None and leaflets.fused_classify() is None
@@ -228,10 +285,11 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
         channel_coords=plan.chan_coords[0] if plan.chan_coords else None,
         channel=plan.channel_classify, aux=plan.aux_classify,
         normals=normals.fused() if normals is not None else None,
-        aux_normals=plan.aux_normals,
-        map_state=(init_map_state(len(accum.classes), n_types, map_spec,
-                                  device) if map_spec is not None else None),
-        n_atoms=space.n_out)
+        aux_normals=plan.aux_normals, n_atoms=space.n_out)
+    # each device's consumers, with its own map state
+    consumers = [dataclasses.replace(consumers, map_state=(
+        init_map_state(len(accum.classes), n_types, map_spec, d)
+        if map_spec is not None else None)) for d in mesh.devices]
     manual_normals = normals is not None and normals.fused() is None
     chan_membrane, chan_axis = (plan.chan_coords[1] if plan.chan_coords
                                 else (None, None))
@@ -240,7 +298,7 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
 
     n_out = space.n_out
     n_batches = (len(frame_indices) + batch_size - 1) // batch_size
-    prefetch = min(_PREFETCH, max(2, n_batches))
+    prefetch = prefetch_depth(n_batches)
     if plan.wire == "b7":
         def side():
             """One ring slot's side-channel buffers."""
@@ -275,8 +333,7 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
         dtype = np.int16 if plan.wire == "i16" else np.float32
         buffers = [np.zeros((batch_size, n_out, 3), dtype)
                    for _ in range(prefetch)]
-    vgidx_dev = (torch.as_tensor(vgidx, device=device) if plan.wire == "s6"
-                 else None)
+    vgidx_devs = replicate(mesh, vgidx) if plan.wire == "s6" else None
     # decoder COG of coordinate-wire batches in the COG channel class
     cog_bufs = ([np.zeros(batch_size, np.float32) for _ in range(prefetch)]
                 if plan.chan_coords is not None else None)
@@ -454,20 +511,18 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
         finally:
             timers.add("decode", time.perf_counter() - t0)
 
-    normal_dev = torch.as_tensor(np.asarray(normal_vec, np.float32),
-                                 device=device)
-    # the geometry's reference on the device, for the steps that compute
+    normal_devs = replicate(mesh, np.asarray(normal_vec, np.float32))
+    # the geometry's reference on each device, for the steps that compute
     # the inside mask themselves (not the geometry channel class): a
-    # selection's slot indices, or the fixed point tiled to (B, 3); the box
-    # center is taken per batch
+    # selection's slot indices, or the fixed point tiled to (B/N, 3); the
+    # box center is taken per batch
     device_geom = None if plan.geo_channel else geom_mode
-    geom_const = None
+    geom_consts = [None] * n_dev
     if device_geom == "selection":
-        geom_const = torch.as_tensor(np.asarray(geom_payload, np.int32),
-                                     device=device)
+        geom_consts = replicate(mesh, np.asarray(geom_payload, np.int32))
     elif device_geom == "point":
-        geom_const = torch.as_tensor(np.tile(np.asarray(
-            geom_payload, np.float32), (batch_size, 1)), device=device)
+        geom_consts = replicate(mesh, np.tile(np.asarray(
+            geom_payload, np.float32), (batch_size // n_dev, 1)))
     molecule_inside = (normals.molecule_inside if collect_normals
                        else None)
     executor = cf.ThreadPoolExecutor(max_workers=1)
@@ -493,58 +548,63 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
                 scale[:n_valid] = inv_prec
                 scale[n_valid:] = inv_prec[n_valid - 1]
             with timers.phase("transfer"):
-                wire = tuple(_to_device(a, device) for a in arrays)
+                wires = _shard_wire(kind, arrays, mesh)
                 if kind.startswith("s6"):
-                    wire = wire[:5] + (vgidx_dev,) + wire[5:]
-                box_dev = _to_device(box, device)
-                mask_dev = _to_device(mask, device)
-                scale_dev = (_to_device(scale, device)
-                             if scale is not None else None)
+                    wires = [w[:5] + (vg,) + w[5:]
+                             for w, vg in zip(wires, vgidx_devs)]
+                boxes_dev, masks_dev = shard_batch(mesh, box, mask)
+                scales_dev = (shard_batch(mesh, scale) if scale is not None
+                              else [None] * n_dev)
                 sparse = None
                 if extra is not None:
                     rows, coords, sc = extra
-                    sparse = (rows, _to_device(coords, device),
-                              _to_device(sc, device) if sc is not None
+                    sparse = (rows, to_device(coords, device),
+                              to_device(sc, device) if sc is not None
                               else None)
-            # the device holds copies now: the decoder may reuse the slot
+            # the devices hold copies now: the decoder may reuse the slot
             slots.release()
-            classes = None
+            classes = [None] * n_dev
             if host_classes:
                 with timers.phase("classify"):
-                    classes = _host_classes(
-                        leaflets, kind, wire, scale_dev, box_dev, sparse,
-                        shard_start + b * batch_size, n_valid, batch_size,
-                        n_molecules, device, n_out)
-            normal = normal_dev
+                    classes = shard_batch(mesh, _host_classes(
+                        leaflets, kind, wires, scales_dev, boxes_dev,
+                        sparse, shard_start + b * batch_size, n_valid,
+                        batch_size, n_molecules, n_out))
+            normal = normal_devs
             if manual_normals:
                 with timers.phase("transfer"):
-                    normal = normals.manual_for_batch(
-                        shard_start + b * batch_size, n_valid, batch_size,
-                        device)
-            geom_ref = (box_dev * 0.5 if device_geom == "center"
-                        else geom_const)
+                    normal = shard_batch(mesh, normals.manual_for_batch(
+                        shard_start + b * batch_size, n_valid, batch_size))
+            geom_refs = ([bx * 0.5 for bx in boxes_dev]
+                         if device_geom == "center" else geom_consts)
+            useds, insides = [], []
             with timers.phase("dispatch"):
-                used = BY_KIND[kind](step, wire, scale_dev, box_dev, normal,
-                                     mask_dev, consumers, classes,
-                                     geom_ref=geom_ref)
-                inside = None
-                if molecule_inside is not None:
-                    coords_f = decode_positions(kind, wire, n_out)
-                    if scale_dev is not None:
-                        coords_f = (coords_f.to(torch.float32)
-                                    * scale_dev[:, None, None])
-                    inside = molecule_inside(coords_f, box_dev, geom_ref)
-            if used.classes is not None and not host_classes and b == 0:
-                leaflets.log_first_stats(used.classes[0].cpu().numpy())
+                for i in range(n_dev):
+                    useds.append(BY_KIND[kind](
+                        steps[i], wires[i], scales_dev[i], boxes_dev[i],
+                        normal[i], masks_dev[i], consumers[i], classes[i],
+                        geom_ref=geom_refs[i]))
+                    if molecule_inside is not None:
+                        coords_f = decode_positions(kind, wires[i], n_out)
+                        if scales_dev[i] is not None:
+                            coords_f = (coords_f.to(torch.float32)
+                                        * scales_dev[i][:, None, None])
+                        insides.append(molecule_inside(
+                            coords_f, boxes_dev[i], geom_refs[i]))
+            if useds[0].classes is not None and not host_classes and b == 0:
+                leaflets.log_first_stats(useds[0].classes[0].cpu().numpy())
             if on_batch is not None:
-                on_batch(DeviceBatch(b, kind, wire, scale_dev, box_dev,
-                                     used.normal, mask_dev, used.classes,
-                                     step, used.out, consumers.map_state,
-                                     geom_ref))
-            outputs.append((n_valid, used._replace(
+                for i, used in enumerate(useds):
+                    on_batch(DeviceBatch(
+                        b, kind, wires[i], scales_dev[i], boxes_dev[i],
+                        used.normal, masks_dev[i], used.classes, steps[i],
+                        used.out, consumers[i].map_state, geom_refs[i],
+                        shard=i))
+            outputs.append((n_valid, [used._replace(
                 classes=used.classes if collect and not host_classes
                 else None,
-                normal=used.normal if collect_normals else None), inside))
+                normal=used.normal if collect_normals else None)
+                for used in useds], insides or None))
             if progress is not None:
                 progress.update(min((b + 1) * batch_size,
                                     len(frame_indices)))
@@ -557,39 +617,48 @@ def run_batches(analysis, system, step, normal_vec, n_types: int, space,
             progress.finish()
 
     with timers.phase("drain"):
-        for n_valid, used, inside in outputs:
-            if used.guard is not None:
-                check_normal_guard(used.guard)
-            accum.add_step(used.out[:n_valid].cpu().numpy(), n_valid)
+        for n_valid, useds, insides in outputs:
+            for used in useds:
+                if used.guard is not None:
+                    check_normal_guard(used.guard)
+            # the slices' outputs, classes and normals in frame order
+            out = np.concatenate([u.out.cpu().numpy() for u in useds])
+            accum.add_step(out[:n_valid], n_valid)
             # the classes and normals this batch's step consumed, in frame
             # order; restricted to a geometry, NaN for a molecule with no
             # bond inside (gorder_tpu/engine/normals_runtime.py:50-57)
-            if used.classes is not None:
+            if useds[0].classes is not None:
+                classes = gather([u.classes for u in useds])
                 leaflets.collect_frames.extend(
-                    used.classes[:n_valid].cpu().numpy().astype(np.int32))
-            if used.normal is not None:
-                values = used.normal[:n_valid].cpu().numpy()
-                if inside is not None:
+                    classes[:n_valid].cpu().numpy().astype(np.int32))
+            if useds[0].normal is not None:
+                values = gather([u.normal for u in useds])[:n_valid]
+                values = values.cpu().numpy()
+                if insides is not None:
+                    inside = gather(insides)[:n_valid].cpu().numpy()
                     values = values.copy()
-                    values[~inside[:n_valid].cpu().numpy()] = np.nan
+                    values[~inside] = np.nan
                 normals.collected.append(values)
         map_host = None
-        if consumers.map_state is not None:
-            map_host = dict(zip(accum.classes,
-                                consumers.map_state.cpu().numpy()))
+        if consumers[0].map_state is not None:
+            # exact in int64, in any order
+            total = sum(c.map_state.cpu().numpy() for c in consumers)
+            map_host = dict(zip(accum.classes, total))
     log.info("analyzed %d frames", accum.n_frames)
     return accum, traj, full_frame_indices, map_host, shard_start
 
 
-def _host_classes(leaflets, kind, wire, scale, box, sparse, start: int,
-                  n_valid: int, batch_size: int, n_molecules: int, device,
-                  n_atoms: int):
-    """The batch's (B, M) int32 host classes on `device`: manual table rows,
-    or frequency-gated classification of its assignment frames (the sparse
+def _host_classes(leaflets, kind, wires, scales, boxes, sparse, start: int,
+                  n_valid: int, batch_size: int, n_molecules: int,
+                  n_atoms: int) -> np.ndarray:
+    """The batch's (B, M) int32 host classes: manual table rows, or
+    frequency-gated classification of its assignment frames (the sparse
     read of a b7m batch, or the full coordinates of a coordinate-wire
-    batch), carried between them. Padding rows are 0 and masked."""
+    batch, its slices joined on the first device), carried between them.
+    Padding rows are 0 and masked."""
     analyzed = np.arange(start, start + n_valid, dtype=np.int64)
     coords = rows = None
+    box = gather(boxes)
     if kind == "b7m":
         if sparse is not None:
             rows, q, sc = sparse
@@ -597,11 +666,13 @@ def _host_classes(leaflets, kind, wire, scale, box, sparse, start: int,
                       if sc is not None else q)
     elif leaflets.manual_table is None:
         # the valid frames only: padding frames are never classified
-        coords = decode_positions(kind, wire, n_atoms)[:n_valid]
-        if scale is not None:
-            coords = coords.to(torch.float32) * scale[:n_valid, None, None]
+        coords = gather([decode_positions(kind, w, n_atoms)
+                         for w in wires])[:n_valid]
+        if scales[0] is not None:
+            coords = (coords.to(torch.float32)
+                      * gather(scales)[:n_valid, None, None])
     classes = leaflets.classes_for_batch(coords, box[:n_valid], analyzed,
                                          rows=rows)
     full = np.zeros((batch_size, n_molecules), np.int32)
     full[:n_valid] = classes
-    return torch.from_numpy(full).to(device)
+    return full

@@ -2,10 +2,12 @@
 feed its leaflet classification and dynamic membrane normals (port of
 `gorder_tpu/engine/channels.py`).
 
-The wire is `engine/wire.py pick_wire_format`'s, the JAX package's pick
-when it measures no link rate: b7 when the run's bond slots are eligible
-and the trajectory fits the bond-vector wire, else the smaller of s6 and
-d8, else i12, int16, f32 — or the wire `GORDER_TPU_WIRE` forces. s6 and
+The wire is `engine/wire.py pick_wire_format`'s. On the card it weighs
+the host-to-device rate, measured once a run on the run's first device,
+against the host's decode rate (the rate pick); on the CPU, with no rate,
+it takes b7 when the run's bond slots are eligible and the trajectory
+fits the bond-vector wire, else the smaller of s6 and d8, else i12,
+int16, f32 — or the wire `GORDER_TPU_WIRE` forces. s6 and
 d8 carry int32 XTC integers, so a trajectory whose integers overflow
 int16 (a box over 32.767 nm at precision 1000) still rides exact
 integers. Bond slots are eligible when nothing but the order step needs
@@ -40,21 +42,28 @@ whichever wire a batch rides. Manual normals are host tables shipped
 beside the wire (`engine/batches.py`). Every-frame global
 leaflets with PBC on XTC input classify against the decoder's COG on every
 wire (the `*g` coordinate kinds), so the printed output is the same
-whichever wire a batch rides. The JAX package can also pick by the
-measured host-to-device rate (`gorder_tpu/engine/wire.py:329-397`); that
-pick is not ported.
+whichever wire a batch rides.
+
+As in the JAX package, `GORDER_TPU_B7_LEAFLETS=0` turns off every
+leaflet and normals channel class (the decoder's COG, the class plane and
+the aux atoms): such runs ride a coordinate wire and classify against a
+membrane center taken on the device. `GORDER_TPU_GEO_CHANNEL=0` turns off
+the geometry channel class: the step computes the inside mask on the
+device from positions (gorder_tpu/engine/channels.py:72, :182).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 from dataclasses import dataclass
 from typing import Callable, Optional
 
 import numpy as np
 
 from ..io.native import b7_stride, geo_stride, i12_stride
-from .wire import pick_wire_format, s6_bytes
+from . import wire as wires
+from .wire import s6_bytes
 
 log = logging.getLogger("gorder")
 
@@ -134,26 +143,30 @@ def _aux_channel(leaflets, normals, n_out: int):
 def plan_wire(*, traj, frame_indices, space, bond_slots=None, leaflets=None,
               normals=None, map_spec=None, geometry: bool = False,
               n_molecules: int = 0, handle_pbc: bool = True, n_threads: int,
-              batch_size: int, group_of=None, n_groups: int = 0) -> WirePlan:
+              batch_size: int, device, group_of=None,
+              n_groups: int = 0) -> WirePlan:
     """Decide the run's channel class and wire, and size the per-frame
     payload. `bond_slots` (atom_a, atom_b) are the order step's bonds in
     the decoded atom space; UA runs pass None and never ride b7, and nor
     do ordermap runs (`map_spec`). `leaflets` and `normals` are the run's
     LeafletRuntime and NormalsRuntime, or None; `geometry` whether the run
     has a geometry selection; `group_of` and `n_groups` the s6 wire's
-    residue groups (`engine/wire.py wire_groups`)."""
+    residue groups (`engine/wire.py wire_groups`); `device` the run's
+    (first) device, whose link rate the pick measures."""
     n_out = space.n_out
     chan_coords = leaf_channels = aux = None
     plane_mode = False
+    b7_env = os.environ.get("GORDER_TPU_B7_LEAFLETS", "1") != "0"
     xtc = traj._all_xtc(frame_indices)
-    if leaflets is not None and handle_pbc and xtc:
+    if leaflets is not None and handle_pbc and xtc and b7_env:
         chan_coords = leaflets.channel_coords_info()
     n_bonds = len(bond_slots[0]) if bond_slots is not None else 0
     geo_channel = (geometry and bond_slots is not None and leaflets is None
-                   and normals is None and map_spec is None and xtc)
+                   and normals is None and map_spec is None and xtc
+                   and os.environ.get("GORDER_TPU_GEO_CHANNEL", "1") != "0")
     if map_spec is not None or (geometry and not geo_channel):
         bond_slots = None
-    if bond_slots is not None:
+    if bond_slots is not None and b7_env:
         if leaflets is not None and normals is None:
             if chan_coords is not None:
                 leaf_channels = leaflets.fused_channel()
@@ -165,9 +178,10 @@ def plan_wire(*, traj, frame_indices, space, bond_slots=None, leaflets=None,
         (leaflets is None and normals is None) or leaf_channels is not None
         or plane_mode or aux is not None)
 
-    wire, cap = pick_wire_format(traj, frame_indices, space, n_threads,
-                                 group_of, n_groups, batch_size,
-                                 bond_slots=bond_slots if b7_ok else None)
+    wire, cap = wires.pick_wire_format(
+        traj, frame_indices, space, n_threads, group_of, n_groups,
+        batch_size, bond_slots=bond_slots if b7_ok else None,
+        link_mbps=wires.measure_link_mbps(device))
     geo_bytes = geo_stride(n_bonds) if geo_channel else 0
     if wire == "b7":
         plan = WirePlan("b7", cap, n_bonds, geo_bytes,

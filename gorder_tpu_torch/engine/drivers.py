@@ -7,6 +7,12 @@ selection; and a run split into contiguous frame shards, each run on its
 own (`run_analysis_partial`, one process per GPU) and merged on the host
 (`merge_partial_states`) into the single run's output, byte for byte.
 
+Within one process a run splits each batch over every visible device by
+frames (`parallel/context.py`, `GORDER_TPU_MESH`): `run_analysis` and
+`run_analysis_partial` bracket the run with the frame mesh, and each
+device of the mesh gets its own order or UA step
+(gorder_tpu/engine/drivers.py:38-54, :258-283).
+
 A partial state is the dict `gorder_tpu` writes: the same fingerprint,
 the same keys and the same arrays, so that the states of the two packages
 merge with each other. An ordermap's state is stored in `gorder_tpu`'s
@@ -32,11 +38,13 @@ from ..engine.prepare import (
 )
 from ..errors import AnalysisError
 from ..io.traj import Trajectory
+from ..parallel import context as mesh_context
+from ..parallel.mesh import frame_mesh
 from ..utils.timers import profiled_run, timers
 from ..core.order import OrderAccumulator, make_order_step
 from ..core.ordermap import build_map_spec
 from ..core.ua import make_ua_step
-from .batches import DEFAULT_BATCH_SIZE, run_batches
+from .batches import default_batch_size, run_batches
 from .convert import convert_results, convert_results_ua
 from .leaflet_runtime import build_leaflet_runtime
 from .normals_runtime import _build_normals, _make_molecule_inside
@@ -61,13 +69,33 @@ def _run(analysis, device, batch_size, on_batch, shard=None,
                    as_partial)
 
 
-def run_analysis(analysis, device, batch_size: int = DEFAULT_BATCH_SIZE,
-                 on_batch=None):
-    """Run `analysis` on `device` → AnalysisResults. `on_batch` receives
-    each batch's `batches.DeviceBatch` (see `run_batches`)."""
+def _meshed(device, batch_size, run):
+    """`run(batch size)` with the run's frame mesh active."""
+    if batch_size is None:
+        batch_size = default_batch_size(device)
+    mesh = mesh_context.activate(batch_size, device)
+    if mesh is not None:
+        log.info("data-parallel over %d devices ('frames' mesh)", mesh.size)
+    try:
+        with profiled_run():
+            return run(batch_size)
+    finally:
+        mesh_context.deactivate()
+
+
+def _mesh(device):
+    """The active frame mesh, or a mesh of `device` alone."""
+    return mesh_context.active_mesh() or frame_mesh([device])
+
+
+def run_analysis(analysis, device, batch_size=None, on_batch=None):
+    """Run `analysis` on `device` → AnalysisResults, in batches of
+    `batch_size` frames (`batches.default_batch_size` by default).
+    `on_batch` receives each batch's `batches.DeviceBatch`, one a device
+    of the frame mesh (see `run_batches`)."""
     device = _check_device(device)
-    with profiled_run():
-        results = _run(analysis, device, batch_size, on_batch)
+    results = _meshed(device, batch_size, lambda size: _run(
+        analysis, device, size, on_batch))
     log.info("phase times: %s", timers.summary())
     return results
 
@@ -81,9 +109,9 @@ def run_analysis_partial(analysis, shard_index: int, shard_count: int,
         raise AnalysisError(
             f"invalid shard {shard_index}/{shard_count}")
     device = _check_device(device)
-    with profiled_run():
-        state = _run(analysis, device, DEFAULT_BATCH_SIZE, None,
-                     shard=(shard_index, shard_count), as_partial=True)
+    state = _meshed(device, None, lambda size: _run(
+        analysis, device, size, None, shard=(shard_index, shard_count),
+        as_partial=True))
     log.info("phase times: %s", timers.summary())
     return state
 
@@ -171,18 +199,20 @@ def _run_bond_based(analysis, device, batch_size: int, on_batch,
         normals.molecule_inside = _make_molecule_inside(
             atom_a, atom_b, compiled.molecule, compiled.n_molecules,
             geom_spec, analysis.handle_pbc, device)
-    step = make_order_step(atom_a, atom_b, compiled.bond_type,
-                           compiled.molecule, compiled.n_types,
-                           compiled.n_molecules,
-                           handle_pbc=analysis.handle_pbc, device=device,
-                           with_leaflets=leaflets is not None,
-                           normal_mode=("per_molecule" if normals is not None
-                                        else "static"),
-                           map_spec=map_spec, geom_spec=geom_spec)
+    mesh = _mesh(device)
+    steps = [make_order_step(atom_a, atom_b, compiled.bond_type,
+                             compiled.molecule, compiled.n_types,
+                             compiled.n_molecules,
+                             handle_pbc=analysis.handle_pbc, device=d,
+                             with_leaflets=leaflets is not None,
+                             normal_mode=("per_molecule" if normals
+                                          is not None else "static"),
+                             map_spec=map_spec, geom_spec=geom_spec)
+             for d in mesh.devices]
     with timers.phase("trajectory"):
         accum, traj, frame_indices, map_state, shard_start = run_batches(
-            analysis, system, step, normal_vec, compiled.n_types, space,
-            (atom_a, atom_b), leaflets, compiled.n_molecules, device=device,
+            analysis, system, steps, normal_vec, compiled.n_types, space,
+            (atom_a, atom_b), leaflets, compiled.n_molecules, mesh=mesh,
             normals=normals, map_spec=map_spec, batch_size=batch_size,
             on_batch=on_batch, shard=shard, **geometry)
     if as_partial:
@@ -216,16 +246,18 @@ def _run_ua(analysis, device, batch_size: int, on_batch, shard=None,
         for cat, d in compiled.categories.items()}
     normal_vec, normals, leaflets, map_spec, geometry = _runtimes(
         system, analysis, kinds, compiled.n_molecules, remap, device)
-    step = make_ua_step(categories, compiled.bond_type, compiled.bond_mol,
-                        compiled.n_types, handle_pbc=analysis.handle_pbc,
-                        device=device, with_leaflets=leaflets is not None,
-                        normal_mode=("per_molecule" if normals is not None
-                                     else "static"),
-                        map_spec=map_spec, geom_spec=geometry["geom_spec"])
+    mesh = _mesh(device)
+    steps = [make_ua_step(categories, compiled.bond_type, compiled.bond_mol,
+                          compiled.n_types, handle_pbc=analysis.handle_pbc,
+                          device=d, with_leaflets=leaflets is not None,
+                          normal_mode=("per_molecule" if normals is not None
+                                       else "static"),
+                          map_spec=map_spec, geom_spec=geometry["geom_spec"])
+             for d in mesh.devices]
     with timers.phase("trajectory"):
         accum, traj, frame_indices, map_state, shard_start = run_batches(
-            analysis, system, step, normal_vec, compiled.n_types, space,
-            None, leaflets, compiled.n_molecules, device=device,
+            analysis, system, steps, normal_vec, compiled.n_types, space,
+            None, leaflets, compiled.n_molecules, mesh=mesh,
             normals=normals, map_spec=map_spec, batch_size=batch_size,
             on_batch=on_batch, shard=shard, **geometry)
     if as_partial:

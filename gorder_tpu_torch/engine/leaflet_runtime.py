@@ -37,6 +37,7 @@ from ..errors import (
     NdxLeafletError,
     TopologyError,
 )
+from ..parallel.mesh import Replicas
 from ..select import select_mask
 from ..topology.classify import MoleculeKind
 from .prepare import (
@@ -149,11 +150,12 @@ class LeafletRuntime:
         classify = self.classify
         if self.cloud_to_mol is not None:
             cloud = classify
-            pick = torch.as_tensor(np.asarray(self.cloud_to_mol, np.int64),
-                                   device=self.device)
+            pick = Replicas(torch.as_tensor(
+                np.asarray(self.cloud_to_mol, np.int64), device=self.device))
 
             def classify(coords, box_diag):
-                return cloud(coords, box_diag).index_select(1, pick)
+                return cloud(coords, box_diag).index_select(
+                    1, pick.on(coords.device))
         return _flipped(classify) if self.flip else classify
 
     def fused_channel(self):

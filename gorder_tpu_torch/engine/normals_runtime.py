@@ -21,6 +21,7 @@ from ..core.normals import DynamicNormals
 from ..core.order import geometry_reference
 from ..core.pbc import min_image
 from ..errors import ConfigError, DynamicNormalError, ManualNormalError
+from ..parallel.mesh import Replicas
 from ..select import select_mask
 from ..topology.classify import MoleculeKind
 from .prepare import _AXIS_INDEX, _single_atom_per_molecule
@@ -57,14 +58,14 @@ class NormalsRuntime:
         the batch carries what it reads; None for manual tables."""
         return self.compute if self.mode == "dynamic" else None
 
-    def manual_for_batch(self, start: int, n_valid: int, batch_size: int,
-                         device) -> torch.Tensor:
+    def manual_for_batch(self, start: int, n_valid: int,
+                         batch_size: int) -> np.ndarray:
         """The (B, M, 3) f32 table rows of analyzed frames start..start +
-        n_valid on `device`; padding rows are zero (gorder_tpu
-        `normals_for_batch`)."""
+        n_valid, shipped beside the wire; padding rows are zero
+        (gorder_tpu `normals_for_batch`)."""
         out = np.zeros((batch_size,) + self.table.shape[1:], np.float32)
         out[:n_valid] = self.table[start:start + n_valid]
-        return torch.from_numpy(out).to(device)
+        return out
 
 
 def check_normal_guard(guard) -> None:
@@ -90,13 +91,15 @@ def _make_molecule_inside(atom_a, atom_b, bond_mol, n_molecules: int,
     difference p_b − p_a of the f32 positions, not the order step's single
     rounding, and the reference of `core/order.py geometry_reference`."""
     def idx(a):
-        return torch.as_tensor(np.asarray(a, np.int32), device=device)
+        return Replicas(torch.as_tensor(np.asarray(a, np.int32),
+                                        device=device))
 
     aa, ab, mol = idx(atom_a), idx(atom_b), idx(bond_mol)
 
     def fn(coords, box_diag, geom_ref):
-        pa = coords.index_select(1, aa)
-        d = coords.index_select(1, ab) - pa
+        here = coords.device
+        pa = coords.index_select(1, aa.on(here))
+        d = coords.index_select(1, ab.on(here)) - pa
         if handle_pbc:
             d = min_image(d, box_diag[:, None, :])
         ref = geometry_reference(coords, box_diag, geom_ref, handle_pbc)
@@ -104,7 +107,7 @@ def _make_molecule_inside(atom_a, atom_b, bond_mol, n_molecules: int,
                           handle_pbc)
         out = torch.zeros((coords.shape[0], n_molecules), dtype=torch.int32,
                           device=coords.device)
-        return out.index_add_(1, mol, geo.to(torch.int32)) > 0
+        return out.index_add_(1, mol.on(here), geo.to(torch.int32)) > 0
 
     return fn
 

@@ -15,9 +15,13 @@ plain PyTorch ops on whatever device the payload lies on.
 
 s6 and d8 give int32 XTC integers (they exist for trajectories whose
 integers overflow int16), i12 gives int16. `pick_wire_format` is the JAX
-package's bytes policy (`_pick_wire_format` with no measured link rate):
-the smallest wire the trajectory fits, or the one `GORDER_TPU_WIRE` names.
-Every wire carries the same integers, so the pick never changes a result.
+package's `_pick_wire_format`: with the host-to-device rate that
+`measure_link_mbps` measures once a run on the card, the wire of the
+highest modeled end-to-end rate, min(host decode rate, link rate ÷ bytes
+a frame); on the CPU, where no rate is measured, or for input that is not
+uniform-precision XTC, the smallest wire the trajectory fits. The wire
+`GORDER_TPU_WIRE` names overrides both. Every wire carries the same
+integers, so the pick never changes a result.
 
 The bit arithmetic runs in int32: every intermediate below fits, and
 PyTorch's unsigned types lack most operations. A scatter whose JAX form
@@ -29,11 +33,13 @@ from __future__ import annotations
 
 import logging
 import os
+import time
 
 import numpy as np
 import torch
 
-from ..io.native import b7_stride, s6_stride
+from ..io.native import b7_stride, i12_stride, s6_stride
+from ..parallel.mesh import to_device
 
 log = logging.getLogger("gorder")
 
@@ -137,17 +143,133 @@ def s6_bytes(n_out: int, n_groups: int, esc_cap: int) -> int:
     return s6_stride(n_out) + (n_groups + 1) * 6 + esc_cap * 4
 
 
+#: MiB of the link-rate probe's timed copy (gorder_tpu's `size_mb`)
+_LINK_PROBE_MIB = 6
+
+
+def measure_link_mbps(device):
+    """The host-to-device copy rate in MiB/s, measured once a run for the
+    wire pick (port of `gorder_tpu/engine/wire.py:273-293`): a warm copy
+    of 256 KiB, then one timed pageable copy of 6 MiB, the copy a run
+    makes of each batch, with the device synchronised. None on the CPU,
+    where there is no link."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    buf = np.random.default_rng(0).integers(
+        0, 255, size=(_LINK_PROBE_MIB << 20,), dtype=np.uint8)
+    to_device(buf[:1 << 18], device)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    to_device(buf, device)
+    torch.cuda.synchronize(device)
+    return _LINK_PROBE_MIB / (time.perf_counter() - t0)
+
+
+#: host decode-and-encode rate of each wire relative to the plain int16
+#: decode (gorder_tpu/engine/wire.py:296-300, measured there with
+#: tools/decode_bench.py on the AA benchmark system)
+_WIRE_HOST_FACTOR = {"b7": 0.80, "s6": 0.55, "d8": 0.75,
+                     "i12": 0.90, "i16": 1.00, "f32": 0.85}
+
+
+def host_i16_rate(traj, frame_indices, space, n_threads):
+    """Frames/s of the plain int16 decode over the run's first 16 frames,
+    the anchor of the rate pick's host model; None when the input is not
+    uniform-precision XTC."""
+    anchor = frame_indices[:min(16, len(frame_indices))]
+    t0 = time.perf_counter()
+    if traj.read_frames_quantized(anchor, space,
+                                  n_threads=n_threads) is None:
+        return None
+    return len(anchor) / max(time.perf_counter() - t0, 1e-9)
+
+
+def rate_candidates(traj, frame_indices, space, n_threads, group_of,
+                    n_groups, batch_size, bond_slots):
+    """{wire: (cap, bytes a frame)} of every wire the trajectory fits, as
+    the rate pick sizes them (gorder_tpu/engine/wire.py:362-389); int16
+    and f32 always."""
+    n = len(frame_indices)
+    n_out = space.n_out
+    nv = n_out * 3
+    candidates = {"i16": (0, n_out * 6), "f32": (0, n_out * 12)}
+    if bond_slots is not None:
+        b7_cap = _probe_b7(traj, frame_indices, space, bond_slots[0],
+                           bond_slots[1], n_threads, batch_size)
+        if b7_cap is not None:
+            nb = len(bond_slots[0])
+            candidates["b7"] = (b7_cap, b7_stride(nb) + b7_cap * 4
+                                + nb * 12 // max(batch_size, 1))
+    if group_of is not None and n_groups > 0:
+        esc_cap = _probe_s6(traj, frame_indices, space, group_of, n_groups,
+                            n_threads, batch_size)
+        if esc_cap is not None:
+            candidates["s6"] = (esc_cap, s6_bytes(n_out, n_groups, esc_cap)
+                                + nv * 4 // max(batch_size, 1))
+    windows = [frame_indices[:min(8, n)]]
+    if n > 16:
+        mid = n // 2
+        windows.append(frame_indices[mid:mid + 8])
+    d8_cap = _probe_d8(traj, windows, space, n_threads)
+    if d8_cap is not None:
+        candidates["d8"] = (d8_cap, nv + d8_cap * 6)
+    probe_idx = frame_indices[np.unique([0, n // 2, n - 1])]
+    if traj.read_frames_packed12(probe_idx, space,
+                                 n_threads=n_threads) is not None:
+        candidates["i12"] = (0, i12_stride(n_out))
+    return candidates
+
+
+def _pick_wire_by_rate(traj, frame_indices, space, n_threads, group_of,
+                       n_groups, batch_size, bond_slots, link_mbps):
+    """The wire of the highest modeled end-to-end rate, min(host decode
+    f/s, link bytes/s ÷ bytes a frame), the fewer bytes on a tie (port of
+    `gorder_tpu/engine/wire.py:329-397`) → (wire, cap), or None for input
+    that is not uniform-precision XTC (the bytes policy takes it)."""
+    host_i16 = host_i16_rate(traj, frame_indices, space, n_threads)
+    if host_i16 is None:
+        return None
+    link = link_mbps * 1024 * 1024
+
+    def rate(fmt, bpf):
+        return min(host_i16 * _WIRE_HOST_FACTOR[fmt], link / bpf)
+
+    # when the link does not bind even for int16, no compact wire can
+    # model faster (their host factors are below 1): skip their probes
+    if rate("i16", space.n_out * 6) >= host_i16 * 0.999:
+        log.info("wire: i16 (link %.1f MB/s does not bind; host decode "
+                 "~%.1f frames/s is the wall)", link_mbps, host_i16)
+        return "i16", 0
+    candidates = rate_candidates(traj, frame_indices, space, n_threads,
+                                 group_of, n_groups, batch_size, bond_slots)
+    fmt, (cap, bpf) = max(candidates.items(),
+                          key=lambda kv: (rate(kv[0], kv[1][1]), -kv[1][1]))
+    log.info("wire: %s (%.1f KB/frame; link %.1f MB/s -> ceiling %.1f "
+             "frames/s, modeled host %.1f frames/s)", fmt, bpf / 1024,
+             link_mbps, link / bpf, host_i16 * _WIRE_HOST_FACTOR[fmt])
+    return fmt, cap
+
+
 def pick_wire_format(traj, frame_indices, space, n_threads, group_of=None,
-                     n_groups=0, batch_size=512, bond_slots=None):
-    """The most compact transfer the trajectory fits, or the one
-    `GORDER_TPU_WIRE` forces: 7-bit bond-vector differences (`bond_slots`
-    given: runs whose only consumer of positions is the order step, or one
-    of the channel classes) → 6-bit smoothed-base residuals → 8-bit
-    temporal deltas (s6 and d8 compared by bytes a frame) → 12-bit packed
-    absolutes → int16 → f32. → ('b7', esc_cap) / ('s6', esc_cap) /
-    ('d8', corr_cap) / ('i12', 0) / ('i16', 0) / ('f32', 0). The port of
-    `gorder_tpu/engine/wire.py:399-495` without a measured link rate (the
-    rate-aware pick, :329-397, is not ported)."""
+                     n_groups=0, batch_size=512, bond_slots=None,
+                     link_mbps=None):
+    """The wire a run ships (port of `gorder_tpu/engine/wire.py:399-495`).
+    With a measured `link_mbps` and no `GORDER_TPU_WIRE`, the rate pick
+    (`_pick_wire_by_rate`). Otherwise the most compact transfer the
+    trajectory fits, or the one `GORDER_TPU_WIRE` forces: 7-bit
+    bond-vector differences (`bond_slots` given: runs whose only consumer
+    of positions is the order step, or one of the channel classes) →
+    6-bit smoothed-base residuals → 8-bit temporal deltas (s6 and d8
+    compared by bytes a frame) → 12-bit packed absolutes → int16 → f32.
+    → ('b7', esc_cap) / ('s6', esc_cap) / ('d8', corr_cap) / ('i12', 0) /
+    ('i16', 0) / ('f32', 0)."""
+    if link_mbps is not None and not os.environ.get("GORDER_TPU_WIRE"):
+        picked = _pick_wire_by_rate(traj, frame_indices, space, n_threads,
+                                    group_of, n_groups, batch_size,
+                                    bond_slots, link_mbps)
+        if picked is not None:
+            return picked
     n = len(frame_indices)
     windows = [frame_indices[:min(8, n)]]
     if n > 16:
@@ -244,15 +366,29 @@ def d8_ints(lo: torch.Tensor, ci: torch.Tensor, ch: torch.Tensor,
     first frame's integers a0. lo (B, n, 3) int8, ci (B, cap) int32, ch
     (B, cap) int16, a0 (n, 3) int32."""
     b, n, _ = lo.shape
+    # torch sums int32 in int64; the integers fit int32 (d8's own range)
+    absr = a0.reshape(1, n * 3).to(torch.int32) \
+        + torch.cumsum(_d8_deltas(lo, ci, ch), dim=0).to(torch.int32)
+    return absr.reshape(b, n, 3)
+
+
+def _d8_deltas(lo, ci, ch) -> torch.Tensor:
+    """(B, n·3) int32 deltas of a d8 wire: each int8 delta plus its sparse
+    high-byte correction."""
+    b, n, _ = lo.shape
     nv = n * 3
     corr = torch.zeros((b, nv + 1), dtype=torch.int32, device=lo.device)
     corr.scatter_add_(1, _drop_scatter_index(ci, nv),
                       ch.to(torch.int32) << 8)
-    delta = lo.reshape(b, nv).to(torch.int32) + corr[:, :nv]
-    # torch sums int32 in int64; the integers fit int32 (d8's own range)
-    absr = a0.reshape(1, nv).to(torch.int32) \
-        + torch.cumsum(delta, dim=0).to(torch.int32)
-    return absr.reshape(b, n, 3)
+    return lo.reshape(b, nv).to(torch.int32) + corr[:, :nv]
+
+
+def d8_last(lo, ci, ch, a0) -> torch.Tensor:
+    """The (n, 3) int32 integers of the last frame of a d8 wire, `d8_ints`'
+    last row: `a0` plus every delta of the batch. A batch split by frames
+    decodes slice i + 1 on top of slice i's last frame."""
+    total = _d8_deltas(lo, ci, ch).sum(dim=0).to(torch.int32)
+    return (a0.reshape(-1).to(torch.int32) + total).reshape(a0.shape)
 
 
 def s6_ints(pk: torch.Tensor, gp: torch.Tensor, vl: torch.Tensor,

@@ -35,7 +35,8 @@ from gorder_tpu_torch.engine.drivers import run_analysis
 from tools import bench_modes
 
 from . import synthetic
-from .test_torch_leaflets import _kind, _lines, plans  # noqa: F401
+from .test_torch_leaflets import (  # noqa: F401
+    CARD_BATCH, _kind, _lines, plans)
 
 P_HEADS = "resname POPC and name P"
 N_LIPIDS = 16
@@ -117,7 +118,7 @@ def compare(analysis, tmp_path, plans):
             analysis.run().write()
         else:
             with one_torch_thread():
-                run_analysis(analysis, "cpu").write()
+                run_analysis(analysis, "cpu", CARD_BATCH).write()
     want = _lines(tmp_path / "jax.yaml")
     assert _lines(tmp_path / "port.yaml") == want
     for side in ("upper", "lower"):

@@ -27,7 +27,8 @@ from gorder_tpu_torch.engine.drivers import run_analysis
 from gorder_tpu_torch.errors import ConfigError
 
 from .synthetic import make_flat_bilayer
-from .test_torch_leaflets import _kind, _lines, plans  # noqa: F401
+from .test_torch_leaflets import (  # noqa: F401
+    CARD_BATCH, _kind, _lines, plans)
 from .test_torch_pipeline import _ua, aa_files  # noqa: F401
 
 P_HEADS = "resname POPC and name P"
@@ -79,7 +80,7 @@ def _compare(analysis, tmp_path, op_by_op=False):
     for who in ("jax", "port"):
         analysis.output_yaml = str(tmp_path / f"{who}.yaml")
         if who == "port":
-            run_analysis(analysis, "cpu").write()
+            run_analysis(analysis, "cpu", CARD_BATCH).write()
         elif op_by_op:
             with jax.disable_jit():
                 analysis.run().write()

@@ -26,6 +26,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     "gorder_tpu_torch.engine.drivers",
     "gorder_tpu_torch.parallel",
     "gorder_tpu_torch.parallel.shard",
+    "gorder_tpu_torch.parallel.mesh",
+    "gorder_tpu_torch.parallel.context",
     "gorder_tpu_torch.engine.batches",
     "gorder_tpu_torch.engine.channels",
     "gorder_tpu_torch.engine.convert",

@@ -41,6 +41,10 @@ from .test_pallas_ua import _ua_problem
 
 CLASSES = ("total", "upper", "lower")
 P_HEADS = "resname POPC and name P"
+#: the card's batch (`engine.batches.default_batch_size`; the CPU's is
+#: 128): the wire kinds asserted on whole runs here are those the bytes
+#: policy picks for batches of 512 frames
+CARD_BATCH = 512
 
 
 # ------------------------------------------------------------ classifiers
@@ -319,7 +323,8 @@ def _compare(analysis, tmp_path, plans, **kw):
         if who == "jax":
             analysis.run().write()
         else:
-            run_analysis(analysis, "cpu", **kw).write()
+            run_analysis(analysis, "cpu", **{"batch_size": CARD_BATCH,
+                                             **kw}).write()
     want = _lines(tmp_path / "jax.yaml")
     assert _lines(tmp_path / "port.yaml") == want
     assert any("upper" in ln for ln in want)
@@ -412,7 +417,7 @@ def test_on_batch_hands_out_what_each_step_used(aa_files, tmp_path):
     a = _aa(aa_files, _global().with_collect(str(tmp_path / "l.yaml")))
     a.output_yaml = str(tmp_path / "o.yaml")
     seen = []
-    run_analysis(a, "cpu", on_batch=seen.append).write()
+    run_analysis(a, "cpu", CARD_BATCH, on_batch=seen.append).write()
     assert [db.index for db in seen] == [0, 1]
     assert {db.kind for db in seen} == {"b7g"}
     assert [int(db.mask.sum()) for db in seen] == [512, AA_FRAMES - 512]

@@ -28,7 +28,8 @@ from gorder_tpu.input.config import LeafletClassification, MembraneNormal
 from gorder_tpu_torch.engine.drivers import run_analysis
 
 from .synthetic import make_flat_bilayer
-from .test_torch_leaflets import _kind, _lines, plans  # noqa: F401
+from .test_torch_leaflets import (  # noqa: F401
+    CARD_BATCH, _kind, _lines, plans)
 
 P_HEADS = "resname POPC and name P"
 AA_LIPIDS = 18           # a 3 x 3 grid per leaflet, 4.33 nm apart
@@ -96,7 +97,8 @@ def _run_both(analysis, tmp_path, **kw):
         if who == "jax":
             analysis.run().write()
         else:
-            run_analysis(analysis, "cpu", **kw).write()
+            run_analysis(analysis, "cpu", **{"batch_size": CARD_BATCH,
+                                             **kw}).write()
         out[who] = (analysis.output_yaml,
                     str(tmp_path / f"{who}_normals.yaml")
                     if collect.enabled else None)
@@ -232,7 +234,7 @@ def test_on_batch_hands_out_the_normals_each_step_used(aa_files, tmp_path):
                  output_yaml=str(tmp_path / "o.yaml"), silent=True,
                  overwrite=True)
     seen = []
-    run_analysis(a, "cpu", on_batch=seen.append).write()
+    run_analysis(a, "cpu", CARD_BATCH, on_batch=seen.append).write()
     assert [db.kind for db in seen] == ["b7x", "b7x"]
     used = np.concatenate([db.normal[db.mask].numpy() for db in seen])
     assert used.shape == (FRAMES, AA_LIPIDS, 3)

@@ -41,8 +41,16 @@ line each:
    classes from the decoder's head and COG channels) and of
    `aa-local-leaflets` (int16 positions, also dequantized as f32 input,
    with the local classes), and the plain variant on the latter: the int64
-   outputs must be equal, and b7 and int16 must give the same sums;
-7. run aa-dynamic, aa-dynamic-export, aa-manual-z: the AA analysis with
+   outputs must be equal, and b7 and int16 must give the same sums. The
+   local classifier's sums are the neighbour kernel `local_sums`
+   (csrc/neighbors.cu), launched once per batch: against its plain
+   version on aa-local-leaflets' first batch, the classes of every frame
+   equal (and the step's), the sums within NEIGHBOR_SUM_BOUND; CUDA-event
+   times of both, and of each every-frame classifier a batch;
+7. run aa-dynamic, aa-dynamic-export, aa-manual-z: first, the wall time
+   of the process's first batched 3x3 eigh and first `normal_cloud`
+   launch on a small input, and of each again (`first_calls`), so that no
+   run below pays a one-time start; then the AA analysis with
    dynamic membrane normals on the P heads (tools/bench_modes.py), with
    and without their export, over the same 10,000 frames, riding b7x and
    passing their goldens, and with an inline manual map of (0, 0, 1) for
@@ -53,7 +61,11 @@ line each:
    kernel against its plain version with the normals each step used, on
    the first batch of `aa-dynamic` (b7), of `aa-manual-z` (int16 and f32),
    and of `aa-dynamic` with `aa-leaflets`' classes; and the CUDA-event
-   time of the dynamic normals of a batch;
+   time of the dynamic normals of a batch. The normals' counts and
+   covariances are the neighbour kernel `normal_cloud`, launched once per
+   batch: against its plain version on aa-dynamic's first batch (the b7x
+   aux atoms), the counts equal, the covariances within the bound, the
+   normals within 1 - |n.n'| <= 1e-5 of the plain ones';
 8. synth ua: the UA benchmark membrane of tools/bench_modes.py (256
    Berger-like POPC, 44.3k atoms, 3,000 XTC frames, seed 29), synthesized
    byte for byte likewise;
@@ -72,7 +84,8 @@ line each:
 11. run ua-dynamic: the `ua` analysis with dynamic normals on the P heads,
    riding int16; no golden is pinned, so its totals must be finite, and
    the per_bond_normal UA kernel must have been launched once per batch
-   and category. Then that kernel against plain on the run's first batch
+   and category, the normals' kernel once per batch. Then that kernel
+   against plain on the run's first batch
    with the normals its step used, and, for both kernels, per-molecule
    normals that are all (0, 0, 1) against the static normal on the `aa`
    and `ua` first batches: equal bit for bit;
@@ -198,7 +211,10 @@ line each:
    (radius 2.0 nm) every frame, which must ride the pick's s6 or d8
    (`p2_positions_i32` with classes and normals), with finite values in
    every class; its decoder against the CPU's and the kernel against plain
-   on its first batch; forced onto the other of s6 and d8, an equal YAML
+   on its first batch, and the normals' kernel against its plain version
+   there (6,650 heads over 6,650 PO4 a frame; one launch a batch in each
+   vesicle run), with the eigensolve's time; forced onto the other of s6
+   and d8, an equal YAML
    (s6 keeps each residue's median a frame in int16: where that overflows,
    the pick falls to d8, as printed); forced onto f32, the difference of
    its values from the integer wire's is printed (what the port gave on
@@ -294,6 +310,26 @@ PAIR_OPS = 3
 # radial distance 3. The P2 kernel reads a bit per bond and computes only
 # the samples inside, so its bound counts those (P2_OPS each).
 GEO_OPS = 20
+# f32 operations of the neighbour functions (csrc/neighbors.cu), counted
+# from the source. normal_cloud, per (head, cloud atom) pair, once: the
+# offset 3, the minimum image 12 (divide, round, multiply, subtract a
+# component; none without PBC), d2 5 and the test 1; per masked pair, the
+# count and the three sums of the centroid 4 and the centred products 15.
+# The kernel keeps no mask and recomputes each pair's offset and test in
+# its second pass: a cost it chose, which the bound does not count. local_sums, per (head, membrane atom) pair:
+# the plane offset 2, the minimum image 8, d2 3 and the test 1; per masked
+# pair the two sums 2; per membrane atom, θ, cos θ and sin θ (or z and 1)
+# before the launch, 4. A masked pair is counted as this run's data gives
+# them.
+CLOUD_PAIR_OPS = {True: 21, False: 9}
+CLOUD_MASKED_OPS = 19
+LOCAL_PAIR_OPS = {True: 14, False: 6}
+LOCAL_MASKED_OPS = 2
+LOCAL_MEMBER_OPS = 4
+#: the share of the summed magnitudes by which the neighbour kernels'
+#: f64 sums may differ from the plain versions' f32 ones (tests/
+#: test_torch_neighbors.py SUM_BOUND)
+NEIGHBOR_SUM_BOUND = 1e-5
 #: the AA runs with membrane normals that are not static: tools/
 #: bench_modes.py's two dynamic modes (:339-344, :371-373), whose goldens
 #: are pinned, and the inline manual map of (0, 0, 1) for every molecule
@@ -951,6 +987,30 @@ def with_bound(label, numbers, moved, ops):
     return numbers
 
 
+def batch_normals(db):
+    """The dynamic normals (`core.normals.DynamicNormals`) a batch's
+    program called: over the b7x wire's aux atoms, or over the coordinate
+    wire's atoms; None without dynamic normals."""
+    cs = db.consumers
+    return cs.aux_normals if db.kind == "b7x" else cs.normals
+
+
+def neighbor_inputs(db):
+    """The (B, A, 3) f32 coordinates a batch's leaflet classifier and
+    dynamic normals read (engine/fused.py): the b7x wire's aux atoms, or
+    the coordinate wire's positions, dequantized f32(q)·s where they are
+    integers."""
+    from gorder_tpu_torch.engine.fused import decode_positions
+
+    if db.kind == "b7x":
+        q = db.wire[4]
+    else:
+        q = decode_positions(db.kind, db.wire, db.consumers.n_atoms)
+        if db.kind.rstrip("gG") == "f32":
+            return q
+    return q.to(db.scale.dtype) * db.scale[:, None, None]
+
+
 def wire_inputs(db):
     """The kernel inputs of a batch the main path handed to its step (a
     `DeviceBatch`): the packed b7 wire as the decoder ships it (codes,
@@ -983,6 +1043,175 @@ P2_NORMAL_COUNTS = {"b7": "p2_normals_launches",
                     "i16": "p2_i16_normals_launches",
                     "i32": "p2_i32_normals_launches",
                     "f32": "p2_f32_normals_launches"}
+
+
+def check_normals(label, db):
+    """The dynamic-normal kernel (ops/neighbors.py `normal_cloud`) against
+    its plain version on a batch the main path handed to its step, with
+    the coordinates its normals read (`neighbor_inputs`) and the run's own
+    head and cloud indices: the cloud counts equal, each covariance entry
+    ab within NEIGHBOR_SUM_BOUND of (cov_aa + cov_bb) / 2, which bounds the
+    magnitudes it sums, and the normals of every valid frame's heads whose
+    clouds hold ≥ 3 atoms within |n·n'| ≥ 1 − 1e-5 of the plain ones', up
+    to sign, and of those the step used. Then CUDA-event times in turns,
+    plain, kernel, kernel, plain (the plain version in frame chunks of at
+    most ops.neighbors.MAX_BYTES a pair intermediate, as the CPU runs it),
+    the batched eigensolve's time on the kernel's covariances, and the
+    bound. → dict(max_abs_err, ms, plain_ms, eigh_ms, bound_ms,
+    bound_by)."""
+    import torch
+
+    from gorder_tpu_torch.core.normals import smallest_eigvec_3x3
+    from gorder_tpu_torch.ops import neighbors
+
+    fn = batch_normals(db)
+    coords, box = neighbor_inputs(db), db.box
+    heads, cloud = fn.heads.to(coords.device), fn.cloud.to(coords.device)
+    n_frames, n_heads, n_cloud = coords.shape[0], len(heads), len(cloud)
+    rest = (heads, cloud, fn.radius, fn.handle_pbc)
+
+    def kernel():
+        return neighbors.normal_cloud(coords, box, *rest)
+
+    def plain():
+        return neighbors.normal_cloud_plain(coords, box, *rest)
+
+    def eig(cov):
+        return smallest_eigvec_3x3(neighbors.symmetric_3x3(cov))
+
+    before = neighbors.normals_launches
+    counts, cov = kernel()
+    torch.cuda.synchronize()
+    if neighbors.normals_launches != before + 1:
+        raise RuntimeError(f"{label}: normals_launches grew by "
+                           f"{neighbors.normals_launches - before}")
+    want_counts, want_cov = plain()
+    if not torch.equal(counts, want_counts):
+        raise RuntimeError(f"{label}: cloud counts differ in "
+                           f"{int((counts != want_counts).sum())} places")
+    diff = (cov - want_cov).abs()
+    scale = (want_cov[..., [0, 0, 0, 3, 3, 5]]
+             + want_cov[..., [0, 3, 5, 3, 5, 5]]) / 2
+    if bool((diff > NEIGHBOR_SUM_BOUND * scale + 1e-12).any()):
+        raise RuntimeError(f"{label}: covariances off by up to "
+                           f"{float(diff.max()):.3e}, over the bound")
+    valid = (counts >= 3) & db.mask[:, None]
+    normals = eig(cov)
+    off = max(float(1.0 - (normals * other).sum(-1).abs()[valid].min())
+              for other in (eig(want_cov), db.normal))
+    if off > 1e-5:
+        raise RuntimeError(f"{label}: normals off by 1 - |n.n'| = {off:.3e}")
+    plain_ms = cuda_ms(plain, reps=1, warmup=0)
+    ms = cuda_ms(kernel, reps=5, warmup=1)
+    ms2 = cuda_ms(kernel, reps=5, warmup=0)
+    plain_ms2 = cuda_ms(plain, reps=1, warmup=0)
+    eigh_ms = cuda_ms(lambda: eig(cov), reps=3, warmup=1)
+    print(f"kernel normals {label}: {db.kind} batch, B={n_frames}, M="
+          f"{n_heads} heads, C={n_cloud} cloud atoms, radius {fn.radius} nm; "
+          f"counts == plain (min {int(counts.min())}, mean "
+          f"{float(counts.mean()):.1f}); covariances within the bound, max "
+          f"|diff| {float(diff.max()):.3e} nm^2; normals 1 - |n.n'| <= "
+          f"{off:.3e} (plain's and the step's); ms per call: plain "
+          f"{plain_ms:.4f}, kernel {ms:.4f}, kernel {ms2:.4f}, plain "
+          f"{plain_ms2:.4f}; the batched 3x3 eigh on its covariances "
+          f"{eigh_ms:.4f}", flush=True)
+    moved = n_bytes(counts, cov, box) + n_frames * (n_heads + n_cloud) * 12
+    ops = (CLOUD_PAIR_OPS[fn.handle_pbc] * n_frames * n_heads * n_cloud
+           + CLOUD_MASKED_OPS * int(counts.sum()))
+    return with_bound(f"normals {label}", dict(
+        max_abs_err=float(diff.max()), ms=min(ms, ms2),
+        plain_ms=min(plain_ms, plain_ms2), eigh_ms=eigh_ms), moved, ops)
+
+
+def check_local(label, db):
+    """The local-leaflet kernel (ops/neighbors.py `local_sums`) against its
+    plain version on a batch the main path handed to its step, with the
+    coordinates its classifier read and the run's own indices: the classes
+    of every frame equal the plain version's and the step's; the sums
+    within NEIGHBOR_SUM_BOUND of count · max|v| (|cos θ|, |sin θ| ≤ 1;
+    |z| and 1 without PBC), the count the in-plane mask's. Then CUDA-event
+    times in turns, plain, kernel, kernel, plain (the plain version in
+    frame chunks of the classifier's `max_elements` pairs, as the CPU runs
+    it), and the bound. → dict(max_abs_err, ms, plain_ms, bound_ms,
+    bound_by)."""
+    import torch
+
+    from gorder_tpu_torch.core.leaflets import LocalClassifier
+    from gorder_tpu_torch.core.pbc import min_image
+    from gorder_tpu_torch.ops import neighbors
+
+    classify = db.consumers.coords
+    if not isinstance(classify, LocalClassifier):
+        raise RuntimeError(f"{label}: the batch's classifier is "
+                           f"{type(classify).__name__}")
+    coords, box = neighbor_inputs(db), db.box
+    here = coords.device
+    membrane, heads = classify.membrane.on(here), classify.heads.on(here)
+    n_frames, n_heads, n_members = coords.shape[0], len(heads), len(membrane)
+    axis, pbc = classify.axis, classify.handle_pbc
+    rest = (membrane, heads, axis, classify.radius, pbc)
+    step = max(1, classify.max_elements // (n_heads * n_members))
+    chunks = range(0, n_frames, step)
+
+    def kernel():
+        return neighbors.local_sums(coords, box, *rest)
+
+    def plain():
+        return neighbors.local_sums_plain(coords, box, *rest,
+                                          classify.max_elements)
+
+    r2 = neighbors.radius_squared(classify.radius, here)
+
+    def count(c, b):
+        d2 = 0
+        for a in neighbors.plane_axes(axis):
+            d = c[:, None, membrane, a] - c[:, heads, None, a]
+            if pbc:
+                d = min_image(d, b[:, None, None, a])
+            d2 = d2 + d * d
+        return (d2 <= r2).sum(-1).to(torch.float32)
+
+    before = neighbors.local_launches
+    got = kernel()
+    torch.cuda.synchronize()
+    if neighbors.local_launches != before + 1:
+        raise RuntimeError(f"{label}: local_launches grew by "
+                           f"{neighbors.local_launches - before}")
+    want = plain()
+    masked = torch.cat([count(coords[i:i + step], box[i:i + step])
+                        for i in chunks])
+    top = 1.0 if pbc else float(coords[:, membrane, axis].abs().max())
+    diff = (got - want).abs()
+    if bool((diff > NEIGHBOR_SUM_BOUND * masked[..., None] * top
+             + 1e-12).any()):
+        raise RuntimeError(f"{label}: local sums off by up to "
+                           f"{float(diff.max()):.3e}, over the bound")
+    labels = classify(coords, box)
+    if not (torch.equal(labels, classify.plain(coords, box))
+            and torch.equal(labels, db.classes)):
+        raise RuntimeError(f"{label}: the kernel's classes differ from the "
+                           f"plain version's or the step's")
+    plain_ms = cuda_ms(plain, reps=1, warmup=0)
+    ms = cuda_ms(kernel, reps=5, warmup=1)
+    ms2 = cuda_ms(kernel, reps=5, warmup=0)
+    plain_ms2 = cuda_ms(plain, reps=1, warmup=0)
+    print(f"kernel local_leaflets {label}: {db.kind} batch, B={n_frames}, M="
+          f"{n_heads} heads, Nm={n_members} membrane atoms, radius "
+          f"{classify.radius} nm; the classes of all {n_frames} frames == "
+          f"plain's == the step's ({int((labels == 0).sum())} upper, "
+          f"{int((labels == 1).sum())} lower); sums within the bound, max "
+          f"|diff| {float(diff.max()):.3e}, mean in-plane count "
+          f"{float(masked.mean()):.1f}; ms per call: plain {plain_ms:.4f}, "
+          f"kernel {ms:.4f}, kernel {ms2:.4f}, plain {plain_ms2:.4f}",
+          flush=True)
+    moved = (n_bytes(got, box)
+             + n_frames * (n_members + n_heads) * 12)
+    ops = (LOCAL_PAIR_OPS[pbc] * n_frames * n_heads * n_members
+           + LOCAL_MASKED_OPS * int(masked.sum())
+           + LOCAL_MEMBER_OPS * n_frames * n_members)
+    return with_bound(f"local_leaflets {label}", dict(
+        max_abs_err=float(diff.max()), ms=min(ms, ms2),
+        plain_ms=min(plain_ms, plain_ms2)), moved, ops)
 
 
 def check_p2(label, db, leaflets):
@@ -1485,7 +1714,10 @@ def ua_problem(seed, n_frames, n_mols, n_types=7, type_major=False):
 def time_classifiers(gro, bnd, xtc, cache):
     """CUDA-event time of each every-frame leaflet classifier on the first
     B = 512 frames (f32 coordinates of the run's atom space), the device
-    work it adds to a batch beside the P2 kernel. → {mode: ms}."""
+    work it adds to a batch beside the P2 kernel; for the local one, whose
+    sums are a kernel, also its plain version's time (`LocalClassifier
+    .plain`) and the kernel's bound. → {mode: ms}."""
+    from gorder_tpu_torch.core.leaflets import LocalClassifier
     import torch
 
     from gorder_tpu_torch.engine.leaflet_runtime import build_leaflet_runtime
@@ -1516,6 +1748,16 @@ def time_classifiers(gro, bnd, xtc, cache):
             boxes[:, [0, 1, 2], [0, 1, 2]]), device="cuda")
         classify = runtime.fused_classify()
         out[mode] = cuda_ms(lambda: classify(coords, box), reps=3, warmup=1)
+        if isinstance(classify, LocalClassifier):
+            plain_ms = cuda_ms(lambda: classify.plain(coords, box), reps=1,
+                               warmup=1)
+            n_heads, n_members = len(classify.heads), len(classify.membrane)
+            pairs = BATCH * n_heads * n_members
+            bound_ms, _ = bound(0, LOCAL_PAIR_OPS[classify.handle_pbc] * pairs)
+            print(f"classify {mode}: {out[mode]:.4f} ms a batch with the "
+                  f"kernel, {plain_ms:.4f} ms plain; {pairs} pairs, bound by "
+                  f"operations {bound_ms:.4f} ms (the masked pairs' sums "
+                  f"left out)", flush=True)
     print("classify: device ms per batch of 512 frames (f32 coordinates): "
           + ", ".join(f"{m} {ms:.4f}" for m, ms in out.items()), flush=True)
     return out
@@ -1528,7 +1770,8 @@ def time_normals(gro, bnd, xtc, cache):
     that the (B, M) batched 3×3 eigensolve takes. → (ms, eigh ms)."""
     import torch
 
-    from gorder_tpu_torch.core.normals import smallest_eigvec_3x3
+    from gorder_tpu_torch.core.normals import (dynamic_normals_plain,
+                                               smallest_eigvec_3x3)
     from gorder_tpu_torch.engine.normals_runtime import _build_normals
     from gorder_tpu_torch.engine.prepare import (
         _build_atom_space, _prepare_bond_kinds, load_structure)
@@ -1550,17 +1793,58 @@ def time_normals(gro, bnd, xtc, cache):
         boxes[:, [0, 1, 2], [0, 1, 2]]), device="cuda")
     compute = runtime.compute
     ms = cuda_ms(lambda: compute(coords, box), reps=3, warmup=1)
+    heads, cloud = compute.heads, compute.cloud
+    plain_ms = cuda_ms(lambda: dynamic_normals_plain(
+        coords, box, heads, cloud, compute.radius, compute.handle_pbc),
+        reps=3, warmup=1)
     normals, counts = compute(coords, box)
+    pairs = BATCH * len(heads) * len(cloud)
+    bound_ms, _ = bound(0, CLOUD_PAIR_OPS[compute.handle_pbc] * pairs
+                        + CLOUD_MASKED_OPS * int(counts.sum()))
     g = torch.Generator(device="cuda").manual_seed(3)
     a = torch.randn(normals.shape[:2] + (3, 3), device="cuda", generator=g)
     cov = a @ a.transpose(-1, -2)
     eigh_ms = cuda_ms(lambda: smallest_eigvec_3x3(cov), reps=3, warmup=1)
     print(f"normals: device ms per batch of {BATCH} frames (f32 coordinates,"
           f" M={normals.shape[1]} heads, C={len(compute.cloud_indices)} "
-          f"cloud atoms, radius {compute.radius} nm): {ms:.4f}, of which the "
-          f"batched 3x3 eigh {eigh_ms:.4f}; cloud counts min "
-          f"{int(counts.min())} mean {float(counts.mean()):.1f}", flush=True)
+          f"cloud atoms, radius {compute.radius} nm): {ms:.4f} with the "
+          f"kernel, of which the batched 3x3 eigh {eigh_ms:.4f}; plain "
+          f"{plain_ms:.4f}; the kernel's bound by operations "
+          f"{bound_ms:.4f}; cloud counts min {int(counts.min())} mean "
+          f"{float(counts.mean()):.1f}", flush=True)
     return ms, eigh_ms
+
+
+def first_calls():
+    """Wall seconds of the process's first batched 3×3 eigensolve on the
+    card (cuSOLVER's start) and first `normal_cloud` launch, each on a
+    small input, then of the same calls again: what the first run with
+    dynamic normals pays once, measured apart so that `aa-dynamic`'s
+    `dispatch` holds none of it."""
+    import torch
+
+    from gorder_tpu_torch.core.normals import smallest_eigvec_3x3
+    from gorder_tpu_torch.ops import neighbors
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    a = torch.randn((256, 3, 3), device="cuda", generator=g)
+    cov = a @ a.transpose(-1, -2)
+    coords = torch.rand((2, 16, 3), device="cuda", generator=g) * 5.0
+    box = torch.full((2, 3), 5.0, device="cuda")
+    idx = torch.arange(16, device="cuda")
+    times = []
+    for fn in (lambda: smallest_eigvec_3x3(cov),
+               lambda: neighbors.normal_cloud(coords, box, idx[:8], idx, 2.0,
+                                              True)):
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    print(f"first calls: the batched 3x3 eigh {times[0]:.4f} s, then "
+          f"{times[1]:.4f} s; normal_cloud {times[2]:.4f} s, then "
+          f"{times[3]:.4f} s", flush=True)
 
 
 def check_f32_matmuls():
@@ -1844,9 +2128,9 @@ run_notes = {}
 
 
 def _launch_counts():
-    from gorder_tpu_torch.ops import p2, ua
+    from gorder_tpu_torch.ops import neighbors, p2, ua
 
-    return [(mod, name) for mod in (p2, ua) for name in dir(mod)
+    return [(mod, name) for mod in (p2, ua, neighbors) for name in dir(mod)
             if name.endswith("_launches")]
 
 
@@ -2163,7 +2447,9 @@ def trace_summary(label, directory, wall, top=12):
         print(f"trace {label}:   {ms:10.3f} ms {ms / total:6.1%} "
               f"{name[:100]}", flush=True)
     ours = sum(ms for n, ms in device.items()
-               if "p2_kernel" in n or "ua_kernel" in n)
+               if any(k in n for k in ("p2_kernel", "ua_kernel",
+                                       "normal_cloud_kernel",
+                                       "local_sums_kernel")))
     print(f"trace {label}: the hand-written kernels {ours:.3f} ms "
           f"({ours / total:.1%} of the device time)", flush=True)
     return dict(device)
@@ -2192,7 +2478,8 @@ def check_chain(label, files, cache):
             f"{label} on {device}", vesicle_analysis(
                 files, os.path.join(cache, f"smoke_{label}-{device}.yaml"),
                 spherical=True, end=end),
-            {"p2_i32_normals_launches": 1} if device == "cuda" else {},
+            {"p2_i32_normals_launches": 1, "normals_launches": 1}
+            if device == "cuda" else {},
             CHAIN_FRAMES, device=device, batch_size=CHAIN_FRAMES)
         if not any(f"wire format: {w}" in wire_line for w in ("s6", "d8")):
             raise RuntimeError(f"{label} on {device}: {wire_line}")
@@ -2536,14 +2823,19 @@ def main() -> int:
     leaflet_launches = {}
     firsts = {}
     for mode in LEAFLET_MODES:
-        count = ("p2_i16_leaflets_launches" if mode == "aa-local-leaflets"
+        local = mode == "aa-local-leaflets"
+        count = ("p2_i16_leaflets_launches" if local
                  else "p2_leaflets_launches")
+        # the local classifier: one launch of its kernel a batch
+        counters = ({count: n_batches, "local_launches": n_batches} if local
+                    else {count: n_batches})
         got, _, firsts[mode] = run_golden(
             mode, leaflet_analysis(mode, gro, bnd, xtc, cache,
                                    os.path.join(cache, f"smoke_{mode}.yaml")),
-            {count: n_batches}, N_FRAMES,
-            force="i16" if mode == "aa-local-leaflets" else "b7")
+            counters, N_FRAMES, force="i16" if local else "b7")
         leaflet_launches[mode] = got[count]
+        if local:
+            local_runs = got["local_launches"]
     p2_global = check_p2("aa-leaflets", firsts["aa-leaflets"], True)
     local = firsts["aa-local-leaflets"]
     p2_positions = check_p2("aa-local-leaflets", local, False)
@@ -2553,6 +2845,7 @@ def main() -> int:
                            "both must give the same integer bond vectors")
     print("kernel: b7 wire input == int16 positions on the first batch "
           "(same integer bond vectors)", flush=True)
+    local_numbers = check_local("aa-local-leaflets", local)
     del local
 
     time_classifiers(gro, bnd, xtc, cache)
@@ -2600,7 +2893,9 @@ def main() -> int:
     import bench
     from gorder_tpu_torch.engine.normals_runtime import _manual_normals_table
 
+    first_calls()
     normal_launches = {}
+    normals_runs = 0
     for mode in NORMAL_MODES:
         manual = mode == "aa-manual-z"
         analysis = normals_analysis(mode, gro, bnd, xtc, cache,
@@ -2615,17 +2910,22 @@ def main() -> int:
                   flush=True)
         count = ("p2_i16_normals_launches" if manual
                  else "p2_normals_launches")
+        # dynamic normals: one launch of their kernel a batch
+        counters = ({count: n_batches} if manual
+                    else {count: n_batches, "normals_launches": n_batches})
         got, results, firsts[mode] = run_golden(
-            mode, analysis, {count: n_batches}, N_FRAMES,
+            mode, analysis, counters, N_FRAMES,
             golden="aa" if manual else None,
             wire="wire format: i16" if manual else "aux channel",
             exact=manual, force="i16" if manual else "b7")
         normal_launches[mode] = got[count]
+        normals_runs += got["normals_launches"]
         if analysis.membrane_normal.collect.enabled:
             check_exported_normals(results,
                                    analysis.membrane_normal.collect.path,
                                    firsts[mode])
     dyn_first = firsts["aa-dynamic"]
+    check_normals("aa-dynamic", dyn_first)
     p2_normals = check_p2("aa-dynamic", dyn_first, False)
     p2_i16_normals = check_p2("aa-manual-z", firsts["aa-manual-z"], False)
     check_p2("aa-dynamic with aa-leaflets classes",
@@ -2884,8 +3184,10 @@ def main() -> int:
                     os.path.join(cache, "smoke_ua-dynamic.yaml"))
     a.membrane_normal = MembraneNormal.dynamic(P_HEADS)
     results, _, ua_dyn, wire_line, first = _run(
-        "ua-dynamic", a, {"ua_normals_launches": ua_batches * 3}, ua_frames,
+        "ua-dynamic", a, {"ua_normals_launches": ua_batches * 3,
+                          "normals_launches": ua_batches}, ua_frames,
         force="i16")
+    normals_runs += ua_dyn["normals_launches"]
     totals = _orders(results, "total")
     if "wire format: i16" not in wire_line or not all(
             math.isfinite(v) for v in totals):
@@ -3109,10 +3411,14 @@ def main() -> int:
     if "wire format: b7" not in wire_line:
         raise RuntimeError(f"ves: {wire_line}")
     spherical_yaml = os.path.join(cache, "smoke_ves-spherical.yaml")
+    # spherical leaflets and dynamic normals: one P2 launch and one of the
+    # normals' kernel a batch
+    ves_counters = {"p2_i32_normals_launches": ves_batches,
+                    "normals_launches": ves_batches}
     ves_results, _, ves_runs, wire_line, ves_first = _run(
         "ves-spherical", vesicle_analysis(ves_files, spherical_yaml,
                                           spherical=True),
-        {"p2_i32_normals_launches": ves_batches}, VESICLE_FRAMES)
+        ves_counters, VESICLE_FRAMES)
     picked = next((w for w in ("s6", "d8")
                    if f"wire format: {w}" in wire_line), None)
     if picked is None:
@@ -3129,14 +3435,14 @@ def main() -> int:
           flush=True)
     decode_ms["ves-spherical"] = check_decoder("ves-spherical", ves_first)
     p2_i32 = check_p2("ves-spherical", ves_first, True)
+    normals_numbers = check_normals("ves-spherical", ves_first)
     del ves_first
     other = {"s6": "d8", "d8": "s6"}[picked]
     other_yaml = os.path.join(cache, f"smoke_ves-spherical-{other}.yaml")
     _, _, other_runs, wire_line, first = _run(
         f"ves-spherical-{other}", vesicle_analysis(ves_files, other_yaml,
                                                    spherical=True),
-        {"p2_i32_normals_launches": ves_batches}, VESICLE_FRAMES,
-        force=other)
+        ves_counters, VESICLE_FRAMES, force=other)
     same_lines(f"ves-spherical-{other}", other_yaml, spherical_yaml)
     if f"wire format: {other}" in wire_line:
         decode_ms[f"ves-spherical-{other}"] = check_decoder(
@@ -3147,11 +3453,11 @@ def main() -> int:
               f"a frame in int16): {wire_line}", flush=True)
     del first
     f32_yaml = os.path.join(cache, "smoke_ves-spherical-f32.yaml")
-    f32_results, _, _, _, _ = _run(
+    f32_results, _, f32_runs, _, _ = _run(
         "ves-spherical-f32", vesicle_analysis(ves_files, f32_yaml,
                                               spherical=True),
-        {"p2_f32_normals_launches": ves_batches}, VESICLE_FRAMES,
-        force="f32")
+        {"p2_f32_normals_launches": ves_batches,
+         "normals_launches": ves_batches}, VESICLE_FRAMES, force="f32")
     gap = [abs(a - b) for cls in ("total", "upper", "lower")
            for a, b in zip(_orders(f32_results, cls), values[cls])]
     with open(f32_yaml) as fa, open(spherical_yaml) as fb:
@@ -3169,7 +3475,7 @@ def main() -> int:
         _, traced_wall, traced_runs, _, _ = _run(
             "ves-spherical-traced", vesicle_analysis(
                 ves_files, traced_yaml, spherical=True),
-            {"p2_i32_normals_launches": ves_batches}, VESICLE_FRAMES)
+            ves_counters, VESICLE_FRAMES)
     finally:
         del os.environ["GORDER_TPU_PROFILE"]
     same_lines("ves-spherical-traced", traced_yaml, spherical_yaml)
@@ -3230,6 +3536,7 @@ def main() -> int:
                       "gorder_tpu_torch/csrc/ua.cu")
     p2_tpu, ua_tpu = ("gorder_tpu/ops/pallas_p2.py:163",
                       "gorder_tpu/ops/pallas_ua.py:69")
+    neighbors_src = "gorder_tpu_torch/csrc/neighbors.cu"
     kernels = [
         kernel_entry("p2", p2_src, p2_tpu, launches["p2_launches"]
                      + sharded["p2_launches"]
@@ -3292,7 +3599,18 @@ def main() -> int:
                      "gorder_tpu/ops/pallas_p2.py:295", d8_map_launches,
                      map_checks["aa-ordermap-d8"]["i32"]),
         kernel_entry("ua_i32", ua_src, "gorder_tpu/ops/pallas_ua.py:202",
-                     ua_i32_runs, ua_i32["i32"])]
+                     ua_i32_runs, ua_i32["i32"]),
+        # the dense neighbour passes replace no Pallas kernel: gorder_tpu
+        # computes both with XLA ops, in the functions named
+        kernel_entry("normals", neighbors_src,
+                     "gorder_tpu/core/normals.py:34",
+                     normals_runs + sum(
+                         got["normals_launches"] for got in (
+                             ves_runs, other_runs, f32_runs, traced_runs)),
+                     normals_numbers),
+        kernel_entry("local_leaflets", neighbors_src,
+                     "gorder_tpu/core/leaflets.py:107", local_runs,
+                     local_numbers)]
     # the launches of the pick, mesh and knob phases, by kernel entry; the
     # inputs the pick fed that no entry above has get their own
     extra = collections.Counter()

@@ -26,12 +26,14 @@ import math
 import numpy as np
 import torch
 
+from ..ops.neighbors import MAX_ELEMENTS, local_sums, local_sums_plain
 from ..parallel.mesh import Replicas
-from .pbc import circular_mean_cog, min_image, naive_cog
+from .pbc import circular_mean_cog, naive_cog
 
 
 def _idx(a, device) -> Replicas:
-    return Replicas(torch.as_tensor(np.asarray(a, np.int64), device=device))
+    return Replicas(torch.as_tensor(np.ascontiguousarray(a, np.int64),
+                                    device=device))
 
 
 def _sidedness(delta: torch.Tensor, length, handle_pbc: bool):
@@ -96,60 +98,48 @@ class LocalClassifier:
     """Local method: each head against the center of geometry of the
     membrane atoms within an in-plane cylinder of `radius` around it.
 
-    The working set is (frames, M, Nm) per chunk: frames are processed in
-    chunks of at most `max_elements` pairs, as the JAX package maps over
-    single frames to bound it."""
+    The weighted sums the center comes from are `ops/neighbors.py
+    local_sums`: on the card one launch of its kernel a call, which writes
+    no (frames, M, Nm) pair; on the CPU its plain version, whose working
+    set is (frames, M, Nm) per chunk, so frames go in chunks of at most
+    `max_elements` pairs, as the JAX package maps over single frames to
+    bound it."""
 
     def __init__(self, membrane_indices, head_indices, normal_axis: int,
                  radius: float, handle_pbc: bool = True, device="cpu",
-                 max_elements: int = 1 << 26):
+                 max_elements: int = MAX_ELEMENTS):
         self.membrane = _idx(membrane_indices, device)
         self.heads = _idx(head_indices, device)
         self.axis = int(normal_axis)
-        self.plane_axes = tuple(a for a in range(3) if a != self.axis)
         self.radius = float(np.float32(radius))
         self.handle_pbc = bool(handle_pbc)
         self.max_elements = int(max_elements)
 
-    def _chunk(self, coords, box_diag):
-        ax = self.axis
-        membrane = coords.index_select(
-            1, self.membrane.on(coords.device))                # (c, Nm, 3)
-        heads = coords.index_select(
-            1, self.heads.on(coords.device))                   # (c, M, 3)
-        d_plane2 = None
-        for a in self.plane_axes:
-            # only the in-plane components of membrane − head enter the
-            # weights; each is the JAX package's component bit for bit
-            d = membrane[:, None, :, a] - heads[:, :, None, a]  # (c, M, Nm)
-            if self.handle_pbc:
-                d = min_image(d, box_diag[:, None, None, a])
-            d_plane2 = d * d if d_plane2 is None else d_plane2 + d * d
-        r = torch.tensor(self.radius, dtype=coords.dtype,
-                         device=coords.device)
-        r2 = r * r
-        weights = (d_plane2 <= r2).to(coords.dtype)           # (c, M, Nm)
-        length = box_diag[:, ax]                              # (c,)
-        # weighted sums as products and sums, not matmuls: a matmul on the
-        # card may run in TF32 (torch.backends.cuda.matmul.allow_tf32)
+    def _classify(self, coords, box_diag, sums_of):
+        """The classes from the sums `sums_of` gives (the wrapper or the
+        plain version): the circular or plain mean along the axis, against
+        each head."""
+        here = coords.device
+        sums = sums_of(coords, box_diag, self.membrane.on(here),
+                       self.heads.on(here), self.axis, self.radius,
+                       self.handle_pbc, self.max_elements)    # (B, M, 2)
+        heads = coords.index_select(1, self.heads.on(here))[..., self.axis]
+        length = box_diag[:, self.axis]                       # (B,)
         if self.handle_pbc:
-            theta = membrane[..., ax] / length[:, None] * (2.0 * math.pi)
-            xi = (weights * torch.cos(theta)[:, None, :]).sum(dim=-1)
-            zeta = (weights * torch.sin(theta)[:, None, :]).sum(dim=-1)
+            xi, zeta = sums[..., 0], sums[..., 1]
             mean_theta = torch.atan2(-zeta, -xi) + math.pi
             center = mean_theta / (2.0 * math.pi) * length[:, None]
-            delta = heads[..., ax] - center
-            return _sidedness(delta, length[:, None], True)
-        total = (weights * membrane[:, None, :, ax]).sum(dim=-1)
-        count = torch.clamp(weights.sum(dim=-1), min=1e-30)
-        return _sidedness(heads[..., ax] - total / count, None, False)
+            return _sidedness(heads - center, length[:, None], True)
+        count = torch.clamp(sums[..., 1], min=1e-30)
+        return _sidedness(heads - sums[..., 0] / count, None, False)
+
+    def plain(self, coords, box_diag):
+        """The classes from the plain sums on any device: what the card's
+        kernel is held against."""
+        return self._classify(coords, box_diag, local_sums_plain)
 
     def __call__(self, coords, box_diag):
-        per_frame = max(1, len(self.heads) * len(self.membrane))
-        step = max(1, self.max_elements // per_frame)
-        return torch.cat([
-            self._chunk(coords[i:i + step], box_diag[i:i + step])
-            for i in range(0, coords.shape[0], step)])
+        return self._classify(coords, box_diag, local_sums)
 
 
 class IndividualClassifier:

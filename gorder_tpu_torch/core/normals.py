@@ -11,17 +11,21 @@ eigenvector of the smallest eigenvalue. Its sign is the eigensolver's:
 every consumer squares the projection on it.
 
 This is no port of a Pallas kernel: the JAX package computes it with XLA
-ops, and so does this module with torch ops. The weighted sums are
-products and sums written out, never matmuls, so TF32 cannot enter on the
-card: every f32 product runs in full f32 whatever
-`torch.backends.cuda.matmul.allow_tf32` says (False by default, with
-matmul precision "highest"). The sums reduce in another order than XLA's,
-and two eigensolvers (LAPACK on the CPU, cuSOLVER on the card) differ in
-the last bits, so normals agree with the JAX package's to float noise and
-up to sign; the cloud counts are comparisons of elementwise d², equal.
+ops. The counts and covariances come from `ops/neighbors.py
+normal_cloud`: on the CPU torch ops over (F, M, C) intermediates, as
+XLA's, on the card a hand-written kernel that keeps the cloud in shared
+memory (`csrc/neighbors.cu`); the eigensolve stays `torch.linalg.eigh`, as XLA's `eigh` sits outside
+any kernel in the JAX package. The weighted sums are products and sums
+written out, never matmuls, so TF32 cannot enter on the card. The sums
+reduce in another order than XLA's, and two eigensolvers (LAPACK on the
+CPU, cuSOLVER on the card) differ in the last bits, so normals agree with
+the JAX package's to float noise and up to sign; the cloud counts are
+comparisons of elementwise d², equal.
 
-The JAX package maps over frames one at a time; here frames go in chunks
-sized so that no (F, M, C, 3) intermediate exceeds `max_bytes`.
+The JAX package maps over frames one at a time; the plain version takes
+frames in chunks sized so that no (F, M, C, 3) intermediate exceeds
+`max_bytes` (`ops/neighbors.py MAX_BYTES`), and the kernel takes a whole
+batch in one launch.
 """
 
 from __future__ import annotations
@@ -29,11 +33,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.neighbors import (MAX_BYTES, normal_cloud, normal_cloud_plain,
+                             symmetric_3x3)
 from ..parallel.mesh import Replicas
-from .pbc import min_image
 
-#: bytes one (F, M, C, 3) f32 intermediate may take (frames are chunked)
-MAX_BYTES = 256 << 20
 #: matrices per batched eigensolve: on the H100, torch's batched 3×3
 #: cuSOLVER call (cusolverDnXsyevBatched) refused a batch of 87,296 with
 #: CUSOLVER_STATUS_INVALID_VALUE; batches of 16,384 pass
@@ -41,7 +44,7 @@ EIGH_BATCH = 16384
 
 
 def _idx(a, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a, np.int64), device=device)
+    return torch.as_tensor(np.ascontiguousarray(a, np.int64), device=device)
 
 
 def smallest_eigvec_3x3(cov: torch.Tensor) -> torch.Tensor:
@@ -57,44 +60,25 @@ def smallest_eigvec_3x3(cov: torch.Tensor) -> torch.Tensor:
 def dynamic_normals(coords, box_diag, head_idx, cloud_idx, radius: float,
                     handle_pbc: bool, max_bytes: int = MAX_BYTES):
     """(B, A, 3) f32 coordinates and (B, 3) box lengths → (B, M, 3) f32 unit
-    normals and (B, M) f32 cloud counts, step by step as
-    `_dynamic_normals_impl` (gorder_tpu/core/normals.py:34-55) takes them:
-    min-image head→cloud offsets, the mask d² ≤ f32(radius)², the count,
-    the weights mask / max(count, 1), the centroid, and the masked centred
-    covariance. `head_idx` (M,) and `cloud_idx` (C,) are int64 tensors on
-    the coordinates' device."""
-    n_heads, n_cloud = head_idx.shape[0], cloud_idx.shape[0]
-    per_frame = max(1, n_heads * n_cloud * 3 * coords.element_size())
-    step = max(1, max_bytes // per_frame)
-    r = torch.tensor(np.float32(radius), device=coords.device)
-    r2 = r * r
-    normals, counts = [], []
-    for i in range(0, coords.shape[0], step):
-        frames, box = coords[i:i + step], box_diag[i:i + step]
-        heads = frames.index_select(1, head_idx)            # (F, M, 3)
-        cloud = frames.index_select(1, cloud_idx)           # (F, C, 3)
-        rel = []
-        for c in range(3):
-            d = cloud[:, None, :, c] - heads[:, :, None, c]  # (F, M, C)
-            if handle_pbc:
-                d = min_image(d, box[:, None, None, c])
-            rel.append(d)
-        d2 = rel[0] * rel[0] + rel[1] * rel[1] + rel[2] * rel[2]
-        mask = (d2 <= r2).to(coords.dtype)
-        count = mask.sum(dim=-1)                            # (F, M)
-        weights = mask / torch.clamp(count, min=1.0)[..., None]
-        centered = [(d - (weights * d).sum(dim=-1)[..., None]) * mask
-                    for d in rel]
-        cov = torch.empty(frames.shape[0], n_heads, 3, 3, dtype=coords.dtype,
-                          device=coords.device)
-        for a in range(3):
-            for b in range(a, 3):
-                s = (centered[a] * centered[b]).sum(dim=-1)
-                cov[..., a, b] = s
-                cov[..., b, a] = s
-        normals.append(smallest_eigvec_3x3(cov))
-        counts.append(count)
-    return torch.cat(normals), torch.cat(counts)
+    normals and (B, M) f32 cloud counts, as `_dynamic_normals_impl`
+    (gorder_tpu/core/normals.py:34-55) gives them: the counts and
+    covariances of `ops/neighbors.py normal_cloud` (its plain version on
+    the CPU, frames in chunks of at most `max_bytes` an intermediate; one
+    launch of its kernel on the card), then the eigensolve. `head_idx`
+    (M,) and `cloud_idx` (C,) are int64 tensors on the coordinates'
+    device."""
+    counts, cov = normal_cloud(coords, box_diag, head_idx, cloud_idx, radius,
+                               handle_pbc, max_bytes)
+    return smallest_eigvec_3x3(symmetric_3x3(cov)), counts
+
+
+def dynamic_normals_plain(coords, box_diag, head_idx, cloud_idx,
+                          radius: float, handle_pbc: bool):
+    """`dynamic_normals` over the plain counts and covariances on any
+    device: what the card's kernel is held against."""
+    counts, cov = normal_cloud_plain(coords, box_diag, head_idx, cloud_idx,
+                                     radius, handle_pbc)
+    return smallest_eigvec_3x3(symmetric_3x3(cov)), counts
 
 
 class DynamicNormals:

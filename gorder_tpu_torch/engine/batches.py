@@ -145,6 +145,9 @@ class DeviceBatch:
     # (K,) slot indices, or None (no geometry)
     geom_ref: Optional[torch.Tensor] = None
     shard: int = 0                   # the frame slice under a mesh
+    # the run's `fused.Consumers` on the slice's device: the classifier
+    # and the dynamic normals the step's program called
+    consumers: Optional[Consumers] = None
 
 
 def _shard_wire(kind, arrays, mesh):
@@ -599,7 +602,7 @@ def run_batches(analysis, system, steps, normal_vec, n_types: int, space,
                         b, kind, wires[i], scales_dev[i], boxes_dev[i],
                         used.normal, masks_dev[i], used.classes, steps[i],
                         used.out, consumers[i].map_state, geom_refs[i],
-                        shard=i))
+                        shard=i, consumers=consumers[i]))
             outputs.append((n_valid, [used._replace(
                 classes=used.classes if collect and not host_classes
                 else None,

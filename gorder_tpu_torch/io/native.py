@@ -58,19 +58,25 @@ def _build_library() -> Path:
     so_path = build_dir / f"libxdr-{tag}.so"
     if so_path.exists():
         return so_path
+    # each process builds into a temporary file of its own and renames it
+    # into place (as ops/build.py does): several processes (test workers)
+    # may build the same library at once, and a shared temporary name lets
+    # one rename away the file another is about to
+    tmp = so_path.with_suffix(f".{os.getpid()}.tmp")
     cmd = [
         os.environ.get("CXX", "g++"),
         "-O3", "-march=native", "-funroll-loops", "-fno-plt",
         "-shared", "-fPIC", "-std=c++17", "-pthread",
-        str(_SRC), "-o", str(so_path) + ".tmp",
+        str(_SRC), "-o", str(tmp),
     ]
     try:
         subprocess.run(cmd, check=True, capture_output=True, text=True)
     except subprocess.CalledProcessError as e:
+        tmp.unlink(missing_ok=True)
         raise TrajectoryError(
             f"failed to build native XDR codec:\n{e.stderr}"
         ) from None
-    os.replace(str(so_path) + ".tmp", so_path)
+    os.replace(tmp, so_path)
     # clean superseded builds
     for old in build_dir.glob("libxdr-*.so"):
         if old != so_path:

@@ -82,6 +82,11 @@ _SIGNATURES = {
     "ua_positions_i16": _UA,
     "ua_positions_i32": _UA,
     "ua_positions_f32": _UA[:2] + _UA[3:],
+    # neighbors.cu: the pointers, the sizes, r2, pbc, tile, stream
+    "normal_cloud": [_vp] * 6 + [_int] * 4 + [ctypes.c_float]
+                    + [_int] * 2 + [_vp],
+    "local_sums": [_vp] * 4 + [_int] * 3 + [ctypes.c_float] + [_int] * 2
+                  + [_vp],
 }
 
 

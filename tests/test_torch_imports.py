@@ -46,6 +46,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     "gorder_tpu_torch.core.timewise",
     "gorder_tpu_torch.ops.p2",
     "gorder_tpu_torch.ops.ua",
+    "gorder_tpu_torch.ops.neighbors",
     "gorder_tpu_torch.ops.build",
     "gorder_tpu_torch.io.traj",
     "gorder_tpu_torch.io.native",

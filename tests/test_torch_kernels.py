@@ -947,3 +947,155 @@ def test_ua_int32_kernel_matches_plain(cuda, variant, layout):
         assert torch.equal(states[0], states[1])
     assert not got[-2:].any() and int(got[:, 1].sum() if got.dim() == 3
                                        else got[:, 0, 1].sum()) > 0
+
+
+# ---------------------------------------------- dense neighbour passes
+# csrc/neighbors.cu against ops/neighbors.py's plain versions: the cloud
+# counts, the in-plane mask and so the classes equal; the covariances and
+# the local sums, which the kernels add in f64 and torch in f32 in another
+# order, within 1e-5 of the magnitudes they sum (for a covariance entry ab,
+# Σ|e_a·e_b| ≤ (cov_aa + cov_bb) / 2); the normals, up to their sign,
+# |n·n_plain| ≥ 1 − 1e-5, as tests/test_torch_normals.py holds them
+# against gorder_tpu.
+
+#: the share of the summed magnitudes two f32 sums of the same terms may
+#: differ by (tests/test_torch_neighbors.py SUM_BOUND)
+SUM_BOUND = 1e-5
+
+
+def _cloud_case(seed, dev, B=6, M=40, extra=0):
+    """`_membrane_frames` on the card, with `extra` atoms scattered over
+    the box appended to the cloud."""
+    from .test_torch_normals import _membrane_frames
+
+    coords, box, heads, cloud = _membrane_frames(seed, B=B, M=M)
+    rng = np.random.default_rng(seed + 1)
+    scattered = rng.uniform(0, box[0], (B, extra, 3)).astype(np.float32)
+    coords = np.concatenate([coords, scattered], axis=1)
+    cloud = np.concatenate([cloud, len(cloud) + np.arange(extra)])
+    return (torch.as_tensor(coords, device=dev),
+            torch.as_tensor(box, device=dev),
+            torch.as_tensor(heads, device=dev),
+            torch.as_tensor(cloud, device=dev))
+
+
+def _same_cloud(got, want):
+    (counts, cov), (want_counts, want_cov) = got, want
+    assert counts.dtype == cov.dtype == torch.float32
+    assert torch.equal(counts, want_counts)
+    scale = (want_cov[..., [0, 0, 0, 3, 3, 5]]
+             + want_cov[..., [0, 3, 5, 3, 5, 5]]) / 2
+    assert bool(((cov - want_cov).abs() <= SUM_BOUND * scale + 1e-12).all())
+
+
+@pytest.mark.parametrize("handle_pbc", [True, False])
+@pytest.mark.parametrize("tile", [None, 64, 1, 8192])
+def test_normal_cloud_kernel_matches_plain(cuda, monkeypatch, handle_pbc,
+                                           tile):
+    """Tiles of 64 and 1 atoms: the cloud goes through shared memory in
+    several tiles each pass, as a cloud over NORMAL_TILE atoms does; a
+    tile of 8,192 (96 KB) opts the kernel in past the default 48 KB."""
+    from gorder_tpu_torch.core import normals as tn
+    from gorder_tpu_torch.ops import neighbors
+
+    from .test_torch_normals import _same_up_to_sign
+
+    if tile is not None:
+        monkeypatch.setattr(neighbors, "NORMAL_TILE", tile)
+    coords, box, heads, cloud = _cloud_case(3, cuda)
+    args = (coords, box, heads, cloud, 2.0, handle_pbc)
+    before = neighbors.normals_launches
+    got = neighbors.normal_cloud(*args)
+    torch.cuda.synchronize()
+    assert neighbors.normals_launches == before + 1
+    _same_cloud(got, neighbors.normal_cloud_plain(*args))
+    assert int(got[0].min()) >= 3
+    normals, counts = tn.dynamic_normals(*args)
+    want, want_counts = tn.dynamic_normals_plain(*args)
+    assert torch.equal(counts, want_counts)
+    _same_up_to_sign(normals.cpu().numpy(), want.cpu().numpy())
+
+
+def test_normal_cloud_kernel_tiles_a_large_cloud(cuda):
+    """A cloud of NORMAL_TILE + 2,000 atoms: two tiles each pass."""
+    from gorder_tpu_torch.ops import neighbors
+
+    coords, box, heads, cloud = _cloud_case(
+        5, cuda, B=3, M=20, extra=neighbors.NORMAL_TILE + 2000 - 120)
+    assert len(cloud) > neighbors.NORMAL_TILE
+    args = (coords, box, heads, cloud, 1.0, True)
+    _same_cloud(neighbors.normal_cloud(*args),
+                neighbors.normal_cloud_plain(*args))
+
+
+@pytest.mark.parametrize("tile", [None, 16])
+def test_normal_cloud_kernel_empty_cloud(cuda, monkeypatch, tile):
+    """A head whose cloud is empty: count 0 and a zero covariance, and
+    heads past the last whole block of 256 threads."""
+    from gorder_tpu_torch.ops import neighbors
+
+    if tile is not None:
+        monkeypatch.setattr(neighbors, "NORMAL_TILE", tile)
+    coords, box, heads, cloud = _cloud_case(7, cuda, B=2, M=150)
+    args = (coords, box, heads, cloud[1:], 0.05, True)
+    got = neighbors.normal_cloud(*args)
+    _same_cloud(got, neighbors.normal_cloud_plain(*args))
+    assert got[0].shape == (2, 300) and not got[0][:, 0].any()
+    assert not got[1][:, 0].any()
+
+
+@pytest.mark.parametrize("handle_pbc", [True, False])
+@pytest.mark.parametrize("tile", [None, 32])
+def test_local_sums_kernel_matches_plain(cuda, monkeypatch, handle_pbc,
+                                         tile):
+    """300 heads (two blocks, the second ragged) over 1,500 membrane atoms:
+    one tile of LOCAL_TILE, or tiles of 32."""
+    from gorder_tpu_torch.core import leaflets as tl
+    from gorder_tpu_torch.ops import neighbors
+
+    from .test_torch_leaflets import _membrane
+
+    if tile is not None:
+        monkeypatch.setattr(neighbors, "LOCAL_TILE", tile)
+    centers = None if handle_pbc else np.full(6, 4.0)
+    coords, box, membrane, heads, _, _ = _membrane(3, centers=centers,
+                                                   M=300)
+    coords, box = (torch.as_tensor(a, device=cuda) for a in (coords, box))
+    membrane, heads = (torch.as_tensor(a, device=cuda)
+                       for a in (membrane, heads))
+    args = (coords, box, membrane, heads, 2, 2.0, handle_pbc)
+    before = neighbors.local_launches
+    got = neighbors.local_sums(*args)
+    torch.cuda.synchronize()
+    assert neighbors.local_launches == before + 1
+    want = neighbors.local_sums_plain(*args)
+    assert got.shape == want.shape == (6, 300, 2)
+    # Σw·|v| ≤ count · max|v|: |cos θ|, |sin θ| ≤ 1, or |z| and 1
+    d = coords[:, None, membrane, :2] - coords[:, heads, None, :2]
+    if handle_pbc:
+        d = d - box[:, None, None, :2] * torch.round(d / box[:, None, None,
+                                                            :2])
+    count = ((d * d).sum(-1) <= 4.0).sum(-1).to(torch.float32)
+    z = 1.0 if handle_pbc else float(coords[:, membrane, 2].abs().max())
+    magnitude = torch.stack([count * z, count], -1)
+    assert bool(((got - want).abs() <= SUM_BOUND * magnitude + 1e-12).all())
+    if not handle_pbc:
+        assert torch.equal(got[..., 1], want[..., 1])
+    local = tl.LocalClassifier(membrane.cpu(), heads.cpu(), 2, 2.0,
+                               handle_pbc, device=cuda)
+    assert torch.equal(local(coords, box), local.plain(coords, box))
+
+
+def test_neighbor_kernels_reject_wrong_arguments(cuda):
+    from gorder_tpu_torch.ops import neighbors
+
+    coords, box, heads, cloud = _cloud_case(9, cuda, B=2, M=8)
+    with pytest.raises(TypeError):
+        neighbors.normal_cloud(coords.double(), box, heads, cloud, 2.0, True)
+    with pytest.raises(ValueError):
+        neighbors.normal_cloud(coords, box, heads.cpu(), cloud, 2.0, True)
+    with pytest.raises(TypeError):
+        neighbors.local_sums(coords, box, cloud.int(), heads, 2, 2.0, True)
+    with pytest.raises(ValueError):
+        neighbors.local_sums(coords, box[:, :2].contiguous(), cloud, heads,
+                             2, 2.0, True)

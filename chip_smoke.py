@@ -135,13 +135,23 @@ line each:
 17. run aa-clustering-leaflets: spectral clustering on the P heads over
    every frame (int16; labels oriented into leaflets on the host); its
    YAML must pass `bench.validate_output` against its golden and the
-   with_leaflets P2 kernel must have been launched once per batch. Then
-   that kernel against plain on the first batch with the classes the step
-   used, and the classifier's CUDA-event time a batch in both algebras
-   (the matmul branch the card runs, and batched `eigh`), their labels
-   compared with each other's and the CPU's. Then every 10th frame (b7
-   with the host class plane): its totals must equal the every-frame
-   run's;
+   with_leaflets P2 kernel must have been launched once per batch, the
+   spectral classifier's kernels (csrc/spectral.cu) once per batch each
+   but the thin QR, six times. Then that P2 kernel against plain on the
+   first batch with the classes the step used; `check_spectral`: each
+   spectral kernel against its plain version on that batch's 256 heads
+   (the similarity and degrees within their ulp bounds, the QR on the
+   chain's start basis and on the filter's ill-conditioned `gp @ q` and
+   the deflated span's two directions by orthonormality and projectors
+   within 1e-5, the k-means labels of every frame equal), with
+   CUDA-event times of kernel, plain and, for the QR and the span,
+   `torch.linalg.qr` and `torch.linalg.svd`, each bound, and the whole
+   call's device operations and time; and the classifier's CUDA-event
+   time a batch in both algebras (the matmul branch the card runs, and
+   batched `eigh`) and through the plain versions, the raw labels of
+   every frame equal to the plain chain's and the CPU's (the other
+   algebra's counted). Then every 10th frame (b7 with the host class
+   plane): its totals must equal the every-frame run's;
 18. run aa-spherical-leaflets: spherical clustering on the aa membrane
    (int16, the classifier with the step), against its golden, with the
    same kernel check and classifier time; and the `ua` analysis with
@@ -154,7 +164,8 @@ line each:
    .merge`: the merged YAML must equal phase 5's byte for byte; and
    `aa-clustering-leaflets` as 2 shards, whose shard 1 orients its
    clusters against global frame 0's: equal to phase 17's YAML byte for
-   byte. The kernel must have been launched once per shard batch;
+   byte. The kernel must have been launched once per shard batch (the
+   spectral kernels also once for shard 1's frame 0);
 20. run aa-palmitoyl: the sn-1 chain of the AA membrane (tools/
    bench_modes.py's aa-palmitoyl) as pygorder code runs it: `import
    gorder_tpu_torch.compat as gorder`, `gorder.Analysis(...,
@@ -330,6 +341,37 @@ LOCAL_MEMBER_OPS = 4
 #: f64 sums may differ from the plain versions' f32 ones (tests/
 #: test_torch_neighbors.py SUM_BOUND)
 NEIGHBOR_SUM_BOUND = 1e-5
+# The spectral classifier's kernels (csrc/spectral.cu), counted from the
+# source. spectral_affinity, per pair: the offset 3, the minimum image 12
+# (none without PBC), d2 5, sigma * d2 1, exp 1 (counted as one), the
+# degree's add 1 and the two scalings of S 2; per head 1/sqrt(degree) and
+# its guard 3. The kernel computes each pair's weight again in its second
+# pass: a cost it chose, which the bound does not count. The other three
+# work in f64, at the card's f64 rate outside the tensor cores: thin_qr3
+# per row, the three norms 6, the reflections of the later columns 15 and
+# of Q's three columns 45; top2_span per row, the four passes 2 + 8 + 20 +
+# 20; rayleigh_kmeans per row, the Rayleigh sums and the embedding 19 f64
+# once and the centroid sums 3 f64 a step, and in f32 the farthest-point
+# distance 5, the two distances and the test 11 a step and 11 for the
+# final labels.
+AFFINITY_PAIR_OPS = {True: 25, False: 13}
+AFFINITY_HEAD_OPS = 3
+QR_ROW_F64_OPS = 66
+SPAN_ROW_F64_OPS = 50
+KMEANS_ROW_F64_OPS, KMEANS_STEP_F64_OPS = 19, 3
+KMEANS_ROW_OPS, KMEANS_STEP_OPS = 16, 11
+#: the H100's f64 rate outside the tensor cores (NVIDIA's data sheet, SXM
+#: part at 700 W)
+F64_OPS_PER_S = 34e12
+#: the spectral classifier's similarity and degrees: the kernel sums a
+#: degree in f64 and rounds it once, torch in f32 in its own order
+#: (tests/test_torch_kernels.py); S takes two 1/sqrt(degree) factors; an
+#: entry below f32's normal range carries fewer bits
+SPECTRAL_DEGREE_RTOL = 1e-6
+SPECTRAL_S_RTOL = 2e-6
+TINY_F32 = 2.0 ** -126
+#: the bases' orthonormality and projectors, ||.||_2
+SPECTRAL_BASIS_TOL = 1e-5
 #: the AA runs with membrane normals that are not static: tools/
 #: bench_modes.py's two dynamic modes (:339-344, :371-373), whose goldens
 #: are pinned, and the inline manual map of (0, 0, 1) for every molecule
@@ -931,11 +973,12 @@ def n_bytes(*tensors):
                if t is not None)
 
 
-def bound(moved, ops):
-    """(ms, 'bytes' or 'operations'): the least time for `moved` bytes and
-    `ops` f32 operations on the card."""
+def bound(moved, ops, f64_ops=0):
+    """(ms, 'bytes' or 'operations'): the least time for `moved` bytes,
+    `ops` f32 operations and `f64_ops` f64 ones on the card (its f32 and
+    f64 units run side by side)."""
     by_bytes = moved / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / F32_OPS_PER_S * 1e3
+    by_ops = max(ops / F32_OPS_PER_S, f64_ops / F64_OPS_PER_S) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                             "operations")
 
@@ -979,10 +1022,11 @@ def compare(label, kernel, plain, counter, launches, shape):
     return numbers
 
 
-def with_bound(label, numbers, moved, ops):
-    numbers["bound_ms"], numbers["bound_by"] = bound(moved, ops)
+def with_bound(label, numbers, moved, ops, f64_ops=0):
+    numbers["bound_ms"], numbers["bound_by"] = bound(moved, ops, f64_ops)
     print(f"kernel {label}: bound {numbers['bound_ms']:.4f} ms "
-          f"({numbers['bound_by']}; {moved} bytes, {ops} f32 operations)",
+          f"({numbers['bound_by']}; {moved} bytes, {ops} f32 operations"
+          + (f", {f64_ops} f64 operations" if f64_ops else "") + ")",
           flush=True)
     return numbers
 
@@ -1849,26 +1893,17 @@ def first_calls():
 
 def check_f32_matmuls():
     """Clustering's products must run in full f32: TF32 off, the f32
-    matmul precision "highest" (PyTorch's defaults)."""
-    import torch
+    matmul precision "highest" (PyTorch's defaults;
+    ops/spectral.py `require_f32_matmuls`)."""
+    from gorder_tpu_torch.ops import spectral
 
-    precision = torch.get_float32_matmul_precision()
-    if torch.backends.cuda.matmul.allow_tf32 or precision != "highest":
-        raise RuntimeError(f"TF32 matmuls are on (allow_tf32 "
-                           f"{torch.backends.cuda.matmul.allow_tf32}, "
-                           f"precision {precision!r}): clustering needs f32")
+    spectral.require_f32_matmuls("cuda")
     print("clustering: f32 matmuls in full precision (allow_tf32 False, "
           "precision 'highest')", flush=True)
 
 
-def time_clustering(label, analysis, db):
-    """CUDA-event time of the run's clustering classifier on its first
-    batch (`db`, the f32 coordinates of the int16 wire), per batch of 512
-    frames: spectral in both algebras (the card's matmul branch and
-    batched `eigh`), spherical in its one. The two spectral branches' raw
-    labels are compared frame by frame, and with the CPU's (LAPACK eigh),
-    and the frames that differ counted. → {branch: ms}."""
-    from gorder_tpu_torch.core import clustering
+def cluster_heads(analysis):
+    """The run's clustering head cloud, as indices into its atom space."""
     from gorder_tpu_torch.engine.leaflet_runtime import _cluster_head_cloud
     from gorder_tpu_torch.engine.prepare import (
         _build_atom_space, _prepare_bond_kinds, load_structure)
@@ -1878,7 +1913,29 @@ def time_clustering(label, analysis, db):
     _, remap = _build_atom_space(system, analysis,
                                  [compiled.atom_a, compiled.atom_b])
     cloud, _ = _cluster_head_cloud(system, kinds, analysis.leaflets.heads)
-    heads = remap(cloud)
+    return remap(cloud)
+
+
+def spectral_counters(calls):
+    """The spectral classifier's launch counts after `calls` calls of its
+    dense matmul branch: each pass once, the thin QR six times."""
+    return {"affinity_launches": calls, "qr_launches": 6 * calls,
+            "span_launches": calls, "kmeans_launches": calls}
+
+
+def time_clustering(label, analysis, db):
+    """CUDA-event time of the run's clustering classifier on its first
+    batch (`db`, the f32 coordinates of the int16 wire), per batch of 512
+    frames: spectral in both algebras (the card's matmul branch, whose
+    passes are the kernels of csrc/spectral.cu, and batched `eigh`) and its
+    matmul chain through the plain versions, spherical in its one. The
+    spectral raw labels are compared frame by frame with the plain
+    chain's, the other algebra's and the CPU's (LAPACK eigh), and the
+    frames that differ counted: none may differ from the plain chain's or
+    the CPU's. → {branch: ms}."""
+    from gorder_tpu_torch.core import clustering
+
+    heads = cluster_heads(analysis)
     coords = wire_inputs(db)["f32"][0]
     valid = db.mask
     out, labels = {}, {}
@@ -1889,18 +1946,237 @@ def time_clustering(label, analysis, db):
         branches = {f"spectral {algebra}": clustering.make_spectral_labels(
             heads, analysis.handle_pbc, device="cuda", algebra=algebra)
             for algebra in ("matmul", "eigh")}
+        branches["spectral matmul plain"] = \
+            branches["spectral matmul"].plain
     for name, fn in branches.items():
         labels[name] = fn(coords, db.box)[valid].cpu()
         out[name] = cuda_ms(lambda f=fn: f(coords, db.box), reps=3, warmup=1)
     cpu = (clustering.make_spectral_labels if len(branches) > 1 else
            clustering.make_spherical_classifier)(heads, analysis.handle_pbc)(
         coords[valid].cpu(), db.box[valid].cpu())
-    agree = ", ".join(f"{name} vs cpu {int((l != cpu).any(1).sum())}"
-                      for name, l in labels.items())
+    differ = {f"{name} vs cpu": int((l != cpu).any(1).sum())
+              for name, l in labels.items()}
+    if len(branches) > 1:
+        differ["spectral matmul vs plain"] = int(
+            (labels["spectral matmul"] != labels["spectral matmul plain"])
+            .any(1).sum())
     print(f"classify {label}: device ms per batch of {int(valid.sum())} "
           f"frames, M={len(heads)} heads: "
           + ", ".join(f"{name} {ms:.4f}" for name, ms in out.items())
-          + f"; frames whose raw labels differ: {agree}", flush=True)
+          + "; frames whose raw labels differ: "
+          + ", ".join(f"{k} {v}" for k, v in differ.items()), flush=True)
+    bad = {k: v for k, v in differ.items()
+           if v and k in ("spectral matmul vs cpu", "spectral matmul vs plain",
+                          "spherical vs cpu")}
+    if bad:
+        raise RuntimeError(f"{label}: raw labels differ in {bad} frames")
+    return out
+
+
+def check_spectral(label, analysis, db):
+    """The spectral classifier's kernels (ops/spectral.py, csrc/
+    spectral.cu) against their plain versions on a batch the main path
+    handed to its step (`db`: the valid frames' f32 coordinates of the
+    int16 wire, the run's head cloud), at the shapes the chain gives each:
+    the similarity and degrees (within SPECTRAL_S_RTOL and _DEGREE_RTOL);
+    the thin QR on the chain's start basis and on the filter's `gp @ q`
+    (orthonormal, and the projectors of the columns whose singular values
+    stand clear of f64 rounding within SPECTRAL_BASIS_TOL); the deflated
+    span's two directions (the same); the k-means labels of every frame
+    equal. Each kernel's launch count must grow by one a call. Then
+    CUDA-event times in turns, plain, kernel, kernel, plain, and of the
+    one PyTorch call that computes the same function where there is one
+    (`torch.linalg.qr`; `torch.linalg.svd` of the deflated span), each
+    kernel's bound, and the whole classifier call's device operations (a
+    `torch.profiler` count of its kernels, copies and sets), its time and
+    the plain chain's, and the bound of its 12 squarings. → {kernel:
+    dict(max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by)}."""
+    import torch
+
+    from gorder_tpu_torch.core import clustering as cl
+    from gorder_tpu_torch.ops import spectral
+
+    heads = cluster_heads(analysis)
+    valid = db.mask
+    coords = wire_inputs(db)["f32"][0][valid].contiguous()
+    box = db.box[valid].contiguous()
+    pbc = analysis.handle_pbc
+    here = coords.device
+    h = coords.index_select(1, torch.as_tensor(heads, device=here))
+    n_frames, n = h.shape[:2]
+
+    def grew(name, fn):
+        before = getattr(spectral, name)
+        got = fn()
+        torch.cuda.synchronize()
+        if getattr(spectral, name) != before + 1:
+            raise RuntimeError(f"{label}: {name} grew by "
+                               f"{getattr(spectral, name) - before}")
+        return got
+
+    def times(kernel, plain, library=None):
+        plain_ms = cuda_ms(plain, reps=5, warmup=1)
+        ms = cuda_ms(kernel, reps=20, warmup=3)
+        ms2 = cuda_ms(kernel, reps=20, warmup=0)
+        plain_ms2 = cuda_ms(plain, reps=5, warmup=0)
+        lib = (None if library is None
+               else cuda_ms(library, reps=5, warmup=1))
+        return dict(ms=min(ms, ms2), plain_ms=min(plain_ms, plain_ms2),
+                    library_ms=lib), (plain_ms, ms, ms2, plain_ms2)
+
+    def projector_err(a, b, k):
+        a, b = a.double()[..., :k], b.double()[..., :k]
+        return float((a @ a.transpose(1, 2) - b @ b.transpose(1, 2))
+                     .abs().max())
+
+    def orthonormality(q):
+        q = q.double()
+        eye = torch.eye(q.shape[-1], dtype=q.dtype, device=q.device)
+        return float(torch.linalg.matrix_norm(q.transpose(1, 2) @ q - eye,
+                                              ord=2).max())
+
+    def gap(a, b, k):
+        a, b = a.double()[..., :k], b.double()[..., :k]
+        return float(torch.linalg.matrix_norm(
+            a @ a.transpose(1, 2) - b @ b.transpose(1, 2), ord=2).max())
+
+    out = {}
+    # the similarity
+    s_mat, degree = grew("affinity_launches", lambda: spectral.
+                         spectral_affinity(h, box, pbc, cl.PRECISE_SIGMA))
+    want_s, want_degree = spectral.spectral_affinity_plain(
+        h, box, pbc, cl.PRECISE_SIGMA)
+    d_err = (degree - want_degree).abs()
+    s_err = (s_mat - want_s).abs()
+    if bool((d_err > SPECTRAL_DEGREE_RTOL * want_degree.abs()).any()
+            or (s_err > SPECTRAL_S_RTOL * want_s.abs() + TINY_F32).any()):
+        raise RuntimeError(f"{label}: similarity off by up to "
+                           f"{float(s_err.max()):.3e}, degrees "
+                           f"{float(d_err.max()):.3e}")
+    numbers, seq = times(
+        lambda: spectral.spectral_affinity(h, box, pbc, cl.PRECISE_SIGMA),
+        lambda: spectral.spectral_affinity_plain(h, box, pbc,
+                                                 cl.PRECISE_SIGMA))
+    print(f"kernel spectral_affinity {label}: B={n_frames}, n={n} heads; "
+          f"S within {SPECTRAL_S_RTOL:g} of plain's, max |diff| "
+          f"{float(s_err.max()):.3e}; degrees within "
+          f"{SPECTRAL_DEGREE_RTOL:g}, max |diff| {float(d_err.max()):.3e}; "
+          "ms per call: plain {:.4f}, kernel {:.4f}, kernel {:.4f}, plain "
+          "{:.4f}".format(*seq), flush=True)
+    out["spectral_affinity"] = with_bound(
+        f"spectral_affinity {label}",
+        dict(numbers, max_abs_err=float(s_err.max())),
+        n_bytes(h, box, s_mat, degree),
+        AFFINITY_PAIR_OPS[pbc] * n_frames * n * n
+        + AFFINITY_HEAD_OPS * n_frames * n)
+
+    # the thin QR: the chain's start basis and the filter's gp @ q
+    v0 = torch.sqrt(torch.clamp(want_degree, min=0.0))
+    v0 = v0 / torch.clamp(cl._norm(v0), min=1e-30)
+    i = torch.arange(n, dtype=torch.float32, device=here)
+    start = torch.stack([v0, torch.sin(0.7 * i + 0.3).expand_as(v0),
+                         torch.cos(1.3 * i + 0.1).expand_as(v0)], -1)
+    gp = want_s / cl._frame_max(want_s)
+    for _ in range(12):
+        gp = gp @ gp
+        gp = gp / cl._frame_max(gp)
+    ill = gp @ spectral.thin_qr3_plain(start)
+    qr_err, notes = 0.0, []
+    for name, a in (("start", start), ("gp @ q", ill)):
+        q = grew("qr_launches", lambda a=a: spectral.thin_qr3(a))
+        want = spectral.thin_qr3_plain(a)
+        sv = torch.linalg.svdvals(a.double())
+        k = int((sv >= 1e-6 * sv[:, :1]).all(0).sum())
+        ortho = max(orthonormality(q), orthonormality(want))
+        err = gap(q, want, k)
+        if ortho > SPECTRAL_BASIS_TOL or err > SPECTRAL_BASIS_TOL:
+            raise RuntimeError(f"{label}: thin_qr3 on {name}: "
+                               f"||Q'Q - I|| {ortho:.3e}, projectors of "
+                               f"{k} columns {err:.3e}")
+        qr_err = max(qr_err, projector_err(q, want, k))
+        notes.append(f"{name} (largest condition number "
+                     f"{float((sv[:, 0] / sv[:, 2]).max()):.3e}): "
+                     f"||Q'Q - I|| <= {ortho:.3e}, projectors of {k} "
+                     f"columns within {err:.3e}")
+    numbers, seq = times(lambda: spectral.thin_qr3(ill),
+                         lambda: spectral.thin_qr3_plain(ill),
+                         lambda: torch.linalg.qr(ill, mode="reduced"))
+    print(f"kernel thin_qr3 {label}: B={n_frames}, n={n}; "
+          + "; ".join(notes)
+          + "; ms per call: plain {:.4f}, kernel {:.4f}, kernel {:.4f}, "
+          "plain {:.4f}".format(*seq)
+          + f", torch.linalg.qr {numbers['library_ms']:.4f}", flush=True)
+    out["thin_qr3"] = with_bound(
+        f"thin_qr3 {label}", dict(numbers, max_abs_err=qr_err),
+        2 * n_bytes(ill), 0, QR_ROW_F64_OPS * n_frames * n)
+
+    # the deflated span's two leading directions
+    span = cl._top3_subspace(want_s, v0, spectral.thin_qr3_plain)
+    u2 = grew("span_launches", lambda: spectral.top2_span(span, want_degree))
+    want_u2 = spectral.top2_span_plain(span, want_degree)
+    ortho, err = orthonormality(u2), gap(u2, want_u2, 2)
+    if ortho > SPECTRAL_BASIS_TOL or err > SPECTRAL_BASIS_TOL:
+        raise RuntimeError(f"{label}: top2_span: ||U'U - I|| {ortho:.3e}, "
+                           f"projectors {err:.3e}")
+    v = torch.sqrt(want_degree)
+    v = v / cl._norm(v)
+    deflated = span - v[..., None] * (v[:, None, :] @ span)
+    numbers, seq = times(
+        lambda: spectral.top2_span(span, want_degree),
+        lambda: spectral.top2_span_plain(span, want_degree),
+        lambda: torch.linalg.svd(deflated, full_matrices=False))
+    print(f"kernel top2_span {label}: B={n_frames}, n={n}; ||U'U - I|| "
+          f"{ortho:.3e}, projectors within {err:.3e}; ms per call: plain "
+          "{:.4f}, kernel {:.4f}, kernel {:.4f}, plain {:.4f}".format(*seq)
+          + f", torch.linalg.svd of the deflated span "
+          f"{numbers['library_ms']:.4f}", flush=True)
+    out["top2_span"] = with_bound(
+        f"top2_span {label}",
+        dict(numbers, max_abs_err=projector_err(u2, want_u2, 2)),
+        n_bytes(span, want_degree, u2), 0, SPAN_ROW_F64_OPS * n_frames * n)
+
+    # the embedding's k-means
+    lu2 = want_u2 - want_s @ want_u2
+    iters = cl.KMEANS_ITERS
+    labels = grew("kmeans_launches",
+                  lambda: spectral.rayleigh_kmeans(want_u2, lu2, iters))
+    want_labels = spectral.rayleigh_kmeans_plain(want_u2, lu2, iters)
+    differ = int((labels != want_labels).any(1).sum())
+    if differ:
+        raise RuntimeError(f"{label}: rayleigh_kmeans labels differ from "
+                           f"plain's in {differ} of {n_frames} frames")
+    numbers, seq = times(
+        lambda: spectral.rayleigh_kmeans(want_u2, lu2, iters),
+        lambda: spectral.rayleigh_kmeans_plain(want_u2, lu2, iters))
+    print(f"kernel rayleigh_kmeans {label}: B={n_frames}, n={n}, {iters} "
+          f"steps; the labels of all {n_frames} frames == plain's; ms per "
+          "call: plain {:.4f}, kernel {:.4f}, kernel {:.4f}, plain "
+          "{:.4f}".format(*seq), flush=True)
+    out["rayleigh_kmeans"] = with_bound(
+        f"rayleigh_kmeans {label}", dict(numbers, max_abs_err=0),
+        n_bytes(want_u2, lu2, labels),
+        (KMEANS_ROW_OPS + KMEANS_STEP_OPS * (iters + 1)) * n_frames * n,
+        (KMEANS_ROW_F64_OPS + KMEANS_STEP_F64_OPS * iters) * n_frames * n)
+
+    # the whole call: its device operations, its time and the plain chain's
+    from torch.profiler import ProfilerActivity, profile
+
+    classify = cl.make_spectral_labels(heads, pbc, device="cuda")
+    classify(coords, box)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        classify(coords, box)
+        torch.cuda.synchronize()
+    device_ops = sum(1 for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+    call_ms = cuda_ms(lambda: classify(coords, box), reps=5, warmup=1)
+    plain_ms = cuda_ms(lambda: classify.plain(coords, box), reps=2, warmup=1)
+    squarings_ms, _ = bound(0, 12 * 2 * n ** 3 * n_frames)
+    print(f"classify spectral {label}: one call on B={n_frames} frames: "
+          f"{device_ops} device operations (torch.profiler: kernels, copies, "
+          f"sets); {call_ms:.4f} ms with the kernels, {plain_ms:.4f} ms "
+          f"through the plain versions; the 12 squarings' bound "
+          f"{squarings_ms:.4f} ms (operations)", flush=True)
     return out
 
 
@@ -2128,10 +2404,10 @@ run_notes = {}
 
 
 def _launch_counts():
-    from gorder_tpu_torch.ops import neighbors, p2, ua
+    from gorder_tpu_torch.ops import neighbors, p2, spectral, ua
 
-    return [(mod, name) for mod in (p2, ua, neighbors) for name in dir(mod)
-            if name.endswith("_launches")]
+    return [(mod, name) for mod in (p2, ua, neighbors, spectral)
+            for name in dir(mod) if name.endswith("_launches")]
 
 
 def zero_launches():
@@ -2223,8 +2499,10 @@ def kernel_entry(name, source, replaces, launches, numbers):
             "plain_ms": numbers["plain_ms"],
             "bound_ms": numbers["bound_ms"],
             "bound_by": numbers["bound_by"],
-            # no one PyTorch call computes these order-parameter sums
-            "library_ms": None}
+            # one PyTorch call that computes the same function, where there
+            # is one (the spectral QR and SVD); none computes the order-
+            # parameter or neighbour sums
+            "library_ms": numbers.get("library_ms")}
 
 
 def cg_analysis(g, gro, bnd, trajectory, output_yaml=None, **kw):
@@ -3504,18 +3782,26 @@ def main() -> int:
         os.path.join(cache, "smoke_aa-clustering-leaflets.yaml"))
     got, clustered, first = run_golden(
         "aa-clustering-leaflets", clustering,
-        {"p2_i16_leaflets_launches": n_batches}, N_FRAMES,
+        {"p2_i16_leaflets_launches": n_batches,
+         **spectral_counters(n_batches)}, N_FRAMES,
         wire="wire format: i16", force="i16")
     clustering_launches["aa-clustering-leaflets"] = \
         got["p2_i16_leaflets_launches"]
+    spectral_runs = collections.Counter(
+        {k: got[k] for k in spectral_counters(0)})
     check_p2("aa-clustering-leaflets", first, True)
+    spectral_numbers = check_spectral("aa-clustering-leaflets", clustering,
+                                      first)
     time_clustering("aa-clustering-leaflets", clustering, first)
     del first
+    # every batch holds frames of the every-10th assignment
     results, _, got_every10, _, _ = _run(
         "aa-clustering-leaflets-every10", leaflet_analysis(
             "aa-clustering-leaflets-every10", *aab, cache,
             os.path.join(cache, "smoke_aa-clustering-every10.yaml")),
-        {"p2_leaflets_launches": n_batches}, N_FRAMES, force="b7")
+        {"p2_leaflets_launches": n_batches, **spectral_counters(n_batches)},
+        N_FRAMES, force="b7")
+    spectral_runs.update({k: got_every10[k] for k in spectral_counters(0)})
     if _orders(results, "total") != _orders(clustered, "total"):
         raise RuntimeError("aa-clustering-leaflets-every10: totals differ "
                            "from the every-frame run's")
@@ -3524,13 +3810,17 @@ def main() -> int:
 
     # 19b. aa-clustering-leaflets as 2 frame shards: shard 1 orients its
     # clusters against global frame 0's; byte for byte phase 17's YAML
+    # (the classifier runs once a batch and once more for shard 1's frame 0)
     shard_batches = 2 * math.ceil(N_FRAMES / 2 / BATCH)
     sharded_clustering = run_sharded(
         "aa-clustering-sharded", leaflet_analysis(
             "aa-clustering-leaflets", *aab, cache,
             os.path.join(cache, "smoke_aa-clustering-sharded.yaml")), 2,
-        {"p2_i16_leaflets_launches": shard_batches},
+        {"p2_i16_leaflets_launches": shard_batches,
+         **spectral_counters(shard_batches + 1)},
         clustering.output_yaml, cache, force="i16")
+    spectral_runs.update({k: sharded_clustering[k]
+                          for k in spectral_counters(0)})
 
     p2_src, ua_src = ("gorder_tpu_torch/csrc/p2.cu",
                       "gorder_tpu_torch/csrc/ua.cu")
@@ -3611,6 +3901,17 @@ def main() -> int:
         kernel_entry("local_leaflets", neighbors_src,
                      "gorder_tpu/core/leaflets.py:107", local_runs,
                      local_numbers)]
+    # nor do the spectral classifier's passes: XLA ops in gorder_tpu's
+    # `_spectral_labels`, at the lines named
+    for name, count, line in (
+            ("spectral_affinity", "affinity_launches", 160),
+            ("thin_qr3", "qr_launches", 136),
+            ("top2_span", "span_launches", 190),
+            ("rayleigh_kmeans", "kmeans_launches", 198)):
+        kernels.append(kernel_entry(
+            name, "gorder_tpu_torch/csrc/spectral.cu",
+            f"gorder_tpu/core/clustering.py:{line}", spectral_runs[count],
+            spectral_numbers[name]))
     # the launches of the pick, mesh and knob phases, by kernel entry; the
     # inputs the pick fed that no entry above has get their own
     extra = collections.Counter()

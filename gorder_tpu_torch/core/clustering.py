@@ -28,10 +28,20 @@ filtered subspace iteration, Newton–Schulz), which is batched GEMMs where
 a batched `eigh` of matrices larger than 32 × 32 runs one matrix at a
 time. The `algebra` argument picks a branch explicitly. The products are
 meant in full f32: TF32 matmuls (`torch.backends.cuda.matmul.allow_tf32`)
-must stay off, as they are by default. The eigenvectors differ by branch
-and backend, the labels do not: a rotation or a sign flip of the
-embedding leaves the k-means result the same, since its init is row 0
-and the row farthest from it and it depends only on distances.
+must stay off, as they are by default (`ops/spectral.py
+require_f32_matmuls`). The eigenvectors differ by branch and backend, the
+labels do not: a rotation or a sign flip of the embedding leaves the
+k-means result the same, since its init is row 0 and the row farthest
+from it and it depends only on distances.
+
+The per-frame passes go through `ops/spectral.py`, whose wrappers launch
+hand-written kernels on the card and run their plain versions on the CPU:
+the similarity (dense path), the thin QR of the subspace iteration (matmul
+branch), the deflated span's two leading directions, and the embedding's
+k-means. The large products (the filter's squarings, the subspace and
+Laplacian products) stay `torch.matmul`. A classifier's `.plain` runs the
+same chain through the plain versions on any device, which is what the
+card's kernels are held to.
 """
 
 from __future__ import annotations
@@ -42,6 +52,8 @@ import numpy as np
 import torch
 
 from ..errors import ClusterError
+from ..ops import spectral
+from ..ops.spectral import sq_distances
 from ..parallel.mesh import Replicas
 from .pbc import circular_mean_cog, min_image, naive_cog
 
@@ -84,48 +96,6 @@ def _norm(v):
     return torch.linalg.vector_norm(v, dim=-1, keepdim=True)
 
 
-def _sq_distances(a, b, box, handle_pbc):
-    """(B, n, m) squared (min-image) distances between (B, n, 3) and
-    (B, m, 3) points, summed over the components in order, as the JAX
-    package sums its (…, 3) differences."""
-    total = None
-    for k in range(3):
-        d = a[:, :, None, k] - b[:, None, :, k]
-        if handle_pbc:
-            d = min_image(d, box[:, None, None, k])
-        total = d * d if total is None else total + d * d
-    return total
-
-
-def _pairwise_sq_distances(points, box, handle_pbc):
-    """(B, n, n) squared distances of the (B, n, 3) points."""
-    return _sq_distances(points, points, box, handle_pbc)
-
-
-def _kmeans2(embedding):
-    """(B, n, k) → (B, n) int32 labels: deterministic k-means with k = 2,
-    farthest-point init (c0 = row 0, c1 = the row farthest from it) and
-    KMEANS_ITERS fixed iterations; an empty cluster falls back to row 0
-    (gorder_tpu/core/clustering.py:51-83)."""
-    first = embedding[:, 0]                                   # (B, k)
-    far = torch.argmax(((embedding - first[:, None]) ** 2).sum(-1), dim=1)
-    rows = torch.arange(embedding.shape[0], device=embedding.device)
-    c0, c1 = first, embedding[rows, far]
-    for _ in range(KMEANS_ITERS):
-        d0 = ((embedding - c0[:, None]) ** 2).sum(-1)
-        d1 = ((embedding - c1[:, None]) ** 2).sum(-1)
-        w1 = (d1 < d0).to(embedding.dtype)[..., None]         # (B, n, 1)
-        w0 = 1.0 - w1
-        n0, n1 = w0.sum(dim=(1, 2)), w1.sum(dim=(1, 2))       # (B,)
-        c0 = (embedding * w0).sum(1) / torch.clamp(n0, min=1.0)[:, None]
-        c1 = (embedding * w1).sum(1) / torch.clamp(n1, min=1.0)[:, None]
-        c0 = torch.where((n0 > 0)[:, None], c0, first)
-        c1 = torch.where((n1 > 0)[:, None], c1, first)
-    d0 = ((embedding - c0[:, None]) ** 2).sum(-1)
-    d1 = ((embedding - c1[:, None]) ** 2).sum(-1)
-    return (d1 < d0).to(torch.int32)
-
-
 def _inv_sqrt_spd(a, ridge=1e-4, iters=48):
     """(B, m, m) → A^{-1/2} of each SPD matrix by coupled Newton–Schulz
     iteration (pure matmuls), after a small ridge; the spectral scale
@@ -147,69 +117,42 @@ def _inv_sqrt_spd(a, ridge=1e-4, iters=48):
     return z / torch.sqrt(lam)
 
 
-def _top3_subspace(s_mat, v0, squarings=12, iters=4):
+def _top3_subspace(s_mat, v0, thin_qr3, squarings=12, iters=4):
     """(B, n, n) symmetric PSD matrices and (B, n) start vectors → (B, n,
     3) orthonormal bases of their top-3 eigenspaces, by polynomial-filtered
     deterministic subspace iteration: the matrix squared `squarings` times
     (rescaled by its largest entry after each, per frame), `iters` QR
-    iterations with it, and one final un-filtered one
-    (gorder_tpu/core/clustering.py:115-151)."""
+    iterations with it, and one final un-filtered one, each QR by
+    `thin_qr3` (gorder_tpu/core/clustering.py:115-151)."""
+    spectral.require_f32_matmuls(s_mat.device)
     n = s_mat.shape[-1]
     i = torch.arange(n, dtype=s_mat.dtype, device=s_mat.device)
     r1 = torch.sin(0.7 * i + 0.3).expand_as(v0)
     r2 = torch.cos(1.3 * i + 0.1).expand_as(v0)
-    q = torch.linalg.qr(torch.stack([v0, r1, r2], dim=-1),
-                        mode="reduced").Q
+    q = thin_qr3(torch.stack([v0, r1, r2], dim=-1))
     gp = s_mat / _frame_max(s_mat)
     for _ in range(squarings):
         gp = gp @ gp
         gp = gp / _frame_max(gp)
     for _ in range(iters):
-        q = torch.linalg.qr(gp @ q, mode="reduced").Q
-    return torch.linalg.qr(s_mat @ q, mode="reduced").Q
+        q = thin_qr3(gp @ q)
+    return thin_qr3(s_mat @ q)
 
 
-def _rayleigh_weighted(u2, lap):
-    """Rayleigh–Ritz the normalized Laplacian within each frame's deflated
-    2-D span (B, n, 2), shrink the higher-energy direction by √(λ₁/λ₂),
-    then normalize the rows (gorder_tpu/core/clustering.py:198-235: the
-    inter-cluster indicator stays dominant whatever the span's rotation).
-    `lap` maps (B, n) vectors to (B, n)."""
-    a, b = u2[..., 0], u2[..., 1]
-    la, lb = lap(a), lap(b)
-    h00 = (a * la).sum(-1)
-    h01 = (a * lb).sum(-1)
-    h11 = (b * lb).sum(-1)
-    h = torch.stack([torch.stack([h00, h01], -1),
-                     torch.stack([h01, h11], -1)], -2)          # (B, 2, 2)
-    lam, q = torch.linalg.eigh(h)                               # ascending
-    v = u2 @ q
-    lam = torch.clamp(lam, min=1e-9)
-    w = torch.sqrt(lam[:, 0] / lam[:, 1])                       # ≤ 1
-    embedding = torch.stack([v[..., 0], v[..., 1] * w[:, None]], dim=-1)
-    norm = torch.sqrt((embedding ** 2).sum(-1, keepdim=True))
-    return torch.where(norm > 1e-10, embedding / norm, embedding)
-
-
-def _embed(u, degree, lap):
+def _embed(u, degree, lap, ops):
     """Deflate v0 = D^{1/2}·1 from the (B, n, 3) span `u`, take the two
-    principal directions of the remainder and weight them by energy."""
-    v0 = torch.sqrt(torch.clamp(degree, min=0.0))
-    v0 = v0 / torch.clamp(_norm(v0), min=1e-30)
-    span = u - v0[..., None] * (v0[:, None, :] @ u)
-    uu = torch.linalg.svd(span, full_matrices=False).U
-    return _rayleigh_weighted(uu[..., :2], lap)
+    principal directions of the remainder, weight them by energy and
+    cluster them: → (B, n) raw k-means labels. `lap` maps a (B, n, 2)
+    span to its normalized-Laplacian products."""
+    u2 = ops.top2_span(u.contiguous(), degree)
+    return ops.rayleigh_kmeans(u2, lap(u2), KMEANS_ITERS)
 
 
-def _spectral_chunk(heads, box, handle_pbc, algebra):
+def _spectral_chunk(heads, box, handle_pbc, algebra, ops):
     """(B, n, 3) head positions → (B, n) raw k-means labels, dense path
-    (gorder_tpu/core/clustering.py:154-195)."""
-    w = torch.exp(-PRECISE_SIGMA * _pairwise_sq_distances(heads, box,
-                                                          handle_pbc))
-    degree = w.sum(-1)
-    d_inv_sqrt = torch.where(degree > 1e-10, 1.0 / torch.sqrt(degree),
-                             torch.zeros_like(degree))
-    s_mat = w * d_inv_sqrt[:, :, None] * d_inv_sqrt[:, None, :]
+    (gorder_tpu/core/clustering.py:154-195), through `ops` (an
+    `ops.spectral.Ops`)."""
+    s_mat, degree = ops.affinity(heads, box, handle_pbc, PRECISE_SIGMA)
     if algebra == "eigh":
         n = heads.shape[1]
         eye = torch.eye(n, dtype=s_mat.dtype, device=s_mat.device)
@@ -217,21 +160,17 @@ def _spectral_chunk(heads, box, handle_pbc, algebra):
     else:
         v0 = torch.sqrt(torch.clamp(degree, min=0.0))
         v0 = v0 / torch.clamp(_norm(v0), min=1e-30)
-        span = _top3_subspace(s_mat, v0)
-
-    def lap(v):
-        return v - (s_mat @ v[..., None])[..., 0]
-
-    return _kmeans2(_embed(span, degree, lap))
+        span = _top3_subspace(s_mat, v0, ops.thin_qr3)
+    return _embed(span, degree, lambda u2: u2 - s_mat @ u2, ops)
 
 
-def _nystrom_chunk(heads, box, landmark_pos, handle_pbc, algebra):
+def _nystrom_chunk(heads, box, landmark_pos, handle_pbc, algebra, ops):
     """(B, n, 3) head positions → (B, n) raw k-means labels through a
     Nyström spectral embedding W ≈ C W_LL⁻¹ Cᵀ over the landmark heads
-    (gorder_tpu/core/clustering.py:251-322)."""
+    (gorder_tpu/core/clustering.py:251-322), through `ops`."""
     marks = heads.index_select(1, landmark_pos)                 # (B, m, 3)
-    c = torch.exp(-PRECISE_SIGMA * _sq_distances(heads, marks, box,
-                                                 handle_pbc))   # (B, n, m)
+    c = torch.exp(-PRECISE_SIGMA * sq_distances(heads, marks, box,
+                                                handle_pbc))    # (B, n, m)
     w_ll = c.index_select(1, landmark_pos)                      # (B, m, m)
     t = c.sum(1)[..., None]                                     # Cᵀ·1
     if algebra == "eigh":
@@ -258,16 +197,13 @@ def _nystrom_chunk(heads, box, landmark_pos, handle_pbc, algebra):
         gi = torch.arange(g.shape[-1], dtype=g.dtype, device=g.device)
         gv = torch.sin(0.7 * gi + 0.3)
         q3 = _top3_subspace(g, (gv / torch.linalg.vector_norm(gv))
-                            .expand(g.shape[0], -1))
+                            .expand(g.shape[0], -1), ops.thin_qr3)
         mu3, e3 = torch.linalg.eigh(q3.transpose(1, 2) @ (g @ q3))  # 3×3
         top = q3 @ e3
         mu_top = torch.clamp(mu3, min=1e-12)
     u = (r @ top) * (1.0 / torch.sqrt(mu_top))[:, None, :]      # (B, n, 3)
-
-    def lap(v):
-        return v - (r @ (r.transpose(1, 2) @ v[..., None]))[..., 0]
-
-    return _kmeans2(_embed(u, degree, lap))
+    return _embed(u, degree, lambda u2: u2 - r @ (r.transpose(1, 2) @ u2),
+                  ops)
 
 
 def _by_chunks(fn, coords, box_diag, per_frame: int):
@@ -283,15 +219,18 @@ def make_spectral_labels(head_indices, handle_pbc=True, device="cpu",
     3) f32 coordinates and (B, 3) box lengths → (B, n) int32 raw k-means
     labels, to be oriented by `SpectralOrienter`. Dense up to
     DENSE_CLUSTER_HEADS heads, Nyström above. `algebra` ('eigh' or
-    'matmul') overrides the choice by the coordinates' device."""
+    'matmul') overrides the choice by the coordinates' device. The
+    classifier's `.plain` gives the labels of the same chain through the
+    plain versions of `ops/spectral.py`, on any device."""
     head_indices = np.asarray(head_indices, np.int64)
     head_d = Replicas(torch.as_tensor(head_indices, device=device))
     n = len(head_indices)
     if n <= DENSE_CLUSTER_HEADS:
-        def chunk(coords, box_diag):
+        def chunk(coords, box_diag, ops):
             return _spectral_chunk(
-                coords.index_select(1, head_d.on(coords.device)), box_diag,
-                handle_pbc, _algebra(coords.device, algebra))
+                coords.index_select(1, head_d.on(coords.device)),
+                box_diag.contiguous(), handle_pbc,
+                _algebra(coords.device, algebra), ops)
 
         per_frame = n * n
     else:
@@ -301,17 +240,24 @@ def make_spectral_labels(head_indices, handle_pbc=True, device="cpu",
             np.linspace(0, n - 1, m).round().astype(np.int64)),
             device=device))
 
-        def chunk(coords, box_diag):
+        def chunk(coords, box_diag, ops):
             here = coords.device
             return _nystrom_chunk(
                 coords.index_select(1, head_d.on(here)), box_diag,
-                landmark_d.on(here), handle_pbc, _algebra(here, algebra))
+                landmark_d.on(here), handle_pbc, _algebra(here, algebra),
+                ops)
 
         per_frame = n * len(landmark_d)
 
     def compute(coords, box_diag):
-        return _by_chunks(chunk, coords, box_diag, per_frame)
+        return _by_chunks(lambda c, b: chunk(c, b, spectral.WRAPPERS),
+                          coords, box_diag, per_frame)
 
+    def plain(coords, box_diag):
+        return _by_chunks(lambda c, b: chunk(c, b, spectral.PLAIN),
+                          coords, box_diag, per_frame)
+
+    compute.plain = plain
     return compute
 
 

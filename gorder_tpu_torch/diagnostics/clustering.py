@@ -8,13 +8,15 @@ The clustering benchmark's bilayer of `chip_smoke.py` (`synthesize_aab`:
 256 POPC, heads 2 nm from the midplane) is synthesized for `--frames`
 frames (the first frames of the full trajectory), and its P heads are
 classified as one batch on the card. Prints the CUDA-event time of the
-spectral classifier's stages in the algebra the card runs (similarity,
-top-3 subspace, the energy-weighted embedding with its thin SVD,
-k-means), of the whole spectral call in both algebras and of the
-spherical classifier; the host time of the labels' copy and of their
-orientation frame after frame; then a `torch.profiler` table of the
-spectral call's device time by operation, and last one JSON line with
-the numbers.
+spectral classifier's stages in the algebra the card runs: the
+similarity (`spectral_affinity`), the top-3 subspace (the 12 squarings,
+then six `thin_qr3` and their products), one `thin_qr3`, the deflated
+span's two directions (`top2_span`), the Laplacian products and the
+embedding's k-means (`rayleigh_kmeans`); of the whole spectral call in
+both algebras and through the plain versions, and of the spherical
+classifier; the host time of the labels' copy and of their orientation
+frame after frame; then a `torch.profiler` table of the spectral call's
+device time by operation, and last one JSON line with the numbers.
 """
 
 from __future__ import annotations
@@ -55,41 +57,35 @@ def heads_batch(frames: int):
 
 def stage_times(heads, box) -> dict:
     """CUDA-event ms of each stage of the spectral classifier (the matmul
-    algebra, `core/clustering.py _spectral_chunk`)."""
+    algebra, `core/clustering.py _spectral_chunk`, through the kernels)."""
     import chip_smoke
 
     from ..core import clustering as cl
+    from ..ops import spectral
 
     def similarity():
-        w = torch.exp(-cl.PRECISE_SIGMA * cl._pairwise_sq_distances(
-            heads, box, True))
-        degree = w.sum(-1)
-        d_inv_sqrt = 1.0 / torch.sqrt(degree)
-        return w * d_inv_sqrt[:, :, None] * d_inv_sqrt[:, None, :], degree
+        return spectral.spectral_affinity(heads, box, True, cl.PRECISE_SIGMA)
 
     s_mat, degree = similarity()
     v0 = torch.sqrt(degree)
     v0 = v0 / cl._norm(v0)
-    span = cl._top3_subspace(s_mat, v0)
+    span = cl._top3_subspace(s_mat, v0, spectral.thin_qr3)
+    u2 = spectral.top2_span(span, degree)
+    lu2 = u2 - s_mat @ u2
 
-    def lap(v):
-        return v - (s_mat @ v[..., None])[..., 0]
+    def ms(fn):
+        return chip_smoke.cuda_ms(fn, reps=5, warmup=1)
 
-    embedding = cl._embed(span, degree, lap)
     return {
-        "similarity": chip_smoke.cuda_ms(similarity, reps=5, warmup=1),
-        "top3_subspace": chip_smoke.cuda_ms(
-            lambda: cl._top3_subspace(s_mat, v0), reps=5, warmup=1),
-        "qr_of_one_iteration": chip_smoke.cuda_ms(
-            lambda: torch.linalg.qr(s_mat @ span, mode="reduced"), reps=5,
-            warmup=1),
-        "embed_svd_rayleigh": chip_smoke.cuda_ms(
-            lambda: cl._embed(span, degree, lap), reps=5, warmup=1),
-        "thin_svd": chip_smoke.cuda_ms(
-            lambda: torch.linalg.svd(span, full_matrices=False), reps=5,
-            warmup=1),
-        "kmeans": chip_smoke.cuda_ms(lambda: cl._kmeans2(embedding),
-                                     reps=5, warmup=1),
+        "similarity": ms(similarity),
+        "top3_subspace": ms(
+            lambda: cl._top3_subspace(s_mat, v0, spectral.thin_qr3)),
+        "thin_qr3_of_one_iteration": ms(
+            lambda: spectral.thin_qr3(s_mat @ span)),
+        "top2_span": ms(lambda: spectral.top2_span(span, degree)),
+        "laplacian_products": ms(lambda: u2 - s_mat @ u2),
+        "rayleigh_kmeans": ms(lambda: spectral.rayleigh_kmeans(
+            u2, lu2, cl.KMEANS_ITERS)),
     }
 
 
@@ -119,10 +115,12 @@ def main(argv=None) -> int:
         fn = cl.make_spectral_labels(index, device="cuda", algebra=algebra)
         out[f"spectral_{algebra}"] = chip_smoke.cuda_ms(
             lambda f=fn: f(heads, box), reps=3, warmup=1)
+    spectral = cl.make_spectral_labels(index, device="cuda")
+    out["spectral_matmul_plain"] = chip_smoke.cuda_ms(
+        lambda: spectral.plain(heads, box), reps=2, warmup=1)
     spherical = cl.make_spherical_classifier(index, device="cuda")
     out["spherical"] = chip_smoke.cuda_ms(lambda: spherical(heads, box),
                                           reps=5, warmup=1)
-    spectral = cl.make_spectral_labels(index, device="cuda")
     labels = spectral(heads, box)
     torch.cuda.synchronize()
     t0 = time.perf_counter()

@@ -2,10 +2,10 @@
 clustering.py) held against `gorder_tpu.core.clustering` on the same
 inputs, on the CPU.
 
-- The elementwise and small algebra (`_pairwise_sq_distances`,
-  `_inv_sqrt_spd`, `_rayleigh_weighted`) to rtol 1e-5; the top-3
-  subspace through its projector (the basis may rotate),
-  ‖P_port − P_jax‖ ≤ 1e-4.
+- The elementwise and small algebra (`ops/spectral.py sq_distances` and
+  `rayleigh_embedding`, `_inv_sqrt_spd`) to rtol 1e-5; the top-3
+  subspace (its QRs by `ops/spectral.py thin_qr3`) through its projector
+  (the basis may rotate), ‖P_port − P_jax‖ ≤ 1e-4.
 - Labels exactly: k-means, the spectral labels of both port branches
   (LAPACK `eigh`, which the CPU runs, and the matmul algebra the card
   runs) against JAX's CPU labels, the Nyström path, and the spherical
@@ -28,6 +28,7 @@ from gorder_tpu_torch.core import clustering as tc
 from gorder_tpu_torch.errors import ClusterError
 from gorder_tpu_torch.io.gro import read_gro
 from gorder_tpu_torch.io.traj import Trajectory
+from gorder_tpu_torch.ops import spectral
 
 from . import synthetic
 from .test_torch_clustering_pipeline import _one_thread  # noqa: F401
@@ -71,7 +72,8 @@ def test_pairwise_sq_distances(systems, handle_pbc):
     pts = coords[:, heads]
     want = np.stack([np.asarray(jc._pairwise_sq_distances(p, b, handle_pbc))
                      for p, b in zip(pts, boxes)])
-    got = tc._pairwise_sq_distances(_t(pts), _t(boxes), handle_pbc).numpy()
+    got = spectral.sq_distances(_t(pts), _t(pts), _t(boxes),
+                                handle_pbc).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
 
 
@@ -88,8 +90,9 @@ def test_inv_sqrt_spd():
 
 
 def test_rayleigh_weighted(systems):
-    """The energy-weighted embedding of a frame's deflated span, up to the
-    sign of each column (each 2×2 eigenvector's sign is the solver's)."""
+    """The energy-weighted embedding of a frame's deflated span, given its
+    Laplacian products, up to the sign of each column (each 2×2
+    eigenvector's sign is the solver's)."""
     coords, boxes, heads = systems["flat"]
     pts = coords[0, heads]
     d2 = np.asarray(jc._pairwise_sq_distances(pts, boxes[0], True))
@@ -99,9 +102,8 @@ def test_rayleigh_weighted(systems):
     u2 = np.linalg.qr(np.random.default_rng(2).normal(
         size=(len(heads), 2)))[0].astype(np.float32)
     want = np.asarray(jc._rayleigh_weighted(u2, lambda v: v - s @ v))
-    got = tc._rayleigh_weighted(
-        _t(u2)[None], lambda v: v - (_t(s)[None] @ v[..., None])[..., 0]
-    )[0].numpy()
+    got = spectral.rayleigh_embedding(
+        _t(u2)[None], _t(u2)[None] - _t(s)[None] @ _t(u2)[None])[0].numpy()
     sign = np.sign((got * want).sum(0))
     np.testing.assert_allclose(got * sign, want, rtol=1e-5, atol=1e-6)
 
@@ -119,7 +121,8 @@ def test_top3_subspace_projector():
     v0 = rng.normal(size=n).astype(np.float32)
     v0 /= np.linalg.norm(v0)
     qj = np.asarray(jc._top3_subspace(s, v0))
-    qt = tc._top3_subspace(_t(s)[None], _t(v0)[None])[0].numpy()
+    qt = tc._top3_subspace(_t(s)[None], _t(v0)[None],
+                           spectral.thin_qr3)[0].numpy()
     exact = q[:, :3] @ q[:, :3].T
     assert np.linalg.norm(qt @ qt.T - qj @ qj.T, 2) <= 1e-4
     assert np.linalg.norm(qt @ qt.T - exact, 2) <= 1e-3
@@ -135,7 +138,7 @@ def test_kmeans2_labels():
     noise = rng.normal(size=(100, 2))
     emb = np.stack([blobs, blobs[::-1], noise]).astype(np.float32)
     want = np.stack([np.asarray(jc._kmeans2(e)) for e in emb])
-    got = tc._kmeans2(_t(emb)).numpy()
+    got = spectral.kmeans2(_t(emb), tc.KMEANS_ITERS).numpy()
     np.testing.assert_array_equal(got, want)
     assert got.dtype == np.int32 and 0 < got[0].sum() < 100
 

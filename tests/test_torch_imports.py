@@ -47,6 +47,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     "gorder_tpu_torch.ops.p2",
     "gorder_tpu_torch.ops.ua",
     "gorder_tpu_torch.ops.neighbors",
+    "gorder_tpu_torch.ops.spectral",
     "gorder_tpu_torch.ops.build",
     "gorder_tpu_torch.io.traj",
     "gorder_tpu_torch.io.native",

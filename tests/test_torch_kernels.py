@@ -1099,3 +1099,183 @@ def test_neighbor_kernels_reject_wrong_arguments(cuda):
     with pytest.raises(ValueError):
         neighbors.local_sums(coords, box[:, :2].contiguous(), cloud, heads,
                              2, 2.0, True)
+
+
+# ------------------------------------------------- spectral classifier
+# csrc/spectral.cu against ops/spectral.py's plain versions on the card, on
+# the first frames of the clustering bilayer (chip_smoke.synthesize_aab:
+# 256 P heads) and on tests/test_torch_clustering.py's flat (72 heads, not
+# a multiple of 32), vesicle (360) and scrambling (128) systems; with the
+# working rows in shared memory and, forced, in device memory with the
+# heads in several ragged tiles. The degrees: the kernel sums in f64 and
+# rounds once, torch sums in f32 in its own order, within 1e-6 of the
+# value (8 to 16 f32 ulps: an ulp is 2^-24 to 2^-23 of it); S within 2e-6
+# (each entry takes two 1/√degree factors); an entry below f32's normal
+# range (2^-126) carries fewer bits. The bases by
+# their orthonormality and projectors, ‖·‖₂ ≤ 1e-5 (never column by
+# column: the QR's columns past the input's rank and the span's two
+# equal-energy directions are set by rounding), on the columns whose
+# singular values stand clear of f64 rounding (σ ≥ 1e-6 σ₀). The labels
+# equal, also the whole chain's against the plain chain's and the CPU's.
+
+DEGREE_RTOL = 1e-6
+S_RTOL = 2e-6
+TINY_F32 = 2.0 ** -126
+BASIS_TOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def spectral_systems(tmp_path_factory):
+    """{name: ((F, A, 3) f32 coordinates, (F, 3) boxes, head indices)}."""
+    import chip_smoke
+
+    from gorder_tpu_torch.io.gro import read_gro
+    from gorder_tpu_torch.io.traj import Trajectory
+
+    from . import synthetic
+    from .test_torch_clustering import _frames
+
+    d = tmp_path_factory.mktemp("spectral")
+    for sub in ("flat", "ves", "scr", "aab"):
+        (d / sub).mkdir()
+    flat = synthetic.make_flat_bilayer(d / "flat", n_frames=4)
+    ves = synthetic.make_vesicle(d / "ves", n_outer=300, n_inner=60,
+                                 n_frames=3)
+    scr = synthetic.make_scrambling(d / "scr", n_per_leaflet=64, n_frames=8,
+                                    flip_at=4, n_flip=4)
+    gro, _, xtc = chip_smoke.synthesize_aab(str(d / "aab"), 16)
+    system = read_gro(gro)
+    traj = Trajectory(xtc)
+    coords, boxes, _, _ = traj.read_frames(traj.select_frames(None, None, 1),
+                                           system.n_atoms)
+    return {"flat": _frames(flat[0], flat[2]),
+            "vesicle": _frames(ves[0], ves[2]),
+            "scrambling": _frames(scr[0], scr[2]),
+            "aab": (np.ascontiguousarray(coords),
+                    np.ascontiguousarray(boxes[:, [0, 1, 2], [0, 1, 2]]),
+                    np.nonzero(system.atom_names == "P")[0])}
+
+
+def _gap(a, b, k):
+    """‖P_a − P_b‖₂ of the spans of the first k columns, the largest of
+    the batch; and the larger ‖QᵀQ − I‖₂ of the two."""
+    a, b = a.double()[..., :k], b.double()[..., :k]
+    gap = torch.linalg.matrix_norm(a @ a.transpose(1, 2)
+                                   - b @ b.transpose(1, 2), ord=2)
+    eye = torch.eye(k, dtype=a.dtype, device=a.device)
+    ortho = max(float(torch.linalg.matrix_norm(
+        q.transpose(1, 2) @ q - eye, ord=2).max()) for q in (a, b))
+    return float(gap.max()), ortho
+
+
+def _clear_columns(a):
+    """The columns of (B, n, 3) `a` whose singular values stand clear of
+    f64 rounding in every frame: σ_k ≥ 1e-6 σ_0."""
+    sv = torch.linalg.svdvals(a.double())
+    return int((sv >= 1e-6 * sv[:, :1]).all(0).sum())
+
+
+def _spectral_counts():
+    from gorder_tpu_torch.ops import spectral
+
+    return [spectral.affinity_launches, spectral.qr_launches,
+            spectral.span_launches, spectral.kmeans_launches]
+
+
+@pytest.mark.parametrize("layout", ["shared", "device"])
+@pytest.mark.parametrize("name", ["aab", "flat", "vesicle", "scrambling"])
+def test_spectral_kernels_match_plain(cuda, spectral_systems, monkeypatch,
+                                      name, layout):
+    from gorder_tpu_torch.core import clustering as tc
+    from gorder_tpu_torch.ops import spectral
+
+    if layout == "device":
+        monkeypatch.setattr(spectral, "QR_SHARED_ROWS", 2)
+        monkeypatch.setattr(spectral, "KMEANS_SHARED_ROWS", 2)
+        monkeypatch.setattr(spectral, "AFFINITY_TILE", 40)
+    coords, boxes, idx = spectral_systems[name]
+    coords = torch.as_tensor(coords, device=cuda)
+    box = torch.as_tensor(boxes, device=cuda)
+    heads = coords[:, idx].contiguous()
+    pbc = name != "vesicle"
+
+    before = _spectral_counts()
+    s_mat, degree = spectral.spectral_affinity(heads, box, pbc,
+                                               tc.PRECISE_SIGMA)
+    torch.cuda.synchronize()
+    assert _spectral_counts()[0] == before[0] + 1
+    want_s, want_degree = spectral.spectral_affinity_plain(
+        heads, box, pbc, tc.PRECISE_SIGMA)
+    torch.testing.assert_close(degree, want_degree, rtol=DEGREE_RTOL, atol=0)
+    torch.testing.assert_close(s_mat, want_s, rtol=S_RTOL, atol=TINY_F32)
+
+    # the QR inputs of the chain: its start basis, well conditioned, and
+    # the filter's `gp @ q` (condition numbers near 1e7 on the bilayers)
+    v0 = torch.sqrt(want_degree)
+    v0 = v0 / torch.linalg.vector_norm(v0, dim=-1, keepdim=True)
+    i = torch.arange(len(idx), dtype=torch.float32, device=cuda)
+    start = torch.stack([v0, torch.sin(0.7 * i + 0.3).expand_as(v0),
+                         torch.cos(1.3 * i + 0.1).expand_as(v0)], -1)
+    gp = want_s / tc._frame_max(want_s)
+    for _ in range(12):
+        gp = gp @ gp
+        gp = gp / tc._frame_max(gp)
+    ill = (gp @ spectral.thin_qr3_plain(start)).contiguous()
+    for a in (start.contiguous(), ill):
+        q, want_q = spectral.thin_qr3(a), spectral.thin_qr3_plain(a)
+        assert _gap(q, want_q, 3)[1] <= BASIS_TOL
+        assert _gap(q, want_q, _clear_columns(a))[0] <= BASIS_TOL
+    span = tc._top3_subspace(want_s, v0, spectral.thin_qr3_plain)
+    u2 = spectral.top2_span(span, want_degree)
+    want_u2 = spectral.top2_span_plain(span, want_degree)
+    assert max(_gap(u2, want_u2, 2)) <= BASIS_TOL
+    lu2 = want_u2 - want_s @ want_u2
+    labels = spectral.rayleigh_kmeans(want_u2, lu2, tc.KMEANS_ITERS)
+    assert torch.equal(labels, spectral.rayleigh_kmeans_plain(
+        want_u2, lu2, tc.KMEANS_ITERS))
+
+    classify = tc.make_spectral_labels(idx, pbc, device=cuda)
+    before = _spectral_counts()
+    got = classify(coords, box)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_spectral_counts(), before)] == [1, 6, 1, 1]
+    assert torch.equal(got, classify.plain(coords, box))
+    cpu = tc.make_spectral_labels(idx, pbc)(coords.cpu(), box.cpu())
+    assert torch.equal(got.cpu(), cpu)
+    assert bool(((got == 0).any(1) & (got == 1).any(1)).all())
+
+
+def test_spectral_nystrom_kernels_match_plain(cuda, spectral_systems,
+                                              monkeypatch):
+    """The landmark path (DENSE_CLUSTER_HEADS below the vesicle's 360
+    heads, 120 landmarks): no similarity kernel, the rest as dense."""
+    from gorder_tpu_torch.core import clustering as tc
+
+    monkeypatch.setattr(tc, "DENSE_CLUSTER_HEADS", 100)
+    monkeypatch.setattr(tc, "NYSTROM_LANDMARKS", 120)
+    coords, boxes, idx = spectral_systems["vesicle"]
+    coords = torch.as_tensor(coords, device=cuda)
+    box = torch.as_tensor(boxes, device=cuda)
+    classify = tc.make_spectral_labels(idx, device=cuda)
+    before = _spectral_counts()
+    got = classify(coords, box)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_spectral_counts(), before)] == [0, 6, 1, 1]
+    assert torch.equal(got, classify.plain(coords, box))
+    cpu = tc.make_spectral_labels(idx)(coords.cpu(), box.cpu())
+    assert torch.equal(got.cpu(), cpu)
+
+
+def test_spectral_kernels_reject_wrong_arguments(cuda):
+    from gorder_tpu_torch.ops import spectral
+
+    heads = torch.rand((2, 16, 3), device=cuda)
+    box = torch.full((2, 3), 5.0, device=cuda)
+    with pytest.raises(ValueError):
+        spectral.spectral_affinity(heads, box.cpu(), True, 1.0)
+    with pytest.raises(TypeError):
+        spectral.thin_qr3(heads.double())
+    with pytest.raises(ValueError):
+        spectral.top2_span(heads, torch.ones((2, 16), device=cuda)[:, ::2])
+    with pytest.raises(ValueError):
+        spectral.rayleigh_kmeans(heads[..., :2], heads[..., 1:], 5)

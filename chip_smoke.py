@@ -65,7 +65,9 @@ line each:
    covariances are the neighbour kernel `normal_cloud`, launched once per
    batch: against its plain version on aa-dynamic's first batch (the b7x
    aux atoms), the counts equal, the covariances within the bound, the
-   normals within 1 - |n.n'| <= 1e-5 of the plain ones';
+   normals within 1 - |n.n'| <= 1e-5 of the plain ones', a second launch
+   bit-equal; then both neighbour kernels against their plain versions on
+   a synthetic batch at minimum-image ties (`check_neighbor_ties`);
 8. synth ua: the UA benchmark membrane of tools/bench_modes.py (256
    Berger-like POPC, 44.3k atoms, 3,000 XTC frames, seed 29), synthesized
    byte for byte likewise;
@@ -326,8 +328,7 @@ GEO_OPS = 20
 # offset 3, the minimum image 12 (divide, round, multiply, subtract a
 # component; none without PBC), d2 5 and the test 1; per masked pair, the
 # count and the three sums of the centroid 4 and the centred products 15.
-# The kernel keeps no mask and recomputes each pair's offset and test in
-# its second pass: a cost it chose, which the bound does not count. local_sums, per (head, membrane atom) pair:
+# local_sums, per (head, membrane atom) pair:
 # the plane offset 2, the minimum image 8, d2 3 and the test 1; per masked
 # pair the two sums 2; per membrane atom, θ, cos θ and sin θ (or z and 1)
 # before the launch, 4. A masked pair is counted as this run's data gives
@@ -1097,7 +1098,8 @@ def check_normals(label, db):
     ab within NEIGHBOR_SUM_BOUND of (cov_aa + cov_bb) / 2, which bounds the
     magnitudes it sums, and the normals of every valid frame's heads whose
     clouds hold ≥ 3 atoms within |n·n'| ≥ 1 − 1e-5 of the plain ones', up
-    to sign, and of those the step used. Then CUDA-event times in turns,
+    to sign, and of those the step used; a second launch equal bit for
+    bit. Then CUDA-event times in turns,
     plain, kernel, kernel, plain (the plain version in frame chunks of at
     most ops.neighbors.MAX_BYTES a pair intermediate, as the CPU runs it),
     the batched eigensolve's time on the kernel's covariances, and the
@@ -1125,10 +1127,13 @@ def check_normals(label, db):
 
     before = neighbors.normals_launches
     counts, cov = kernel()
+    again = kernel()
     torch.cuda.synchronize()
-    if neighbors.normals_launches != before + 1:
+    if neighbors.normals_launches != before + 2:
         raise RuntimeError(f"{label}: normals_launches grew by "
-                           f"{neighbors.normals_launches - before}")
+                           f"{neighbors.normals_launches - before}, not 2")
+    if not (torch.equal(counts, again[0]) and torch.equal(cov, again[1])):
+        raise RuntimeError(f"{label}: two normal_cloud launches differ")
     want_counts, want_cov = plain()
     if not torch.equal(counts, want_counts):
         raise RuntimeError(f"{label}: cloud counts differ in "
@@ -1153,7 +1158,8 @@ def check_normals(label, db):
     print(f"kernel normals {label}: {db.kind} batch, B={n_frames}, M="
           f"{n_heads} heads, C={n_cloud} cloud atoms, radius {fn.radius} nm; "
           f"counts == plain (min {int(counts.min())}, mean "
-          f"{float(counts.mean()):.1f}); covariances within the bound, max "
+          f"{float(counts.mean()):.1f}), two launches bit-equal; "
+          f"covariances within the bound, max "
           f"|diff| {float(diff.max()):.3e} nm^2; normals 1 - |n.n'| <= "
           f"{off:.3e} (plain's and the step's); ms per call: plain "
           f"{plain_ms:.4f}, kernel {ms:.4f}, kernel {ms2:.4f}, plain "
@@ -1173,7 +1179,8 @@ def check_local(label, db):
     coordinates its classifier read and the run's own indices: the classes
     of every frame equal the plain version's and the step's; the sums
     within NEIGHBOR_SUM_BOUND of count · max|v| (|cos θ|, |sin θ| ≤ 1;
-    |z| and 1 without PBC), the count the in-plane mask's. Then CUDA-event
+    |z| and 1 without PBC), the count the in-plane mask's; a second
+    launch equal bit for bit. Then CUDA-event
     times in turns, plain, kernel, kernel, plain (the plain version in
     frame chunks of the classifier's `max_elements` pairs, as the CPU runs
     it), and the bound. → dict(max_abs_err, ms, plain_ms, bound_ms,
@@ -1217,10 +1224,13 @@ def check_local(label, db):
 
     before = neighbors.local_launches
     got = kernel()
+    again = kernel()
     torch.cuda.synchronize()
-    if neighbors.local_launches != before + 1:
+    if neighbors.local_launches != before + 2:
         raise RuntimeError(f"{label}: local_launches grew by "
-                           f"{neighbors.local_launches - before}")
+                           f"{neighbors.local_launches - before}, not 2")
+    if not torch.equal(got, again):
+        raise RuntimeError(f"{label}: two local_sums launches differ")
     want = plain()
     masked = torch.cat([count(coords[i:i + step], box[i:i + step])
                         for i in chunks])
@@ -1243,7 +1253,8 @@ def check_local(label, db):
           f"{n_heads} heads, Nm={n_members} membrane atoms, radius "
           f"{classify.radius} nm; the classes of all {n_frames} frames == "
           f"plain's == the step's ({int((labels == 0).sum())} upper, "
-          f"{int((labels == 1).sum())} lower); sums within the bound, max "
+          f"{int((labels == 1).sum())} lower), two launches bit-equal; "
+          f"sums within the bound, max "
           f"|diff| {float(diff.max()):.3e}, mean in-plane count "
           f"{float(masked.mean()):.1f}; ms per call: plain {plain_ms:.4f}, "
           f"kernel {ms:.4f}, kernel {ms2:.4f}, plain {plain_ms2:.4f}",
@@ -1256,6 +1267,163 @@ def check_local(label, db):
     return with_bound(f"local_leaflets {label}", dict(
         max_abs_err=float(diff.max()), ms=min(ms, ms2),
         plain_ms=min(plain_ms, plain_ms2)), moved, ops)
+
+
+#: the synthetic batch at minimum-image ties (`near_tie_batch`): frames,
+#: heads (not a multiple of a block's 32), the atoms of each head at its
+#: ties, the cubic box (nm)
+TIE_BATCH = dict(n_frames=16, n_heads=300, per_head=8, box=7.3)
+
+
+def near_tie_batch(seed, n_frames, n_heads, per_head, box):
+    """A batch whose offsets sit at minimum-image ties: `n_heads` heads
+    uniform in a cubic box of `box` nm, and for each head `per_head` atoms
+    at p ± L/2 in every component, each nudged by 0-2 ulps, so that d / L
+    lies within a few ulps of ±1/2. → numpy (B, A, 3) f32 coordinates,
+    (B, 3) f32 box lengths, the head indices and the other atoms'."""
+    rng = np.random.default_rng(seed)
+    length = np.float32(box)
+    heads = (rng.random((n_frames, n_heads, 3)) * length).astype(np.float32)
+    sign = rng.choice(np.float32([-1.0, 1.0]),
+                      (n_frames, n_heads, per_head, 3))
+    ties = (heads[:, :, None] + sign * (np.float32(0.5) * length)).astype(
+        np.float32)
+    steps = rng.integers(-2, 3, ties.shape)
+    for _ in range(2):
+        move = steps != 0
+        ties = np.where(move, np.nextafter(
+            ties, np.where(steps < 0, -np.inf, np.inf).astype(np.float32)),
+            ties)
+        steps = steps - np.sign(steps)
+    coords = np.concatenate([heads, ties.reshape(n_frames, -1, 3)], axis=1)
+    n_ties = n_heads * per_head
+    return (np.ascontiguousarray(coords),
+            np.full((n_frames, 3), length, np.float32),
+            np.arange(n_heads), n_heads + np.arange(n_ties))
+
+
+def tie_share(coords, box, heads, others, axes):
+    """How many of the batch's (head, atom) offset components along `axes`
+    lie at a tie, where the kernels take the division: t = d · fl(1/L)
+    within MIN_IMAGE_MARGIN · MIN_IMAGE_SPAN of a half-integer
+    (csrc/neighbors.cu `min_image_fast`, in torch f32 on the card). The
+    kernels test no |t| per pair: a tile with a coordinate outside
+    [-L, 2L] divides every pair, and `near_tie_batch`'s coordinates all
+    lie in [-L/2, 3L/2]. → (count, components)."""
+    import torch
+
+    from gorder_tpu_torch.ops.neighbors import (MIN_IMAGE_MARGIN,
+                                                MIN_IMAGE_SPAN)
+
+    rnd = torch.tensor(1.5 * 2 ** 23, dtype=torch.float32,
+                       device=coords.device)
+    edge = 0.5 - MIN_IMAGE_MARGIN * MIN_IMAGE_SPAN
+    near = 0
+    for a in axes:
+        d = coords[:, None, others, a] - coords[:, heads, None, a]
+        t = d * (1.0 / box[:, a])[:, None, None]
+        k = (t + rnd) - rnd
+        near += int((t - k).abs().ge(edge).sum())
+    return near, len(axes) * coords.shape[0] * len(heads) * len(others)
+
+
+def tie_radius(coords, box, n_heads, axes):
+    """The radius (f32) whose square sits at the median d² over `axes`
+    of the heads' own tie atoms (`near_tie_batch`), plain minimum image:
+    about half of them lie within it, and the side of a tie moves d² by
+    ulps across it."""
+    import torch
+
+    from gorder_tpu_torch.core.pbc import min_image
+
+    n_frames = coords.shape[0]
+    own = coords[:, n_heads:].reshape(n_frames, n_heads, -1, 3)
+    head = coords[:, :n_heads, None]
+    d2 = 0
+    for a in axes:
+        d = min_image(own[..., a] - head[..., a], box[:, None, None, a])
+        d2 = d2 + d * d
+    return float(np.float32(float(d2.to(torch.float64).median()) ** 0.5))
+
+
+def check_neighbor_ties():
+    """Both neighbour kernels against their plain versions on a batch at
+    minimum-image ties (`near_tie_batch`, TIE_BATCH), the radius at the
+    median distance of the ties (`tie_radius`: all three components for
+    `normal_cloud`, the plane's two for `local_sums`), so that the side of
+    a tie moves the mask and, for the covariances, the offset's sign: the
+    counts equal, the covariances and sums within NEIGHBOR_SUM_BOUND, the
+    local classes equal, and a second launch equal bit for bit; the share
+    of offset components the kernels divide."""
+    import torch
+
+    from gorder_tpu_torch.core.leaflets import LocalClassifier
+    from gorder_tpu_torch.ops import neighbors
+
+    coords, box, heads, others = (torch.as_tensor(a, device="cuda")
+                                  for a in near_tie_batch(43, **TIE_BATCH))
+    n_heads = len(heads)
+    rest = (heads, others, tie_radius(coords, box, n_heads, (0, 1, 2)),
+            True)
+    before = neighbors.normals_launches
+    counts, cov = neighbors.normal_cloud(coords, box, *rest)
+    again = neighbors.normal_cloud(coords, box, *rest)
+    torch.cuda.synchronize()
+    want_counts, want_cov = neighbors.normal_cloud_plain(coords, box, *rest)
+    if neighbors.normals_launches != before + 2:
+        raise RuntimeError("ties: normals_launches did not grow by 2")
+    if not (torch.equal(counts, again[0]) and torch.equal(cov, again[1])):
+        raise RuntimeError("ties: two normal_cloud launches differ")
+    if not torch.equal(counts, want_counts):
+        raise RuntimeError(f"ties: cloud counts differ in "
+                           f"{int((counts != want_counts).sum())} places")
+    diff = (cov - want_cov).abs()
+    scale = (want_cov[..., [0, 0, 0, 3, 3, 5]]
+             + want_cov[..., [0, 3, 5, 3, 5, 5]]) / 2
+    if bool((diff > NEIGHBOR_SUM_BOUND * scale + 1e-12).any()):
+        raise RuntimeError(f"ties: covariances off by up to "
+                           f"{float(diff.max()):.3e}")
+    near, total = tie_share(coords, box, heads, others, (0, 1, 2))
+    print(f"kernel normals ties: B={coords.shape[0]}, M={len(heads)}, C="
+          f"{len(others)}, {near} of {total} offset components within the "
+          f"margin of a tie; counts == plain (mean "
+          f"{float(counts.mean()):.1f}), covariances within the bound (max "
+          f"|diff| {float(diff.max()):.3e} nm^2), two launches bit-equal",
+          flush=True)
+    radius = tie_radius(coords, box, n_heads, (0, 1))
+    rest = (others, heads, 2, radius, True)
+    before = neighbors.local_launches
+    got = neighbors.local_sums(coords, box, *rest)
+    again = neighbors.local_sums(coords, box, *rest)
+    torch.cuda.synchronize()
+    want = neighbors.local_sums_plain(coords, box, *rest)
+    if neighbors.local_launches != before + 2:
+        raise RuntimeError("ties: local_launches did not grow by 2")
+    if not torch.equal(got, again):
+        raise RuntimeError("ties: two local_sums launches differ")
+    r2 = neighbors.radius_squared(radius, coords.device)
+    d2 = 0
+    for a in (0, 1):
+        d = coords[:, None, others, a] - coords[:, heads, None, a]
+        d = d - box[:, None, None, a] * torch.round(d / box[:, None, None, a])
+        d2 = d2 + d * d
+    masked = (d2 <= r2).sum(-1).to(torch.float32)
+    diff = (got - want).abs()
+    if bool((diff > NEIGHBOR_SUM_BOUND * masked[..., None] + 1e-12).any()):
+        raise RuntimeError(f"ties: local sums off by up to "
+                           f"{float(diff.max()):.3e}")
+    classify = LocalClassifier(others.cpu(), heads.cpu(), 2, radius, True,
+                               device="cuda")
+    labels = classify(coords, box)
+    if not torch.equal(labels, classify.plain(coords, box)):
+        raise RuntimeError("ties: the local classes differ from plain's")
+    near, total = tie_share(coords, box, heads, others, (0, 1))
+    print(f"kernel local_leaflets ties: B={coords.shape[0]}, M={len(heads)}"
+          f", Nm={len(others)}, {near} of {total} plane components within "
+          f"the margin of a tie; mean in-plane count "
+          f"{float(masked.mean()):.1f}, sums within the bound (max |diff| "
+          f"{float(diff.max()):.3e}), classes == plain's, two launches "
+          f"bit-equal", flush=True)
 
 
 def check_p2(label, db, leaflets):
@@ -3204,6 +3372,7 @@ def main() -> int:
                                    firsts[mode])
     dyn_first = firsts["aa-dynamic"]
     check_normals("aa-dynamic", dyn_first)
+    check_neighbor_ties()
     p2_normals = check_p2("aa-dynamic", dyn_first, False)
     p2_i16_normals = check_p2("aa-manual-z", firsts["aa-manual-z"], False)
     check_p2("aa-dynamic with aa-leaflets classes",

@@ -82,11 +82,11 @@ _SIGNATURES = {
     "ua_positions_i16": _UA,
     "ua_positions_i32": _UA,
     "ua_positions_f32": _UA[:2] + _UA[3:],
-    # neighbors.cu: the pointers, the sizes, r2, pbc, tile, stream
-    "normal_cloud": [_vp] * 6 + [_int] * 4 + [ctypes.c_float]
+    # neighbors.cu: the pointers, the sizes, r2, margin, pbc, tile, stream
+    "normal_cloud": [_vp] * 5 + [_int] * 3 + [ctypes.c_float] * 2
                     + [_int] * 2 + [_vp],
-    "local_sums": [_vp] * 4 + [_int] * 3 + [ctypes.c_float] + [_int] * 2
-                  + [_vp],
+    "local_sums": [_vp] * 4 + [_int] * 3 + [ctypes.c_float] * 2
+                  + [_int] * 2 + [_vp],
     # spectral.cu: the pointers (a null scratch: shared memory), the
     # sizes, [sigma, pbc, tile | iters,] stream
     "spectral_affinity": [_vp] * 4 + [_int] * 2 + [ctypes.c_float]

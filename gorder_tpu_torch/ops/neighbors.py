@@ -21,7 +21,9 @@ is no fallback from a kernel to its plain version. Both check their arguments
 on either device. The kernels keep the neighbours in shared memory and
 write no pair to device memory; their mask is the plain version's bit for
 bit (the counts are equal), and their sums run in f64 in another order
-than torch's f32 `.sum`, so the sums agree to a few f32 ulps.
+than torch's f32 `.sum`, so the sums agree to a few f32 ulps. The
+wrappers hand the kernels the margin of their minimum image
+(`MIN_IMAGE_MARGIN`).
 """
 
 from __future__ import annotations
@@ -34,16 +36,23 @@ import torch
 from ..core.pbc import min_image
 from .build import call, check_tensor, device_of
 
-#: cloud atoms a normal_cloud block keeps in shared memory (12 bytes an
-#: atom): a cloud up to this size stays resident for both passes, a larger
-#: one goes through in tiles of this size. On an H100 a vesicle batch's
-#: 6,650 heads timed alike in tiles of 512 to 4,096 and about a fifth
-#: slower resident whole (79.8 KB: fewer blocks a SM)
+#: cloud atoms a normal_cloud block loads into shared memory at a time
+#: (16 bytes an atom)
 NORMAL_TILE = 2048
-#: membrane atoms a local_sums block streams through shared memory at a
-#: time (16 bytes an atom): on the same card tiles of 512 and 2,048 timed
-#: alike and 8,192 about a third slower
-LOCAL_TILE = 2048
+#: membrane atoms a local_sums block loads into shared memory at a time
+#: (24 bytes an atom: the plane position in f32, the two values in f64)
+LOCAL_TILE = 1024
+#: the kernels' minimum image takes t = d · fl(1/L) and rounds it, and
+#: divides d / L only where t lies within MIN_IMAGE_MARGIN · MIN_IMAGE_SPAN
+#: of a half-integer: t is within 3 · 2^-24 · |t| of fl(d / L), so beyond
+#: that margin both round to the same integer while |t| ≤ MIN_IMAGE_SPAN,
+#: as it is for every pair of a tile whose coordinates lie in [-L, 2L];
+#: the kernels divide every pair of any other tile. They refuse a
+#: narrower margin; the span is theirs (csrc/neighbors.cu kSpan).
+#: tests/test_torch_neighbors.py holds the rule against rint(d / L) and
+#: shows a margin of 0 failing
+MIN_IMAGE_SPAN = 4.0
+MIN_IMAGE_MARGIN = 2.0 ** -22
 
 #: bytes one (F, M, C, 3) f32 intermediate of normal_cloud_plain may take
 MAX_BYTES = 256 << 20
@@ -55,6 +64,7 @@ MAX_ELEMENTS = 1 << 26
 #: in neither
 normals_launches = 0
 local_launches = 0
+
 
 #: the (.., 6) covariance entries xx xy xz yy yz zz of each of the nine
 #: entries of a symmetric 3×3 matrix, row by row
@@ -143,7 +153,9 @@ def normal_cloud(coords, box_diag, head_idx, cloud_idx, radius: float,
     and (C,) int64 cloud atom indices → ((B, M) f32 cloud counts, (B, M, 6)
     f32 masked centred covariances, entries xx xy xz yy yz zz). On the CPU
     `max_bytes` bounds the plain version's intermediates; the kernel
-    writes none."""
+    writes none. On the card the heads' and the cloud's coordinates are
+    gathered (torch `index_select`) before the launch, so that the kernel
+    reads its tiles of the cloud contiguously."""
     global normals_launches
     device = device_of(coords)
     _check(coords, box_diag, {"head_idx": head_idx, "cloud_idx": cloud_idx},
@@ -151,7 +163,7 @@ def normal_cloud(coords, box_diag, head_idx, cloud_idx, radius: float,
     if device.type == "cpu":
         return normal_cloud_plain(coords, box_diag, head_idx, cloud_idx,
                                   radius, handle_pbc, max_bytes)
-    n_frames, n_atoms = coords.shape[:2]
+    n_frames = coords.shape[0]
     n_heads, n_cloud = head_idx.shape[0], cloud_idx.shape[0]
     counts = torch.empty((n_frames, n_heads), dtype=torch.float32,
                          device=device)
@@ -159,14 +171,16 @@ def normal_cloud(coords, box_diag, head_idx, cloud_idx, radius: float,
                       device=device)
     if not counts.numel():
         return counts, cov
+    heads = coords.index_select(1, head_idx)                 # (B, M, 3)
+    cloud = coords.index_select(1, cloud_idx)                # (B, C, 3)
     tile = max(1, min(n_cloud, NORMAL_TILE))
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        call("normal_cloud", coords.data_ptr(), box_diag.data_ptr(),
-             head_idx.data_ptr(), cloud_idx.data_ptr(), counts.data_ptr(),
-             cov.data_ptr(), n_frames, n_atoms, n_heads, n_cloud,
+        call("normal_cloud", heads.data_ptr(), cloud.data_ptr(),
+             box_diag.data_ptr(), counts.data_ptr(), cov.data_ptr(),
+             n_frames, n_heads, n_cloud,
              float(np.float32(radius) * np.float32(radius)),
-             int(handle_pbc), tile, stream)
+             MIN_IMAGE_MARGIN, int(handle_pbc), tile, stream)
     normals_launches += 1
     return counts, cov
 
@@ -257,12 +271,13 @@ def local_sums(coords, box_diag, membrane_idx, head_idx, axis: int,
                       device=device)
     if not out.numel():
         return out
+    n_members = membrane_idx.shape[0]
+    tile = max(1, min(n_members, LOCAL_TILE))
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         call("local_sums", members.data_ptr(), heads.data_ptr(),
-             box_plane.data_ptr(), out.data_ptr(), n_frames,
-             membrane_idx.shape[0], n_heads,
-             float(np.float32(radius) * np.float32(radius)),
-             int(handle_pbc), LOCAL_TILE, stream)
+             box_plane.data_ptr(), out.data_ptr(), n_frames, n_members,
+             n_heads, float(np.float32(radius) * np.float32(radius)),
+             MIN_IMAGE_MARGIN, int(handle_pbc), tile, stream)
     local_launches += 1
     return out

@@ -956,7 +956,9 @@ def test_ua_int32_kernel_matches_plain(cuda, variant, layout):
 # order, within 1e-5 of the magnitudes they sum (for a covariance entry ab,
 # Σ|e_a·e_b| ≤ (cov_aa + cov_bb) / 2); the normals, up to their sign,
 # |n·n_plain| ≥ 1 − 1e-5, as tests/test_torch_normals.py holds them
-# against gorder_tpu.
+# against gorder_tpu. Ragged head and atom counts, coordinates outside the
+# box, and a batch at minimum-image ties, where the kernels divide; a
+# second launch equals the first bit for bit.
 
 #: the share of the summed magnitudes two f32 sums of the same terms may
 #: differ by (tests/test_torch_neighbors.py SUM_BOUND)
@@ -993,8 +995,8 @@ def _same_cloud(got, want):
 def test_normal_cloud_kernel_matches_plain(cuda, monkeypatch, handle_pbc,
                                            tile):
     """Tiles of 64 and 1 atoms: the cloud goes through shared memory in
-    several tiles each pass, as a cloud over NORMAL_TILE atoms does; a
-    tile of 8,192 (96 KB) opts the kernel in past the default 48 KB."""
+    several tiles, as a cloud over NORMAL_TILE atoms does; a tile of
+    8,192 (128 KB) opts the kernel in past the default 48 KB."""
     from gorder_tpu_torch.core import normals as tn
     from gorder_tpu_torch.ops import neighbors
 
@@ -1017,7 +1019,7 @@ def test_normal_cloud_kernel_matches_plain(cuda, monkeypatch, handle_pbc,
 
 
 def test_normal_cloud_kernel_tiles_a_large_cloud(cuda):
-    """A cloud of NORMAL_TILE + 2,000 atoms: two tiles each pass."""
+    """A cloud of NORMAL_TILE + 2,000 atoms: two tiles."""
     from gorder_tpu_torch.ops import neighbors
 
     coords, box, heads, cloud = _cloud_case(
@@ -1031,7 +1033,7 @@ def test_normal_cloud_kernel_tiles_a_large_cloud(cuda):
 @pytest.mark.parametrize("tile", [None, 16])
 def test_normal_cloud_kernel_empty_cloud(cuda, monkeypatch, tile):
     """A head whose cloud is empty: count 0 and a zero covariance, and
-    heads past the last whole block of 256 threads."""
+    heads past the last whole block."""
     from gorder_tpu_torch.ops import neighbors
 
     if tile is not None:
@@ -1048,8 +1050,8 @@ def test_normal_cloud_kernel_empty_cloud(cuda, monkeypatch, tile):
 @pytest.mark.parametrize("tile", [None, 32])
 def test_local_sums_kernel_matches_plain(cuda, monkeypatch, handle_pbc,
                                          tile):
-    """300 heads (two blocks, the second ragged) over 1,500 membrane atoms:
-    one tile of LOCAL_TILE, or tiles of 32."""
+    """300 heads (ten blocks of 32, the last ragged) over 1,500 membrane
+    atoms: tiles of LOCAL_TILE (the second ragged), or tiles of 32."""
     from gorder_tpu_torch.core import leaflets as tl
     from gorder_tpu_torch.ops import neighbors
 
@@ -1084,6 +1086,97 @@ def test_local_sums_kernel_matches_plain(cuda, monkeypatch, handle_pbc,
     local = tl.LocalClassifier(membrane.cpu(), heads.cpu(), 2, 2.0,
                                handle_pbc, device=cuda)
     assert torch.equal(local(coords, box), local.plain(coords, box))
+
+
+@pytest.mark.parametrize("handle_pbc", [True, False])
+def test_normal_cloud_kernel_ragged_blocks(cuda, monkeypatch, handle_pbc):
+    """150 heads, not a multiple of a block's 32, over 487 cloud atoms,
+    not a multiple of the eight warps, in tiles of 64 (the last one
+    ragged): equal to plain, and a second launch equals the first bit for
+    bit."""
+    from gorder_tpu_torch.ops import neighbors
+
+    monkeypatch.setattr(neighbors, "NORMAL_TILE", 64)
+    coords, box, heads, cloud = _cloud_case(11, cuda, B=4, M=75, extra=37)
+    assert len(heads) == 150 and len(cloud) == 487
+    args = (coords, box, heads, cloud, 2.0, handle_pbc)
+    got = neighbors.normal_cloud(*args)
+    again = neighbors.normal_cloud(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _same_cloud(got, neighbors.normal_cloud_plain(*args))
+
+
+@pytest.mark.parametrize("handle_pbc", [True, False])
+def test_local_sums_kernel_ragged_blocks(cuda, monkeypatch, handle_pbc):
+    """150 heads, not a multiple of a block's 32, over 1,050 membrane
+    atoms in tiles of 100 (the last one ragged, neither a multiple of the
+    eight warps): equal to plain, the classes too, and a second launch
+    equals the first bit for bit."""
+    from gorder_tpu_torch.core import leaflets as tl
+    from gorder_tpu_torch.ops import neighbors
+
+    from .test_torch_leaflets import _membrane
+
+    monkeypatch.setattr(neighbors, "LOCAL_TILE", 100)
+    centers = None if handle_pbc else np.full(6, 4.0)
+    coords, box, membrane, heads, _, _ = _membrane(5, centers=centers,
+                                                   M=150, per=7)
+    coords, box = (torch.as_tensor(a, device=cuda) for a in (coords, box))
+    membrane, heads = (torch.as_tensor(a, device=cuda)
+                       for a in (membrane, heads))
+    args = (coords, box, membrane, heads, 2, 2.0, handle_pbc)
+    got = neighbors.local_sums(*args)
+    assert torch.equal(got, neighbors.local_sums(*args))
+    want = neighbors.local_sums_plain(*args)
+    d = coords[:, None, membrane, :2] - coords[:, heads, None, :2]
+    if handle_pbc:
+        d = d - box[:, None, None, :2] * torch.round(d / box[:, None, None,
+                                                            :2])
+    count = ((d * d).sum(-1) <= 4.0).sum(-1).to(torch.float32)
+    z = 1.0 if handle_pbc else float(coords[:, membrane, 2].abs().max())
+    magnitude = torch.stack([count * z, count], -1)
+    assert bool(((got - want).abs() <= SUM_BOUND * magnitude + 1e-12).all())
+    local = tl.LocalClassifier(membrane.cpu(), heads.cpu(), 2, 2.0,
+                               handle_pbc, device=cuda)
+    assert torch.equal(local(coords, box), local.plain(coords, box))
+
+
+def test_neighbor_kernels_outside_the_box(cuda, monkeypatch):
+    """Atoms and heads moved whole box lengths out of [-L, 2L] in some
+    frames and tiles (a tile's pairs then all take the division): the
+    same counts, sums and classes as plain."""
+    from gorder_tpu_torch.core import leaflets as tl
+    from gorder_tpu_torch.ops import neighbors
+
+    from .test_torch_leaflets import _membrane
+
+    monkeypatch.setattr(neighbors, "NORMAL_TILE", 64)
+    monkeypatch.setattr(neighbors, "LOCAL_TILE", 64)
+    rng = np.random.default_rng(17)
+    coords, box, heads, cloud = _cloud_case(13, cuda, B=4, M=75, extra=37)
+    shift = torch.as_tensor(rng.integers(-3, 4, coords.shape[:2])
+                            * (np.arange(4) % 2)[:, None], device=cuda)
+    coords = coords + shift[..., None] * box[:, None, :]
+    args = (coords, box, heads, cloud, 2.0, True)
+    _same_cloud(neighbors.normal_cloud(*args),
+                neighbors.normal_cloud_plain(*args))
+    coords, box, membrane, heads, _, _ = _membrane(7, M=150, per=3)
+    coords = coords + (rng.integers(-3, 4, coords.shape[:2])[..., None]
+                       * (np.arange(6) % 2)[:, None, None]
+                       * box[:, None, :]).astype(np.float32)
+    coords, box = (torch.as_tensor(a, device=cuda) for a in (coords, box))
+    local = tl.LocalClassifier(membrane, heads, 2, 2.0, True, device=cuda)
+    assert torch.equal(local(coords, box), local.plain(coords, box))
+
+
+def test_neighbor_kernels_at_minimum_image_ties(cuda):
+    """chip_smoke.py's batch at minimum-image ties (every offset of a
+    head's own atoms within a few ulps of ±L/2 in each component, the
+    radius at their median distance): counts, masked sums and local
+    classes equal plain's, two launches bit-equal."""
+    import chip_smoke
+
+    chip_smoke.check_neighbor_ties()
 
 
 def test_neighbor_kernels_reject_wrong_arguments(cuda):

@@ -16,11 +16,22 @@ against them on the card.
 - A run hands out the consumers its step called (`DeviceBatch
   .consumers`): from the batch's wire, they give the batch's normals and
   classes again, as chip_smoke.py recomputes them on the card.
+- The kernels' minimum image, modelled in numpy f32 (`_kernel_rint`:
+  t = d · fl(1/L) rounded half to even as the kernels round it, the
+  correctly rounded d / L where t lies within the wrapper's
+  MIN_IMAGE_MARGIN · MIN_IMAGE_SPAN of a half-integer or the pair's
+  coordinates leave the kernels' per-tile range [−L, 2L]), rounds every
+  offset as rint(f32(d / L)) does and gives its offset d − L·k: on
+  offsets within 4 ulps of (j + ½)·L, on ±0, on uniform offsets, on what
+  hypothesis draws, and on coordinates just and far outside the range;
+  with a margin of 0, or without the range, it does not. Coordinates in
+  the range keep |t| under MIN_IMAGE_SPAN.
 """
 
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 import chip_smoke
 from gorder_tpu.core import normals as jn
@@ -218,3 +229,172 @@ def test_a_batch_hands_out_its_consumers(cg_files, tmp_path, monkeypatch,
             assert isinstance(db.consumers.coords, tl.LocalClassifier)
             assert torch.equal(db.consumers.coords(coords, db.box),
                                db.classes)
+
+
+# ------------------------------------------------- the kernels' rounding
+
+#: 1.5 · 2^23 (csrc/neighbors.cu kRound): t + ROUND − ROUND is t rounded
+#: to an integer, half to even, for |t| < 2^22
+ROUND = np.float32(1.5 * 2 ** 23)
+
+
+def _kernel_rint(d, L, margin=neighbors.MIN_IMAGE_MARGIN, fast=True):
+    """k of the kernels' minimum image d − L·k (csrc/neighbors.cu
+    `min_image_fast`) in numpy f32: where `fast`, t = d · fl(1/L), k = t
+    rounded half to even on the f32 pipe, and rint(fl(d / L)) where
+    |t − k| ≥ ½ − margin · span (span: MIN_IMAGE_SPAN); elsewhere
+    rint(fl(d / L)). The kernels test no |t| per pair: `fast` is their
+    per-tile guard (`in_range`, one `__syncthreads_and` a tile: every
+    head and atom coordinate of the tile in [−L, 2L]), which bounds |t|
+    by span (`test_the_tile_guard_bounds_t`); `_guarded` takes it per
+    pair, as a tile of one pair, since a tile takes the fast rule only
+    where each of its pairs would."""
+    d, L = np.asarray(d, np.float32), np.asarray(L, np.float32)
+    span = np.float32(neighbors.MIN_IMAGE_SPAN)
+    t = d * (np.float32(1.0) / L)
+    k = (t + ROUND) - ROUND
+    edge = np.float32(0.5) - np.float32(margin) * span
+    tie = ~np.asarray(fast) | (np.abs(t - k) >= edge)
+    return np.where(tie, np.rint(d / L), k)
+
+
+def _in_range(x, L):
+    """csrc/neighbors.cu `in_range`: x in [−L, 2L]."""
+    return (x >= -L) & (x <= np.float32(2.0) * L)
+
+
+def _guarded(q, p, L):
+    """The offsets q − p of atoms at q from heads at p, in f32, and
+    whether the kernels' tile guard lets a pair take the fast rule."""
+    q, p, L = np.broadcast_arrays(*(np.asarray(a, np.float32)
+                                    for a in (q, p, L)))
+    return q - p, _in_range(q, L) & _in_range(p, L)
+
+
+def _same_offsets(d, L, margin=neighbors.MIN_IMAGE_MARGIN, fast=True):
+    """Whether the kernels' k and offset d − L·k equal rint(f32(d / L))
+    and the plain offset: bit for bit, but that the kernels' rounding
+    gives +0 for −0 (a zero offset may so differ in sign, which no sum
+    sees). With `fast` everywhere, the offsets stand for pairs in the
+    tile guard's range: up to ±3L."""
+    d, L = np.broadcast_arrays(np.asarray(d, np.float32),
+                               np.asarray(L, np.float32))
+    k = _kernel_rint(d, L, margin, fast)
+    want = np.rint(d / L)
+    return (k == want) & ((d - L * k) == (d - L * want))
+
+
+def _near_ties(j, n=20_000, seed=0):
+    """Offsets within 0–4 ulps either side of f32((j + ½)·L), L from 1
+    to 100 nm: where t and fl(d / L) may round apart."""
+    rng = np.random.default_rng([seed, j + 3])
+    L = np.concatenate([np.linspace(1.0, 100.0, n // 2),
+                        rng.uniform(1.0, 100.0, n - n // 2)]).astype(
+                            np.float32)
+    d = ((j + 0.5) * L).astype(np.float32)
+    steps = rng.integers(-4, 5, n)
+    toward = np.where(steps < 0, -np.inf, np.inf).astype(np.float32)
+    for _ in range(4):
+        move = np.abs(steps) > 0
+        d = np.where(move, np.nextafter(d, toward), d)
+        steps = steps - np.sign(steps)
+    return d, L
+
+
+@pytest.mark.parametrize("j", range(-3, 3))
+def test_the_kernel_rounding_at_near_ties(j):
+    d, L = _near_ties(j)
+    assert _same_offsets(d, L).all()
+
+
+def test_a_zero_margin_rounds_near_ties_apart():
+    d, L = (np.concatenate(p) for p in zip(*(_near_ties(j)
+                                               for j in range(-3, 3))))
+    assert not _same_offsets(d, L, margin=0.0).all()
+    assert _same_offsets(d, L).all()
+
+
+@pytest.mark.parametrize("zero", [0.0, -0.0])
+def test_the_kernel_rounding_of_a_zero(zero):
+    L = np.float32([1.0, 3.7, 13.0, 36.0, 100.0])
+    assert _same_offsets(np.full(5, zero, np.float32), L).all()
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_the_kernel_rounding_of_uniform_offsets(seed):
+    rng = np.random.default_rng(seed)
+    L = rng.uniform(1.0, 100.0, 200_000).astype(np.float32)
+    d = (rng.uniform(-2.0, 2.0, L.shape) * L).astype(np.float32)
+    assert _same_offsets(d, L).all()
+
+
+@settings(max_examples=2000, deadline=None, database=None)
+@given(st.floats(-3.0, 3.0), st.floats(1.0, 100.0, width=32),
+       st.integers(-4, 4))
+def test_the_kernel_rounding_hypothesis(ratio, L, ulps):
+    """Any offset up to ±3 L, nudged by a few ulps (ties come often)."""
+    L = np.float32(L)
+    d = np.float32(np.float32(ratio) * L)
+    for _ in range(abs(ulps)):
+        d = np.nextafter(d, np.float32(np.inf if ulps > 0 else -np.inf))
+    assert _same_offsets(np.float32([d]), np.float32([L])).all()
+
+
+@pytest.mark.parametrize("L", [1.0, 3.7, 13.0, 36.0, 100.0])
+def test_the_tile_guard_bounds_t(L):
+    """Coordinates at the ends of [−L, 2L] and a few ulps inside give
+    |t| ≤ 3 (1 + 2⁻²²) < MIN_IMAGE_SPAN, which the margin's proof takes;
+    one ulp outside, the guard refuses them."""
+    L = np.float32(L)
+    lo, hi = -L, np.float32(2.0) * L
+    ends, a, b = [np.float32(0.0), L], lo, hi
+    for _ in range(5):
+        ends += [a, b]
+        a, b = np.nextafter(a, hi), np.nextafter(b, lo)
+    x = np.float32(ends)
+    d, fast = _guarded(x[:, None], x[None, :], L)
+    assert fast.all()
+    t = np.abs(d * (np.float32(1.0) / L))
+    assert t.max() <= 3.0 * (1.0 + 2.0 ** -22) < neighbors.MIN_IMAGE_SPAN
+    out = np.float32([np.nextafter(lo, -np.inf), np.nextafter(hi, np.inf)])
+    assert not _guarded(out, L / 2, L)[1].any()
+
+
+@pytest.mark.parametrize("side", ["below", "above"])
+def test_the_kernel_rounding_just_outside_the_tile_range(side):
+    """Heads 1–4 ulps outside [−L, 2L] and atoms at near ties from
+    them: the guard sends the pairs to the division, and every offset is
+    the plain one."""
+    d, L = (np.concatenate(p) for p in zip(*(_near_ties(j, n=4000)
+                                               for j in range(-3, 3))))
+    rng = np.random.default_rng(5)
+    edge = -L if side == "below" else np.float32(2.0) * L
+    p = edge
+    for _ in range(4):
+        p = np.where(rng.random(L.shape) < 0.8, np.nextafter(
+            p, np.float32(-np.inf if side == "below" else np.inf)), p)
+    p = np.where(p == edge, np.nextafter(
+        p, np.float32(-np.inf if side == "below" else np.inf)), p)
+    d, fast = _guarded(p + d, p, L)
+    assert not fast.any()
+    assert _same_offsets(d, L, fast=fast).all()
+
+
+@pytest.mark.parametrize("j", [10, 100, 1000])
+def test_the_kernel_rounding_far_outside_the_tile_range(j):
+    """Atoms j + ½ boxes from heads at 0 (coordinates far outside
+    [−L, 2L], as an unwrapped trajectory gives): guarded, every offset is
+    the plain one."""
+    d, L = _near_ties(j)
+    d, fast = _guarded(d, np.float32(0.0), L)
+    assert not fast.any()
+    assert _same_offsets(d, L, fast=fast).all()
+
+
+def test_the_tile_guard_is_needed_far_outside():
+    """The same atoms 1,000 boxes out with the fast rule let through (no
+    guard): t is then too far from fl(d / L) for the margin, and some
+    offsets round apart, so the guard is what keeps them exact."""
+    d, L = _near_ties(1000)
+    assert not _same_offsets(d, L).all()
+    assert _same_offsets(d, L, fast=False).all()

@@ -145,15 +145,19 @@ line each:
    (the similarity and degrees within their ulp bounds, the QR on the
    chain's start basis and on the filter's ill-conditioned `gp @ q` and
    the deflated span's two directions by orthonormality and projectors
-   within 1e-5, the k-means labels of every frame equal), with
-   CUDA-event times of kernel, plain and, for the QR and the span,
-   `torch.linalg.qr` and `torch.linalg.svd`, each bound, and the whole
-   call's device operations and time; and the classifier's CUDA-event
-   time a batch in both algebras (the matmul branch the card runs, and
-   batched `eigh`) and through the plain versions, the raw labels of
-   every frame equal to the plain chain's and the CPU's (the other
-   algebra's counted). Then every 10th frame (b7 with the host class
-   plane): its totals must equal the every-frame run's;
+   within 1e-5, the k-means labels of every frame equal to the plain 100
+   steps' and to the plain fixed point's, with the centroid updates each
+   frame ran), with CUDA-event times of kernel, plain and, for the QR and
+   the span, `torch.linalg.qr` and `torch.linalg.svd`, each kernel's
+   device time (`device_ms`: its calls queued on the card), each bound
+   (the k-means' over 100 steps and over the steps the batch needs) and
+   share, and the whole call's device operations and time; and the
+   classifier's CUDA-event time a batch in both algebras (the matmul
+   branch the card runs, and batched `eigh`) and through the plain
+   versions, the raw labels of every frame equal to the plain chain's and
+   the CPU's (the other algebra's counted). Then every 10th frame (b7
+   with the host class plane): its totals must equal the every-frame
+   run's;
 18. run aa-spherical-leaflets: spherical clustering on the aa membrane
    (int16, the classifier with the step), against its golden, with the
    same kernel check and classifier time; and the `ua` analysis with
@@ -343,24 +347,26 @@ LOCAL_MEMBER_OPS = 4
 #: test_torch_neighbors.py SUM_BOUND)
 NEIGHBOR_SUM_BOUND = 1e-5
 # The spectral classifier's kernels (csrc/spectral.cu), counted from the
-# source. spectral_affinity, per pair: the offset 3, the minimum image 12
-# (none without PBC), d2 5, sigma * d2 1, exp 1 (counted as one), the
-# degree's add 1 and the two scalings of S 2; per head 1/sqrt(degree) and
-# its guard 3. The kernel computes each pair's weight again in its second
-# pass: a cost it chose, which the bound does not count. The other three
-# work in f64, at the card's f64 rate outside the tensor cores: thin_qr3
-# per row, the three norms 6, the reflections of the later columns 15 and
-# of Q's three columns 45; top2_span per row, the four passes 2 + 8 + 20 +
-# 20; rayleigh_kmeans per row, the Rayleigh sums and the embedding 19 f64
-# once and the centroid sums 3 f64 a step, and in f32 the farthest-point
-# distance 5, the two distances and the test 11 a step and 11 for the
-# final labels.
-AFFINITY_PAIR_OPS = {True: 25, False: 13}
+# source. spectral_affinity, per weight w_ij = w_ji, once a pair i <= j
+# (the triangle path computes each once): the offset 3, the minimum image
+# 12 (none without PBC), d2 5, sigma * d2 1, exp 1 (counted as one); per
+# entry of S, the degree's add 1 and the two scalings 2; per head
+# 1/sqrt(degree) and its guard 3. The other three work in f64, at the
+# card's f64 rate outside the tensor cores: thin_qr3 per row, the three
+# norms 6, the reflections of the later columns 15 and of Q's three
+# columns 45; top2_span per row, the four passes 2 + 8 + 20 + 20;
+# rayleigh_kmeans per row, the Rayleigh sums and the embedding 19 f64
+# once and the centroid sums 3 f64 a centroid update, and in f32 the
+# farthest-point distance 5 once and the two distances and the test 11
+# a pass of labels: a frame that runs s updates takes s + 1 passes (its
+# last labels, or the final ones).
+AFFINITY_WEIGHT_OPS = {True: 22, False: 10}
+AFFINITY_ENTRY_OPS = 3
 AFFINITY_HEAD_OPS = 3
 QR_ROW_F64_OPS = 66
 SPAN_ROW_F64_OPS = 50
 KMEANS_ROW_F64_OPS, KMEANS_STEP_F64_OPS = 19, 3
-KMEANS_ROW_OPS, KMEANS_STEP_OPS = 16, 11
+KMEANS_ROW_OPS, KMEANS_STEP_OPS = 5, 11
 #: the H100's f64 rate outside the tensor cores (NVIDIA's data sheet, SXM
 #: part at 700 W)
 F64_OPS_PER_S = 34e12
@@ -961,6 +967,27 @@ def cuda_ms(fn, reps=20, warmup=3):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps=20):
+    """Mean device time of one call, from CUDA events around `reps` calls
+    queued behind a ~10 ms `torch.cuda._sleep` on the stream: the card
+    runs them back to back, where events around calls as the host makes
+    them (`cuda_ms`) time the host's launches of a kernel shorter than
+    them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -2183,14 +2210,25 @@ def check_spectral(label, analysis, db):
         return got
 
     def times(kernel, plain, library=None):
+        """CUDA-event ms per call in turns, plain, kernel, kernel, plain
+        (`ms`, `plain_ms`: the lower of each pair), and the kernel's
+        device time (`device_ms`: the calls queued behind a sleep), which
+        is shorter where the host's launches, not the kernel, set `ms`."""
         plain_ms = cuda_ms(plain, reps=5, warmup=1)
         ms = cuda_ms(kernel, reps=20, warmup=3)
         ms2 = cuda_ms(kernel, reps=20, warmup=0)
         plain_ms2 = cuda_ms(plain, reps=5, warmup=0)
         lib = (None if library is None
                else cuda_ms(library, reps=5, warmup=1))
-        return dict(ms=min(ms, ms2), plain_ms=min(plain_ms, plain_ms2),
-                    library_ms=lib), (plain_ms, ms, ms2, plain_ms2)
+        dev = device_ms(kernel)
+        return dict(ms=min(ms, ms2), device_ms=dev,
+                    plain_ms=min(plain_ms, plain_ms2), library_ms=lib), \
+            (plain_ms, ms, ms2, plain_ms2, dev)
+
+    def share_of_bound(numbers):
+        return (f"{numbers['bound_ms'] / numbers['ms']:.1%} of bound by CUDA "
+                f"events, {numbers['bound_ms'] / numbers['device_ms']:.1%} "
+                f"by device time")
 
     def projector_err(a, b, k):
         a, b = a.double()[..., :k], b.double()[..., :k]
@@ -2230,13 +2268,17 @@ def check_spectral(label, analysis, db):
           f"{float(s_err.max()):.3e}; degrees within "
           f"{SPECTRAL_DEGREE_RTOL:g}, max |diff| {float(d_err.max()):.3e}; "
           "ms per call: plain {:.4f}, kernel {:.4f}, kernel {:.4f}, plain "
-          "{:.4f}".format(*seq), flush=True)
+          "{:.4f}; kernel device time {:.4f}".format(*seq), flush=True)
     out["spectral_affinity"] = with_bound(
         f"spectral_affinity {label}",
         dict(numbers, max_abs_err=float(s_err.max())),
         n_bytes(h, box, s_mat, degree),
-        AFFINITY_PAIR_OPS[pbc] * n_frames * n * n
+        AFFINITY_WEIGHT_OPS[pbc] * n_frames * n * (n + 1) // 2
+        + AFFINITY_ENTRY_OPS * n_frames * n * n
         + AFFINITY_HEAD_OPS * n_frames * n)
+    print(f"kernel spectral_affinity {label}: "
+          f"{spectral.affinity_plan(n).path} path, "
+          f"{share_of_bound(out['spectral_affinity'])}", flush=True)
 
     # the thin QR: the chain's start basis and the filter's gp @ q
     v0 = torch.sqrt(torch.clamp(want_degree, min=0.0))
@@ -2272,7 +2314,7 @@ def check_spectral(label, analysis, db):
     print(f"kernel thin_qr3 {label}: B={n_frames}, n={n}; "
           + "; ".join(notes)
           + "; ms per call: plain {:.4f}, kernel {:.4f}, kernel {:.4f}, "
-          "plain {:.4f}".format(*seq)
+          "plain {:.4f}; kernel device time {:.4f}".format(*seq)
           + f", torch.linalg.qr {numbers['library_ms']:.4f}", flush=True)
     out["thin_qr3"] = with_bound(
         f"thin_qr3 {label}", dict(numbers, max_abs_err=qr_err),
@@ -2295,7 +2337,8 @@ def check_spectral(label, analysis, db):
         lambda: torch.linalg.svd(deflated, full_matrices=False))
     print(f"kernel top2_span {label}: B={n_frames}, n={n}; ||U'U - I|| "
           f"{ortho:.3e}, projectors within {err:.3e}; ms per call: plain "
-          "{:.4f}, kernel {:.4f}, kernel {:.4f}, plain {:.4f}".format(*seq)
+          "{:.4f}, kernel {:.4f}, kernel {:.4f}, plain {:.4f}; kernel "
+          "device time {:.4f}".format(*seq)
           + f", torch.linalg.svd of the deflated span "
           f"{numbers['library_ms']:.4f}", flush=True)
     out["top2_span"] = with_bound(
@@ -2303,28 +2346,55 @@ def check_spectral(label, analysis, db):
         dict(numbers, max_abs_err=projector_err(u2, want_u2, 2)),
         n_bytes(span, want_degree, u2), 0, SPAN_ROW_F64_OPS * n_frames * n)
 
-    # the embedding's k-means
+    # the embedding's k-means, stopped at its fixed point: its labels
+    # against the plain 100 steps', its steps against the plain version
+    # of its exit (`kmeans2_fixed_point`, whose labels must equal the 100
+    # steps' too)
     lu2 = want_u2 - want_s @ want_u2
     iters = cl.KMEANS_ITERS
-    labels = grew("kmeans_launches",
-                  lambda: spectral.rayleigh_kmeans(want_u2, lu2, iters))
+    steps = torch.empty(n_frames, dtype=torch.int32, device=here)
+    labels = grew("kmeans_launches", lambda: spectral.rayleigh_kmeans(
+        want_u2, lu2, iters, steps=steps))
     want_labels = spectral.rayleigh_kmeans_plain(want_u2, lu2, iters)
+    fixed_labels, plain_steps = spectral.kmeans2_fixed_point(
+        spectral.rayleigh_embedding(want_u2, lu2), iters)
     differ = int((labels != want_labels).any(1).sum())
-    if differ:
+    differ_fixed = int((fixed_labels != want_labels).any(1).sum())
+    if differ or differ_fixed:
         raise RuntimeError(f"{label}: rayleigh_kmeans labels differ from "
-                           f"plain's in {differ} of {n_frames} frames")
+                           f"plain's in {differ} of {n_frames} frames, the "
+                           f"plain fixed point's in {differ_fixed}")
     numbers, seq = times(
         lambda: spectral.rayleigh_kmeans(want_u2, lu2, iters),
         lambda: spectral.rayleigh_kmeans_plain(want_u2, lu2, iters))
-    print(f"kernel rayleigh_kmeans {label}: B={n_frames}, n={n}, {iters} "
-          f"steps; the labels of all {n_frames} frames == plain's; ms per "
+
+    def spread(t):
+        t = t.cpu()
+        return f"{int(t.min())} / {int(t.median())} / {int(t.max())}"
+
+    moves = (f"kernel {spread(steps)}, plain {spread(plain_steps)} "
+             f"({int((steps != plain_steps).sum())} frames differ)")
+    print(f"kernel rayleigh_kmeans {label}: B={n_frames}, n={n}, "
+          f"{spectral.kmeans_plan(n).path} path, at most {iters} steps; the "
+          f"labels of all {n_frames} frames == plain's and the plain fixed "
+          f"point's; centroid updates min / median / max: {moves}; ms per "
           "call: plain {:.4f}, kernel {:.4f}, kernel {:.4f}, plain "
-          "{:.4f}".format(*seq), flush=True)
-    out["rayleigh_kmeans"] = with_bound(
-        f"rayleigh_kmeans {label}", dict(numbers, max_abs_err=0),
-        n_bytes(want_u2, lu2, labels),
-        (KMEANS_ROW_OPS + KMEANS_STEP_OPS * (iters + 1)) * n_frames * n,
-        (KMEANS_ROW_F64_OPS + KMEANS_STEP_F64_OPS * iters) * n_frames * n)
+          "{:.4f}; kernel device time {:.4f}".format(*seq), flush=True)
+    # the bound twice: every frame `iters` centroid updates, and the
+    # updates these inputs need (s of a frame: s + 1 passes of labels)
+    moved = n_bytes(want_u2, lu2, labels)
+    for ran, what in ((iters * n_frames, f"{iters} steps"),
+                      (int(steps.long().sum()), "the steps these inputs "
+                                                "need")):
+        numbers = with_bound(
+            f"rayleigh_kmeans {label} over {what}",
+            dict(numbers, max_abs_err=0), moved,
+            (KMEANS_ROW_OPS * n_frames + KMEANS_STEP_OPS * (ran + n_frames))
+            * n,
+            (KMEANS_ROW_F64_OPS * n_frames + KMEANS_STEP_F64_OPS * ran) * n)
+    out["rayleigh_kmeans"] = numbers
+    print(f"kernel rayleigh_kmeans {label}: {share_of_bound(numbers)}",
+          flush=True)
 
     # the whole call: its device operations, its time and the plain chain's
     from torch.profiler import ProfilerActivity, profile
@@ -2670,7 +2740,10 @@ def kernel_entry(name, source, replaces, launches, numbers):
             # one PyTorch call that computes the same function, where there
             # is one (the spectral QR and SVD); none computes the order-
             # parameter or neighbour sums
-            "library_ms": numbers.get("library_ms")}
+            "library_ms": numbers.get("library_ms"),
+            # the spectral kernels' calls queued on the card (`device_ms`)
+            **({"device_ms": numbers["device_ms"]}
+               if "device_ms" in numbers else {})}
 
 
 def cg_analysis(g, gro, bnd, trajectory, output_yaml=None, **kw):

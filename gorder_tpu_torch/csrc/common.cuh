@@ -1,5 +1,6 @@
-// Device code shared by the order-parameter kernels (p2.cu, ua.cu): the
-// minimum image, the reference's fixed-point sample, the per-block table
+// Device code shared by the kernels: the minimum image (every kernel) and
+// its division-free form (neighbors.cu, spectral.cu); for the
+// order-parameter kernels (p2.cu, ua.cu) the reference's fixed-point sample, the per-block table
 // of per-type [sum, count] int64 that a warp adds its samples to with one
 // add where its lanes hold one type (warp-aggregated), the grid that gives
 // a block a whole frame, and the ordermap table (MapTable) that each
@@ -22,6 +23,65 @@ constexpr int kWarpSize = 32;
 // d - L*rint(d/L): rint rounds half to even, like jnp.round/torch.round.
 __device__ __forceinline__ float min_image(float d, float box) {
   return __fsub_rn(d, __fmul_rn(box, rintf(__fdiv_rn(d, box))));
+}
+
+// The minimum image without a division (neighbors.cu, spectral.cu).
+//
+// The narrowest margin for which the quotient's rounding is proved: t =
+// fl(d * fl(1/L)) lies within 3 * 2^-24 * |t| (and a little more) of
+// fl(d / L), under 2^-22 * kSpan for |t| <= kSpan.
+constexpr float kMinMargin = 0x1p-22f;
+// A bound on |t| for the pairs whose coordinates all lie in [-L, 2L]
+// (`in_range`): |d| <= 3L, so |t| <= 3 (1 + 2^-22) < kSpan.
+constexpr float kSpan = 4.0f;
+// 1.5 * 2^23: for |t| < 2^22, t + kRound lies in [2^23, 2^24), whose ulp
+// is 1, so the sum rounds t to an integer, half to even (kRound is even),
+// and subtracting kRound again is exact.
+constexpr float kRound = 12582912.0f;
+
+// Whether x lies in [-L, 2L] (not for a NaN).
+__device__ __forceinline__ bool in_range(float x, float L) {
+  return x >= -L && x <= 2.0f * L;
+}
+
+// rintf(t) for |t| < 2^22 on the f32 pipe, but that a zero comes out +0.
+__device__ __forceinline__ float rint_small(float t) {
+  return __fsub_rn(__fadd_rn(t, kRound), kRound);
+}
+
+// The half-width 1/2 - margin * kSpan of the band around an integer in
+// which `min_image_fast` trusts t.
+__device__ __forceinline__ float tie_edge(float margin) {
+  return __fsub_rn(0.5f, __fmul_rn(margin, kSpan));
+}
+
+// The minimum image of one component, d - L*rint(d/L), as min_image gives
+// it, for |t| <= kSpan: from k = rint(t), t = d * inv (inv = fl(1/L)),
+// where |t - k| < edge = 1/2 - margin * kSpan, so that fl(d/L), within
+// margin * kSpan of t, rounds to the same k; `tie` is set, and the value
+// must be taken again with `offset`, where not. Bit for bit min_image's
+// value but for the sign of a zero offset (q - p = -0 gives -0, not +0),
+// which no test, square or sum of the kernels sees: d2 is +0 either way
+// and every sum starts at +0. Odd in d like min_image (t + kRound rounds
+// half to even), so the offsets of (p, q) and (q, p) are each other's
+// negatives and their squares equal.
+template <bool kPbc>
+__device__ __forceinline__ float min_image_fast(float q, float p, float L,
+                                                float inv, float edge,
+                                                bool& tie) {
+  const float d = __fsub_rn(q, p);
+  if (!kPbc) return d;
+  const float t = __fmul_rn(d, inv);
+  const float k = rint_small(t);
+  tie |= fabsf(__fsub_rn(t, k)) >= edge;
+  return __fsub_rn(d, __fmul_rn(L, k));
+}
+
+// The offset of one component with min_image's division.
+template <bool kPbc>
+__device__ __forceinline__ float offset(float q, float p, float L) {
+  const float d = __fsub_rn(q, p);
+  return kPbc ? min_image(d, L) : d;
 }
 
 // The reference's fixed-point sample llround(f64(S) * 1e6)

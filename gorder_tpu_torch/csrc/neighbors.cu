@@ -45,7 +45,7 @@
 //   - no pair is ever written to device memory: the plain versions write
 //     and read back several (F, M, C) f32 intermediates;
 //   - the minimum image takes no division and no conversion unit in the
-//     common case (`min_image_fast`): t = d * fl(1/L) with 1/L once a
+//     common case (`min_image_fast`, common.cuh): t = d * fl(1/L), 1/L once a
 //     block's frame, rint(t) on the f32 pipe (two adds, where rintf is a
 //     conversion), and the correctly rounded division of common.cuh only
 //     for a pair whose t lies within the margin of a tie, where rint(t)
@@ -89,54 +89,11 @@ constexpr int kGroups = kThreads / 32;
 constexpr int kCloudBlocks = 4;
 // A block may take up to the card's 227 KiB of shared memory.
 constexpr size_t kMaxShared = 227 * 1024;
-// The narrowest margin for which the quotient's rounding is proved: t =
-// fl(d * fl(1/L)) lies within 3 * 2^-24 * |t| (and a little more) of
-// fl(d / L), under 2^-22 * kSpan for |t| <= kSpan.
-constexpr float kMinMargin = 0x1p-22f;
-// A bound on |t| for the pairs of a tile whose coordinates all lie in
-// [-L, 2L] (`in_range`): |d| <= 3L, so |t| <= 3 (1 + 2^-22) < kSpan.
-constexpr float kSpan = 4.0f;
-// 1.5 * 2^23: for |t| < 2^22, t + kRound lies in [2^23, 2^24), whose ulp
-// is 1, so the sum rounds t to an integer, half to even (kRound is even),
-// and subtracting kRound again is exact.
-constexpr float kRound = 12582912.0f;
-
-// Whether x lies in [-L, 2L] (not for a NaN).
-__device__ __forceinline__ bool in_range(float x, float L) {
-  return x >= -L && x <= 2.0f * L;
-}
-
-// rintf(t) for |t| < 2^22 on the f32 pipe, but that a zero comes out +0.
-__device__ __forceinline__ float rint_small(float t) {
-  return __fsub_rn(__fadd_rn(t, kRound), kRound);
-}
-
-// The minimum image of one component, d - L*rint(d/L), as common.cuh
-// min_image gives it, for |t| <= kSpan: from k = rint(t), t = d * inv
-// (inv = fl(1/L)), where |t - k| < edge = 1/2 - margin * kSpan, so that
-// fl(d/L), within margin * kSpan of t, rounds to the same k; `tie` is set,
-// and the value must be taken again with `offset`, where not. Bit for bit
-// common.cuh's value but for the sign of a zero offset (q - p = -0 gives
-// -0, not +0), which no test or sum of the kernels sees: d2 is +0 either
-// way and every sum starts at +0.
-template <bool kPbc>
-__device__ __forceinline__ float min_image_fast(float q, float p, float L,
-                                                float inv, float edge,
-                                                bool& tie) {
-  const float d = __fsub_rn(q, p);
-  if (!kPbc) return d;
-  const float t = __fmul_rn(d, inv);
-  const float k = rint_small(t);
-  tie |= fabsf(__fsub_rn(t, k)) >= edge;
-  return __fsub_rn(d, __fmul_rn(L, k));
-}
-
-// The offset of one component with common.cuh's division.
-template <bool kPbc>
-__device__ __forceinline__ float offset(float q, float p, float L) {
-  const float d = __fsub_rn(q, p);
-  return kPbc ? gorder::min_image(d, L) : d;
-}
+// The division-free minimum image and its guards (common.cuh).
+using gorder::in_range;
+using gorder::kMinMargin;
+using gorder::min_image_fast;
+using gorder::offset;
 
 // One head's sums over its masked cloud atoms: the count, the f64 sums of
 // the offsets, and of their products xx xy xz yy yz zz (exact in f64).
@@ -221,7 +178,7 @@ __global__ void __launch_bounds__(kThreads, kCloudBlocks)
                                a.box[3 * b + 2]);
   const float3 inv = make_float3(__frcp_rn(L.x), __frcp_rn(L.y),
                                  __frcp_rn(L.z));
-  const float edge = __fsub_rn(0.5f, __fmul_rn(a.margin, kSpan));
+  const float edge = gorder::tie_edge(a.margin);
   // the head's row; a lane past the last head takes the last, writes none
   const size_t row = static_cast<size_t>(b) * a.n_heads + min(m, a.n_heads - 1);
   const float* hp = a.heads + 3 * row;
@@ -319,7 +276,7 @@ __global__ void __launch_bounds__(kThreads) local_sums_kernel(LocalArgs a) {
   const float4* members = a.members + static_cast<size_t>(b) * a.n_members;
   const float2 L = kPbc ? a.box[b] : make_float2(1.0f, 1.0f);
   const float2 inv = make_float2(__frcp_rn(L.x), __frcp_rn(L.y));
-  const float edge = __fsub_rn(0.5f, __fmul_rn(a.margin, kSpan));
+  const float edge = gorder::tie_edge(a.margin);
   const float2 h =
       a.heads[static_cast<size_t>(b) * a.n_heads + (m < a.n_heads ? m : 0)];
   const bool head_in = in_range(h.x, L.x) & in_range(h.y, L.y);

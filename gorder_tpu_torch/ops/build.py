@@ -87,13 +87,14 @@ _SIGNATURES = {
                     + [_int] * 2 + [_vp],
     "local_sums": [_vp] * 4 + [_int] * 3 + [ctypes.c_float] * 2
                   + [_int] * 2 + [_vp],
-    # spectral.cu: the pointers (a null scratch: shared memory), the
-    # sizes, [sigma, pbc, tile | iters,] stream
+    # spectral.cu: the pointers (a null scratch: shared memory; null
+    # steps: not recorded), the sizes, [sigma, pbc, triangle, tile |
+    # iters, warp,] stream
     "spectral_affinity": [_vp] * 4 + [_int] * 2 + [ctypes.c_float]
-                         + [_int] * 2 + [_vp],
+                         + [_int] * 3 + [_vp],
     "thin_qr3": [_vp] * 3 + [_int] * 2 + [_vp],
     "top2_span": [_vp] * 3 + [_int] * 2 + [_vp],
-    "rayleigh_kmeans": [_vp] * 4 + [_int] * 3 + [_vp],
+    "rayleigh_kmeans": [_vp] * 5 + [_int] * 4 + [_vp],
 }
 
 

@@ -48,7 +48,8 @@ LOCAL_TILE = 1024
 #: that margin both round to the same integer while |t| ≤ MIN_IMAGE_SPAN,
 #: as it is for every pair of a tile whose coordinates lie in [-L, 2L];
 #: the kernels divide every pair of any other tile. They refuse a
-#: narrower margin; the span is theirs (csrc/neighbors.cu kSpan).
+#: narrower margin; the span is theirs (csrc/common.cuh kSpan), and
+#: spectral_affinity takes this margin itself (common.cuh kMinMargin).
 #: tests/test_torch_neighbors.py holds the rule against rint(d / L) and
 #: shows a margin of 0 failing
 MIN_IMAGE_SPAN = 4.0

@@ -16,6 +16,14 @@ analytic top vector D^{1/2}·1 deflated (:189-190, :315-317);
 Laplacian products. None is a Pallas kernel in gorder_tpu: there all are
 XLA ops.
 
+The kernels pick their path from the frame's size (`affinity_plan`,
+`kmeans_plan`): the similarity holds a frame's upper triangle of weights
+on chip and computes each weight once where it fits (up to 288 heads),
+else takes two passes over the heads; the k-means runs one warp a frame
+up to 256 rows, else one block, and stops at the fixed point of its
+labels, which are then the labels `iters` steps give
+(`kmeans2_fixed_point` is its plain counterpart).
+
 For tensors on the CPU the wrappers run the plain versions; for CUDA
 tensors they launch the hand-written kernels (`csrc/spectral.cu`) on the
 current stream, or raise. The wrappers alone choose between the two, and
@@ -39,15 +47,22 @@ import torch
 from ..core.pbc import min_image
 from .build import call, check_tensor, device_of
 
-#: heads a spectral_affinity block keeps in shared memory at a time (16
-#: bytes a head: x, y, z and 1/√degree)
+#: the shared memory a spectral_affinity block may take for a frame's
+#: triangle of weights (the card's 227 KiB a block, csrc/spectral.cu
+#: kMaxShared); a larger frame takes the two passes
+AFFINITY_TRIANGLE_BYTES = 227 * 1024
+#: heads a two-pass spectral_affinity block keeps in shared memory at a
+#: time (16 bytes a head: x, y, z and 1/√degree)
 AFFINITY_TILE = 1024
 #: rows whose working columns thin_qr3 (48 bytes a row) and
-#: rayleigh_kmeans (8 bytes a row) keep in shared memory; larger frames
-#: work in a scratch buffer in device memory (csrc/spectral.cu takes at
-#: most 40 KiB of dynamic shared memory a block)
+#: rayleigh_kmeans' one-block path (8 bytes a row) keep in shared memory;
+#: larger frames work in a scratch buffer in device memory (csrc/
+#: spectral.cu takes at most 40 KiB of dynamic shared memory a block there)
 QR_SHARED_ROWS = 40 * 1024 // 48
 KMEANS_SHARED_ROWS = 40 * 1024 // 8
+#: rows rayleigh_kmeans takes with one warp a frame (8 a lane, in
+#: registers: csrc/spectral.cu kWarpRows); larger frames take one block
+KMEANS_WARP_ROWS = 256
 
 #: launches of each kernel since the last reset; the plain versions count
 #: in none
@@ -86,12 +101,51 @@ def _stream(device):
 # ------------------------------------------------------- spectral_affinity
 
 
+def triangle_bytes(n: int) -> int:
+    """Shared memory of spectral_affinity's triangle path for a frame of n
+    heads (csrc/spectral.cu triangle_bytes): the upper triangle's T(T+1)/2
+    tiles of 32 × 32 f32, T = ⌈n/32⌉; each head's T f64 parts of its
+    degree (one a tile of 32 heads), its 1/√degree and its x, y, z in two
+    frames; and two frames' flags of each of the 32 warps."""
+    t = -(-n // 32)
+    return t * (t + 1) // 2 * 32 * 32 * 4 + (8 * t + 28) * n + 256
+
+
+class AffinityPlan(NamedTuple):
+    """How spectral_affinity takes a frame: "triangle" (the frame's weights
+    on chip, each computed once) or "two-pass" (`tile` heads at a time,
+    each weight computed twice), and the shared memory of its block."""
+    path: str
+    tile: int
+    shared_bytes: int
+
+
+def affinity_plan(n: int) -> AffinityPlan:
+    """The path of spectral_affinity for frames of n heads: the triangle
+    where it fits AFFINITY_TRIANGLE_BYTES (up to 288 heads), else two
+    passes."""
+    tri = triangle_bytes(n)
+    if tri <= AFFINITY_TRIANGLE_BYTES:
+        return AffinityPlan("triangle", 0, tri)
+    tile = min(AFFINITY_TILE, n)
+    return AffinityPlan("two-pass", tile, 16 * tile)
+
+
+def affinity_weights_plain(heads, box_diag, handle_pbc: bool, sigma: float):
+    """(B, n, 3) f32 heads → (B, n, n) f32 W = exp(−σ d²), d the
+    (min-imaged) p_i − p_j summed over the components in order. The
+    minimum image is odd in d, so W is symmetric bit for bit: the kernel
+    computes each w_ij = w_ji once."""
+    return torch.exp(-sigma * sq_distances(heads, heads, box_diag,
+                                           handle_pbc))
+
+
 def spectral_affinity_plain(heads, box_diag, handle_pbc: bool,
                             sigma: float):
     """(B, n, 3) f32 heads → ((B, n, n) f32 S, (B, n) f32 degree), op by op
     as gorder_tpu forms them: W = exp(−σ d²), the degree W·1, D^{-1/2}
     where the degree > 1e-10 (else 0), S = (W · D_i^{-1/2}) · D_j^{-1/2}."""
-    w = torch.exp(-sigma * sq_distances(heads, heads, box_diag, handle_pbc))
+    w = affinity_weights_plain(heads, box_diag, handle_pbc, sigma)
     degree = w.sum(-1)
     d_inv_sqrt = torch.where(degree > 1e-10, 1.0 / torch.sqrt(degree),
                              torch.zeros_like(degree))
@@ -100,9 +154,11 @@ def spectral_affinity_plain(heads, box_diag, handle_pbc: bool,
 
 def spectral_affinity(heads, box_diag, handle_pbc: bool, sigma: float):
     """(B, n, 3) f32 head positions and (B, 3) f32 box lengths → ((B, n, n)
-    f32 normalized similarity S, (B, n) f32 degree). The kernel sums the
-    degrees in f64 and rounds them once, so S and the degrees agree with
-    the plain version's to a few f32 ulps."""
+    f32 normalized similarity S, (B, n) f32 degree). The kernel sums a
+    degree in f64 in a fixed order (the row a tile of 32 heads at a time,
+    in index order, the tiles' sums in order) and rounds it once, so S and
+    the degrees agree with the plain version's to a few f32 ulps; its two
+    paths (`affinity_plan`) give the same bits."""
     global affinity_launches
     device = device_of(heads)
     n = _frames_of("heads", heads, 3, device)
@@ -115,10 +171,12 @@ def spectral_affinity(heads, box_diag, handle_pbc: bool, sigma: float):
     degree = torch.empty((n_frames, n), dtype=torch.float32, device=device)
     if not degree.numel():
         return s_mat, degree
+    plan = affinity_plan(n)
     with torch.cuda.device(device):
         call("spectral_affinity", heads.data_ptr(), box_diag.data_ptr(),
              s_mat.data_ptr(), degree.data_ptr(), n_frames, n, float(sigma),
-             int(handle_pbc), min(AFFINITY_TILE, n), _stream(device))
+             int(handle_pbc), int(plan.path == "triangle"), plan.tile,
+             _stream(device))
     affinity_launches += 1
     return s_mat, degree
 
@@ -253,28 +311,76 @@ def rayleigh_embedding(u2, lu2):
     return torch.where(norm > 1e-10, embedding / norm, embedding)
 
 
+def _farthest_start(embedding):
+    """kmeans2's start: (row 0, the row farthest from it), the lowest row
+    on ties (torch.argmax)."""
+    first = embedding[:, 0]                                   # (B, k)
+    far = torch.argmax(((embedding - first[:, None]) ** 2).sum(-1), dim=1)
+    rows = torch.arange(embedding.shape[0], device=embedding.device)
+    return first, embedding[rows, far]
+
+
+def _assign(embedding, c0, c1):
+    """(B, n) bool: the rows nearer c1 than c0."""
+    d0 = ((embedding - c0[:, None]) ** 2).sum(-1)
+    d1 = ((embedding - c1[:, None]) ** 2).sum(-1)
+    return d1 < d0
+
+
+def _centroids(embedding, ones, first):
+    """The centroids of the rows labelled 0 and 1 (`ones`), row 0 for an
+    empty cluster."""
+    w1 = ones.to(embedding.dtype)[..., None]                  # (B, n, 1)
+    w0 = 1.0 - w1
+    n0, n1 = w0.sum(dim=(1, 2)), w1.sum(dim=(1, 2))           # (B,)
+    c0 = (embedding * w0).sum(1) / torch.clamp(n0, min=1.0)[:, None]
+    c1 = (embedding * w1).sum(1) / torch.clamp(n1, min=1.0)[:, None]
+    return (torch.where((n0 > 0)[:, None], c0, first),
+            torch.where((n1 > 0)[:, None], c1, first))
+
+
 def kmeans2(embedding, iters: int):
     """(B, n, k) → (B, n) int32 labels: deterministic k-means with k = 2,
     farthest-point init (c0 = row 0, c1 = the row farthest from it) and
     `iters` fixed iterations; an empty cluster falls back to row 0
     (gorder_tpu/core/clustering.py:51-83)."""
-    first = embedding[:, 0]                                   # (B, k)
-    far = torch.argmax(((embedding - first[:, None]) ** 2).sum(-1), dim=1)
-    rows = torch.arange(embedding.shape[0], device=embedding.device)
-    c0, c1 = first, embedding[rows, far]
+    first, c1 = _farthest_start(embedding)
+    c0 = first
     for _ in range(iters):
-        d0 = ((embedding - c0[:, None]) ** 2).sum(-1)
-        d1 = ((embedding - c1[:, None]) ** 2).sum(-1)
-        w1 = (d1 < d0).to(embedding.dtype)[..., None]         # (B, n, 1)
-        w0 = 1.0 - w1
-        n0, n1 = w0.sum(dim=(1, 2)), w1.sum(dim=(1, 2))       # (B,)
-        c0 = (embedding * w0).sum(1) / torch.clamp(n0, min=1.0)[:, None]
-        c1 = (embedding * w1).sum(1) / torch.clamp(n1, min=1.0)[:, None]
-        c0 = torch.where((n0 > 0)[:, None], c0, first)
-        c1 = torch.where((n1 > 0)[:, None], c1, first)
-    d0 = ((embedding - c0[:, None]) ** 2).sum(-1)
-    d1 = ((embedding - c1[:, None]) ** 2).sum(-1)
-    return (d1 < d0).to(torch.int32)
+        c0, c1 = _centroids(embedding, _assign(embedding, c0, c1), first)
+    return _assign(embedding, c0, c1).to(torch.int32)
+
+
+def kmeans2_fixed_point(embedding, iters: int):
+    """`kmeans2`, stopped where the rayleigh_kmeans kernel stops: at the
+    first step t ≥ 2 whose labels equal step t − 1's, whose labels are
+    then the final ones (a step's centroids are a function of its labels,
+    so every later step repeats it). → ((B, n) int32 labels, equal to
+    `kmeans2(embedding, iters)`'s; (B,) int32 centroid updates each frame
+    ran: t − 1, or `iters` where the labels never repeat)."""
+    first, c1 = _farthest_start(embedding)
+    c0 = first
+    n_frames = embedding.shape[0]
+    labels = torch.zeros(embedding.shape[:2], dtype=torch.int32,
+                         device=embedding.device)
+    steps = torch.full((n_frames,), iters, dtype=torch.int32,
+                       device=embedding.device)
+    done = torch.zeros(n_frames, dtype=torch.bool, device=embedding.device)
+    before = None
+    for it in range(iters):
+        ones = _assign(embedding, c0, c1)
+        if before is not None:
+            now = (ones == before).all(-1) & ~done
+            labels[now] = ones[now].to(torch.int32)
+            steps[now] = it
+            done |= now
+            if bool(done.all()):
+                return labels, steps
+        before = ones
+        c0, c1 = _centroids(embedding, ones, first)
+    rest = ~done
+    labels[rest] = _assign(embedding, c0, c1)[rest].to(torch.int32)
+    return labels, steps
 
 
 def rayleigh_kmeans_plain(u2, lu2, iters: int):
@@ -283,32 +389,61 @@ def rayleigh_kmeans_plain(u2, lu2, iters: int):
     return kmeans2(rayleigh_embedding(u2, lu2), iters)
 
 
-def rayleigh_kmeans(u2, lu2, iters: int):
+class KmeansPlan(NamedTuple):
+    """How rayleigh_kmeans takes a frame: "warp" (one warp a frame, the
+    rows in registers), "shared" or "device" (one block a frame, the rows
+    in shared memory or a scratch buffer), and that shared memory."""
+    path: str
+    shared_bytes: int
+
+
+def kmeans_plan(n: int) -> KmeansPlan:
+    """The path of rayleigh_kmeans for frames of n rows: one warp up to
+    KMEANS_WARP_ROWS, else one block, its rows in shared memory up to
+    KMEANS_SHARED_ROWS."""
+    if n <= KMEANS_WARP_ROWS:
+        return KmeansPlan("warp", 0)
+    if n <= KMEANS_SHARED_ROWS:
+        return KmeansPlan("shared", 8 * n)
+    return KmeansPlan("device", 0)
+
+
+def rayleigh_kmeans(u2, lu2, iters: int, steps=None):
     """(B, n, 2) f32 span u2 and its Laplacian products lap(u2) (B, n, 2)
     f32 → (B, n) int32 raw k-means labels of the energy-weighted embedding
     after `iters` steps. The kernel takes the Rayleigh matrix, the
-    embedding and the centroids' sums in f64 and rounds the embedding and
-    the centroids to f32."""
+    embedding and the centroids' sums in f64, rounds the embedding and the
+    centroids to f32, and stops at the fixed point of its labels. `steps`,
+    a (B,) int32 tensor on the same device, takes the centroid updates
+    each frame ran (on the CPU: `kmeans2_fixed_point`'s, whose labels it
+    then returns)."""
     global kmeans_launches
     device = device_of(u2)
     n = _frames_of("u2", u2, 2, device)
     check_tensor("lu2", lu2, torch.float32, tuple(u2.shape), device)
+    if steps is not None:
+        check_tensor("steps", steps, torch.int32, (u2.shape[0],), device)
     if n < 1:
         raise ValueError("u2 has no rows")
     if iters < 0:
         raise ValueError(f"iters {iters} < 0")
     if device.type == "cpu":
-        return rayleigh_kmeans_plain(u2, lu2, iters)
+        if steps is None:
+            return rayleigh_kmeans_plain(u2, lu2, iters)
+        labels, ran = kmeans2_fixed_point(rayleigh_embedding(u2, lu2), iters)
+        steps.copy_(ran)
+        return labels
     n_frames = u2.shape[0]
     labels = torch.empty((n_frames, n), dtype=torch.int32, device=device)
     if not labels.numel():
         return labels
-    scratch = None if n <= KMEANS_SHARED_ROWS else torch.empty_like(u2)
+    plan = kmeans_plan(n)
+    scratch = torch.empty_like(u2) if plan.path == "device" else None
     with torch.cuda.device(device):
         call("rayleigh_kmeans", u2.data_ptr(), lu2.data_ptr(),
-             labels.data_ptr(),
+             labels.data_ptr(), None if steps is None else steps.data_ptr(),
              None if scratch is None else scratch.data_ptr(), n_frames, n,
-             iters, _stream(device))
+             iters, int(plan.path == "warp"), _stream(device))
     kmeans_launches += 1
     return labels
 

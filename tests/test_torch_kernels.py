@@ -1198,9 +1198,14 @@ def test_neighbor_kernels_reject_wrong_arguments(cuda):
 # csrc/spectral.cu against ops/spectral.py's plain versions on the card, on
 # the first frames of the clustering bilayer (chip_smoke.synthesize_aab:
 # 256 P heads) and on tests/test_torch_clustering.py's flat (72 heads, not
-# a multiple of 32), vesicle (360) and scrambling (128) systems; with the
-# working rows in shared memory and, forced, in device memory with the
-# heads in several ragged tiles. The degrees: the kernel sums in f64 and
+# a multiple of 32), vesicle (360) and scrambling (128) systems; on each
+# kernel's paths, forced by their limits: the similarity's triangle (up to
+# 288 heads; the vesicle takes two passes) and two passes (with the heads
+# in several ragged tiles), the k-means' one warp a frame (up to 256 rows)
+# and one block, its rows in shared or device memory. The similarity's
+# two paths give the same bits; each kernel gives the same bits on a
+# second launch; the k-means' labels equal the plain version's after 0, 1
+# and 100 steps, and the steps it reports stop at its cap. The degrees: the kernel sums in f64 and
 # rounds once, torch sums in f32 in its own order, within 1e-6 of the
 # value (8 to 16 f32 ulps: an ulp is 2^-24 to 2^-23 of it); S within 2e-6
 # (each entry takes two 1/√degree factors); an entry below f32's normal
@@ -1275,17 +1280,53 @@ def _spectral_counts():
             spectral.span_launches, spectral.kmeans_launches]
 
 
-@pytest.mark.parametrize("layout", ["shared", "device"])
+#: the kernels' paths as the layouts force them: the defaults (the
+#: triangle and one warp a frame where they fit), one block a frame with
+#: its rows in shared memory after two passes, and in device memory after
+#: two passes over ragged tiles of 40 heads
+SPECTRAL_LAYOUTS = {
+    "shared": {},
+    "block": {"AFFINITY_TRIANGLE_BYTES": 0, "KMEANS_WARP_ROWS": 0},
+    "device": {"AFFINITY_TRIANGLE_BYTES": 0, "AFFINITY_TILE": 40,
+               "QR_SHARED_ROWS": 2, "KMEANS_WARP_ROWS": 0,
+               "KMEANS_SHARED_ROWS": 2}}
+
+
+def _force(monkeypatch, layout):
+    from gorder_tpu_torch.ops import spectral
+
+    for name, value in SPECTRAL_LAYOUTS[layout].items():
+        monkeypatch.setattr(spectral, name, value)
+
+
+def _heads_of(spectral_systems, name, device):
+    coords, boxes, idx = spectral_systems[name]
+    coords = torch.as_tensor(coords, device=device)
+    return coords[:, idx].contiguous(), torch.as_tensor(boxes, device=device)
+
+
+def _embedding_inputs(heads, box, pbc):
+    """The k-means' inputs of the plain chain: u2 and its products."""
+    from gorder_tpu_torch.core import clustering as tc
+    from gorder_tpu_torch.ops import spectral
+
+    s_mat, degree = spectral.spectral_affinity_plain(heads, box, pbc,
+                                                     tc.PRECISE_SIGMA)
+    v0 = torch.sqrt(degree)
+    v0 = v0 / torch.linalg.vector_norm(v0, dim=-1, keepdim=True)
+    span = tc._top3_subspace(s_mat, v0, spectral.thin_qr3_plain)
+    u2 = spectral.top2_span_plain(span, degree)
+    return u2, (u2 - s_mat @ u2).contiguous()
+
+
+@pytest.mark.parametrize("layout", list(SPECTRAL_LAYOUTS))
 @pytest.mark.parametrize("name", ["aab", "flat", "vesicle", "scrambling"])
 def test_spectral_kernels_match_plain(cuda, spectral_systems, monkeypatch,
                                       name, layout):
     from gorder_tpu_torch.core import clustering as tc
     from gorder_tpu_torch.ops import spectral
 
-    if layout == "device":
-        monkeypatch.setattr(spectral, "QR_SHARED_ROWS", 2)
-        monkeypatch.setattr(spectral, "KMEANS_SHARED_ROWS", 2)
-        monkeypatch.setattr(spectral, "AFFINITY_TILE", 40)
+    _force(monkeypatch, layout)
     coords, boxes, idx = spectral_systems[name]
     coords = torch.as_tensor(coords, device=cuda)
     box = torch.as_tensor(boxes, device=cuda)
@@ -1372,3 +1413,58 @@ def test_spectral_kernels_reject_wrong_arguments(cuda):
         spectral.top2_span(heads, torch.ones((2, 16), device=cuda)[:, ::2])
     with pytest.raises(ValueError):
         spectral.rayleigh_kmeans(heads[..., :2], heads[..., 1:], 5)
+
+
+@pytest.mark.parametrize("pbc", [True, False])
+@pytest.mark.parametrize("name", ["aab", "flat", "scrambling"])
+def test_spectral_affinity_paths_give_the_same_bits(cuda, spectral_systems,
+                                                    monkeypatch, name, pbc):
+    """The triangle and the two passes: the same weights, the degrees
+    summed in f64 in the same order, the same products; each path again
+    the same on a second launch."""
+    from gorder_tpu_torch.core import clustering as tc
+    from gorder_tpu_torch.ops import spectral
+
+    heads, box = _heads_of(spectral_systems, name, cuda)
+    assert spectral.affinity_plan(heads.shape[1]).path == "triangle"
+    runs = []
+    for layout in ("shared", "shared", "block", "device"):
+        with monkeypatch.context() as m:
+            _force(m, layout)
+            runs.append(spectral.spectral_affinity(heads, box, pbc,
+                                                   tc.PRECISE_SIGMA))
+    torch.cuda.synchronize()
+    for s_mat, degree in runs[1:]:
+        assert torch.equal(s_mat, runs[0][0])
+        assert torch.equal(degree, runs[0][1])
+
+
+@pytest.mark.parametrize("iters", [0, 1, 100])
+@pytest.mark.parametrize("layout", list(SPECTRAL_LAYOUTS))
+def test_rayleigh_kmeans_steps(cuda, spectral_systems, monkeypatch, layout,
+                               iters):
+    """Each path on the clustering bilayer and the scrambling system: the
+    labels of `iters` steps, the centroid updates each frame ran (none for
+    0 steps, one for 1, at most 100 and fewer where the labels stop
+    changing), the same bits on a second launch."""
+    from gorder_tpu_torch.ops import spectral
+
+    _force(monkeypatch, layout)
+    for name in ("aab", "scrambling"):
+        heads, box = _heads_of(spectral_systems, name, cuda)
+        u2, lu2 = _embedding_inputs(heads, box, True)
+        got = []
+        for _ in range(2):
+            steps = torch.full((u2.shape[0],), -1, dtype=torch.int32,
+                               device=cuda)
+            got.append((spectral.rayleigh_kmeans(u2, lu2, iters,
+                                                 steps=steps), steps))
+        torch.cuda.synchronize()
+        (labels, steps), again = got
+        assert torch.equal(labels, again[0]) and torch.equal(steps, again[1])
+        assert torch.equal(labels, spectral.rayleigh_kmeans_plain(
+            u2, lu2, iters))
+        if iters <= 1:
+            assert bool((steps == iters).all())
+        else:
+            assert 1 <= int(steps.min()) and int(steps.max()) < iters

@@ -233,13 +233,13 @@ def test_a_batch_hands_out_its_consumers(cg_files, tmp_path, monkeypatch,
 
 # ------------------------------------------------- the kernels' rounding
 
-#: 1.5 · 2^23 (csrc/neighbors.cu kRound): t + ROUND − ROUND is t rounded
+#: 1.5 · 2^23 (csrc/common.cuh kRound): t + ROUND − ROUND is t rounded
 #: to an integer, half to even, for |t| < 2^22
 ROUND = np.float32(1.5 * 2 ** 23)
 
 
 def _kernel_rint(d, L, margin=neighbors.MIN_IMAGE_MARGIN, fast=True):
-    """k of the kernels' minimum image d − L·k (csrc/neighbors.cu
+    """k of the kernels' minimum image d − L·k (csrc/common.cuh
     `min_image_fast`) in numpy f32: where `fast`, t = d · fl(1/L), k = t
     rounded half to even on the f32 pipe, and rint(fl(d / L)) where
     |t − k| ≥ ½ − margin · span (span: MIN_IMAGE_SPAN); elsewhere
@@ -259,7 +259,7 @@ def _kernel_rint(d, L, margin=neighbors.MIN_IMAGE_MARGIN, fast=True):
 
 
 def _in_range(x, L):
-    """csrc/neighbors.cu `in_range`: x in [−L, 2L]."""
+    """csrc/common.cuh `in_range`: x in [−L, 2L]."""
     return (x >= -L) & (x <= np.float32(2.0) * L)
 
 

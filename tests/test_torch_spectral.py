@@ -21,6 +21,18 @@ on the same inputs, made with numpy from a seed:
   and without PBC (an entry below f32's normal range, 2^-126, carries
   fewer bits: atol 2^-126).
 
+What the kernels' designs stand on, on the plain versions:
+
+- W is symmetric bit for bit (`affinity_weights_plain`, torch.equal with
+  its transpose) on the three systems with and without PBC and on heads
+  at and one ulp either side of minimum-image ties, in and outside the
+  box: the similarity kernel computes each w_ij = w_ji once;
+- k-means stopped at the first step whose labels repeat the previous
+  step's (`kmeans2_fixed_point`, the kernel's exit) gives the 100-step
+  labels on every frame, and JAX's;
+- the kernels' paths (`affinity_plan`, `kmeans_plan`) at their limits and
+  either side of them.
+
 The norms are spectral norms of the differences. The wrappers give the
 plain versions' tensors bit for bit on the CPU and count no launch, and
 refuse a wrong dtype, shape, layout or device.
@@ -257,6 +269,140 @@ def test_spectral_affinity_plain_against_jax(systems, name,  # noqa: F811
                                    rtol=1e-6, atol=TINY)
 
 
+@pytest.mark.parametrize("handle_pbc", [True, False])
+@pytest.mark.parametrize("name", ["flat", "vesicle", "scrambling"])
+def test_plain_weights_are_symmetric(systems, name,  # noqa: F811
+                                     handle_pbc):
+    coords, boxes, heads = systems[name]
+    w = spectral.affinity_weights_plain(_t(coords[:, heads]), _t(boxes),
+                                        handle_pbc, tc.PRECISE_SIGMA)
+    assert torch.equal(w, w.transpose(1, 2))
+
+
+def _tie_heads(seed, n_frames=3, n=96):
+    """(F, n, 3) f32 heads on the quarter points of a box whose sides are
+    exact in f32, so that many differences are exactly ±L/2 or ±L; a third
+    of the coordinates moved one ulp either way, and some shifted by ±L or
+    −L/2 out of the box."""
+    rng = np.random.default_rng(seed)
+    box = np.array([[4.0, 6.0, 5.0], [3.2, 3.2, 11.0],
+                    [7.3, 7.3, 7.3]][:n_frames], np.float32)
+    q = rng.integers(0, 4, (n_frames, n, 3)).astype(np.float32)
+    p = (q * box[:, None, :] / np.float32(4.0)).astype(np.float32)
+    step = rng.integers(-1, 2, p.shape)
+    p = np.where(step > 0, np.nextafter(p, np.float32(np.inf)),
+                 np.where(step < 0, np.nextafter(p, np.float32(-np.inf)), p))
+    shift = rng.choice([0.0, 1.0, -1.0, -0.5], p.shape, p=[.7, .1, .1, .1])
+    p = (p + shift.astype(np.float32) * box[:, None, :]).astype(np.float32)
+    return p, box
+
+
+@pytest.mark.parametrize("handle_pbc", [True, False])
+def test_plain_weights_are_symmetric_at_ties(handle_pbc):
+    heads, box = _tie_heads(16)
+    d = heads[:, :, None, :] - heads[:, None, :, :]
+    t = d / box[:, None, None, :]
+    assert (np.abs(np.abs(t) - 0.5) == 0).sum() > 1000   # exact ties
+    w = spectral.affinity_weights_plain(_t(heads), _t(box), handle_pbc,
+                                        tc.PRECISE_SIGMA)
+    assert torch.equal(w, w.transpose(1, 2))
+
+
+@pytest.mark.parametrize("name", ["flat", "vesicle", "scrambling"])
+def test_kmeans_fixed_point_gives_the_100_step_labels(systems,  # noqa: F811
+                                                      name):
+    coords, boxes, heads = systems[name]
+    s, span, degree = _eigh_span(coords, boxes, heads)
+    u2 = spectral.top2_span_plain(span, degree)
+    lu2 = u2 - s @ u2
+    emb = spectral.rayleigh_embedding(u2, lu2)
+    labels, steps = spectral.kmeans2_fixed_point(emb, tc.KMEANS_ITERS)
+    assert labels.dtype == torch.int32 and steps.dtype == torch.int32
+    assert torch.equal(labels, spectral.kmeans2(emb, tc.KMEANS_ITERS))
+    np.testing.assert_array_equal(labels.numpy(),
+                                  _jax_labels(u2.numpy(), lu2.numpy()))
+    assert bool((steps >= 1).all()) and int(steps.max()) < tc.KMEANS_ITERS
+    # a cap below the fixed point: the labels of that many steps
+    for cap in range(int(steps.max()) + 1):
+        got, ran = spectral.kmeans2_fixed_point(emb, cap)
+        assert torch.equal(got, spectral.kmeans2(emb, cap))
+        assert torch.equal(ran, torch.clamp(steps, max=cap))
+
+
+def test_kmeans_fixed_point_random_embeddings():
+    """Many small random frames, some of which move for several steps;
+    every cap from 0 to past the slowest frame."""
+    rng = np.random.default_rng(17)
+    emb = torch.as_tensor(rng.normal(size=(200, 40, 2)).astype(np.float32))
+    emb = emb / torch.linalg.vector_norm(emb, dim=-1, keepdim=True)
+    _, steps = spectral.kmeans2_fixed_point(emb, tc.KMEANS_ITERS)
+    assert int(steps.max()) >= 4
+    for cap in list(range(int(steps.max()) + 2)) + [tc.KMEANS_ITERS]:
+        got, ran = spectral.kmeans2_fixed_point(emb, cap)
+        assert torch.equal(got, spectral.kmeans2(emb, cap))
+        assert torch.equal(ran, torch.clamp(steps, max=cap))
+
+
+@pytest.mark.parametrize("n, path", [
+    (1, "triangle"), (31, "triangle"), (32, "triangle"), (33, "triangle"),
+    (256, "triangle"), (287, "triangle"), (288, "triangle"),
+    (289, "two-pass"), (20_000, "two-pass")])
+def test_affinity_plan_at_its_limit(n, path):
+    plan = spectral.affinity_plan(n)
+    assert plan.path == path
+    if path == "triangle":
+        t = -(-n // 32)
+        assert plan.shared_bytes == (t * (t + 1) // 2 * 4096
+                                     + (8 * t + 28) * n + 256)
+        assert plan.shared_bytes <= 227 * 1024 and plan.tile == 0
+    else:
+        assert plan.tile == min(n, spectral.AFFINITY_TILE)
+        assert plan.shared_bytes == 16 * plan.tile <= 40 * 1024
+
+
+def test_affinity_plan_follows_its_limit(monkeypatch):
+    """The limit in bytes decides, as the card tests force the two passes
+    with it."""
+    n = 256
+    monkeypatch.setattr(spectral, "AFFINITY_TRIANGLE_BYTES",
+                        spectral.triangle_bytes(n))
+    assert spectral.affinity_plan(n).path == "triangle"
+    assert spectral.affinity_plan(n + 1).path == "two-pass"
+    monkeypatch.setattr(spectral, "AFFINITY_TRIANGLE_BYTES", 0)
+    assert spectral.affinity_plan(1).path == "two-pass"
+
+
+@pytest.mark.parametrize("n, path", [
+    (1, "warp"), (255, "warp"), (256, "warp"), (257, "shared"),
+    (spectral.KMEANS_SHARED_ROWS, "shared"),
+    (spectral.KMEANS_SHARED_ROWS + 1, "device"), (20_000, "device")])
+def test_kmeans_plan_at_its_limits(n, path):
+    plan = spectral.kmeans_plan(n)
+    assert plan.path == path
+    assert plan.shared_bytes == (8 * n if path == "shared" else 0)
+    assert plan.shared_bytes <= 40 * 1024
+
+
+def test_rayleigh_kmeans_reports_steps_on_cpu(systems):  # noqa: F811
+    coords, boxes, heads = systems["scrambling"]
+    s, span, degree = _eigh_span(coords, boxes, heads)
+    u2 = spectral.top2_span_plain(span, degree)
+    lu2 = u2 - s @ u2
+    steps = torch.full((len(coords),), -1, dtype=torch.int32)
+    before = spectral.kmeans_launches
+    labels = spectral.rayleigh_kmeans(u2, lu2, tc.KMEANS_ITERS, steps=steps)
+    assert spectral.kmeans_launches == before
+    assert torch.equal(labels, spectral.rayleigh_kmeans_plain(
+        u2, lu2, tc.KMEANS_ITERS))
+    want = spectral.kmeans2_fixed_point(spectral.rayleigh_embedding(u2, lu2),
+                                        tc.KMEANS_ITERS)[1]
+    assert torch.equal(steps, want)
+    with pytest.raises(TypeError):
+        spectral.rayleigh_kmeans(u2, lu2, 5, steps=steps.long())
+    with pytest.raises(ValueError):
+        spectral.rayleigh_kmeans(u2, lu2, 5, steps=steps[:1].contiguous())
+
+
 def _inputs(seed=15, B=3, n=40):
     rng = np.random.default_rng(seed)
     return dict(
@@ -318,3 +464,13 @@ def test_plain_chain_equals_wrappers_on_cpu(systems, algebra):  # noqa: F811
     classify = tc.make_spectral_labels(heads, algebra=algebra)
     assert torch.equal(classify(_t(coords), _t(boxes)),
                        classify.plain(_t(coords), _t(boxes)))
+
+
+def test_the_clustering_diagnostic_needs_a_card(monkeypatch, capsys):
+    """`diagnostics/clustering.py` runs nothing, and exits 1, without a
+    card."""
+    from gorder_tpu_torch.diagnostics import clustering
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert clustering.main(["--runs", "0"]) == 1
+    assert "nothing was run" in capsys.readouterr().err

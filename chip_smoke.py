@@ -138,17 +138,20 @@ line each:
    every frame (int16; labels oriented into leaflets on the host); its
    YAML must pass `bench.validate_output` against its golden and the
    with_leaflets P2 kernel must have been launched once per batch, the
-   spectral classifier's kernels (csrc/spectral.cu) once per batch each
-   but the thin QR, six times. Then that P2 kernel against plain on the
-   first batch with the classes the step used; `check_spectral`: each
-   spectral kernel against its plain version on that batch's 256 heads
-   (the similarity and degrees within their ulp bounds, the QR on the
-   chain's start basis and on the filter's ill-conditioned `gp @ q` and
-   the deflated span's two directions by orthonormality and projectors
-   within 1e-5, the k-means labels of every frame equal to the plain 100
-   steps' and to the plain fixed point's, with the centroid updates each
-   frame ran), with CUDA-event times of kernel, plain and, for the QR and
-   the span, `torch.linalg.qr` and `torch.linalg.svd`, each kernel's
+   spectral classifier's kernels (csrc/spectral.cu) once per batch each.
+   Then that P2 kernel against plain on the first batch with the classes
+   the step used; `check_spectral`: each spectral kernel against its
+   plain version on that batch's 256 heads (the similarity and degrees
+   within their ulp bounds; the subspace iteration, whose QRs see the
+   filter's ill-conditioned `gp @ q`, on the chain's inputs and on a
+   Nyström-sized batch, and the deflated span's two directions, by
+   orthonormality and projectors within 1e-5, the span's fused Laplacian
+   products within 1e-5 of u2 - S'u2; the k-means labels of every frame
+   equal to the plain 100 steps' and to the plain fixed point's, with the
+   centroid updates each frame ran), with CUDA-event times of kernel,
+   plain and, for the subspace and the span, `torch.linalg.eigh` of S
+   (and `torch.linalg.qr` of one step's input) and `torch.linalg.svd`
+   of the deflated span, each kernel's
    device time (`device_ms`: its calls queued on the card), each bound
    (the k-means' over 100 steps and over the steps the batch needs) and
    share, and the whole call's device operations and time; and the
@@ -259,11 +262,11 @@ line each:
 
 The phases run in the order 1-7, 18, 19 (aa), 14, 12, 28, 20-22, 8, 9,
 27, 10, 11, 18 (ua), 13, 15, 23-26, 29, 32-34, 30, 31, 16, 17, 19
-(clustering), and
-the total time is printed. Then one JSON line with the kernels of the
-path (with each one's bound: the least time the card could take, from
-the bytes it must move at the H100's 3.35 TB/s and its f32 operations at
-67 TFLOP/s), and last the result line `{"ok": true, "device": {...}}`.
+(clustering); a `time:` line after each group of phases gives its
+seconds, and the total time is printed. Then one JSON line with the
+kernels of the path (with each one's bound: the least time the card
+could take, from the bytes it must move at the H100's 3.35 TB/s and its
+f32 operations at 67 TFLOP/s), and last the result line `{"ok": true, "device": {...}}`.
 Any failure raises and exits non-zero.
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result.
@@ -352,9 +355,11 @@ NEIGHBOR_SUM_BOUND = 1e-5
 # 12 (none without PBC), d2 5, sigma * d2 1, exp 1 (counted as one); per
 # entry of S, the degree's add 1 and the two scalings 2; per head
 # 1/sqrt(degree) and its guard 3. The other three work in f64, at the
-# card's f64 rate outside the tensor cores: thin_qr3 per row, the three
-# norms 6, the reflections of the later columns 15 and of Q's three
-# columns 45; top2_span per row, the four passes 2 + 8 + 20 + 20;
+# card's f64 rate outside the tensor cores: top3_subspace per entry of
+# its matrices, the five products' three FMAs 30 (5 x 3 x 2), and per row
+# its six QRs 42 each (the three sums 18, the later columns' reflections
+# 6, Q's three columns 18); top2_span per row, the two sums, the two
+# deflations and u2 50, and per entry of S, lap(u2)'s two FMAs 4;
 # rayleigh_kmeans per row, the Rayleigh sums and the embedding 19 f64
 # once and the centroid sums 3 f64 a centroid update, and in f32 the
 # farthest-point distance 5 once and the two distances and the test 11
@@ -363,8 +368,10 @@ NEIGHBOR_SUM_BOUND = 1e-5
 AFFINITY_WEIGHT_OPS = {True: 22, False: 10}
 AFFINITY_ENTRY_OPS = 3
 AFFINITY_HEAD_OPS = 3
-QR_ROW_F64_OPS = 66
+SUBSPACE_ENTRY_F64_OPS = 30
+SUBSPACE_ROW_F64_OPS = 6 * 42
 SPAN_ROW_F64_OPS = 50
+SPAN_ENTRY_F64_OPS = 4
 KMEANS_ROW_F64_OPS, KMEANS_STEP_F64_OPS = 19, 3
 KMEANS_ROW_OPS, KMEANS_STEP_OPS = 5, 11
 #: the H100's f64 rate outside the tensor cores (NVIDIA's data sheet, SXM
@@ -404,8 +411,9 @@ VESICLE = dict(n_outer=4350, r_outer=15.0, n_inner=2300, r_inner=11.0,
 VESICLE_FRAMES = 1000
 #: ves-spherical's leaflets and dynamic normals (heads, radius in nm)
 VESICLE_HEADS = ("name PO4", 2.0)
-#: the frames of the card-against-CPU chain of ves-spherical
-CHAIN_FRAMES = 64
+#: the frames of the card-against-CPU chain of ves-spherical (64 until the
+#: run neared its time limit: the CPU side took 109-132 s of it)
+CHAIN_FRAMES = 16
 
 
 def synthesize_structure(cache_dir, n_lipids=None, total_atoms=None):
@@ -957,6 +965,21 @@ def geometry_params(invert=False):
 
     return Geometry("cylinder", reference="resname POPC", radius=4.0,
                     orientation="z", invert=invert)
+
+
+def phase_clock(started):
+    """→ mark(label), which prints the seconds since the last mark (the
+    first: since `started`) and since `started`: where a run's time went."""
+    last = started
+
+    def mark(label):
+        nonlocal last
+        now = time.perf_counter()
+        print(f"time: {label} {now - last:.1f} s (at {now - started:.1f} s)",
+              flush=True)
+        last = now
+
+    return mark
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -2113,9 +2136,50 @@ def cluster_heads(analysis):
 
 def spectral_counters(calls):
     """The spectral classifier's launch counts after `calls` calls of its
-    dense matmul branch: each pass once, the thin QR six times."""
-    return {"affinity_launches": calls, "qr_launches": 6 * calls,
+    dense matmul branch: each pass once."""
+    return {"affinity_launches": calls, "subspace_launches": calls,
             "span_launches": calls, "kmeans_launches": calls}
+
+
+def subspace_inputs(s_mat, v0):
+    """The subspace iteration's inputs as `core/clustering.py
+    _top3_subspace` forms them: the matrix filtered (12 squarings, each
+    rescaled), and the start basis [v0, sin(0.7 i + 0.3), cos(1.3 i +
+    0.1)]."""
+    import torch
+
+    from gorder_tpu_torch.core import clustering as cl
+
+    i = torch.arange(s_mat.shape[-1], dtype=torch.float32,
+                     device=s_mat.device)
+    start = torch.stack([v0, torch.sin(0.7 * i + 0.3).expand_as(v0),
+                         torch.cos(1.3 * i + 0.1).expand_as(v0)], -1)
+    gp = s_mat / cl._frame_max(s_mat)
+    for _ in range(12):
+        gp = gp @ gp
+        gp = gp / cl._frame_max(gp)
+    return gp.contiguous(), start
+
+
+def nystrom_sized(n_frames, m, device):
+    """(B, m, m) f32 landmark Grams of Nyström's size, symmetric PSD with
+    the spectrum a similarity's top has (1, 0.9996, 0.9992, then 0.99
+    down to 0.05), random eigenvectors from seed 41, and their start
+    vector as `_nystrom_chunk` forms it."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(41)
+    vec = torch.linalg.qr(torch.randn((n_frames, m, m), generator=gen,
+                                      device=device, dtype=torch.float64)
+                          ).Q
+    lam = torch.cat([torch.tensor([1.0, 0.9996, 0.9992], device=device,
+                                  dtype=torch.float64),
+                     torch.linspace(0.99, 0.05, m - 3, device=device,
+                                    dtype=torch.float64)])
+    g = ((vec * lam) @ vec.transpose(1, 2)).float().contiguous()
+    gv = torch.sin(0.7 * torch.arange(m, dtype=torch.float32,
+                                      device=device) + 0.3)
+    return g, (gv / torch.linalg.vector_norm(gv)).expand(n_frames, -1)
 
 
 def time_clustering(label, analysis, db):
@@ -2174,14 +2238,16 @@ def check_spectral(label, analysis, db):
     handed to its step (`db`: the valid frames' f32 coordinates of the
     int16 wire, the run's head cloud), at the shapes the chain gives each:
     the similarity and degrees (within SPECTRAL_S_RTOL and _DEGREE_RTOL);
-    the thin QR on the chain's start basis and on the filter's `gp @ q`
-    (orthonormal, and the projectors of the columns whose singular values
-    stand clear of f64 rounding within SPECTRAL_BASIS_TOL); the deflated
-    span's two directions (the same); the k-means labels of every frame
-    equal. Each kernel's launch count must grow by one a call. Then
-    CUDA-event times in turns, plain, kernel, kernel, plain, and of the
-    one PyTorch call that computes the same function where there is one
-    (`torch.linalg.qr`; `torch.linalg.svd` of the deflated span), each
+    the subspace iteration on the chain's filter and start basis, and on
+    a Nyström-sized batch (orthonormal, the projectors within
+    SPECTRAL_BASIS_TOL); the deflated span's two directions (the same)
+    and its fused Laplacian products (within SPECTRAL_BASIS_TOL of u2 −
+    Sᵀu2 in f64); the k-means labels of every frame equal. Each kernel's
+    launch count must grow by one a call. Then CUDA-event times in turns,
+    plain, kernel, kernel, plain, and of the one PyTorch call that
+    computes the same function where there is one (`torch.linalg.eigh` of
+    S, whose top three eigenvectors span the subspace; `torch.linalg.svd`
+    of the deflated span), each
     kernel's bound, and the whole classifier call's device operations (a
     `torch.profiler` count of its kernels, copies and sets), its time and
     the plain chain's, and the bound of its 12 squarings. → {kernel:
@@ -2209,7 +2275,7 @@ def check_spectral(label, analysis, db):
                                f"{getattr(spectral, name) - before}")
         return got
 
-    def times(kernel, plain, library=None):
+    def times(kernel, plain, library=None, library_reps=5):
         """CUDA-event ms per call in turns, plain, kernel, kernel, plain
         (`ms`, `plain_ms`: the lower of each pair), and the kernel's
         device time (`device_ms`: the calls queued behind a sleep), which
@@ -2219,7 +2285,7 @@ def check_spectral(label, analysis, db):
         ms2 = cuda_ms(kernel, reps=20, warmup=0)
         plain_ms2 = cuda_ms(plain, reps=5, warmup=0)
         lib = (None if library is None
-               else cuda_ms(library, reps=5, warmup=1))
+               else cuda_ms(library, reps=library_reps, warmup=1))
         dev = device_ms(kernel)
         return dict(ms=min(ms, ms2), device_ms=dev,
                     plain_ms=min(plain_ms, plain_ms2), library_ms=lib), \
@@ -2280,77 +2346,117 @@ def check_spectral(label, analysis, db):
           f"{spectral.affinity_plan(n).path} path, "
           f"{share_of_bound(out['spectral_affinity'])}", flush=True)
 
-    # the thin QR: the chain's start basis and the filter's gp @ q
+    # the subspace iteration on the chain's own inputs, and on a
+    # Nyström-sized batch (16 landmark Grams of 1,024)
     v0 = torch.sqrt(torch.clamp(want_degree, min=0.0))
     v0 = v0 / torch.clamp(cl._norm(v0), min=1e-30)
-    i = torch.arange(n, dtype=torch.float32, device=here)
-    start = torch.stack([v0, torch.sin(0.7 * i + 0.3).expand_as(v0),
-                         torch.cos(1.3 * i + 0.1).expand_as(v0)], -1)
-    gp = want_s / cl._frame_max(want_s)
-    for _ in range(12):
-        gp = gp @ gp
-        gp = gp / cl._frame_max(gp)
-    ill = gp @ spectral.thin_qr3_plain(start)
-    qr_err, notes = 0.0, []
-    for name, a in (("start", start), ("gp @ q", ill)):
-        q = grew("qr_launches", lambda a=a: spectral.thin_qr3(a))
-        want = spectral.thin_qr3_plain(a)
-        sv = torch.linalg.svdvals(a.double())
-        k = int((sv >= 1e-6 * sv[:, :1]).all(0).sum())
+    gp, start = subspace_inputs(want_s, v0)
+    g, gv = nystrom_sized(16, cl.NYSTROM_LANDMARKS, here)
+    g_gp, g_start = subspace_inputs(g, gv)
+    basis_err, notes = 0.0, []
+    for name, args in (("aab", (gp, want_s, start)),
+                       ("Nystrom-sized", (g_gp, g, g_start))):
+        q = grew("subspace_launches",
+                 lambda args=args: spectral.top3_subspace(*args))
+        want = spectral.top3_subspace_plain(*args)
+        first = args[0].transpose(1, 2).double() @ spectral.householder_q(
+            args[2].double())
+        sv = torch.linalg.svdvals(first)
         ortho = max(orthonormality(q), orthonormality(want))
-        err = gap(q, want, k)
+        err = gap(q, want, 3)
         if ortho > SPECTRAL_BASIS_TOL or err > SPECTRAL_BASIS_TOL:
-            raise RuntimeError(f"{label}: thin_qr3 on {name}: "
-                               f"||Q'Q - I|| {ortho:.3e}, projectors of "
-                               f"{k} columns {err:.3e}")
-        qr_err = max(qr_err, projector_err(q, want, k))
-        notes.append(f"{name} (largest condition number "
-                     f"{float((sv[:, 0] / sv[:, 2]).max()):.3e}): "
-                     f"||Q'Q - I|| <= {ortho:.3e}, projectors of {k} "
-                     f"columns within {err:.3e}")
-    numbers, seq = times(lambda: spectral.thin_qr3(ill),
-                         lambda: spectral.thin_qr3_plain(ill),
-                         lambda: torch.linalg.qr(ill, mode="reduced"))
-    print(f"kernel thin_qr3 {label}: B={n_frames}, n={n}; "
-          + "; ".join(notes)
+            raise RuntimeError(f"{label}: top3_subspace on {name}: "
+                               f"||Q'Q - I|| {ortho:.3e}, projectors "
+                               f"{err:.3e}")
+        basis_err = max(basis_err, projector_err(q, want, 3))
+        notes.append(
+            f"{name} (B={args[0].shape[0]}, n={args[0].shape[1]}, "
+            f"{spectral.subspace_plan(args[0].shape[1]).path} path; the "
+            f"first QR input's largest condition number "
+            f"{float((sv[:, 0] / sv[:, 2]).max()):.3e}): ||Q'Q - I|| <= "
+            f"{ortho:.3e}, projectors within {err:.3e}")
+    ill = gp @ spectral.thin_qr3_plain(start)
+    n_sub = n_bytes(gp, want_s, start, start)
+    numbers, seq = times(
+        lambda: spectral.top3_subspace(gp, want_s, start),
+        lambda: spectral.top3_subspace_plain(gp, want_s, start),
+        lambda: torch.linalg.eigh(want_s), library_reps=1)
+    qr_ms = cuda_ms(lambda: torch.linalg.qr(ill, mode="reduced"), reps=2,
+                    warmup=1)
+    print(f"kernel top3_subspace {label}: " + "; ".join(notes)
           + "; ms per call: plain {:.4f}, kernel {:.4f}, kernel {:.4f}, "
           "plain {:.4f}; kernel device time {:.4f}".format(*seq)
-          + f", torch.linalg.qr {numbers['library_ms']:.4f}", flush=True)
-    out["thin_qr3"] = with_bound(
-        f"thin_qr3 {label}", dict(numbers, max_abs_err=qr_err),
-        2 * n_bytes(ill), 0, QR_ROW_F64_OPS * n_frames * n)
+          + f"; torch.linalg.eigh of S (its top three the same subspace) "
+          f"{numbers['library_ms']:.4f}, torch.linalg.qr of one step's "
+          f"gp @ q {qr_ms:.4f}", flush=True)
+    out["top3_subspace"] = with_bound(
+        f"top3_subspace {label}", dict(numbers, max_abs_err=basis_err),
+        n_sub, 0, (SUBSPACE_ENTRY_F64_OPS * n + SUBSPACE_ROW_F64_OPS)
+        * n_frames * n)
+    print(f"kernel top3_subspace {label}: "
+          f"{share_of_bound(out['top3_subspace'])}", flush=True)
+    g_numbers, g_seq = times(
+        lambda: spectral.top3_subspace(g_gp, g, g_start),
+        lambda: spectral.top3_subspace_plain(g_gp, g, g_start))
+    g_bound = with_bound(
+        "top3_subspace Nystrom-sized", dict(g_numbers),
+        n_bytes(g_gp, g, g_start, g_start), 0,
+        (SUBSPACE_ENTRY_F64_OPS * g.shape[1] + SUBSPACE_ROW_F64_OPS)
+        * g.shape[0] * g.shape[1])
+    print("kernel top3_subspace Nystrom-sized: ms per call: plain {:.4f}, "
+          "kernel {:.4f}, kernel {:.4f}, plain {:.4f}; kernel device time "
+          "{:.4f}; ".format(*g_seq) + share_of_bound(g_bound), flush=True)
 
-    # the deflated span's two leading directions
-    span = cl._top3_subspace(want_s, v0, spectral.thin_qr3_plain)
-    u2 = grew("span_launches", lambda: spectral.top2_span(span, want_degree))
-    want_u2 = spectral.top2_span_plain(span, want_degree)
+    # the deflated span's two leading directions and, fused, their
+    # Laplacian products, on the plain chain's span (and alone on the
+    # Nyström-sized batch's basis)
+    want_span = spectral.top3_subspace_plain(gp, want_s, start)
+    u2, lu2 = grew("span_launches",
+                   lambda: spectral.top2_span(want_span, want_degree, want_s))
+    want_u2, want_lu2 = spectral.top2_span_plain(want_span, want_degree,
+                                                 want_s)
     ortho, err = orthonormality(u2), gap(u2, want_u2, 2)
-    if ortho > SPECTRAL_BASIS_TOL or err > SPECTRAL_BASIS_TOL:
+    x = u2.double()
+    lap_err = float((lu2.double() - (x - want_s.transpose(1, 2).double()
+                                     @ x)).abs().max())
+    g_q = spectral.top3_subspace_plain(g_gp, g, g_start)
+    g_deg = torch.ones(g.shape[:2], device=here)
+    g_u2 = grew("span_launches", lambda: spectral.top2_span(g_q, g_deg))
+    g_err = gap(g_u2, spectral.top2_span_plain(g_q, g_deg), 2)
+    if (max(ortho, err, lap_err, g_err, orthonormality(g_u2))
+            > SPECTRAL_BASIS_TOL):
         raise RuntimeError(f"{label}: top2_span: ||U'U - I|| {ortho:.3e}, "
-                           f"projectors {err:.3e}")
+                           f"projectors {err:.3e}, lap(u2) {lap_err:.3e}; "
+                           f"Nystrom-sized projectors {g_err:.3e}")
     v = torch.sqrt(want_degree)
     v = v / cl._norm(v)
-    deflated = span - v[..., None] * (v[:, None, :] @ span)
+    deflated = want_span - v[..., None] * (v[:, None, :] @ want_span)
     numbers, seq = times(
-        lambda: spectral.top2_span(span, want_degree),
-        lambda: spectral.top2_span_plain(span, want_degree),
+        lambda: spectral.top2_span(want_span, want_degree, want_s),
+        lambda: spectral.top2_span_plain(want_span, want_degree, want_s),
         lambda: torch.linalg.svd(deflated, full_matrices=False))
-    print(f"kernel top2_span {label}: B={n_frames}, n={n}; ||U'U - I|| "
-          f"{ortho:.3e}, projectors within {err:.3e}; ms per call: plain "
+    print(f"kernel top2_span {label}: B={n_frames}, n={n}, with lap(u2); "
+          f"||U'U - I|| {ortho:.3e}, projectors within {err:.3e}, lap(u2) "
+          f"within {lap_err:.3e} of u2 - S'u2 in f64; Nystrom-sized (u2 "
+          f"alone) projectors within {g_err:.3e}; ms per call: plain "
           "{:.4f}, kernel {:.4f}, kernel {:.4f}, plain {:.4f}; kernel "
           "device time {:.4f}".format(*seq)
           + f", torch.linalg.svd of the deflated span "
           f"{numbers['library_ms']:.4f}", flush=True)
     out["top2_span"] = with_bound(
         f"top2_span {label}",
-        dict(numbers, max_abs_err=projector_err(u2, want_u2, 2)),
-        n_bytes(span, want_degree, u2), 0, SPAN_ROW_F64_OPS * n_frames * n)
+        dict(numbers, max_abs_err=max(projector_err(u2, want_u2, 2),
+                                      lap_err)),
+        n_bytes(want_span, want_degree, want_s, u2, lu2), 0,
+        (SPAN_ROW_F64_OPS + SPAN_ENTRY_F64_OPS * n) * n_frames * n)
+    print(f"kernel top2_span {label}: {share_of_bound(out['top2_span'])}",
+          flush=True)
 
     # the embedding's k-means, stopped at its fixed point: its labels
     # against the plain 100 steps', its steps against the plain version
     # of its exit (`kmeans2_fixed_point`, whose labels must equal the 100
     # steps' too)
-    lu2 = want_u2 - want_s @ want_u2
+    lu2 = want_lu2
     iters = cl.KMEANS_ITERS
     steps = torch.empty(n_frames, dtype=torch.int32, device=here)
     labels = grew("kmeans_launches", lambda: spectral.rayleigh_kmeans(
@@ -2738,7 +2844,7 @@ def kernel_entry(name, source, replaces, launches, numbers):
             "bound_ms": numbers["bound_ms"],
             "bound_by": numbers["bound_by"],
             # one PyTorch call that computes the same function, where there
-            # is one (the spectral QR and SVD); none computes the order-
+            # is one (the spectral eigh and SVD); none computes the order-
             # parameter or neighbour sums
             "library_ms": numbers.get("library_ms"),
             # the spectral kernels' calls queued on the card (`device_ms`)
@@ -3276,6 +3382,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     started = time.perf_counter()
+    mark = phase_clock(started)
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
 
@@ -3307,6 +3414,8 @@ def main() -> int:
     # 3. the UA kernel on a synthetic batch with all four carbon categories
     check_ua_synthetic()
 
+    mark("device, build, the UA synthetic batch")
+
     # 4. synth
     cache = os.path.join(tempfile.gettempdir(), "gorder_tpu_torch_smoke")
     os.makedirs(cache, exist_ok=True)
@@ -3323,6 +3432,8 @@ def main() -> int:
     print(f"synth: {system.n_atoms} atoms, {N_FRAMES} frames in "
           f"{time.perf_counter() - t0:.1f} s ({os.path.getsize(xtc)} bytes "
           f"of XTC)", flush=True)
+
+    mark("synth aa")
 
     # 5. the main path, end to end; then the P2 kernel against plain on
     # its first batch
@@ -3602,6 +3713,8 @@ def main() -> int:
           f"{len(frames)} frames, {frames[0]}..{frames[-1]}", flush=True)
     os.remove(window_xtc)
 
+    mark("aa runs and checks")
+
     # 8. UA synth
     t0 = time.perf_counter()
     from tools import bench_modes
@@ -3610,6 +3723,8 @@ def main() -> int:
     ua_files = synthesize_ua(cache, ua_frames)
     print(f"synth ua: {ua_frames} frames in {time.perf_counter() - t0:.1f} "
           f"s ({os.path.getsize(ua_files[2])} bytes of XTC)", flush=True)
+
+    mark("synth ua")
 
     # 9. the UA runs, end to end; then the UA kernel against plain on the
     # first batch of the ua run
@@ -3768,6 +3883,8 @@ def main() -> int:
           f"({int(outside[1].sum())}) add up to the ua run's "
           f"({int(ua_sums.value[1].sum())}) exactly", flush=True)
 
+    mark("ua runs and checks")
+
     # 23. synth cg: tools/bench_modes.py synth_cg (512 POPC of 12 beads,
     # 16,800 beads, 10,000 frames, seed 23)
     t0 = time.perf_counter()
@@ -3775,6 +3892,8 @@ def main() -> int:
     cg_files = synthesize_cg(cache, cg_frames)
     print(f"synth cg: {cg_frames} frames in {time.perf_counter() - t0:.1f} "
           f"s ({os.path.getsize(cg_files[2])} bytes of XTC)", flush=True)
+
+    mark("synth cg")
 
     # 24. cg as pygorder code runs it (gorder_tpu_torch.compat, run() with
     # no argument): its golden, one p2_b7 launch a batch, and the
@@ -3896,6 +4015,8 @@ def main() -> int:
                os.path.join(cache, "smoke_cg-i16.yaml"))
     os.remove(i12_xtc)
 
+    mark("cg runs and checks")
+
     # 32. aa, ua and cg as the wire pick takes them on the card, by the
     # link rate (the runs above force the wires they check)
     pick_launches, pick_numbers = pick_phase(gro, bnd, xtc, ua_files,
@@ -3905,6 +4026,8 @@ def main() -> int:
     # 34. the environment knobs
     knob_launches = knob_phase(gro, bnd, xtc, ua_files, cache)
 
+    mark("the wire pick, the mesh, the knobs")
+
     # 30. synth ves: the CG vesicle in a 36 nm box (`synthesize_vesicle`:
     # 6,650 POPC of 12 beads on shells of 15.0 and 11.0 nm, water to
     # 150,000 beads, 1,000 frames, seed 37)
@@ -3913,6 +4036,8 @@ def main() -> int:
     print(f"synth ves: {VESICLE_FRAMES} frames in "
           f"{time.perf_counter() - t0:.1f} s "
           f"({os.path.getsize(ves_files[2])} bytes of XTC)", flush=True)
+
+    mark("synth ves")
 
     # 31. the vesicle: `ves` (CGOrder, static normal) rides b7;
     # `ves-spherical` (spherical leaflets and dynamic normals every frame)
@@ -4004,6 +4129,8 @@ def main() -> int:
     check_chain("ves-chain", ves_files, cache)
     os.remove(ves_files[2])
 
+    mark("ves runs, checks and the card-against-CPU chain")
+
     # 16. the clustering benchmark's bilayer (tools/bench_modes.py
     # synth_aa_bilayer): 256 POPC, heads 2 nm from the midplane, chains
     # inward, 64,500 atoms, 10,000 frames, seed 31; the AA trajectory is
@@ -4013,6 +4140,8 @@ def main() -> int:
     aab = synthesize_aab(cache, N_FRAMES)
     print(f"synth aab: {N_FRAMES} frames in {time.perf_counter() - t0:.1f} s "
           f"({os.path.getsize(aab[2])} bytes of XTC)", flush=True)
+
+    mark("synth aab")
 
     # 17. spectral clustering over all frames (int16, labels oriented on
     # the host): its golden, then the with_leaflets P2 kernel against plain
@@ -4063,6 +4192,8 @@ def main() -> int:
         clustering.output_yaml, cache, force="i16")
     spectral_runs.update({k: sharded_clustering[k]
                           for k in spectral_counters(0)})
+
+    mark("clustering runs, checks and shards")
 
     p2_src, ua_src = ("gorder_tpu_torch/csrc/p2.cu",
                       "gorder_tpu_torch/csrc/ua.cu")
@@ -4147,7 +4278,7 @@ def main() -> int:
     # `_spectral_labels`, at the lines named
     for name, count, line in (
             ("spectral_affinity", "affinity_launches", 160),
-            ("thin_qr3", "qr_launches", 136),
+            ("top3_subspace", "subspace_launches", 136),
             ("top2_span", "span_launches", 190),
             ("rayleigh_kmeans", "kmeans_launches", 198)):
         kernels.append(kernel_entry(
@@ -4175,6 +4306,7 @@ def main() -> int:
     print("decode: CUDA-event ms of one batch's reconstruction on the card: "
           + ", ".join(f"{k} {v:.4f}" for k, v in decode_ms.items()),
           flush=True)
+    mark("the kernels line")
     print(f"total: {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -36,12 +36,13 @@ from it and it depends only on distances.
 
 The per-frame passes go through `ops/spectral.py`, whose wrappers launch
 hand-written kernels on the card and run their plain versions on the CPU:
-the similarity (dense path), the thin QR of the subspace iteration (matmul
-branch), the deflated span's two leading directions, and the embedding's
-k-means. The large products (the filter's squarings, the subspace and
-Laplacian products) stay `torch.matmul`. A classifier's `.plain` runs the
-same chain through the plain versions on any device, which is what the
-card's kernels are held to.
+the similarity (dense path), the subspace iteration after the filter's
+squarings (matmul branch: its products and QRs in one launch), the
+deflated span's two leading directions (with the dense path's Laplacian
+products in the same launch), and the embedding's k-means. The filter's
+squarings and the Nyström path's products stay `torch.matmul`. A
+classifier's `.plain` runs the same chain through the plain versions on
+any device, which is what the card's kernels are held to.
 """
 
 from __future__ import annotations
@@ -117,35 +118,40 @@ def _inv_sqrt_spd(a, ridge=1e-4, iters=48):
     return z / torch.sqrt(lam)
 
 
-def _top3_subspace(s_mat, v0, thin_qr3, squarings=12, iters=4):
+def _top3_subspace(s_mat, v0, top3_subspace, squarings=12):
     """(B, n, n) symmetric PSD matrices and (B, n) start vectors → (B, n,
     3) orthonormal bases of their top-3 eigenspaces, by polynomial-filtered
     deterministic subspace iteration: the matrix squared `squarings` times
-    (rescaled by its largest entry after each, per frame), `iters` QR
-    iterations with it, and one final un-filtered one, each QR by
-    `thin_qr3` (gorder_tpu/core/clustering.py:115-151)."""
+    (rescaled by its largest entry after each, per frame), then the
+    iteration itself, `top3_subspace(gp, s_mat, start)` (`ops/spectral.py`:
+    the start basis's QR, SUBSPACE_ITERS QR steps with the filtered matrix
+    and one final un-filtered one; gorder_tpu/core/clustering.py:115-151)."""
     spectral.require_f32_matmuls(s_mat.device)
     n = s_mat.shape[-1]
     i = torch.arange(n, dtype=s_mat.dtype, device=s_mat.device)
     r1 = torch.sin(0.7 * i + 0.3).expand_as(v0)
     r2 = torch.cos(1.3 * i + 0.1).expand_as(v0)
-    q = thin_qr3(torch.stack([v0, r1, r2], dim=-1))
+    start = torch.stack([v0, r1, r2], dim=-1)
     gp = s_mat / _frame_max(s_mat)
     for _ in range(squarings):
         gp = gp @ gp
         gp = gp / _frame_max(gp)
-    for _ in range(iters):
-        q = thin_qr3(gp @ q)
-    return thin_qr3(s_mat @ q)
+    return top3_subspace(gp, s_mat.contiguous(), start)
 
 
-def _embed(u, degree, lap, ops):
+def _embed(u, degree, ops, s_mat=None, lap=None):
     """Deflate v0 = D^{1/2}·1 from the (B, n, 3) span `u`, take the two
     principal directions of the remainder, weight them by energy and
-    cluster them: → (B, n) raw k-means labels. `lap` maps a (B, n, 2)
-    span to its normalized-Laplacian products."""
-    u2 = ops.top2_span(u.contiguous(), degree)
-    return ops.rayleigh_kmeans(u2, lap(u2), KMEANS_ITERS)
+    cluster them: → (B, n) raw k-means labels. The dense path passes its
+    similarity `s_mat`, whose Laplacian products u2 − S u2 the span's pass
+    forms too; Nyström passes `lap`, which maps a (B, n, 2) span to its
+    products."""
+    if s_mat is not None:
+        u2, lu2 = ops.top2_span(u.contiguous(), degree, s_mat)
+    else:
+        u2 = ops.top2_span(u.contiguous(), degree)
+        lu2 = lap(u2)
+    return ops.rayleigh_kmeans(u2, lu2, KMEANS_ITERS)
 
 
 def _spectral_chunk(heads, box, handle_pbc, algebra, ops):
@@ -160,8 +166,8 @@ def _spectral_chunk(heads, box, handle_pbc, algebra, ops):
     else:
         v0 = torch.sqrt(torch.clamp(degree, min=0.0))
         v0 = v0 / torch.clamp(_norm(v0), min=1e-30)
-        span = _top3_subspace(s_mat, v0, ops.thin_qr3)
-    return _embed(span, degree, lambda u2: u2 - s_mat @ u2, ops)
+        span = _top3_subspace(s_mat, v0, ops.top3_subspace)
+    return _embed(span, degree, ops, s_mat=s_mat)
 
 
 def _nystrom_chunk(heads, box, landmark_pos, handle_pbc, algebra, ops):
@@ -197,13 +203,13 @@ def _nystrom_chunk(heads, box, landmark_pos, handle_pbc, algebra, ops):
         gi = torch.arange(g.shape[-1], dtype=g.dtype, device=g.device)
         gv = torch.sin(0.7 * gi + 0.3)
         q3 = _top3_subspace(g, (gv / torch.linalg.vector_norm(gv))
-                            .expand(g.shape[0], -1), ops.thin_qr3)
+                            .expand(g.shape[0], -1), ops.top3_subspace)
         mu3, e3 = torch.linalg.eigh(q3.transpose(1, 2) @ (g @ q3))  # 3×3
         top = q3 @ e3
         mu_top = torch.clamp(mu3, min=1e-12)
     u = (r @ top) * (1.0 / torch.sqrt(mu_top))[:, None, :]      # (B, n, 3)
-    return _embed(u, degree, lambda u2: u2 - r @ (r.transpose(1, 2) @ u2),
-                  ops)
+    return _embed(u, degree, ops,
+                  lap=lambda u2: u2 - r @ (r.transpose(1, 2) @ u2))
 
 
 def _by_chunks(fn, coords, box_diag, per_frame: int):

@@ -1,7 +1,8 @@
 // The spectral leaflet classifier's per-frame passes for Hopper (sm_90a):
-// the similarity matrix, the thin QR of an n x 3 basis, the two leading
-// directions of the deflated span, and the energy-weighted embedding with
-// its 100-step k-means.
+// the similarity matrix, the subspace iteration of its top three
+// eigenvectors, the two leading directions of the deflated span with
+// their Laplacian products, and the energy-weighted embedding with its
+// 100-step k-means.
 //
 // None replaces a Pallas kernel: gorder_tpu computes all of this with XLA
 // ops under jax.lax.map, gorder_tpu/core/clustering.py `_spectral_labels`
@@ -41,23 +42,58 @@
 //     a tile of 32 at a time, pass 2 computes them again and writes S row
 //     after row.
 //
-// thin_qr3: per frame, A (n, 3) f32 -> Q (n, 3) f32 with orthonormal
-// columns, span(Q[:, :k]) = span(A[:, :k]): three Householder reflections
-// v = x - alpha e_k, alpha = -sign(x_0) |x|, v'v = 2 |x| (|x| + |x_0|),
-// applied to the later columns and then, in reverse, to the first three
-// columns of the identity, all in f64 (an input after the filter's 12
-// squarings has a condition number near 5e7: classical Gram-Schmidt and
-// Cholesky-QR lose its orthogonality in f32). A reflection of a zero
-// column is skipped (LAPACK's tau = 0). Working columns in shared memory
-// (48 bytes a row), or in a scratch buffer in device memory for large n.
+// top3_subspace: per frame, the filtered matrix gp (n, n) f32 (S rescaled
+// and squared 12 times by torch), the unfiltered S (n, n) f32 and a start
+// basis (n, 3) f32 -> Q (n, 3) f32: Q of the start basis, `iters` steps
+// Q <- QR(gp' Q), one step Q <- QR(S' Q), Q kept in f64 between the steps
+// and rounded to f32 once. The matrices are symmetric but for the last
+// ulp (S_ij = (w_ij d_i) d_j against (w_ij d_j) d_i), and the kernel reads
+// them by columns: column t of the product, y_t = sum_i m[i][t] q_i, each
+// f32 entry times the f64 q_i by a fused multiply-add in f64 in row
+// order within a thread. Each QR is Householder's in f64 (after the
+// filter a step's input has a condition number up to 7.8e7: Gram-Schmidt
+// and Cholesky-QR in f32 lose its orthogonality, and Cholesky-QR2 in f64
+// stands at the edge of its range, ~1e8), in three sums (one a reflector:
+// |x|^2, x . y_c of the later columns c, and v_j . x of the earlier
+// reflectors; v_k . y_c = x . y_c - alpha y_c[k] needs no sum of its
+// own), and Q = [I; 0] - V T V_top' from V's compact WY form with no sum
+// at all. (thin_qr3, which this kernel replaced with the products between
+// its launches, took eight block sums a QR.) A reflection of a zero
+// column is skipped (LAPACK's tau = 0). Persistent blocks of 256 threads
+// take frame after frame, as many as the SMs hold: on the ring, whose 128
+// KiB leave one an SM, 132 frames in flight, 33 MiB at 256 heads, within
+// the card's 50 MB L2, which serves a frame's later passes (two an SM,
+// 66 MiB, overflowed it). Three paths (`subspace_plan`):
+//   - the ring (up to 1,024 rows: the dense path's 256 heads, Nystrom's
+//     1,024 landmarks): the matrices stream through four 32 KiB tiles of
+//     whole rows in shared memory, copied by cp.async three tiles ahead
+//     across passes and frames, so that the copies run under the products
+//     and the QRs. Up to 256 rows a lane takes four columns (one 16-byte
+//     load a row) and every fourth row of a tile, the four row groups
+//     meeting by shuffles, so that a row of Q, read from shared memory,
+//     serves four columns; and one warp takes the QR, its rows in
+//     registers and every sum a xor butterfly, between two barriers.
+//     Larger frames: a thread's columns t + 256 k, the QR's sums over the
+//     block;
+//   - "shared" (up to 3,657 rows) and "device": the matrices read straight
+//     from device memory, 8 rows of 4 columns ahead a thread, Q and y in
+//     shared memory or in a scratch buffer.
+// PERF.md §6 has the times of each design tried on the card.
 //
-// top2_span: per frame, the (n, 3) span and the degree -> (n, 2): v0 =
-// sqrt(max(deg, 0)) / max(|.|, 1e-30), the deflated D = span - v0 (v0'
-// span), its 3 x 3 Gram D'D, whose eigenpairs come from cyclic Jacobi in
-// registers (every thread the same), and U_k = D V_k / max(sigma_k,
-// 1e-30) for the two largest sigma_k = sqrt(lambda_k): the two leading
-// left singular vectors. The third direction (sigma ~ 0 after deflation)
-// is never formed. All in f64.
+// top2_span: per frame, the (n, 3) span, the degree and, on the dense path,
+// S -> u2 (n, 2) and lap(u2) = u2 - S' u2 (n, 2): v0 = sqrt(max(deg, 0)) /
+// max(|.|, 1e-30) and the span's part along it in one block sum, the
+// deflated D = span - v0 (v0' span) and its 3 x 3 Gram D'D in a second,
+// whose eigenpairs come from cyclic Jacobi in registers (every thread the
+// same), and U_k = D V_k / max(sigma_k, 1e-30) for the two largest sigma_k
+// = sqrt(lambda_k): the two leading left singular vectors, in f64, rounded
+// to f32. The third direction (sigma ~ 0 after deflation) is never
+// formed. Then S' u2 of the f32 u2 by columns, as top3_subspace's
+// products, u2 from shared memory in f64: S is read once, where torch's
+// product and subtraction read it and wrote lap apart. With S and up to
+// 1,024 rows, persistent blocks stream S through top3_subspace's ring
+// (its first tiles copied under the frame's sums); else one block a
+// frame reads it straight from device memory.
 //
 // rayleigh_kmeans: per frame, u2 (n, 2) and its Laplacian products lap(u2)
 // (n, 2) -> (n,) int32 labels. The 2 x 2 Rayleigh matrix h = u2' lap(u2)
@@ -86,20 +122,22 @@
 //     the same sum against the previous step's labels, kept in `labels`.
 //
 // What bounds them on this card, at the clustering benchmark's 256 heads:
-// spectral_affinity its bytes (it writes S, 256 KB a frame), the other
-// three their latency: they touch 16 to 24 bytes a row, and their time is
-// a frame's chain of dependent reductions (8 in thin_qr3, 4 in top2_span,
-// 3 + 5 a step in rayleigh_kmeans). What the designs do about it: one
-// launch a batch, a block (or warp) a frame, every reduction on chip,
-// where cuSOLVER took several launches a matrix and torch's k-means some
-// 2,000 a call. The similarity computes each weight once from the on-chip
-// triangle, and overlaps a frame's stores with the next frame's weights
-// in the same warps, for its block fills an SM: on an H100 its phases in
-// turn took 13.5 us a frame for the weights and 10.5 for the stores, the
-// rate an SM's stores reach with every SM writing; overlapped, 18.5-19.9
-// for both and 0.5-0.7 for the degrees (PERF.md §6). Store warps beside weight warps, behind per-tile counters,
-// fell behind. The k-means takes warp shuffles only and stops when its
-// labels stop changing.
+// spectral_affinity and top2_span their bytes (S written once, read once:
+// 256 KB a frame), top3_subspace its bytes too (gp and S once each at the
+// least) and the f32 -> f64 conversion of each entry it multiplies (16 a
+// clock an SM), rayleigh_kmeans its latency: it touches 16 bytes a row,
+// and its time is a frame's chain of dependent reductions (3 + 5 a step).
+// What the designs do about it: one launch a batch, a block (or warp) a
+// frame, every reduction on chip, where cuSOLVER took several launches a
+// matrix and torch's k-means some 2,000 a call. The similarity computes
+// each weight once from the on-chip triangle, and overlaps a frame's
+// stores with the next frame's weights in the same warps, for its block
+// fills an SM (store warps beside weight warps, behind per-tile counters,
+// fell behind). The subspace iteration keeps its frames' matrices within
+// L2 across its passes and its copies under its products and QRs; the
+// span forms its Laplacian products as it goes.
+// The k-means takes warp shuffles only and stops when its labels stop
+// changing.
 #include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -696,80 +734,541 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---------------------------------------------------------------- thin_qr3
+// ----------------------------------------------------------- top3_subspace
 
-struct QrArgs {
-  const float* a;   // (B, n, 3)
-  float* q;         // (B, n, 3)
-  double* scratch;  // (B, 6n) when the columns do not fit shared memory
-  int n;
+// Doubles a row of Q takes in shared memory (3 used): two 16-byte loads.
+constexpr int kQStride = 4;
+// The columns a thread takes in one sweep over a matrix's rows, past
+// kThreads rows: the ring takes frames of up to kColsAtOnce * kThreads.
+constexpr int kColsAtOnce = 4;
+
+struct SubspaceArgs {
+  const float* gp;     // (B, n, n): the filtered matrix
+  const float* s;      // (B, n, n): the unfiltered one
+  const float* start;  // (B, n, 3)
+  float* q;            // (B, n, 3)
+  double* scratch;     // (B, 8n) when the working rows do not fit on chip
+  int n_frames, n, iters;
+  int aligned;         // both matrices 16-byte aligned and n % 4 == 0
 };
 
-__global__ void __launch_bounds__(kThreads) thin_qr3_kernel(QrArgs args) {
-  extern __shared__ double qr_cols[];  // A (3n) and Q (3n), column-major
-  __shared__ double red[2 * kWarps * 3];
-  const int b = blockIdx.x;
-  const int n = args.n;
-  double* A = args.scratch != nullptr
-                  ? args.scratch + static_cast<size_t>(b) * 6 * n
-                  : qr_cols;
-  double* Q = A + 3 * n;
-  const float* in = args.a + static_cast<size_t>(b) * n * 3;
-  // each thread owns the rows i = threadIdx.x (mod kThreads) throughout
-  for (int i = threadIdx.x; i < n; i += kThreads)
-    for (int c = 0; c < 3; ++c) {
-      A[c * n + i] = in[3 * i + c];
-      Q[c * n + i] = i == c ? 1.0 : 0.0;
+// Rows of the matrix a thread loads ahead of their products, kColsAtOnce
+// columns a row: 32 loads in flight a thread.
+constexpr int kAhead = 32 / kColsAtOnce;
+
+// y = m^T q on the thread's columns t (kColsAtOnce at a time, t, t +
+// kThreads, ...): y[c][t] = sum_i m[i][t] q[i][c], the f32 entries times
+// the f64 Q by fused multiply-adds in f64, in row order. A warp reads a
+// row's neighbouring columns: 128 bytes a load.
+__device__ __forceinline__ void transposed_product(const float* m,
+                                                   const double* qs,
+                                                   double* y, int n) {
+  constexpr int kCols = kColsAtOnce;
+  constexpr int kRows = kAhead;
+  for (int t0 = threadIdx.x; t0 < n; t0 += kCols * kThreads) {
+    double acc[kCols][3];
+#pragma unroll
+    for (int k = 0; k < kCols; ++k)
+      acc[k][0] = acc[k][1] = acc[k][2] = 0.0;
+    for (int i0 = 0; i0 < n; i0 += kRows) {
+      float g[kRows][kCols];
+#pragma unroll
+      for (int u = 0; u < kRows; ++u)
+#pragma unroll
+        for (int k = 0; k < kCols; ++k) {
+          const int i = i0 + u, t = t0 + k * kThreads;
+          g[u][k] = i < n && t < n
+                        ? __ldg(m + static_cast<size_t>(i) * n + t)
+                        : 0.0f;
+        }
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        if (i0 + u >= n) break;  // the same in every thread
+        const double* qi = qs + (i0 + u) * kQStride;
+        const double2 q01 = *reinterpret_cast<const double2*>(qi);
+        const double q2 = qi[2];
+#pragma unroll
+        for (int k = 0; k < kCols; ++k) {
+          const double x = static_cast<double>(g[u][k]);
+          acc[k][0] = fma(x, q01.x, acc[k][0]);
+          acc[k][1] = fma(x, q01.y, acc[k][1]);
+          acc[k][2] = fma(x, q2, acc[k][2]);
+        }
+      }
     }
-  BlockSum<3> sum(red);
-  // reflector k: v_k = x_k (its first entry) and A[k, i] below; 2 / v'v
-  double head[3], scale[3];
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) {
+      const int t = t0 + k * kThreads;
+      if (t < n) {
+        y[t] = acc[k][0];
+        y[n + t] = acc[k][1];
+        y[2 * n + t] = acc[k][2];
+      }
+    }
+  }
+}
+
+// Q of the Householder QR of y (n x 3, column-major, f64), into qs (rows of
+// kQStride), each thread its rows i = threadIdx.x (mod kThreads), in three
+// block sums. Reflector k of x = y[k:, k] (after reflectors 0 .. k-1): v_k
+// = x - alpha e_k, alpha = -sign(x_0) |x|, tau_k = 2 / v'v with v'v =
+// 2 |x| (|x| + |x_0|), 0 for a zero column. Sum k gives |x|^2, x . y_c
+// for the later columns c (so v_k . y_c = x . y_c - alpha y_c[k] needs no
+// sum of its own) and v_j . x for the earlier reflectors j (so v_j . v_k =
+// v_j . x - alpha v_j[k]). The later columns' rows below k take the
+// reflection; row k's entries (R's) are never read again, so they are left
+// as they are and no thread writes a value that another reads in the same
+// step. Then Q = H0 H1 H2 [I; 0] = [I; 0] - V T V_top' (V's compact WY form:
+// T upper triangular from the taus and the v_j . v_k), with no sum.
+__device__ __forceinline__ void householder_q(double* y, double* qs, int n,
+                                              BlockSum<3>& sum) {
+  double tau[3], head[3], w01 = 0.0, w02 = 0.0, w12 = 0.0;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     double t[3] = {0.0, 0.0, 0.0};
-    for (int i = threadIdx.x; i < n; i += kThreads)
-      if (i >= k) t[0] += A[k * n + i] * A[k * n + i];
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      if (i < k) continue;
+      const double x = y[k * n + i];
+      t[0] = fma(x, x, t[0]);
+      if (k == 0) {
+        t[1] = fma(x, y[n + i], t[1]);
+        t[2] = fma(x, y[2 * n + i], t[2]);
+      } else if (k == 1) {
+        t[1] = fma(x, y[2 * n + i], t[1]);
+        t[2] = fma(y[i], x, t[2]);  // v_0 . x, rows >= 1
+      } else {
+        t[1] = fma(y[i], x, t[1]);      // v_0 . x, rows >= 2
+        t[2] = fma(y[n + i], x, t[2]);  // v_1 . x
+      }
+    }
     sum(t);
     const double norm = sqrt(t[0]);
-    const double x0 = A[k * n + k];
+    const double x0 = y[k * n + k];
     const double alpha = x0 >= 0.0 ? -norm : norm;
     const double vv = 2.0 * norm * (norm + fabs(x0));
     head[k] = x0 - alpha;
-    scale[k] = vv > 0.0 ? 2.0 / vv : 0.0;
-    if (k == 2 || scale[k] == 0.0) continue;  // the same in every thread
-    double d[3] = {0.0, 0.0, 0.0};
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      if (i < k) continue;
-      const double v = i == k ? head[k] : A[k * n + i];
-      for (int c = k + 1; c < 3; ++c) d[c] += v * A[c * n + i];
+    tau[k] = vv > 0.0 ? 2.0 / vv : 0.0;
+    if (k == 1) w01 = t[2] - alpha * y[1];
+    if (k == 2) {
+      w02 = t[1] - alpha * y[2];
+      w12 = t[2] - alpha * y[n + 2];
     }
-    sum(d);
+    if (k == 2 || tau[k] == 0.0) continue;  // the same in every thread
+    // tau_k (v_k . y_c) for the later columns c
+    const double f1 = k == 0 ? tau[k] * (t[1] - alpha * y[n]) : 0.0;
+    const double f2 =
+        tau[k] * ((k == 0 ? t[2] : t[1]) - alpha * y[2 * n + k]);
     for (int i = threadIdx.x; i < n; i += kThreads) {
-      if (i < k) continue;
-      const double v = i == k ? head[k] : A[k * n + i];
-      for (int c = k + 1; c < 3; ++c) A[c * n + i] -= scale[k] * d[c] * v;
+      if (i <= k) continue;
+      const double v = y[k * n + i];
+      if (k == 0) y[n + i] = fma(-f1, v, y[n + i]);
+      y[2 * n + i] = fma(-f2, v, y[2 * n + i]);
     }
   }
-  // Q = H0 H1 H2 [I; 0]: the reflections applied in reverse
+  // T and M = T V_top' (V_top: V's first three rows, V[r][m] = 0 above the
+  // diagonal, head_m on it, y[m][r] below)
+  const double t01 = -tau[0] * tau[1] * w01;
+  const double t12 = -tau[1] * tau[2] * w12;
+  const double t02 = -tau[2] * (tau[0] * w02 + t01 * w12);
+  const double v10 = y[1], v20 = y[2], v21 = y[n + 2];
+  const double vt[3][3] = {{head[0], 0.0, 0.0},
+                           {v10, head[1], 0.0},
+                           {v20, v21, head[2]}};
+  double m[3][3];
 #pragma unroll
-  for (int k = 2; k >= 0; --k) {
-    if (scale[k] == 0.0) continue;
-    double d[3] = {0.0, 0.0, 0.0};
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      if (i < k) continue;
-      const double v = i == k ? head[k] : A[k * n + i];
-      for (int c = 0; c < 3; ++c) d[c] += v * Q[c * n + i];
+  for (int c = 0; c < 3; ++c) {
+    m[0][c] = tau[0] * vt[c][0] + t01 * vt[c][1] + t02 * vt[c][2];
+    m[1][c] = tau[1] * vt[c][1] + t12 * vt[c][2];
+    m[2][c] = tau[2] * vt[c][2];
+  }
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    double v[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      v[j] = i < j ? 0.0 : i == j ? head[j] : y[j * n + i];
+    double* qi = qs + i * kQStride;
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      qi[c] = (i == c ? 1.0 : 0.0) -
+              (v[0] * m[0][c] + v[1] * m[1][c] + v[2] * m[2][c]);
+  }
+}
+
+// householder_q for frames of up to kThreads rows by warp 0 alone: its
+// rows (i = lane + 32 r) in registers, every sum a xor butterfly (the same
+// in every lane), no barrier; row k's entries, which every lane needs,
+// come from lane k by shuffles. The same reflectors, sums and WY form.
+__device__ __forceinline__ void householder_q_warp(const double* y,
+                                                   double* qs, int n) {
+  constexpr int kR = kThreads / gorder::kWarpSize;
+  const int lane = threadIdx.x % gorder::kWarpSize;
+  double a[kR][3];
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const int i = lane + gorder::kWarpSize * r;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) a[r][c] = i < n ? y[c * n + i] : 0.0;
+  }
+  double tau[3], head[3], w01 = 0.0, w02 = 0.0, w12 = 0.0;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    double t[3] = {0.0, 0.0, 0.0};
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      if (r == 0 && lane < k) continue;  // rows above k
+      const double x = a[r][k];
+      t[0] = fma(x, x, t[0]);
+      if (k == 0) {
+        t[1] = fma(x, a[r][1], t[1]);
+        t[2] = fma(x, a[r][2], t[2]);
+      } else if (k == 1) {
+        t[1] = fma(x, a[r][2], t[1]);
+        t[2] = fma(a[r][0], x, t[2]);
+      } else {
+        t[1] = fma(a[r][0], x, t[1]);
+        t[2] = fma(a[r][1], x, t[2]);
+      }
     }
-    sum(d);
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      if (i < k) continue;
-      const double v = i == k ? head[k] : A[k * n + i];
-      for (int c = 0; c < 3; ++c) Q[c * n + i] -= scale[k] * d[c] * v;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) t[c] = warp_sum(t[c]);
+    double row[3];  // row k
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      row[c] = __shfl_sync(gorder::kFullWarp, a[0][c], k);
+    const double norm = sqrt(t[0]);
+    const double x0 = row[k];
+    const double alpha = x0 >= 0.0 ? -norm : norm;
+    const double vv = 2.0 * norm * (norm + fabs(x0));
+    head[k] = x0 - alpha;
+    tau[k] = vv > 0.0 ? 2.0 / vv : 0.0;
+    if (k == 1) w01 = t[2] - alpha * row[0];
+    if (k == 2) {
+      w02 = t[1] - alpha * row[0];
+      w12 = t[2] - alpha * row[1];
+    }
+    if (k == 2 || tau[k] == 0.0) continue;  // the same in every lane
+    const double f1 = k == 0 ? tau[k] * (t[1] - alpha * row[1]) : 0.0;
+    const double f2 = tau[k] * ((k == 0 ? t[2] : t[1]) - alpha * row[2]);
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      if (r == 0 && lane <= k) continue;  // rows k and above
+      const double v = a[r][k];
+      if (k == 0) a[r][1] = fma(-f1, v, a[r][1]);
+      a[r][2] = fma(-f2, v, a[r][2]);
     }
   }
-  float* out = args.q + static_cast<size_t>(b) * n * 3;
-  for (int i = threadIdx.x; i < n; i += kThreads)
-    for (int c = 0; c < 3; ++c) out[3 * i + c] = static_cast<float>(Q[c * n + i]);
+  const double t01 = -tau[0] * tau[1] * w01;
+  const double t12 = -tau[1] * tau[2] * w12;
+  const double t02 = -tau[2] * (tau[0] * w02 + t01 * w12);
+  const double v10 = __shfl_sync(gorder::kFullWarp, a[0][0], 1);
+  const double v20 = __shfl_sync(gorder::kFullWarp, a[0][0], 2);
+  const double v21 = __shfl_sync(gorder::kFullWarp, a[0][1], 2);
+  const double vt[3][3] = {{head[0], 0.0, 0.0},
+                           {v10, head[1], 0.0},
+                           {v20, v21, head[2]}};
+  double m[3][3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    m[0][c] = tau[0] * vt[c][0] + t01 * vt[c][1] + t02 * vt[c][2];
+    m[1][c] = tau[1] * vt[c][1] + t12 * vt[c][2];
+    m[2][c] = tau[2] * vt[c][2];
+  }
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const int i = lane + gorder::kWarpSize * r;
+    if (i >= n) continue;
+    double v[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      v[j] = i < j ? 0.0 : i == j ? head[j] : a[r][j];
+    double* qi = qs + i * kQStride;
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      qi[c] = (i == c ? 1.0 : 0.0) -
+              (v[0] * m[0][c] + v[1] * m[1][c] + v[2] * m[2][c]);
+  }
+}
+
+// The ring: a persistent block streams its frames' matrices through
+// kRingStages tiles of whole rows in shared memory, filled by cp.async
+// kRingStages - 1 tiles ahead of the products, across passes and frames:
+// the copies of a frame's next pass run under its QR, and no register
+// waits on a load.
+constexpr int kRingStages = 4;
+constexpr int kStageFloats = 8192;  // 32 KiB a stage
+constexpr size_t kRingBytes = kRingStages * kStageFloats * sizeof(float);
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(gmem));
+}
+
+// The tiles a persistent block streams: for each of its frames (b =
+// blockIdx.x, then + gridDim.x), iters + 1 passes over the frame's n x n
+// matrix, gp for the first iters and s for the last, each in `tiles`
+// tiles of `rows` whole rows (the last one ragged), a row `ldn` floats
+// apart in the stage (n rounded up to a multiple of 4, so that a row
+// starts on 16 bytes).
+struct TileStream {
+  const float* gp;
+  const float* s;
+  int n, ldn, n_frames, iters, rows, tiles;
+  bool aligned;
+  // the next tile to copy (frame b, pass, tile k; none once b >= n_frames)
+  // and the tiles issued so far
+  int b, pass, k, issued;
+
+  __device__ TileStream(const float* gp_, const float* s_, int n_,
+                        int n_frames_, int iters_, bool aligned_)
+      : gp(gp_),
+        s(s_),
+        n(n_),
+        ldn((n_ + 3) & ~3),
+        n_frames(n_frames_),
+        iters(iters_),
+        rows(kStageFloats / ((n_ + 3) & ~3)),
+        tiles((n_ + rows - 1) / rows),
+        aligned(aligned_),
+        b(blockIdx.x),
+        pass(0),
+        k(0),
+        issued(0) {}
+
+  // Copies the next tile into its stage (16 bytes a copy where aligned,
+  // else 4) and commits this thread's group, an empty one past the end, so
+  // that every thread counts one group a tile.
+  __device__ __forceinline__ void issue(float* ring) {
+    if (b < n_frames) {
+      const int row0 = k * rows;
+      const float* src =
+          (pass < iters ? gp : s) + (static_cast<size_t>(b) * n + row0) * n;
+      const int count = min(rows, n - row0) * n;
+      float* dst = ring + (issued % kRingStages) * kStageFloats;
+      if (aligned)  // ldn == n
+        for (int c = 4 * threadIdx.x; c < count; c += 4 * kThreads)
+          cp_async16(dst + c, src + c);
+      else
+        for (int c = threadIdx.x; c < count; c += kThreads) {
+          const int r = c / n;
+          cp_async4(dst + r * ldn + (c - r * n), src + c);
+        }
+      if (++k == tiles) {
+        k = 0;
+        if (++pass > iters) {
+          pass = 0;
+          b += gridDim.x;
+        }
+      }
+    }
+    ++issued;
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+
+  // Tile j, once every thread's copies of it have landed; its stage's
+  // predecessor, which every thread has read by then, takes the copies
+  // of tile j + kRingStages - 1.
+  __device__ __forceinline__ const float* acquire(int j, float* ring) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kRingStages - 2));
+    __syncthreads();
+    issue(ring);
+    return ring + (j % kRingStages) * kStageFloats;
+  }
+};
+
+// y = m^T v of one pass through the ring (tiles j, j + 1, ...; j advances
+// past them), v (n x kVec, f64) in shared memory, row i at v + kStride i:
+// thread t takes columns t + k kThreads, each tile's rows in order, an f32
+// entry times the f64 v_i by a fused multiply-add in f64. → acc[k][c] of
+// column t + k kThreads.
+template <int kCols, int kVec, int kStride>
+__device__ __forceinline__ void ring_product(TileStream& ts, int& j,
+                                             float* ring, const double* v,
+                                             double (&acc)[kCols][kVec]) {
+  const int n = ts.n;
+#pragma unroll
+  for (int k = 0; k < kCols; ++k)
+#pragma unroll
+    for (int c = 0; c < kVec; ++c) acc[k][c] = 0.0;
+  for (int k = 0; k < ts.tiles; ++k, ++j) {
+    const float* tile = ts.acquire(j, ring);
+    const int row0 = k * ts.rows;
+    const int rows = min(ts.rows, n - row0);
+#pragma unroll 4
+    for (int r = 0; r < rows; ++r) {
+      const double* vi = v + (row0 + r) * kStride;
+      double w[kVec];
+#pragma unroll
+      for (int c = 0; c < kVec; ++c) w[c] = vi[c];
+#pragma unroll
+      for (int k2 = 0; k2 < kCols; ++k2) {
+        const int t = threadIdx.x + k2 * kThreads;
+        const double x =
+            t < n ? static_cast<double>(tile[r * ts.ldn + t]) : 0.0;
+#pragma unroll
+        for (int c = 0; c < kVec; ++c) acc[k2][c] = fma(x, w[c], acc[k2][c]);
+      }
+    }
+  }
+}
+
+// ring_product for frames of up to kThreads rows, four columns a thread:
+// lane l of warp w takes columns c0 = 32 w + 4 (l % 8) .. c0 + 3 (one
+// 16-byte load a row) and the rows r = l / 8 (mod 4) of each tile, so a
+// row of v serves four columns and eight lanes; the four row groups' sums
+// meet by two xor shuffles. store(c, totals) is called for each column c
+// < n by the lanes of row group 0.
+template <int kVec, int kStride, class Store>
+__device__ __forceinline__ void ring_product_wide(TileStream& ts, int& j,
+                                                  float* ring,
+                                                  const double* v,
+                                                  Store store) {
+  const int n = ts.n;
+  const int lane = threadIdx.x % gorder::kWarpSize;
+  const int c0 = 32 * (threadIdx.x / gorder::kWarpSize) + 4 * (lane % 8);
+  const int group = lane / 8;
+  double acc[4][kVec];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int c = 0; c < kVec; ++c) acc[k][c] = 0.0;
+  for (int k = 0; k < ts.tiles; ++k, ++j) {
+    const float* tile = ts.acquire(j, ring);
+    const int row0 = k * ts.rows;
+    const int rows = min(ts.rows, n - row0);
+    if (c0 >= n) continue;  // the tile's barrier is behind this thread
+#pragma unroll 2
+    for (int r = group; r < rows; r += 4) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(tile + r * ts.ldn + c0);
+      const double* vi = v + (row0 + r) * kStride;
+      double w[kVec];
+#pragma unroll
+      for (int c = 0; c < kVec; ++c) w[c] = vi[c];
+      const double xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int c = 0; c < kVec; ++c) acc[e][c] = fma(xs[e], w[c], acc[e][c]);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+#pragma unroll
+    for (int c = 0; c < kVec; ++c) {
+      acc[e][c] = __dadd_rn(acc[e][c],
+                            __shfl_xor_sync(gorder::kFullWarp, acc[e][c], 8));
+      acc[e][c] = __dadd_rn(acc[e][c],
+                            __shfl_xor_sync(gorder::kFullWarp, acc[e][c], 16));
+    }
+  if (group == 0)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (c0 + e < n) store(c0 + e, acc[e]);
+}
+
+// top3_subspace for frames of up to kColsAtOnce * kThreads rows: as
+// top3_subspace_kernel, the matrices through the ring.
+template <int kCols>
+__global__ void __launch_bounds__(kThreads)
+    top3_subspace_ring_kernel(SubspaceArgs a) {
+  // the ring, then Q (kQStride n) and y (3n)
+  extern __shared__ __align__(16) float ring[];
+  __shared__ double red[2 * kWarps * 3];
+  BlockSum<3> sum(red);
+  const int n = a.n;
+  double* qs = reinterpret_cast<double*>(ring + kRingStages * kStageFloats);
+  double* y = qs + kQStride * n;
+  TileStream ts(a.gp, a.s, n, a.n_frames, a.iters, a.aligned != 0);
+  for (int j = 0; j < kRingStages - 1; ++j) ts.issue(ring);
+  // up to kThreads rows: one warp's QR between two barriers
+  const auto qr = [&] {
+    if constexpr (kCols == 1) {
+      __syncthreads();  // y whole
+      if (threadIdx.x < gorder::kWarpSize) householder_q_warp(y, qs, n);
+    } else {
+      householder_q(y, qs, n, sum);
+    }
+  };
+  int j = 0;
+  for (int b = blockIdx.x; b < a.n_frames; b += gridDim.x) {
+    __syncthreads();  // the last frame's readers of y and Q are done
+    const float* st = a.start + static_cast<size_t>(b) * n * 3;
+    for (int i = threadIdx.x; i < n; i += kThreads)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) y[c * n + i] = st[3 * i + c];
+    qr();
+    for (int step = 0; step <= a.iters; ++step) {
+      __syncthreads();  // Q whole, y free
+      if constexpr (kCols == 1) {
+        ring_product_wide<3, kQStride>(
+            ts, j, ring, qs, [&](int t, const double(&tot)[3]) {
+              y[t] = tot[0];
+              y[n + t] = tot[1];
+              y[2 * n + t] = tot[2];
+            });
+      } else {
+        double acc[kCols][3];
+        ring_product<kCols, 3, kQStride>(ts, j, ring, qs, acc);
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          const int t = threadIdx.x + c * kThreads;
+          if (t < n)
+#pragma unroll
+            for (int k = 0; k < 3; ++k) y[k * n + t] = acc[c][k];
+        }
+      }
+      qr();
+    }
+    __syncthreads();  // Q whole
+    float* out = a.q + static_cast<size_t>(b) * n * 3;
+    for (int i = threadIdx.x; i < n; i += kThreads)
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        out[3 * i + c] = static_cast<float>(qs[i * kQStride + c]);
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// A persistent block takes frame after frame: the start basis's QR, then
+// `iters` steps q <- QR(gp' q) and one q <- QR(s' q), Q in f64 throughout,
+// rounded to f32 once.
+__global__ void __launch_bounds__(kThreads)
+    top3_subspace_kernel(SubspaceArgs a) {
+  // Q (kQStride n), then y (3n); Q's rows are read 16 bytes at a time
+  extern __shared__ __align__(16) double sub_rows[];
+  __shared__ double red[2 * kWarps * 3];
+  BlockSum<3> sum(red);
+  const int n = a.n;
+  const size_t nn = static_cast<size_t>(n) * n;
+  for (int b = blockIdx.x; b < a.n_frames; b += gridDim.x) {
+    double* qs = a.scratch != nullptr
+                     ? a.scratch + static_cast<size_t>(b) * 8 * n
+                     : sub_rows;
+    double* y = qs + kQStride * n;
+    __syncthreads();  // the last frame's readers of y and Q are done
+    const float* st = a.start + static_cast<size_t>(b) * n * 3;
+    for (int i = threadIdx.x; i < n; i += kThreads)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) y[c * n + i] = st[3 * i + c];
+    householder_q(y, qs, n, sum);
+    for (int step = 0; step <= a.iters; ++step) {
+      __syncthreads();  // Q whole, y free
+      transposed_product((step < a.iters ? a.gp : a.s) + b * nn, qs, y, n);
+      householder_q(y, qs, n, sum);
+    }
+    float* out = a.q + static_cast<size_t>(b) * n * 3;
+    for (int i = threadIdx.x; i < n; i += kThreads)
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        out[3 * i + c] = static_cast<float>(qs[i * kQStride + c]);
+  }
 }
 
 // --------------------------------------------------------------- top2_span
@@ -834,57 +1333,199 @@ __device__ __forceinline__ void top2_eigen(const double (&g)[6],
   }
 }
 
+// Rows of u2 a span block holds in shared memory (f64) at a time for the
+// Laplacian products.
+constexpr int kSpanTile = 1024;
+
 struct SpanArgs {
   const float* span;    // (B, n, 3)
   const float* degree;  // (B, n)
+  const float* s;       // (B, n, n), or null: no Laplacian products
   float* u2;            // (B, n, 2)
-  int n;
+  float* lu2;           // (B, n, 2): u2 - s' u2, with s
+  int n_frames, n;
+  int aligned;          // s 16-byte aligned and n % 4 == 0
 };
 
-__global__ void __launch_bounds__(kThreads) top2_span_kernel(SpanArgs a) {
-  __shared__ double red[2 * kWarps * 6];
-  const int b = blockIdx.x;
+// The frame's deflated span row i: d = span_i - v0_i c.
+__device__ __forceinline__ void deflated_row(const float* span,
+                                             const float* deg, int i,
+                                             double inv, const double (&c)[3],
+                                             double (&d)[3]) {
+  const double v = sqrt(fmax(static_cast<double>(deg[i]), 0.0)) * inv;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) d[k] = span[3 * i + k] - v * c[k];
+}
+
+// Frame b's u2: v0's norm and the span's part along v0 in one block sum,
+// the deflated Gram in a second, its eigenpairs in every thread, the rows
+// rounded to f32 into u2 and, with uv, the same f32 values in f64 into uv
+// (2 a row, shared memory).
+__device__ __forceinline__ void top2_rows(const SpanArgs& a, int b,
+                                          BlockSum<4>& sum4,
+                                          BlockSum<6>& sum6, double* uv) {
   const int n = a.n;
   const float* span = a.span + static_cast<size_t>(b) * n * 3;
   const float* deg = a.degree + static_cast<size_t>(b) * n;
-  BlockSum<6> sum(red);
-  double t[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-  for (int i = threadIdx.x; i < n; i += kThreads)
-    t[0] += fmax(static_cast<double>(deg[i]), 0.0);  // sqrt(.) squared
-  sum(t);
-  const double inv = 1.0 / fmax(sqrt(t[0]), 1e-30);
-  double c[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  double t[4] = {0.0, 0.0, 0.0, 0.0};  // |sqrt(deg)|^2, sqrt(deg)' span
   for (int i = threadIdx.x; i < n; i += kThreads) {
-    const double v = sqrt(fmax(static_cast<double>(deg[i]), 0.0)) * inv;
-    for (int k = 0; k < 3; ++k) c[k] += v * span[3 * i + k];
+    const double d = fmax(static_cast<double>(deg[i]), 0.0);
+    const double r = sqrt(d);
+    t[0] += d;
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      t[k + 1] = fma(r, static_cast<double>(span[3 * i + k]), t[k + 1]);
   }
-  sum(c);
+  sum4(t);
+  const double inv = 1.0 / fmax(sqrt(t[0]), 1e-30);
+  const double c[3] = {t[1] * inv, t[2] * inv, t[3] * inv};
   double g[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
   for (int i = threadIdx.x; i < n; i += kThreads) {
-    const double v = sqrt(fmax(static_cast<double>(deg[i]), 0.0)) * inv;
-    const double d0 = span[3 * i] - v * c[0];
-    const double d1 = span[3 * i + 1] - v * c[1];
-    const double d2 = span[3 * i + 2] - v * c[2];
-    g[0] += d0 * d0;
-    g[1] += d0 * d1;
-    g[2] += d0 * d2;
-    g[3] += d1 * d1;
-    g[4] += d1 * d2;
-    g[5] += d2 * d2;
+    double d[3];
+    deflated_row(span, deg, i, inv, c, d);
+    g[0] = fma(d[0], d[0], g[0]);
+    g[1] = fma(d[0], d[1], g[1]);
+    g[2] = fma(d[0], d[2], g[2]);
+    g[3] = fma(d[1], d[1], g[3]);
+    g[4] = fma(d[1], d[2], g[4]);
+    g[5] = fma(d[2], d[2], g[5]);
   }
-  sum(g);
+  sum6(g);
   double vec[3][2], inv_sigma[2];
   top2_eigen(g, vec, inv_sigma);
-  float* out = a.u2 + static_cast<size_t>(b) * n * 2;
+  float2* u2 = reinterpret_cast<float2*>(a.u2) + static_cast<size_t>(b) * n;
   for (int i = threadIdx.x; i < n; i += kThreads) {
-    const double v = sqrt(fmax(static_cast<double>(deg[i]), 0.0)) * inv;
-    const double d0 = span[3 * i] - v * c[0];
-    const double d1 = span[3 * i + 1] - v * c[1];
-    const double d2 = span[3 * i + 2] - v * c[2];
-    for (int j = 0; j < 2; ++j)
-      out[2 * i + j] = static_cast<float>(
-          (d0 * vec[0][j] + d1 * vec[1][j] + d2 * vec[2][j]) * inv_sigma[j]);
+    double d[3];
+    deflated_row(span, deg, i, inv, c, d);
+    const float2 x = make_float2(
+        static_cast<float>(
+            (d[0] * vec[0][0] + d[1] * vec[1][0] + d[2] * vec[2][0]) *
+            inv_sigma[0]),
+        static_cast<float>(
+            (d[0] * vec[0][1] + d[1] * vec[1][1] + d[2] * vec[2][1]) *
+            inv_sigma[1]));
+    u2[i] = x;
+    if (uv != nullptr) {
+      uv[2 * i] = x.x;
+      uv[2 * i + 1] = x.y;
+    }
   }
+}
+
+// One block a frame: u2 (`top2_rows`); then, with s, lap(u2) = u2 - s' u2
+// with s' u2 by columns, as the subspace products, the matrix read
+// straight from device memory and u2 (the f32 rows just written) through
+// shared memory in f64 a tile at a time.
+__global__ void __launch_bounds__(kThreads) top2_span_kernel(SpanArgs a) {
+  constexpr int kCols = kColsAtOnce;
+  __shared__ double red4[2 * kWarps * 4];
+  __shared__ double red6[2 * kWarps * 6];
+  __shared__ double2 tile[kSpanTile];
+  const int b = blockIdx.x;
+  const int n = a.n;
+  BlockSum<4> sum4(red4);
+  BlockSum<6> sum6(red6);
+  top2_rows(a, b, sum4, sum6, nullptr);
+  const float2* u2 =
+      reinterpret_cast<const float2*>(a.u2) + static_cast<size_t>(b) * n;
+  if (a.s == nullptr) return;  // the same in every thread
+  const float* s = a.s + static_cast<size_t>(b) * n * n;
+  float2* lu2 = reinterpret_cast<float2*>(a.lu2) + static_cast<size_t>(b) * n;
+  constexpr int kRows = kAhead;
+  // the same passes in every thread: each reloads the tiles behind barriers
+  for (int base = 0; base < n; base += kCols * kThreads) {
+    const int t0 = base + threadIdx.x;
+    double acc[kCols][2];
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) acc[k][0] = acc[k][1] = 0.0;
+    for (int start = 0; start < n; start += kSpanTile) {
+      const int rows = min(kSpanTile, n - start);
+      __syncthreads();  // u2 written; the last tile's readers done
+      for (int i = threadIdx.x; i < rows; i += kThreads) {
+        const float2 x = u2[start + i];
+        tile[i] = make_double2(x.x, x.y);
+      }
+      __syncthreads();
+      for (int i0 = 0; i0 < rows; i0 += kRows) {
+        float w[kRows][kCols];
+#pragma unroll
+        for (int u = 0; u < kRows; ++u)
+#pragma unroll
+          for (int k = 0; k < kCols; ++k) {
+            const int i = start + i0 + u, col = t0 + k * kThreads;
+            w[u][k] = i0 + u < rows && col < n
+                          ? __ldg(s + static_cast<size_t>(i) * n + col)
+                          : 0.0f;
+          }
+#pragma unroll
+        for (int u = 0; u < kRows; ++u) {
+          if (i0 + u >= rows) break;  // the same in every thread
+          const double2 x = tile[i0 + u];
+#pragma unroll
+          for (int k = 0; k < kCols; ++k) {
+            const double sw = static_cast<double>(w[u][k]);
+            acc[k][0] = fma(sw, x.x, acc[k][0]);
+            acc[k][1] = fma(sw, x.y, acc[k][1]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) {
+      const int col = t0 + k * kThreads;
+      if (col < n) {
+        const float2 x = u2[col];
+        lu2[col] = make_float2(static_cast<float>(x.x - acc[k][0]),
+                               static_cast<float>(x.y - acc[k][1]));
+      }
+    }
+  }
+}
+
+// top2_span with s, frames of up to kColsAtOnce * kThreads rows: persistent
+// blocks, u2 (`top2_rows`, also into shared memory in f64), then s' u2
+// through the ring (one pass a frame), which copies a frame's first tiles
+// under its sums.
+template <int kCols>
+__global__ void __launch_bounds__(kThreads)
+    top2_span_ring_kernel(SpanArgs a) {
+  extern __shared__ __align__(16) float ring[];  // the ring, then u2 (2n)
+  __shared__ double red4[2 * kWarps * 4];
+  __shared__ double red6[2 * kWarps * 6];
+  BlockSum<4> sum4(red4);
+  BlockSum<6> sum6(red6);
+  const int n = a.n;
+  double* uv = reinterpret_cast<double*>(ring + kRingStages * kStageFloats);
+  TileStream ts(a.s, a.s, n, a.n_frames, 0, a.aligned != 0);
+  for (int j = 0; j < kRingStages - 1; ++j) ts.issue(ring);
+  int j = 0;
+  for (int b = blockIdx.x; b < a.n_frames; b += gridDim.x) {
+    __syncthreads();  // the last frame's readers of uv are done
+    top2_rows(a, b, sum4, sum6, uv);
+    float2* lu2 =
+        reinterpret_cast<float2*>(a.lu2) + static_cast<size_t>(b) * n;
+    // uv is whole once the product's first tile is acquired
+    if constexpr (kCols == 1) {
+      ring_product_wide<2, 2>(ts, j, ring, uv,
+                              [&](int t, const double(&tot)[2]) {
+                                lu2[t] = make_float2(
+                                    static_cast<float>(uv[2 * t] - tot[0]),
+                                    static_cast<float>(uv[2 * t + 1] -
+                                                       tot[1]));
+                              });
+    } else {
+      double acc[kCols][2];
+      ring_product<kCols, 2, 2>(ts, j, ring, uv, acc);
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const int t = threadIdx.x + c * kThreads;
+        if (t < n)
+          lu2[t] = make_float2(static_cast<float>(uv[2 * t] - acc[c][0]),
+                               static_cast<float>(uv[2 * t + 1] - acc[c][1]));
+      }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
 // --------------------------------------------------------- rayleigh_kmeans
@@ -1239,15 +1880,39 @@ cudaError_t triangle_grid(size_t bytes, int& blocks) {
   return cudaSuccess;
 }
 
+// Launches a persistent kernel (top3_subspace's, top2_span's ring) with as
+// many blocks as the device's SMs hold at once with `bytes` of shared
+// memory each, and no more than frames.
+template <class Kernel, class Args>
+cudaError_t persistent_launch(Kernel kernel, const Args& a, size_t bytes,
+                              cudaStream_t st) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = gorder::allow_shared(kernel, bytes);
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, bytes);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidValue;
+  const int blocks = a.n_frames < per_sm * sms ? a.n_frames : per_sm * sms;
+  kernel<<<blocks, kThreads, bytes, st>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Each entry point enqueues one launch on `stream`, one block (or, for
-// rayleigh_kmeans' warp path, one warp) a frame, and returns the first
-// error (0 = launched); the outputs are written whole. A null scratch asks
-// for the working rows in shared memory, which must then fit in
-// kMaxDynamic (thin_qr3: 48 bytes a row; rayleigh_kmeans: 8).
+// rayleigh_kmeans' warp path, one warp) a frame, or persistent blocks that
+// take frame after frame (spectral_affinity's triangle, top3_subspace),
+// and returns the first error (0 = launched); the outputs are written
+// whole. A null scratch asks for the working rows in shared memory, which
+// must then fit (top3_subspace: 56 bytes a row, up to kMaxShared;
+// rayleigh_kmeans: 8, up to kMaxDynamic).
 
 // heads (B, n, 3) f32, box (B, 3) f32 (read with pbc only) -> s (B, n, n)
 // f32 and degree (B, n) f32: with `triangle` the triangle path (its shared
@@ -1289,31 +1954,72 @@ int spectral_affinity(const void* heads, const void* box, void* s,
   return static_cast<int>(cudaGetLastError());
 }
 
-// a (B, n, 3) f32, n >= 3 -> q (B, n, 3) f32; scratch null or (B, 6n) f64.
-int thin_qr3(const void* a, void* q, void* scratch, int n_frames, int n,
-             void* stream) {
-  const size_t bytes =
-      scratch != nullptr ? 0 : 6 * sizeof(double) * static_cast<size_t>(n);
-  if (n_frames < 0 || n < 3 || bytes > kMaxDynamic)
+// gp, s (B, n, n) f32 and start (B, n, 3) f32, n >= 3 -> q (B, n, 3) f32.
+// With `ring` (n <= kColsAtOnce * kThreads) the matrices stream through
+// the ring, Q and y in shared memory beside it (kRingBytes + 56n bytes);
+// else with a null scratch each block's Q and y in shared memory (56n
+// bytes), or in scratch (B, 8n) f64. The static sums take their bytes too,
+// all at most kMaxShared. As many persistent blocks as the SMs hold, and
+// no more than frames.
+int top3_subspace(const void* gp, const void* s, const void* start, void* q,
+                  void* scratch, int n_frames, int n, int iters, int ring,
+                  void* stream) {
+  const size_t rows = (kQStride + 3) * sizeof(double) * static_cast<size_t>(n);
+  const size_t bytes = ring ? kRingBytes + rows : scratch != nullptr ? 0 : rows;
+  if (n_frames < 0 || n < 3 || iters < 0 ||
+      (ring && (scratch != nullptr || n > kColsAtOnce * kThreads)) ||
+      bytes + 2 * kWarps * 3 * sizeof(double) > kMaxShared)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_frames == 0) return 0;
-  const QrArgs args{static_cast<const float*>(a), static_cast<float*>(q),
-                    static_cast<double*>(scratch), n};
-  thin_qr3_kernel<<<n_frames, kThreads, bytes,
-                    static_cast<cudaStream_t>(stream)>>>(args);
-  return static_cast<int>(cudaGetLastError());
+  const bool aligned = n % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(gp) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(s) % 16 == 0;
+  const SubspaceArgs a{static_cast<const float*>(gp),
+                       static_cast<const float*>(s),
+                       static_cast<const float*>(start),
+                       static_cast<float*>(q),
+                       static_cast<double*>(scratch),
+                       n_frames,
+                       n,
+                       iters,
+                       aligned ? 1 : 0};
+  const auto st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      !ring ? persistent_launch(top3_subspace_kernel, a, bytes, st)
+      : n <= kThreads
+          ? persistent_launch(top3_subspace_ring_kernel<1>, a, bytes, st)
+          : persistent_launch(top3_subspace_ring_kernel<kColsAtOnce>, a, bytes,
+                              st);
+  return static_cast<int>(err);
 }
 
-// span (B, n, 3) f32, degree (B, n) f32 -> u2 (B, n, 2) f32.
-int top2_span(const void* span, const void* degree, void* u2, int n_frames,
-              int n, void* stream) {
-  if (n_frames < 0 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
+// span (B, n, 3) f32, degree (B, n) f32 and s (B, n, n) f32 or null -> u2
+// (B, n, 2) f32 and, with s, lu2 (B, n, 2) f32: with s and n <=
+// kColsAtOnce * kThreads persistent blocks and the ring (kRingBytes + 16n
+// bytes of shared memory), else one block a frame.
+int top2_span(const void* span, const void* degree, const void* s, void* u2,
+              void* lu2, int n_frames, int n, void* stream) {
+  if (n_frames < 0 || n < 0 || (s != nullptr && lu2 == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_frames == 0 || n == 0) return 0;
   const SpanArgs a{static_cast<const float*>(span),
-                   static_cast<const float*>(degree), static_cast<float*>(u2),
-                   n};
-  top2_span_kernel<<<n_frames, kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(a);
+                   static_cast<const float*>(degree),
+                   static_cast<const float*>(s),
+                   static_cast<float*>(u2),
+                   static_cast<float*>(lu2),
+                   n_frames,
+                   n,
+                   n % 4 == 0 && reinterpret_cast<uintptr_t>(s) % 16 == 0};
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (s != nullptr && n <= kColsAtOnce * kThreads) {
+    const size_t bytes = kRingBytes + 2 * sizeof(double) * n;
+    return static_cast<int>(
+        n <= kThreads
+            ? persistent_launch(top2_span_ring_kernel<1>, a, bytes, st)
+            : persistent_launch(top2_span_ring_kernel<kColsAtOnce>, a, bytes,
+                                st));
+  }
+  top2_span_kernel<<<n_frames, kThreads, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

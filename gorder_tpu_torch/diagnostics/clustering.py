@@ -25,12 +25,14 @@ S and the degrees within `chip_smoke.py`'s SPECTRAL_S_RTOL and
 SPECTRAL_DEGREE_RTOL, the labels of every frame equal (and, where the
 tree's wrapper reports them, the k-means steps each frame took: min,
 median, max). Then prints the CUDA-event time of the spectral classifier's
-stages in the algebra the card runs: the similarity, the top-3 subspace
-(the 12 squarings, then six `thin_qr3` and their products), one
-`thin_qr3`, the deflated span's two directions (`top2_span`), the
-Laplacian products and the embedding's k-means, and the device time of
-the similarity's and the k-means' calls queued on the card
-(`chip_smoke.device_ms`); of the whole spectral call in both algebras and
+stages in the algebra the card runs: the similarity, the filter's 12
+squarings, the chain from the filter to the k-means, and the
+embedding's k-means, and the device time of the similarity's and the k-means' calls
+queued on the card (`chip_smoke.device_ms`). The chain is timed as the
+tree has it (`chain_stages`): in one with `top3_subspace`, its launch
+and `top2_span` with the Laplacian products fused; in one before it, the six `thin_qr3`, the five products,
+`top2_span` and the Laplacian products apart, each by CUDA events and
+device time. Then the time of the whole spectral call in both algebras and
 through the plain versions, and of the spherical classifier; the host
 time of the labels' copy and of their orientation frame after frame; and
 a `torch.profiler` table of the spectral call's device time by
@@ -102,10 +104,8 @@ def kernel_checks(heads, box) -> dict:
                            f"degrees {float(d_err.max())}")
     out = {"s_max_abs_err": float(s_err.max()),
            "degree_max_abs_err": float(d_err.max())}
-    v0 = torch.sqrt(want_degree)
-    v0 = v0 / cl._norm(v0)
-    span = cl._top3_subspace(want_s, v0, spectral.thin_qr3_plain)
-    u2 = spectral.top2_span_plain(span, want_degree)
+    u2 = spectral.top2_span_plain(plain_span(want_s, want_degree),
+                                  want_degree)
     lu2 = u2 - want_s @ u2
     want = spectral.rayleigh_kmeans_plain(u2, lu2, cl.KMEANS_ITERS)
     kwargs = {}
@@ -125,6 +125,87 @@ def kernel_checks(heads, box) -> dict:
     return out
 
 
+def filtered(s_mat):
+    """The filter of `core/clustering.py _top3_subspace`: S rescaled by its
+    largest entry, squared 12 times, rescaled after each."""
+    from gorder_tpu_torch.core import clustering as cl
+
+    gp = s_mat / cl._frame_max(s_mat)
+    for _ in range(12):
+        gp = gp @ gp
+        gp = gp / cl._frame_max(gp)
+    return gp
+
+
+def start_basis(degree):
+    """The chain's start basis [v0, sin(0.7 i + 0.3), cos(1.3 i + 0.1)]."""
+    from gorder_tpu_torch.core import clustering as cl
+
+    v0 = torch.sqrt(degree)
+    v0 = v0 / cl._norm(v0)
+    i = torch.arange(degree.shape[-1], dtype=degree.dtype,
+                     device=degree.device)
+    return torch.stack([v0, torch.sin(0.7 * i + 0.3).expand_as(v0),
+                        torch.cos(1.3 * i + 0.1).expand_as(v0)], -1)
+
+
+def plain_span(s_mat, degree):
+    """The top-3 subspace through the tree's plain versions."""
+    from gorder_tpu_torch.core import clustering as cl
+    from gorder_tpu_torch.ops import spectral
+
+    if hasattr(spectral, "top3_subspace_plain"):
+        return spectral.top3_subspace_plain(filtered(s_mat), s_mat,
+                                            start_basis(degree))
+    v0 = torch.sqrt(degree)
+    return cl._top3_subspace(s_mat, v0 / cl._norm(v0),
+                             spectral.thin_qr3_plain)
+
+
+def chain_stages(s_mat, degree) -> dict:
+    """CUDA-event and device ms (`chip_smoke.device_ms`) of the subspace
+    iteration and the deflated span between the similarity and the
+    k-means, on the tree's entry points. A tree with `thin_qr3` (before
+    `top3_subspace`): (a) the six `thin_qr3` calls on the chain's own
+    inputs, (b) the five products `gp @ q` and `s_mat @ q`, (c)
+    `top2_span`, (d) the Laplacian products `u2 - s_mat @ u2`. A tree with
+    `top3_subspace`: (a + b) its one launch, (c + d) `top2_span` with the
+    products fused. The first branch is what times the earlier design's
+    stages in PERF.md §6 (`--root` an earlier tree)."""
+    import chip_smoke
+    from gorder_tpu_torch.core import clustering as cl
+    from gorder_tpu_torch.ops import spectral
+
+    def both(name, fn):
+        return {name: chip_smoke.cuda_ms(fn, reps=20, warmup=3),
+                f"{name}_device": chip_smoke.device_ms(fn)}
+
+    start = start_basis(degree)
+    gp = filtered(s_mat)
+    out = {}
+    if hasattr(spectral, "top3_subspace"):
+        span = spectral.top3_subspace(gp, s_mat, start)
+        out.update(both("a_b_top3_subspace", lambda: spectral.top3_subspace(
+            gp, s_mat, start)))
+        out.update(both("c_d_top2_span_fused", lambda: spectral.top2_span(
+            span, degree, s_mat)))
+        return out
+    qs = [spectral.thin_qr3(start)]
+    mats = [gp] * 4 + [s_mat]
+    for m in mats:
+        qs.append(spectral.thin_qr3(m @ qs[-1]))
+    inputs = [start] + [m @ q for m, q in zip(mats, qs[:-1])]
+    span = qs[-1]
+    u2 = spectral.top2_span(span, degree)
+    out.update(both("a_thin_qr3_x6", lambda: [spectral.thin_qr3(a)
+                                              for a in inputs]))
+    out.update(both("b_products_x5", lambda: [m @ q for m, q in
+                                              zip(mats, qs[:-1])]))
+    out.update(both("c_top2_span", lambda: spectral.top2_span(span, degree)))
+    out.update(both("d_laplacian_products", lambda: u2 - s_mat @ u2))
+    return out
+
+
 def stage_times(heads, box) -> dict:
     """CUDA-event ms of each stage of the spectral classifier (the matmul
     algebra, `core/clustering.py _spectral_chunk`, through the kernels)."""
@@ -136,10 +217,7 @@ def stage_times(heads, box) -> dict:
         return spectral.spectral_affinity(heads, box, True, cl.PRECISE_SIGMA)
 
     s_mat, degree = similarity()
-    v0 = torch.sqrt(degree)
-    v0 = v0 / cl._norm(v0)
-    span = cl._top3_subspace(s_mat, v0, spectral.thin_qr3)
-    u2 = spectral.top2_span(span, degree)
+    u2 = spectral.top2_span_plain(plain_span(s_mat, degree), degree)
     lu2 = u2 - s_mat @ u2
 
     def ms(fn):
@@ -147,12 +225,8 @@ def stage_times(heads, box) -> dict:
 
     return {
         "similarity": ms(similarity),
-        "top3_subspace": ms(
-            lambda: cl._top3_subspace(s_mat, v0, spectral.thin_qr3)),
-        "thin_qr3_of_one_iteration": ms(
-            lambda: spectral.thin_qr3(s_mat @ span)),
-        "top2_span": ms(lambda: spectral.top2_span(span, degree)),
-        "laplacian_products": ms(lambda: u2 - s_mat @ u2),
+        "filter_squarings": ms(lambda: filtered(s_mat)),
+        **chain_stages(s_mat, degree),
         "rayleigh_kmeans": ms(lambda: spectral.rayleigh_kmeans(
             u2, lu2, cl.KMEANS_ITERS)),
         "similarity_device": chip_smoke.device_ms(similarity),
@@ -258,6 +332,11 @@ def main(argv=None) -> int:
                              ProfilerActivity.CUDA]) as prof:
         spectral(heads, box)
         torch.cuda.synchronize()
+    out["spectral_device_operations"] = sum(
+        1 for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"spectral_device_operations: {out['spectral_device_operations']}",
+          flush=True)
     table = prof.key_averages()
     try:
         print(table.table(sort_by="device_time_total", row_limit=20))

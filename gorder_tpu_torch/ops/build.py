@@ -89,11 +89,11 @@ _SIGNATURES = {
                   + [_int] * 2 + [_vp],
     # spectral.cu: the pointers (a null scratch: shared memory; null
     # steps: not recorded), the sizes, [sigma, pbc, triangle, tile |
-    # iters, warp,] stream
+    # iters, warp | iters, ring,] stream
     "spectral_affinity": [_vp] * 4 + [_int] * 2 + [ctypes.c_float]
                          + [_int] * 3 + [_vp],
-    "thin_qr3": [_vp] * 3 + [_int] * 2 + [_vp],
-    "top2_span": [_vp] * 3 + [_int] * 2 + [_vp],
+    "top3_subspace": [_vp] * 5 + [_int] * 4 + [_vp],
+    "top2_span": [_vp] * 5 + [_int] * 2 + [_vp],
     "rayleigh_kmeans": [_vp] * 5 + [_int] * 4 + [_vp],
 }
 

@@ -1,41 +1,49 @@
 """The spectral leaflet classifier's kernels' wrappers and their plain
-PyTorch versions: the similarity pass, the thin QR of an n × 3 basis, the
-two leading directions of the deflated span, and the energy-weighted
-embedding with its k-means (`core/clustering.py` calls them for a batch of
-frames).
+PyTorch versions: the similarity pass, the subspace iteration of the top
+three eigenvectors, the two leading directions of the deflated span with
+their Laplacian products, and the energy-weighted embedding with its
+k-means (`core/clustering.py` calls them for a batch of frames).
 
 `spectral_affinity` gives, per frame, the similarity S = D^{-1/2} W D^{-1/2}
 of W = exp(−σ d²) over the heads and the degrees D, as
 `gorder_tpu/core/clustering.py _spectral_labels` (:159-176) forms them;
-`thin_qr3` an orthonormal basis Q of an (n, 3) matrix A with span(Q[:, :k])
-= span(A[:, :k]), where `jnp.linalg.qr` (:136, :144, :149) gives one;
-`top2_span` the two leading left singular vectors of the span with the
-analytic top vector D^{1/2}·1 deflated (:189-190, :315-317);
-`rayleigh_kmeans` the raw k-means labels of the energy-weighted embedding
-(`_rayleigh_weighted` :198-235, `_kmeans2` :51-83), given the span's
-Laplacian products. None is a Pallas kernel in gorder_tpu: there all are
-XLA ops.
+`top3_subspace` an orthonormal basis of the top-3 eigenspace by the
+subspace iteration of `_top3_subspace` after its filter (its QRs
+`jnp.linalg.qr` :136, :144, :149 and its products), given the filtered
+matrix, the matrix and the start basis; `top2_span` the two leading left
+singular vectors of the span with the analytic top vector D^{1/2}·1
+deflated (:189-190, :315-317) and, given S, their normalized-Laplacian
+products u2 − S u2 (:192); `rayleigh_kmeans` the raw k-means labels of
+the energy-weighted embedding (`_rayleigh_weighted` :198-235, `_kmeans2`
+:51-83), given the span's Laplacian products. None is a Pallas kernel in
+gorder_tpu: there all are XLA ops.
 
 The kernels pick their path from the frame's size (`affinity_plan`,
-`kmeans_plan`): the similarity holds a frame's upper triangle of weights
-on chip and computes each weight once where it fits (up to 288 heads),
-else takes two passes over the heads; the k-means runs one warp a frame
-up to 256 rows, else one block, and stops at the fixed point of its
-labels, which are then the labels `iters` steps give
-(`kmeans2_fixed_point` is its plain counterpart).
+`subspace_plan`, `kmeans_plan`): the similarity holds a frame's upper
+triangle of weights on chip and computes each weight once where it fits
+(up to 288 heads), else takes two passes over the heads; the subspace
+iteration streams its matrices through a ring of tiles in shared memory
+up to 1,024 rows, else reads them straight from device memory, its
+working columns in shared memory up to 3,657 rows, else in device
+memory; the k-means runs one warp a frame up to 256 rows,
+else one block, and stops at the fixed point of its labels, which are
+then the labels `iters` steps give (`kmeans2_fixed_point` is its plain
+counterpart).
 
 For tensors on the CPU the wrappers run the plain versions; for CUDA
 tensors they launch the hand-written kernels (`csrc/spectral.cu`) on the
 current stream, or raise. The wrappers alone choose between the two, and
 there is no fallback from a kernel to its plain version. All check their
-arguments on either device. The plain QR and span run in f64, as the
-kernels do: the filtered subspace iteration hands the QR inputs with
-condition numbers near 5e7, whose orthogonality f32 Gram–Schmidt or
-Cholesky-QR lose. The third column of a QR of such an input is set by
-rounding, and the span's two directions are equal in energy, so a kernel
-and its plain version agree on the spaces they span (their projectors),
-not column by column; the labels, which depend only on distances within
-the embedding, agree exactly.
+arguments on either device. The subspace iteration and the span run in
+f64, as the kernels do: the filter hands the QRs inputs with condition
+numbers up to 7.8e7, whose orthogonality f32 Gram–Schmidt or Cholesky-QR
+lose. The third column of a QR of such an input is set by rounding, and
+the span's two directions are equal in energy, so a kernel and its plain
+version agree on the spaces they span (their projectors), not column by
+column; the labels, which depend only on distances within the embedding,
+agree exactly. The kernels read S and the filtered matrix by columns
+(products with the transpose): both are symmetric but for the last ulp,
+and the plain versions take the same transpose.
 """
 
 from __future__ import annotations
@@ -54,11 +62,22 @@ AFFINITY_TRIANGLE_BYTES = 227 * 1024
 #: heads a two-pass spectral_affinity block keeps in shared memory at a
 #: time (16 bytes a head: x, y, z and 1/√degree)
 AFFINITY_TILE = 1024
-#: rows whose working columns thin_qr3 (48 bytes a row) and
-#: rayleigh_kmeans' one-block path (8 bytes a row) keep in shared memory;
-#: larger frames work in a scratch buffer in device memory (csrc/
+#: the bytes a row of top3_subspace's working columns takes (Q and the
+#: product y, 7 f64), and the shared memory a block may take for them and
+#: its ring: the rows of larger frames work in a scratch buffer in device
+#: memory
+SUBSPACE_ROW_BYTES = 56
+SUBSPACE_SHARED_BYTES = 200 * 1024
+#: top3_subspace's ring of matrix tiles (csrc/spectral.cu kRingBytes: four
+#: stages of 32 KiB), and the rows it takes (four columns a thread of 256)
+SUBSPACE_RING_BYTES = 4 * 32 * 1024
+SUBSPACE_RING_ROWS = 1024
+#: the filtered steps of the subspace iteration (`core/clustering.py
+#: _top3_subspace`), before its one unfiltered step
+SUBSPACE_ITERS = 4
+#: rows rayleigh_kmeans' one-block path (8 bytes a row) keeps in shared
+#: memory; larger frames work in a scratch buffer in device memory (csrc/
 #: spectral.cu takes at most 40 KiB of dynamic shared memory a block there)
-QR_SHARED_ROWS = 40 * 1024 // 48
 KMEANS_SHARED_ROWS = 40 * 1024 // 8
 #: rows rayleigh_kmeans takes with one warp a frame (8 a lane, in
 #: registers: csrc/spectral.cu kWarpRows); larger frames take one block
@@ -67,7 +86,7 @@ KMEANS_WARP_ROWS = 256
 #: launches of each kernel since the last reset; the plain versions count
 #: in none
 affinity_launches = 0
-qr_launches = 0
+subspace_launches = 0
 span_launches = 0
 kmeans_launches = 0
 
@@ -181,16 +200,15 @@ def spectral_affinity(heads, box_diag, handle_pbc: bool, sigma: float):
     return s_mat, degree
 
 
-# ---------------------------------------------------------------- thin_qr3
+# ------------------------------------------------------------ top3_subspace
 
 
-def thin_qr3_plain(a):
-    """(B, n, 3) f32 → (B, n, 3) f32 Q: the kernel's three Householder
-    reflections in f64 as torch ops. Reflector k of x = A[k:, k]: v = x −
-    α e₀, α = −sign(x₀)‖x‖, vᵀv = 2‖x‖(‖x‖ + |x₀|), skipped for a zero
-    column; applied to the later columns, then in reverse to the first
-    three columns of the identity."""
-    x = a.to(torch.float64)
+def householder_q(x):
+    """(B, n, 3) f64 → (B, n, 3) f64 Q: three Householder reflections as
+    torch ops. Reflector k of x = A[k:, k]: v = x − α e₀, α = −sign(x₀)‖x‖,
+    vᵀv = 2‖x‖(‖x‖ + |x₀|), skipped for a zero column; applied to the
+    later columns, then in reverse to the first three columns of the
+    identity."""
     n_frames, n = x.shape[:2]
     reflectors = []
     for k in range(3):
@@ -209,7 +227,7 @@ def thin_qr3_plain(a):
             x = x.clone()
             x[:, k:, k + 1:] = rest - (scale[:, None, None] * v[..., None]
                                        * dots[:, None, :])
-    q = torch.eye(n, 3, dtype=torch.float64, device=a.device).repeat(
+    q = torch.eye(n, 3, dtype=x.dtype, device=x.device).repeat(
         n_frames, 1, 1)
     for k in (2, 1, 0):
         v, scale = reflectors[k]
@@ -217,43 +235,108 @@ def thin_qr3_plain(a):
         dots = (v[..., None] * rest).sum(1)                      # (B, 3)
         q[:, k:, :] = rest - (scale[:, None, None] * v[..., None]
                               * dots[:, None, :])
+    return q
+
+
+def thin_qr3_plain(a):
+    """(B, n, 3) f32 → (B, n, 3) f32 Q with orthonormal columns,
+    span(Q[:, :k]) = span(A[:, :k]) for k = 1, 2, 3 (the reduced QR's Q,
+    up to the signs of its columns): `householder_q` in f64, rounded once.
+    The QR of each step of `top3_subspace_plain`, there without the
+    rounding."""
+    return householder_q(a.to(torch.float64)).to(torch.float32)
+
+
+class SubspacePlan(NamedTuple):
+    """How top3_subspace takes a frame: "ring" (the matrices stream
+    through a ring of tiles in shared memory, the working columns, Q and
+    the product y, beside it; its 128 KiB leave one persistent block an
+    SM, and the frames in flight, 256 KiB each at 256 rows, within the
+    card's 50 MB L2, which serves the later passes over each frame),
+    "shared" (the matrices read straight from device memory, the working
+    columns in shared memory) or "device" (those in a scratch buffer); and
+    its block's shared memory."""
+    path: str
+    shared_bytes: int
+
+
+def subspace_plan(n: int) -> SubspacePlan:
+    """The path of top3_subspace for frames of n rows: the ring up to
+    SUBSPACE_RING_ROWS rows where the ring and the working columns (56
+    bytes a row) fit SUBSPACE_SHARED_BYTES (the dense path's 256 heads,
+    Nyström's 1,024 landmarks), else the working columns alone where they
+    fit (up to 3,657 rows), else device memory."""
+    columns = SUBSPACE_ROW_BYTES * n
+    if (n <= SUBSPACE_RING_ROWS
+            and SUBSPACE_RING_BYTES + columns <= SUBSPACE_SHARED_BYTES):
+        return SubspacePlan("ring", SUBSPACE_RING_BYTES + columns)
+    if columns <= SUBSPACE_SHARED_BYTES:
+        return SubspacePlan("shared", columns)
+    return SubspacePlan("device", 0)
+
+
+def _check_subspace(gp, s_mat, start, device):
+    n = _frames_of("start", start, 3, device)
+    if n < 3:
+        raise ValueError(f"start has {n} rows, a basis of 3 columns needs 3")
+    for name, m in (("gp", gp), ("s_mat", s_mat)):
+        check_tensor(name, m, torch.float32, (start.shape[0], n, n), device)
+    return n
+
+
+def top3_subspace_plain(gp, s_mat, start):
+    """(B, n, n) f32 filtered and unfiltered matrices and a (B, n, 3) f32
+    start basis → (B, n, 3) f32: Q of the start, then SUBSPACE_ITERS steps
+    Q ← QR(gpᵀ Q) and one Q ← QR(s_matᵀ Q), each product of the f32 matrix
+    and the f64 Q in f64, Q (`householder_q`) in f64 between the steps and
+    rounded to f32 once. The matrices are symmetric up to an ulp (S_ij =
+    (w_ij d_i) d_j against (w_ij d_j) d_i), so ᵀ is the kernel's reading
+    of them by columns, not another function."""
+    q = householder_q(start.to(torch.float64))
+    for m in (gp,) * SUBSPACE_ITERS + (s_mat,):
+        q = householder_q(m.transpose(1, 2).to(torch.float64) @ q)
     return q.to(torch.float32)
 
 
-def thin_qr3(a):
-    """(B, n, 3) f32, n ≥ 3 → (B, n, 3) f32 with orthonormal columns,
-    span(Q[:, :k]) = span(A[:, :k]) for k = 1, 2, 3 (the reduced QR's Q,
-    up to the signs of its columns): Householder in f64."""
-    global qr_launches
-    device = device_of(a)
-    n = _frames_of("a", a, 3, device)
-    if n < 3:
-        raise ValueError(f"a has {n} rows, a thin QR of 3 columns needs 3")
+def top3_subspace(gp, s_mat, start):
+    """(B, n, n) f32 filtered matrices `gp` (the similarity squared and
+    rescaled), their unfiltered `s_mat` and (B, n, 3) f32 start bases, n
+    ≥ 3 → (B, n, 3) f32 orthonormal bases of the top-3 subspaces: the
+    subspace iteration of `core/clustering.py _top3_subspace` after its
+    squarings, one launch a batch (`top3_subspace_plain` is its plain
+    version)."""
+    global subspace_launches
+    device = device_of(start)
+    n = _check_subspace(gp, s_mat, start, device)
     if device.type == "cpu":
-        return thin_qr3_plain(a)
-    n_frames = a.shape[0]
-    q = torch.empty_like(a)
+        return top3_subspace_plain(gp, s_mat, start)
+    n_frames = start.shape[0]
+    q = torch.empty_like(start)
     if not q.numel():
         return q
-    scratch = (None if n <= QR_SHARED_ROWS else
-               torch.empty((n_frames, 6 * n), dtype=torch.float64,
+    plan = subspace_plan(n)
+    scratch = (None if plan.path != "device" else
+               torch.empty((n_frames, 8 * n), dtype=torch.float64,
                            device=device))
     with torch.cuda.device(device):
-        call("thin_qr3", a.data_ptr(), q.data_ptr(),
+        call("top3_subspace", gp.data_ptr(), s_mat.data_ptr(),
+             start.data_ptr(), q.data_ptr(),
              None if scratch is None else scratch.data_ptr(), n_frames, n,
-             _stream(device))
-    qr_launches += 1
+             SUBSPACE_ITERS, int(plan.path == "ring"), _stream(device))
+    subspace_launches += 1
     return q
 
 
 # --------------------------------------------------------------- top2_span
 
 
-def top2_span_plain(span, degree):
+def top2_span_plain(span, degree, s_mat=None):
     """(B, n, 3) span and (B, n) degree → (B, n, 2) f32, in f64: v0 =
     √max(degree, 0) / max(‖·‖, 1e-30), the deflated D = span − v0 (v0ᵀ
     span), the eigenpairs of its 3 × 3 Gram DᵀD, and U_k = D V_k /
-    max(σ_k, 1e-30) for the two largest σ_k = √λ_k."""
+    max(σ_k, 1e-30) for the two largest σ_k = √λ_k. With a (B, n, n)
+    `s_mat`, → (u2, lap(u2)): also u2's normalized-Laplacian products u2 −
+    s_matᵀ u2 of the f32 u2, the product in f64, rounded once."""
     d = span.to(torch.float64)
     v0 = torch.sqrt(torch.clamp(degree.to(torch.float64), min=0.0))
     v0 = v0 / torch.clamp(torch.linalg.vector_norm(v0, dim=-1, keepdim=True),
@@ -262,29 +345,41 @@ def top2_span_plain(span, degree):
     lam, vec = torch.linalg.eigh(d.transpose(1, 2) @ d)         # ascending
     lam, vec = lam[:, [2, 1]], vec[..., [2, 1]]
     sigma = torch.clamp(torch.sqrt(torch.clamp(lam, min=0.0)), min=1e-30)
-    return ((d @ vec) / sigma[:, None, :]).to(torch.float32)
+    u2 = ((d @ vec) / sigma[:, None, :]).to(torch.float32)
+    if s_mat is None:
+        return u2
+    x = u2.to(torch.float64)
+    return u2, (x - s_mat.transpose(1, 2).to(torch.float64) @ x).to(
+        torch.float32)
 
 
-def top2_span(span, degree):
+def top2_span(span, degree, s_mat=None):
     """(B, n, 3) f32 span and (B, n) f32 degree → (B, n, 2) f32: the two
     leading left singular vectors of the span with v0 = D^{1/2}·1 / ‖·‖
-    deflated (the third, σ ≈ 0 after deflation, is never formed)."""
+    deflated (the third, σ ≈ 0 after deflation, is never formed). With a
+    (B, n, n) f32 `s_mat` (the dense path's similarity) → (u2, lap(u2) =
+    u2 − s_matᵀ u2), both in the one launch."""
     global span_launches
     device = device_of(span)
     n = _frames_of("span", span, 3, device)
     check_tensor("degree", degree, torch.float32, (span.shape[0], n),
                  device)
+    if s_mat is not None:
+        check_tensor("s_mat", s_mat, torch.float32, (span.shape[0], n, n),
+                     device)
     if device.type == "cpu":
-        return top2_span_plain(span, degree)
+        return top2_span_plain(span, degree, s_mat)
     u2 = torch.empty((span.shape[0], n, 2), dtype=torch.float32,
                      device=device)
-    if not u2.numel():
-        return u2
-    with torch.cuda.device(device):
-        call("top2_span", span.data_ptr(), degree.data_ptr(), u2.data_ptr(),
-             span.shape[0], n, _stream(device))
-    span_launches += 1
-    return u2
+    lu2 = None if s_mat is None else torch.empty_like(u2)
+    if u2.numel():
+        with torch.cuda.device(device):
+            call("top2_span", span.data_ptr(), degree.data_ptr(),
+                 None if s_mat is None else s_mat.data_ptr(), u2.data_ptr(),
+                 None if lu2 is None else lu2.data_ptr(), span.shape[0], n,
+                 _stream(device))
+        span_launches += 1
+    return u2 if s_mat is None else (u2, lu2)
 
 
 # --------------------------------------------------------- rayleigh_kmeans
@@ -451,15 +546,15 @@ def rayleigh_kmeans(u2, lu2, iters: int, steps=None):
 class Ops(NamedTuple):
     """The four passes `core/clustering.py` takes a frame batch through."""
     affinity: Callable
-    thin_qr3: Callable
+    top3_subspace: Callable
     top2_span: Callable
     rayleigh_kmeans: Callable
 
 
 #: the wrappers (the kernel on the card, the plain version on the CPU)
-WRAPPERS = Ops(spectral_affinity, thin_qr3, top2_span, rayleigh_kmeans)
+WRAPPERS = Ops(spectral_affinity, top3_subspace, top2_span, rayleigh_kmeans)
 #: the plain versions on any device: what the card's kernels are held to
-PLAIN = Ops(spectral_affinity_plain, thin_qr3_plain, top2_span_plain,
+PLAIN = Ops(spectral_affinity_plain, top3_subspace_plain, top2_span_plain,
             rayleigh_kmeans_plain)
 
 

@@ -4,8 +4,9 @@ inputs, on the CPU.
 
 - The elementwise and small algebra (`ops/spectral.py sq_distances` and
   `rayleigh_embedding`, `_inv_sqrt_spd`) to rtol 1e-5; the top-3
-  subspace (its QRs by `ops/spectral.py thin_qr3`) through its projector
-  (the basis may rotate), ‖P_port − P_jax‖ ≤ 1e-4.
+  subspace (its iteration by `ops/spectral.py top3_subspace`) through its
+  projector (the basis may rotate), ‖P_port − P_jax‖ ≤ 1e-4, on a
+  matrix with a tight top-3 spectrum, also at Nyström's 1,024 landmarks.
 - Labels exactly: k-means, the spectral labels of both port branches
   (LAPACK `eigh`, which the CPU runs, and the matmul algebra the card
   runs) against JAX's CPU labels, the Nyström path, and the spherical
@@ -122,7 +123,27 @@ def test_top3_subspace_projector():
     v0 /= np.linalg.norm(v0)
     qj = np.asarray(jc._top3_subspace(s, v0))
     qt = tc._top3_subspace(_t(s)[None], _t(v0)[None],
-                           spectral.thin_qr3)[0].numpy()
+                           spectral.top3_subspace)[0].numpy()
+    exact = q[:, :3] @ q[:, :3].T
+    assert np.linalg.norm(qt @ qt.T - qj @ qj.T, 2) <= 1e-4
+    assert np.linalg.norm(qt @ qt.T - exact, 2) <= 1e-3
+
+
+def test_top3_subspace_projector_nystrom_sized():
+    """The spectrum of `test_top3_subspace_projector` on a Nyström-sized
+    landmark Gram (1,024 × 1,024), started as `_spectral_labels_nystrom`
+    starts it: the two projectors agree."""
+    rng = np.random.default_rng(5)
+    n = tc.NYSTROM_LANDMARKS
+    q = np.linalg.qr(rng.normal(size=(n, n)))[0]
+    lam = np.concatenate([[1.0, 0.9996, 0.9992],
+                          np.linspace(0.99, 0.05, n - 3)])
+    g = ((q * lam) @ q.T).astype(np.float32)
+    gv = np.sin(0.7 * np.arange(n, dtype=np.float32) + 0.3)
+    gv = (gv / np.linalg.norm(gv)).astype(np.float32)
+    qj = np.asarray(jc._top3_subspace(g, gv))
+    qt = tc._top3_subspace(_t(g)[None], _t(gv)[None],
+                           spectral.top3_subspace)[0].numpy()
     exact = q[:, :3] @ q[:, :3].T
     assert np.linalg.norm(qt @ qt.T - qj @ qj.T, 2) <= 1e-4
     assert np.linalg.norm(qt @ qt.T - exact, 2) <= 1e-3
@@ -182,6 +203,23 @@ def test_nystrom_labels_equal_jax(systems, monkeypatch, algebra):
     for frame in got:   # the two shells, one cluster each
         assert len(set(frame[:n_outer])) == len(set(frame[n_outer:])) == 1
         assert frame[0] != frame[-1]
+
+
+@pytest.mark.parametrize("path", ["dense", "nystrom"])
+def test_plain_matmul_chain_labels_equal_jax(systems, monkeypatch, path):
+    """The matmul chain through the plain versions (`.plain`, what the
+    card's kernels are held to) against `_spectral_labels` and
+    `_spectral_labels_nystrom`: labels equal."""
+    coords, boxes, heads = systems["vesicle" if path == "nystrom"
+                                   else "scrambling"]
+    if path == "nystrom":
+        for mod in (jc, tc):
+            monkeypatch.setattr(mod, "DENSE_CLUSTER_HEADS", 100)
+            monkeypatch.setattr(mod, "NYSTROM_LANDMARKS", 120)
+    want = np.asarray(jc.make_spectral_labels(heads)(coords, boxes))
+    got = tc.make_spectral_labels(heads, algebra="matmul").plain(
+        _t(coords), _t(boxes))
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("handle_pbc", [True, False])

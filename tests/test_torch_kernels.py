@@ -1266,29 +1266,25 @@ def _gap(a, b, k):
     return float(gap.max()), ortho
 
 
-def _clear_columns(a):
-    """The columns of (B, n, 3) `a` whose singular values stand clear of
-    f64 rounding in every frame: σ_k ≥ 1e-6 σ_0."""
-    sv = torch.linalg.svdvals(a.double())
-    return int((sv >= 1e-6 * sv[:, :1]).all(0).sum())
-
-
 def _spectral_counts():
     from gorder_tpu_torch.ops import spectral
 
-    return [spectral.affinity_launches, spectral.qr_launches,
+    return [spectral.affinity_launches, spectral.subspace_launches,
             spectral.span_launches, spectral.kmeans_launches]
 
 
 #: the kernels' paths as the layouts force them: the defaults (the
-#: triangle and one warp a frame where they fit), one block a frame with
-#: its rows in shared memory after two passes, and in device memory after
-#: two passes over ragged tiles of 40 heads
+#: triangle, the subspace's ring, one warp a frame where they fit), one
+#: block a frame with its rows in shared memory after two passes (the
+#: subspace's matrices read straight from device memory), and in device
+#: memory after two passes over ragged tiles of 40 heads (the subspace's
+#: working columns too)
 SPECTRAL_LAYOUTS = {
     "shared": {},
-    "block": {"AFFINITY_TRIANGLE_BYTES": 0, "KMEANS_WARP_ROWS": 0},
+    "block": {"AFFINITY_TRIANGLE_BYTES": 0, "SUBSPACE_RING_ROWS": 0,
+              "KMEANS_WARP_ROWS": 0},
     "device": {"AFFINITY_TRIANGLE_BYTES": 0, "AFFINITY_TILE": 40,
-               "QR_SHARED_ROWS": 2, "KMEANS_WARP_ROWS": 0,
+               "SUBSPACE_SHARED_BYTES": 0, "KMEANS_WARP_ROWS": 0,
                "KMEANS_SHARED_ROWS": 2}}
 
 
@@ -1314,9 +1310,42 @@ def _embedding_inputs(heads, box, pbc):
                                                      tc.PRECISE_SIGMA)
     v0 = torch.sqrt(degree)
     v0 = v0 / torch.linalg.vector_norm(v0, dim=-1, keepdim=True)
-    span = tc._top3_subspace(s_mat, v0, spectral.thin_qr3_plain)
-    u2 = spectral.top2_span_plain(span, degree)
-    return u2, (u2 - s_mat @ u2).contiguous()
+    span = tc._top3_subspace(s_mat, v0, spectral.top3_subspace_plain)
+    return spectral.top2_span_plain(span, degree, s_mat)
+
+
+def _filter_inputs(s_mat, degree):
+    """The subspace iteration's inputs of the chain: the filtered matrix
+    (12 squarings), the start basis."""
+    from gorder_tpu_torch.core import clustering as tc
+
+    v0 = torch.sqrt(degree)
+    v0 = v0 / torch.linalg.vector_norm(v0, dim=-1, keepdim=True)
+    i = torch.arange(s_mat.shape[-1], dtype=torch.float32,
+                     device=s_mat.device)
+    start = torch.stack([v0, torch.sin(0.7 * i + 0.3).expand_as(v0),
+                         torch.cos(1.3 * i + 0.1).expand_as(v0)], -1)
+    gp = s_mat / tc._frame_max(s_mat)
+    for _ in range(12):
+        gp = gp @ gp
+        gp = gp / tc._frame_max(gp)
+    return gp.contiguous(), start
+
+
+def _hold_span(span, degree, s_mat):
+    """The fused span against its plain version: u2 by projectors; lap(u2)
+    within BASIS_TOL of u2 − s_matᵀ u2 of the kernel's own u2, in f64 (the
+    two u2 may rotate within their span, and lap with them)."""
+    from gorder_tpu_torch.ops import spectral
+
+    u2, lu2 = spectral.top2_span(span, degree, s_mat)
+    want_u2 = spectral.top2_span_plain(span, degree)
+    assert max(_gap(u2, want_u2, 2)) <= BASIS_TOL
+    x = u2.double()
+    want_lu2 = x - s_mat.transpose(1, 2).double() @ x
+    assert float((lu2.double() - want_lu2).abs().max()) <= BASIS_TOL
+    assert torch.equal(spectral.top2_span(span, degree), u2)
+    return u2, lu2
 
 
 @pytest.mark.parametrize("layout", list(SPECTRAL_LAYOUTS))
@@ -1343,36 +1372,23 @@ def test_spectral_kernels_match_plain(cuda, spectral_systems, monkeypatch,
     torch.testing.assert_close(degree, want_degree, rtol=DEGREE_RTOL, atol=0)
     torch.testing.assert_close(s_mat, want_s, rtol=S_RTOL, atol=TINY_F32)
 
-    # the QR inputs of the chain: its start basis, well conditioned, and
-    # the filter's `gp @ q` (condition numbers near 1e7 on the bilayers)
-    v0 = torch.sqrt(want_degree)
-    v0 = v0 / torch.linalg.vector_norm(v0, dim=-1, keepdim=True)
-    i = torch.arange(len(idx), dtype=torch.float32, device=cuda)
-    start = torch.stack([v0, torch.sin(0.7 * i + 0.3).expand_as(v0),
-                         torch.cos(1.3 * i + 0.1).expand_as(v0)], -1)
-    gp = want_s / tc._frame_max(want_s)
-    for _ in range(12):
-        gp = gp @ gp
-        gp = gp / tc._frame_max(gp)
-    ill = (gp @ spectral.thin_qr3_plain(start)).contiguous()
-    for a in (start.contiguous(), ill):
-        q, want_q = spectral.thin_qr3(a), spectral.thin_qr3_plain(a)
-        assert _gap(q, want_q, 3)[1] <= BASIS_TOL
-        assert _gap(q, want_q, _clear_columns(a))[0] <= BASIS_TOL
-    span = tc._top3_subspace(want_s, v0, spectral.thin_qr3_plain)
-    u2 = spectral.top2_span(span, want_degree)
-    want_u2 = spectral.top2_span_plain(span, want_degree)
-    assert max(_gap(u2, want_u2, 2)) <= BASIS_TOL
-    lu2 = want_u2 - want_s @ want_u2
-    labels = spectral.rayleigh_kmeans(want_u2, lu2, tc.KMEANS_ITERS)
+    # the subspace iteration on the chain's own inputs (its QRs see the
+    # filter's `gp @ q`, condition numbers near 1e7 on the bilayers), then
+    # the fused span on its output
+    gp, start = _filter_inputs(want_s, want_degree)
+    span = spectral.top3_subspace(gp, want_s, start)
+    want_span = spectral.top3_subspace_plain(gp, want_s, start)
+    assert max(_gap(span, want_span, 3)) <= BASIS_TOL
+    u2, lu2 = _hold_span(want_span, want_degree, want_s)
+    labels = spectral.rayleigh_kmeans(u2, lu2, tc.KMEANS_ITERS)
     assert torch.equal(labels, spectral.rayleigh_kmeans_plain(
-        want_u2, lu2, tc.KMEANS_ITERS))
+        u2, lu2, tc.KMEANS_ITERS))
 
     classify = tc.make_spectral_labels(idx, pbc, device=cuda)
     before = _spectral_counts()
     got = classify(coords, box)
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_spectral_counts(), before)] == [1, 6, 1, 1]
+    assert [a - b for a, b in zip(_spectral_counts(), before)] == [1, 1, 1, 1]
     assert torch.equal(got, classify.plain(coords, box))
     cpu = tc.make_spectral_labels(idx, pbc)(coords.cpu(), box.cpu())
     assert torch.equal(got.cpu(), cpu)
@@ -1394,7 +1410,7 @@ def test_spectral_nystrom_kernels_match_plain(cuda, spectral_systems,
     before = _spectral_counts()
     got = classify(coords, box)
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_spectral_counts(), before)] == [0, 6, 1, 1]
+    assert [a - b for a, b in zip(_spectral_counts(), before)] == [0, 1, 1, 1]
     assert torch.equal(got, classify.plain(coords, box))
     cpu = tc.make_spectral_labels(idx)(coords.cpu(), box.cpu())
     assert torch.equal(got.cpu(), cpu)
@@ -1407,12 +1423,157 @@ def test_spectral_kernels_reject_wrong_arguments(cuda):
     box = torch.full((2, 3), 5.0, device=cuda)
     with pytest.raises(ValueError):
         spectral.spectral_affinity(heads, box.cpu(), True, 1.0)
+    s_mat = torch.rand((2, 16, 16), device=cuda)
     with pytest.raises(TypeError):
-        spectral.thin_qr3(heads.double())
+        spectral.top3_subspace(s_mat.double(), s_mat, heads)
+    with pytest.raises(ValueError):
+        spectral.top3_subspace(s_mat, s_mat.transpose(1, 2), heads)
     with pytest.raises(ValueError):
         spectral.top2_span(heads, torch.ones((2, 16), device=cuda)[:, ::2])
     with pytest.raises(ValueError):
+        spectral.top2_span(heads, torch.ones((2, 16), device=cuda),
+                           s_mat.cpu())
+    with pytest.raises(ValueError):
         spectral.rayleigh_kmeans(heads[..., :2], heads[..., 1:], 5)
+
+
+def _spectrum_matrices(n, n_frames, device, seed=21):
+    """(B, n, n) f32 symmetric PSD matrices of a known spectrum, its top
+    three 1, 0.9, 0.8 and the rest at most 0.5 (so the subspace is well
+    defined), as the filtered and the unfiltered matrix (the filter: the
+    fourth power, rescaled), and (B, n, 3) f32 start bases."""
+    rng = np.random.default_rng(seed + n)
+    mats = []
+    for _ in range(n_frames):
+        q = np.linalg.qr(rng.normal(size=(n, n)))[0]
+        lam = np.concatenate([[1.0, 0.9, 0.8][:n],
+                              np.linspace(0.5, 0.01, max(n - 3, 0))])
+        mats.append((q * lam) @ q.T)
+    s_mat = torch.as_tensor(np.stack(mats).astype(np.float32), device=device)
+    gp = s_mat @ s_mat
+    gp = gp @ gp
+    gp = (gp / gp.abs().amax(dim=(-2, -1), keepdim=True)).contiguous()
+    start = torch.as_tensor(rng.normal(size=(n_frames, n, 3))
+                            .astype(np.float32), device=device)
+    return gp, s_mat, start
+
+
+@pytest.mark.parametrize("path", ["ring", "shared", "device"])
+@pytest.mark.parametrize("n", [3, 31, 256, 288, 300, 1024])
+def test_top3_subspace_paths(cuda, monkeypatch, n, path):
+    """Each `subspace_plan` path at 3 rows to Nyström's 1,024 landmarks (one
+    to four columns a thread; the ring's 4-byte copies where n is not a
+    multiple of 4): orthonormal, the projector of the plain version's,
+    the same bits on a second launch; one launch a call."""
+    from gorder_tpu_torch.ops import spectral
+
+    if path == "shared":
+        monkeypatch.setattr(spectral, "SUBSPACE_RING_ROWS", 0)
+    if path == "device":
+        monkeypatch.setattr(spectral, "SUBSPACE_SHARED_BYTES", 0)
+    assert spectral.subspace_plan(n).path == path
+    gp, s_mat, start = _spectrum_matrices(n, 3, cuda)
+    before = spectral.subspace_launches
+    q = spectral.top3_subspace(gp, s_mat, start)
+    again = spectral.top3_subspace(gp, s_mat, start)
+    torch.cuda.synchronize()
+    assert spectral.subspace_launches == before + 2
+    assert torch.equal(q, again)
+    assert max(_gap(q, spectral.top3_subspace_plain(gp, s_mat, start),
+                    3)) <= BASIS_TOL
+
+
+@pytest.mark.parametrize("layout", list(SPECTRAL_LAYOUTS))
+def test_top3_subspace_more_frames_than_blocks(cuda, monkeypatch, layout):
+    """More frames than persistent blocks: each block takes frame after
+    frame, on each path; the frames' bases equal those of one frame at a
+    time, bit for bit."""
+    from gorder_tpu_torch.ops import spectral
+
+    _force(monkeypatch, layout)
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    gp, s_mat, start = _spectrum_matrices(64, 1, cuda)
+    frames = 3 * n_sms + 5
+    rng = np.random.default_rng(3)
+    start = torch.as_tensor(rng.normal(size=(frames, 64, 3))
+                            .astype(np.float32), device=cuda)
+    gp, s_mat = (m.expand(frames, -1, -1).contiguous() for m in (gp, s_mat))
+    q = spectral.top3_subspace(gp, s_mat, start)
+    one = torch.cat([spectral.top3_subspace(gp[f:f + 1], s_mat[f:f + 1],
+                                            start[f:f + 1])
+                     for f in (0, n_sms, frames - 1)])
+    torch.cuda.synchronize()
+    assert torch.equal(q[[0, n_sms, frames - 1]], one)
+
+
+def test_top3_subspace_unaligned_matrices(cuda):
+    """Matrices 4 bytes past a 16-byte boundary (a view at an odd offset):
+    the ring copies 4 bytes at a time, with the same bits as aligned
+    copies of the same matrices."""
+    from gorder_tpu_torch.ops import spectral
+
+    gp, s_mat, start = _spectrum_matrices(64, 3, cuda)
+    shifted = []
+    for m in (gp, s_mat):
+        flat = torch.empty(m.numel() + 1, device=cuda)
+        view = flat[1:].view(m.shape)
+        view.copy_(m)
+        assert view.data_ptr() % 16 == 4 and view.is_contiguous()
+        shifted.append(view)
+    q = spectral.top3_subspace(*shifted, start)
+    torch.cuda.synchronize()
+    assert torch.equal(q, spectral.top3_subspace(gp, s_mat, start))
+
+
+def test_top3_subspace_zero_column(cuda):
+    """A start basis with a zero column: its reflection is skipped (τ = 0),
+    and the iteration still finds the subspace."""
+    from gorder_tpu_torch.ops import spectral
+
+    gp, s_mat, start = _spectrum_matrices(40, 2, cuda)
+    start[:, :, 1] = 0.0
+    q = spectral.top3_subspace(gp, s_mat, start)
+    want = spectral.top3_subspace_plain(gp, s_mat, start)
+    assert bool(torch.isfinite(q).all())
+    assert max(_gap(q, want, 3)) <= BASIS_TOL
+
+
+def test_top3_subspace_on_the_filter_ill_conditioned(cuda,
+                                                     spectral_systems):
+    """The clustering bilayer's filter, whose QR inputs gp @ q reach
+    condition numbers near 7.8e7: the kernel's basis is the plain one's;
+    the first QR input's condition number is that large."""
+    from gorder_tpu_torch.core import clustering as tc
+    from gorder_tpu_torch.ops import spectral
+
+    heads, box = _heads_of(spectral_systems, "aab", cuda)
+    s_mat, degree = spectral.spectral_affinity_plain(heads, box, True,
+                                                     tc.PRECISE_SIGMA)
+    gp, start = _filter_inputs(s_mat, degree)
+    ill = gp.transpose(1, 2).double() @ spectral.householder_q(
+        start.double())
+    sv = torch.linalg.svdvals(ill)
+    assert float((sv[:, 0] / sv[:, 2]).max()) > 1e6
+    q = spectral.top3_subspace(gp, s_mat, start)
+    want = spectral.top3_subspace_plain(gp, s_mat, start)
+    assert max(_gap(q, want, 3)) <= BASIS_TOL
+
+
+def test_top2_span_paths(cuda):
+    """The fused span at one, two and four columns a thread and past one
+    tile of u2 (1,024 rows), with and without its Laplacian products; at
+    2,100 and 3,100 rows the block's last pass over the columns holds 52
+    and 28 of them, and reloads the tiles all the same."""
+    from gorder_tpu_torch.ops import spectral
+
+    rng = np.random.default_rng(22)
+    for n in (31, 256, 300, 1100, 2100, 3100):
+        _, s_mat, _ = _spectrum_matrices(n, 2, cuda)
+        span = torch.as_tensor(np.linalg.qr(rng.normal(size=(2, n, 3)))[0]
+                               .astype(np.float32), device=cuda)
+        degree = torch.as_tensor(rng.uniform(0.5, 3.0, (2, n))
+                                 .astype(np.float32), device=cuda)
+        _hold_span(span, degree, s_mat)
 
 
 @pytest.mark.parametrize("pbc", [True, False])

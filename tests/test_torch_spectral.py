@@ -5,15 +5,21 @@ tests/test_torch_kernels.py holds the kernels against them on the card.
 Each plain version against its `gorder_tpu.core.clustering` counterpart
 on the same inputs, made with numpy from a seed:
 
-- `thin_qr3_plain` against `jnp.linalg.qr`: both orthonormal, ‖QᵀQ − I‖ ≤
-  1e-5; on a random well-conditioned input the projectors of all three
-  columns within 1e-5, on the filter's ill-conditioned input (a 256-head
-  bilayer's similarity squared 12 times times its start basis, condition
-  number ~1e7) those of the first two: the third column is set by
-  rounding there;
+- `thin_qr3_plain` (the QR of each step of `top3_subspace_plain`) against
+  `jnp.linalg.qr`: both orthonormal, ‖QᵀQ − I‖ ≤ 1e-5; on a random
+  well-conditioned input the projectors of all three columns within 1e-5,
+  on the filter's ill-conditioned input (a 256-head bilayer's similarity
+  squared 12 times times its start basis, condition number ~1e7) those of
+  the first two: the third column is set by rounding there;
+- `top3_subspace_plain` through `core/clustering.py _top3_subspace`
+  against JAX's `_top3_subspace` on those bilayers' similarities: the
+  projectors of the first two columns within 1e-4 (the f32 filter leaves
+  the third eigenvalue below its rounding, so JAX's f32 products and the
+  plain version's f64 ones set the third column differently);
 - `top2_span_plain` against JAX's deflation and `jnp.linalg.svd`: the
   projectors of the top two within 1e-5 (their singular values are equal,
-  so the basis may rotate);
+  so the basis may rotate); with S, the same u2 and its Laplacian products
+  within 1e-6 of JAX's `u2 − S u2`;
 - `rayleigh_kmeans_plain` against `_kmeans2(_rayleigh_weighted(...))`:
   labels equal, also with a tie for the farthest row and with a cluster
   left empty;
@@ -30,8 +36,8 @@ What the kernels' designs stand on, on the plain versions:
 - k-means stopped at the first step whose labels repeat the previous
   step's (`kmeans2_fixed_point`, the kernel's exit) gives the 100-step
   labels on every frame, and JAX's;
-- the kernels' paths (`affinity_plan`, `kmeans_plan`) at their limits and
-  either side of them.
+- the kernels' paths (`affinity_plan`, `subspace_plan`, `kmeans_plan`) at
+  their limits and either side of them.
 
 The norms are spectral norms of the differences. The wrappers give the
 plain versions' tensors bit for bit on the CPU and count no launch, and
@@ -155,6 +161,28 @@ def test_thin_qr3_plain_zero_column():
     assert _projector_gap(got, _jax_qr(a), 1) <= 1e-6
 
 
+def _jax_similarity(heads, box):
+    """JAX's S and v0 of one frame's heads, as `_spectral_labels` forms
+    them."""
+    w = jnp.exp(-jc.PRECISE_SIGMA * jc._pairwise_sq_distances(
+        jnp.asarray(heads), jnp.asarray(box), True))
+    degree = jnp.sum(w, axis=1)
+    dis = jnp.where(degree > 1e-10, 1.0 / jnp.sqrt(degree), 0.0)
+    v0 = jnp.sqrt(degree)
+    return w * dis[:, None] * dis[None, :], v0 / jnp.linalg.norm(v0)
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_top3_subspace_plain_against_jax(seed):
+    box = np.array([13.0, 13.0, 11.0], np.float32)
+    s, v0 = _jax_similarity(_bilayer(seed), box)
+    want = np.asarray(jc._top3_subspace(s, v0))
+    got = tc._top3_subspace(_t(np.array(s))[None], _t(np.array(v0))[None],
+                            spectral.top3_subspace_plain)[0].numpy()
+    assert got.dtype == np.float32 and _orthonormality(got) <= 1e-5
+    assert _projector_gap(got, want, 2) <= 1e-4
+
+
 def _jax_top2(span, degree):
     out = []
     for s, d in zip(span, degree):
@@ -195,6 +223,20 @@ def test_top2_span_plain_non_orthonormal_span():
     degree = rng.uniform(0.5, 4.0, (3, 50)).astype(np.float32)
     got = spectral.top2_span_plain(_t(span), _t(degree)).numpy()
     assert _projector_gap(got, _jax_top2(span, degree), 2) <= 1e-5
+
+
+@pytest.mark.parametrize("name", ["flat", "scrambling"])
+def test_top2_span_plain_with_laplacian(systems, name):  # noqa: F811
+    """With S the plain span gives the same u2 and its products u2 − Sᵀu2
+    (in f64, rounded once) within 1e-6 of JAX's `v − s_mat @ v` in f32."""
+    coords, boxes, heads = systems[name]
+    s, span, degree = _eigh_span(coords, boxes, heads)
+    u2, lu2 = spectral.top2_span_plain(span, degree, s)
+    assert torch.equal(u2, spectral.top2_span_plain(span, degree))
+    assert lu2.dtype == torch.float32 and lu2.shape == u2.shape
+    want = np.stack([np.asarray(jnp.asarray(u) - jnp.asarray(m) @ u)
+                     for u, m in zip(u2.numpy(), s.numpy())])
+    np.testing.assert_allclose(lu2.numpy(), want, rtol=0, atol=1e-6)
 
 
 def _jax_labels(u2, lu2):
@@ -373,6 +415,31 @@ def test_affinity_plan_follows_its_limit(monkeypatch):
 
 
 @pytest.mark.parametrize("n, path", [
+    (3, "ring"), (256, "ring"), (1024, "ring"), (1025, "shared"),
+    (3657, "shared"), (3658, "device"), (20_000, "device")])
+def test_subspace_plan_at_its_limit(n, path):
+    plan = spectral.subspace_plan(n)
+    assert plan.path == path
+    ring = 128 * 1024 if path == "ring" else 0
+    assert plan.shared_bytes == (ring + 56 * n if path != "device" else 0)
+    assert plan.shared_bytes <= 200 * 1024
+
+
+def test_subspace_plan_follows_its_limits(monkeypatch):
+    """The limits decide, as the card tests force the paths with them:
+    the rows the ring takes, and the bytes of the ring and the working
+    columns."""
+    monkeypatch.setattr(spectral, "SUBSPACE_SHARED_BYTES", 56 * 300)
+    assert spectral.subspace_plan(300).path == "shared"
+    assert spectral.subspace_plan(301).path == "device"
+    monkeypatch.setattr(spectral, "SUBSPACE_SHARED_BYTES", 0)
+    assert spectral.subspace_plan(3).path == "device"
+    monkeypatch.undo()
+    monkeypatch.setattr(spectral, "SUBSPACE_RING_ROWS", 0)
+    assert spectral.subspace_plan(3).path == "shared"
+
+
+@pytest.mark.parametrize("n, path", [
     (1, "warp"), (255, "warp"), (256, "warp"), (257, "shared"),
     (spectral.KMEANS_SHARED_ROWS, "shared"),
     (spectral.KMEANS_SHARED_ROWS + 1, "device"), (20_000, "device")])
@@ -405,10 +472,13 @@ def test_rayleigh_kmeans_reports_steps_on_cpu(systems):  # noqa: F811
 
 def _inputs(seed=15, B=3, n=40):
     rng = np.random.default_rng(seed)
+    m = rng.normal(size=(B, n, n)).astype(np.float32)
     return dict(
         heads=_t(rng.uniform(0, 5, (B, n, 3)).astype(np.float32)),
         box=_t(np.full((B, 3), 5.0, np.float32)),
         a=_t(rng.normal(size=(B, n, 3)).astype(np.float32)),
+        gp=_t(m @ np.swapaxes(m, 1, 2) / n),
+        s=_t(np.abs(m) / n),
         degree=_t(rng.uniform(1, 3, (B, n)).astype(np.float32)),
         u2=_t(rng.normal(size=(B, n, 2)).astype(np.float32)),
         lu2=_t(rng.normal(size=(B, n, 2)).astype(np.float32)))
@@ -416,15 +486,18 @@ def _inputs(seed=15, B=3, n=40):
 
 def test_wrappers_on_cpu_run_the_plain_versions():
     x = _inputs()
-    counts = ("affinity_launches", "qr_launches", "span_launches",
+    counts = ("affinity_launches", "subspace_launches", "span_launches",
               "kmeans_launches")
     before = [getattr(spectral, c) for c in counts]
     pairs = [
         (spectral.spectral_affinity(x["heads"], x["box"], True, 1.0),
          spectral.spectral_affinity_plain(x["heads"], x["box"], True, 1.0)),
-        (spectral.thin_qr3(x["a"]), spectral.thin_qr3_plain(x["a"])),
+        (spectral.top3_subspace(x["gp"], x["s"], x["a"]),
+         spectral.top3_subspace_plain(x["gp"], x["s"], x["a"])),
         (spectral.top2_span(x["a"], x["degree"]),
          spectral.top2_span_plain(x["a"], x["degree"])),
+        (spectral.top2_span(x["a"], x["degree"], x["s"]),
+         spectral.top2_span_plain(x["a"], x["degree"], x["s"])),
         (spectral.rayleigh_kmeans(x["u2"], x["lu2"], 7),
          spectral.rayleigh_kmeans_plain(x["u2"], x["lu2"], 7)),
     ]
@@ -442,20 +515,31 @@ def test_wrappers_reject_wrong_arguments():
     with pytest.raises(ValueError):
         spectral.spectral_affinity(x["heads"], x["box"][:, :2].contiguous(),
                                    True, 1.0)
-    with pytest.raises(ValueError):
-        spectral.thin_qr3(x["a"][:, :2].contiguous())      # n < 3
-    with pytest.raises(ValueError):
-        spectral.thin_qr3(x["a"].transpose(0, 1))          # not contiguous
-    with pytest.raises(ValueError):
-        spectral.thin_qr3(x["a"][..., :2].contiguous())    # 2 columns
+    with pytest.raises(ValueError):                         # n < 3
+        spectral.top3_subspace(x["gp"][:, :2, :2].contiguous(),
+                               x["s"][:, :2, :2].contiguous(),
+                               x["a"][:, :2].contiguous())
+    with pytest.raises(ValueError):                         # not contiguous
+        spectral.top3_subspace(x["gp"], x["s"].transpose(1, 2), x["a"])
+    with pytest.raises(ValueError):                         # 2 columns
+        spectral.top3_subspace(x["gp"], x["s"],
+                               x["a"][..., :2].contiguous())
+    with pytest.raises(TypeError):
+        spectral.top3_subspace(x["gp"].double(), x["s"], x["a"])
+    with pytest.raises(ValueError):                         # frames differ
+        spectral.top3_subspace(x["gp"][:2].contiguous(), x["s"], x["a"])
     with pytest.raises(ValueError):
         spectral.top2_span(x["a"], x["degree"][:, :5].contiguous())
+    with pytest.raises(ValueError):
+        spectral.top2_span(x["a"], x["degree"], x["s"][:, :5].contiguous())
     with pytest.raises(TypeError):
         spectral.rayleigh_kmeans(x["u2"], x["lu2"].double(), 7)
     with pytest.raises(ValueError):
         spectral.rayleigh_kmeans(x["u2"], x["lu2"], -1)
     with pytest.raises(ValueError):
         spectral.top2_span(x["a"].to("meta"), x["degree"])
+    with pytest.raises(ValueError):
+        spectral.top3_subspace(x["gp"], x["s"].to("meta"), x["a"])
 
 
 @pytest.mark.parametrize("algebra", ["eigh", "matmul"])

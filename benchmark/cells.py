@@ -1,0 +1,70 @@
+"""A cell as `BENCHMARK.json` names it, and the files it is made of, found
+by name: its configuration's file (the entry's `file`), its traffic
+(`benchmark/workloads/<traffic>.json`), the readers of its metrics
+(`benchmark/metrics/<metric>.py`) and the kernels' counts
+(`benchmark/rooflines/<kernel>.py`)."""
+
+from __future__ import annotations
+
+import functools
+import importlib.util
+import json
+from dataclasses import dataclass
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+ROOT = HERE.parent
+
+
+@dataclass
+class Cell:
+    name: str
+    chips: int
+    config: dict
+    config_bytes: bytes
+    traffic: dict
+    end_to_end: list          # the BENCHMARK.json entries this cell reports
+    per_layer: list
+
+
+def _reports(entry: dict, cell: str) -> bool:
+    """An end-to-end metric is every cell's unless it lists its cells; a
+    per-layer metric always lists them."""
+    return cell in entry.get("workloads", [cell])
+
+
+def load_cell(name: str, root: Path = ROOT) -> Cell:
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    entry = {w["name"]: w for w in bench["workloads"]}.get(name)
+    if entry is None:
+        raise KeyError(f"no workload '{name}' in BENCHMARK.json")
+    conf = {c["name"]: c for c in bench["configs"]}[entry["config"]]
+    config_bytes = (root / conf["file"]).read_bytes()
+    traffic = json.loads(
+        (HERE / "workloads" / f"{entry['traffic']}.json").read_text())
+    e2e = [m for m in bench["end_to_end"] if _reports(m, name)]
+    per_layer = [m for m in bench["per_layer"] if name in m["workloads"]]
+    return Cell(name=name, chips=int(entry["chips"]),
+                config=json.loads(config_bytes), config_bytes=config_bytes,
+                traffic=traffic, end_to_end=e2e, per_layer=per_layer)
+
+
+@functools.lru_cache(maxsize=None)
+def _module(kind: str, name: str):
+    path = HERE / kind / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(
+        f"benchmark.{kind}.{name.replace('-', '_').replace('.', '_')}",
+        path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def metric_reader(name: str):
+    """The `read(run)` of `benchmark/metrics/<name>.py`."""
+    return _module("metrics", name).read
+
+
+def roofline(kernel: str):
+    """The module `benchmark/rooflines/<kernel>.py`."""
+    return _module("rooflines", kernel)

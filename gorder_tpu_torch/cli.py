@@ -154,12 +154,9 @@ def main(argv=None) -> int:
             print("\n✔ merged partial states; results written")
         return 0
 
-    from .utils.timers import timers
-
     try:
         results = analysis.run(device=args.device)
-        with timers.phase("write"):
-            results.write()
+        results.write()
     except GorderError as e:
         if not analysis.silent:
             print(f"\n✖ error: {e}", file=sys.stderr)

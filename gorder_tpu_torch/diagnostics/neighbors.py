@@ -123,7 +123,8 @@ def main(argv=None) -> int:
             rate, phases, first = run_once(analysis, n_frames, wire)
             print(f"run {label} #{rep}: {n_frames} frames, {rate:.1f} "
                   f"frames/s end to end; phases: "
-                  + " | ".join(f"{k} {v:.3f}s" for k, v in phases.items()),
+                  + " | ".join(f"{k} {v:.3f}s" if isinstance(v, float)
+                               else f"{k} {v}" for k, v in phases.items()),
                   flush=True)
             out["runs"].append(dict(label=label, rep=rep, frames=n_frames,
                                     frames_per_s=rate, phases=phases))

@@ -84,7 +84,6 @@ import dataclasses
 import logging
 import os
 import threading
-import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -155,7 +154,8 @@ def _shard_wire(kind, arrays, mesh):
     a slice: arrays with a frame axis split by frames; the b7 and s6
     wires' per-batch base (index 3) copied whole to each device; the d8
     wire's first-frame integers (index 3) to the first, and each later
-    slice's the last frame of the slice before it."""
+    slice's the last frame of the slice before it. Counts the bytes copied
+    as `transfer_bytes`."""
     const = 3 if kind[:2] in ("b7", "s6", "d8") else None
     d8 = kind.startswith("d8")
     parts = []
@@ -167,6 +167,9 @@ def _shard_wire(kind, arrays, mesh):
                          + [None] * (mesh.size - 1))
         else:
             parts.append(replicate(mesh, a))
+    timers.count("transfer_bytes", sum(
+        a.nbytes * (mesh.size if j == const and not d8 else 1)
+        for j, a in enumerate(arrays)))
     slices = [list(p) for p in zip(*parts)]
     if d8:
         for i in range(1, mesh.size):
@@ -232,12 +235,14 @@ def run_batches(analysis, system, steps, normal_vec, n_types: int, space,
     accum = OrderAccumulator(
         n_types, ("total", "upper", "lower") if leaflets else ("total",),
         keep_timewise=analysis.estimate_error is not None)
-    traj = Trajectory(analysis.trajectory, expected_atoms=system.n_atoms)
-    frame_indices = traj.select_frames(
-        analysis.begin if np.isfinite(analysis.begin) else None,
-        analysis.end if np.isfinite(analysis.end) else None,
-        analysis.step,
-    )
+    with timers.phase("prepare"), timers.phase("open"):
+        traj = Trajectory(analysis.trajectory,
+                          expected_atoms=system.n_atoms)
+        frame_indices = traj.select_frames(
+            analysis.begin if np.isfinite(analysis.begin) else None,
+            analysis.end if np.isfinite(analysis.end) else None,
+            analysis.step,
+        )
     if len(frame_indices) == 0:
         raise AnalysisError(
             "no trajectory frames are within the specified time range")
@@ -271,15 +276,16 @@ def run_batches(analysis, system, steps, normal_vec, n_types: int, space,
             _bootstrap_shard(leaflets, traj, full_frame_indices[:1], space,
                              n_threads, device)
 
-    group_of, n_groups, vgidx = wire_groups(system, space)
-    plan = plan_wire(traj=traj, frame_indices=frame_indices, space=space,
-                     bond_slots=bond_slots, leaflets=leaflets,
-                     normals=normals, map_spec=map_spec,
-                     geometry=geom_mode is not None,
-                     n_molecules=n_molecules,
-                     handle_pbc=analysis.handle_pbc, n_threads=n_threads,
-                     batch_size=batch_size, group_of=group_of,
-                     n_groups=n_groups, device=device)
+    with timers.phase("pick"):
+        group_of, n_groups, vgidx = wire_groups(system, space)
+        plan = plan_wire(traj=traj, frame_indices=frame_indices,
+                         space=space, bond_slots=bond_slots,
+                         leaflets=leaflets, normals=normals,
+                         map_spec=map_spec, geometry=geom_mode is not None,
+                         n_molecules=n_molecules,
+                         handle_pbc=analysis.handle_pbc, n_threads=n_threads,
+                         batch_size=batch_size, group_of=group_of,
+                         n_groups=n_groups, device=device)
     # host classes (manual tables, frequency-gated methods) come from
     # classes_for_batch; every-frame methods classify with the step
     host_classes = leaflets is not None and leaflets.fused_classify() is None
@@ -495,8 +501,7 @@ def run_batches(analysis, system, steps, normal_vec, n_types: int, space,
 
     def decode_batch(b):
         slots.acquire()
-        t0 = time.perf_counter()
-        try:
+        with timers.phase("decode"):
             chunk = frame_indices[b * batch_size:(b + 1) * batch_size]
             buf = buffers[b % prefetch]
             if plan.wire == "b7":
@@ -511,8 +516,6 @@ def run_batches(analysis, system, steps, normal_vec, n_types: int, space,
                 # channel class: the same bitplane, by the standalone pass
                 out = ((kind + "G", arrays + (geo_plane(chunk, b),)),) + rest
             return out + (len(chunk),)
-        finally:
-            timers.add("decode", time.perf_counter() - t0)
 
     normal_devs = replicate(mesh, np.asarray(normal_vec, np.float32))
     # the geometry's reference on each device, for the steps that compute
@@ -558,12 +561,16 @@ def run_batches(analysis, system, steps, normal_vec, n_types: int, space,
                 boxes_dev, masks_dev = shard_batch(mesh, box, mask)
                 scales_dev = (shard_batch(mesh, scale) if scale is not None
                               else [None] * n_dev)
+                shipped = [box, mask, scale]
                 sparse = None
                 if extra is not None:
                     rows, coords, sc = extra
                     sparse = (rows, to_device(coords, device),
                               to_device(sc, device) if sc is not None
                               else None)
+                    shipped += [coords, sc]
+                timers.count("transfer_bytes", sum(
+                    a.nbytes for a in shipped if a is not None))
             # the devices hold copies now: the decoder may reuse the slot
             slots.release()
             classes = [None] * n_dev
@@ -576,8 +583,10 @@ def run_batches(analysis, system, steps, normal_vec, n_types: int, space,
             normal = normal_devs
             if manual_normals:
                 with timers.phase("transfer"):
-                    normal = shard_batch(mesh, normals.manual_for_batch(
-                        shard_start + b * batch_size, n_valid, batch_size))
+                    table = normals.manual_for_batch(
+                        shard_start + b * batch_size, n_valid, batch_size)
+                    normal = shard_batch(mesh, table)
+                    timers.count("transfer_bytes", table.nbytes)
             geom_refs = ([bx * 0.5 for bx in boxes_dev]
                          if device_geom == "center" else geom_consts)
             useds, insides = [], []

@@ -62,6 +62,7 @@ from typing import Callable, Optional
 import numpy as np
 
 from ..io.native import b7_stride, geo_stride, i12_stride
+from ..utils.timers import timers
 from . import wire as wires
 from .wire import s6_bytes
 
@@ -178,10 +179,12 @@ def plan_wire(*, traj, frame_indices, space, bond_slots=None, leaflets=None,
         (leaflets is None and normals is None) or leaf_channels is not None
         or plane_mode or aux is not None)
 
+    with timers.phase("pick.link"):
+        link_mbps = wires.measure_link_mbps(device)
     wire, cap = wires.pick_wire_format(
         traj, frame_indices, space, n_threads, group_of, n_groups,
         batch_size, bond_slots=bond_slots if b7_ok else None,
-        link_mbps=wires.measure_link_mbps(device))
+        link_mbps=link_mbps)
     geo_bytes = geo_stride(n_bonds) if geo_channel else 0
     if wire == "b7":
         plan = WirePlan("b7", cap, n_bonds, geo_bytes,

@@ -181,34 +181,39 @@ def _attach_normals_data(results, analysis, kinds, normals) -> None:
 
 def _run_bond_based(analysis, device, batch_size: int, on_batch,
                     shard=None, as_partial=False):
-    with timers.phase("structure"):
-        system = load_structure(analysis)
-    with timers.phase("topology"):
-        kinds, compiled = _prepare_bond_kinds(system, analysis)
-    if not kinds:
-        return _empty_results(analysis, system)
-    space, remap = _build_atom_space(system, analysis,
-                                     [compiled.atom_a, compiled.atom_b])
-    normal_vec, normals, leaflets, map_spec, geometry = _runtimes(
-        system, analysis, kinds, compiled.n_molecules, remap, device)
+    with timers.phase("prepare"):
+        with timers.phase("structure"):
+            system = load_structure(analysis)
+        with timers.phase("topology"):
+            kinds, compiled = _prepare_bond_kinds(system, analysis)
+        if not kinds:
+            return _empty_results(analysis, system)
+        with timers.phase("atom_space"):
+            space, remap = _build_atom_space(
+                system, analysis, [compiled.atom_a, compiled.atom_b])
+        with timers.phase("runtimes"):
+            normal_vec, normals, leaflets, map_spec, geometry = _runtimes(
+                system, analysis, kinds, compiled.n_molecules, remap, device)
 
-    atom_a, atom_b = remap(compiled.atom_a), remap(compiled.atom_b)
-    geom_spec = geometry["geom_spec"]
-    if (normals is not None and normals.collected is not None
-            and geom_spec is not None):
-        normals.molecule_inside = _make_molecule_inside(
-            atom_a, atom_b, compiled.molecule, compiled.n_molecules,
-            geom_spec, analysis.handle_pbc, device)
-    mesh = _mesh(device)
-    steps = [make_order_step(atom_a, atom_b, compiled.bond_type,
-                             compiled.molecule, compiled.n_types,
-                             compiled.n_molecules,
-                             handle_pbc=analysis.handle_pbc, device=d,
-                             with_leaflets=leaflets is not None,
-                             normal_mode=("per_molecule" if normals
-                                          is not None else "static"),
-                             map_spec=map_spec, geom_spec=geom_spec)
-             for d in mesh.devices]
+        with timers.phase("steps"):
+            atom_a, atom_b = remap(compiled.atom_a), remap(compiled.atom_b)
+            geom_spec = geometry["geom_spec"]
+            if (normals is not None and normals.collected is not None
+                    and geom_spec is not None):
+                normals.molecule_inside = _make_molecule_inside(
+                    atom_a, atom_b, compiled.molecule, compiled.n_molecules,
+                    geom_spec, analysis.handle_pbc, device)
+            mesh = _mesh(device)
+            steps = [make_order_step(atom_a, atom_b, compiled.bond_type,
+                                     compiled.molecule, compiled.n_types,
+                                     compiled.n_molecules,
+                                     handle_pbc=analysis.handle_pbc,
+                                     device=d,
+                                     with_leaflets=leaflets is not None,
+                                     normal_mode=("per_molecule" if normals
+                                                  is not None else "static"),
+                                     map_spec=map_spec, geom_spec=geom_spec)
+                     for d in mesh.devices]
     with timers.phase("trajectory"):
         accum, traj, frame_indices, map_state, shard_start = run_batches(
             analysis, system, steps, normal_vec, compiled.n_types, space,
@@ -229,31 +234,38 @@ def _run_bond_based(analysis, device, batch_size: int, on_batch,
 
 def _run_ua(analysis, device, batch_size: int, on_batch, shard=None,
             as_partial=False):
-    with timers.phase("structure"):
-        system = load_structure(analysis)
-    kinds, compiled = _prepare_ua_kinds(system, analysis)
-    if not kinds or compiled is None:
-        return _empty_results(analysis, system)
-    for k, kind in enumerate(kinds):
-        log.info("molecule type %s: %d molecules, %d analyzable atoms",
-                 kind.name, kind.n_molecules, len(compiled.atom_specs[k]))
-    atom_keys = ("target", "h1", "h2", "h3")
-    space, remap = _build_atom_space(
-        system, analysis, [d[k] for d in compiled.categories.values()
-                           for k in atom_keys if k in d])
-    categories = {
-        cat: {k: (remap(v) if k in atom_keys else v) for k, v in d.items()}
-        for cat, d in compiled.categories.items()}
-    normal_vec, normals, leaflets, map_spec, geometry = _runtimes(
-        system, analysis, kinds, compiled.n_molecules, remap, device)
-    mesh = _mesh(device)
-    steps = [make_ua_step(categories, compiled.bond_type, compiled.bond_mol,
-                          compiled.n_types, handle_pbc=analysis.handle_pbc,
-                          device=d, with_leaflets=leaflets is not None,
-                          normal_mode=("per_molecule" if normals is not None
-                                       else "static"),
-                          map_spec=map_spec, geom_spec=geometry["geom_spec"])
-             for d in mesh.devices]
+    with timers.phase("prepare"):
+        with timers.phase("structure"):
+            system = load_structure(analysis)
+        kinds, compiled = _prepare_ua_kinds(system, analysis)
+        if not kinds or compiled is None:
+            return _empty_results(analysis, system)
+        for k, kind in enumerate(kinds):
+            log.info("molecule type %s: %d molecules, %d analyzable atoms",
+                     kind.name, kind.n_molecules, len(compiled.atom_specs[k]))
+        atom_keys = ("target", "h1", "h2", "h3")
+        with timers.phase("atom_space"):
+            space, remap = _build_atom_space(
+                system, analysis, [d[k] for d in compiled.categories.values()
+                                   for k in atom_keys if k in d])
+        with timers.phase("runtimes"):
+            normal_vec, normals, leaflets, map_spec, geometry = _runtimes(
+                system, analysis, kinds, compiled.n_molecules, remap, device)
+        with timers.phase("steps"):
+            categories = {
+                cat: {k: (remap(v) if k in atom_keys else v)
+                      for k, v in d.items()}
+                for cat, d in compiled.categories.items()}
+            mesh = _mesh(device)
+            steps = [make_ua_step(categories, compiled.bond_type,
+                                  compiled.bond_mol, compiled.n_types,
+                                  handle_pbc=analysis.handle_pbc, device=d,
+                                  with_leaflets=leaflets is not None,
+                                  normal_mode=("per_molecule" if normals
+                                               is not None else "static"),
+                                  map_spec=map_spec,
+                                  geom_spec=geometry["geom_spec"])
+                     for d in mesh.devices]
     with timers.phase("trajectory"):
         accum, traj, frame_indices, map_state, shard_start = run_batches(
             analysis, system, steps, normal_vec, compiled.n_types, space,

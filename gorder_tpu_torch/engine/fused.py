@@ -34,6 +34,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..utils.timers import timers
 from .wire import d8_ints, s6_ints, unpack12
 
 
@@ -71,10 +72,17 @@ def _normals(fn, cf, box, normal, mask):
     or the given normal and None without dynamic normals."""
     if fn is None:
         return normal, None
-    normal, counts = fn(cf, box)
+    with timers.phase("normals"):
+        normal, counts = fn(cf, box)
     guard = torch.where(mask[:, None], counts,
                         torch.full_like(counts, 1e9)).amin()
     return normal, guard
+
+
+def _classify(fn, *args) -> torch.Tensor:
+    """A leaflet classifier's (B, M) classes, timed as `classify`."""
+    with timers.phase("classify"):
+        return fn(*args)
 
 
 def _b7(step, w, scale, box, normal, mask, classes, guard=None, geo=None):
@@ -104,7 +112,7 @@ def run_b7g(step, w, scale, box, normal, mask, cs, classes=None,
     """b7 + heads and the decoder's membrane COG: the heads dequantize as
     the coordinate wires do, f32(int)·s, a bit-identical gather."""
     heads = w[4].to(scale.dtype) * scale[:, None, None]
-    classes = cs.channel(heads, w[5], box)
+    classes = _classify(cs.channel, heads, w[5], box)
     return _b7(step, w, scale, box, normal, mask, classes)
 
 
@@ -115,7 +123,7 @@ def run_b7x(step, w, scale, box, normal, mask, cs, classes=None,
     normal-heads cloud)."""
     aux = w[4].to(scale.dtype) * scale[:, None, None]
     if cs.aux is not None:
-        classes = cs.aux(aux, box)
+        classes = _classify(cs.aux, aux, box)
     normal, guard = _normals(cs.aux_normals, aux, box, normal, mask)
     return _b7(step, w, scale, box, normal, mask, classes, guard)
 
@@ -133,8 +141,8 @@ def _positions(step, coords, inv_scale, box, normal, mask, cs, classes,
     if (classify or cs.normals is not None) and inv_scale is not None:
         cf = coords.to(inv_scale.dtype) * inv_scale[:, None, None]
     if classify:
-        classes = (cs.channel_coords(cf, cog, box) if cog is not None
-                   else cs.coords(cf, box))
+        classes = (_classify(cs.channel_coords, cf, cog, box)
+                   if cog is not None else _classify(cs.coords, cf, box))
     normal, guard = _normals(cs.normals, cf, box, normal, mask)
     geometry = (dict(geo=geo) if geo is not None
                 else dict(geom_ref=geom_ref) if geom_ref is not None else {})

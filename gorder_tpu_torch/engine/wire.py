@@ -40,6 +40,7 @@ import torch
 
 from ..io.native import b7_stride, i12_stride, s6_stride
 from ..parallel.mesh import to_device
+from ..utils.timers import timers
 
 log = logging.getLogger("gorder")
 
@@ -51,19 +52,21 @@ def _probe_b7(traj, frame_indices, space, bond_a, bond_b, n_threads,
     n = len(frame_indices)
     w = frame_indices[:min(batch_size, n)]
     esc_cap = 512
-    for _attempt in range(2):
-        pack = np.zeros((len(w), b7_stride(len(bond_a))), np.uint8)
-        gaps = np.zeros((len(w), esc_cap), np.uint16)
-        vals = np.zeros((len(w), esc_cap), np.int16)
-        res, nesc = traj.read_frames_b7(w, space, bond_a, bond_b,
-                                        pack, gaps, vals,
-                                        n_threads=n_threads)
-        if res is not None:
-            cap = int(nesc * 1.4) + 64
-            return max(128, min(8192, (cap + 127) // 128 * 128))
-        if nesc <= esc_cap or nesc > 8192:
-            return None  # unfit for reasons other than capacity
-        esc_cap = min(8192, ((int(nesc * 2) + 127) // 128) * 128)
+    with timers.phase("pick.b7"):
+        for _attempt in range(2):
+            pack = np.zeros((len(w), b7_stride(len(bond_a))), np.uint8)
+            gaps = np.zeros((len(w), esc_cap), np.uint16)
+            vals = np.zeros((len(w), esc_cap), np.int16)
+            timers.count("probe_frames", len(w))
+            res, nesc = traj.read_frames_b7(w, space, bond_a, bond_b,
+                                            pack, gaps, vals,
+                                            n_threads=n_threads)
+            if res is not None:
+                cap = int(nesc * 1.4) + 64
+                return max(128, min(8192, (cap + 127) // 128 * 128))
+            if nesc <= esc_cap or nesc > 8192:
+                return None  # unfit for reasons other than capacity
+            esc_cap = min(8192, ((int(nesc * 2) + 127) // 128) * 128)
     return None
 
 
@@ -75,22 +78,24 @@ def _probe_s6(traj, frame_indices, space, group_of, n_groups, n_threads,
     n = len(frame_indices)
     w = frame_indices[:min(batch_size, n)]
     esc_cap = 512
-    for _attempt in range(2):
-        pack = np.zeros((len(w), s6_stride(space.n_out)), np.uint8)
-        gaps = np.zeros((len(w), esc_cap), np.uint16)
-        vals = np.zeros((len(w), esc_cap), np.int16)
-        gmean = np.zeros((len(w), (n_groups + 1) * 3), np.int16)
-        res, nesc = traj.read_frames_s6(w, space, group_of, n_groups,
-                                        pack, gaps, vals, gmean,
-                                        n_threads=n_threads)
-        if res is not None:
-            # headroom for batches the probe did not see (a mid-run
-            # overflow falls back to int16 for that batch)
-            cap = int(nesc * 1.4) + 64
-            return max(128, min(8192, (cap + 127) // 128 * 128))
-        if nesc <= esc_cap or nesc > 8192:
-            return None  # unfit for reasons other than capacity
-        esc_cap = min(8192, ((int(nesc * 2) + 127) // 128) * 128)
+    with timers.phase("pick.s6"):
+        for _attempt in range(2):
+            pack = np.zeros((len(w), s6_stride(space.n_out)), np.uint8)
+            gaps = np.zeros((len(w), esc_cap), np.uint16)
+            vals = np.zeros((len(w), esc_cap), np.int16)
+            gmean = np.zeros((len(w), (n_groups + 1) * 3), np.int16)
+            timers.count("probe_frames", len(w))
+            res, nesc = traj.read_frames_s6(w, space, group_of, n_groups,
+                                            pack, gaps, vals, gmean,
+                                            n_threads=n_threads)
+            if res is not None:
+                # headroom for batches the probe did not see (a mid-run
+                # overflow falls back to int16 for that batch)
+                cap = int(nesc * 1.4) + 64
+                return max(128, min(8192, (cap + 127) // 128 * 128))
+            if nesc <= esc_cap or nesc > 8192:
+                return None  # unfit for reasons other than capacity
+            esc_cap = min(8192, ((int(nesc * 2) + 127) // 128) * 128)
     return None
 
 
@@ -98,25 +103,39 @@ def _probe_d8(traj, windows, space, n_threads):
     """d8 eligibility probe: correction capacity (rounded up, with 2×
     headroom for unseen batches) or None when the windows do not fit."""
     corr_cap = 64
-    for _attempt in range(2):
-        demand = 0
-        ok = True
-        for w in windows:
-            lo = np.zeros((len(w), space.n_out, 3), np.int8)
-            ci = np.zeros((len(w), corr_cap), np.int32)
-            ch = np.zeros((len(w), corr_cap), np.int16)
-            res, ncorr = traj.read_frames_delta8(w, space, lo, ci, ch,
-                                                 n_threads=n_threads)
-            demand = max(demand, ncorr)
-            if res is None:
-                ok = False
-        if ok:
-            corr_cap = max(64, min(4096, int(demand * 2) + 32))
-            return ((corr_cap + 63) // 64) * 64
-        if demand <= corr_cap or demand > 4096:
-            return None  # unfit for reasons other than capacity
-        corr_cap = min(4096, ((int(demand * 2) + 63) // 64) * 64)
+    with timers.phase("pick.d8"):
+        for _attempt in range(2):
+            demand = 0
+            ok = True
+            for w in windows:
+                lo = np.zeros((len(w), space.n_out, 3), np.int8)
+                ci = np.zeros((len(w), corr_cap), np.int32)
+                ch = np.zeros((len(w), corr_cap), np.int16)
+                timers.count("probe_frames", len(w))
+                res, ncorr = traj.read_frames_delta8(w, space, lo, ci, ch,
+                                                     n_threads=n_threads)
+                demand = max(demand, ncorr)
+                if res is None:
+                    ok = False
+            if ok:
+                corr_cap = max(64, min(4096, int(demand * 2) + 32))
+                return ((corr_cap + 63) // 64) * 64
+            if demand <= corr_cap or demand > 4096:
+                return None  # unfit for reasons other than capacity
+            corr_cap = min(4096, ((int(demand * 2) + 63) // 64) * 64)
     return None
+
+
+def _fits(wire, traj, frame_indices, space, n_threads) -> bool:
+    """Whether the run's first, middle and last frames fit the i12 or the
+    i16 wire (uniform-precision XTC whose integers fit)."""
+    n = len(frame_indices)
+    probe_idx = frame_indices[np.unique([0, n // 2, n - 1])]
+    read = (traj.read_frames_packed12 if wire == "i12"
+            else traj.read_frames_quantized)
+    with timers.phase("pick." + wire):
+        timers.count("probe_frames", len(probe_idx))
+        return read(probe_idx, space, n_threads=n_threads) is not None
 
 
 def wire_groups(system, space):
@@ -178,11 +197,13 @@ def host_i16_rate(traj, frame_indices, space, n_threads):
     the anchor of the rate pick's host model; None when the input is not
     uniform-precision XTC."""
     anchor = frame_indices[:min(16, len(frame_indices))]
-    t0 = time.perf_counter()
-    if traj.read_frames_quantized(anchor, space,
-                                  n_threads=n_threads) is None:
-        return None
-    return len(anchor) / max(time.perf_counter() - t0, 1e-9)
+    with timers.phase("pick.host_rate"):
+        timers.count("probe_frames", len(anchor))
+        t0 = time.perf_counter()
+        if traj.read_frames_quantized(anchor, space,
+                                      n_threads=n_threads) is None:
+            return None
+        return len(anchor) / max(time.perf_counter() - t0, 1e-9)
 
 
 def rate_candidates(traj, frame_indices, space, n_threads, group_of,
@@ -214,9 +235,7 @@ def rate_candidates(traj, frame_indices, space, n_threads, group_of,
     d8_cap = _probe_d8(traj, windows, space, n_threads)
     if d8_cap is not None:
         candidates["d8"] = (d8_cap, nv + d8_cap * 6)
-    probe_idx = frame_indices[np.unique([0, n // 2, n - 1])]
-    if traj.read_frames_packed12(probe_idx, space,
-                                 n_threads=n_threads) is not None:
+    if _fits("i12", traj, frame_indices, space, n_threads):
         candidates["i12"] = (0, i12_stride(n_out))
     return candidates
 
@@ -295,12 +314,11 @@ def pick_wire_format(traj, frame_indices, space, n_threads, group_of=None,
                     "subsystem needs absolute coordinates); probing the "
                     "coordinate formats instead")
     if forced in ("i12", "i16", "f32"):
-        probe_idx = frame_indices[np.unique([0, n // 2, n - 1])]
-        if forced == "i12" and traj.read_frames_packed12(
-                probe_idx, space, n_threads=n_threads) is not None:
+        if forced == "i12" and _fits("i12", traj, frame_indices, space,
+                                     n_threads):
             return "i12", 0
-        if forced != "f32" and traj.read_frames_quantized(
-                probe_idx, space, n_threads=n_threads) is not None:
+        if forced != "f32" and _fits("i16", traj, frame_indices, space,
+                                     n_threads):
             return "i16", 0
         return "f32", 0
 
@@ -326,12 +344,9 @@ def pick_wire_format(traj, frame_indices, space, n_threads, group_of=None,
         if d8_size is not None:
             return "d8", d8_cap
 
-    probe_idx = frame_indices[np.unique([0, n // 2, n - 1])]
-    if traj.read_frames_packed12(probe_idx, space,
-                                 n_threads=n_threads) is not None:
+    if _fits("i12", traj, frame_indices, space, n_threads):
         return "i12", 0
-    if traj.read_frames_quantized(probe_idx, space,
-                                  n_threads=n_threads) is not None:
+    if _fits("i16", traj, frame_indices, space, n_threads):
         return "i16", 0
     return "f32", 0
 

@@ -75,6 +75,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     "gorder_tpu_torch.diagnostics.layout",
     "gorder_tpu_torch.diagnostics.clustering",
     "gorder_tpu_torch.diagnostics.neighbors",
+    "gorder_tpu_torch.diagnostics.spans",
     "chip_smoke",
 ])
 def test_import_leaves_jax_out(module):

@@ -27,7 +27,7 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 
 from ..errors import SelectionError
-from ..system import System
+from ..system import System, distinct_strings
 from .elements import ELEMENTS, SYMBOL_TO_NAME, element_symbols, ensure_elements
 from .macros import MACROS
 
@@ -160,13 +160,18 @@ class StringClause(Node):
         mask = np.zeros(system.n_atoms, dtype=bool)
         if self.values:
             mask |= np.isin(data, np.array(list(self.values), dtype=data.dtype))
+        # each regex runs once per distinct string, spread back over atoms
+        distinct = inverse = None
         for rx in self.regexes:
             try:
                 compiled = re.compile(rx)
             except re.error as e:
                 raise SelectionError(f"invalid regular expression '{rx}': {e}") from None
-            matches = np.array([bool(compiled.search(x)) for x in data], dtype=bool)
-            mask |= matches
+            if distinct is None:
+                distinct, inverse = distinct_strings(data)
+            hits = np.array([bool(compiled.search(x)) for x in distinct],
+                            dtype=bool)
+            mask |= hits[inverse]
         return mask
 
 
@@ -240,25 +245,32 @@ def _molecule_labels(system: System) -> np.ndarray:
 
 
 def connected_components(n_atoms: int, bonds: np.ndarray) -> np.ndarray:
-    """Union-find over the bond list → component label per atom (0-based)."""
-    parent = np.arange(n_atoms, dtype=np.int64)
+    """Component label per atom (0-based) over the bond list, numbered in
+    the order of each component's first atom.
 
-    def find(x: int) -> int:
-        root = x
-        while parent[root] != root:
-            root = parent[root]
-        while parent[x] != root:
-            parent[x], x = root, parent[x]
+    Whole-array passes: each bond hooks the larger of its two ends' roots
+    onto the smaller, then pointer jumping points every atom at its root,
+    until no bond joins two roots. Roots only ever move to smaller indices,
+    so each component's root ends as its first atom."""
+    root = np.arange(n_atoms, dtype=np.int64)
+    if n_atoms == 0 or len(bonds) == 0:
         return root
-
-    for a, b in bonds:
-        ra, rb = find(int(a)), find(int(b))
-        if ra != rb:
-            parent[rb] = ra
-
-    roots = np.array([find(i) for i in range(n_atoms)], dtype=np.int64)
-    _, labels = np.unique(roots, return_inverse=True)
-    return labels
+    a = np.asarray(bonds[:, 0], np.int64)
+    b = np.asarray(bonds[:, 1], np.int64)
+    while True:
+        ra, rb = root[a], root[b]
+        apart = ra != rb
+        if not apart.any():
+            break
+        ra, rb = ra[apart], rb[apart]
+        np.minimum.at(root, np.maximum(ra, rb), np.minimum(ra, rb))
+        while True:
+            jumped = root[root]
+            if np.array_equal(jumped, root):
+                break
+            root = jumped
+    first = root == np.arange(n_atoms)
+    return (np.cumsum(first) - 1)[root]
 
 
 # --------------------------------------------------------------------- parser

@@ -121,6 +121,27 @@ def canonical_bonds(pairs: np.ndarray) -> np.ndarray:
     return out
 
 
+def distinct_strings(data: np.ndarray):
+    """(the distinct strings of `data`, each entry's index into them), in
+    no set order. Byte strings, and strings below U+0100, of at most 8
+    characters are sorted as one 8-byte integer each, which is several
+    times faster than `np.unique`'s sort of strings."""
+    kind, size = data.dtype.kind, data.dtype.itemsize
+    width = size // 4 if kind == "U" else size
+    if kind in "SU" and 0 < width <= 8 and len(data):
+        codes = np.ascontiguousarray(data).view(
+            np.uint32 if kind == "U" else np.uint8).reshape(-1, width)
+        if codes.max() < 256:
+            packed = np.zeros((len(data), 8), np.uint8)
+            packed[:, :width] = codes
+            _, first, inverse = np.unique(packed.view(np.uint64).reshape(-1),
+                                          return_index=True,
+                                          return_inverse=True)
+            return data[first], inverse.reshape(-1)
+    distinct, inverse = np.unique(data, return_inverse=True)
+    return distinct, inverse.reshape(-1)
+
+
 def adjacency_from_bonds(n_atoms: int, bonds: np.ndarray) -> List[np.ndarray]:
     adj: List[List[int]] = [[] for _ in range(n_atoms)]
     for a, b in bonds:

@@ -3,9 +3,10 @@
 Behavioral reference: src/analysis/topology/classify.rs (BFS from each atom of
 the order group, relative-index topology fingerprint, identical molecules
 merged into one type, residue-name naming with conflict suffixes) — re-built
-array-first: connected components via union-find, fingerprints via sorted
-bond arrays, and per-type *index tensors* instead of an object graph, so the
-analysis engine receives flat gather indices (SURVEY.md §7 step 2).
+array-first: connected components by label propagation, fingerprints as
+blocks of integer rows, and per-type *index tensors* instead of an object
+graph, so the analysis engine receives flat gather indices (SURVEY.md §7
+step 2).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import numpy as np
 
 from ..errors import TopologyError
 from ..select import connected_components
-from ..system import System
+from ..system import System, distinct_strings
 
 # deterministic iteration & hashing of molecule fingerprints
 
@@ -72,25 +73,6 @@ class MoleculeKind:
         return np.asarray(self.min_indices, dtype=np.int64) + rel
 
 
-def _molecule_fingerprint(
-    system: System,
-    atom_indices: np.ndarray,
-    bonds: np.ndarray,
-    min_index: int,
-):
-    """Hashable topology fingerprint: relative bonds + atom identities."""
-    rel_bonds = tuple(
-        sorted((int(a) - min_index, int(b) - min_index) for a, b in bonds)
-    )
-    rel_atoms = tuple(
-        sorted(
-            (int(i) - min_index, str(system.atom_names[i]), str(system.resnames[i]))
-            for i in atom_indices
-        )
-    )
-    return (rel_bonds, rel_atoms)
-
-
 def _molecule_name(system: System, atom_indices: np.ndarray) -> str:
     """Unique residue names in order of appearance, joined by '-'
     (classify.rs:602-604)."""
@@ -141,57 +123,52 @@ def classify_molecules(
 
     labels = connected_components(system.n_atoms, system.bonds)
     bonds = system.bonds
-
-    # group bonds and atoms by molecule label
     n_mols = int(labels.max()) + 1 if labels.size else 0
-    order_atoms_1 = np.nonzero(order_mask_1)[0]
+    mol_range = np.arange(n_mols)
 
-    # molecule label -> atom indices / bond rows (computed lazily per label)
-    atoms_by_label: Dict[int, np.ndarray] = {}
-    bonds_by_label: Dict[int, np.ndarray] = {}
-
-    sort_by_label = np.argsort(labels, kind="stable")
-    label_sorted = labels[sort_by_label]
-    label_starts = np.searchsorted(label_sorted, np.arange(n_mols))
-    label_ends = np.searchsorted(label_sorted, np.arange(n_mols), side="right")
-
+    # atoms by molecule, in index order; bonds by molecule, sorted
+    by_label = np.argsort(labels, kind="stable")
+    starts = np.searchsorted(labels[by_label], mol_range)
+    ends = np.searchsorted(labels[by_label], mol_range, side="right")
+    first_atom = by_label[starts]
     bond_labels = labels[bonds[:, 0]]
-    bsort = np.argsort(bond_labels, kind="stable")
-    blabel_sorted = bond_labels[bsort]
-    bstarts = np.searchsorted(blabel_sorted, np.arange(n_mols))
-    bends = np.searchsorted(blabel_sorted, np.arange(n_mols), side="right")
+    bond_order = np.lexsort((bonds[:, 1], bonds[:, 0], bond_labels))
+    sorted_bonds = bonds[bond_order]
+    bond_starts = np.searchsorted(bond_labels[bond_order], mol_range)
+    bond_ends = np.searchsorted(bond_labels[bond_order], mol_range,
+                                side="right")
 
-    def atoms_of(label: int) -> np.ndarray:
-        if label not in atoms_by_label:
-            atoms_by_label[label] = np.sort(
-                sort_by_label[label_starts[label]:label_ends[label]]
-            )
-        return atoms_by_label[label]
+    # topology fingerprints as rows: (relative index, atom name code,
+    # residue name code) an atom and (relative a, relative b) a bond; two
+    # molecules are one type exactly when both their blocks are equal
+    _, name_codes = distinct_strings(system.atom_names)
+    _, resname_codes = distinct_strings(system.resnames)
+    rel = np.arange(system.n_atoms, dtype=np.int64) - first_atom[labels]
+    atom_rows = np.stack([rel, name_codes, resname_codes], axis=1)[by_label]
+    bond_rows = (sorted_bonds.astype(np.int64)
+                 - first_atom[bond_labels[bond_order]][:, None])
 
-    def bonds_of(label: int) -> np.ndarray:
-        if label not in bonds_by_label:
-            bonds_by_label[label] = bonds[bsort[bstarts[label]:bends[label]]]
-        return bonds_by_label[label]
-
+    starts, ends = starts.tolist(), ends.tolist()
+    bond_starts, bond_ends = bond_starts.tolist(), bond_ends.tolist()
     kinds: List[MoleculeKind] = []
     kind_by_fingerprint: Dict[object, MoleculeKind] = {}
-    visited_labels: set = set()
 
-    for atom in order_atoms_1:
-        label = int(labels[atom])
-        if label in visited_labels:
-            continue
-        visited_labels.add(label)
-
-        mol_atoms = atoms_of(label)
-        mol_bonds = bonds_of(label)
-        min_index = int(mol_atoms[0])
-
-        fingerprint = _molecule_fingerprint(system, mol_atoms, mol_bonds, min_index)
+    # molecules in the order their first group-1 atom comes
+    visits = labels[np.nonzero(order_mask_1)[0]]
+    _, first_visit = np.unique(visits, return_index=True)
+    for label in visits[np.sort(first_visit)].tolist():
+        min_index = int(first_atom[label])
+        fingerprint = (
+            atom_rows[starts[label]:ends[label]].tobytes(),
+            bond_rows[bond_starts[label]:bond_ends[label]].tobytes(),
+        )
         existing = kind_by_fingerprint.get(fingerprint)
         if existing is not None:
             existing.min_indices.append(min_index)
             continue
+
+        mol_atoms = by_label[starts[label]:ends[label]]
+        mol_bonds = sorted_bonds[bond_starts[label]:bond_ends[label]]
 
         # analyzed bond types for this new molecule type
         bond_types: List[BondTypeKey] = []

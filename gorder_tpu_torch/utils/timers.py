@@ -18,8 +18,11 @@ that does the work (a phase may nest in another; each keeps its own sum):
   leaflet classifiers a batch's program calls).
 
 The counters: `transfer_bytes`, the bytes of the host arrays the batch
-loop copies to the devices, and `probe_frames`, the frames the pick's
-probes decode (a retried probe counts again).
+loop copies to the devices; `probe_frames`, the frames the pick's
+probes decode (a retried probe counts again); and `slow_parse_lines`,
+the GRO atom lines and bonds-file lines that `io/gro.py` and
+`io/bnd.py` parsed one at a time because their whole-array pass refused
+the file (0 for a file the pass took).
 
 Timers are monotonic (`time.perf_counter`) and additive: entering the same
 phase several times accumulates. Decode time is recorded from the prefetch

@@ -17,7 +17,14 @@ at the root names the cells and metrics; each is found by name:
 - `benchmark/workloads/<traffic>.json`: the analysis a cell runs, its
   frames, decoder threads and the limits of its comparison;
 - `benchmark/metrics/<metric>.py`: the reader of one metric;
-- `benchmark/rooflines/<kernel>.py`: one kernel's operations and bytes.
+- `benchmark/rooflines/<kernel>.py`: one kernel's operations and bytes;
+- `benchmark/reference/<axis>/<method>.py`: one method of the plain
+  reference, found from the traffic's `gorder` keys: the order kind
+  (`type` → `kinds/`), a tagged membrane normal (`membrane_normal` →
+  `normals/`) and the leaflets (`leaflets` → `leaflets/`), each tag in
+  snake case (`!SphericalClustering` → `leaflets/spherical_clustering.py`).
+  A cell whose analysis names a method with no file there fails its
+  reference with NotImplementedError naming the file.
 
 `calibrate.py` reads the compared numbers of the program and of the
 control over many seeds; `tests/` holds the harness's CPU tests

@@ -1,19 +1,25 @@
 """A cell as `BENCHMARK.json` names it, and the files it is made of, found
 by name: its configuration's file (the entry's `file`), its traffic
 (`benchmark/workloads/<traffic>.json`), the readers of its metrics
-(`benchmark/metrics/<metric>.py`) and the kernels' counts
-(`benchmark/rooflines/<kernel>.py`)."""
+(`benchmark/metrics/<metric>.py`), the kernels' counts
+(`benchmark/rooflines/<kernel>.py`) and the methods of its plain
+reference (`benchmark/reference/<axis>/<method>.py`)."""
 
 from __future__ import annotations
 
 import functools
 import importlib.util
 import json
+import re
 from dataclasses import dataclass
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+#: the plain reference's methods, one module a method:
+#: `<axis>/<tag in snake case>.py`
+REFERENCE = HERE / "reference"
+_TAG = re.compile(r"^[A-Za-z][A-Za-z0-9]*$")
 
 
 @dataclass
@@ -50,14 +56,16 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
 
 
 @functools.lru_cache(maxsize=None)
-def _module(kind: str, name: str):
-    path = HERE / kind / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"benchmark.{kind}.{name.replace('-', '_').replace('.', '_')}",
-        path)
+def _load(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def _module(kind: str, name: str):
+    ident = name.replace("-", "_").replace(".", "_")
+    return _load(HERE / kind / f"{name}.py", f"benchmark.{kind}.{ident}")
 
 
 def metric_reader(name: str):
@@ -68,3 +76,30 @@ def metric_reader(name: str):
 def roofline(kernel: str):
     """The module `benchmark/rooflines/<kernel>.py`."""
     return _module("rooflines", kernel)
+
+
+def snake_case(tag: str) -> str:
+    """A gorder tag as a module name: `SphericalClustering` →
+    `spherical_clustering`, `AAOrder` → `aa_order`."""
+    return re.sub(r"(?<=[a-z0-9])(?=[A-Z])|(?<=[A-Z])(?=[A-Z][a-z])", "_",
+                  tag).lower()
+
+
+def reference_part(axis: str, spec):
+    """The module of the plain reference's method for the tagged value
+    `spec` ({"!": Tag, field: value, ...}) on `axis` (`kinds`, `normals`
+    or `leaflets`): `benchmark/reference/<axis>/<tag in snake case>.py`.
+    NotImplementedError, naming the spec and the file looked for, where
+    there is none."""
+    tag = spec.get("!") if isinstance(spec, dict) else None
+    if not (isinstance(tag, str) and _TAG.match(tag)):
+        raise NotImplementedError(
+            f"the reference has no {axis} method for {spec}: it is no "
+            "tagged value {'!': Tag, ...}")
+    name = snake_case(tag)
+    path = REFERENCE / axis / f"{name}.py"
+    if not path.is_file():
+        shown = path.relative_to(ROOT) if path.is_relative_to(ROOT) else path
+        raise NotImplementedError(
+            f"the reference has no {axis} method for {spec}: no {shown}")
+    return _load(path, f"benchmark.reference.{axis}.{name}")

@@ -8,7 +8,8 @@ the test 1: 21 f32 operations) and its covariance terms once (the count
 and the centroid sums 4, the centred products 15: 19); each head read
 once (12 bytes) and each head's count and six covariances written once
 (28 bytes), and the frame's box. The pairs are the reference's exact
-integer count (`reference/normals.py`)."""
+integer count (`reference/normals/dynamic.py`); a run whose normal
+method counts no pairs has no cloud work here."""
 
 from __future__ import annotations
 
@@ -20,9 +21,9 @@ HEAD_BYTES = 12 + 28
 
 
 def start(ref, config):
-    if ref.normal_heads is None:
+    if getattr(ref.normal, "cloud_pairs", None) is None:
         return None
-    return {"frames": 0, "heads": int(ref.normal_heads.numel()),
+    return {"frames": 0, "heads": int(ref.normal.heads.numel()),
             "pairs": 0}
 
 
@@ -31,7 +32,7 @@ def add(state, ints):
 
 
 def finish(state, ref):
-    state["pairs"] = int(ref.cloud_pairs)
+    state["pairs"] = int(ref.normal.cloud_pairs)
 
 
 def bound_s(state, peaks):

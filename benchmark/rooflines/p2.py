@@ -39,12 +39,13 @@ def s6_stride(n_atoms: int) -> int:
 
 
 def start(ref, config):
-    atoms = torch.unique(torch.cat([ref.atom_a, ref.atom_b]))
-    return {"atom_a": ref.atom_a, "atom_b": ref.atom_b, "atoms": atoms,
+    bonds = ref.bonds
+    atoms = torch.unique(torch.cat([bonds.atom_a, bonds.atom_b]))
+    return {"atom_a": bonds.atom_a, "atom_b": bonds.atom_b, "atoms": atoms,
             "n_atoms": int(atoms.numel()),
-            "n_bonds": int(ref.atom_a.numel()), "n_types": ref.types.n_types,
+            "n_bonds": int(bonds.atom_a.numel()), "n_types": bonds.n_types,
             "n_classes": len(ref.classes), "n_molecules": ref.n_molecules,
-            "normals": ref.static is None, "frames": 0, "escapes": 0,
+            "normals": ref.normal is not None, "frames": 0, "escapes": 0,
             "base": None, "max_abs": 0}
 
 

@@ -1,6 +1,7 @@
 """BENCHMARK.json and the files it names: every configuration, traffic,
-metric reader and roofline parses and names what exists, within the
-limits the benchmark keeps on names, units and lengths."""
+metric reader, roofline and method of the plain reference parses and
+names what exists, within the limits the benchmark keeps on names, units
+and lengths."""
 
 import json
 import re
@@ -64,3 +65,15 @@ def test_roofline_module(kernel):
     rl = cells.roofline(kernel)
     for attr in ("KERNELS", "start", "add", "finish", "bound_s"):
         assert hasattr(rl, attr)
+
+
+@pytest.mark.parametrize("axis, name", [
+    (axis, p.stem) for axis in ("kinds", "normals", "leaflets")
+    for p in sorted((cells.REFERENCE / axis).glob("*.py"))],
+    ids=lambda v: v)
+def test_reference_method(axis, name):
+    """Each method on disk is found by the tag it stands for and exposes
+    its `build(spec, view)`."""
+    tag = "".join(word.capitalize() for word in name.split("_"))
+    assert cells.snake_case(tag) == name
+    assert callable(cells.reference_part(axis, {"!": tag}).build)

@@ -43,6 +43,16 @@ ref.values()
 print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
 
+METHODS = """
+import json, sys
+sys.path.insert(0, {root!r})
+from benchmark import cells
+for path in sorted(cells.REFERENCE.glob("*/*.py")):
+    tag = "".join(w.capitalize() for w in path.stem.split("_"))
+    cells.reference_part(path.parent.name, {{"!": tag}})
+print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
+"""
+
 
 def _loaded(code):
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -60,4 +70,10 @@ def test_harness_run_loads_no_forbidden_module(tmp_path):
 
 def test_reference_loads_nothing_of_the_program():
     loaded = _loaded(REFERENCE.format(root=str(ROOT)))
+    assert not loaded & set(HARNESS_FORBIDDEN + ["gorder_tpu_torch"])
+
+
+def test_reference_methods_load_nothing_of_the_program():
+    loaded = _loaded(METHODS.format(root=str(ROOT)))
+    assert "torch" in loaded
     assert not loaded & set(HARNESS_FORBIDDEN + ["gorder_tpu_torch"])

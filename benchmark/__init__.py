@@ -14,6 +14,8 @@ seconds through `gorder_tpu_torch.run(analysis, device="cuda")` and
 at the root names the cells and metrics; each is found by name:
 
 - `benchmark/configs/<config>.json`: a system (`synth.py` makes it);
+- `benchmark/templates/<template>.py`: the lipid a configuration lays
+  out, its `template` with "-" as "_" (`popc-aa` → `popc_aa.py`);
 - `benchmark/workloads/<traffic>.json`: the analysis a cell runs, its
   frames, decoder threads and the limits of its comparison;
 - `benchmark/metrics/<metric>.py`: the reader of one metric;

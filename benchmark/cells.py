@@ -2,8 +2,9 @@
 by name: its configuration's file (the entry's `file`), its traffic
 (`benchmark/workloads/<traffic>.json`), the readers of its metrics
 (`benchmark/metrics/<metric>.py`), the kernels' counts
-(`benchmark/rooflines/<kernel>.py`) and the methods of its plain
-reference (`benchmark/reference/<axis>/<method>.py`)."""
+(`benchmark/rooflines/<kernel>.py`), the methods of its plain
+reference (`benchmark/reference/<axis>/<method>.py`) and the lipid
+template its configuration lays out (`benchmark/templates/<template>.py`)."""
 
 from __future__ import annotations
 
@@ -20,6 +21,11 @@ ROOT = HERE.parent
 #: `<axis>/<tag in snake case>.py`
 REFERENCE = HERE / "reference"
 _TAG = re.compile(r"^[A-Za-z][A-Za-z0-9]*$")
+#: the lipid templates, one module a template:
+#: `<template with "-" as "_">.py`; a template's name is lower case, its
+#: words joined by "-"
+TEMPLATES = HERE / "templates"
+_TEMPLATE = re.compile(r"^[a-z0-9][a-z0-9-]*$")
 
 
 @dataclass
@@ -92,14 +98,33 @@ def reference_part(axis: str, spec):
     NotImplementedError, naming the spec and the file looked for, where
     there is none."""
     tag = spec.get("!") if isinstance(spec, dict) else None
+    what = f"the reference has no {axis} method for {spec}"
     if not (isinstance(tag, str) and _TAG.match(tag)):
         raise NotImplementedError(
-            f"the reference has no {axis} method for {spec}: it is no "
-            "tagged value {'!': Tag, ...}")
-    name = snake_case(tag)
-    path = REFERENCE / axis / f"{name}.py"
+            f"{what}: it is no tagged value {{'!': Tag, ...}}")
+    return _part(REFERENCE / axis, snake_case(tag), what)
+
+
+def template_part(name):
+    """The module of the lipid template `name` (a configuration's
+    `template`): `benchmark/templates/<name with "-" as "_">.py`, whose
+    `template()` gives (atom names in file order, bonds as index pairs
+    within the molecule). NotImplementedError, naming the template and the
+    file looked for, where there is none."""
+    what = f"no lipid template {name!r}"
+    if not (isinstance(name, str) and _TEMPLATE.match(name)):
+        raise NotImplementedError(f"{what}: it is no template name")
+    return _part(TEMPLATES, name.replace("-", "_"), what)
+
+
+def _part(directory: Path, ident: str, what: str):
+    """The module `<directory>/<ident>.py`; NotImplementedError, `what`
+    and the file looked for, where there is none."""
+    path = directory / f"{ident}.py"
     if not path.is_file():
-        shown = path.relative_to(ROOT) if path.is_relative_to(ROOT) else path
-        raise NotImplementedError(
-            f"the reference has no {axis} method for {spec}: no {shown}")
-    return _load(path, f"benchmark.reference.{axis}.{name}")
+        raise NotImplementedError(f"{what}: no {_shown(path)}")
+    return _load(path, f"benchmark.{directory.name}.{ident}")
+
+
+def _shown(path: Path):
+    return path.relative_to(ROOT) if path.is_relative_to(ROOT) else path

@@ -12,12 +12,14 @@ structure, wrapped into the box. Everything random is drawn with a
 device to the XTC grid (`precision` integers a nm), and those integers are
 what the encoder writes and what the reference reads: the same seed gives
 the same integers.
+The lipid template is found by name: a configuration's `template` is
+`benchmark/templates/<template with "-" as "_">.py` (`cells.template_part`).
 
 `prepare_inputs` writes the structure (GRO), the bonds (one `a b` pair a
 line, 1-based) and the trajectory (XTC) into the configuration's cache
-directory, or reuses them when they were made from the same seed and the
-same generator sources. One trajectory per configuration lives there; a
-new seed replaces it.
+directory, or reuses them when they were made from the same seed, the
+same generator sources and the same template file. One trajectory per
+configuration lives there; a new seed replaces it.
 """
 
 from __future__ import annotations
@@ -34,8 +36,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import xtc
-from .templates import TEMPLATES
+from . import cells, xtc
 
 HERE = Path(__file__).resolve().parent
 CACHE_DIR = HERE / "_cache"
@@ -44,8 +45,9 @@ CHUNK_BYTES = 256 << 20
 #: how far a random-walk step leans along its chain's direction before it
 #: is scaled to the step length
 CHAIN_BIAS = 1.2
-#: the sources whose change makes a cached trajectory stale
-_SOURCES = ("synth.py", "templates.py", "xtc_encode.cpp")
+#: the sources whose change makes a cached trajectory stale, beside the
+#: configuration's own template file
+_SOURCES = ("synth.py", "xtc_encode.cpp")
 
 
 @dataclass
@@ -162,7 +164,7 @@ def _water_sites(cfg, n, box, gen, device):
 def make_system(cfg: dict, seed: int, device) -> System:
     """The configuration's structure from `seed` (its generator 2·seed)."""
     gen = _generator(2 * int(seed), device)
-    names_t, bonds_t = TEMPLATES[cfg["template"]]()
+    names_t, bonds_t = cells.template_part(cfg["template"]).template()
     per = len(names_t)
     heads, chain, first_on_shell = _LAYOUTS[cfg["system"]][0](cfg, device)
     n_mols = heads.shape[0]
@@ -272,9 +274,13 @@ def write_structure(system: System, gro: Path, bnd: Path) -> None:
 
 
 def _stamp(cfg_bytes: bytes, seed: int) -> str:
+    """The digest of the configuration's bytes, the generator's sources,
+    the configuration's own template file and the seed."""
     h = hashlib.sha256(cfg_bytes)
-    for name in _SOURCES:
-        h.update((HERE / name).read_bytes())
+    template = Path(cells.template_part(
+        json.loads(cfg_bytes)["template"]).__file__)
+    for path in [HERE / name for name in _SOURCES] + [template]:
+        h.update(path.read_bytes())
     h.update(str(int(seed)).encode())
     return h.hexdigest()
 

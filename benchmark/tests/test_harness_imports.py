@@ -1,8 +1,8 @@
 """The import boundary, in fresh interpreters: a whole run of the
 harness (generators, readers, rooflines, tracing) loads nothing of JAX,
-`gorder_tpu`, `bench`, `chip_smoke` or `tools`; the reference loads
-nothing of `gorder_tpu_torch` either. Top-level names are compared
-whole: `gorder_tpu_torch` is not `gorder_tpu`."""
+`gorder_tpu`, `bench`, `chip_smoke` or `tools`; the reference and the
+lipid templates load nothing of `gorder_tpu_torch` either. Top-level
+names are compared whole: `gorder_tpu_torch` is not `gorder_tpu`."""
 
 import json
 import subprocess
@@ -50,6 +50,8 @@ from benchmark import cells
 for path in sorted(cells.REFERENCE.glob("*/*.py")):
     tag = "".join(w.capitalize() for w in path.stem.split("_"))
     cells.reference_part(path.parent.name, {{"!": tag}})
+for path in sorted(cells.TEMPLATES.glob("*.py")):
+    cells.template_part(path.stem.replace("_", "-")).template()
 print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
 

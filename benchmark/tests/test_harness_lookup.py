@@ -2,10 +2,13 @@
 tagged membrane normal or an order kind planted as one file under a
 reference directory is used with no other edit; a classifier sees every
 frame once, in order, across chunks of uneven size; an unknown tag fails
-naming the file looked for."""
+naming the file looked for, and no test holds a method of gorder's own
+grammar absent."""
 
+import re
 import shutil
 import textwrap
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -13,6 +16,14 @@ import torch
 
 from benchmark import cells
 from benchmark.reference.order import OrderReference
+
+#: the tags of gorder's YAML grammar (order kinds, membrane normals,
+#: leaflet classifiers), each a method the reference may gain as a file
+GORDER_TAGS = ("AAOrder", "CGOrder", "UAOrder", "Dynamic", "FromFile",
+               "Global", "Local", "Individual", "FromMap", "FromNdx",
+               "Clustering", "SphericalClustering")
+#: a path to a method file of the reference, as a test would name it
+METHOD_FILE = re.compile(r"reference/(kinds|normals|leaflets)/(\w+)\.py")
 
 AA = {"!": "AAOrder", "heavy_atoms": "resname LIP and name r'^C'",
       "hydrogens": "resname LIP and name r'^H'"}
@@ -195,20 +206,47 @@ def test_a_planted_kind_is_used(planted):
                    -0.125}
 
 
-@pytest.mark.parametrize("key, spec, file", [
-    ("type", {"!": "UAOrder", "saturated": "name C2"},
-     "benchmark/reference/kinds/ua_order.py"),
-    ("membrane_normal", {"!": "FromFile", "file": "normals.yaml"},
-     "benchmark/reference/normals/from_file.py"),
-    ("leaflets", {"!": "Clustering", "heads": "name C1"},
-     "benchmark/reference/leaflets/clustering.py"),
-    ("leaflets", {"!": "Local", "heads": "name C1", "radius": 2.5},
-     "benchmark/reference/leaflets/local.py")])
+#: (key, tagged value, file looked for) of tags that no gorder method has:
+#: a method of gorder's own grammar may gain its file at any time
+UNKNOWN_METHODS = [
+    ("type", {"!": "NoSuchKind", "saturated": "name C2"},
+     "benchmark/reference/kinds/no_such_kind.py"),
+    ("membrane_normal", {"!": "NoSuchNormal", "file": "normals.yaml"},
+     "benchmark/reference/normals/no_such_normal.py"),
+    ("leaflets", {"!": "NoSuchLeaflets", "heads": "name C1"},
+     "benchmark/reference/leaflets/no_such_leaflets.py"),
+    ("leaflets", {"!": "NoSuchClassifier", "heads": "name C1",
+                  "radius": 2.5},
+     "benchmark/reference/leaflets/no_such_classifier.py")]
+
+
+@pytest.mark.parametrize("key, spec, file", UNKNOWN_METHODS)
 def test_an_unknown_method_names_the_file(key, spec, file):
     gorder = {"type": AA, key: spec}
     with pytest.raises(NotImplementedError) as err:
         _reference(gorder, _two_lipids([0]))
     assert f"no {file}" in str(err.value) and repr(spec) in str(err.value)
+
+
+@pytest.mark.parametrize("key, spec, file", UNKNOWN_METHODS,
+                         ids=[spec["!"] for _, spec, _ in UNKNOWN_METHODS])
+def test_no_unknown_method_is_a_gorder_tag(key, spec, file):
+    """No unknown-method case uses a tag of gorder's YAML grammar; the
+    file scan below is the one check on the files looked for."""
+    assert spec["!"] not in GORDER_TAGS
+
+
+def test_no_test_names_a_missing_gorder_method_file():
+    """No test file names the reference file of one of gorder's methods
+    that is not on disk: what a test would hold absent, a later method
+    file would contradict."""
+    methods = {cells.snake_case(t) for t in GORDER_TAGS}
+    named = [(test.name, match.group(0)) for test in sorted(
+        Path(__file__).parent.glob("*.py"))
+        for match in METHOD_FILE.finditer(test.read_text())
+        if match.group(2) in methods]
+    assert [(test, rel) for test, rel in named
+            if not (cells.REFERENCE.parent / rel).is_file()] == []
 
 
 @pytest.mark.parametrize("gorder", [

@@ -32,6 +32,17 @@ line each:
    (`run(..., on_batch=...)`): the packed b7 wire, which the kernel
    unpacks itself, int64 (B, 2, T) outputs equal; CUDA-event times of
    both, and the kernel's time being the batch's whole device work;
+   then run aa-xtc: the same analysis forced onto the xtc wire (each
+   frame's compressed record, decoded on the card by `xtc_decode`, one
+   launch a batch, into `p2_positions_i32`): the YAML against the same
+   golden, exactly; the decoder against the host codec on its first
+   batch, integer for integer (`check_xtc`), with its CUDA-event time,
+   the plain version's on 2 frames and the bound; the int32 P2 kernel
+   against plain on that batch; then run aa-i16: the same analysis
+   forced onto the int16 wire (the static P2 step on int16 positions,
+   which runs ride where xtc is not eligible): the YAML against the same
+   golden and line for line the b7 run's, the int16 P2 kernel against
+   plain on its first batch;
 6. run aa-leaflets ... aa-fromfile-leaflets: the seven AA leaflet modes of
    tools/bench_modes.py over the same 10,000 frames; each YAML must pass
    `bench.validate_output` against its golden (the lines off by a print
@@ -1119,7 +1130,7 @@ def wire_inputs(db):
 
     if db.kind.startswith("b7"):
         return {"b7": (*db.wire[:4], db.scale)}
-    coords = decode_positions(db.kind, db.wire, 0)
+    coords = decode_positions(db.kind, db.wire, db.consumers.n_atoms)
     if db.scale is None:
         return {"f32": (coords, None)}
     name = "i32" if coords.dtype == torch.int32 else "i16"
@@ -2748,9 +2759,9 @@ run_notes = {}
 
 
 def _launch_counts():
-    from gorder_tpu_torch.ops import neighbors, p2, spectral, ua
+    from gorder_tpu_torch.ops import neighbors, p2, spectral, ua, xtc
 
-    return [(mod, name) for mod in (p2, ua, neighbors, spectral)
+    return [(mod, name) for mod in (p2, ua, neighbors, spectral, xtc)
             for name in dir(mod) if name.endswith("_launches")]
 
 
@@ -3017,6 +3028,59 @@ def same_tree(label, directory, reference):
           f"{os.path.basename(reference)}'s byte for byte", flush=True)
 
 
+def check_xtc(label, db, xtc):
+    """The card's XTC decoder on a batch of the xtc wire (`DeviceBatch`)
+    against the host codec on the same frames of the file `xtc`
+    (`native.xtc_decode_i32`): equal integer for integer, every status 0;
+    CUDA-event ms of one decode in turns, the plain version's ms on the
+    first 2 frames, and the bound: the rows read and the integers written
+    once. → numbers for `kernel_entry`."""
+    import numpy as np
+    import torch
+
+    from gorder_tpu_torch.io import native
+    from gorder_tpu_torch.io.traj import Trajectory
+    from gorder_tpu_torch.ops import xtc as xtc_ops
+
+    raw, lengths, slots, status = db.wire
+    n_out = db.consumers.n_atoms
+    n_frames = int(db.mask.sum())
+    before = xtc_ops.xtc_decode_launches
+    got = xtc_ops.xtc_ints(raw, lengths, slots, slots.shape[0], n_out,
+                           status)
+    torch.cuda.synchronize()
+    if xtc_ops.xtc_decode_launches != before + 1 or status.any():
+        raise RuntimeError(f"{label}: launches {xtc_ops.xtc_decode_launches}"
+                           f" - {before}, statuses {status.unique()}")
+    traj = Trajectory(xtc)
+    offsets = traj.files[0].offsets[traj.frame_local[:n_frames]]
+    want = native.xtc_decode_i32(xtc, offsets, slots.shape[0],
+                                 slot_of=slots.cpu().numpy(), n_out=n_out,
+                                 n_threads=os.cpu_count() or 1)[0]
+    got_host = got.cpu().numpy()
+    err = int(np.abs(got_host[:n_frames].astype(np.int64) - want).max())
+    if err or got_host[n_frames:].any():
+        raise RuntimeError(f"{label}: the card's decode differs from the "
+                           f"host codec by up to {err}")
+
+    def call():
+        return xtc_ops.xtc_ints(raw, lengths, slots, slots.shape[0], n_out,
+                                status)
+    ms, ms2 = cuda_ms(call, reps=10), cuda_ms(call, reps=10)
+    cpu = [t.cpu() for t in (raw[:2], lengths[:2], slots)]
+    t0 = time.perf_counter()
+    xtc_ops.xtc_ints(*cpu, slots.shape[0], n_out,
+                     torch.empty(2, dtype=torch.int32))
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    print(f"check {label}: the card's XTC decode == the host codec on "
+          f"{n_frames} frames ({tuple(got.shape)} int32, records of up to "
+          f"{raw.shape[1]} bytes); ms a batch: kernel {ms:.4f}, {ms2:.4f}; "
+          f"plain (host, Python) {plain_ms:.1f} ms for 2 frames", flush=True)
+    numbers = dict(max_abs_err=err, ms=min(ms, ms2), plain_ms=plain_ms)
+    return with_bound(label, numbers, n_bytes(raw, lengths, slots, got,
+                                              status), 0)
+
+
 def check_decoder(label, db):
     """The card's reconstruction of a batch of the s6 or d8 wire (the
     int32 XTC integers the step takes) against the CPU's on the same
@@ -3144,10 +3208,11 @@ def check_chain(label, files, cache):
 
 def _input_of(kind):
     """The P2 or UA kernel input a wire kind feeds: b7, i16 (i16, i12),
-    i32 (s6, d8) or f32."""
+    i32 (s6, d8, xtc) or f32."""
     base = kind.rstrip("gG")
-    return ("b7" if kind.startswith("b7") else "i32" if base in ("s6", "d8")
-            else "f32" if base == "f32" else "i16")
+    return ("b7" if kind.startswith("b7") else "i32"
+            if base in ("s6", "d8", "xtc") else "f32" if base == "f32"
+            else "i16")
 
 
 def pick_phase(gro, bnd, xtc, ua_files, cg_files, cache):
@@ -3160,6 +3225,7 @@ def pick_phase(gro, bnd, xtc, ua_files, cg_files, cache):
     numbers} of the P2 inputs the picks fed)."""
     import bench
     import gorder_tpu_torch
+    from gorder_tpu_torch.engine import wire
     from gorder_tpu_torch.engine.wire import measure_link_mbps
     from tools import bench_modes
 
@@ -3177,9 +3243,13 @@ def pick_phase(gro, bnd, xtc, ua_files, cg_files, cache):
                 gorder_tpu_torch, *cg_files,
                 os.path.join(cache, "smoke_cg-pick.yaml")))):
         kinds = set()
+        # each run times the card's decoder afresh where the xtc wire
+        # would win (`card_xtc_rate`: two launches)
+        wire._CARD_XTC_RATES.clear()
         _, wall, got, wire_line, first = _run(
             label, analysis, None, n_frames,
             watch=lambda db: kinds.add(db.kind))
+        probes = 2 * len(wire._CARD_XTC_RATES)
         inputs = {_input_of(k) for k in kinds}
         if len(inputs) != 1:
             raise RuntimeError(f"{label}: batches of kinds {kinds}")
@@ -3193,6 +3263,12 @@ def pick_phase(gro, bnd, xtc, ua_files, cg_files, cache):
             count = "p2_i32_launches" if inp == "i32" else "p2_launches"
             counters = {count: batches}
             entry = "p2" if inp == "b7" else f"p2_{inp}"
+        if kinds == {"xtc"} or probes:
+            # the card decodes each batch's records first
+            counters["xtc_decode_launches"] = (
+                batches * (kinds == {"xtc"}) + probes)
+            launches["xtc_decode"] = (launches.get("xtc_decode", 0)
+                                      + got["xtc_decode_launches"])
         check_launches(label, got, counters)
         launches[entry] = launches.get(entry, 0) + got[count]
         status = bench.validate_output(analysis.output_yaml, golden,
@@ -3446,6 +3522,33 @@ def main() -> int:
     batch_ms = main_path_batch_ms(aa_first)
     print(f"run aa on {kind}: device work ~{n_batches} x {batch_ms:.3f} ms "
           f"per batch", flush=True)
+    # 5b. aa forced onto the xtc wire: the card decodes the records into
+    # int32 integers, the host's, so the YAML meets the same golden
+    # exactly; the decoder against the host codec, the int32 P2 kernel
+    # against plain, on its first batch
+    aa_xtc_launches, _, xtc_first = run_golden(
+        "aa-xtc", aa_analysis(gro, bnd, xtc,
+                              os.path.join(cache, "smoke_aa-xtc.yaml")),
+        {"p2_i32_launches": n_batches, "xtc_decode_launches": n_batches},
+        N_FRAMES, golden="aa", wire="wire format: xtc", force="xtc")
+    same_lines("aa-xtc", os.path.join(cache, "smoke_aa-xtc.yaml"),
+               os.path.join(cache, "smoke_order.yaml"))
+    xtc_numbers = check_xtc("aa-xtc", xtc_first, xtc)
+    p2_xtc = check_p2("aa-xtc", xtc_first, leaflets=False)
+    del xtc_first
+    # 5c. aa forced onto the int16 wire: the static P2 step on int16
+    # positions, the wire every run rides where xtc is not eligible (other
+    # atom counts, plain frames, TRR, a slow read); the YAML against the
+    # same golden, the int16 P2 kernel against plain on its first batch
+    aa_i16_launches, _, i16_first = run_golden(
+        "aa-i16", aa_analysis(gro, bnd, xtc,
+                              os.path.join(cache, "smoke_aa-i16.yaml")),
+        {"p2_launches": n_batches}, N_FRAMES, golden="aa",
+        wire="wire format: i16", force="i16")
+    same_lines("aa-i16", os.path.join(cache, "smoke_aa-i16.yaml"),
+               os.path.join(cache, "smoke_order.yaml"))
+    p2_i16 = check_p2("aa-i16", i16_first, leaflets=False)
+    del i16_first
 
     # 6. the AA leaflet modes, end to end; then the with_leaflets P2
     # kernel against plain on the first batch of the global (b7g) and the
@@ -4263,6 +4366,15 @@ def main() -> int:
                      map_checks["aa-ordermap-d8"]["i32"]),
         kernel_entry("ua_i32", ua_src, "gorder_tpu/ops/pallas_ua.py:202",
                      ua_i32_runs, ua_i32["i32"]),
+        kernel_entry("p2_i16", p2_src, p2_tpu,
+                     aa_i16_launches["p2_launches"], p2_i16["i16"]),
+        kernel_entry("p2_i32_xtc", p2_src, "gorder_tpu/ops/pallas_p2.py:287",
+                     aa_xtc_launches["p2_i32_launches"], p2_xtc["i32"]),
+        # the card's XTC decoder replaces no Pallas kernel: gorder_tpu
+        # decodes XTC on the host
+        kernel_entry("xtc_decode", "gorder_tpu_torch/csrc/xtc.cu",
+                     "none (gorder_tpu/native/xdr.cpp, host)",
+                     aa_xtc_launches["xtc_decode_launches"], xtc_numbers),
         # the dense neighbour passes replace no Pallas kernel: gorder_tpu
         # computes both with XLA ops, in the functions named
         kernel_entry("normals", neighbors_src,

@@ -9,10 +9,18 @@ copies each batch to the device synchronously (pageable `copy_`) before
 it releases the ring slot. Padding frames of the last batch are masked:
 their rows are zero, but a d8 batch's padding rows repeat its last frame
 (no delta, no correction), since its integers are a sum over the batch.
-A batch that no longer fits the b7, s6 or d8 wire mid-run falls back to
-int16, a batch that no longer fits int16 (or i12) to f32, as in the JAX
+A batch that no longer fits the b7, s6, d8 or xtc wire mid-run falls back
+to int16, a batch that no longer fits int16 (or i12) to f32, as in the JAX
 package (gorder_tpu/engine/batches.py:466-590). The s6 wire's per-value
 group index rides to the device once a run.
+
+The xtc wire's decode thread only copies each frame's compressed record
+into a ring row; the card decodes the batch (`ops/xtc.py`), with the
+run's slot map, which rides to the device once a run. Its copies go on a
+copy stream of each device, which the step's stream waits for: a pageable
+copy waits for earlier work on its own stream, so batch k + 1's records
+cross while batch k is decoded. A frame the card could not decode is
+named when its batch drains, as the dynamic normals' guard is checked.
 
 Leaflet runs read the decoder's side channels beside the wire
 (`engine/channels.py`): heads and the membrane COG (b7g), the aux atoms
@@ -80,6 +88,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures as cf
+import contextlib
 import dataclasses
 import logging
 import os
@@ -95,6 +104,7 @@ from ..core.ordermap import init_map_state
 from ..errors import AnalysisError
 from ..io.native import b7_stride, geo_stride, i12_stride, s6_stride
 from ..io.traj import Trajectory, check_box_batch
+from ..ops.xtc import STATUS
 from ..parallel.mesh import gather, replicate, shard_batch, to_device
 from ..utils.progress import ProgressPrinter
 from ..utils.timers import timers
@@ -175,6 +185,35 @@ def _shard_wire(kind, arrays, mesh):
         for i in range(1, mesh.size):
             slices[i][3] = d8_last(*slices[i - 1][:4]).to(mesh.devices[i])
     return [tuple(w) for w in slices]
+
+
+@contextlib.contextmanager
+def _on_streams(streams):
+    """Enqueue the copies made inside on `streams`, a copy stream of each
+    device (None: the current streams), and make each device's current
+    stream wait for them after."""
+    if streams is None:
+        yield
+        return
+    with contextlib.ExitStack() as stack:
+        for stream in streams:
+            stack.enter_context(torch.cuda.stream(stream))
+        yield
+    for stream in streams:
+        torch.cuda.current_stream(stream.device).wait_stream(stream)
+
+
+def _check_decoded(traj, frames, statuses) -> None:
+    """Raise naming the first of a batch's valid `frames` whose status the
+    card's XTC decoder set (`ops/xtc.py STATUS`)."""
+    codes = torch.cat([s.cpu() for s in statuses])[:len(frames)].numpy()
+    bad = np.flatnonzero(codes)
+    if len(bad):
+        frame = int(frames[bad[0]])
+        path = traj.files[traj.frame_file[frame]].path
+        raise AnalysisError(
+            f"could not decode frame {int(traj.frame_local[frame])} of xtc "
+            f"file '{path}' on the device: {STATUS[int(codes[bad[0]])]}")
 
 
 def _shard_block(n_frames: int, shard, align: int):
@@ -338,11 +377,22 @@ def run_batches(analysis, system, steps, normal_vec, n_types: int, space,
     elif plan.wire == "i12":
         buffers = [np.zeros((batch_size, i12_stride(n_out)), np.uint8)
                    for _ in range(prefetch)]
+    elif plan.wire == "xtc":
+        buffers = [(np.zeros((batch_size, plan.xtc_stride), np.uint8),
+                    np.zeros(batch_size, np.int32)) for _ in range(prefetch)]
     else:
         dtype = np.int16 if plan.wire == "i16" else np.float32
         buffers = [np.zeros((batch_size, n_out, 3), dtype)
                    for _ in range(prefetch)]
     vgidx_devs = replicate(mesh, vgidx) if plan.wire == "s6" else None
+    # the xtc wire: each device's slot map of the first atoms, and a copy
+    # stream of each device where they are cards
+    xtc_slots = copy_streams = None
+    if plan.wire == "xtc":
+        xtc_slots = replicate(mesh, space.slot_of if space.slot_of is not None
+                              else np.arange(space.first_n, dtype=np.int32))
+        if device.type == "cuda":
+            copy_streams = [torch.cuda.Stream(d) for d in mesh.devices]
     # decoder COG of coordinate-wire batches in the COG channel class
     cog_bufs = ([np.zeros(batch_size, np.float32) for _ in range(prefetch)]
                 if plan.chan_coords is not None else None)
@@ -440,6 +490,15 @@ def run_batches(analysis, system, steps, normal_vec, n_types: int, space,
         buf[len(chunk):] = 0
         return with_cog("i12", (buf,), chunk, b), res[1], res[2], None
 
+    def decode_xtc(chunk, buf, b):
+        raw, lengths = buf
+        lengths[len(chunk):] = 0          # padding rows decode to zeros
+        res = traj.read_frames_xtc(chunk, raw, lengths, n_threads=n_threads)
+        if res is None:
+            return fallback_i16(chunk, b, "xtc", "the records' layout")
+        inv_prec, boxes, _, _ = res
+        return ("xtc", (raw, lengths)), inv_prec, boxes, None
+
     def plane_sparse_read(chunk, b):
         """Decode only this batch's assignment frames (1/N of frames for
         `!every N`, one frame for `!once`) → (batch rows, i16 coords and
@@ -508,8 +567,8 @@ def run_batches(analysis, system, steps, normal_vec, n_types: int, space,
                 out = decode_b7(b, chunk, buf)
             else:
                 out = {"s6": decode_s6, "d8": decode_d8, "i12": decode_i12,
-                       "i16": decode_i16, "f32": decode_f32}[plan.wire](
-                           chunk, buf, b)
+                       "i16": decode_i16, "f32": decode_f32,
+                       "xtc": decode_xtc}[plan.wire](chunk, buf, b)
             (kind, arrays), rest = out[0], out[1:]
             if plan.geo_channel and kind != "b7geo":
                 # a coordinate-wire (or fallback) batch of the geometry
@@ -553,14 +612,30 @@ def run_batches(analysis, system, steps, normal_vec, n_types: int, space,
                 scale = np.ones(batch_size, np.float32)
                 scale[:n_valid] = inv_prec
                 scale[n_valid:] = inv_prec[n_valid - 1]
+            streams = copy_streams if kind == "xtc" else None
             with timers.phase("transfer"):
-                wires = _shard_wire(kind, arrays, mesh)
+                with _on_streams(streams):
+                    wires = _shard_wire(kind, arrays, mesh)
+                    boxes_dev, masks_dev = shard_batch(mesh, box, mask)
+                    scales_dev = (shard_batch(mesh, scale)
+                                  if scale is not None else [None] * n_dev)
+                if streams is not None:
+                    # made on the copy streams, read on the current ones
+                    for t in [*wires, boxes_dev, masks_dev, scales_dev]:
+                        for x in (t if isinstance(t, (list, tuple)) else (t,)):
+                            if x is not None:
+                                x.record_stream(
+                                    torch.cuda.current_stream(x.device))
                 if kind.startswith("s6"):
                     wires = [w[:5] + (vg,) + w[5:]
                              for w, vg in zip(wires, vgidx_devs)]
-                boxes_dev, masks_dev = shard_batch(mesh, box, mask)
-                scales_dev = (shard_batch(mesh, scale) if scale is not None
-                              else [None] * n_dev)
+                statuses = None
+                if kind == "xtc":
+                    statuses = [torch.empty(batch_size // n_dev,
+                                            dtype=torch.int32, device=d)
+                                for d in mesh.devices]
+                    wires = [w + (sl, st) for w, sl, st
+                             in zip(wires, xtc_slots, statuses)]
                 shipped = [box, mask, scale]
                 sparse = None
                 if extra is not None:
@@ -590,6 +665,8 @@ def run_batches(analysis, system, steps, normal_vec, n_types: int, space,
             geom_refs = ([bx * 0.5 for bx in boxes_dev]
                          if device_geom == "center" else geom_consts)
             useds, insides = [], []
+            if statuses is not None:
+                timers.count("device_decode_frames", n_valid)
             with timers.phase("dispatch"):
                 for i in range(n_dev):
                     useds.append(BY_KIND[kind](
@@ -616,7 +693,7 @@ def run_batches(analysis, system, steps, normal_vec, n_types: int, space,
                 classes=used.classes if collect and not host_classes
                 else None,
                 normal=used.normal if collect_normals else None)
-                for used in useds], insides or None))
+                for used in useds], insides or None, statuses, b))
             if progress is not None:
                 progress.update(min((b + 1) * batch_size,
                                     len(frame_indices)))
@@ -629,7 +706,11 @@ def run_batches(analysis, system, steps, normal_vec, n_types: int, space,
             progress.finish()
 
     with timers.phase("drain"):
-        for n_valid, useds, insides in outputs:
+        for n_valid, useds, insides, statuses, b in outputs:
+            if statuses is not None:
+                _check_decoded(traj, frame_indices[b * batch_size:
+                                                   b * batch_size + n_valid],
+                               statuses)
             for used in useds:
                 if used.guard is not None:
                     check_normal_guard(used.guard)

@@ -4,7 +4,10 @@ feed its leaflet classification and dynamic membrane normals (port of
 
 The wire is `engine/wire.py pick_wire_format`'s. On the card it weighs
 the host-to-device rate, measured once a run on the run's first device,
-against the host's decode rate (the rate pick); on the CPU, with no rate,
+against the host's decode rate and, for a run in no channel class below
+(no decoder side channel) on compressed XTC, the rate of the xtc wire's
+host read, which ships the records for the card to decode (the rate
+pick); on the CPU, with no rate,
 it takes b7 when the run's bond slots are eligible and the trajectory
 fits the bond-vector wire, else the smaller of s6 and d8, else i12,
 int16, f32 — or the wire `GORDER_TPU_WIRE` forces. s6 and
@@ -71,7 +74,7 @@ log = logging.getLogger("gorder")
 
 @dataclass
 class WirePlan:
-    wire: str            # 'b7' | 's6' | 'd8' | 'i12' | 'i16' | 'f32'
+    wire: str            # 'b7' | 's6' | 'd8' | 'i12' | 'i16' | 'f32' | 'xtc'
     esc_cap: int         # b7 and s6 escape capacity per frame
     n_bonds: int
     wire_bytes: int      # bytes per frame on the wire
@@ -96,6 +99,8 @@ class WirePlan:
     # geometry channel class: the decoder's (B, ⌈N/8⌉) bitplane rides
     # every batch (b7geo, or the *G kinds)
     geo_channel: bool = False
+    # xtc wire: the bytes of a ring row (the run's largest record)
+    xtc_stride: int = 0
 
 
 def _aux_channel(leaflets, normals, n_out: int):
@@ -179,12 +184,17 @@ def plan_wire(*, traj, frame_indices, space, bond_slots=None, leaflets=None,
         (leaflets is None and normals is None) or leaf_channels is not None
         or plane_mode or aux is not None)
 
+    # the xtc wire reads no decoder side channel: a run in a channel class
+    # keeps the host wires
+    xtc_ok = (xtc and chan_coords is None and not geo_channel
+              and leaf_channels is None and not plane_mode and aux is None)
+
     with timers.phase("pick.link"):
         link_mbps = wires.measure_link_mbps(device)
     wire, cap = wires.pick_wire_format(
         traj, frame_indices, space, n_threads, group_of, n_groups,
         batch_size, bond_slots=bond_slots if b7_ok else None,
-        link_mbps=link_mbps)
+        link_mbps=link_mbps, xtc=xtc_ok, device=device)
     geo_bytes = geo_stride(n_bonds) if geo_channel else 0
     if wire == "b7":
         plan = WirePlan("b7", cap, n_bonds, geo_bytes,
@@ -212,6 +222,12 @@ def plan_wire(*, traj, frame_indices, space, bond_slots=None, leaflets=None,
         plan.wire_bytes += b7_stride(n_bonds) + cap * 4
         log.info("wire format: b7 — %d bond vectors (of %d selected atoms)"
                  "%s, %.1f KB/frame", n_bonds, space.n_sel, extra,
+                 plan.wire_bytes / 1024)
+        return plan
+    if wire == "xtc":
+        plan = WirePlan("xtc", 0, n_bonds, cap + 4, xtc_stride=cap)
+        log.info("wire format: xtc — %d atoms, the compressed records "
+                 "decoded on the card, %.1f KB/frame", space.n_sel,
                  plan.wire_bytes / 1024)
         return plan
     size = {"s6": s6_bytes(n_out, n_groups, cap), "d8": n_out * 3 + cap * 6,

@@ -11,16 +11,22 @@ plain PyTorch ops on whatever device the payload lies on.
 - d8: 8-bit temporal deltas with sparse high-byte corrections, summed
   over the batch on top of its first frame (`d8_ints`);
 - i12: 12-bit packed absolute integers (`unpack12`);
-- i16 and f32: positions as they are.
+- i16 and f32: positions as they are;
+- xtc: each frame's whole compressed record, which the card decodes into
+  int32 XTC integers (`ops/xtc.py`): the host only copies it.
 
-s6 and d8 give int32 XTC integers (they exist for trajectories whose
-integers overflow int16), i12 gives int16. `pick_wire_format` is the JAX
-package's `_pick_wire_format`: with the host-to-device rate that
-`measure_link_mbps` measures once a run on the card, the wire of the
-highest modeled end-to-end rate, min(host decode rate, link rate ÷ bytes
-a frame); on the CPU, where no rate is measured, or for input that is not
-uniform-precision XTC, the smallest wire the trajectory fits. The wire
-`GORDER_TPU_WIRE` names overrides both. Every wire carries the same
+s6, d8 and xtc give int32 XTC integers (s6 and d8 exist for trajectories
+whose integers overflow int16), i12 gives int16. `pick_wire_format` is
+the JAX package's `_pick_wire_format`, with the xtc wire besides: with the
+host-to-device rate that `measure_link_mbps` measures once a run on the
+card, the wire of the highest modeled end-to-end rate, min(host rate,
+link rate ÷ bytes a frame), where a host wire's host rate is the int16
+decode's times its factor and the xtc wire's is its own read's, capped by
+the card decoder's (timed once a process for a layout), each of its rows
+counted whole as it crosses the link; on the
+CPU, where no rate is measured, or for input that is not
+uniform-precision XTC, the smallest host wire the trajectory fits. The
+wire `GORDER_TPU_WIRE` names overrides both. Every wire carries the same
 integers, so the pick never changes a result.
 
 The bit arithmetic runs in int32: every intermediate below fits, and
@@ -206,15 +212,108 @@ def host_i16_rate(traj, frame_indices, space, n_threads):
         return len(anchor) / max(time.perf_counter() - t0, 1e-9)
 
 
+#: frames the xtc wire's host read is timed over: 4 × the int16 anchor's
+#: 16. A read call costs ~2 ms whatever its frames on the card's host (the
+#: file mapped, the threads started; PERF.md §6), which 16 int16
+#: decodes hide but 16 record copies do not
+XTC_RATE_FRAMES = 64
+
+
+def _xtc_rows(window, stride):
+    """Rows for the records of the frames `window`, touched beforehand as
+    the ring's are → (raw, lengths)."""
+    raw = np.empty((len(window), stride), np.uint8)
+    raw.fill(0)
+    return raw, np.zeros(len(window), np.int32)
+
+
+def _read_xtc_rows(traj, window, rows, n_threads):
+    """Read the records of the frames `window` into `rows` as the ring
+    reads them → seconds of the read, or None when they do not fit the
+    xtc wire."""
+    timers.count("probe_frames", len(window))
+    t0 = time.perf_counter()
+    if traj.read_frames_xtc(window, *rows, n_threads=n_threads) is None:
+        return None
+    return time.perf_counter() - t0
+
+
+def host_xtc_rate(traj, frame_indices, stride, n_threads):
+    """Frames/s of the xtc wire's host read (each record copied into a
+    ring row) over the run's first `XTC_RATE_FRAMES` frames, the faster of
+    two reads into the same rows, so that one slow reading on a shared
+    host does not decide the wire; None when they do not fit."""
+    window = frame_indices[:min(XTC_RATE_FRAMES, len(frame_indices))]
+    with timers.phase("pick.xtc"):
+        rows = _xtc_rows(window, stride)
+        seconds = []
+        for _ in range(2):
+            seconds.append(_read_xtc_rows(traj, window, rows, n_threads))
+            if seconds[-1] is None:
+                return None
+        return len(window) / max(min(seconds), 1e-9)
+
+
+#: the card decoder's frames/s by (device, stride, first_n, n_out, batch
+#: size), timed once a process: a layout's rate is the kernel's, which
+#: the run's records change little
+_CARD_XTC_RATES = {}
+
+
+def card_xtc_rate(traj, frame_indices, stride, space, n_threads, device,
+                  batch_size):
+    """Frames/s of the card's XTC decoder (`ops/xtc.py xtc_ints`) on a batch
+    of `batch_size` rows tiled from the records of the run's first
+    `XTC_RATE_FRAMES` frames: one launch on padding rows loads the kernel,
+    then one launch is timed by CUDA events. Once a process for a layout
+    (`_CARD_XTC_RATES`); None on the CPU or when the frames do not fit."""
+    device = torch.device(device) if device is not None else None
+    if device is None or device.type != "cuda":
+        return None
+    key = (str(device), stride, space.first_n, space.n_out, batch_size)
+    if key in _CARD_XTC_RATES:
+        return _CARD_XTC_RATES[key]
+    from ..ops.xtc import xtc_ints
+
+    window = frame_indices[:min(XTC_RATE_FRAMES, len(frame_indices))]
+    with timers.phase("pick.xtc_card"):
+        rows = _xtc_rows(window, stride)
+        if _read_xtc_rows(traj, window, rows, n_threads) is None:
+            return None
+        raw, lengths = (to_device(a, device) for a in rows)
+        tile = torch.arange(batch_size, device=device) % len(window)
+        raw, lengths = raw.index_select(0, tile), lengths.index_select(0, tile)
+        slots = to_device(space.slot_of if space.slot_of is not None
+                          else np.arange(space.first_n, dtype=np.int32),
+                          device)
+        status = torch.empty(batch_size, dtype=torch.int32, device=device)
+        with torch.cuda.device(device):
+            xtc_ints(raw, torch.zeros_like(lengths), slots, space.first_n,
+                     space.n_out, status)
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            xtc_ints(raw, lengths, slots, space.first_n, space.n_out, status)
+            end.record()
+            end.synchronize()
+        rate = batch_size / max(start.elapsed_time(end) * 1e-3, 1e-9)
+    _CARD_XTC_RATES[key] = rate
+    return rate
+
+
 def rate_candidates(traj, frame_indices, space, n_threads, group_of,
-                    n_groups, batch_size, bond_slots):
+                    n_groups, batch_size, bond_slots, xtc=None):
     """{wire: (cap, bytes a frame)} of every wire the trajectory fits, as
     the rate pick sizes them (gorder_tpu/engine/wire.py:362-389); int16
-    and f32 always."""
+    and f32 always; with `xtc` (its row stride, `Trajectory.xtc_layout`)
+    the xtc wire, the stride as both its cap and its bytes: every row
+    crosses the link whole, padded to the run's largest record."""
     n = len(frame_indices)
     n_out = space.n_out
     nv = n_out * 3
     candidates = {"i16": (0, n_out * 6), "f32": (0, n_out * 12)}
+    if xtc is not None:
+        candidates["xtc"] = (xtc, xtc)
     if bond_slots is not None:
         b7_cap = _probe_b7(traj, frame_indices, space, bond_slots[0],
                            bond_slots[1], n_threads, batch_size)
@@ -241,61 +340,110 @@ def rate_candidates(traj, frame_indices, space, n_threads, group_of,
 
 
 def _pick_wire_by_rate(traj, frame_indices, space, n_threads, group_of,
-                       n_groups, batch_size, bond_slots, link_mbps):
-    """The wire of the highest modeled end-to-end rate, min(host decode
-    f/s, link bytes/s ÷ bytes a frame), the fewer bytes on a tie (port of
+                       n_groups, batch_size, bond_slots, link_mbps,
+                       xtc=None, device=None):
+    """The wire of the highest modeled end-to-end rate, min(host f/s,
+    link bytes/s ÷ bytes a frame), the fewer bytes on a tie (port of
     `gorder_tpu/engine/wire.py:329-397`) → (wire, cap), or None for input
-    that is not uniform-precision XTC (the bytes policy takes it)."""
+    that is not uniform-precision XTC (the bytes policy takes it). A host
+    wire's rate is the int16 decode's times its factor; the xtc wire's
+    (`xtc`: its row stride, given where the run may ride it) is its own
+    read's (`host_xtc_rate`), and at most the card decoder's on `device`
+    (`card_xtc_rate`)."""
     host_i16 = host_i16_rate(traj, frame_indices, space, n_threads)
     if host_i16 is None:
         return None
     link = link_mbps * 1024 * 1024
+    host = {fmt: host_i16 * f for fmt, f in _WIRE_HOST_FACTOR.items()}
+    read = card = None
+    if xtc is not None:
+        read = host_xtc_rate(traj, frame_indices, xtc, n_threads)
+        if read is None:
+            xtc = None
+        else:
+            host["xtc"] = read
 
     def rate(fmt, bpf):
-        return min(host_i16 * _WIRE_HOST_FACTOR[fmt], link / bpf)
+        return min(host[fmt], link / bpf)
 
-    # when the link does not bind even for int16, no compact wire can
-    # model faster (their host factors are below 1): skip their probes
-    if rate("i16", space.n_out * 6) >= host_i16 * 0.999:
+    def best(candidates):
+        return max(candidates.items(),
+                   key=lambda kv: (rate(kv[0], kv[1][1]), -kv[1][1]))
+
+    # when the link does not bind even for int16, no compact host wire can
+    # model faster (their host factors are below 1): skip their probes.
+    # The xtc wire's host read may be faster than the int16 decode, so it
+    # is weighed against int16 alone then
+    i16_bytes = space.n_out * 6
+    link_free = rate("i16", i16_bytes) >= host_i16 * 0.999
+    if link_free:
+        candidates = {"i16": (0, i16_bytes),
+                      **({"xtc": (xtc, xtc)} if xtc else {})}
+    else:
+        candidates = rate_candidates(traj, frame_indices, space, n_threads,
+                                     group_of, n_groups, batch_size,
+                                     bond_slots, xtc)
+    fmt, (cap, bpf) = best(candidates)
+    if fmt == "xtc":
+        # the card decoder is timed only where the wire would win
+        card = card_xtc_rate(traj, frame_indices, xtc, space, n_threads,
+                             device, batch_size)
+        if card is not None and card < read:
+            host["xtc"] = card
+            fmt, (cap, bpf) = best(candidates)
+    if fmt == "i16" and link_free:
         log.info("wire: i16 (link %.1f MB/s does not bind; host decode "
                  "~%.1f frames/s is the wall)", link_mbps, host_i16)
         return "i16", 0
-    candidates = rate_candidates(traj, frame_indices, space, n_threads,
-                                 group_of, n_groups, batch_size, bond_slots)
-    fmt, (cap, bpf) = max(candidates.items(),
-                          key=lambda kv: (rate(kv[0], kv[1][1]), -kv[1][1]))
     log.info("wire: %s (%.1f KB/frame; link %.1f MB/s -> ceiling %.1f "
-             "frames/s, modeled host %.1f frames/s)", fmt, bpf / 1024,
-             link_mbps, link / bpf, host_i16 * _WIRE_HOST_FACTOR[fmt])
+             "frames/s, modeled host %.1f frames/s%s)", fmt, bpf / 1024,
+             link_mbps, link / bpf, host[fmt],
+             "" if read is None else f"; xtc read {read:.1f}, card "
+             + ("not timed" if card is None else f"{card:.1f}"))
     return fmt, cap
 
 
 def pick_wire_format(traj, frame_indices, space, n_threads, group_of=None,
                      n_groups=0, batch_size=512, bond_slots=None,
-                     link_mbps=None):
-    """The wire a run ships (port of `gorder_tpu/engine/wire.py:399-495`).
-    With a measured `link_mbps` and no `GORDER_TPU_WIRE`, the rate pick
-    (`_pick_wire_by_rate`). Otherwise the most compact transfer the
-    trajectory fits, or the one `GORDER_TPU_WIRE` forces: 7-bit
-    bond-vector differences (`bond_slots` given: runs whose only consumer
-    of positions is the order step, or one of the channel classes) →
-    6-bit smoothed-base residuals → 8-bit temporal deltas (s6 and d8
-    compared by bytes a frame) → 12-bit packed absolutes → int16 → f32.
-    → ('b7', esc_cap) / ('s6', esc_cap) / ('d8', corr_cap) / ('i12', 0) /
-    ('i16', 0) / ('f32', 0)."""
-    if link_mbps is not None and not os.environ.get("GORDER_TPU_WIRE"):
+                     link_mbps=None, xtc=False, device=None):
+    """The wire a run ships (port of `gorder_tpu/engine/wire.py:399-495`,
+    with the xtc wire besides). With a measured `link_mbps` and no
+    `GORDER_TPU_WIRE`, the rate pick (`_pick_wire_by_rate`). Otherwise the
+    most compact transfer the trajectory fits, or the one
+    `GORDER_TPU_WIRE` forces: 7-bit bond-vector differences (`bond_slots`
+    given: runs whose only consumer of positions is the order step, or one
+    of the channel classes) → 6-bit smoothed-base residuals → 8-bit
+    temporal deltas (s6 and d8 compared by bytes a frame) → 12-bit packed
+    absolutes → int16 → f32. The xtc wire (the compressed records, decoded
+    on the card) is weighed by the rate pick only, or forced, and only
+    where `xtc` says the run needs no decoder side channel and its frames
+    fit it (`Trajectory.xtc_layout`); the rate pick caps its rate with the
+    card decoder's on `device`. → ('b7', esc_cap) / ('s6', esc_cap) /
+    ('d8', corr_cap) / ('i12', 0) / ('i16', 0) / ('f32', 0) / ('xtc',
+    stride)."""
+    layout = traj.xtc_layout(frame_indices) if xtc else None
+    forced = os.environ.get("GORDER_TPU_WIRE", "")
+    if link_mbps is not None and not forced:
         picked = _pick_wire_by_rate(traj, frame_indices, space, n_threads,
                                     group_of, n_groups, batch_size,
-                                    bond_slots, link_mbps)
+                                    bond_slots, link_mbps,
+                                    layout[0] if layout else None, device)
         if picked is not None:
             return picked
+    if forced == "xtc":
+        if layout is not None:
+            return "xtc", layout[0]
+        log.warning("GORDER_TPU_WIRE=xtc requested but the run is not "
+                    "eligible (non-XTC input, plain frames or another atom "
+                    "count, or a decoder side channel); picking a host wire "
+                    "instead")
+        forced = ""
     n = len(frame_indices)
     windows = [frame_indices[:min(8, n)]]
     if n > 16:
         mid = n // 2
         windows.append(frame_indices[mid:mid + 8])
 
-    forced = os.environ.get("GORDER_TPU_WIRE", "")
     if bond_slots is not None and forced in ("", "b7"):
         b7_cap = _probe_b7(traj, frame_indices, space, bond_slots[0],
                            bond_slots[1], n_threads, batch_size)

@@ -126,6 +126,24 @@ def get_lib() -> ctypes.CDLL:
                 ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
                 ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,
             ]
+            lib.xtc_decode_i32.restype = ctypes.c_int32
+            lib.xtc_decode_i32.argtypes = [
+                ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),
+                ctypes.c_int64, ctypes.c_int32,
+                ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,
+                ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_float),
+                ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
+                ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,
+            ]
+            lib.xtc_read_raw.restype = ctypes.c_int32
+            lib.xtc_read_raw.argtypes = [
+                ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),
+                ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int32),
+                ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
+                ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32),
+                ctypes.c_int32,
+            ]
             lib.xtc_decode_d8.restype = ctypes.c_int32
             lib.xtc_decode_d8.argtypes = [
                 ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),
@@ -378,6 +396,75 @@ def xtc_decode_i12(path: str, offsets: np.ndarray, first_n: int,
             raise TrajectoryError(
                 f"could not decode xtc file '{path}': {_err(lib)}")
     return coords, inv_prec, boxes, times, steps
+
+
+def xtc_decode_i32(path: str, offsets: np.ndarray, first_n: int,
+                   slot_of: np.ndarray = None, n_out: int = None,
+                   n_threads: int = 1):
+    """Decode frames as the int32 XTC integers themselves → (coords_i32
+    (n, n_out, 3), inv_precision (n,), boxes, times, steps): what every
+    wire carries, whatever its range."""
+    lib = get_lib()
+    offsets = np.ascontiguousarray(offsets, np.int64)
+    slot_of, slot_p, n_out = _slot_args(first_n, slot_of, n_out)
+    n = len(offsets)
+    coords = np.zeros((n, n_out, 3), np.int32)
+    inv_prec = np.empty(n, np.float32)
+    boxes = np.empty((n, 3, 3), np.float32)
+    times = np.empty(n, np.float32)
+    steps = np.empty(n, np.int32)
+    if n:
+        rc = lib.xtc_decode_i32(
+            path.encode(), _i64p(offsets), n, first_n, slot_p, n_out,
+            _i32p(coords), _f32p(inv_prec), _f32p(boxes), _f32p(times),
+            _i32p(steps), n_threads)
+        if rc != 0:
+            raise TrajectoryError(
+                f"could not decode xtc file '{path}': {_err(lib)}")
+    return coords, inv_prec, boxes, times, steps
+
+
+def xtc_read_raw(path: str, offsets: np.ndarray, natoms: int,
+                 raw_out: np.ndarray, lengths_out: np.ndarray,
+                 inv_prec_out: np.ndarray, boxes_out: np.ndarray,
+                 times_out: np.ndarray, steps_out: np.ndarray,
+                 n_threads: int = 1) -> int:
+    """Copy each frame's whole record, header included, into a row of
+    `raw_out` ((≥ n, stride) uint8) and its length into `lengths_out`,
+    with its box, time, step and 1/precision (native/xdr.cpp
+    xtc_read_raw). Returns 0, or 1 when a frame does not fit the xtc wire
+    (a plain frame, another atom count than `natoms`, a record longer than
+    the stride, a range the decoder refuses); the buffers are the
+    caller's, sliced to this call's rows."""
+    lib = get_lib()
+    offsets = np.ascontiguousarray(offsets, np.int64)
+    n = len(offsets)
+    if n == 0:
+        return 0
+    if raw_out.dtype != np.uint8 or raw_out.ndim != 2 \
+            or not raw_out.flags.c_contiguous or raw_out.shape[0] < n:
+        raise ValueError("raw_out must be a C-contiguous (n, stride) uint8 "
+                         "array")
+    for name, a, dtype in (("lengths_out", lengths_out, np.int32),
+                           ("inv_prec_out", inv_prec_out, np.float32),
+                           ("times_out", times_out, np.float32),
+                           ("steps_out", steps_out, np.int32)):
+        if a.dtype != dtype or a.shape[0] < n or not a.flags.c_contiguous:
+            raise ValueError(f"{name} must be a contiguous {dtype.__name__} "
+                             f"array of at least {n} rows")
+    if boxes_out.dtype != np.float32 or boxes_out.shape[1:] != (3, 3) \
+            or boxes_out.shape[0] < n or not boxes_out.flags.c_contiguous:
+        raise ValueError("boxes_out must be a contiguous (n, 3, 3) float32 "
+                         "array")
+    rc = lib.xtc_read_raw(
+        path.encode(), _i64p(offsets), n, int(natoms), raw_out.shape[1],
+        raw_out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        _i32p(lengths_out), _f32p(inv_prec_out), _f32p(boxes_out),
+        _f32p(times_out), _i32p(steps_out), n_threads)
+    if rc == -1:
+        raise TrajectoryError(
+            f"could not read xtc file '{path}': {_err(lib)}")
+    return rc
 
 
 def xtc_decode_d8(path: str, offsets: np.ndarray, first_n: int,

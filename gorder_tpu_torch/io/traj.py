@@ -101,6 +101,8 @@ class _FileIndex:
     natoms: np.ndarray
     steps: np.ndarray
     times: np.ndarray
+    # xtc-only: each frame's record bytes (the gap to the next offset)
+    sizes: Optional[np.ndarray] = None
     # gro-only: preparsed coordinates/boxes
     gro_coords: Optional[np.ndarray] = None
     gro_boxes: Optional[np.ndarray] = None
@@ -110,8 +112,10 @@ def _index_file(path: str) -> _FileIndex:
     ext = os.path.splitext(path)[1].lower()
     if ext in _XTC_EXT:
         info = native.xtc_scan(path)
-        return _FileIndex(path, "xtc", info["offsets"], info["natoms"],
-                          info["steps"], info["times"])
+        offsets = info["offsets"]
+        sizes = np.diff(np.append(offsets, os.path.getsize(path)))
+        return _FileIndex(path, "xtc", offsets, info["natoms"],
+                          info["steps"], info["times"], sizes=sizes)
     if ext in _TRR_EXT:
         info = native.trr_scan(path)
         keep = info["has_coords"]
@@ -235,6 +239,7 @@ class Trajectory:
 
     def __init__(self, paths, expected_atoms: Optional[int] = None):
         self.paths = expand_trajectory_paths(paths)
+        self.expected_atoms = expected_atoms
         validate_trajectory_formats(self.paths)
         self.files = [_index_file(p) for p in self.paths]
 
@@ -382,6 +387,58 @@ class Trajectory:
             times[sl] = t
             steps[sl] = s
         return coords, inv_prec, boxes, times, steps
+
+    def _xtc_natoms(self, frame_indices: np.ndarray) -> int:
+        """The atom count every frame of the xtc wire has: the structure's,
+        or without one the first frame's."""
+        if self.expected_atoms is not None:
+            return int(self.expected_atoms)
+        return int(self.files[self.frame_file[frame_indices[0]]].natoms[0])
+
+    def xtc_layout(self, frame_indices: Sequence[int]):
+        """(stride, mean record bytes) of the xtc wire for the frames
+        (`read_frames_xtc`): rows of the largest record rounded up to 16
+        bytes, and the mean record, both from the scan's offsets; None
+        unless every frame is a compressed XTC frame (more than 9 atoms)
+        of the structure's atom count."""
+        frame_indices = np.asarray(frame_indices, np.int64)
+        if not self._all_xtc(frame_indices):
+            return None
+        natoms = self._xtc_natoms(frame_indices)
+        sizes = []
+        for _sl, f, local in self._segments(frame_indices):
+            if natoms <= 9 or (f.natoms[local] != natoms).any():
+                return None
+            sizes.append(f.sizes[local])
+        sizes = np.concatenate(sizes)
+        return (int(sizes.max()) + 15) // 16 * 16, float(sizes.mean())
+
+    def read_frames_xtc(self, frame_indices: Sequence[int],
+                        raw_out: np.ndarray, lengths_out: np.ndarray,
+                        n_threads: int = 1):
+        """Copy the frames' whole XTC records into the rows of `raw_out`
+        ((≥ n, stride) uint8, stride at least `xtc_layout`'s) and
+        their lengths into `lengths_out` (native/xdr.cpp xtc_read_raw): the
+        xtc wire, which the card decodes (`ops/xtc.py`). Returns
+        (inv_precision, boxes, times, steps), or None when a frame does not
+        fit the wire (non-XTC input, a plain frame, another atom count, a
+        longer record, a range the decoder refuses)."""
+        frame_indices = np.asarray(frame_indices, np.int64)
+        if not self._all_xtc(frame_indices):
+            return None
+        n = len(frame_indices)
+        inv_prec = np.empty(n, np.float32)
+        boxes = np.empty((n, 3, 3), np.float32)
+        times = np.empty(n, np.float32)
+        steps = np.empty(n, np.int32)
+        natoms = self._xtc_natoms(frame_indices)
+        for sl, f, local in self._segments(frame_indices):
+            if native.xtc_read_raw(f.path, f.offsets[local], natoms,
+                                   raw_out[sl], lengths_out[sl],
+                                   inv_prec[sl], boxes[sl], times[sl],
+                                   steps[sl], n_threads=n_threads) != 0:
+                return None
+        return inv_prec, boxes, times, steps.astype(np.int64)
 
     def read_frames_packed12(self, frame_indices: Sequence[int],
                              subset, n_threads: int = 1,

@@ -1406,6 +1406,93 @@ int32_t xtc_decode_i12(const char *path, const int64_t *frame_offsets,
       });
 }
 
+// Decode frames as the int32 XTC integers themselves (out_coords:
+// n*n_out*3 i32), whatever their range: the integers every wire carries,
+// which the card's decoder (csrc/xtc.cu) is held to. Returns 0 on success,
+// -1 on error.
+int32_t xtc_decode_i32(const char *path, const int64_t *frame_offsets,
+                       int64_t n, int32_t first_n, const int32_t *slot_of,
+                       int32_t n_out, int32_t *out_coords,
+                       float *out_inv_precision, float *out_boxes,
+                       float *out_times, int32_t *out_steps,
+                       int32_t n_threads) {
+  return decode_frames_common(
+      path, frame_offsets, n, first_n, slot_of, out_inv_precision, out_boxes,
+      out_times, out_steps, n_threads, [&](int64_t f, const XtcHeader &) {
+        return I32Sink{out_coords + (size_t)f * n_out * 3, 0.0f};
+      });
+}
+
+// The xtc wire: each frame's whole record, header included, copied from
+// the file into row f of out_raw (rows of `stride` bytes; the rest of a row
+// is left as it was) with its length in out_lengths[f], and its box, time,
+// step and 1/precision as the decoders give them. The card decodes the
+// rows (csrc/xtc.cu); this pass only copies, so it runs at the host's
+// memory rate. Returns 0 ok; 1 when a frame does not fit the wire (the
+// caller ships the batch on the int16 wire, whose decoder then reads the
+// frame as it always has): a plain frame (natoms <= 9), a frame of another
+// atom count than `natoms`, a record longer than `stride`, an integer
+// range or smallidx the decoder refuses, or a large-atom group wider than
+// the 64 bits the host decoder reads; -1 on error.
+int32_t xtc_read_raw(const char *path, const int64_t *frame_offsets,
+                     int64_t n, int32_t natoms, int64_t stride,
+                     uint8_t *out_raw, int32_t *out_lengths,
+                     float *out_inv_precision, float *out_boxes,
+                     float *out_times, int32_t *out_steps,
+                     int32_t n_threads) {
+  MappedFile mf;
+  if (!mf.open(path)) return -1;
+  std::atomic<int32_t> status{0};
+  auto fits = [&](const XtcHeader &h) {
+    if (h.plain || h.natoms != natoms || (int64_t)h.frame_size > stride ||
+        h.smallidx < FIRSTIDX || h.smallidx > LASTIDX)
+      return false;
+    uint32_t sizes[3];
+    bool wide = false;
+    for (int k = 0; k < 3; k++) {
+      int64_t span = (int64_t)h.maxint[k] - (int64_t)h.minint[k] + 1;
+      if (span <= 0 || span > (int64_t)UINT32_MAX) return false;
+      sizes[k] = (uint32_t)span;
+      wide = wide || sizes[k] > 0xFFFFFF;
+    }
+    return wide || sizeofints(3, sizes) <= 64;
+  };
+  auto work = [&](int64_t lo, int64_t hi) {
+    for (int64_t f = lo; f < hi; f++) {
+      XtcHeader h;
+      if (!parse_xtc_header(mf.data, mf.size, (size_t)frame_offsets[f], &h)) {
+        status.store(-1);
+        return;
+      }
+      if (!fits(h)) {
+        int32_t expected = 0;
+        status.compare_exchange_strong(expected, 1);
+        return;
+      }
+      memcpy(out_raw + (size_t)f * (size_t)stride,
+             mf.data + (size_t)frame_offsets[f], h.frame_size);
+      out_lengths[f] = (int32_t)h.frame_size;
+      memcpy(out_boxes + f * 9, h.box, 9 * sizeof(float));
+      out_times[f] = h.time;
+      out_steps[f] = h.step;
+      out_inv_precision[f] = 1.0f / h.precision;
+    }
+  };
+  int nt = std::max(1, (int)std::min<int64_t>(n_threads, n));
+  if (nt == 1) {
+    work(0, n);
+  } else {
+    std::vector<std::thread> threads;
+    int64_t chunk = (n + nt - 1) / nt;
+    for (int t = 0; t < nt; t++) {
+      int64_t lo = t * chunk, hi = std::min<int64_t>(n, lo + chunk);
+      if (lo < hi) threads.emplace_back(work, lo, hi);
+    }
+    for (auto &th : threads) th.join();
+  }
+  return status.load();
+}
+
 // Temporal-delta wire format ("d8"): per batch, an int32 absolute base
 // frame plus int8 per-value deltas vs the previous frame, with sparse
 // (index, high-bits) corrections for the values whose delta does not fit

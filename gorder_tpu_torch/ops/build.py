@@ -95,6 +95,10 @@ _SIGNATURES = {
     "top3_subspace": [_vp] * 5 + [_int] * 4 + [_vp],
     "top2_span": [_vp] * 5 + [_int] * 2 + [_vp],
     "rayleigh_kmeans": [_vp] * 5 + [_int] * 4 + [_vp],
+    # xtc.cu: raw, lengths, slot_of, out, status, n_frames, stride,
+    # first_n, n_out, stream
+    "xtc_decode": [_vp] * 5 + [_int, ctypes.c_longlong] + [_int] * 2
+                  + [_vp],
 }
 
 

@@ -13,7 +13,8 @@ that does the work (a phase may nest in another; each keeps its own sum):
   (on the decode thread), `wait`, `transfer`, `classify`, `dispatch`,
   `drain`;
 - `engine/wire.py`, under `pick`: `pick.link`, `pick.host_rate` and one
-  phase a probe, `pick.b7`, `pick.s6`, `pick.d8`, `pick.i12`, `pick.i16`;
+  phase a probe, `pick.b7`, `pick.s6`, `pick.d8`, `pick.i12`, `pick.i16`,
+  and `pick.xtc` (the xtc wire's host read over the anchor frames);
 - `engine/fused.py`: `normals` (dynamic normals) and `classify` (the
   leaflet classifiers a batch's program calls).
 
@@ -22,7 +23,10 @@ loop copies to the devices; `probe_frames`, the frames the pick's
 probes decode (a retried probe counts again); and `slow_parse_lines`,
 the GRO atom lines and bonds-file lines that `io/gro.py` and
 `io/bnd.py` parsed one at a time because their whole-array pass refused
-the file (0 for a file the pass took).
+the file (0 for a file the pass took); and `device_decode_frames`, the
+frames of xtc-wire batches, which the device decoded from their records
+(`ops/xtc.py`) and the host only copied (under the xtc wire the `decode`
+phase times that copy).
 
 Timers are monotonic (`time.perf_counter`) and additive: entering the same
 phase several times accumulates. Decode time is recorded from the prefetch

@@ -28,6 +28,7 @@ pair formulation is bit for bit the JAX package's.
 """
 
 import os
+import sys
 
 import jax
 import numpy as np
@@ -155,6 +156,29 @@ def test_aa_ordermaps_match_jax(aa_files, tmp_path, plans, case):
         # min_samples 5 leaves tiles empty: NaN in both, as checked above
         assert np.isnan(_values(os.path.join(
             out["port"][1], "ordermap_average_full.dat"))).any()
+
+
+def test_aa_ordermaps_on_the_xtc_wire_match_jax(aa_files, tmp_path, plans,
+                                                monkeypatch):
+    """The static AA map with the port alone forced onto its xtc wire (the
+    records decoded by `ops/xtc.py`, on the CPU its plain version), which
+    `gorder_tpu` lacks: op by op the YAML and every map file equal
+    gorder_tpu's line for line, as on the host wires."""
+    real = run_analysis
+
+    def on_xtc(analysis, device):
+        with monkeypatch.context() as m:
+            m.setenv("GORDER_TPU_WIRE", "xtc")
+            return real(analysis, device)
+
+    monkeypatch.delenv("GORDER_TPU_WIRE", raising=False)
+    monkeypatch.setattr(sys.modules[__name__], "run_analysis", on_xtc)
+    out = _run_both(_aa(aa_files, MembraneNormal.static("z"),
+                        map=_map(tmp_path, bin_size=[0.25, 0.25])),
+                    tmp_path, op_by_op=True)
+    assert _kind(plans[-1]) == "xtc"
+    total, off = _check(out, 53 * 53)
+    print(f"aa xtc: {total} tile lines, {off} off against jitted")
 
 
 def test_cg_ordermaps_match_jax(tmp_path, plans):

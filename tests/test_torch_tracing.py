@@ -85,16 +85,23 @@ def test_a_run_records_set_up_pick_and_loop(flat, tmp_path):
 
 def test_the_card_path_of_the_pick(flat, tmp_path, monkeypatch):
     """With a link rate (the card's path), the pick anchors its host model
-    on 16 int16 frames, and a link that does not bind probes no wire."""
+    on 16 int16 frames and times the xtc wire's read twice over up to 64
+    (here the run's 40), and a link that does not bind probes no other
+    wire.
+    The xtc read's rate is then set below the int16 decode's, so that
+    int16 models faster."""
     monkeypatch.delenv("GORDER_TPU_WIRE", raising=False)
     monkeypatch.setattr(channels.wires, "measure_link_mbps",
                         lambda device: 1e9)
+    real = channels.wires.host_xtc_rate
+    monkeypatch.setattr(channels.wires, "host_xtc_rate",
+                        lambda *a: real(*a) and 1e-3)
     seen, snap = _run(flat, tmp_path / "o.yaml")
     assert {db.kind for db in seen} == {"i16"}
-    assert "pick.host_rate" in snap
+    assert "pick.host_rate" in snap and "pick.xtc" in snap
     assert not [k for k in snap if k.startswith("pick.")
-                and k not in ("pick.link", "pick.host_rate")]
-    assert snap["probe_frames"] == 16
+                and k not in ("pick.link", "pick.host_rate", "pick.xtc")]
+    assert snap["probe_frames"] == 16 + 2 * FRAMES
 
 
 def test_transfer_bytes_of_the_int16_wire(flat, tmp_path, monkeypatch):

@@ -15,6 +15,9 @@
 - `GORDER_TPU_WIRE` still wins over any rate.
 - End to end, with the measured rate replaced in both packages, the runs
   ride the same wire and write the same YAML.
+- The port alone forced onto its xtc wire, which `gorder_tpu` lacks,
+  writes `gorder_tpu`'s YAML; runs with a decoder side channel keep a
+  host wire.
 """
 
 import logging
@@ -33,7 +36,8 @@ from gorder_tpu_torch.io.traj import Trajectory
 
 from .test_torch_leaflets import _lines
 from .test_torch_wires import (  # noqa: F401
-    FORCED, _e2e_analysis, _space, coarse, dense, e2e, pick_inputs, wide)
+    FORCED, WIRE_OPTIONS, _e2e_analysis, _space, coarse, dense, e2e,
+    pick_inputs, wide)
 
 SLOW, FAST = 1e-3, 1e9        # MiB/s
 
@@ -150,12 +154,15 @@ def test_forced_wire_wins_over_the_rate(pick_inputs, monkeypatch, forced):
 def test_runs_ride_the_rate_pick_as_jax(e2e, tmp_path, monkeypatch, caplog,
                                         link, option):
     """The measured rate replaced in both packages: the same wire, and
-    the same YAML."""
+    the same YAML. The port's xtc wire, which `gorder_tpu` lacks, is held
+    out by setting its read's rate below the int16 decode's
+    (tests/test_torch_xtc.py has the runs that take it)."""
     files, want = e2e
     monkeypatch.delenv("GORDER_TPU_WIRE", raising=False)
     monkeypatch.setattr(gorder_tpu.analysis, "_measure_link_mbps",
                         lambda: link)
     monkeypatch.setattr(wire, "measure_link_mbps", lambda device: link)
+    monkeypatch.setattr(wire, "host_xtc_rate", lambda *a: 1e-3)
     a = _e2e_analysis(files, option, tmp_path / "jax.yaml")
     a.run().write()
     jax_wire = jax_batches._LAST_WIRE[0]
@@ -175,3 +182,25 @@ def test_runs_ride_the_rate_pick_as_jax(e2e, tmp_path, monkeypatch, caplog,
     base = jax_wire if jax_wire != "b7" else None
     assert kinds == ({base + option} if base else
                      {"b7g" if option == "g" else "b7"})
+
+
+@pytest.mark.parametrize("option", WIRE_OPTIONS)
+def test_forced_xtc_on_the_port_matches_jax(e2e, tmp_path, monkeypatch,
+                                            caplog, option):
+    """GORDER_TPU_WIRE=xtc on the port only: alone, every batch rides xtc
+    (the records decoded by `ops/xtc.py`) and the YAML is `gorder_tpu`'s
+    line for line; with global leaflets or a geometry (a decoder side
+    channel) the port warns, rides a host wire and writes it too."""
+    files, want = e2e
+    monkeypatch.setenv("GORDER_TPU_WIRE", "xtc")
+    port = _e2e_analysis(files, option, tmp_path / "port.yaml")
+    kinds = set()
+    with caplog.at_level(logging.WARNING, logger="gorder"):
+        run_analysis(port, "cpu", on_batch=lambda db: kinds.add(db.kind)) \
+            .write()
+    assert _lines(port.output_yaml) == want[option]
+    if option:
+        assert kinds and not any(k.startswith("xtc") for k in kinds)
+        assert "GORDER_TPU_WIRE=xtc requested" in caplog.text
+    else:
+        assert kinds == {"xtc"}

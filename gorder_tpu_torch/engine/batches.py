@@ -2,25 +2,23 @@
 `gorder_tpu/engine/batches.py:61-1203`, with leaflets, membrane normals,
 ordermaps and geometry).
 
-A decode thread fills a prefetch ring of host buffers (the native codec
-releases the GIL) while the main thread copies batch k to the device and
-launches its kernels. The decoder reuses its buffers, so the main thread
-copies each batch to the device synchronously (pageable `copy_`) before
-it releases the ring slot. Padding frames of the last batch are masked:
-their rows are zero, but a d8 batch's padding rows repeat its last frame
-(no delta, no correction), since its integers are a sum over the batch.
-A batch that no longer fits the b7, s6, d8 or xtc wire mid-run falls back
-to int16, a batch that no longer fits int16 (or i12) to f32, as in the JAX
-package (gorder_tpu/engine/batches.py:466-590). The s6 wire's per-value
-group index rides to the device once a run.
+A decode thread fills a prefetch ring of host buffers (`_decode_ring`;
+the native codec releases the GIL) while the main thread copies batch k
+to the device and launches its kernels (`_batch_loop`); the outputs are
+read back when the run drains (`_drain`). The decoder reuses its buffers,
+so the main thread copies each batch to the device synchronously
+(pageable `copy_`) before it releases the ring slot. What is particular
+to a wire is its entry's (`engine/wire.py WIRES`): its slots, its read
+with its padding rows (masked) and its fallback when a batch no longer
+fits it mid-run (b7, s6, d8 and xtc to int16, int16 and i12 to f32, as in
+the JAX package, gorder_tpu/engine/batches.py:466-590), and its constants
+on the device (s6's value groups, xtc's slot map), copied once a run.
 
-The xtc wire's decode thread only copies each frame's compressed record
-into a ring row; the card decodes the batch (`ops/xtc.py`), with the
-run's slot map, which rides to the device once a run. Its copies go on a
-copy stream of each device, which the step's stream waits for: a pageable
-copy waits for earlier work on its own stream, so batch k + 1's records
-cross while batch k is decoded. A frame the card could not decode is
-named when its batch drains, as the dynamic normals' guard is checked.
+The xtc wire's copies go on a copy stream of each device, which the
+step's stream waits for: a pageable copy waits for earlier work on its
+own stream, so batch k + 1's records cross while the card decodes batch
+k. A frame the card could not decode is named when its batch drains, as
+the dynamic normals' guard is checked.
 
 Leaflet runs read the decoder's side channels beside the wire
 (`engine/channels.py`): heads and the membrane COG (b7g), the aux atoms
@@ -102,7 +100,7 @@ import torch
 from ..core.order import OrderAccumulator
 from ..core.ordermap import init_map_state
 from ..errors import AnalysisError
-from ..io.native import b7_stride, geo_stride, i12_stride, s6_stride
+from ..io.native import geo_stride
 from ..io.traj import Trajectory, check_box_batch
 from ..ops.xtc import STATUS
 from ..parallel.mesh import gather, replicate, shard_batch, to_device
@@ -111,7 +109,7 @@ from ..utils.timers import timers
 from .channels import plan_wire
 from .fused import BY_KIND, Consumers, decode_positions
 from .normals_runtime import check_normal_guard
-from .wire import d8_last, wire_groups
+from .wire import WIRES, wire_groups
 
 log = logging.getLogger("gorder")
 
@@ -159,31 +157,31 @@ class DeviceBatch:
     consumers: Optional[Consumers] = None
 
 
-def _shard_wire(kind, arrays, mesh):
-    """The wire arrays of one host batch on the mesh → one tuple of tensors
-    a slice: arrays with a frame axis split by frames; the b7 and s6
-    wires' per-batch base (index 3) copied whole to each device; the d8
-    wire's first-frame integers (index 3) to the first, and each later
-    slice's the last frame of the slice before it. Counts the bytes copied
-    as `transfer_bytes`."""
-    const = 3 if kind[:2] in ("b7", "s6", "d8") else None
-    d8 = kind.startswith("d8")
+def _shard_wire(wire, arrays, mesh):
+    """The arrays of one host batch of `wire` (`engine/wire.py WIRES`) on
+    the mesh → one tuple of tensors a slice: arrays with a frame axis
+    split by frames; the wire's per-batch base copied whole to each
+    device, or, where the wire chains it (d8's first-frame integers), to
+    the first, and each later slice's the last frame of the slice before
+    it. Counts the bytes copied as `transfer_bytes`."""
+    base, chain = wire.base, wire.chain
     parts = []
     for j, a in enumerate(arrays):
-        if j != const:
+        if j != base:
             parts.append(shard_batch(mesh, a))
-        elif d8:
+        elif chain:
             parts.append([to_device(a, mesh.devices[0])]
                          + [None] * (mesh.size - 1))
         else:
             parts.append(replicate(mesh, a))
     timers.count("transfer_bytes", sum(
-        a.nbytes * (mesh.size if j == const and not d8 else 1)
+        a.nbytes * (mesh.size if j == base and not chain else 1)
         for j, a in enumerate(arrays)))
     slices = [list(p) for p in zip(*parts)]
-    if d8:
+    if chain:
         for i in range(1, mesh.size):
-            slices[i][3] = d8_last(*slices[i - 1][:4]).to(mesh.devices[i])
+            slices[i][base] = chain(*slices[i - 1][:base + 1]).to(
+                mesh.devices[i])
     return [tuple(w) for w in slices]
 
 
@@ -242,6 +240,104 @@ def _bootstrap_shard(leaflets, traj, frame0, space, n_threads: int, device):
     leaflets._logged_stats = True
 
 
+@contextlib.contextmanager
+def _decode_ring(traj, frames, plan, batch_size: int, leaflets,
+                 shard_start: int):
+    """The decode ring: `prefetch` host slots of the run's wire, which a
+    decode thread fills batch by batch while the main thread copies the
+    batch before to the devices → (each batch's future, in order, of
+    (wire, kind, arrays, inv_precision, boxes, a b7m batch's sparse read,
+    valid frames), and `release`, which lets the thread refill the slot
+    of the batch the devices now hold)."""
+    src, planned, side = plan.source, WIRES[plan.wire], plan.side
+    n_out = src.space.n_out
+    n_batches = -(-len(frames) // batch_size)
+    prefetch = prefetch_depth(n_batches)
+
+    def each(make):
+        return [make() for _ in range(prefetch)]
+
+    slots = each(lambda: planned.slot(src, batch_size, plan.cap))
+    # the decoder's membrane COG (g) or geometry bitplane (G) of a
+    # coordinate-wire batch in that channel class
+    sides = (each(lambda: np.zeros(batch_size, np.float32)) if side == "g"
+             else each(lambda: np.zeros((batch_size, geo_stride(
+                 src.n_bonds)), np.uint8)) if side == "G" else None)
+    # sparse assignment-frame coordinates of the class plane: (i16, f32)
+    planes = (each(lambda: (np.zeros((plan.assign_cap, n_out, 3), np.int16),
+                            np.zeros((plan.assign_cap, n_out, 3),
+                                     np.float32)))
+              if plan.plane_sparse else None)
+    # ring-slot gate: the decoder may refill slot b % prefetch only after
+    # the main thread has copied batch b - prefetch to the device
+    free = threading.Semaphore(prefetch)
+
+    def side_read(chunk, k):
+        """A coordinate-wire batch's side channel, by a standalone pass
+        (b7 reads its own inline): the membrane COG the b7g side channel
+        ships (native/xdr.cpp xtc_cog_axis), or the geometry bitplane;
+        padding rows zeroed."""
+        buf = sides[k]
+        buf[len(chunk):] = 0
+        if side == "g":
+            membrane, axis = plan.chan_coords[1]
+            traj.read_cog_axis(chunk, src.space, membrane, axis, buf,
+                               n_threads=src.n_threads)
+        else:
+            *args, handle_pbc = src.geo
+            traj.read_geo_mask(chunk, src.space, *src.bond_slots, *args, buf,
+                               handle_pbc=handle_pbc, n_threads=src.n_threads)
+        return buf
+
+    def plane_read(chunk, b):
+        """Decode only this batch's assignment frames (1/N of frames for
+        `!every N`, one frame for `!once`) → (batch rows, i16 coords and
+        scale, or f32 coords and None), or None when no frame assigns."""
+        qbuf, fbuf = planes[b % prefetch]
+        a0 = shard_start + b * batch_size
+        ana = np.arange(a0, a0 + len(chunk), dtype=np.int64)
+        rows = np.nonzero(leaflets.assignment_source(ana) == ana)[0]
+        if not len(rows):
+            return None
+        res = traj.read_frames_quantized(chunk[rows], src.space,
+                                         n_threads=src.n_threads, out=qbuf)
+        if res is not None:
+            return rows, qbuf[:len(rows)], res[1].copy()
+        traj.read_frames(chunk[rows], src.space, n_threads=src.n_threads,
+                         out=fbuf)
+        return rows, fbuf[:len(rows)], None
+
+    def decode(b):
+        free.acquire()
+        with timers.phase("decode"):
+            chunk = frames[b * batch_size:(b + 1) * batch_size]
+            wire, slot = planned, slots[b % prefetch]
+            while (got := wire.read(src, chunk, slot)) is None:
+                if wire.changed:
+                    log.warning("wire fallback: batch %d exceeds the %s "
+                                "format (%s changed mid-run); shipping "
+                                "int16", b, wire.name, wire.changed)
+                wire = WIRES[wire.fallback]
+                slot = wire.slot(src, batch_size, 0)
+            arrays, inv_prec, boxes = got
+            if wire.sided and sides is not None:
+                arrays += (side_read(chunk, b % prefetch),)
+            own = wire is planned
+            return (wire, plan.kind if own else wire.name + side, arrays,
+                    inv_prec, boxes, plane_read(chunk, b) if own and planes
+                    else None, len(chunk))
+
+    executor = cf.ThreadPoolExecutor(max_workers=1)
+    try:
+        yield (collections.deque(executor.submit(decode, b)
+                                 for b in range(n_batches)), free.release)
+    finally:
+        # unblock a decode waiting on a ring slot before joining the worker
+        for _ in range(prefetch + 1):
+            free.release()
+        executor.shutdown(wait=True, cancel_futures=True)
+
+
 def run_batches(analysis, system, steps, normal_vec, n_types: int, space,
                 bond_slots, leaflets=None, n_molecules: int = 0, *, mesh,
                 batch_size: int, normals=None, map_spec=None,
@@ -270,7 +366,6 @@ def run_batches(analysis, system, steps, normal_vec, n_types: int, space,
     runtime's carried state, the bootstrap of a shard) runs on the first
     device."""
     device = mesh.devices[0]
-    n_dev = mesh.size
     accum = OrderAccumulator(
         n_types, ("total", "upper", "lower") if leaflets else ("total",),
         keep_timewise=analysis.estimate_error is not None)
@@ -316,18 +411,16 @@ def run_batches(analysis, system, steps, normal_vec, n_types: int, space,
                              n_threads, device)
 
     with timers.phase("pick"):
-        group_of, n_groups, vgidx = wire_groups(system, space)
+        group_of, n_groups, _ = wire_groups(system, space)
         plan = plan_wire(traj=traj, frame_indices=frame_indices,
                          space=space, bond_slots=bond_slots,
                          leaflets=leaflets, normals=normals,
-                         map_spec=map_spec, geometry=geom_mode is not None,
-                         n_molecules=n_molecules,
+                         map_spec=map_spec,
+                         geometry=(None if geom_mode is None else
+                                   (geom_spec, geom_mode, geom_payload)),
                          handle_pbc=analysis.handle_pbc, n_threads=n_threads,
                          batch_size=batch_size, group_of=group_of,
                          n_groups=n_groups, device=device)
-    # host classes (manual tables, frequency-gated methods) come from
-    # classes_for_batch; every-frame methods classify with the step
-    host_classes = leaflets is not None and leaflets.fused_classify() is None
     consumers = Consumers(
         coords=leaflets.fused_classify() if leaflets is not None else None,
         channel_coords=plan.chan_coords[0] if plan.chan_coords else None,
@@ -338,244 +431,51 @@ def run_batches(analysis, system, steps, normal_vec, n_types: int, space,
     consumers = [dataclasses.replace(consumers, map_state=(
         init_map_state(len(accum.classes), n_types, map_spec, d)
         if map_spec is not None else None)) for d in mesh.devices]
+
+    with _decode_ring(traj, frame_indices, plan, batch_size, leaflets,
+                      shard_start) as ring:
+        outputs = _batch_loop(
+            *ring, plan=plan, analysis=analysis, mesh=mesh, steps=steps,
+            consumers=consumers, leaflets=leaflets, normals=normals,
+            normal_vec=normal_vec, geom_mode=geom_mode,
+            geom_payload=geom_payload, on_batch=on_batch,
+            batch_size=batch_size, shard_start=shard_start,
+            n_frames=len(frame_indices), n_molecules=n_molecules)
+    with timers.phase("drain"):
+        map_host = _drain(traj, frame_indices, outputs, accum, consumers,
+                          leaflets, normals, batch_size)
+    log.info("analyzed %d frames", accum.n_frames)
+    return accum, traj, full_frame_indices, map_host, shard_start
+
+
+def _batch_loop(futures, release, *, plan, analysis, mesh, steps,
+                consumers, leaflets, normals, normal_vec, geom_mode,
+                geom_payload, on_batch, batch_size: int, shard_start: int,
+                n_frames: int, n_molecules: int):
+    """The batch loop: each batch of the decode ring (`futures`) copied to
+    the devices, its slot `release`d, its host classes and manual normals
+    made, its step dispatched on every device and `on_batch` called → for
+    the drain, each batch's (valid frames, its slices' `Used`, the insides
+    of an export of normals restricted to a geometry, the xtc wire's
+    statuses, its index)."""
+    wire, src = WIRES[plan.wire], plan.source
+    n_dev, device, n_out = mesh.size, mesh.devices[0], src.space.n_out
+    # host classes (manual tables, frequency-gated methods) come from
+    # classes_for_batch; every-frame methods classify with the step
+    host_classes = leaflets is not None and leaflets.fused_classify() is None
     manual_normals = normals is not None and normals.fused() is None
-    chan_membrane, chan_axis = (plan.chan_coords[1] if plan.chan_coords
-                                else (None, None))
     collect = leaflets is not None and leaflets.collect_frames is not None
     collect_normals = normals is not None and normals.collected is not None
-
-    n_out = space.n_out
-    n_batches = (len(frame_indices) + batch_size - 1) // batch_size
-    prefetch = prefetch_depth(n_batches)
-    if plan.wire == "b7":
-        def side():
-            """One ring slot's side-channel buffers."""
-            if plan.ch_heads is not None:
-                return (np.zeros((batch_size, len(plan.ch_heads), 3),
-                                 np.int32),
-                        np.zeros(batch_size, np.float32))
-            if plan.aux_wire_slots is not None:
-                return (np.zeros((batch_size, len(plan.aux_wire_slots), 3),
-                                 np.int32),)
-            return ()
-
-        buffers = [(np.zeros((batch_size, b7_stride(plan.n_bonds)), np.uint8),
-                    np.zeros((batch_size, plan.esc_cap), np.uint16),
-                    np.zeros((batch_size, plan.esc_cap), np.int16)) + side()
-                   for _ in range(prefetch)]
-    elif plan.wire == "s6":
-        buffers = [(np.zeros((batch_size, s6_stride(n_out)), np.uint8),
-                    np.zeros((batch_size, plan.esc_cap), np.uint16),
-                    np.zeros((batch_size, plan.esc_cap), np.int16),
-                    np.zeros((batch_size, (n_groups + 1) * 3), np.int16))
-                   for _ in range(prefetch)]
-    elif plan.wire == "d8":
-        buffers = [(np.zeros((batch_size, n_out, 3), np.int8),
-                    np.zeros((batch_size, plan.corr_cap), np.int32),
-                    np.zeros((batch_size, plan.corr_cap), np.int16))
-                   for _ in range(prefetch)]
-    elif plan.wire == "i12":
-        buffers = [np.zeros((batch_size, i12_stride(n_out)), np.uint8)
-                   for _ in range(prefetch)]
-    elif plan.wire == "xtc":
-        buffers = [(np.zeros((batch_size, plan.xtc_stride), np.uint8),
-                    np.zeros(batch_size, np.int32)) for _ in range(prefetch)]
-    else:
-        dtype = np.int16 if plan.wire == "i16" else np.float32
-        buffers = [np.zeros((batch_size, n_out, 3), dtype)
-                   for _ in range(prefetch)]
-    vgidx_devs = replicate(mesh, vgidx) if plan.wire == "s6" else None
-    # the xtc wire: each device's slot map of the first atoms, and a copy
-    # stream of each device where they are cards
-    xtc_slots = copy_streams = None
-    if plan.wire == "xtc":
-        xtc_slots = replicate(mesh, space.slot_of if space.slot_of is not None
-                              else np.arange(space.first_n, dtype=np.int32))
-        if device.type == "cuda":
-            copy_streams = [torch.cuda.Stream(d) for d in mesh.devices]
-    # decoder COG of coordinate-wire batches in the COG channel class
-    cog_bufs = ([np.zeros(batch_size, np.float32) for _ in range(prefetch)]
-                if plan.chan_coords is not None else None)
-    # the decoder's geometry bitplanes of the geometry channel class, and
-    # its reference: 0 a point, 1 the box center, 2 a selection's center
-    geo_bufs = geo_args = None
-    if plan.geo_channel:
-        geo_bufs = [np.zeros((batch_size, geo_stride(plan.n_bonds)),
-                             np.uint8) for _ in range(prefetch)]
-        geo_args = (geom_spec,
-                    {"point": 0, "center": 1, "selection": 2}[geom_mode],
-                    geom_payload if geom_mode == "point" else None,
-                    geom_payload if geom_mode == "selection" else None)
-    # sparse assignment-frame coordinates of the class plane: (i16, f32)
-    plane_bufs = ([(np.zeros((plan.assign_cap, n_out, 3), np.int16),
-                    np.zeros((plan.assign_cap, n_out, 3), np.float32))
-                   for _ in range(prefetch)] if plan.plane_sparse else None)
-
-    # ring-slot gate: the decoder may refill slot b % prefetch only after
-    # the main thread has copied batch b - prefetch to the device
-    slots = threading.Semaphore(prefetch)
-
-    def chan_cog(chunk, b):
-        """The decoder's per-frame membrane COG for a coordinate-wire
-        batch: the value the b7g side channel ships (native/xdr.cpp
-        xtc_cog_axis); padding rows zeroed."""
-        cb = cog_bufs[b % prefetch]
-        cb[len(chunk):] = 0
-        traj.read_cog_axis(chunk, space, chan_membrane, chan_axis, cb,
-                           n_threads=n_threads)
-        return cb
-
-    def with_cog(kind, arrays, chunk, b):
-        if plan.chan_coords is None:
-            return kind, arrays
-        return kind + "g", arrays + (chan_cog(chunk, b),)
-
-    def decode_f32(chunk, buf, b):
-        _, boxes, _, _ = traj.read_frames(chunk, space, n_threads=n_threads,
-                                          out=buf)
-        buf[len(chunk):] = 0
-        return with_cog("f32", (buf,), chunk, b), None, boxes, None
-
-    def decode_i16(chunk, buf, b):
-        res = traj.read_frames_quantized(chunk, space, n_threads=n_threads,
-                                         out=buf)
-        if res is None:
-            return decode_f32(chunk, np.zeros((batch_size, n_out, 3),
-                                              np.float32), b)
-        _, inv_prec, boxes, _, _ = res
-        buf[len(chunk):] = 0
-        return with_cog("i16", (buf,), chunk, b), inv_prec, boxes, None
-
-    def fallback_i16(chunk, b, wire, what):
-        log.warning("wire fallback: batch %d exceeds the %s format (%s "
-                    "changed mid-run); shipping int16", b, wire, what)
-        return decode_i16(chunk, np.zeros((batch_size, n_out, 3), np.int16),
-                          b)
-
-    def decode_s6(chunk, buf, b):
-        pk, eg, ev, gm = buf
-        # padding rows decode to the (masked) base frame
-        for a in buf:
-            a[len(chunk):] = 0
-        res, _ = traj.read_frames_s6(chunk, space, group_of, n_groups, pk,
-                                     eg, ev, gm, n_threads=n_threads)
-        if res is None:
-            return fallback_i16(chunk, b, "s6",
-                                "escape demand or value range")
-        base, inv_prec, boxes, _, _ = res
-        return (with_cog("s6", (pk, eg.view(np.int16), ev, base, gm),
-                         chunk, b), inv_prec, boxes, None)
-
-    def decode_d8(chunk, buf, b):
-        lo, ci, ch = buf
-        # padding rows add nothing: they repeat the batch's last frame
-        lo[len(chunk):] = 0
-        ci[len(chunk):] = n_out * 3
-        ch[len(chunk):] = 0
-        res, _ = traj.read_frames_delta8(chunk, space, lo, ci, ch,
-                                         n_threads=n_threads)
-        if res is None:
-            return fallback_i16(chunk, b, "d8", "correction demand or "
-                                "compression precision")
-        abs0, inv_prec, boxes, _, _ = res
-        return (with_cog("d8", (lo, ci, ch, abs0), chunk, b), inv_prec,
-                boxes, None)
-
-    def decode_i12(chunk, buf, b):
-        res = traj.read_frames_packed12(chunk, space, n_threads=n_threads,
-                                        out=buf)
-        if res is None:
-            return decode_f32(chunk, np.zeros((batch_size, n_out, 3),
-                                              np.float32), b)
-        buf[len(chunk):] = 0
-        return with_cog("i12", (buf,), chunk, b), res[1], res[2], None
-
-    def decode_xtc(chunk, buf, b):
-        raw, lengths = buf
-        lengths[len(chunk):] = 0          # padding rows decode to zeros
-        res = traj.read_frames_xtc(chunk, raw, lengths, n_threads=n_threads)
-        if res is None:
-            return fallback_i16(chunk, b, "xtc", "the records' layout")
-        inv_prec, boxes, _, _ = res
-        return ("xtc", (raw, lengths)), inv_prec, boxes, None
-
-    def plane_sparse_read(chunk, b):
-        """Decode only this batch's assignment frames (1/N of frames for
-        `!every N`, one frame for `!once`) → (batch rows, i16 coords and
-        scale, or f32 coords and None), or None when no frame assigns."""
-        qbuf, fbuf = plane_bufs[b % prefetch]
-        a0 = shard_start + b * batch_size
-        ana = np.arange(a0, a0 + len(chunk), dtype=np.int64)
-        rows = np.nonzero(leaflets.assignment_source(ana) == ana)[0]
-        if not len(rows):
-            return None
-        res = traj.read_frames_quantized(chunk[rows], space,
-                                         n_threads=n_threads, out=qbuf)
-        if res is not None:
-            return rows, qbuf[:len(rows)], res[1].copy()
-        traj.read_frames(chunk[rows], space, n_threads=n_threads, out=fbuf)
-        return rows, fbuf[:len(rows)], None
-
-    def geo_plane(chunk, b):
-        """The decoder's geometry bitplane of a coordinate-wire batch in
-        the geometry channel class (the b7 decode computes it inline);
-        padding rows zero."""
-        gb = geo_bufs[b % prefetch]
-        gb[len(chunk):] = 0
-        traj.read_geo_mask(chunk, space, bond_slots[0], bond_slots[1],
-                           *geo_args, gb, handle_pbc=analysis.handle_pbc,
-                           n_threads=n_threads)
-        return gb
-
-    def decode_b7(b, chunk, buf):
-        pk, eg, ev = buf[:3]
-        side = buf[3:]
-        geo_buf = geo_bufs[b % prefetch] if plan.geo_channel else None
-        # padding rows decode to the (masked) base differences
-        for a in buf + ((geo_buf,) if geo_buf is not None else ()):
-            a[len(chunk):] = 0
-        res, _ = traj.read_frames_b7(
-            chunk, space, bond_slots[0], bond_slots[1], pk, eg, ev,
-            n_threads=n_threads,
-            aux_slots=(plan.ch_heads if plan.ch_heads is not None
-                       else plan.aux_wire_slots),
-            aux_out=side[0] if side else None,
-            cog_slots=plan.ch_membrane, cog_axis=plan.ch_axis,
-            cog_out=side[1] if plan.ch_heads is not None else None,
-            geo=(geo_args + (analysis.handle_pbc,)
-                 if geo_buf is not None else None),
-            geo_out=geo_buf)
-        if res is not None:
-            base, inv_prec, boxes, _, _ = res
-            wire = (pk, eg.view(np.int16), ev, base) + side
-            kind = ("b7g" if plan.ch_heads is not None
-                    else "b7x" if plan.aux_wire_slots is not None
-                    else "b7m" if plan.plane_active else "b7")
-            if geo_buf is not None:
-                kind, wire = "b7geo", wire + (geo_buf,)
-            extra = (plane_sparse_read(chunk, b) if plan.plane_sparse
-                     else None)
-            return (kind, wire), inv_prec, boxes, extra
-        return fallback_i16(chunk, b, "b7", "escape demand or value range")
-
-    def decode_batch(b):
-        slots.acquire()
-        with timers.phase("decode"):
-            chunk = frame_indices[b * batch_size:(b + 1) * batch_size]
-            buf = buffers[b % prefetch]
-            if plan.wire == "b7":
-                out = decode_b7(b, chunk, buf)
-            else:
-                out = {"s6": decode_s6, "d8": decode_d8, "i12": decode_i12,
-                       "i16": decode_i16, "f32": decode_f32,
-                       "xtc": decode_xtc}[plan.wire](chunk, buf, b)
-            (kind, arrays), rest = out[0], out[1:]
-            if plan.geo_channel and kind != "b7geo":
-                # a coordinate-wire (or fallback) batch of the geometry
-                # channel class: the same bitplane, by the standalone pass
-                out = ((kind + "G", arrays + (geo_plane(chunk, b),)),) + rest
-            return out + (len(chunk),)
-
+    molecule_inside = (normals.molecule_inside if collect_normals
+                       else None)
+    # the wire's run constants on each device (s6's value groups, the xtc
+    # wire's slot map), and a copy stream of each device where its copies
+    # go on one and they are cards
+    const = wire.constants(src)
+    consts = (replicate(mesh, const) if const is not None
+              else [None] * n_dev)
+    copy_streams = ([torch.cuda.Stream(d) for d in mesh.devices]
+                    if wire.copy_stream and device.type == "cuda" else None)
     normal_devs = replicate(mesh, np.asarray(normal_vec, np.float32))
     # the geometry's reference on each device, for the steps that compute
     # the inside mask themselves (not the geometry channel class): a
@@ -588,19 +488,13 @@ def run_batches(analysis, system, steps, normal_vec, n_types: int, space,
     elif device_geom == "point":
         geom_consts = replicate(mesh, np.tile(np.asarray(
             geom_payload, np.float32), (batch_size // n_dev, 1)))
-    molecule_inside = (normals.molecule_inside if collect_normals
-                       else None)
-    executor = cf.ThreadPoolExecutor(max_workers=1)
-    progress = ProgressPrinter(len(frame_indices)) \
-        if not analysis.silent else None
+    progress = ProgressPrinter(n_frames) if not analysis.silent else None
     outputs = []
     try:
-        futures = collections.deque(
-            executor.submit(decode_batch, b) for b in range(n_batches))
-        for b in range(n_batches):
+        for b in range(len(futures)):
             with timers.phase("wait"):
-                (kind, arrays), inv_prec, boxes, extra, n_valid = \
-                    futures.popleft().result()
+                (batch_wire, kind, arrays, inv_prec, boxes, extra,
+                 n_valid) = futures.popleft().result()
             if analysis.handle_pbc:
                 check_box_batch(boxes[:n_valid])
             box = np.ones((batch_size, 3), np.float32)
@@ -612,10 +506,10 @@ def run_batches(analysis, system, steps, normal_vec, n_types: int, space,
                 scale = np.ones(batch_size, np.float32)
                 scale[:n_valid] = inv_prec
                 scale[n_valid:] = inv_prec[n_valid - 1]
-            streams = copy_streams if kind == "xtc" else None
+            streams = copy_streams if batch_wire.copy_stream else None
             with timers.phase("transfer"):
                 with _on_streams(streams):
-                    wires = _shard_wire(kind, arrays, mesh)
+                    wires = _shard_wire(batch_wire, arrays, mesh)
                     boxes_dev, masks_dev = shard_batch(mesh, box, mask)
                     scales_dev = (shard_batch(mesh, scale)
                                   if scale is not None else [None] * n_dev)
@@ -626,16 +520,13 @@ def run_batches(analysis, system, steps, normal_vec, n_types: int, space,
                             if x is not None:
                                 x.record_stream(
                                     torch.cuda.current_stream(x.device))
-                if kind.startswith("s6"):
-                    wires = [w[:5] + (vg,) + w[5:]
-                             for w, vg in zip(wires, vgidx_devs)]
                 statuses = None
-                if kind == "xtc":
+                if batch_wire.status:
                     statuses = [torch.empty(batch_size // n_dev,
                                             dtype=torch.int32, device=d)
                                 for d in mesh.devices]
-                    wires = [w + (sl, st) for w, sl, st
-                             in zip(wires, xtc_slots, statuses)]
+                wires = [batch_wire.attach(w, c, statuses and statuses[i])
+                         for i, (w, c) in enumerate(zip(wires, consts))]
                 shipped = [box, mask, scale]
                 sparse = None
                 if extra is not None:
@@ -647,7 +538,7 @@ def run_batches(analysis, system, steps, normal_vec, n_types: int, space,
                 timers.count("transfer_bytes", sum(
                     a.nbytes for a in shipped if a is not None))
             # the devices hold copies now: the decoder may reuse the slot
-            slots.release()
+            release()
             classes = [None] * n_dev
             if host_classes:
                 with timers.phase("classify"):
@@ -695,50 +586,49 @@ def run_batches(analysis, system, steps, normal_vec, n_types: int, space,
                 normal=used.normal if collect_normals else None)
                 for used in useds], insides or None, statuses, b))
             if progress is not None:
-                progress.update(min((b + 1) * batch_size,
-                                    len(frame_indices)))
+                progress.update(min((b + 1) * batch_size, n_frames))
     finally:
-        # unblock a decode waiting on a ring slot before joining the worker
-        for _ in range(prefetch + 1):
-            slots.release()
-        executor.shutdown(wait=True, cancel_futures=True)
         if progress is not None:
             progress.finish()
+    return outputs
 
-    with timers.phase("drain"):
-        for n_valid, useds, insides, statuses, b in outputs:
-            if statuses is not None:
-                _check_decoded(traj, frame_indices[b * batch_size:
-                                                   b * batch_size + n_valid],
-                               statuses)
-            for used in useds:
-                if used.guard is not None:
-                    check_normal_guard(used.guard)
-            # the slices' outputs, classes and normals in frame order
-            out = np.concatenate([u.out.cpu().numpy() for u in useds])
-            accum.add_step(out[:n_valid], n_valid)
-            # the classes and normals this batch's step consumed, in frame
-            # order; restricted to a geometry, NaN for a molecule with no
-            # bond inside (gorder_tpu/engine/normals_runtime.py:50-57)
-            if useds[0].classes is not None:
-                classes = gather([u.classes for u in useds])
-                leaflets.collect_frames.extend(
-                    classes[:n_valid].cpu().numpy().astype(np.int32))
-            if useds[0].normal is not None:
-                values = gather([u.normal for u in useds])[:n_valid]
-                values = values.cpu().numpy()
-                if insides is not None:
-                    inside = gather(insides)[:n_valid].cpu().numpy()
-                    values = values.copy()
-                    values[~inside] = np.nan
-                normals.collected.append(values)
-        map_host = None
-        if consumers[0].map_state is not None:
-            # exact in int64, in any order
-            total = sum(c.map_state.cpu().numpy() for c in consumers)
-            map_host = dict(zip(accum.classes, total))
-    log.info("analyzed %d frames", accum.n_frames)
-    return accum, traj, full_frame_indices, map_host, shard_start
+
+def _drain(traj, frames, outputs, accum, consumers, leaflets, normals,
+           batch_size: int):
+    """The drain: each batch's xtc statuses and dynamic normals' guard
+    checked, its slices' outputs added to `accum` in frame order, the
+    classes and normals its step used collected → an ordermap run's
+    {class: map}, its devices' map states added up, else None."""
+    for n_valid, useds, insides, statuses, b in outputs:
+        if statuses is not None:
+            _check_decoded(traj, frames[b * batch_size:
+                                        b * batch_size + n_valid], statuses)
+        for used in useds:
+            if used.guard is not None:
+                check_normal_guard(used.guard)
+        # the slices' outputs, classes and normals in frame order
+        out = np.concatenate([u.out.cpu().numpy() for u in useds])
+        accum.add_step(out[:n_valid], n_valid)
+        # the classes and normals this batch's step consumed, in frame
+        # order; restricted to a geometry, NaN for a molecule with no
+        # bond inside (gorder_tpu/engine/normals_runtime.py:50-57)
+        if useds[0].classes is not None:
+            classes = gather([u.classes for u in useds])
+            leaflets.collect_frames.extend(
+                classes[:n_valid].cpu().numpy().astype(np.int32))
+        if useds[0].normal is not None:
+            values = gather([u.normal for u in useds])[:n_valid]
+            values = values.cpu().numpy()
+            if insides is not None:
+                inside = gather(insides)[:n_valid].cpu().numpy()
+                values = values.copy()
+                values[~inside] = np.nan
+            normals.collected.append(values)
+    if consumers[0].map_state is None:
+        return None
+    # exact in int64, in any order
+    total = sum(c.map_state.cpu().numpy() for c in consumers)
+    return dict(zip(accum.classes, total))
 
 
 def _host_classes(leaflets, kind, wires, scales, boxes, sparse, start: int,

@@ -22,9 +22,9 @@ Kinds: `b7` (no leaflets), `b7g` (heads + decoder COG), `b7x` (aux atoms),
 the coordinate wires `s6`, `d8`, `i12`, `i16` and `f32`, each also with a
 trailing decoder COG (`s6g` ... `f32g`) or a trailing geometry bitplane
 (`s6G` ... `f32G`), and `xtc` (the compressed records, with no side
-channel). A coordinate wire is reconstructed on the device
-(`engine/wire.py`: s6 and d8 into int32 XTC integers, i12 into int16;
-`ops/xtc.py`: xtc into int32) and its integers go to the step as they are
+channel). A coordinate wire is reconstructed on the device by its entry
+(`engine/wire.py WIRES`: s6, d8 and xtc into int32 XTC integers, i12 into
+int16) and its integers go to the step as they are
 (gorder_tpu/engine/fused.py: 236-280).
 """
 
@@ -35,9 +35,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from ..ops.xtc import xtc_ints
 from ..utils.timers import timers
-from .wire import d8_ints, s6_ints, unpack12
+from .wire import WIRES
 
 
 @dataclass
@@ -154,52 +153,31 @@ def _positions(step, coords, inv_scale, box, normal, mask, cs, classes,
                 classes, normal, guard)
 
 
-#: the coordinate wires: (tensors of the wire, reconstruction → positions)
-_COORDINATES = {
-    "s6": (6, lambda w, n: s6_ints(*w)),
-    "d8": (4, lambda w, n: d8_ints(*w)),
-    "i12": (1, lambda w, n: unpack12(w[0], n)),
-    "i16": (1, lambda w, n: w[0]),
-    "f32": (1, lambda w, n: w[0]),
-    # the records, their lengths, the (first_n,) slot map, the (B,) status
-    "xtc": (4, lambda w, n: xtc_ints(w[0], w[1], w[2], w[2].shape[0], n,
-                                     w[3])),
-}
-#: the coordinate wires that carry a decoder side channel (`g`, `G`): the
-#: host's; the xtc wire carries none
-_SIDED = ("s6", "d8", "i12", "i16", "f32")
-
-
 def decode_positions(kind: str, w, n_atoms: int) -> torch.Tensor:
     """The (B, A, 3) positions a coordinate-wire batch of `kind` carries,
     reconstructed on its device: int32 (s6, d8, xtc) or int16 (i12, i16)
     XTC integers, or f32 positions. `n_atoms` (A) is read by i12 and xtc
     only."""
-    n, decode = _COORDINATES[kind.rstrip("gG")]
-    return decode(w[:n], n_atoms)
+    return (WIRES.get(kind[:3]) or WIRES[kind[:2]]).positions(w, n_atoms)
 
 
-def _coordinate_kind(base: str, side: str):
-    """The program of coordinate kind `base` + `side`: "" (positions
-    alone), "g" (a trailing decoder COG) or "G" (a trailing geometry
-    bitplane)."""
-    n = _COORDINATES[base][0]
+def _coordinate_kind(wire, side: str):
+    """The program of coordinate wire `wire`'s kind with `side`: ""
+    (positions alone), "g" (a trailing decoder COG) or "G" (a trailing
+    geometry bitplane)."""
 
     def run(step, w, scale, box, normal, mask, cs, classes=None,
             geom_ref=None):
-        coords = decode_positions(base, w, cs.n_atoms)
-        inv_scale = None if base == "f32" else scale
-        if side == "G":
-            return _positions(step, coords, inv_scale, box, normal, mask, cs,
-                              classes, geo=w[n])
-        return _positions(step, coords, inv_scale, box, normal, mask, cs,
-                          classes, cog=w[n] if side == "g" else None,
+        return _positions(step, wire.positions(w, cs.n_atoms), scale, box,
+                          normal, mask, cs, classes,
+                          cog=w[-1] if side == "g" else None,
+                          geo=w[-1] if side == "G" else None,
                           geom_ref=geom_ref)
     return run
 
 
 BY_KIND = {"b7": run_b7, "b7g": run_b7g, "b7x": run_b7x, "b7m": run_b7,
            "b7geo": run_b7geo}
-BY_KIND.update({base + side: _coordinate_kind(base, side)
-                for base in _SIDED for side in ("", "g", "G")})
-BY_KIND["xtc"] = _coordinate_kind("xtc", "")
+BY_KIND.update({w.name + side: _coordinate_kind(w, side)
+                for w in WIRES.values() if w.name != "b7"
+                for side in (("", "g", "G") if w.sided else ("",))})

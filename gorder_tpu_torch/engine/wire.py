@@ -1,5 +1,5 @@
-"""The wires: their host-side probes, the pick among them, and their
-device-side decoders on tensors (port of `gorder_tpu/engine/wire.py`),
+"""The wires: one entry a wire format (`WIRES`), the pick among them, and
+their device-side decoders on tensors (port of `gorder_tpu/engine/wire.py`),
 the int16 dequantization, and the geometry bitplane (`geo_bits`, port of
 `gorder_tpu/engine/fused.py:69-76`, and its inverse `pack_geo_bits`). In
 the JAX package the decoders are XLA code, not Pallas, so here they are
@@ -15,19 +15,18 @@ plain PyTorch ops on whatever device the payload lies on.
 - xtc: each frame's whole compressed record, which the card decodes into
   int32 XTC integers (`ops/xtc.py`): the host only copies it.
 
+`WIRES` holds one entry a format (`Wire`), all that is particular to
+it: ring slot, host read, fallback, bytes a frame, probe, per-batch base,
+device constants and reconstruction. `engine/batches.py` and
+`engine/fused.py` look it up.
+
 s6, d8 and xtc give int32 XTC integers (s6 and d8 exist for trajectories
-whose integers overflow int16), i12 gives int16. `pick_wire_format` is
-the JAX package's `_pick_wire_format`, with the xtc wire besides: with the
-host-to-device rate that `measure_link_mbps` measures once a run on the
-card, the wire of the highest modeled end-to-end rate, min(host rate,
-link rate ÷ bytes a frame), where a host wire's host rate is the int16
-decode's times its factor and the xtc wire's is its own read's, capped by
-the card decoder's (timed once a process for a layout), each of its rows
-counted whole as it crosses the link; on the
-CPU, where no rate is measured, or for input that is not
-uniform-precision XTC, the smallest host wire the trajectory fits. The
-wire `GORDER_TPU_WIRE` names overrides both. Every wire carries the same
-integers, so the pick never changes a result.
+whose integers overflow int16, a box over 32.767 nm at precision 1000),
+i12 gives int16. `pick_wire_format` is the JAX package's
+`_pick_wire_format`, with the xtc wire besides: on the card the wire of
+the highest modeled end-to-end rate (`_pick_wire_by_rate`), elsewhere the
+smallest the trajectory fits, or the one `GORDER_TPU_WIRE` names. Every
+wire carries the same integers, so the pick never changes a result.
 
 The bit arithmetic runs in int32: every intermediate below fits, and
 PyTorch's unsigned types lack most operations. A scatter whose JAX form
@@ -40,115 +39,323 @@ from __future__ import annotations
 import logging
 import os
 import time
+from dataclasses import dataclass, replace
+from typing import Optional
 
 import numpy as np
 import torch
 
-from ..io.native import b7_stride, i12_stride, s6_stride
+from ..io.native import b7_stride, geo_stride, i12_stride, s6_stride
+from ..ops.xtc import xtc_ints
 from ..parallel.mesh import to_device
 from ..utils.timers import timers
 
 log = logging.getLogger("gorder")
 
 
-def _probe_b7(traj, frame_indices, space, bond_a, bond_b, n_threads,
-              batch_size):
-    """Probe the b7 bond-difference wire format over one batch-sized
-    window. Returns a sized esc_cap or None when unfit."""
-    n = len(frame_indices)
-    w = frame_indices[:min(batch_size, n)]
-    esc_cap = 512
-    with timers.phase("pick.b7"):
-        for _attempt in range(2):
-            pack = np.zeros((len(w), b7_stride(len(bond_a))), np.uint8)
-            gaps = np.zeros((len(w), esc_cap), np.uint16)
-            vals = np.zeros((len(w), esc_cap), np.int16)
-            timers.count("probe_frames", len(w))
-            res, nesc = traj.read_frames_b7(w, space, bond_a, bond_b,
-                                            pack, gaps, vals,
-                                            n_threads=n_threads)
-            if res is not None:
-                cap = int(nesc * 1.4) + 64
-                return max(128, min(8192, (cap + 127) // 128 * 128))
-            if nesc <= esc_cap or nesc > 8192:
-                return None  # unfit for reasons other than capacity
-            esc_cap = min(8192, ((int(nesc * 2) + 127) // 128) * 128)
-    return None
+@dataclass(frozen=True)
+class Source:
+    """What a wire reads and sizes itself by: the trajectory, atom space,
+    decoder threads and batch size; s6's residue groups, b7's bond slots,
+    xtc's row stride (`Trajectory.xtc_layout`); and the side channels of
+    the run's channel class (`engine/channels.py`): the aux or head slots
+    and membrane COG the b7 read ships inline, and the geometry's decoder
+    arguments (spec, reference, point, selection, handle_pbc)."""
+
+    traj: object
+    space: object
+    n_threads: int
+    batch_size: int
+    group_of: Optional[np.ndarray] = None
+    n_groups: int = 0
+    bond_slots: Optional[tuple] = None
+    stride: Optional[int] = None
+    aux_slots: Optional[np.ndarray] = None
+    cog_slots: Optional[np.ndarray] = None
+    cog_axis: int = 2
+    geo: Optional[tuple] = None
+
+    @property
+    def n_bonds(self) -> int:
+        return 0 if self.bond_slots is None else len(self.bond_slots[0])
 
 
-def _probe_s6(traj, frame_indices, space, group_of, n_groups, n_threads,
-              batch_size):
-    """Probe the s6 wire format over one batch-sized window (escape demand
-    grows with distance from the in-batch base window, so short probes
-    under-estimate it). Returns a sized esc_cap or None when unfit."""
-    n = len(frame_indices)
-    w = frame_indices[:min(batch_size, n)]
-    esc_cap = 512
-    with timers.phase("pick.s6"):
-        for _attempt in range(2):
-            pack = np.zeros((len(w), s6_stride(space.n_out)), np.uint8)
-            gaps = np.zeros((len(w), esc_cap), np.uint16)
-            vals = np.zeros((len(w), esc_cap), np.int16)
-            gmean = np.zeros((len(w), (n_groups + 1) * 3), np.int16)
-            timers.count("probe_frames", len(w))
-            res, nesc = traj.read_frames_s6(w, space, group_of, n_groups,
-                                            pack, gaps, vals, gmean,
-                                            n_threads=n_threads)
-            if res is not None:
-                # headroom for batches the probe did not see (a mid-run
-                # overflow falls back to int16 for that batch)
-                cap = int(nesc * 1.4) + 64
-                return max(128, min(8192, (cap + 127) // 128 * 128))
-            if nesc <= esc_cap or nesc > 8192:
-                return None  # unfit for reasons other than capacity
-            esc_cap = min(8192, ((int(nesc * 2) + 127) // 128) * 128)
-    return None
+class Wire:
+    """A wire format; the defaults are int16 positions'. `slot` → a ring
+    slot's arrays, `rows` frames at capacity `cap`; `read` fills one with
+    frames `chunk`, padding rows set → (arrays shipped, inv_precision or
+    None, boxes), or None when they no longer fit: the batch then rides
+    `fallback`, with a warning where `changed` says what changed. `probe`
+    → the capacity the run's frames fit, or None. A frame mesh copies the
+    base (array `base`) whole to each device, or, with `chain`, to the
+    first, each slice decoding on top of the one before. A `sided` wire
+    may carry a trailing side channel (the `g`, `G` kinds). `constants`
+    ride to the device once a run; `attach` adds them, and a (B,) status
+    where `status`, to a batch's tensors; `copy_stream` puts its copies on
+    a copy stream; `positions` reconstructs it on the device."""
+
+    name, fallback, changed = "i16", "f32", ""
+    reader, dtype = "read_frames_quantized", np.int16
+    base = chain = None
+    sided, status, copy_stream = True, False, False
+
+    def frame_bytes(self, src, cap) -> int:
+        """What the pick weighs and the plan logs: a slot's row, and the
+        base the pick counts spread over the batch."""
+        return (sum(a.nbytes for a in self.slot(src, 1, cap))
+                + self.base_bytes(src) // max(src.batch_size, 1))
+
+    def base_bytes(self, src) -> int:
+        return 0
+
+    def slot(self, src, rows, cap):
+        return (np.zeros((rows, src.space.n_out, 3), self.dtype),)
+
+    def pad(self, src, slot, n: int) -> None:
+        for a in slot:
+            a[n:] = 0
+
+    def read(self, src, chunk, slot):
+        self.pad(src, slot, len(chunk))
+        res = getattr(src.traj, self.reader)(chunk, src.space, out=slot[0],
+                                             n_threads=src.n_threads)
+        return None if res is None else (slot, res[1], res[2])
+
+    def probe(self, src, frames):
+        """0 where the run's first, middle and last frames fit."""
+        idx = frames[np.unique([0, len(frames) // 2, len(frames) - 1])]
+        with timers.phase("pick." + self.name):
+            timers.count("probe_frames", len(idx))
+            fits = self.read(src, idx, self.slot(src, len(idx), 0))
+        return None if fits is None else 0
+
+    def constants(self, src):
+        return None
+
+    def attach(self, w, const, status):
+        return w
+
+    def positions(self, w, n_atoms: int) -> torch.Tensor:
+        return w[0]
 
 
-def _probe_d8(traj, windows, space, n_threads):
-    """d8 eligibility probe: correction capacity (rounded up, with 2×
-    headroom for unseen batches) or None when the windows do not fit."""
-    corr_cap = 64
-    with timers.phase("pick.d8"):
-        for _attempt in range(2):
-            demand = 0
-            ok = True
-            for w in windows:
-                lo = np.zeros((len(w), space.n_out, 3), np.int8)
-                ci = np.zeros((len(w), corr_cap), np.int32)
-                ch = np.zeros((len(w), corr_cap), np.int16)
-                timers.count("probe_frames", len(w))
-                res, ncorr = traj.read_frames_delta8(w, space, lo, ci, ch,
-                                                     n_threads=n_threads)
-                demand = max(demand, ncorr)
-                if res is None:
-                    ok = False
-            if ok:
-                corr_cap = max(64, min(4096, int(demand * 2) + 32))
-                return ((corr_cap + 63) // 64) * 64
-            if demand <= corr_cap or demand > 4096:
-                return None  # unfit for reasons other than capacity
-            corr_cap = min(4096, ((int(demand * 2) + 63) // 64) * 64)
-    return None
+class _F32(Wire):
+    name, fallback, dtype = "f32", None, np.float32
+
+    def read(self, src, chunk, slot):
+        self.pad(src, slot, len(chunk))
+        _, boxes, _, _ = src.traj.read_frames(chunk, src.space, out=slot[0],
+                                              n_threads=src.n_threads)
+        return slot, None, boxes
+
+    def probe(self, src, frames):
+        return 0
 
 
-def _fits(wire, traj, frame_indices, space, n_threads) -> bool:
-    """Whether the run's first, middle and last frames fit the i12 or the
-    i16 wire (uniform-precision XTC whose integers fit)."""
-    n = len(frame_indices)
-    probe_idx = frame_indices[np.unique([0, n // 2, n - 1])]
-    read = (traj.read_frames_packed12 if wire == "i12"
-            else traj.read_frames_quantized)
-    with timers.phase("pick." + wire):
-        timers.count("probe_frames", len(probe_idx))
-        return read(probe_idx, space, n_threads=n_threads) is not None
+class _I12(Wire):
+    name, reader = "i12", "read_frames_packed12"
+
+    def slot(self, src, rows, cap):
+        return (np.zeros((rows, i12_stride(src.space.n_out)), np.uint8),)
+
+    def positions(self, w, n_atoms):
+        return unpack12(w[0], n_atoms)
+
+
+class _Capped(Wire):
+    """A wire with a sparse channel of `cap` entries a frame (b7's and
+    s6's escapes: u16 gaps, int16 values; d8's corrections) and a base,
+    which `fill` returns, → ((base, inv_precision, boxes, ...) or None,
+    the demand seen). `caps`: the first probe's capacity, the least, the
+    most, their quantum, and the headroom factor · demand + pad."""
+
+    fallback, base = "i16", 3
+    caps = (512, 128, 8192, 128, 1.4, 64)
+
+    def windows(self, src, frames):
+        # one batch-sized window: escape demand grows with distance from
+        # the in-batch base window, so short probes under-estimate it
+        return [frames[:min(src.batch_size, len(frames))]]
+
+    def read(self, src, chunk, slot):
+        self.pad(src, slot, len(chunk))   # they decode to the masked base
+        res, _ = self.fill(src, chunk, slot)
+        return None if res is None else (self.ship(slot, res[0]), res[1],
+                                         res[2])
+
+    def ship(self, slot, base):
+        return (slot[0], slot[1].view(np.int16), slot[2], base, *slot[3:])
+
+    def probe(self, src, frames):
+        cap, least, most, q, factor, pad = self.caps
+        with timers.phase("pick." + self.name):
+            for _attempt in range(2):
+                demand, ok = 0, True
+                for w in self.windows(src, frames):
+                    timers.count("probe_frames", len(w))
+                    res, need = self.fill(src, w, self.slot(src, len(w), cap))
+                    demand, ok = max(demand, need), ok and res is not None
+                if ok:    # rounded up to the quantum
+                    return max(least, min(most, -(-(int(demand * factor)
+                                                    + pad) // q) * q))
+                if demand <= cap or demand > most:
+                    return None  # unfit for reasons other than capacity
+                cap = min(most, -(-int(demand * 2) // q) * q)
+        return None
+
+
+class _B7(_Capped):
+    """Bond-vector differences; the side channels of the b7 kinds ride in
+    its slot, read inline."""
+
+    name, changed, sided = "b7", "escape demand or value range", False
+
+    def base_bytes(self, src):
+        return src.n_bonds * 12
+
+    def slot(self, src, rows, cap):
+        side = [np.zeros((rows, len(src.aux_slots), 3), np.int32)
+                ] if src.aux_slots is not None else []
+        if src.cog_slots is not None:
+            side.append(np.zeros(rows, np.float32))
+        if src.geo is not None:
+            side.append(np.zeros((rows, geo_stride(src.n_bonds)), np.uint8))
+        return (np.zeros((rows, b7_stride(src.n_bonds)), np.uint8),
+                np.zeros((rows, cap), np.uint16),
+                np.zeros((rows, cap), np.int16), *side)
+
+    def fill(self, src, chunk, slot):
+        side = iter(slot[3:])
+        aux, cog, geo = (None if c is None else next(side)
+                         for c in (src.aux_slots, src.cog_slots, src.geo))
+        return src.traj.read_frames_b7(
+            chunk, src.space, *src.bond_slots, *slot[:3],
+            n_threads=src.n_threads, aux_slots=src.aux_slots, aux_out=aux,
+            cog_slots=src.cog_slots, cog_axis=src.cog_axis, cog_out=cog,
+            geo=src.geo, geo_out=geo)
+
+    def probe(self, src, frames):
+        return None if src.bond_slots is None else super().probe(src, frames)
+
+    def positions(self, w, n_atoms):
+        return b7(*w[:4])        # bond differences, not positions
+
+
+class _S6(_Capped):
+    name, changed = "s6", "escape demand or value range"
+
+    def base_bytes(self, src):
+        return src.space.n_out * 12
+
+    def slot(self, src, rows, cap):
+        return (np.zeros((rows, s6_stride(src.space.n_out)), np.uint8),
+                np.zeros((rows, cap), np.uint16),
+                np.zeros((rows, cap), np.int16),
+                np.zeros((rows, (src.n_groups + 1) * 3), np.int16))
+
+    def fill(self, src, chunk, slot):
+        return src.traj.read_frames_s6(chunk, src.space, src.group_of,
+                                       src.n_groups, *slot,
+                                       n_threads=src.n_threads)
+
+    def probe(self, src, frames):
+        return (None if src.group_of is None or src.n_groups <= 0
+                else super().probe(src, frames))
+
+    def constants(self, src):
+        return _value_groups(src.group_of, src.n_groups)
+
+    def attach(self, w, const, status):
+        return w[:5] + (const,) + w[5:]
+
+    def positions(self, w, n_atoms):
+        return s6_ints(*w[:6])
+
+
+class _D8(_Capped):
+    """Temporal deltas on top of the batch's first frame, its base (not
+    counted by the pick, as in gorder_tpu's)."""
+
+    name, changed = "d8", "correction demand or compression precision"
+    caps = (64, 64, 4096, 64, 2.0, 32)
+
+    def windows(self, src, frames):
+        mid = len(frames) // 2
+        return [frames[:8]] + ([frames[mid:mid + 8]] if len(frames) > 16
+                               else [])
+
+    def slot(self, src, rows, cap):
+        return (np.zeros((rows, src.space.n_out, 3), np.int8),
+                np.zeros((rows, cap), np.int32),
+                np.zeros((rows, cap), np.int16))
+
+    def pad(self, src, slot, n):
+        # padding rows add nothing: they repeat the batch's last frame
+        slot[0][n:], slot[1][n:], slot[2][n:] = 0, src.space.n_out * 3, 0
+
+    def fill(self, src, chunk, slot):
+        return src.traj.read_frames_delta8(chunk, src.space, *slot,
+                                           n_threads=src.n_threads)
+
+    def ship(self, slot, base):
+        return (*slot, base)
+
+    def chain(self, lo, ci, ch, a0):
+        return d8_last(lo, ci, ch, a0)
+
+    def positions(self, w, n_atoms):
+        return d8_ints(*w[:4])
+
+
+class _Xtc(Wire):
+    """The compressed records, in rows of `cap` (the stride) bytes, and
+    their lengths; the card decodes them with the run's slot map."""
+
+    name, fallback, changed = "xtc", "i16", "the records' layout"
+    sided, status, copy_stream = False, True, True
+
+    def slot(self, src, rows, cap):
+        return np.zeros((rows, cap), np.uint8), np.zeros(rows, np.int32)
+
+    def read(self, src, chunk, slot):
+        slot[1][len(chunk):] = 0          # padding rows decode to zeros
+        res = src.traj.read_frames_xtc(chunk, *slot, n_threads=src.n_threads)
+        return None if res is None else (slot, res[0], res[1])
+
+    def probe(self, src, frames):
+        return src.stride
+
+    def constants(self, src):
+        """The (first_n,) int32 slot of each decoded atom."""
+        space = src.space
+        return (space.slot_of if space.slot_of is not None
+                else np.arange(space.first_n, dtype=np.int32))
+
+    def attach(self, w, const, status):
+        return w + (const, status)
+
+    def positions(self, w, n_atoms):
+        return xtc_ints(w[0], w[1], w[2], w[2].shape[0], n_atoms, w[3])
+
+
+#: the wires by name
+WIRES = {w.name: w for w in (_B7(), _S6(), _D8(), _I12(), Wire(), _F32(),
+                             _Xtc())}
+
+
+def _value_groups(group_of, n_groups) -> np.ndarray:
+    """s6: each value's index into the (n_groups + 1)-wide table of group
+    medians (the last group is the always-zero padding group)."""
+    g_rep = np.repeat(group_of, 3)
+    k_rep = np.tile(np.arange(3), len(group_of))
+    return np.where(g_rep >= 0, g_rep * 3 + k_rep,
+                    n_groups * 3 + k_rep).astype(np.int32)
 
 
 def wire_groups(system, space):
     """(group_of, n_groups, vgidx) of the s6 wire: each slot's residue
     group (padding slots -1, which decode to exact zeros), and each
-    value's index into the (n_groups + 1)-wide table of group medians
-    (the last group is the always-zero padding group)."""
+    value's index into the table of group medians (`_value_groups`)."""
     sel = space.sel if space.sel is not None \
         else np.arange(space.first_n, dtype=np.int64)
     res_ids = np.asarray(system.resids)[sel]
@@ -156,16 +363,7 @@ def wire_groups(system, space):
     group_of = np.full(space.n_out, -1, np.int32)
     group_of[:len(sel)] = ginv.astype(np.int32)
     n_groups = int(ginv.max()) + 1 if len(sel) else 0
-    g_rep = np.repeat(group_of, 3)
-    k_rep = np.tile(np.arange(3), space.n_out)
-    vgidx = np.where(g_rep >= 0, g_rep * 3 + k_rep,
-                     n_groups * 3 + k_rep).astype(np.int32)
-    return group_of, n_groups, vgidx
-
-
-def s6_bytes(n_out: int, n_groups: int, esc_cap: int) -> int:
-    """Bytes a frame of the s6 wire ships."""
-    return s6_stride(n_out) + (n_groups + 1) * 6 + esc_cap * 4
+    return group_of, n_groups, _value_groups(group_of, n_groups)
 
 
 #: MiB of the link-rate probe's timed copy (gorder_tpu's `size_mb`)
@@ -273,8 +471,6 @@ def card_xtc_rate(traj, frame_indices, stride, space, n_threads, device,
     key = (str(device), stride, space.first_n, space.n_out, batch_size)
     if key in _CARD_XTC_RATES:
         return _CARD_XTC_RATES[key]
-    from ..ops.xtc import xtc_ints
-
     window = frame_indices[:min(XTC_RATE_FRAMES, len(frame_indices))]
     with timers.phase("pick.xtc_card"):
         rows = _xtc_rows(window, stride)
@@ -283,9 +479,8 @@ def card_xtc_rate(traj, frame_indices, stride, space, n_threads, device,
         raw, lengths = (to_device(a, device) for a in rows)
         tile = torch.arange(batch_size, device=device) % len(window)
         raw, lengths = raw.index_select(0, tile), lengths.index_select(0, tile)
-        slots = to_device(space.slot_of if space.slot_of is not None
-                          else np.arange(space.first_n, dtype=np.int32),
-                          device)
+        slots = to_device(WIRES["xtc"].constants(Source(
+            traj, space, n_threads, batch_size)), device)
         status = torch.empty(batch_size, dtype=torch.int32, device=device)
         with torch.cuda.device(device):
             xtc_ints(raw, torch.zeros_like(lengths), slots, space.first_n,
@@ -301,65 +496,38 @@ def card_xtc_rate(traj, frame_indices, stride, space, n_threads, device,
     return rate
 
 
-def rate_candidates(traj, frame_indices, space, n_threads, group_of,
-                    n_groups, batch_size, bond_slots, xtc=None):
+def rate_candidates(src, frame_indices):
     """{wire: (cap, bytes a frame)} of every wire the trajectory fits, as
-    the rate pick sizes them (gorder_tpu/engine/wire.py:362-389); int16
-    and f32 always; with `xtc` (its row stride, `Trajectory.xtc_layout`)
-    the xtc wire, the stride as both its cap and its bytes: every row
-    crosses the link whole, padded to the run's largest record."""
-    n = len(frame_indices)
-    n_out = space.n_out
-    nv = n_out * 3
-    candidates = {"i16": (0, n_out * 6), "f32": (0, n_out * 12)}
-    if xtc is not None:
-        candidates["xtc"] = (xtc, xtc)
-    if bond_slots is not None:
-        b7_cap = _probe_b7(traj, frame_indices, space, bond_slots[0],
-                           bond_slots[1], n_threads, batch_size)
-        if b7_cap is not None:
-            nb = len(bond_slots[0])
-            candidates["b7"] = (b7_cap, b7_stride(nb) + b7_cap * 4
-                                + nb * 12 // max(batch_size, 1))
-    if group_of is not None and n_groups > 0:
-        esc_cap = _probe_s6(traj, frame_indices, space, group_of, n_groups,
-                            n_threads, batch_size)
-        if esc_cap is not None:
-            candidates["s6"] = (esc_cap, s6_bytes(n_out, n_groups, esc_cap)
-                                + nv * 4 // max(batch_size, 1))
-    windows = [frame_indices[:min(8, n)]]
-    if n > 16:
-        mid = n // 2
-        windows.append(frame_indices[mid:mid + 8])
-    d8_cap = _probe_d8(traj, windows, space, n_threads)
-    if d8_cap is not None:
-        candidates["d8"] = (d8_cap, nv + d8_cap * 6)
-    if _fits("i12", traj, frame_indices, space, n_threads):
-        candidates["i12"] = (0, i12_stride(n_out))
+    the rate pick sizes them (gorder_tpu/engine/wire.py:362-389): int16
+    and f32 always, the xtc wire where `src` gives its row stride."""
+    candidates = {w: (0, WIRES[w].frame_bytes(src, 0)) for w in ("i16",
+                                                                "f32")}
+    for name in ("xtc", "b7", "s6", "d8", "i12"):
+        cap = WIRES[name].probe(src, frame_indices)
+        if cap is not None:
+            candidates[name] = (cap, WIRES[name].frame_bytes(src, cap))
     return candidates
 
 
-def _pick_wire_by_rate(traj, frame_indices, space, n_threads, group_of,
-                       n_groups, batch_size, bond_slots, link_mbps,
-                       xtc=None, device=None):
+def _pick_wire_by_rate(src, frame_indices, link_mbps, device=None):
     """The wire of the highest modeled end-to-end rate, min(host f/s,
     link bytes/s ÷ bytes a frame), the fewer bytes on a tie (port of
     `gorder_tpu/engine/wire.py:329-397`) → (wire, cap), or None for input
     that is not uniform-precision XTC (the bytes policy takes it). A host
     wire's rate is the int16 decode's times its factor; the xtc wire's
-    (`xtc`: its row stride, given where the run may ride it) is its own
-    read's (`host_xtc_rate`), and at most the card decoder's on `device`
-    (`card_xtc_rate`)."""
+    (where `src` gives its stride) is its own read's (`host_xtc_rate`),
+    and at most the card decoder's on `device` (`card_xtc_rate`)."""
+    traj, space, n_threads = src.traj, src.space, src.n_threads
     host_i16 = host_i16_rate(traj, frame_indices, space, n_threads)
     if host_i16 is None:
         return None
     link = link_mbps * 1024 * 1024
     host = {fmt: host_i16 * f for fmt, f in _WIRE_HOST_FACTOR.items()}
     read = card = None
-    if xtc is not None:
-        read = host_xtc_rate(traj, frame_indices, xtc, n_threads)
+    if src.stride is not None:
+        read = host_xtc_rate(traj, frame_indices, src.stride, n_threads)
         if read is None:
-            xtc = None
+            src = replace(src, stride=None)
         else:
             host["xtc"] = read
 
@@ -374,20 +542,19 @@ def _pick_wire_by_rate(traj, frame_indices, space, n_threads, group_of,
     # model faster (their host factors are below 1): skip their probes.
     # The xtc wire's host read may be faster than the int16 decode, so it
     # is weighed against int16 alone then
-    i16_bytes = space.n_out * 6
+    i16_bytes = WIRES["i16"].frame_bytes(src, 0)
     link_free = rate("i16", i16_bytes) >= host_i16 * 0.999
     if link_free:
-        candidates = {"i16": (0, i16_bytes),
-                      **({"xtc": (xtc, xtc)} if xtc else {})}
+        candidates = {w: (cap, WIRES[w].frame_bytes(src, cap))
+                      for w, cap in (("i16", 0), ("xtc", src.stride))
+                      if cap is not None}
     else:
-        candidates = rate_candidates(traj, frame_indices, space, n_threads,
-                                     group_of, n_groups, batch_size,
-                                     bond_slots, xtc)
+        candidates = rate_candidates(src, frame_indices)
     fmt, (cap, bpf) = best(candidates)
     if fmt == "xtc":
         # the card decoder is timed only where the wire would win
-        card = card_xtc_rate(traj, frame_indices, xtc, space, n_threads,
-                             device, batch_size)
+        card = card_xtc_rate(traj, frame_indices, src.stride, space,
+                             n_threads, device, src.batch_size)
         if card is not None and card < read:
             host["xtc"] = card
             fmt, (cap, bpf) = best(candidates)
@@ -422,12 +589,11 @@ def pick_wire_format(traj, frame_indices, space, n_threads, group_of=None,
     ('d8', corr_cap) / ('i12', 0) / ('i16', 0) / ('f32', 0) / ('xtc',
     stride)."""
     layout = traj.xtc_layout(frame_indices) if xtc else None
+    src = Source(traj, space, n_threads, batch_size, group_of, n_groups,
+                 bond_slots, layout[0] if layout else None)
     forced = os.environ.get("GORDER_TPU_WIRE", "")
     if link_mbps is not None and not forced:
-        picked = _pick_wire_by_rate(traj, frame_indices, space, n_threads,
-                                    group_of, n_groups, batch_size,
-                                    bond_slots, link_mbps,
-                                    layout[0] if layout else None, device)
+        picked = _pick_wire_by_rate(src, frame_indices, link_mbps, device)
         if picked is not None:
             return picked
     if forced == "xtc":
@@ -438,65 +604,37 @@ def pick_wire_format(traj, frame_indices, space, n_threads, group_of=None,
                     "count, or a decoder side channel); picking a host wire "
                     "instead")
         forced = ""
-    n = len(frame_indices)
-    windows = [frame_indices[:min(8, n)]]
-    if n > 16:
-        mid = n // 2
-        windows.append(frame_indices[mid:mid + 8])
-
-    if bond_slots is not None and forced in ("", "b7"):
-        b7_cap = _probe_b7(traj, frame_indices, space, bond_slots[0],
-                           bond_slots[1], n_threads, batch_size)
-        if b7_cap is not None:
-            # b7 ships ~0.875 B per bond value against s6's ~0.75 B per
-            # atom value: b7 wins unless bonds outnumber atoms
-            nb = len(bond_slots[0])
-            b7_bytes = b7_stride(nb) + b7_cap * 4 \
-                + nb * 12 // max(batch_size, 1)
-            s6_bytes_min = s6_stride(space.n_out) + (n_groups + 1) * 6
-            if forced == "b7" or b7_bytes < s6_bytes_min:
-                return "b7", b7_cap
+    b7, s6, d8 = WIRES["b7"], WIRES["s6"], WIRES["d8"]
+    if forced in ("", "b7"):
+        b7_cap = b7.probe(src, frame_indices)
+        # b7 ships ~0.875 B per bond value against s6's ~0.75 B per atom
+        # value (its row with no escapes): b7 wins unless bonds outnumber
+        # atoms
+        if b7_cap is not None and (forced == "b7" or b7.frame_bytes(
+                src, b7_cap) < sum(a.nbytes for a in s6.slot(src, 1, 0))):
+            return "b7", b7_cap
     if forced == "b7":
         log.warning("GORDER_TPU_WIRE=b7 requested but the run is not "
                     "eligible (non-XTC input, escape overflow, or a "
                     "subsystem needs absolute coordinates); probing the "
                     "coordinate formats instead")
-    if forced in ("i12", "i16", "f32"):
-        if forced == "i12" and _fits("i12", traj, frame_indices, space,
-                                     n_threads):
-            return "i12", 0
-        if forced != "f32" and _fits("i16", traj, frame_indices, space,
-                                     n_threads):
-            return "i16", 0
-        return "f32", 0
-
-    esc_cap = None
-    if group_of is not None and n_groups > 0 and forced in ("", "s6"):
-        esc_cap = _probe_s6(traj, frame_indices, space, group_of, n_groups,
-                            n_threads, batch_size)
-    if forced == "s6" and esc_cap is not None:
-        return "s6", esc_cap
-
-    d8_cap = None
-    if forced in ("", "d8", "s6"):
-        d8_cap = _probe_d8(traj, windows, space, n_threads)
-
-    if esc_cap is not None or d8_cap is not None:
-        nv = space.n_out * 3
-        s6_size = (s6_bytes(space.n_out, n_groups, esc_cap)
-                   + nv * 4 // max(batch_size, 1)
-                   if esc_cap is not None else None)
-        d8_size = nv + d8_cap * 6 if d8_cap is not None else None
-        if s6_size is not None and (d8_size is None or s6_size < d8_size):
+    positions = ("i12", "i16", "f32")      # f32 fits any frames
+    if forced in positions:
+        positions = positions[positions.index(forced):]
+    else:
+        esc_cap = (s6.probe(src, frame_indices) if forced in ("", "s6")
+                   else None)
+        if forced == "s6" and esc_cap is not None:
             return "s6", esc_cap
-        if d8_size is not None:
+        d8_cap = (d8.probe(src, frame_indices) if forced in ("", "d8", "s6")
+                  else None)
+        if esc_cap is not None and (d8_cap is None or s6.frame_bytes(
+                src, esc_cap) < d8.frame_bytes(src, d8_cap)):
+            return "s6", esc_cap
+        if d8_cap is not None:
             return "d8", d8_cap
-
-    if _fits("i12", traj, frame_indices, space, n_threads):
-        return "i12", 0
-    if _fits("i16", traj, frame_indices, space, n_threads):
-        return "i16", 0
-    return "f32", 0
+    return next((w, 0) for w in positions
+                if WIRES[w].probe(src, frame_indices) is not None)
 
 
 def _drop_scatter_index(idx: torch.Tensor, width: int) -> torch.Tensor:

@@ -39,7 +39,7 @@ from ..io.native import b7_stride
 from .build import (call, check_tensor, device_of, frame_args, geo_args,
                     map_args, molecule_args)
 
-#: the b7 wire's largest escape capacity (engine/wire.py _probe_b7)
+#: the b7 wire's largest escape capacity (engine/wire.py `_Capped.caps`)
 MAX_ESCAPES = 8192
 
 #: launches of the P2 kernel since the last reset: the plain variant, for

@@ -81,8 +81,8 @@ def test_rate_pick_matches_jax_at_the_extremes(pick_inputs, monkeypatch,
             # int16 cannot hold these boxes: the bytes policy
             assert got == bytes_pick
         elif link == SLOW:
-            candidates = wire.rate_candidates(traj, idx, space, 1, group_of,
-                                              n_groups, 8, bonds)
+            candidates = wire.rate_candidates(wire.Source(
+                traj, space, 1, 8, group_of, n_groups, bonds), idx)
             assert got[0] == min(candidates,
                                  key=lambda w: candidates[w][1])
     if link == FAST:
@@ -114,8 +114,8 @@ def test_mid_range_pick_with_the_host_rate_pinned(pick_inputs, monkeypatch,
          bonds) in _systems(pick_inputs):
         if name in ("wide", "vesicle"):
             continue
-        candidates = wire.rate_candidates(traj, idx, space, 1, group_of,
-                                          n_groups, 8, bonds)
+        candidates = wire.rate_candidates(wire.Source(
+            traj, space, 1, 8, group_of, n_groups, bonds), idx)
         assert {"i16", "f32", "d8"} <= set(candidates)
         i16_binds = host * space.n_out * 6 / (1024 * 1024)
         for f in (0.98, 0.7, 0.4, 0.2, 0.05, 0.01):

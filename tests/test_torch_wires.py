@@ -8,6 +8,9 @@ on the same inputs, on the CPU.
   native codec encoded from a synthetic XTC whose integers overflow int16
   (a 40 nm box at precision 1000), with an s6 escape gap of 32,768 or
   more, a padded d8 batch, and an i12 file at precision 100.
+- The entries: each wire of `wire.WIRES` ships, in one padded batch,
+  the bytes a frame it counts for the pick, and its positions on the
+  device are the int16 decode's.
 - The pick: `pick_wire_format` equals `_pick_wire_format(...,
   link_mbps=None)` wire for wire and cap for cap, with and without bond
   slots, on a small box, the 36 nm vesicle and the precision-100 file,
@@ -242,8 +245,9 @@ def test_s6_does_not_fit_the_wide_box(wide):
     space, _ = _space(N_ATOMS)
     group_of, n_groups, _ = wire.wire_groups(SimpleNamespace(resids=resids),
                                              space)
-    assert wire._probe_s6(traj, traj.select_frames(None, None, 1), space,
-                          group_of, n_groups, 1, 512) is None
+    src = wire.Source(traj, space, 1, 512, group_of, n_groups)
+    assert wire.WIRES["s6"].probe(src, traj.select_frames(None, None,
+                                                          1)) is None
 
 
 def test_unpack12_matches_jax(coarse):
@@ -275,6 +279,55 @@ def test_decode_positions_of_each_kind(dense):
     assert torch.equal(decode_positions("d8g", (t(lo), t(ci), t(ch),
                                                 t(abs0), None), N_ATOMS),
                        want)
+
+
+ENTRY_BATCH = 16      # 12 frames of the precision-100 file and 4 padding
+
+
+@pytest.mark.parametrize("name", ["b7", "s6", "d8", "i12", "i16", "f32",
+                                  "xtc"])
+def test_each_wire_entry_ships_its_bytes_and_positions(coarse, name):
+    """Each entry of `wire.WIRES` on one padded batch of a real file: its
+    bytes a frame are what its ring slot ships (the frame arrays' rows,
+    plus the per-batch base spread over the batch as the pick counts it:
+    as in gorder_tpu's pick, not d8's first frame), and its positions on
+    the device are the int16 decode's integers (f32: the f32 decode's
+    positions; b7: the int16 decode's bond differences)."""
+    xtc, resids = coarse
+    traj = Trajectory(xtc)
+    idx = traj.select_frames(None, None, 1)
+    space, _ = _space(300)
+    group_of, n_groups, _ = wire.wire_groups(SimpleNamespace(resids=resids),
+                                             space)
+    bonds = (np.arange(0, 299, 2, dtype=np.int32),
+             np.arange(1, 300, 2, dtype=np.int32))
+    src = wire.Source(traj, space, 1, ENTRY_BATCH, group_of, n_groups, bonds,
+                      traj.xtc_layout(idx)[0])
+    entry = wire.WIRES[name]
+    cap = entry.probe(src, idx)
+    assert cap is not None, name
+    arrays, inv, _ = entry.read(src, idx, entry.slot(src, ENTRY_BATCH, cap))
+    rows = sum(a.nbytes for j, a in enumerate(arrays) if j != entry.base)
+    base = 0 if entry.base is None or entry.chain else arrays[entry.base]\
+        .nbytes
+    assert rows % ENTRY_BATCH == 0
+    assert entry.frame_bytes(src, cap) == (rows + base) // ENTRY_BATCH
+
+    const = entry.constants(src)
+    w = entry.attach(tuple(t(a) for a in arrays),
+                     None if const is None else t(const),
+                     torch.empty(ENTRY_BATCH, dtype=torch.int32)
+                     if entry.status else None)
+    got = entry.positions(w, 300)[:len(idx)]
+    q16, inv16, _, _, _ = traj.read_frames_quantized(idx, space)
+    if name == "f32":
+        assert inv is None
+        assert torch.equal(got, t(traj.read_frames(idx, space)[0]))
+        return
+    want = (q16[:, bonds[1]].astype(np.int32) - q16[:, bonds[0]]
+            if name == "b7" else q16)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(inv, inv16)
 
 
 # --- the pick -------------------------------------------------------------

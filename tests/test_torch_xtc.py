@@ -425,7 +425,8 @@ def test_rate_pick_takes_xtc_where_it_models_faster(cg_files, monkeypatch):
     """min(host read, link ÷ row stride) against min(int16 decode, link ÷
     int16 bytes): xtc where its host read is the faster and the link does
     not bind it, else the host wires as before. Its rows cross the link
-    whole, so the stride, not the mean record, is its bytes a frame."""
+    whole, so the stride, not the mean record, and the row's 4-byte length
+    are its bytes a frame."""
     monkeypatch.delenv("GORDER_TPU_WIRE", raising=False)
     traj = Trajectory(cg_files[2])
     idx = traj.select_frames(None, None, 1)
@@ -445,9 +446,9 @@ def test_rate_pick_takes_xtc_where_it_models_faster(cg_files, monkeypatch):
     # the link binds xtc at 2000 frames/s: still above int16's 1000
     assert pick(2000 * stride / 2**20) == ("xtc", stride)
     # links that bind every wire: the model's maximum over all of them
-    candidates = wire.rate_candidates(traj, idx, space, 1, None, 0, 512,
-                                      None, stride)
-    assert candidates["xtc"] == (stride, stride)
+    candidates = wire.rate_candidates(wire.Source(traj, space, 1, 512,
+                                                  stride=stride), idx)
+    assert candidates["xtc"] == (stride, stride + 4)
     host = {f: 1000.0 * wire._WIRE_HOST_FACTOR.get(f, 0) for f in candidates}
     host["xtc"] = 5000.0
     for f in (500, 50, 5):

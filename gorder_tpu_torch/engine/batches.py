@@ -5,19 +5,21 @@ ordermaps and geometry).
 A decode thread fills a prefetch ring of host buffers (`_decode_ring`;
 the native codec releases the GIL) while the main thread copies batch k
 to the device and launches its kernels (`_batch_loop`); the outputs are
-read back when the run drains (`_drain`). The decoder reuses its buffers,
-so the main thread copies each batch to the device synchronously
-(pageable `copy_`) before it releases the ring slot. What is particular
-to a wire is its entry's (`engine/wire.py WIRES`): its slots, its read
-with its padding rows (masked) and its fallback when a batch no longer
-fits it mid-run (b7, s6, d8 and xtc to int16, int16 and i12 to f32, as in
-the JAX package, gorder_tpu/engine/batches.py:466-590), and its constants
-on the device (s6's value groups, xtc's slot map), copied once a run.
+read back when the run drains (`_drain`). The ring's buffers are lent by
+a process-wide pool (`engine/ring.py`), page-locked for a CUDA device, so
+that a batch crosses by DMA. The decoder reuses its buffers, so the main
+thread copies each batch to the device synchronously before it releases
+the ring slot. What is particular to a wire is its entry's
+(`engine/wire.py WIRES`): its slots, its read with its padding rows
+(masked) and its fallback when a batch no longer fits it mid-run (b7,
+s6, d8 and xtc to int16, int16 and i12 to f32, as in the JAX package,
+gorder_tpu/engine/batches.py:466-590), and its constants on the device
+(s6's value groups, xtc's slot map), copied once a run.
 
 The xtc wire's copies go on a copy stream of each device, which the
-step's stream waits for: a pageable copy waits for earlier work on its
-own stream, so batch k + 1's records cross while the card decodes batch
-k. A frame the card could not decode is named when its batch drains, as
+step's stream waits for: a copy waits for earlier work on its own
+stream, so batch k + 1's records cross while the card decodes batch k.
+A frame the card could not decode is named when its batch drains, as
 the dynamic normals' guard is checked.
 
 Leaflet runs read the decoder's side channels beside the wire
@@ -109,6 +111,7 @@ from ..utils.timers import timers
 from .channels import plan_wire
 from .fused import BY_KIND, Consumers, decode_positions
 from .normals_runtime import check_normal_guard
+from .ring import pinned_bytes, ring_slots
 from .wire import WIRES, wire_groups
 
 log = logging.getLogger("gorder")
@@ -242,32 +245,32 @@ def _bootstrap_shard(leaflets, traj, frame0, space, n_threads: int, device):
 
 @contextlib.contextmanager
 def _decode_ring(traj, frames, plan, batch_size: int, leaflets,
-                 shard_start: int):
-    """The decode ring: `prefetch` host slots of the run's wire, which a
-    decode thread fills batch by batch while the main thread copies the
-    batch before to the devices → (each batch's future, in order, of
-    (wire, kind, arrays, inv_precision, boxes, a b7m batch's sparse read,
-    valid frames), and `release`, which lets the thread refill the slot
-    of the batch the devices now hold)."""
+                 shard_start: int, device):
+    """The decode ring: `prefetch` host slots of the run's wire, lent by
+    the pool of `device`'s type (`engine/ring.py`), which a decode thread
+    fills batch by batch while the main thread copies the batch before to
+    the devices → (each batch's future, in order, of (wire, kind, arrays,
+    inv_precision, boxes, a b7m batch's sparse read, valid frames), and
+    `release`, which lets the thread refill the slot of the batch the
+    devices now hold)."""
     src, planned, side = plan.source, WIRES[plan.wire], plan.side
     n_out = src.space.n_out
     n_batches = -(-len(frames) // batch_size)
     prefetch = prefetch_depth(n_batches)
 
-    def each(make):
-        return [make() for _ in range(prefetch)]
+    def make(zeros):
+        """One ring slot: the wire's arrays; the decoder's membrane COG (g)
+        or geometry bitplane (G) of a coordinate-wire batch in that
+        channel class; the sparse assignment-frame coordinates of the
+        class plane, (i16, f32)."""
+        return (planned.slot(src, batch_size, plan.cap, zeros),
+                zeros(batch_size, np.float32) if side == "g"
+                else zeros((batch_size, geo_stride(src.n_bonds)), np.uint8)
+                if side == "G" else None,
+                (zeros((plan.assign_cap, n_out, 3), np.int16),
+                 zeros((plan.assign_cap, n_out, 3), np.float32))
+                if plan.plane_sparse else None)
 
-    slots = each(lambda: planned.slot(src, batch_size, plan.cap))
-    # the decoder's membrane COG (g) or geometry bitplane (G) of a
-    # coordinate-wire batch in that channel class
-    sides = (each(lambda: np.zeros(batch_size, np.float32)) if side == "g"
-             else each(lambda: np.zeros((batch_size, geo_stride(
-                 src.n_bonds)), np.uint8)) if side == "G" else None)
-    # sparse assignment-frame coordinates of the class plane: (i16, f32)
-    planes = (each(lambda: (np.zeros((plan.assign_cap, n_out, 3), np.int16),
-                            np.zeros((plan.assign_cap, n_out, 3),
-                                     np.float32)))
-              if plan.plane_sparse else None)
     # ring-slot gate: the decoder may refill slot b % prefetch only after
     # the main thread has copied batch b - prefetch to the device
     free = threading.Semaphore(prefetch)
@@ -327,15 +330,20 @@ def _decode_ring(traj, frames, plan, batch_size: int, leaflets,
                     inv_prec, boxes, plane_read(chunk, b) if own and planes
                     else None, len(chunk))
 
-    executor = cf.ThreadPoolExecutor(max_workers=1)
-    try:
-        yield (collections.deque(executor.submit(decode, b)
-                                 for b in range(n_batches)), free.release)
-    finally:
-        # unblock a decode waiting on a ring slot before joining the worker
-        for _ in range(prefetch + 1):
-            free.release()
-        executor.shutdown(wait=True, cancel_futures=True)
+    with ring_slots(device, prefetch, make) as ring:
+        slots, sides, planes = (None if col[0] is None else col
+                                for col in zip(*ring))
+        executor = cf.ThreadPoolExecutor(max_workers=1)
+        try:
+            yield (collections.deque(executor.submit(decode, b)
+                                     for b in range(n_batches)),
+                   free.release)
+        finally:
+            # unblock a decode waiting on a ring slot, and join the worker
+            # before the pool takes the buffers back
+            for _ in range(prefetch + 1):
+                free.release()
+            executor.shutdown(wait=True, cancel_futures=True)
 
 
 def run_batches(analysis, system, steps, normal_vec, n_types: int, space,
@@ -433,7 +441,7 @@ def run_batches(analysis, system, steps, normal_vec, n_types: int, space,
         if map_spec is not None else None)) for d in mesh.devices]
 
     with _decode_ring(traj, frame_indices, plan, batch_size, leaflets,
-                      shard_start) as ring:
+                      shard_start, device) as ring:
         outputs = _batch_loop(
             *ring, plan=plan, analysis=analysis, mesh=mesh, steps=steps,
             consumers=consumers, leaflets=leaflets, normals=normals,
@@ -537,6 +545,9 @@ def _batch_loop(futures, release, *, plan, analysis, mesh, steps,
                     shipped += [coords, sc]
                 timers.count("transfer_bytes", sum(
                     a.nbytes for a in shipped if a is not None))
+                # of the bytes counted, those the ring's pinned buffers held
+                timers.count("pinned_transfer_bytes", pinned_bytes(
+                    [*arrays, *shipped]) if device.type == "cuda" else 0)
             # the devices hold copies now: the decoder may reuse the slot
             release()
             classes = [None] * n_dev

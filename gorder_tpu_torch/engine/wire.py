@@ -49,6 +49,7 @@ from ..io.native import b7_stride, geo_stride, i12_stride, s6_stride
 from ..ops.xtc import xtc_ints
 from ..parallel.mesh import to_device
 from ..utils.timers import timers
+from .ring import host_buffer
 
 log = logging.getLogger("gorder")
 
@@ -82,17 +83,19 @@ class Source:
 
 class Wire:
     """A wire format; the defaults are int16 positions'. `slot` → a ring
-    slot's arrays, `rows` frames at capacity `cap`; `read` fills one with
-    frames `chunk`, padding rows set → (arrays shipped, inv_precision or
-    None, boxes), or None when they no longer fit: the batch then rides
-    `fallback`, with a warning where `changed` says what changed. `probe`
-    → the capacity the run's frames fit, or None. A frame mesh copies the
-    base (array `base`) whole to each device, or, with `chain`, to the
-    first, each slice decoding on top of the one before. A `sided` wire
-    may carry a trailing side channel (the `g`, `G` kinds). `constants`
-    ride to the device once a run; `attach` adds them, and a (B,) status
-    where `status`, to a batch's tensors; `copy_stream` puts its copies on
-    a copy stream; `positions` reconstructs it on the device."""
+    slot's arrays, `rows` frames at capacity `cap`, each made by `zeros`
+    (the decode ring lays them in its pool's buffers, `engine/ring.py`);
+    `read` fills one with frames `chunk`, padding rows set → (arrays
+    shipped, inv_precision or None, boxes), or None when they no longer
+    fit: the batch then rides `fallback`, with a warning where `changed`
+    says what changed. `probe` → the capacity the run's frames fit, or
+    None. A frame mesh copies the base (array `base`) whole to each
+    device, or, with `chain`, to the first, each slice decoding on top of
+    the one before. A `sided` wire may carry a trailing side channel (the
+    `g`, `G` kinds). `constants` ride to the device once a run; `attach`
+    adds them, and a (B,) status where `status`, to a batch's tensors;
+    `copy_stream` puts its copies on a copy stream; `positions`
+    reconstructs it on the device."""
 
     name, fallback, changed = "i16", "f32", ""
     reader, dtype = "read_frames_quantized", np.int16
@@ -108,8 +111,8 @@ class Wire:
     def base_bytes(self, src) -> int:
         return 0
 
-    def slot(self, src, rows, cap):
-        return (np.zeros((rows, src.space.n_out, 3), self.dtype),)
+    def slot(self, src, rows, cap, zeros=np.zeros):
+        return (zeros((rows, src.space.n_out, 3), self.dtype),)
 
     def pad(self, src, slot, n: int) -> None:
         for a in slot:
@@ -155,8 +158,8 @@ class _F32(Wire):
 class _I12(Wire):
     name, reader = "i12", "read_frames_packed12"
 
-    def slot(self, src, rows, cap):
-        return (np.zeros((rows, i12_stride(src.space.n_out)), np.uint8),)
+    def slot(self, src, rows, cap, zeros=np.zeros):
+        return (zeros((rows, i12_stride(src.space.n_out)), np.uint8),)
 
     def positions(self, w, n_atoms):
         return unpack12(w[0], n_atoms)
@@ -213,16 +216,16 @@ class _B7(_Capped):
     def base_bytes(self, src):
         return src.n_bonds * 12
 
-    def slot(self, src, rows, cap):
-        side = [np.zeros((rows, len(src.aux_slots), 3), np.int32)
+    def slot(self, src, rows, cap, zeros=np.zeros):
+        side = [zeros((rows, len(src.aux_slots), 3), np.int32)
                 ] if src.aux_slots is not None else []
         if src.cog_slots is not None:
-            side.append(np.zeros(rows, np.float32))
+            side.append(zeros(rows, np.float32))
         if src.geo is not None:
-            side.append(np.zeros((rows, geo_stride(src.n_bonds)), np.uint8))
-        return (np.zeros((rows, b7_stride(src.n_bonds)), np.uint8),
-                np.zeros((rows, cap), np.uint16),
-                np.zeros((rows, cap), np.int16), *side)
+            side.append(zeros((rows, geo_stride(src.n_bonds)), np.uint8))
+        return (zeros((rows, b7_stride(src.n_bonds)), np.uint8),
+                zeros((rows, cap), np.uint16),
+                zeros((rows, cap), np.int16), *side)
 
     def fill(self, src, chunk, slot):
         side = iter(slot[3:])
@@ -247,11 +250,11 @@ class _S6(_Capped):
     def base_bytes(self, src):
         return src.space.n_out * 12
 
-    def slot(self, src, rows, cap):
-        return (np.zeros((rows, s6_stride(src.space.n_out)), np.uint8),
-                np.zeros((rows, cap), np.uint16),
-                np.zeros((rows, cap), np.int16),
-                np.zeros((rows, (src.n_groups + 1) * 3), np.int16))
+    def slot(self, src, rows, cap, zeros=np.zeros):
+        return (zeros((rows, s6_stride(src.space.n_out)), np.uint8),
+                zeros((rows, cap), np.uint16),
+                zeros((rows, cap), np.int16),
+                zeros((rows, (src.n_groups + 1) * 3), np.int16))
 
     def fill(self, src, chunk, slot):
         return src.traj.read_frames_s6(chunk, src.space, src.group_of,
@@ -284,10 +287,10 @@ class _D8(_Capped):
         return [frames[:8]] + ([frames[mid:mid + 8]] if len(frames) > 16
                                else [])
 
-    def slot(self, src, rows, cap):
-        return (np.zeros((rows, src.space.n_out, 3), np.int8),
-                np.zeros((rows, cap), np.int32),
-                np.zeros((rows, cap), np.int16))
+    def slot(self, src, rows, cap, zeros=np.zeros):
+        return (zeros((rows, src.space.n_out, 3), np.int8),
+                zeros((rows, cap), np.int32),
+                zeros((rows, cap), np.int16))
 
     def pad(self, src, slot, n):
         # padding rows add nothing: they repeat the batch's last frame
@@ -314,8 +317,8 @@ class _Xtc(Wire):
     name, fallback, changed = "xtc", "i16", "the records' layout"
     sided, status, copy_stream = False, True, True
 
-    def slot(self, src, rows, cap):
-        return np.zeros((rows, cap), np.uint8), np.zeros(rows, np.int32)
+    def slot(self, src, rows, cap, zeros=np.zeros):
+        return zeros((rows, cap), np.uint8), zeros(rows, np.int32)
 
     def read(self, src, chunk, slot):
         slot[1][len(chunk):] = 0          # padding rows decode to zeros
@@ -370,17 +373,25 @@ def wire_groups(system, space):
 _LINK_PROBE_MIB = 6
 
 
+#: the link probe's host buffer, made and filled once a process
+_LINK_PROBE = {}
+
+
 def measure_link_mbps(device):
     """The host-to-device copy rate in MiB/s, measured once a run for the
     wire pick (port of `gorder_tpu/engine/wire.py:273-293`): a warm copy
-    of 256 KiB, then one timed pageable copy of 6 MiB, the copy a run
-    makes of each batch, with the device synchronised. None on the CPU,
-    where there is no link."""
+    of 256 KiB, then one timed copy of 6 MiB from page-locked memory, the
+    copy a run makes of each batch from its ring (`engine/ring.py`), with
+    the device synchronised. None on the CPU, where there is no link."""
     device = torch.device(device)
     if device.type != "cuda":
         return None
-    buf = np.random.default_rng(0).integers(
-        0, 255, size=(_LINK_PROBE_MIB << 20,), dtype=np.uint8)
+    buf = _LINK_PROBE.get(device.type)
+    if buf is None:
+        buf = _LINK_PROBE[device.type] = host_buffer(device,
+                                                     _LINK_PROBE_MIB << 20)
+        buf[:] = np.random.default_rng(0).integers(0, 255, size=len(buf),
+                                                   dtype=np.uint8)
     to_device(buf[:1 << 18], device)
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()

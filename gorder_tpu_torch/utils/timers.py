@@ -26,7 +26,10 @@ the GRO atom lines and bonds-file lines that `io/gro.py` and
 the file (0 for a file the pass took); and `device_decode_frames`, the
 frames of xtc-wire batches, which the device decoded from their records
 (`ops/xtc.py`) and the host only copied (under the xtc wire the `decode`
-phase times that copy).
+phase times that copy); `pinned_transfer_bytes`, of the `transfer_bytes`
+on a CUDA device those that crossed from the decode ring's page-locked
+buffers (`engine/ring.py`); and `ring_allocations`, the ring buffers the
+pool allocated for the run (0 when it lent a set it held).
 
 Timers are monotonic (`time.perf_counter`) and additive: entering the same
 phase several times accumulates. Decode time is recorded from the prefetch

@@ -36,6 +36,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     "gorder_tpu_torch.engine.leaflet_runtime",
     "gorder_tpu_torch.engine.normals_runtime",
     "gorder_tpu_torch.engine.prepare",
+    "gorder_tpu_torch.engine.ring",
     "gorder_tpu_torch.core.order",
     "gorder_tpu_torch.core.pbc",
     "gorder_tpu_torch.core.ua",

@@ -20,6 +20,10 @@ On the CPU:
 - whole analyses forced onto the wire write the int16 run's YAML (and map
   files) byte for byte: AA, UA and an AA ordermap.
 
+Neither the plain stepper nor, on the card, the kernel reads a row's
+bytes past its record: 0x00 and 0xFF there give the same integers, as the
+decode ring's reused rows need (`engine/ring.py`).
+
 On the card (`-m cuda`): the kernel equals the host codec bit for bit on
 those frames and on a 512-frame batch of the benchmark's aa-bilayer-256,
 where the int32 P2 output equals the int16 one; a corrupt record raises
@@ -216,6 +220,27 @@ def test_padding_rows_are_zero_and_corrupt_records_set_the_status(edge):
     assert status.tolist() == [3, 0, 1]
     assert not got[1].any()
     assert xtc_ops.STATUS[3] == "XTC payload overrun"
+
+
+def _tails(edge, device):
+    """The decoder's (integers, statuses) of the edge frames in rows 64
+    bytes wider than the layout's, every byte past a record 0x00, then
+    0xFF: what a reused ring row holds past a shorter record."""
+    path, n_atoms, _ = edge
+    _, raw, lengths = _rows(path)
+    outs = []
+    for fill in (0x00, 0xFF):
+        rows = np.full((raw.shape[0], raw.shape[1] + 64), fill, np.uint8)
+        for k, n in enumerate(lengths):
+            rows[k, :n] = raw[k, :n]
+        outs.append(_decode(rows, lengths, None, n_atoms, n_atoms, device))
+    return outs
+
+
+def test_the_plain_decoder_reads_nothing_past_a_record(edge):
+    (zeros, s0), (ones, s1) = _tails(edge, "cpu")
+    assert (s0 == 0).all() and (s1 == 0).all()
+    np.testing.assert_array_equal(zeros, ones)
 
 
 def test_wrapper_refuses_bad_rows():
@@ -613,6 +638,16 @@ def test_kernel_sets_the_status_of_corrupt_records(card, edge):
                                   np.uint8)
     got, status = _decode(raw, lengths, None, n_atoms, n_atoms, card)
     assert status.tolist() == [3, 0, 1] and not got[1].any()
+
+
+@pytest.mark.cuda
+def test_the_kernel_reads_nothing_past_a_record(card, edge):
+    (zeros, s0), (ones, s1) = _tails(edge, card)
+    assert (s0 == 0).all() and (s1 == 0).all()
+    np.testing.assert_array_equal(zeros, ones)
+    path, n_atoms, _ = edge
+    traj, _, _ = _rows(path)
+    np.testing.assert_array_equal(zeros, _host(path, traj, n_atoms))
 
 
 def aa_bilayer_batch(directory, n_frames=512, seed=2718281828):
